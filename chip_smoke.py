@@ -1,20 +1,33 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's serving path the way a user does and holds every
-kernel to its plain PyTorch version on the card.  Phases, in order; any
-failure exits non-zero:
+Drives the port's serving and update paths the way a user does and holds
+every kernel to its plain PyTorch version on the card.  Phases, in order;
+any failure exits non-zero:
 
-  1. build    compile ``src/repro_torch/kernels/csrc/*.cu`` (nvcc, sm_90a)
+  1. build    compile ``src/repro_torch/kernels/csrc/*.cu`` (nvcc, sm_90a,
+              one nvcc per source, all at once)
   2. kernels  the top-k kernel against its plain version: the edge grid,
               exact duplicate rows, N in {40k, 100k} x Q in {1, 32, 64} x
               k in {1, 10, 64, 65, 2000, N}, streamed and device-resident,
               and 1024-row slabs (40 slabs at 40k)
-  3. serve    two versions of a 40,000 x 200 GO-size snapshot published
+  3. kge      the kge_score forward and backward kernels against their
+              plain versions: TransE-L1/L2 and DistMult x (B, K, d) in
+              {(1024, 32, 200), (100, 5, 200), (7, 3, 32), (1, 1, 1)} x
+              masks all-true/all-false/random, with and without t = h + r
+  4. serve    two versions of a 40,000 x 200 GO-size snapshot published
               through the port's registry; ``repro_torch.launch.serve``
               in client-session mode, then HTTP over the gateway, every
               answer checked against the plain version
-  4. numbers  kernel, plain, library and host-to-device times (CUDA
-              events) at N = 40k and 100k, beside the card's bound
+  5. update   the update path at the GO workload's full width and the
+              paper's budget (100 epochs): a 40k-term synthetic GO release
+              published by ``Updater.run_once`` (TransE, DistMult), evolved
+              to v2 and updated incrementally, a cold v2 in a second
+              registry, closest-concepts for v2 from the engine the
+              updater invalidated, and MRR warm against cold
+  6. numbers  top-k kernel, plain, library and host-to-device times (CUDA
+              events) at N = 40k and 100k; kge_score forward and backward
+              times at (1024, 32, 200); the device-busy share of a
+              training step by part (torch.profiler)
 
 Run from the repository root with no arguments::
 
@@ -22,7 +35,8 @@ Run from the repository root with no arguments::
 
 It prints JSON lines as it goes, then the card's name and power limit,
 the kernels line, and last ``{"ok": true, "device": {...}}``.
-``--phases`` runs a subset (``build,kernels`` is a quick compile check);
+``--phases`` runs a subset (``build,kernels`` or ``build,kge`` is a quick
+compile check; ``build,kge,update`` the update path alone);
 ``--out PATH`` also writes every result to one JSON file.
 """
 from __future__ import annotations
@@ -54,6 +68,17 @@ SCORE_TOL = 1e-5            # kernel vs plain scores (fp32 sums in another order
 TIE_TOL = 1e-6              # runs of scores this close may order ids freely
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/topk_cosine.cu"
 REPLACES = "src/repro/kernels/topk_similarity.py:78"
+KGE_SOURCE = "src/repro_torch/kernels/csrc/kge_score.cu"
+KGE_REPLACES = "src/repro/kernels/kge_score.py:54"
+KGE_TOL = 1e-4              # kernel vs plain, the reference's own (test_kernels.py)
+KGE_MODELS = ("transe_l1", "transe_l2", "distmult")
+KGE_SHAPE = (1024, 32, 200)  # TrainConfig batch, negatives; PAPER_DIM
+UPDATE_MODELS = ("transe", "distmult")
+GO_TRIPLES = 61_749          # triples of generate(GO_SPEC, seed=0, n_terms=40000)
+#: bench_update.py's low-churn release evolution and MRR band
+CALM = dict(add_frac=0.02, obsolete_frac=0.005, rewire_frac=0.005)
+MRR_TOL_ABS, MRR_TOL_REL = 0.05, 0.15
+MRR_SAMPLE = 1000
 SMALL_ENTRY = ("topk_select_chunks", "topk_merge_running")
 LARGE_ENTRY = ("topk_score_keys", "topk_bitonic_global",
                "topk_bitonic_shared", "topk_gather")
@@ -271,6 +296,83 @@ def phase_kernels(store_tables) -> dict:
     return out
 
 
+def _kge_inputs(B: int, K: int, d: int, mask: str, t_is_h_plus_r: bool,
+                gen):
+    import torch
+    dev = torch.device(DEV)
+    h, r, t = (torch.randn((B, d), generator=gen, device=dev)
+               for _ in range(3))
+    if t_is_h_plus_r:
+        t = h + r                   # every coordinate of h + r - t is 0
+    neg = torch.randn((B, K, d), generator=gen, device=dev)
+    if mask == "random":
+        ch = torch.rand((B, K), generator=gen, device=dev) < 0.5
+    else:
+        ch = torch.full((B, K), mask == "true", dtype=torch.bool, device=dev)
+    return h, r, t, neg, ch
+
+
+def _kge_err(got, want, note: str) -> float:
+    """max |got - want|; fails past KGE_TOL * (1 + |want|), the
+    allclose(rtol=atol=1e-4) of the reference's own test."""
+    err = 0.0
+    for g, w in zip(got, want):
+        diff = (g - w).abs()
+        check(bool((diff <= KGE_TOL * (1 + w.abs())).all()),
+              f"{note}: off by {float(diff.max())}")
+        err = max(err, float(diff.max()))
+    return err
+
+
+def phase_kge() -> dict:
+    """kge_score forward and backward kernels against their plain versions
+    on the card."""
+    import torch
+    from repro_torch.kernels import kge_score as tk, ref
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    err = {"forward": 0.0, "backward": 0.0}
+    cases = exact = 0
+    for model in KGE_MODELS:
+        for B, K, d in (KGE_SHAPE, (100, 5, 200), (7, 3, 32), (1, 1, 1)):
+            for mask in ("true", "false", "random"):
+                for tz in (False, True):
+                    note = f"{model} {(B, K, d)} mask={mask} t=h+r:{tz}"
+                    h, r, t, neg, ch = _kge_inputs(B, K, d, mask, tz, gen)
+                    g_pos = torch.randn((B,), generator=gen, device=DEV)
+                    g_negs = torch.randn((B, K), generator=gen, device=DEV)
+                    err["forward"] = max(err["forward"], _kge_err(
+                        tk.kge_score_forward(h, r, t, neg, ch, model),
+                        ref.kge_score_ref(h, r, t, neg, ch, model),
+                        f"forward {note}"))
+                    err["backward"] = max(err["backward"], _kge_err(
+                        tk.kge_score_backward(h, r, t, neg, ch, g_pos,
+                                              g_negs, model),
+                        ref.kge_score_backward_ref(h, r, t, neg, ch, g_pos,
+                                                   g_negs, model),
+                        f"backward {note}"))
+                    cases += 1
+                    if tz:
+                        # only the positive's cotangent: grad h, r, t
+                        # exactly as the plain version (sign at 0)
+                        zero = torch.zeros_like(g_negs)
+                        got = tk.kge_score_backward(h, r, t, neg, ch, g_pos,
+                                                    zero, model)
+                        want = ref.kge_score_backward_ref(
+                            h, r, t, neg, ch, g_pos, zero, model)
+                        for name, a, b in zip("hrt", got[:3], want[:3]):
+                            check(torch.equal(a, b), f"grad_{name} at "
+                                  f"t = h + r differs from plain: {note}")
+                        exact += 1
+        torch.cuda.synchronize()
+    out = {"phase": "kge", "cases": cases, "exact_cases_t_eq_h_plus_r": exact,
+           "max_abs_err_forward": err["forward"],
+           "max_abs_err_backward": err["backward"],
+           "tolerance": {"rtol": KGE_TOL, "atol": KGE_TOL}}
+    emit(out)
+    return out
+
+
 def _http_json(base: str, path: str, params: dict, retries: int = 3):
     url = f"{base}{path}?{urllib.parse.urlencode(params)}"
     for attempt in range(retries):
@@ -408,6 +510,154 @@ def phase_serve(registry_root: str, served: dict) -> dict:
            "stream_stats": dict(ops.stream_stats),
            "scheduler_batches": stats.scheduler["batches"],
            "launches": launches}
+    emit(out)
+    return out
+
+
+_RELEASES: dict = {}
+
+
+def go_releases():
+    """v1: the synthetic GO at 40k terms (40,000 entities, 61,749 triples);
+    v2: one low-churn release later."""
+    if not _RELEASES:
+        from repro_torch.configs.go_kge import CONFIG
+        from repro_torch.ontology.synthetic import evolve, generate
+        kg1 = generate(CONFIG.spec, seed=0, n_terms=CONFIG.n_terms)
+        kg2 = evolve(kg1, CONFIG.spec, seed=1000, **CALM)
+        _RELEASES.update(v1=("2025-01-01", kg1), v2=("2025-07-01", kg2))
+    return _RELEASES["v1"], _RELEASES["v2"]
+
+
+def phase_update(tmp: str) -> dict:
+    """The update path at full width and budget: publish v1, update to v2
+    incrementally, train a cold v2, serve v2 from the invalidated engine,
+    compare MRR warm against cold."""
+    import torch
+    from repro_torch.api import Gateway
+    from repro_torch.configs.go_kge import CONFIG
+    from repro_torch.core.registry import EmbeddingRegistry
+    from repro_torch.core.serving import ServingEngine
+    from repro_torch.core.updater import SyntheticReleaseChannel, Updater
+    from repro_torch.kernels import kge_score as tk, ops, ref
+    from repro_torch.kernels import topk_similarity as ts
+    from repro_torch.kge import make_model, params_from_numpy, rank_based_eval
+
+    (v1, kg1), (v2, kg2) = go_releases()
+    check((kg1.num_entities, kg1.num_triples) == (CONFIG.n_terms, GO_TRIPLES),
+          f"GO release: {kg1.num_entities} entities, {kg1.num_triples} "
+          f"triples")
+    warm_reg = EmbeddingRegistry(Path(tmp) / "warm")
+    cold_reg = EmbeddingRegistry(Path(tmp) / "cold")
+    engine = ServingEngine(warm_reg, device=DEV)
+    gw = Gateway(engine, max_batch=32, flush_after_ms=2.0)
+    warm = Updater(warm_reg, engine=engine, models=UPDATE_MODELS,
+                   dim=CONFIG.dim, train_cfg=CONFIG.train, device=DEV)
+    cold = Updater(cold_reg, models=UPDATE_MODELS, dim=CONFIG.dim,
+                   train_cfg=CONFIG.train, device=DEV)
+    channel = SyntheticReleaseChannel("go")
+    reports = {}
+
+    tk.reset_launches()
+    ts.reset_launches()
+    # ----------------- main path: publish, update, serve -------------- #
+    channel.bump(v1, kg1)
+    reports["v1"] = warm.run_once(channel, seed=0)
+    check(reports["v1"].mode == "full", f"v1: {reports['v1'].reason}")
+    for m in UPDATE_MODELS:      # the engine serves v1 before the update
+        gw.closest_concepts("go", m, kg1.entities[0], k=10)
+    channel.bump(v2, kg2)
+    reports["v2_warm"] = warm.run_once(channel, seed=1)
+    check(reports["v2_warm"].mode == "incremental",
+          f"v2: {reports['v2_warm'].mode} ({reports['v2_warm'].reason})")
+    check(engine.latest_version("go") == v2, "engine not invalidated to v2")
+    reports["v2_cold"] = cold.run_once(
+        SyntheticReleaseChannel("go", v2, kg2), seed=1)
+    check(reports["v2_cold"].mode == "full", "cold v2 not a full update")
+
+    rng = np.random.default_rng(SEED + 3)
+    rows = rng.choice(kg2.num_entities, size=32, replace=False)
+    answers = {m: [gw.closest_concepts("go", m, kg2.entities[r], k=10)
+                   for r in rows] for m in UPDATE_MODELS}
+    torch.cuda.synchronize()
+    launches = {**tk.launches, **ts.launches}
+    gw.close()
+    check(tk.launches["kge_score_forward"] > 0
+          and tk.launches["kge_score_backward"] > 0,
+          "the update path launched no kge_score kernel")
+    check(sum(ts.launches[e] for e in SMALL_ENTRY) > 0,
+          "serving v2 launched no top-k kernel")
+
+    # -------- what came out: published table, answers, MRR ------------ #
+    per_model = {}
+    sample = kg2.triples[np.random.default_rng(SEED + 4).choice(
+        kg2.num_triples, size=MRR_SAMPLE, replace=False)]
+    for m in UPDATE_MODELS:
+        table, norms, header = warm_reg.store.open_table("go", v2, m)
+        params, _ = warm_reg.get_params("go", m, v2)
+        arrays, _ = warm_reg.store.load("go", v2, m)
+        trained = np.ascontiguousarray(params["entity"], np.float32)
+        check(np.asarray(table).tobytes() == trained.tobytes()
+              and arrays["embeddings"].tobytes() == trained.tobytes(),
+              f"{m}: published table differs from the trained embeddings")
+        check(header["ids"] == list(kg2.entities), f"{m}: ids differ")
+        emb_dev = torch.from_numpy(trained).to(DEV)
+        nrm_dev = torch.from_numpy(np.array(norms)).to(DEV)
+        ties = 0
+        for r, resp in zip(rows, answers[m]):
+            check(resp.version == v2, f"{m}: answered from {resp.version}")
+            q = unit_rows(trained, np.asarray(norms), [r])
+            s_ref, i_ref, v_ref = ref.topk_cosine_blocked_ref(
+                torch.from_numpy(q).to(DEV), emb_dev, 10,
+                exclude_rows=torch.tensor([int(r)], dtype=torch.int32,
+                                          device=DEV),
+                norms=nrm_dev, block_n=ops.STREAM_BLOCK_ROWS)
+            nv = int(v_ref[0])
+            hits = resp.results
+            check(len(hits) == nv, f"{m}: {len(hits)} hits, want {nv}")
+            s_plain = s_ref[0, :nv].cpu().numpy().astype(np.float64)
+            s_got = np.array([h.score for h in hits], np.float64)
+            check(float(np.abs(s_got - s_plain).max()) <= SCORE_TOL,
+                  f"{m}: closest-concepts scores off the plain version")
+            i_got = np.array([kg2.entity_to_id[h.identifier] for h in hits])
+            ties += _ids_agree(i_got, i_ref[0, :nv].cpu().numpy(), s_plain)
+        mrr = {}
+        for name, reg in (("warm", warm_reg), ("cold", cold_reg)):
+            arr, _ = reg.get_params("go", m, v2)
+            model = make_model(m, kg2.num_entities, kg2.num_relations,
+                               dim=CONFIG.dim)
+            mrr[name] = rank_based_eval(
+                model, params_from_numpy(model, arr, DEV), sample,
+                kg2.triples)["mrr"]
+        band = max(MRR_TOL_ABS, MRR_TOL_REL * mrr["cold"])
+        check(mrr["warm"] >= mrr["cold"] - band,
+              f"{m}: warm MRR {mrr['warm']:.4f} below cold "
+              f"{mrr['cold']:.4f} - {band:.4f}")
+        d1, dw, dc = (reports[k].details[m]
+                      for k in ("v1", "v2_warm", "v2_cold"))
+        per_model[m] = {
+            "answers_checked": len(rows), "tie_runs_by_set": ties,
+            "mrr_warm": mrr["warm"], "mrr_cold": mrr["cold"],
+            "mrr_band": band, "carried_rows": dw["carried_rows"],
+            **{f"{k}_{f}": d[f] for k, d in (("v1", d1), ("warm", dw),
+                                           ("cold", dc))
+               for f in ("steps", "final_loss", "wall_s", "triples_per_s")},
+            **{f"{k}_first_loss": d["losses"][0][1]
+               for k, d in (("v1", d1), ("warm", dw), ("cold", dc))},
+            # every 10th logged (step, loss): where a run converges or
+            # falls apart
+            **{f"{k}_loss_curve": d["losses"][::10] + d["losses"][-1:]
+               for k, d in (("v1", d1), ("warm", dw), ("cold", dc))},
+            **{f"{k}_steps_per_s": d["steps"] / d["wall_s"]
+               for k, d in (("v1", d1), ("warm", dw), ("cold", dc))}}
+        del emb_dev, nrm_dev, table, norms
+    out = {"phase": "update", "models": list(UPDATE_MODELS),
+           "entities": [kg1.num_entities, kg2.num_entities],
+           "triples": [kg1.num_triples, kg2.num_triples],
+           "plan_v2": reports["v2_warm"].reason,
+           "delta_v2": reports["v2_warm"].delta,
+           "update_wall_s": {k: r.wall_s for k, r in reports.items()},
+           "per_model": per_model, "launches": launches}
     emit(out)
     return out
 
@@ -552,7 +802,172 @@ def phase_numbers(store_tables, card: str) -> dict:
     return {"phase": "numbers", "rows": rows_out}
 
 
-def kernels_line(kern: dict, serve_out: dict, numbers: dict) -> dict:
+def kge_bound_ms(B: int, K: int, d: int, backward: bool) -> tuple:
+    """Least time for one kge_score pass at (B, K, d): every input read
+    once and every output written once; a few fp32 operations per
+    element of ``neg``."""
+    rows = (B * d * 3 + B * K * d) * 4  # h, r, t, neg; backward: + grads
+    small = B * K + (B + B * K) * 4     # mask; pos + negs or their cotangents
+    if backward:
+        nbytes = 2 * rows + small
+        ops = 8.0 * B * K * d
+    else:
+        nbytes = rows + small
+        ops = 3.0 * B * K * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+_STEP_PARTS = ("ks.forward_backward", "ks.adam", "ks.constrain")
+
+
+def _step_breakdown(trainer, params, opt_state, loader, gen, steps: int):
+    """Device time of ``steps`` training steps by part, from torch.profiler:
+    the kge_score kernels, the row gathers and their scatter-adds (index
+    kernels), Adam (kernels under the ``ks.adam`` range), TransE's norm
+    clamp (``ks.constrain``), and the rest; and the busy share of the
+    window's wall time.  None where the profiler shows no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kge.negatives import corrupt
+
+    ts_, model, opt = trainer.train_step, trainer.model, trainer.optimizer
+
+    def one():
+        batch = torch.from_numpy(next(loader)).to(DEV, torch.int64)
+        rand, ch = corrupt(gen, batch, model.spec.n_entities,
+                           trainer.cfg.num_negs)
+        with record_function(_STEP_PARTS[0]):
+            _, grads = ts_.loss_and_grads(params, batch, rand, ch)
+        with record_function(_STEP_PARTS[1]):
+            opt.update(grads, opt_state, params)
+        with record_function(_STEP_PARTS[2]):
+            model.constrain(params)
+
+    for _ in range(5):
+        one()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            one()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    parts = {"kge_score": 0.0, "gather_scatter": 0.0, "adam": 0.0,
+             "constrain": 0.0}
+    busy = 0.0
+    by_kernel: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if e.name in _STEP_PARTS:           # a range, not device work
+                continue
+            us = e.device_time_total
+            busy += us
+            by_kernel[e.name[:60]] = by_kernel.get(e.name[:60], 0.0) + us
+            low = e.name.lower()
+            if "kge_" in low:
+                parts["kge_score"] += us
+            elif "index" in low or "gather" in low or "scatter" in low:
+                parts["gather_scatter"] += us
+        elif e.name == _STEP_PARTS[1]:
+            parts["adam"] += e.device_time_total
+        elif e.name == _STEP_PARTS[2]:
+            parts["constrain"] += e.device_time_total
+    if busy == 0:
+        return {"profiler": "no device time reported"}
+    per = {k: v / 1e3 / steps for k, v in parts.items()}
+    per["other"] = busy / 1e3 / steps - sum(per.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "device_busy_ms_per_step": busy / 1e3 / steps,
+            "device_busy_share": busy / 1e3 / wall_ms,
+            "device_ms_per_step_by_part": per,
+            "top_kernels_ms_per_step": {k: v / 1e3 / steps for k, v in top}}
+
+
+def kge_numbers(card: str) -> dict:
+    """kge_score forward/backward at (1024, 32, 200) for each model, and
+    one GO-size training step of each model: its launches, its time and
+    where the device time goes."""
+    import torch
+    from repro_torch.configs.go_kge import CONFIG
+    from repro_torch.data import TripleLoader
+    from repro_torch.kernels import kge_score as tk, ref
+    from repro_torch.kge import KGETrainer, make_model
+
+    B, K, d = KGE_SHAPE
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    rows = []
+    for model in KGE_MODELS:
+        h, r, t, neg, ch = _kge_inputs(B, K, d, "random", False, gen)
+        g_pos = torch.randn((B,), generator=gen, device=DEV)
+        g_negs = torch.randn((B, K), generator=gen, device=DEV)
+        fwd = lambda: tk.kge_score_forward(h, r, t, neg, ch, model)
+        bwd = lambda: tk.kge_score_backward(h, r, t, neg, ch, g_pos, g_negs,
+                                            model)
+        plain_fwd = lambda: ref.kge_score_ref(h, r, t, neg, ch, model)
+        plain_bwd = lambda: ref.kge_score_backward_ref(h, r, t, neg, ch,
+                                                       g_pos, g_negs, model)
+        lib_fwd = None
+        if model == "distmult":
+            # both candidate scores of every negative in one batched product
+            qs = torch.stack([r * t, h * r], dim=2)          # (B, d, 2)
+            lib_fwd = lambda: torch.bmm(neg, qs)
+        rec = {"model": model, "B": B, "K": K, "d": d, "card": card}
+        for name, fn, plain, lib, bw in (("forward", fwd, plain_fwd, lib_fwd,
+                                          False),
+                                         ("backward", bwd, plain_bwd, None,
+                                          True)):
+            dev_ms = _device_ms(fn)
+            ours = {n: v for n, v in dev_ms.items() if "kge_" in n}
+            b_ms, b_by = kge_bound_ms(B, K, d, bw)
+            rec.update({f"{name}_ms": _cuda_ms(fn, iters=50),
+                        f"{name}_device_ms": sum(ours.values()) if ours
+                        else None,
+                        f"{name}_plain_ms": _cuda_ms(plain, iters=20),
+                        f"{name}_library_ms": _cuda_ms(lib, iters=50)
+                        if lib else None,
+                        f"{name}_bound_ms": b_ms, f"{name}_bound_by": b_by})
+        emit({"numbers": rec})
+        rows.append(rec)
+        del h, r, t, neg, ch, g_pos, g_negs
+    torch.cuda.synchronize()
+
+    (_, kg1), _ = go_releases()
+    steps = []
+    for name in UPDATE_MODELS:
+        model = make_model(name, kg1.num_entities, kg1.num_relations,
+                           dim=CONFIG.dim)
+        trainer = KGETrainer(model, CONFIG.train, device=DEV)
+        params, opt_state = trainer.init()
+        loader = iter(TripleLoader(kg1.triples, CONFIG.train.batch_size))
+        sgen = trainer.generator(1)
+        step = lambda: trainer.train_step.step(
+            params, opt_state,
+            torch.from_numpy(next(loader)).to(DEV, torch.int64), sgen)
+        step()
+        torch.cuda.synchronize()
+        tk.reset_launches()
+        step()
+        torch.cuda.synchronize()
+        per_step = dict(tk.launches)
+        rec = {"model": name, "launches_per_step": per_step,
+               "step_host_ms": _host_ms(step, iters=50, warmup=5),
+               "step_event_ms": _cuda_ms(step, iters=50, warmup=5),
+               **_step_breakdown(trainer, params, opt_state, loader, sgen,
+                                 steps=30), "card": card}
+        emit({"train_step": rec})
+        steps.append(rec)
+        del params, opt_state
+    torch.cuda.synchronize()
+    return {"kge_rows": rows, "train_steps": steps}
+
+
+def kernels_line(kern: dict, serve_out: dict, kge: dict,
+                 update_out: dict, numbers: dict) -> dict:
     """One entry per kernel path, at the shapes the main path gives it:
     a 8192-row slab of the 40k table with its running list, Q = 32 and
     k = 10 for the small path (the serve session's batches), Q = 1 and
@@ -576,6 +991,25 @@ def kernels_line(kern: dict, serve_out: dict, numbers: dict) -> dict:
             "plain_ms": r["step_plain_ms"], "bound_ms": r["step_bound_ms"],
             "bound_by": r["step_bound_by"],
             "library_ms": r["step_library_ms"]})
+    # kge_score at the training step's shape, TransE-L1 (the GO update's
+    # first model); launches counted over the whole update phase
+    k_launch = update_out["launches"]
+    r = next(x for x in numbers["kge"]["kge_rows"]
+             if x["model"] == "transe_l1")
+    for name, entry, key in (("kge_score forward", "kge_score_forward",
+                              "forward"),
+                             ("kge_score backward", "kge_score_backward",
+                              "backward")):
+        out.append({
+            "name": f"{name} (TransE-L1, B=1024 K=32 d=200)",
+            "route": "cuda", "source": KGE_SOURCE, "replaces": KGE_REPLACES,
+            "launches": k_launch[entry],
+            "max_abs_err": kge[f"max_abs_err_{key}"],
+            "ms": r[f"{key}_ms"], "device_ms": r[f"{key}_device_ms"],
+            "plain_ms": r[f"{key}_plain_ms"],
+            "bound_ms": r[f"{key}_bound_ms"],
+            "bound_by": r[f"{key}_bound_by"],
+            "library_ms": r[f"{key}_library_ms"]})
     return {"kernels": out}
 
 
@@ -590,7 +1024,8 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,serve,numbers")
+    ap.add_argument("--phases",
+                    default="build,kernels,kge,serve,update,numbers")
     ap.add_argument("--out", default=None, help="also write results here")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -641,11 +1076,19 @@ def main(argv=None) -> int:
         if "kernels" in phases:
             RESULTS["phases"]["kernels"] = phase_kernels(store_tables)
             torch.cuda.synchronize()
+        if "kge" in phases:
+            RESULTS["phases"]["kge"] = phase_kge()
+            torch.cuda.synchronize()
         if "serve" in phases:
             RESULTS["phases"]["serve"] = phase_serve(tmp, served)
             torch.cuda.synchronize()
+        if "update" in phases:
+            RESULTS["phases"]["update"] = phase_update(tmp)
+            torch.cuda.synchronize()
         if "numbers" in phases:
             RESULTS["phases"]["numbers"] = phase_numbers(store_tables, card)
+            torch.cuda.synchronize()
+            RESULTS["phases"]["numbers"]["kge"] = kge_numbers(card)
             torch.cuda.synchronize()
         store_tables.clear()
     RESULTS["seconds"] = time.perf_counter() - t_start
@@ -654,10 +1097,10 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(RESULTS, indent=1))
     print(card)
-    if {"kernels", "serve", "numbers"} <= phases:
-        print(json.dumps(kernels_line(RESULTS["phases"]["kernels"],
-                                      RESULTS["phases"]["serve"],
-                                      RESULTS["phases"]["numbers"])))
+    if {"kernels", "kge", "serve", "update", "numbers"} <= phases:
+        ph = RESULTS["phases"]
+        print(json.dumps(kernels_line(ph["kernels"], ph["serve"], ph["kge"],
+                                      ph["update"], ph["numbers"])))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,8 @@
 
 The port's copy of ``repro.checkpoint.store``: it writes and reads the
 same files byte for byte, so a store published by either package serves
-from the other.  The parsed-release sidecars (``graph.npz``) belong to the
-update path and are not ported yet.
+from the other, and a parent graph persisted by either package can be
+diffed by the other.
 
 Layout (mirrors the paper's Zenodo deposit structure; the params
 sidecars are what make post-restart warm-starts possible):
@@ -13,6 +13,8 @@ sidecars are what make post-restart warm-starts possible):
   <root>/<ontology>/<version>/<model>/table.json        (raw header/vocab)
   <root>/<ontology>/<version>/<model>/params.npz        (full model params)
   <root>/<ontology>/<version>/<model>/params_vocab.json (row-name vocab)
+  <root>/<ontology>/<version>/graph.npz                 (parsed release)
+  <root>/<ontology>/<version>/graph_terms.json          (its term metadata)
   <root>/<ontology>/<version>/.published                (seal marker)
 
 The raw layout is the *serve* format: little-endian float32 rows padded to
@@ -284,6 +286,42 @@ class SnapshotStore:
 
     def has_eval(self, ontology: str, version: str, model: str) -> bool:
         return (self._dir(ontology, version, model) / "eval.json").exists()
+
+    # ----------------- parsed-release snapshots (deltas) --------------- #
+    def save_graph(self, ontology: str, version: str, kg) -> Path:
+        """Persist the parsed release at the version level so the next
+        update can compute an exact ``GraphDelta`` without re-downloading
+        (or keeping) the previous OBO file."""
+        d = self.root / ontology / version
+        d.mkdir(parents=True, exist_ok=True)
+        _atomic_savez(
+            d / "graph.npz",
+            entities=np.asarray(kg.entities, dtype=np.str_),
+            relations=np.asarray(kg.relations, dtype=np.str_),
+            triples=np.asarray(kg.triples, dtype=np.int64),
+        )
+        terms = [[m.identifier, m.label, m.namespace, bool(m.obsolete),
+                  m.definition] for m in kg.terms.values()]
+        _atomic_write_text(d / "graph_terms.json", json.dumps(terms))
+        return d
+
+    def load_graph(self, ontology: str, version: str):
+        from ..ontology.graph import KnowledgeGraph, TermMeta
+
+        d = self.root / ontology / version
+        with np.load(d / "graph.npz", allow_pickle=False) as z:
+            entities = [str(x) for x in z["entities"]]
+            relations = [str(x) for x in z["relations"]]
+            triples = np.asarray(z["triples"], dtype=np.int64)
+        terms = {}
+        for ident, label, ns, obsolete, definition in json.loads(
+                (d / "graph_terms.json").read_text()):
+            terms[ident] = TermMeta(ident, label, ns, bool(obsolete), definition)
+        return KnowledgeGraph(entities, relations, triples, terms)
+
+    def has_graph(self, ontology: str, version: str) -> bool:
+        d = self.root / ontology / version
+        return (d / "graph.npz").exists() and (d / "graph_terms.json").exists()
 
     # ------------------------------------------------------------------ #
     def versions(self, ontology: str) -> List[str]:

@@ -1,6 +1,6 @@
-"""Top-k kernels of the port: the CUDA kernel for Hopper
-(``csrc/topk_cosine.cu``), its wrapper, its plain PyTorch version and the
-streaming driver."""
-from . import ops, ref, topk_similarity
+"""Kernels of the port: the CUDA kernels for Hopper (``csrc/topk_cosine.cu``,
+``csrc/kge_score.cu``), their wrappers, their plain PyTorch versions and the
+top-k streaming driver."""
+from . import kge_score, ops, ref, topk_similarity
 
-__all__ = ["ops", "ref", "topk_similarity"]
+__all__ = ["kge_score", "ops", "ref", "topk_similarity"]

@@ -1,10 +1,10 @@
-"""Public top-k entry points: the streaming driver around the kernel.
+"""Public kernel entry points: the top-k streaming driver and KGE scoring.
 
 The port of ``repro.kernels.ops`` (``topk_cosine``, ``_topk_stream``,
-``topk_cosine_join``, ``stream_stats``).  There is no backend flag: on the
-card the CUDA kernel runs, on the CPU its plain PyTorch version
-(:mod:`repro_torch.kernels.topk_similarity` decides by the tensor's
-device).
+``topk_cosine_join``, ``stream_stats``, ``kge_score``).  There is no
+backend flag: on the card the CUDA kernels run, on the CPU their plain
+PyTorch versions (the wrappers in :mod:`repro_torch.kernels.topk_similarity`
+and :mod:`repro_torch.kernels.kge_score` decide by the tensor's device).
 
 Streaming table residency: when ``topk_cosine`` receives a host table
 (``np.ndarray`` / ``np.memmap``), the whole ``(N, d)`` array never goes to
@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from . import ref
+from . import kge_score as _kge, ref
 from .topk_similarity import topk_cosine_step
 
 #: host-slab size for the streaming driver: 8192 rows x 200 dims x 4 B is
@@ -263,3 +263,35 @@ def topk_cosine_join(q_unit, e_table, k: int, exclude_rows=None, norms=None,
                                  device=device, staging=staging)
         yield (start, sc.cpu().numpy()[:rows], ix.cpu().numpy()[:rows],
                va.cpu().numpy()[:rows])
+
+
+# ------------------------------ kge_score ------------------------------ #
+class _KGEScore(torch.autograd.Function):
+    """Forward and backward both in ``csrc/kge_score.cu`` on the card, in
+    their plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, h, r, t, neg, corrupt_head, model):
+        ctx.model = model
+        ctx.save_for_backward(h, r, t, neg, corrupt_head)
+        return _kge.kge_score_forward(h, r, t, neg, corrupt_head, model)
+
+    @staticmethod
+    def backward(ctx, g_pos, g_negs):
+        # an output the loss does not use arrives as zeros (autograd
+        # materialises it)
+        h, r, t, neg, corrupt_head = ctx.saved_tensors
+        gh, gr, gt, gneg = _kge.kge_score_backward(
+            h, r, t, neg, corrupt_head, g_pos.contiguous(),
+            g_negs.contiguous(), ctx.model)
+        return gh, gr, gt, gneg, None, None
+
+
+def kge_score(h: torch.Tensor, r: torch.Tensor, t: torch.Tensor,
+              neg: torch.Tensor, corrupt_head: torch.Tensor,
+              model: str = "transe_l1") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused positive + negative KGE scoring, differentiable in ``h``,
+    ``r``, ``t`` and ``neg``: ``(pos (B,), negs (B, K))``.  ``model`` is
+    ``"transe_l1"``, ``"transe_l2"`` or ``"distmult"``; ``corrupt_head``
+    (B, K) is true where the negative replaces the head."""
+    return _KGEScore.apply(h, r, t, neg, corrupt_head, model)

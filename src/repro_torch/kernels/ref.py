@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the top-k kernel: the semantics the CUDA
-kernel is held to.
+"""Plain PyTorch versions of the port's kernels (top-k, KGE scoring): the
+semantics each CUDA kernel is held to.
 
 These run on the CPU (the tests) and on the card (``chip_smoke.py``
 compares the kernel with them on the same inputs).  They are
@@ -115,3 +115,96 @@ def topk_cosine_ref(q_unit: torch.Tensor, e_unit: torch.Tensor, k: int,
                            e_unit.to(torch.float32), None, 0, n, excl,
                            None, None, k_c)
     return s, i, valid_counts(excl, n, k_c)
+
+
+# ------------------------------ kge_score ------------------------------ #
+#: the models ``kge_score`` computes, in the order of the CUDA kernel's
+#: model argument
+KGE_MODELS = ("transe_l1", "transe_l2", "distmult")
+
+
+def kge_score_ref(
+    h: torch.Tensor,            # (B, d) head embeddings
+    r: torch.Tensor,            # (B, d) relation embeddings
+    t: torch.Tensor,            # (B, d) tail embeddings
+    neg: torch.Tensor,          # (B, K, d) corrupting entity embeddings
+    corrupt_head: torch.Tensor, # (B, K) bool — True: neg replaces head
+    model: str = "transe_l1",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused positive + negative scoring. Returns (pos (B,), neg (B, K)).
+    A copy of ``repro.kernels.ref.kge_score_ref``."""
+    ch = corrupt_head.bool()
+    if model == "transe_l1":
+        pos = -torch.sum(torch.abs(h + r - t), dim=-1)
+        diff_h = neg + r[:, None, :] - t[:, None, :]    # neg as head
+        diff_t = h[:, None, :] + r[:, None, :] - neg    # neg as tail
+        diff = torch.where(ch[..., None], diff_h, diff_t)
+        negs = -torch.sum(torch.abs(diff), dim=-1)
+    elif model == "transe_l2":
+        pos = -torch.sqrt(torch.sum((h + r - t) ** 2, dim=-1) + 1e-12)
+        diff_h = neg + r[:, None, :] - t[:, None, :]
+        diff_t = h[:, None, :] + r[:, None, :] - neg
+        diff = torch.where(ch[..., None], diff_h, diff_t)
+        negs = -torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)
+    elif model == "distmult":
+        pos = torch.sum(h * r * t, dim=-1)
+        s_h = torch.sum(neg * (r * t)[:, None, :], dim=-1)
+        s_t = torch.sum((h * r)[:, None, :] * neg, dim=-1)
+        negs = torch.where(ch, s_h, s_t)
+    else:
+        raise ValueError(model)
+    return pos, negs
+
+
+def kge_score_backward_ref(
+    h: torch.Tensor, r: torch.Tensor, t: torch.Tensor, neg: torch.Tensor,
+    corrupt_head: torch.Tensor, g_pos: torch.Tensor, g_negs: torch.Tensor,
+    model: str = "transe_l1",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`kge_score_ref`, written out: given the
+    cotangents ``g_pos (B,)`` and ``g_negs (B, K)``, returns ``(grad_h,
+    grad_r, grad_t (B, d), grad_neg (B, K, d))``.
+
+    With ``x`` the TransE difference (``h + r - t``, with ``neg`` in the
+    corrupted slot), the score is ``-sum|x|`` or ``-sqrt(sum x^2 + 1e-12)``
+    and its derivative in ``x`` is ``-sign(x)`` or ``-x / sqrt(...)``.
+    ``sign`` follows JAX's derivative of ``|x|``: +1 at ``x >= 0``, 0
+    included (``torch.abs`` would give 0 there).  DistMult's score ``sum
+    h*r*t`` is linear in each factor.  The CUDA backward in
+    ``csrc/kge_score.cu`` forms every product and difference in the same
+    order as this function."""
+    ch = corrupt_head.bool()[..., None]                          # (B, K, 1)
+    gp = g_pos[:, None]                                          # (B, 1)
+    gn = g_negs[..., None]                                       # (B, K, 1)
+    zero = torch.zeros((), dtype=h.dtype, device=h.device)
+    if model in ("transe_l1", "transe_l2"):
+        hr = h + r
+        x_pos = hr - t                                           # (B, d)
+        x_neg = torch.where(ch, (neg + r[:, None, :]) - t[:, None, :],
+                            hr[:, None, :] - neg)                # (B, K, d)
+        if model == "transe_l1":
+            one = torch.ones((), dtype=h.dtype, device=h.device)
+            gx_pos = -gp * torch.where(x_pos >= 0, one, -one)
+            gx_neg = -gn * torch.where(x_neg >= 0, one, -one)
+        else:
+            c_pos = -g_pos / torch.sqrt(torch.sum(x_pos * x_pos, -1) + 1e-12)
+            c_neg = -g_negs / torch.sqrt(torch.sum(x_neg * x_neg, -1) + 1e-12)
+            gx_pos = c_pos[:, None] * x_pos
+            gx_neg = c_neg[..., None] * x_neg
+        # x = neg + r - t (head corrupted) or h + r - neg (tail corrupted)
+        grad_h = gx_pos + torch.where(ch, zero, gx_neg).sum(1)
+        grad_r = gx_pos + gx_neg.sum(1)
+        grad_t = -gx_pos - torch.where(ch, gx_neg, zero).sum(1)
+        grad_neg = torch.where(ch, gx_neg, -gx_neg)
+    elif model == "distmult":
+        rt, hr = r * t, h * r
+        grad_h = gp * rt + torch.where(
+            ch, zero, gn * (r[:, None, :] * neg)).sum(1)
+        grad_r = gp * (h * t) + torch.where(
+            ch, gn * (neg * t[:, None, :]), gn * (h[:, None, :] * neg)).sum(1)
+        grad_t = gp * hr + torch.where(
+            ch, gn * (neg * r[:, None, :]), zero).sum(1)
+        grad_neg = torch.where(ch, gn * rt[:, None, :], gn * hr[:, None, :])
+    else:
+        raise ValueError(model)
+    return grad_h, grad_r, grad_t, grad_neg

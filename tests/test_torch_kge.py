@@ -1,0 +1,426 @@
+"""The port's update-path building blocks against the JAX package's.
+
+Ontology copies, the triple loader, the graph files, the KGE models, the
+losses, one training step, Adam/Adagrad, ``remap_params`` and the ranking
+evaluation, each fed the same inputs as the reference: graphs from the
+same seeds, params made by the reference and carried across with
+``params_from_numpy``, negatives drawn by the reference's key and handed
+to the port's explicit-negatives step.  Tolerances: 1e-5 for scores,
+losses and gradients (fp32 sums in another order), 1e-6 for an Adam
+update on identical gradients, 1e-4 for MRR.
+"""
+import dataclasses
+import time
+import zipfile
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs.go_kge as jgo
+import repro.configs.hp_kge as jhp
+from repro.checkpoint.store import SnapshotStore as JaxStore
+from repro.data.triples import TripleLoader as JaxLoader
+from repro.kge import losses as jlosses
+from repro.kge import make_model as jmake_model
+from repro.kge import rank_based_eval as jeval
+from repro.kge import remap_params as jremap
+from repro.kge.train import TrainConfig as JaxTrainConfig
+from repro.kge.train import make_train_step as jmake_step
+from repro.ontology import GraphDelta as JaxDelta
+from repro.ontology import synthetic as jsyn
+from repro.ontology.obo import parse_obo as jparse_obo
+from repro.ontology.obo import write_obo as jwrite_obo
+from repro.optim import adagrad as jadagrad
+from repro.optim import adam as jadam
+from repro.optim import schedules as jsched
+
+import repro_torch.configs.go_kge as tgo
+import repro_torch.configs.hp_kge as thp
+from repro_torch.checkpoint.store import SnapshotStore as TorchStore
+from repro_torch.data import TripleLoader
+from repro_torch.kge import (available_models, make_model, params_from_numpy,
+                             params_to_numpy, rank_based_eval, remap_params,
+                             vocab_remap)
+from repro_torch.kge import losses as tlosses
+from repro_torch.kge.negatives import corrupt
+from repro_torch.kge.train import KGETrainer, TrainConfig, make_train_step
+from repro_torch.ontology import GraphDelta
+from repro_torch.ontology import synthetic as tsyn
+from repro_torch.ontology.obo import parse_obo, write_obo
+from repro_torch.optim import adagrad, adam
+from repro_torch.optim import schedules as tsched
+
+#: (port model name, make_model kwargs) of every ported scoring model
+MODELS = [("transe", {}), ("transe", {"p_norm": 2}), ("distmult", {})]
+IDS = ["transe_l1", "transe_l2", "distmult"]
+TOL = 1e-5
+
+
+def _np(tree):
+    return {k: np.asarray(v) for k, v in tree.items()}
+
+
+def _pair(name, kw, n=50, n_rel=3, dim=16, seed=0):
+    """The reference model, the port's, and the reference's init carried
+    into the port."""
+    jm = jmake_model(name, n, n_rel, dim=dim, **kw)
+    tm = make_model(name, n, n_rel, dim=dim, **kw)
+    jp = jm.init(jax.random.key(seed))
+    return jm, tm, jp, params_from_numpy(tm, _np(jp), "cpu")
+
+
+def _close(got, want, tol=TOL):
+    if isinstance(got, torch.Tensor):
+        got = got.detach().numpy()
+    np.testing.assert_allclose(got, np.asarray(want), rtol=tol, atol=tol)
+
+
+# ------------------------------ ontology ------------------------------ #
+@pytest.mark.parametrize("spec_name,n", [("GO_SPEC", 150), ("HP_SPEC", 120),
+                                         ("GO_SPEC", 20_000)])
+def test_generate_gives_the_reference_graph(spec_name, n):
+    want = jsyn.generate(getattr(jsyn, spec_name), seed=3, n_terms=n)
+    got = tsyn.generate(getattr(tsyn, spec_name), seed=3, n_terms=n)
+    assert got.checksum() == want.checksum()
+    assert got.entities == want.entities and got.relations == want.relations
+    np.testing.assert_array_equal(got.triples, want.triples)
+    assert got.terms == {k: tsyn.TermMeta(*dataclasses.astuple(v))
+                         for k, v in want.terms.items()}
+
+
+@pytest.mark.parametrize("relabel", [0.0, 0.05])
+def test_release_series_and_deltas_match(relabel):
+    kw = dict(add_frac=0.05, obsolete_frac=0.02, rewire_frac=0.05,
+              relabel_frac=relabel)
+    want = jsyn.release_series(jsyn.GO_SPEC, 3, seed=4, n_terms=200, **kw)
+    got = tsyn.release_series(tsyn.GO_SPEC, 3, seed=4, n_terms=200, **kw)
+    assert [v for v, _ in got] == [v for v, _ in want]
+    assert [g.checksum() for _, g in got] == [g.checksum() for _, g in want]
+    for i in (1, 2):
+        d_want = JaxDelta.compute(want[i - 1][1], want[i][1])
+        d_got = GraphDelta.compute(got[i - 1][1], got[i][1])
+        assert d_got.stats() == d_want.stats()
+        assert d_got.touched_entities == d_want.touched_entities
+
+
+def test_obo_round_trip_matches():
+    kg = tsyn.generate(tsyn.GO_SPEC, seed=1, n_terms=90)
+    jkg = jsyn.generate(jsyn.GO_SPEC, seed=1, n_terms=90)
+    text = write_obo(kg, "2024-01")
+    assert text == jwrite_obo(jkg, "2024-01")
+    assert parse_obo(text).checksum() == jparse_obo(text).checksum()
+
+
+# ---------------------------- triple loader ---------------------------- #
+@pytest.mark.parametrize("m,batch,drop", [(100, 16, True), (10, 16, True),
+                                          (100, 16, False)])
+def test_triple_loader_gives_the_reference_batches(m, batch, drop):
+    trips = np.random.default_rng(0).integers(0, 50, (m, 3))
+    a = iter(TripleLoader(trips, batch, seed=9, drop_remainder=drop))
+    b = iter(JaxLoader(trips, batch, seed=9, drop_remainder=drop))
+    for _ in range(25):
+        np.testing.assert_array_equal(next(a), next(b))
+
+
+# ----------------------------- graph files ----------------------------- #
+def test_save_graph_is_byte_identical(tmp_path, monkeypatch):
+    kg = tsyn.generate(tsyn.GO_SPEC, seed=2, n_terms=80)
+    jkg = jsyn.generate(jsyn.GO_SPEC, seed=2, n_terms=80)
+    # zip members carry the write time: pin it for both writes
+    monkeypatch.setattr(zipfile.time, "time", lambda: 1_700_000_000.0)
+    TorchStore(tmp_path / "port").save_graph("go", "v1", kg)
+    JaxStore(tmp_path / "ref").save_graph("go", "v1", jkg)
+    for name in ("graph.npz", "graph_terms.json"):
+        assert (tmp_path / "port/go/v1" / name).read_bytes() \
+            == (tmp_path / "ref/go/v1" / name).read_bytes(), name
+    # and each package reads what the other wrote
+    assert TorchStore(tmp_path / "ref").load_graph("go", "v1").checksum() \
+        == kg.checksum()
+    assert JaxStore(tmp_path / "port").load_graph("go", "v1").checksum() \
+        == kg.checksum()
+    assert TorchStore(tmp_path / "ref").has_graph("go", "v1")
+    assert not TorchStore(tmp_path / "ref").has_graph("go", "v2")
+
+
+# ------------------------------- models -------------------------------- #
+def test_registry_has_the_ported_models_only():
+    assert available_models() == ("distmult", "transe")
+    for name in ("transr", "hole", "boxe", "rdf2vec", "nope"):
+        with pytest.raises(KeyError):
+            make_model(name, 4, 2)
+
+
+@pytest.mark.parametrize("name,kw", MODELS, ids=IDS)
+def test_param_shapes_and_roles_match(name, kw):
+    jm, tm, jp, tp = _pair(name, kw, n=20, n_rel=4)
+    assert {k: tuple(v.shape) for k, v in tp.items()} \
+        == {k: tuple(v.shape) for k, v in jp.items()} == tm.param_shapes()
+    assert tm.param_roles() == jm.param_roles()
+    assert tm.kge_score_model == IDS[MODELS.index((name, kw))]
+    # the port's own init: the reference's shapes and bounds, on the device
+    fresh = tm.init(torch.Generator().manual_seed(0))
+    bound = 6.0 / np.sqrt(16)
+    assert float(fresh["entity"].abs().max()) <= bound
+    assert fresh["entity"].shape == tp["entity"].shape
+
+
+@pytest.mark.parametrize("name,kw", MODELS, ids=IDS)
+def test_scores_match(name, kw):
+    jm, tm, jp, tp = _pair(name, kw)
+    rng = np.random.default_rng(1)
+    h, t = rng.integers(0, 50, (2, 9, 4))
+    r = rng.integers(0, 3, (9, 4))
+    _close(tm.score(tp, *map(torch.from_numpy, (h, r, t))),
+           jm.score(jp, *map(jnp.asarray, (h, r, t))))
+    hb, rb, tb = h[:, 0], r[:, 0], t[:, 0]
+    _close(tm.score_all_tails(tp, torch.from_numpy(hb), torch.from_numpy(rb)),
+           jm.score_all_tails(jp, jnp.asarray(hb), jnp.asarray(rb)))
+    _close(tm.score_all_heads(tp, torch.from_numpy(rb), torch.from_numpy(tb)),
+           jm.score_all_heads(jp, jnp.asarray(rb), jnp.asarray(tb)))
+    _close(tm.regularizer(tp, *map(torch.from_numpy, (hb, rb, tb))),
+           jm.regularizer(jp, *map(jnp.asarray, (hb, rb, tb))))
+
+
+def test_transe_score_all_chunks_over_entities(monkeypatch):
+    """A chunk smaller than the table gives the unchunked answer."""
+    import repro_torch.kge.transe as tt
+    _, tm, _, tp = _pair("transe", {}, n=37)
+    h = torch.tensor([0, 5, 36])
+    r = torch.tensor([0, 1, 2])
+    whole = tm.score_all_tails(tp, h, r)
+    monkeypatch.setattr(tt, "SCORE_ALL_ELEMENTS", 3 * 16 * 5)
+    torch.testing.assert_close(tm.score_all_tails(tp, h, r), whole)
+    torch.testing.assert_close(tm.score_all_heads(tp, r, h),
+                               -tm._dist(tp["entity"][None]
+                                         - (tp["entity"][h] - tp["relation"][r])[:, None]))
+
+
+@pytest.mark.parametrize("name,kw", MODELS, ids=IDS)
+def test_constrain_matches(name, kw):
+    jm, tm, jp, tp = _pair(name, kw)
+    jp = {k: v * 3.0 for k, v in jp.items()}           # norms well above 1
+    tp = params_from_numpy(tm, _np(jp), "cpu")
+    out = tm.constrain(tp)
+    assert out is tp                                      # in place
+    for k, v in jm.constrain(jp).items():
+        _close(tp[k], v, 1e-6)
+
+
+# ------------------------------- losses -------------------------------- #
+@pytest.mark.parametrize("name", ["margin", "nssa", "softplus", "bce"])
+def test_losses_and_their_gradients_match(name):
+    rng = np.random.default_rng(2)
+    pos = (rng.standard_normal(12) * 3).astype(np.float32)
+    neg = (rng.standard_normal((12, 5)) * 3).astype(np.float32)
+    kw = {"margin": 1.5} if name in ("margin", "nssa") else {}
+    jfn, tfn = jlosses.get_loss(name), tlosses.get_loss(name)
+    jl, jg = jax.value_and_grad(lambda p, n: jfn(p, n, **kw), (0, 1))(
+        jnp.asarray(pos), jnp.asarray(neg))
+    tp, tn = (torch.from_numpy(x).requires_grad_(True) for x in (pos, neg))
+    tl = tfn(tp, tn, **kw)
+    tg = torch.autograd.grad(tl, (tp, tn))
+    _close(tl, jl, 1e-6)
+    for g, w in zip(tg, jg):                      # nssa: weights detached
+        _close(g, w, 1e-6)
+
+
+# ----------------------------- one step -------------------------------- #
+def _jax_negatives(key, b, n, k):
+    """The draws of ``repro.kge.negatives.corrupt`` for ``key``."""
+    k_rand, k_side = jax.random.split(key)
+    return (np.array(jax.random.randint(k_rand, (b, k), 0, n)),
+            np.array(jax.random.bernoulli(k_side, 0.5, (b, k))))
+
+
+@pytest.mark.parametrize("reg", [0.0, 0.01])
+@pytest.mark.parametrize("name,kw", MODELS, ids=IDS)
+def test_one_training_step_matches(name, kw, reg):
+    """Same params, the same TripleLoader batch and the same negatives:
+    loss and gradients within 1e-5.  Then the port's Adam and constrain
+    on the reference's gradients give the reference's params within 1e-6,
+    and the next step starts from there.  (Adam on the port's own
+    gradients is no test: it scales a gradient that cancels to 0 in one
+    summation order and to 1e-10 in another up to a full lr step.)"""
+    n, dim, b, k = 40, 16, 32, 6
+    jm, tm, jp, tp = _pair(name, kw, n=n, dim=dim)
+    trips = np.random.default_rng(3).integers(0, [n, 3, n], (90, 3))
+    jcfg = JaxTrainConfig(batch_size=b, num_negs=k, reg_weight=reg)
+    tcfg = TrainConfig(batch_size=b, num_negs=k, reg_weight=reg)
+    jopt, topt = jadam(jcfg.lr), adam(tcfg.lr)
+    jstep, jloss_of = jmake_step(jm, jopt, jcfg)
+    tstep = make_train_step(tm, topt, tcfg)
+    js, ts = jopt.init(jp), topt.init(tp)
+    loader = iter(TripleLoader(trips, b, seed=0))
+    for i in range(3):
+        batch = next(loader)
+        key = jax.random.key(10 + i)
+        rand, ch = _jax_negatives(key, b, n, k)
+        tb = torch.from_numpy(batch).long()
+        tr, tc = torch.from_numpy(rand).long(), torch.from_numpy(ch)
+        jl, jg = jax.value_and_grad(jloss_of)(jp, jnp.asarray(batch), key)
+        tl, tg = tstep.loss_and_grads(tp, tb, tr, tc)
+        _close(tl, jl)
+        for p in jg:
+            _close(tg[p], jg[p])
+        jp, js, _ = jstep(jp, js, jnp.asarray(batch), key)
+        topt.update({p: torch.from_numpy(np.array(g))
+                     for p, g in jg.items()}, ts, tp)
+        tm.constrain(tp)
+        for p in jp:
+            _close(tp[p], jp[p], 1e-6)
+
+
+def test_step_draws_negatives_from_the_generator():
+    _, tm, _, tp = _pair("transe", {}, n=30)
+    cfg = TrainConfig(batch_size=8, num_negs=4)
+    step = make_train_step(tm, adam(cfg.lr), cfg)
+    batch = torch.from_numpy(np.random.default_rng(0).integers(0, 3, (8, 3)))
+    gen = torch.Generator().manual_seed(5)
+    rand, ch = corrupt(torch.Generator().manual_seed(5), batch, 30, 4)
+    assert rand.shape == (8, 4) and ch.dtype == torch.bool
+    assert int(rand.min()) >= 0 and int(rand.max()) < 30
+    tp2 = {k: v.clone() for k, v in tp.items()}
+    opt = adam(cfg.lr)
+    l1 = step.step(tp, opt.init(tp), batch, gen)
+    l2 = step.step_with(tp2, opt.init(tp2), batch, rand, ch)
+    assert float(l1) == float(l2)
+    for p in tp:
+        assert torch.equal(tp[p], tp2[p])
+
+
+# ------------------------------ optimizers ----------------------------- #
+@pytest.mark.parametrize("which", ["adam", "adam_schedule", "adagrad"])
+def test_optimizer_updates_match(which):
+    rng = np.random.default_rng(4)
+    p0 = {"entity": rng.standard_normal((20, 8)).astype(np.float32),
+          "relation": rng.standard_normal((3, 8)).astype(np.float32)}
+    if which == "adagrad":
+        jopt, topt = jadagrad(0.3), adagrad(0.3)
+    elif which == "adam":
+        jopt, topt = jadam(1e-2), adam(1e-2)
+    else:
+        jopt = jadam(jsched.linear_warmup_cosine(1e-2, 2, 6))
+        topt = adam(tsched.linear_warmup_cosine(1e-2, 2, 6))
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    tp = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    js, ts = jopt.init(jp), topt.init(tp)
+    for _ in range(6):
+        g = {k: rng.standard_normal(v.shape).astype(np.float32)
+             for k, v in p0.items()}
+        g["entity"][::2] = 0.0             # untouched rows still move
+        jp, js = jopt.update({k: jnp.asarray(v) for k, v in g.items()}, js, jp)
+        topt.update({k: torch.from_numpy(v) for k, v in g.items()}, ts, tp)
+        for k in p0:
+            _close(tp[k], jp[k], 1e-6)
+    assert ts.step == int(js.step)
+
+
+@pytest.mark.parametrize("fn,args", [
+    ("constant", (0.3,)), ("linear_warmup_cosine", (1e-2, 5, 40)),
+    ("inverse_sqrt", (1e-2, 5))])
+def test_schedules_match(fn, args):
+    j, t = getattr(jsched, fn)(*args), getattr(tsched, fn)(*args)
+    for step in (0, 1, 4, 5, 6, 20, 40, 80):
+        assert t(step) == pytest.approx(float(j(step)), rel=1e-6, abs=1e-9)
+
+
+# ------------------------------ warm start ----------------------------- #
+@pytest.mark.parametrize("name,kw", MODELS, ids=IDS)
+def test_remap_params_matches(name, kw):
+    n_old, n_new, n_rel, dim = 12, 13, 3, 8
+    jold = jmake_model(name, n_old, n_rel, dim=dim, **kw)
+    prev = _np(jold.init(jax.random.key(0)))
+    e_map = np.asarray([1, 2, 3, 4, -1, 5, 6, 7, 8, 9, 10, 11, -1], np.int32)
+    r_map = np.asarray([0, 2, -1], np.int32)
+    jnew = jmake_model(name, n_new, n_rel, dim=dim, **kw)
+    tnew = make_model(name, n_new, n_rel, dim=dim, **kw)
+    want, want_stats = jremap(jnew, jax.random.key(1), prev, e_map, r_map)
+    got, stats = remap_params(tnew, torch.Generator().manual_seed(1), prev,
+                              e_map, r_map)
+    assert stats == want_stats
+    for table, mapping in (("entity", e_map), ("relation", r_map)):
+        keep = mapping >= 0
+        carried = got[table].numpy()[keep]
+        np.testing.assert_array_equal(carried, prev[table][mapping[keep]])
+        np.testing.assert_array_equal(carried, np.asarray(want[table])[keep])
+    # a dim change or a missing table falls back to fresh init wholesale
+    small = make_model(name, n_new, n_rel, dim=4, **kw)
+    _, s2 = remap_params(small, torch.Generator(), prev, e_map, r_map)
+    _, s3 = remap_params(tnew, torch.Generator(), {"entity": prev["entity"]},
+                         e_map, r_map)
+    assert s2["tables_carried"] == 0 and s3["tables_fresh"] == 1
+
+
+def test_vocab_remap_matches():
+    from repro.kge import vocab_remap as jvocab
+    old, new = ["A", "B", "C", "D"], ["B", "E", "A"]
+    assert vocab_remap(old, new).tolist() == jvocab(old, new).tolist()
+    assert vocab_remap(old, new).dtype == np.int32
+
+
+def test_params_cross_the_packages_both_ways():
+    jm, tm, jp, tp = _pair("distmult", {}, n=7, n_rel=2, dim=5)
+    back = params_to_numpy(tp)
+    for k in jp:
+        np.testing.assert_array_equal(back[k], np.asarray(jp[k]))
+    arr = _np(jp)
+    params_from_numpy(tm, arr, "cpu")["entity"].add_(1.0)
+    np.testing.assert_array_equal(arr["entity"], np.asarray(jp["entity"]))
+    with pytest.raises(ValueError):
+        params_from_numpy(tm, {**arr, "entity": arr["entity"][:3]}, "cpu")
+    with pytest.raises(KeyError):
+        params_from_numpy(tm, {"entity": arr["entity"]}, "cpu")
+
+
+def test_trainer_warm_init_and_fit_on_cpu():
+    kg = tsyn.generate(tsyn.GO_SPEC, seed=0, n_terms=60)
+    model = make_model("transe", kg.num_entities, kg.num_relations, dim=8)
+    tr = KGETrainer(model, TrainConfig(batch_size=16, num_negs=4, log_every=5),
+                    device="cpu")
+    params, opt_state, stats = tr.fit(kg.triples, steps=12)
+    assert stats["steps"] == 12 and len(stats["losses"]) == 4
+    assert np.isfinite(stats["final_loss"])
+    assert float(params["entity"].norm(dim=1).max()) <= 1.0 + 1e-5
+    ident = np.arange(kg.num_entities, dtype=np.int32)
+    warm, st, carry = tr.warm_init(params_to_numpy(params), ident,
+                                   np.arange(kg.num_relations), seed=3)
+    assert carry["entity_carried"] == kg.num_entities and st.step == 0
+    assert torch.equal(warm["entity"], params["entity"])
+
+
+# ------------------------------ evaluation ----------------------------- #
+@pytest.mark.parametrize("name,kw", MODELS, ids=IDS)
+def test_rank_based_eval_matches(name, kw):
+    kg = jsyn.generate(jsyn.GO_SPEC, seed=5, n_terms=120)
+    jm, tm, jp, tp = _pair(name, kw, n=kg.num_entities,
+                           n_rel=kg.num_relations, dim=16)
+    ev = kg.triples[:70]
+    want = jeval(jm, jp, ev, kg.triples, batch_size=32)
+    got = rank_based_eval(tm, tp, ev, kg.triples, batch_size=32)
+    assert set(got) == set(want)
+    for key in want:
+        assert got[key] == pytest.approx(want[key], abs=1e-4), key
+
+
+# ------------------------------- configs ------------------------------- #
+@pytest.mark.parametrize("mod,jmod,name", [
+    (tgo, jgo, "CONFIG"), (tgo, jgo, "REDUCED"), (tgo, jgo, "SCALE"),
+    (thp, jhp, "CONFIG"), (thp, jhp, "REDUCED")])
+def test_workload_configs_match(mod, jmod, name):
+    got, want = getattr(mod, name), getattr(jmod, name)
+    for f in ("name", "n_terms", "dim", "models", "n_versions"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert dataclasses.asdict(got.train) == dataclasses.asdict(want.train)
+    assert dataclasses.asdict(got.spec) == dataclasses.asdict(want.spec)
+
+
+def test_go_workload_shapes():
+    """The numbers the chip run's update phase relies on."""
+    t0 = time.perf_counter()
+    kg = tsyn.generate(tgo.CONFIG.spec, seed=0, n_terms=tgo.CONFIG.n_terms)
+    assert (kg.num_entities, kg.num_relations, kg.num_triples) \
+        == (40_000, 3, 61_749)
+    assert time.perf_counter() - t0 < 30

@@ -1,0 +1,198 @@
+"""The port's fused KGE scoring against the JAX package's.
+
+The same inputs, made by numpy from a seed, go through
+``repro.kernels.kge_score.kge_score_pallas`` (interpret mode), the JAX
+``kge_score_ref`` and ``jax.vjp`` of it, and through the port's plain
+forward and backward (what the wrapper runs on a CPU tensor) and its
+``torch.autograd.Function``.  Tolerance 1e-4, the reference's own for
+KGE scoring (``tests/test_kernels.py``): fp32 sums taken in another
+order.  The CUDA kernels run only on a card (the ``cuda`` test at the
+end, and ``chip_smoke.py``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.kge_score import kge_score_pallas
+from repro_torch.kernels import kge_score as tkge
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+MODELS = ("transe_l1", "transe_l2", "distmult")
+#: test_kernels.py's grid, one more d = 200 shape, and the smallest
+GRID = [(32, 8, 64), (100, 5, 200), (7, 3, 32), (16, 32, 200), (1, 1, 1)]
+TOL = 1e-4
+
+
+def _inputs(B, K, d, seed=0, mask="random", t_is_h_plus_r=False):
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((B, d)).astype(np.float32)
+    r = rng.standard_normal((B, d)).astype(np.float32)
+    t = (h + r) if t_is_h_plus_r else rng.standard_normal((B, d)).astype(np.float32)
+    neg = rng.standard_normal((B, K, d)).astype(np.float32)
+    ch = {"random": rng.random((B, K)) < 0.5,
+          "true": np.ones((B, K), bool),
+          "false": np.zeros((B, K), bool)}[mask]
+    return h, r, t.astype(np.float32), neg, ch
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(np.array(a)) for a in arrays)
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("B,K,d", GRID[:3])
+def test_forward_matches_pallas_interpret(model, B, K, d):
+    h, r, t, neg, ch = _inputs(B, K, d, seed=B + K + d)
+    pos_p, negs_p = kge_score_pallas(*map(jnp.asarray, (h, r, t, neg, ch)),
+                                     model=model, interpret=True)
+    pos, negs = tkge.kge_score_forward(*_t(h, r, t, neg, ch), model)
+    _close(pos, pos_p)
+    _close(negs, negs_p)
+
+
+@pytest.mark.parametrize("mask", ["random", "true", "false"])
+@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("B,K,d", GRID)
+def test_forward_matches_jax_ref(model, B, K, d, mask):
+    h, r, t, neg, ch = _inputs(B, K, d, seed=7, mask=mask)
+    want = jref.kge_score_ref(*map(jnp.asarray, (h, r, t, neg, ch)),
+                              model=model)
+    got = tops.kge_score(*_t(h, r, t, neg, ch), model)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        _close(g, w)
+
+
+@pytest.mark.parametrize("mask", ["random", "true", "false"])
+@pytest.mark.parametrize("t_is_h_plus_r", [False, True])
+@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("B,K,d", GRID)
+def test_backward_matches_jax_vjp(model, B, K, d, t_is_h_plus_r, mask):
+    """The plain backward against ``jax.vjp`` of the reference with
+    random cotangents; ``t = h + r`` makes every coordinate of the
+    positive's difference exactly 0, where the derivative of |x| must be
+    JAX's +1."""
+    h, r, t, neg, ch = _inputs(B, K, d, seed=11, mask=mask,
+                               t_is_h_plus_r=t_is_h_plus_r)
+    rng = np.random.default_rng(5)
+    g_pos = rng.standard_normal(B).astype(np.float32)
+    g_negs = rng.standard_normal((B, K)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c, n: jref.kge_score_ref(
+        a, b, c, n, jnp.asarray(ch), model=model),
+        *map(jnp.asarray, (h, r, t, neg)))
+    want = vjp((jnp.asarray(g_pos), jnp.asarray(g_negs)))
+    got = tkge.kge_score_backward(*_t(h, r, t, neg, ch, g_pos, g_negs), model)
+    for name, g, w in zip(("h", "r", "t", "neg"), got, want):
+        assert g.shape == w.shape, name
+        _close(g, w)
+
+
+def test_abs_gradient_at_zero_follows_jax():
+    """``jax.grad(jnp.abs)(0.0) == 1.0``; ``torch.abs``'s is 0.  With
+    ``t = h + r`` and only the positive's cotangent, TransE-L1's gradient
+    is exactly ``-g_pos`` in every coordinate of h and r."""
+    assert float(jax.grad(jnp.abs)(0.0)) == 1.0
+    h, r, t, neg, ch = _inputs(4, 3, 8, t_is_h_plus_r=True)
+    assert not (h + r - t).any()
+    g_pos = np.array([1.0, -2.0, 0.5, 3.0], np.float32)
+    g_negs = np.zeros((4, 3), np.float32)
+    gh, gr, gt, gneg = tkge.kge_score_backward(
+        *_t(h, r, t, neg, ch, g_pos, g_negs), "transe_l1")
+    np.testing.assert_array_equal(gh.numpy(), np.broadcast_to(-g_pos[:, None], (4, 8)))
+    np.testing.assert_array_equal(gr.numpy(), gh.numpy())
+    np.testing.assert_array_equal(gt.numpy(), -gh.numpy())
+    assert not gneg.numpy().any()
+    # TransE-L2: x / sqrt(sum x^2 + 1e-12) is 0 at x = 0
+    gh2, _, _, _ = tkge.kge_score_backward(
+        *_t(h, r, t, neg, ch, g_pos, g_negs), "transe_l2")
+    assert not gh2.numpy().any()
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_autograd_function_matches_torch_autograd_of_plain_forward(model):
+    """Away from exact zeros the written-out backward is autograd's."""
+    h, r, t, neg, ch = _inputs(12, 6, 40, seed=3)
+    g_pos = torch.from_numpy(np.linspace(-1, 1, 12, dtype=np.float32))
+    g_negs = torch.from_numpy(
+        np.random.default_rng(1).standard_normal((12, 6)).astype(np.float32))
+
+    def grads(fn):
+        leaves = [x.requires_grad_(True) for x in _t(h, r, t, neg)]
+        pos, negs = fn(*leaves, torch.from_numpy(ch), model)
+        return torch.autograd.grad((pos, negs), leaves, (g_pos, g_negs))
+
+    for g, w in zip(grads(tops.kge_score), grads(tref.kge_score_ref)):
+        _close(g.numpy(), w.numpy(), 1e-5)
+
+
+def test_autograd_function_with_one_output_unused():
+    h, r, t, neg, ch = _t(*_inputs(5, 2, 6, seed=9))
+    leaves = [x.requires_grad_(True) for x in (h, r, t, neg)]
+    _, negs = tops.kge_score(*leaves, ch, "distmult")
+    g = torch.autograd.grad(negs.sum(), leaves)
+    want = tkge.kge_score_backward(*(x.detach() for x in leaves), ch,
+                                   torch.zeros(5), torch.ones(5, 2),
+                                   "distmult")
+    for a, b in zip(g, want):
+        _close(a.detach().numpy(), b.numpy(), 1e-6)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    tkge.reset_launches()
+    h, r, t, neg, ch = _t(*_inputs(3, 2, 4))
+    tops.kge_score(h, r, t, neg, ch, "transe_l2")
+    assert tkge.launches == {"kge_score_forward": 0, "kge_score_backward": 0}
+
+
+@pytest.mark.parametrize("bad", ["model", "neg_shape", "dtype", "mask",
+                                 "contiguous", "dim"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    h, r, t, neg, ch = _t(*_inputs(3, 2, 4))
+    if bad == "model":
+        with pytest.raises(ValueError, match="unknown kge_score model"):
+            tkge.kge_score_forward(h, r, t, neg, ch, "transr")
+        return
+    if bad == "neg_shape":
+        neg = neg[:, :, :3].contiguous()
+    elif bad == "dtype":
+        r = r.double()
+    elif bad == "mask":
+        ch = ch.int()
+    elif bad == "contiguous":
+        neg = neg.transpose(0, 1).contiguous().transpose(0, 1)
+    elif bad == "dim":
+        h = torch.zeros(3, tkge.MAX_DIM + 1)
+    with pytest.raises(ValueError):
+        tkge._check(h, r, t, neg, ch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", MODELS)
+def test_kernels_match_plain_on_card(model):
+    """Forward and backward kernels against their plain versions on the
+    card; skips on machines without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    arrays = _inputs(100, 5, 200, seed=2)
+    h, r, t, neg, ch = (x.to(dev) for x in _t(*arrays))
+    g_pos = torch.randn(100, device=dev)
+    g_negs = torch.randn(100, 5, device=dev)
+    tkge.reset_launches()
+    got = tkge.kge_score_forward(h, r, t, neg, ch, model)
+    got_b = tkge.kge_score_backward(h, r, t, neg, ch, g_pos, g_negs, model)
+    assert tkge.launches == {"kge_score_forward": 1, "kge_score_backward": 1}
+    want = tref.kge_score_ref(h, r, t, neg, ch, model)
+    want_b = tref.kge_score_backward_ref(h, r, t, neg, ch, g_pos, g_negs,
+                                         model)
+    for g, w in zip(got + got_b, want + want_b):
+        _close(g.cpu().numpy(), w.cpu().numpy())
