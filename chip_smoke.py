@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's serving and update paths the way a user does and holds
-every kernel to its plain PyTorch version on the card.  Phases, in order;
-any failure exits non-zero:
+Drives the port's serving, update and LM-generation paths the way a user
+does and holds every kernel to its plain PyTorch version on the card.
+Phases, in order; any failure exits non-zero:
 
   1. build    compile ``src/repro_torch/kernels/csrc/*.cu`` (nvcc, sm_90a,
               one nvcc per source, all at once)
@@ -14,20 +14,33 @@ any failure exits non-zero:
               plain versions: TransE-L1/L2 and DistMult x (B, K, d) in
               {(1024, 32, 200), (100, 5, 200), (7, 3, 32), (1, 1, 1)} x
               masks all-true/all-false/random, with and without t = h + r
-  4. serve    two versions of a 40,000 x 200 GO-size snapshot published
+  4. swa      the sliding-window attention kernel against its plain
+              version, fp32 and bf16: the reference's test shapes, reduced
+              h2o-danube (with and without padded kv groups), q_offset with
+              Sq < Skv, W = 1, W >= S, ragged S, and one full h2o-danube
+              layer (S 6144, W 4096, d 80) on 4 heads
+  5. serve    two versions of a 40,000 x 200 GO-size snapshot published
               through the port's registry; ``repro_torch.launch.serve``
               in client-session mode, then HTTP over the gateway, every
               answer checked against the plain version
-  5. update   the update path at the GO workload's full width and the
+  6. update   the update path at the GO workload's full width and the
               paper's budget (100 epochs): a 40k-term synthetic GO release
               published by ``Updater.run_once`` (TransE, DistMult), evolved
               to v2 and updated incrementally, a cold v2 in a second
               registry, closest-concepts for v2 from the engine the
               updater invalidated, and MRR warm against cold
-  6. numbers  top-k kernel, plain, library and host-to-device times (CUDA
+  7. lm       h2o-danube-1.8b at its published width: in fp32 the last
+              logits of prefill(6145) against prefill(6144) + decode_step
+              (2e-3, same argmax), 24 SWA launches per prefill; then a
+              bf16 generation through ``repro_torch.launch.generate``
+              (batch 2, prompt 6144, 32 greedy decode steps), ids in vocab
+  8. numbers  top-k kernel, plain, library and host-to-device times (CUDA
               events) at N = 40k and 100k; kge_score forward and backward
               times at (1024, 32, 200); the device-busy share of a
-              training step by part (torch.profiler)
+              training step by part (torch.profiler); the SWA kernel at
+              one h2o-danube layer's shape against its bound, its plain
+              version and ``scaled_dot_product_attention``; the device-busy
+              share of a full-width decode step
 
 Run from the repository root with no arguments::
 
@@ -35,8 +48,9 @@ Run from the repository root with no arguments::
 
 It prints JSON lines as it goes, then the card's name and power limit,
 the kernels line, and last ``{"ok": true, "device": {...}}``.
-``--phases`` runs a subset (``build,kernels`` or ``build,kge`` is a quick
-compile check; ``build,kge,update`` the update path alone);
+``--phases`` runs a subset (``build,kernels``, ``build,kge`` or
+``build,swa,lm`` is a quick check of one slice; ``build,kge,update`` the
+update path alone);
 ``--out PATH`` also writes every result to one JSON file.
 """
 from __future__ import annotations
@@ -79,6 +93,32 @@ GO_TRIPLES = 61_749          # triples of generate(GO_SPEC, seed=0, n_terms=4000
 CALM = dict(add_frac=0.02, obsolete_frac=0.005, rewire_frac=0.005)
 MRR_TOL_ABS, MRR_TOL_REL = 0.05, 0.15
 MRR_SAMPLE = 1000
+SWA_SOURCE = "src/repro_torch/kernels/csrc/swa_attention.cu"
+SWA_REPLACES = "src/repro/kernels/swa_attention.py:72"
+SWA_TOL = 2e-4              # fp32 kernel vs plain, the reference's own (test_kernels.py)
+#: bf16: the output's rounding plus p rounded to bf16 before P.V
+SWA_BF16_TOL = 1e-2
+#: (B, Hq, Hkv, Sq, Skv, hd, window, q_offset) the swa phase holds the
+#: kernel to its plain version on
+SWA_CASES = (
+    ("test_kernels 1", (1, 2, 1, 128, 128, 32, 32, 0)),
+    ("test_kernels 2", (2, 4, 2, 256, 256, 64, 64, 0)),
+    ("test_kernels 3 (W >= S)", (1, 1, 1, 64, 64, 16, 128, 0)),
+    ("h2o reduced (S 80 wraps W 64)", (2, 4, 2, 80, 80, 64, 64, 0)),
+    ("h2o reduced, kv_groups 4", (2, 4, 4, 80, 80, 64, 64, 0)),
+    ("q_offset, Sq < Skv", (2, 8, 2, 37, 300, 80, 128, 263)),
+    ("q_offset, one query", (1, 4, 1, 1, 517, 128, 64, 516)),
+    ("W = 1", (1, 4, 2, 130, 130, 80, 1, 0)),
+    ("W >= S, ragged", (1, 6, 3, 1000, 1000, 80, 5000, 0)),
+    ("ragged S", (2, 4, 1, 131, 131, 128, 50, 0)),
+    ("h2o layer, 4 heads", (1, 4, 1, 6144, 6144, 80, 4096, 0)),
+)
+#: the LM generation run: h2o-danube-1.8b at its published width, a prompt
+#: longer than its 4096 window (the roll shift after prefill is 2048)
+LM_ARCH = "h2o-danube-1.8b"
+LM_BATCH, LM_PROMPT, LM_STEPS = 2, 6144, 32
+LM_TOL = 2e-3               # the reference's TOL (tests/test_arch_consistency.py)
+BF16_FLOP_PER_S = 989e12    # H100 SXM data sheet, dense bf16 tensor cores
 SMALL_ENTRY = ("topk_select_chunks", "topk_merge_running")
 LARGE_ENTRY = ("topk_score_keys", "topk_bitonic_global",
                "topk_bitonic_shared", "topk_gather")
@@ -173,7 +213,9 @@ def phase_build() -> dict:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     libs = _build.build_all()
+    import torch
     out = {"phase": "build", "seconds": time.perf_counter() - t0,
+           "torch": torch.__version__, "cuda": torch.version.cuda,
            "compile_s": _build.last_build_s,
            "libraries": {k: str(p.relative_to(ROOT)) for k, p in libs.items()}}
     emit(out)
@@ -369,6 +411,52 @@ def phase_kge() -> dict:
            "max_abs_err_forward": err["forward"],
            "max_abs_err_backward": err["backward"],
            "tolerance": {"rtol": KGE_TOL, "atol": KGE_TOL}}
+    emit(out)
+    return out
+
+
+def _swa_inputs(B: int, hq: int, hkv: int, sq: int, skv: int, hd: int,
+                dtype, gen):
+    import torch
+    q = torch.randn((B * hq, sq, hd), generator=gen, device=DEV)
+    k = torch.randn((B * hkv, skv, hd), generator=gen, device=DEV)
+    v = torch.randn((B * hkv, skv, hd), generator=gen, device=DEV)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def phase_swa() -> dict:
+    """The sliding-window attention kernel against its plain version on the
+    card, fp32 and bf16, over the reference's test shapes, reduced and full
+    h2o-danube, and the edges of the mask."""
+    import torch
+    from repro_torch.kernels import ref, swa_attention as sw
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    cases = []
+    sw.reset_launches()
+    for note, (B, hq, hkv, sq, skv, hd, W, off) in SWA_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _swa_inputs(B, hq, hkv, sq, skv, hd, dtype, gen)
+            got = sw.swa_attention_forward(q, k, v, W, off).float()
+            want = ref.swa_attention_ref(q[None], k[None], v[None], W,
+                                         off)[0].float()
+            diff = (got - want).abs()
+            name = str(dtype).replace("torch.", "")
+            tol = SWA_TOL if dtype == torch.float32 \
+                else SWA_BF16_TOL * (1 + want.abs())
+            check(bool(torch.isfinite(got).all()) and bool((diff <= tol).all()),
+                  f"swa {note} {name}: off by {float(diff.max())}")
+            err[name] = max(err[name], float(diff.max()))
+            cases.append(f"{note} {name}")
+            del q, k, v, got, want, diff
+    torch.cuda.synchronize()
+    check(sw.launches["swa_attention_forward"] == len(cases),
+          "swa: a case launched no kernel")
+    out = {"phase": "swa", "cases": len(cases), "max_abs_err_fp32":
+           err["float32"], "max_abs_err_bf16": err["bfloat16"],
+           "tolerance": {"fp32": SWA_TOL,
+                         "bf16": f"{SWA_BF16_TOL} * (1 + |plain|)"}}
     emit(out)
     return out
 
@@ -658,6 +746,82 @@ def phase_update(tmp: str) -> dict:
            "delta_v2": reports["v2_warm"].delta,
            "update_wall_s": {k: r.wall_s for k, r in reports.items()},
            "per_model": per_model, "launches": launches}
+    emit(out)
+    return out
+
+
+def _lm_prompt(cfg, n: int):
+    import torch
+    rng = np.random.default_rng(SEED + 12)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, (LM_BATCH, n),
+                                         dtype=np.int32)).to(DEV)
+
+
+def phase_lm() -> dict:
+    """The dense-LM serving path at h2o-danube-1.8b's published width.
+
+    fp32: the last logits of prefill(S + 1) against prefill(S) +
+    decode_step, S = 6144 > W = 4096: the kernel (every layer of both
+    prefills) against the plain decode attention over the rolled cache.
+    bf16: the generation of ``launch.generate`` (a warm-up run, then the
+    measured one), its ids in the vocab and its SWA launches."""
+    import torch
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.launch import generate
+    from repro_torch.models import build, get_config
+
+    cfg = get_config(LM_ARCH).with_(dtype="float32")
+    model = build(cfg).init(torch.Generator(device=DEV).manual_seed(SEED))
+    toks = _lm_prompt(cfg, LM_PROMPT + 1)
+    t0 = time.perf_counter()
+    sw.reset_launches()
+    full, _ = model.prefill({"tokens": toks})
+    torch.cuda.synchronize()
+    launches_full = sw.launches["swa_attention_forward"]
+    sw.reset_launches()
+    _, cache = model.prefill({"tokens": toks[:, :-1]},
+                             cache_len=LM_PROMPT + 1)
+    dec, _ = model.decode_step(cache, toks[:, -1:], LM_PROMPT)
+    torch.cuda.synchronize()
+    launches_part = sw.launches["swa_attention_forward"]
+    fp32_s = time.perf_counter() - t0
+    check(launches_full == cfg.n_layers and launches_part == cfg.n_layers,
+          f"fp32 prefills launched {launches_full} and {launches_part} SWA "
+          f"kernels, want {cfg.n_layers} each")
+    check(tuple(full.shape) == (LM_BATCH, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(full).all())
+          and bool(torch.isfinite(dec).all()), "fp32 logits not finite")
+    diff = (dec - full).abs()
+    check(bool((diff <= LM_TOL * (1 + full.abs())).all()),
+          f"prefill(S+1) vs prefill(S) + decode: off by {float(diff.max())}")
+    argmax_same = bool(torch.equal(dec.argmax(-1), full.argmax(-1)))
+    check(argmax_same, "prefill(S+1) vs prefill(S) + decode: argmax differs")
+    consistency = {"max_abs_diff": float(diff.max()),
+                   "max_abs_logit": float(full.abs().max()),
+                   "argmax_equal": argmax_same, "seconds": fp32_s,
+                   "swa_launches_per_prefill": launches_full}
+    del model, cache, full, dec, diff
+    torch.cuda.empty_cache()
+
+    argv = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
+            str(LM_PROMPT), "--steps", str(LM_STEPS), "--seed", str(SEED),
+            "--device", DEV]
+    warm = generate.main(argv)
+    torch.cuda.empty_cache()
+    # ----------------- main path: bf16 generation --------------------- #
+    sw.reset_launches()
+    run = generate.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(sw.launches)
+    check(launches["swa_attention_forward"] == get_config(LM_ARCH).n_layers,
+          f"generation launched {launches} SWA kernels, want one per layer")
+    ids = np.asarray(run["ids"])
+    check(ids.shape == (LM_BATCH, LM_STEPS + 1), f"ids shape {ids.shape}")
+    out = {"phase": "lm", "fp32_consistency": consistency,
+           "generation": {k: v for k, v in run.items() if k != "ids"},
+           "warmup_generation": {k: warm[k] for k in (
+               "prefill_ms", "decode_ms_per_token")},
+           "ids_row0": run["ids"][0], "launches": launches}
     emit(out)
     return out
 
@@ -966,8 +1130,136 @@ def kge_numbers(card: str) -> dict:
     return {"kge_rows": rows, "train_steps": steps}
 
 
+def swa_pairs(sq: int, skv: int, window: int, q_offset: int) -> int:
+    """(query, key) pairs the band holds: what the work depends on."""
+    i = q_offset + np.arange(sq)
+    return int(np.maximum(0, np.minimum(i, skv - 1)
+                          - np.maximum(0, i - window + 1) + 1).sum())
+
+
+def swa_bound_ms(B: int, hq: int, hkv: int, S: int, hd: int, W: int,
+                 dtype_bytes: int) -> tuple:
+    """Least time for one SWA call: q, k, v read once and o written once;
+    4 * hd operations per visible (query, key) pair (two products), at the
+    bf16 tensor-core rate."""
+    nbytes = (2 * B * hq + 2 * B * hkv) * S * hd * dtype_bytes
+    ops = 4.0 * hd * swa_pairs(S, S, W, 0) * B * hq
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def swa_numbers(card: str) -> dict:
+    """The SWA kernel at one h2o-danube layer's shape (B = 2, 32 q heads,
+    8 kv heads, S = 6144, W = 4096, d = 80, bf16): kernel, device, plain
+    and library times beside the bound; then where the device time of a
+    bf16 prefill (6144 tokens) and of a decode step after it goes, and
+    their device-busy shares, at full width."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, swa_attention as sw
+    from repro_torch.models import build, get_config
+    from repro_torch.models.steps import make_serve_step
+
+    cfg = get_config(LM_ARCH)
+    B, hq, hkv, S, hd, W = (LM_BATCH, cfg.n_heads, cfg.n_kv_heads,
+                            LM_PROMPT, cfg.hd, cfg.window)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    q, k, v = _swa_inputs(B, hq, hkv, S, S, hd, torch.bfloat16, gen)
+    kern = lambda: sw.swa_attention_forward(q, k, v, W)
+    plain = lambda: ref.swa_attention_ref(q[None], k[None], v[None], W)
+    q4 = q.reshape(B, hq, S, hd)
+    k4, v4 = k.reshape(B, hkv, S, hd), v.reshape(B, hkv, S, hd)
+    pos = torch.arange(S, device=DEV)
+    band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < W)
+    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=band,
+                                                 enable_gqa=True)
+    # the yardstick computes the same function (outputs here are |o| < 1)
+    lib_err = float((lib().reshape(B * hq, S, hd).float()
+                     - kern().float()).abs().max())
+    check(lib_err <= 2 * SWA_BF16_TOL,
+          f"the library yardstick differs from the kernel by {lib_err}")
+    dev_ms = _device_ms(kern)
+    ours = {n: t for n, t in dev_ms.items() if "swa_" in n}
+    b_ms, b_by = swa_bound_ms(B, hq, hkv, S, hd, W, 2)
+    rec = {"B": B, "Hq": hq, "Hkv": hkv, "S": S, "d": hd, "W": W,
+           "dtype": "bfloat16", "pairs_per_head": swa_pairs(S, S, W, 0),
+           "ms": _cuda_ms(kern, iters=20),
+           "device_ms": sum(ours.values()) if ours else None,
+           "plain_ms": _cuda_ms(plain, iters=3, warmup=1),
+           "library_ms": _cuda_ms(lib, iters=10, warmup=2),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_vs_kernel_max_abs": lib_err, "card": card}
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    rec["fp32_ms"] = _cuda_ms(lambda: sw.swa_attention_forward(qf, kf, vf, W),
+                              iters=5, warmup=1)
+    emit({"numbers": rec})
+    del q, k, v, q4, k4, v4, qf, kf, vf, band
+    torch.cuda.empty_cache()
+
+    # where the device time of a bf16 prefill and of a decode step goes
+    model = build(cfg).init(torch.Generator(device=DEV).manual_seed(SEED))
+    prompt = {"tokens": _lm_prompt(cfg, S)}
+    prefill = _busy_share(lambda: model.prefill(prompt, cache_len=S + 64),
+                          steps=2)
+    emit({"prefill": {**prefill, "card": card}})
+    _, cache = model.prefill(prompt, cache_len=S + 64)
+    serve = make_serve_step(model)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=DEV)
+    state = {"pos": S}
+
+    def step():
+        nonlocal tok, cache
+        tok, cache = serve(cache, tok, state["pos"])
+        state["pos"] += 1
+
+    busy = _busy_share(step, steps=16)
+    emit({"decode_step": {**busy, "card": card}})
+    del model, cache
+    torch.cuda.empty_cache()
+    return {"swa": rec, "prefill": prefill, "decode_step": busy}
+
+
+def _busy_share(fn, steps: int) -> dict:
+    """Wall time and device busy time per call of ``fn`` over ``steps``
+    calls, from torch.profiler (kernels and copies on the device)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    ops = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) \
+                + e.device_time_total
+            ops += 1
+    busy = sum(by_name.values())
+    if busy == 0:
+        return {"profiler": "no device time reported"}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "device_busy_ms_per_step": busy / 1e3 / steps,
+            "device_busy_share": busy / 1e3 / wall_ms,
+            "device_ops_per_step": ops / steps,
+            "swa_kernel_ms_per_step": sum(
+                v for k, v in by_name.items() if "swa_" in k) / 1e3 / steps,
+            "top_kernels_ms_per_step": {k: v / 1e3 / steps for k, v in top},
+            "unprofiled_ms_per_step": _host_ms(fn, iters=steps, warmup=1)}
+
+
 def kernels_line(kern: dict, serve_out: dict, kge: dict,
-                 update_out: dict, numbers: dict) -> dict:
+                 update_out: dict, numbers: dict, swa: dict,
+                 lm: dict) -> dict:
     """One entry per kernel path, at the shapes the main path gives it:
     a 8192-row slab of the 40k table with its running list, Q = 32 and
     k = 10 for the small path (the serve session's batches), Q = 1 and
@@ -1010,6 +1302,19 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
             "bound_ms": r[f"{key}_bound_ms"],
             "bound_by": r[f"{key}_bound_by"],
             "library_ms": r[f"{key}_library_ms"]})
+    # swa at one h2o-danube layer's shape in bf16; launches counted over
+    # the measured generation run (one prefill of 24 layers)
+    r = numbers["swa"]["swa"]
+    out.append({
+        "name": f"swa_attention_forward (bf16, B={r['B']} Hq={r['Hq']} "
+                f"Hkv={r['Hkv']} S={r['S']} W={r['W']} d={r['d']})",
+        "route": "cuda", "source": SWA_SOURCE, "replaces": SWA_REPLACES,
+        "launches": lm["launches"]["swa_attention_forward"],
+        "max_abs_err": swa["max_abs_err_bf16"],
+        "max_abs_err_fp32": swa["max_abs_err_fp32"],
+        "ms": r["ms"], "device_ms": r["device_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     return {"kernels": out}
 
 
@@ -1025,7 +1330,7 @@ def card_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,kge,serve,update,numbers")
+                    default="build,kernels,kge,swa,serve,update,lm,numbers")
     ap.add_argument("--out", default=None, help="also write results here")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1079,16 +1384,24 @@ def main(argv=None) -> int:
         if "kge" in phases:
             RESULTS["phases"]["kge"] = phase_kge()
             torch.cuda.synchronize()
+        if "swa" in phases:
+            RESULTS["phases"]["swa"] = phase_swa()
+            torch.cuda.synchronize()
         if "serve" in phases:
             RESULTS["phases"]["serve"] = phase_serve(tmp, served)
             torch.cuda.synchronize()
         if "update" in phases:
             RESULTS["phases"]["update"] = phase_update(tmp)
             torch.cuda.synchronize()
+        if "lm" in phases:
+            RESULTS["phases"]["lm"] = phase_lm()
+            torch.cuda.synchronize()
         if "numbers" in phases:
             RESULTS["phases"]["numbers"] = phase_numbers(store_tables, card)
             torch.cuda.synchronize()
             RESULTS["phases"]["numbers"]["kge"] = kge_numbers(card)
+            torch.cuda.synchronize()
+            RESULTS["phases"]["numbers"]["swa"] = swa_numbers(card)
             torch.cuda.synchronize()
         store_tables.clear()
     RESULTS["seconds"] = time.perf_counter() - t_start
@@ -1097,10 +1410,12 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(RESULTS, indent=1))
     print(card)
-    if {"kernels", "kge", "serve", "update", "numbers"} <= phases:
+    if {"kernels", "kge", "swa", "serve", "update", "lm",
+            "numbers"} <= phases:
         ph = RESULTS["phases"]
         print(json.dumps(kernels_line(ph["kernels"], ph["serve"], ph["kge"],
-                                      ph["update"], ph["numbers"])))
+                                      ph["update"], ph["numbers"], ph["swa"],
+                                      ph["lm"])))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,9 @@
 """Where the port runs: one explicit ``torch.device`` per entry point.
 
 Every entry point of the port (``EmbeddingIndex``, ``ServingEngine``,
-``launch.serve``) takes its device from :func:`resolve_device`.  The
+``launch.serve``, ``launch.train``, ``launch.generate``,
+``models.convert.params_from_numpy``) takes its device from
+:func:`resolve_device`.  The
 default is the card; the CPU is used only when a caller asks for it, and
 then the plain PyTorch version of every kernel runs.  Nothing falls back
 to the CPU on its own: a missing card is an error, never a slow answer.

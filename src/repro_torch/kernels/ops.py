@@ -1,10 +1,13 @@
-"""Public kernel entry points: the top-k streaming driver and KGE scoring.
+"""Public kernel entry points: the top-k streaming driver, KGE scoring and
+sliding-window attention.
 
 The port of ``repro.kernels.ops`` (``topk_cosine``, ``_topk_stream``,
-``topk_cosine_join``, ``stream_stats``, ``kge_score``).  There is no
-backend flag: on the card the CUDA kernels run, on the CPU their plain
-PyTorch versions (the wrappers in :mod:`repro_torch.kernels.topk_similarity`
-and :mod:`repro_torch.kernels.kge_score` decide by the tensor's device).
+``topk_cosine_join``, ``stream_stats``, ``kge_score``, ``swa_attention``).
+There is no backend flag: on the card the CUDA kernels run, on the CPU
+their plain PyTorch versions (the wrappers in
+:mod:`repro_torch.kernels.topk_similarity`,
+:mod:`repro_torch.kernels.kge_score` and
+:mod:`repro_torch.kernels.swa_attention` decide by the tensor's device).
 
 Streaming table residency: when ``topk_cosine`` receives a host table
 (``np.ndarray`` / ``np.memmap``), the whole ``(N, d)`` array never goes to
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from . import kge_score as _kge, ref
+from . import kge_score as _kge, ref, swa_attention as _swa
 from .topk_similarity import topk_cosine_step
 
 #: host-slab size for the streaming driver: 8192 rows x 200 dims x 4 B is
@@ -295,3 +298,18 @@ def kge_score(h: torch.Tensor, r: torch.Tensor, t: torch.Tensor,
     ``"transe_l1"``, ``"transe_l2"`` or ``"distmult"``; ``corrupt_head``
     (B, K) is true where the negative replaces the head."""
     return _KGEScore.apply(h, r, t, neg, corrupt_head, model)
+
+
+# ---------------------------- swa_attention ---------------------------- #
+def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  window: int, q_offset: int = 0) -> torch.Tensor:
+    """Sliding-window GQA attention on ``(B, H, S, d)`` tensors (the
+    reference layout): heads are folded into the leading dim for the
+    kernel (kv row = q row // (Hq / Hkv)).  Returns ``(B, Hq, Sq, d)``."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    out = _swa.swa_attention_forward(
+        q.contiguous().reshape(b * hq, sq, d),
+        k.contiguous().reshape(b * hkv, skv, d),
+        v.contiguous().reshape(b * hkv, skv, d), window, q_offset)
+    return out.reshape(b, hq, sq, d)

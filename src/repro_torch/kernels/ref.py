@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the port's kernels (top-k, KGE scoring): the
-semantics each CUDA kernel is held to.
+"""Plain PyTorch versions of the port's kernels (top-k, KGE scoring,
+sliding-window attention): the semantics each CUDA kernel is held to.
 
 These run on the CPU (the tests) and on the card (``chip_smoke.py``
 compares the kernel with them on the same inputs).  They are
@@ -208,3 +208,32 @@ def kge_score_backward_ref(
     else:
         raise ValueError(model)
     return grad_h, grad_r, grad_t, grad_neg
+
+
+# ---------------------------- swa_attention ---------------------------- #
+def swa_attention_ref(
+    q: torch.Tensor,      # (B, Hq, Sq, d)
+    k: torch.Tensor,      # (B, Hkv, Skv, d)
+    v: torch.Tensor,      # (B, Hkv, Skv, d)
+    window: int,          # attend to positions in (pos - window, pos]
+    q_offset: int = 0,    # absolute position of q[..., 0, :] (decode: Skv-Sq)
+) -> torch.Tensor:
+    """Causal sliding-window GQA attention, fp32 softmax. (B, Hq, Sq, d).
+    A copy of ``repro.kernels.ref.swa_attention_ref``."""
+    if q.is_cuda:
+        no_tf32()
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    g = hq // hkv
+    qf = q.float() * (d ** -0.5)
+    kf = k.float()
+    vf = v.float()
+    qf = qf.reshape(b, hkv, g, sq, d)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf)
+    q_pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = (k_pos <= q_pos) & (k_pos > q_pos - window)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, vf)
+    return out.reshape(b, hq, sq, d).to(q.dtype)

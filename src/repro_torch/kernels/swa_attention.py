@@ -1,0 +1,114 @@
+"""Sliding-window GQA flash attention: the wrapper around
+``csrc/swa_attention.cu``.
+
+The port of ``repro.kernels.swa_attention.swa_attention_pallas``, in its
+folded layout: ``q (B*Hq, Sq, d)``, ``k``/``v (B*Hkv, Skv, d)``, kv row =
+q row // (B*Hq / B*Hkv).  Key ``j`` is visible to query ``i`` iff
+``q_offset + i - window < j <= q_offset + i``; scores are scaled by
+``d ** -0.5``, the softmax runs in fp32, and the output has q's dtype.
+The contract is :func:`repro_torch.kernels.ref.swa_attention_ref` on the
+same tensors with a batch axis of 1.
+
+On CPU tensors the plain PyTorch version runs.  On CUDA tensors the
+kernel runs or the call raises: there is no switch and no fallback.  Both
+take the same inputs: fp32 or bf16, contiguous, ``d`` in
+:data:`HEAD_DIMS`.  Ragged Sq and Skv are masked in the kernel, not
+padded.  ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional
+
+import torch
+
+from . import _build, ref
+
+#: head dims the kernel is built for (reference tests 16/32/64, reduced
+#: h2o-danube 64, h2o-danube 80)
+HEAD_DIMS = (16, 32, 64, 80, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+#: 64-query tiles per head on the grid's y axis (at most 65535 of them)
+MAX_SEQ = 65535 * 64
+_INT_MAX = 2**31 - 1
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# q, k, v, o, bhq, bhkv, sq, skv, hd, window, q_offset, scale, is_bf16,
+# stream
+_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
+             _P)
+
+#: kernel launches since the last reset_launches()
+launches = {"swa_attention_forward": 0}
+_count_lock = threading.Lock()
+_lib_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launches() -> None:
+    with _count_lock:
+        launches["swa_attention_forward"] = 0
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = _build.load("swa_attention")
+            lib.swa_attention_forward.argtypes = list(_ARGTYPES)
+            lib.swa_attention_forward.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
+           q_offset: int) -> None:
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"q, k, v must be (rows, S, d), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    bhq, sq, d = q.shape
+    bhkv, skv, _ = k.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if bhkv < 1 or bhq % bhkv or tuple(k.shape) != (bhkv, skv, d) \
+            or tuple(v.shape) != (bhkv, skv, d):
+        raise ValueError(f"k and v must be (B*Hkv, Skv, {d}) with B*Hkv "
+                         f"dividing B*Hq = {bhq}, got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    if sq < 1 or skv < 1 or sq > MAX_SEQ or skv > MAX_SEQ:
+        raise ValueError(f"need 1 <= Sq, Skv <= {MAX_SEQ}, got {sq}, {skv}")
+    if window < 1 or q_offset < 0 or q_offset + sq > _INT_MAX:
+        raise ValueError(f"need window >= 1 and 0 <= q_offset, got window "
+                         f"{window}, q_offset {q_offset}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dtype not in DTYPES or x.dtype != q.dtype \
+                or x.device != q.device or not x.is_contiguous() \
+                or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"{q.dtype} tensor on {q.device} (fp32 or "
+                             f"bf16), got {x.dtype} on {x.device}")
+
+
+def swa_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          window: int, q_offset: int = 0) -> torch.Tensor:
+    """``(B*Hq, Sq, d)`` attention output in q's dtype."""
+    window, q_offset = int(window), int(q_offset)
+    _check(q, k, v, window, q_offset)
+    if q.device.type == "cpu":
+        return ref.swa_attention_ref(q[None], k[None], v[None], window,
+                                     q_offset)[0]
+    bhq, sq, d = q.shape
+    bhkv, skv, _ = k.shape
+    with torch.cuda.device(q.device):
+        o = torch.empty_like(q)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _library().swa_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bhq, bhkv,
+            sq, skv, d, min(window, _INT_MAX), q_offset, d ** -0.5,
+            int(q.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"swa_attention_forward: CUDA error {rc} at launch")
+    with _count_lock:
+        launches["swa_attention_forward"] += 1
+    return o

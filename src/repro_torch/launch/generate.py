@@ -1,0 +1,108 @@
+"""Greedy generation with the serving path: the port's counterpart of
+``examples/generate_text.py``.
+
+    PYTHONPATH=src python -m repro_torch.launch.generate --arch h2o-danube-1.8b
+    PYTHONPATH=src python -m repro_torch.launch.generate --arch h2o-danube-1.8b \\
+        --reduced --device cpu
+
+Builds the arch (the published config unless ``--reduced``) with random
+params drawn from ``--seed`` on ``--device`` (default ``cuda``), prefills a
+seeded random prompt with ``cache_len = prompt + steps``, then decodes
+``--steps`` tokens greedily with ``make_serve_step``.  Prints the prefill
+time, the decode time per token, the rates and the continuation ids (the
+prefill's token, then one per decode step), and checks that every id lies
+in ``[0, padded_vocab)``.  On the card, sliding-window prefill runs the
+CUDA kernel once per layer (``kernels.swa_attention.launches``).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..kernels import swa_attention
+from ..models import get_model
+from ..models.steps import make_prefill_step, make_serve_step
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="h2o-danube-1.8b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the arch's REDUCED config (default: CONFIG, the "
+                         "published widths)")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--steps", type=int, default=24)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu (the plain PyTorch path)")
+    return ap
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    args = _parser().parse_args(argv)
+    if args.batch < 1 or args.prompt_len < 1 or args.steps < 1:
+        raise SystemExit("--batch, --prompt-len and --steps must be >= 1")
+    dev = resolve_device(args.device)
+    cfg, model = get_model(args.arch, reduced=args.reduced)
+    print(f"[gen] {cfg.arch_id} ({cfg.n_params() / 1e6:.1f}M params, "
+          f"{cfg.dtype}) on {dev}", flush=True)
+    model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    rng = np.random.default_rng(args.seed)
+    B, P = args.batch, args.prompt_len
+    prompt = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (B, P), dtype=np.int32)).to(dev)
+    prefill, serve = make_prefill_step(model), make_serve_step(model)
+
+    swa_attention.reset_launches()
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill({"tokens": prompt}, cache_len=P + args.steps)
+    tok = logits.argmax(-1).to(torch.int32)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = swa_attention.launches["swa_attention_forward"]
+
+    seq = [tok]
+    t0 = time.perf_counter()
+    for i in range(args.steps):
+        tok, cache = serve(cache, tok, P + i)
+        seq.append(tok)
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+
+    ids = torch.cat(seq, dim=1).cpu().numpy()
+    if not ((ids >= 0) & (ids < cfg.padded_vocab)).all():
+        raise RuntimeError(f"ids outside [0, {cfg.padded_vocab}): {ids}")
+    out = {
+        "arch": cfg.arch_id, "device": str(dev), "dtype": cfg.dtype,
+        "batch": B, "prompt_len": P, "steps": args.steps,
+        "prefill_ms": prefill_s * 1e3,
+        "prefill_tok_per_s": B * P / prefill_s,
+        "decode_ms_per_token": decode_s * 1e3 / args.steps,
+        "decode_tok_per_s": B * args.steps / decode_s,
+        "swa_launches_prefill": prefill_launches,
+        "ids": ids.tolist(),
+    }
+    print(f"[gen] prefill({P} tokens x {B}) {out['prefill_ms']:.1f} ms "
+          f"({out['prefill_tok_per_s']:.0f} tok/s)")
+    print(f"[gen] {args.steps} decode steps: {out['decode_ms_per_token']:.2f} "
+          f"ms/token ({out['decode_tok_per_s']:.1f} tok/s at batch {B})")
+    print(f"[gen] continuation ids (seq 0): {ids[0].tolist()}")
+    print(json.dumps({k: v for k, v in out.items() if k != "ids"}), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,89 @@
+"""Carry the JAX package's LM params into the port's models.
+
+The reference's params are a pytree of arrays: ``embed (V, d)``,
+``layers`` (each leaf stacked on a leading ``(L, ...)`` axis, as
+``stacked_init`` makes them), ``ln_f`` and ``lm_head (d, V)``.  The port
+keeps the same keys and the same ``(d_in, d_out)`` weight layout, with
+``layers`` split into one entry per layer; no leaf is transposed.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from .layers import ParamTree
+from .lm import BaseLM
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for name, value in tree.items():
+        path = f"{prefix}{name}"
+        if isinstance(value, Mapping):
+            out.update(_flatten(value, path + "."))
+        else:
+            out[path] = value
+    return out
+
+
+def _unflatten(flat: Mapping[str, Any]) -> dict:
+    tree: dict = {}
+    for path, value in flat.items():
+        *parents, leaf = path.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
+def params_from_numpy(model: BaseLM, tree: Mapping,
+                      device: DeviceLike = None) -> BaseLM:
+    """Fill ``model.params`` from the JAX package's params ``tree`` (numpy
+    arrays or anything ``np.asarray`` takes), cast to the model's dtype, on
+    ``device`` (default ``cuda``).  Raises ``KeyError`` on a missing or an
+    extra leaf and ``ValueError`` on a shape that differs from the model's.
+    Returns the model."""
+    dev = resolve_device(device)
+    want = model.param_tree(None)              # meta tensors: shapes, dtypes
+    n_layers = len(want["layers"])
+    want_top = _flatten({k: v for k, v in want.items() if k != "layers"})
+    want_layer = _flatten(want["layers"][0]) if n_layers else {}
+
+    got = dict(tree)
+    got_top = _flatten({k: v for k, v in got.items() if k != "layers"})
+    got_layer = _flatten(got.get("layers", {}))
+    for kind, w, g in (("", want_top, got_top),
+                       ("layers.", want_layer, got_layer)):
+        missing = sorted(set(w) - set(g))
+        extra = sorted(set(g) - set(w))
+        if missing or extra:
+            raise KeyError(f"{model.cfg.arch_id}: param leaves differ from "
+                           f"the model's: missing {[kind + m for m in missing]},"
+                           f" extra {[kind + e for e in extra]}")
+
+    def tensor(path: str, a, like: torch.Tensor) -> torch.Tensor:
+        a = np.asarray(a, dtype=np.float32)   # bf16 leaves arrive as ml_dtypes
+        if tuple(a.shape) != tuple(like.shape):
+            raise ValueError(f"{model.cfg.arch_id}: param {path} has shape "
+                             f"{tuple(a.shape)}, the model {tuple(like.shape)}")
+        # a copy: the model never shares memory with the caller's arrays
+        return torch.tensor(a, dtype=like.dtype, device=dev)
+
+    flat = {p: tensor(p, got_top[p], like) for p, like in want_top.items()}
+    per_layer = [{} for _ in range(n_layers)]
+    for p, like in want_layer.items():
+        stacked = np.asarray(got_layer[p])
+        if stacked.ndim == 0 or stacked.shape[0] != n_layers:
+            raise ValueError(f"{model.cfg.arch_id}: param layers.{p} has "
+                             f"shape {stacked.shape}, want a leading axis of "
+                             f"{n_layers} layers")
+        for i in range(n_layers):
+            per_layer[i][p] = tensor(f"layers.{p}[{i}]", stacked[i], like)
+    params = _unflatten(flat)
+    params["layers"] = [_unflatten(one) for one in per_layer]
+    model.params = ParamTree(params)
+    return model

@@ -1,0 +1,77 @@
+"""Dense decoder-only LM (mistral-large, qwen2, internlm2, h2o-danube): the
+port of ``repro.models.dense``.
+
+h2o-danube uses sliding-window attention (cfg.attention ==
+"sliding_window"), whose prefill runs the CUDA kernel
+``kernels/csrc/swa_attention.cu`` in every layer.
+
+The cache keeps the reference's stacked ``(L, B, G, Sc, hd)`` layout, so
+caches compare across the packages.  ``decode_step`` writes the new slot
+into it in place, where the JAX package re-emits the cache.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import blocks
+from .layers import Gen, apply_norm, mlp
+from .lm import BaseLM
+
+
+class DenseLM(BaseLM):
+    def __init__(self, cfg):
+        if cfg.kv_cache_dtype != "model":
+            raise NotImplementedError(
+                f"kv_cache_dtype={cfg.kv_cache_dtype!r}: the int8 KV cache is "
+                f"not ported yet (ROADMAP Queue 1, the slice of the other zoo "
+                f"families and the int8 KV cache)")
+        super().__init__(cfg)
+
+    @property
+    def window(self) -> Optional[int]:
+        return self.cfg.window if self.cfg.attention == "sliding_window" else None
+
+    def init_layers(self, gen: Gen) -> list:
+        return [blocks.block_init(gen, self.cfg)
+                for _ in range(self.cfg.n_layers)]
+
+    def backbone_prefill(self, x: torch.Tensor, cache_len: Optional[int] = None):
+        cfg = self.cfg
+        B, S, _ = x.shape
+        if self.window is not None:
+            Sc = self.window
+        else:
+            Sc = max(S, cache_len or 0)
+        shape = (cfg.n_layers, B, cfg.groups, Sc, cfg.hd)
+        kcs = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        vcs = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        h = x
+        for i, p in enumerate(self._p()["layers"]):
+            h, kc, vc = blocks.block_prefill(p, h, cfg, window=self.window)
+            kcs[i, :, :, :kc.shape[2]] = kc
+            vcs[i, :, :, :vc.shape[2]] = vc
+        return h, {"k": kcs, "v": vcs}
+
+    def backbone_decode(self, cache, x: torch.Tensor, pos: int):
+        cfg = self.cfg
+        kc, vc = cache["k"], cache["v"]
+        h = x
+        for i, p in enumerate(self._p()["layers"]):
+            a, kc, vc = blocks.attn_decode_inplace(
+                p["attn"], apply_norm(p["ln1"], h), kc, vc, i, pos, cfg,
+                window=self.window)
+            h = h + a
+            h = h + mlp(p["mlp"], apply_norm(p["ln2"], h), cfg.act)
+        return h, {"k": kc, "v": vc}
+
+    def cache_spec(self, batch: int, seq: int):
+        cfg = self.cfg
+        Sc = min(seq, cfg.window) if self.window is not None else seq
+        shp = (cfg.n_layers, batch, cfg.groups, Sc, cfg.hd)
+        return {"k": torch.empty(shp, dtype=cfg.jdtype, device="meta"),
+                "v": torch.empty(shp, dtype=cfg.jdtype, device="meta")}
+
+    def supports_long_context(self) -> bool:
+        return self.cfg.attention == "sliding_window"
