@@ -9,7 +9,10 @@ Phases, in order; any failure exits non-zero:
   2. kernels  the top-k kernel against its plain version: the edge grid,
               exact duplicate rows, N in {40k, 100k} x Q in {1, 32, 64} x
               k in {1, 10, 64, 65, 2000, N}, streamed and device-resident,
-              and 1024-row slabs (40 slabs at 40k)
+              1024-row slabs (40 slabs at 40k; at Q = 1 and k = 2000 the
+              running list outgrows the slab), one k = 2000 slab step (3
+              launches), and a device-resident k = 300 call at 100k rows
+              (13 sub-slabs, 13 merges)
   3. kge      the kge_score forward and backward kernels against their
               plain versions: TransE-L1/L2 and DistMult x (B, K, d) in
               {(1024, 32, 200), (100, 5, 200), (7, 3, 32), (1, 1, 1)} x
@@ -36,11 +39,12 @@ Phases, in order; any failure exits non-zero:
               (batch 2, prompt 6144, 32 greedy decode steps), ids in vocab
   8. numbers  top-k kernel, plain, library and host-to-device times (CUDA
               events) at N = 40k and 100k; kge_score forward and backward
-              times at (1024, 32, 200); the device-busy share of a
-              training step by part (torch.profiler); the SWA kernel at
-              one h2o-danube layer's shape against its bound, its plain
-              version and ``scaled_dot_product_attention``; the device-busy
-              share of a full-width decode step
+              times at (1024, 32, 200), and the forward wrapper's host time
+              by part; the device-busy share of a training step by part
+              (torch.profiler); the SWA kernel at one h2o-danube layer's
+              shape, bf16 and fp32, against its bound, its plain version
+              and ``scaled_dot_product_attention``; the device-busy share
+              of a full-width decode step
 
 Run from the repository root with no arguments::
 
@@ -120,11 +124,10 @@ LM_BATCH, LM_PROMPT, LM_STEPS = 2, 6144, 32
 LM_TOL = 2e-3               # the reference's TOL (tests/test_arch_consistency.py)
 BF16_FLOP_PER_S = 989e12    # H100 SXM data sheet, dense bf16 tensor cores
 SMALL_ENTRY = ("topk_select_chunks", "topk_merge_running")
-LARGE_ENTRY = ("topk_score_keys", "topk_bitonic_global",
-               "topk_bitonic_shared", "topk_gather")
+LARGE_ENTRY = ("topk_score_keys", "topk_select_sort", "topk_merge_path")
 #: the device kernels in topk_cosine.cu, as the profiler names them
 _KERNEL_NAMES = ("select_chunks", "merge_running", "score_keys",
-                 "bitonic_global", "bitonic_shared", "gather")
+                 "select_sort", "merge_path")
 
 RESULTS: dict = {"phases": {}}
 #: the card; the phases take it from here
@@ -327,6 +330,61 @@ def phase_kernels(store_tables) -> dict:
                 check(ops.stream_stats["blocks"] - before == 40,
                       "1024-row slabs: expected 40 slabs at 40k rows")
                 record(k, compare(got, want, f"slabs1024 Q={Q} k={k}"))
+            # one large-k slab step with its running list is 3 launches
+            q_dev = torch.from_numpy(q).to(dev)
+            x_dev = torch.from_numpy(excl).to(dev)
+            slab = ops.STREAM_BLOCK_ROWS
+            run = ts.topk_cosine_step(q_dev, table_dev[:slab],
+                                      norms_dev[:slab], x_dev, 0, n_rows, 2000)
+            ts.reset_launches()
+            got = ts.topk_cosine_step(q_dev, table_dev[slab:2 * slab],
+                                      norms_dev[slab:2 * slab], x_dev, slab,
+                                      n_rows, 2000, *run)
+            step_launches = dict(ts.launches)
+            check(sum(step_launches.values()) == 3
+                  and all(step_launches[e] == 1 for e in LARGE_ENTRY),
+                  f"a large-k slab step launched {step_launches}, want one "
+                  f"of each of {LARGE_ENTRY}")
+            want = ref.stream_step_ref(q_dev, table_dev[slab:2 * slab],
+                                       norms_dev[slab:2 * slab], slab,
+                                       n_rows, x_dev, *run, 2000)
+            full = torch.full((Q,), 2000, dtype=torch.int32)
+            record(2000, compare((*got, full), (*want, full),
+                                 "one slab step Q=64 k=2000"))
+        # k_run > rows: Q = 1, k = 2000 over 1024-row slabs, so every merge
+        # takes the whole running list before any slab candidate
+        if n_rows == GO_ROWS:
+            rows = rng.choice(n_rows, size=1, replace=False)
+            q = unit_rows(table, norms, rows)
+            excl = rows.astype(np.int32)
+            want = ref.topk_cosine_blocked_ref(
+                torch.from_numpy(q).to(dev), table_dev, 2000,
+                exclude_rows=torch.from_numpy(excl).to(dev),
+                norms=norms_dev, block_n=1024)
+            got = ops.topk_cosine(q, table, 2000, exclude_rows=excl,
+                                  norms=norms, block_rows=1024, device=dev)
+            record(2000, compare(got, want, "slabs1024 Q=1 k=2000"))
+        # device-resident, k > 64, more than one sub-slab: one merge per
+        # sub-slab of SORT_CAP rows
+        if n_rows == SCALE_ROWS:
+            Q, k = 32, 300
+            rows = rng.choice(n_rows, size=Q, replace=False)
+            q = unit_rows(table, norms, rows)
+            excl = rows.astype(np.int32)
+            want = ref.topk_cosine_blocked_ref(
+                torch.from_numpy(q).to(dev), table_dev, k,
+                exclude_rows=torch.from_numpy(excl).to(dev),
+                norms=norms_dev, block_n=ops.STREAM_BLOCK_ROWS)
+            ts.reset_launches()
+            got = ops.topk_cosine(q, table_dev, k, exclude_rows=excl,
+                                  norms=norms_dev)
+            n_sub = -(-n_rows // ts.SORT_CAP)
+            check(ts.launches["topk_merge_path"] == n_sub > 1
+                  and ts.launches["topk_select_sort"] == 1,
+                  f"device-resident N={n_rows} k={k}: {dict(ts.launches)}, "
+                  f"want {n_sub} merges")
+            record(k, compare(got, want, f"device N={n_rows} Q={Q} k={k} "
+                                         f"({n_sub} sub-slabs)"))
         del table_dev, norms_dev
         torch.cuda.synchronize()
     out = {"phase": "kernels", "cases": cases,
@@ -591,7 +649,7 @@ def phase_serve(registry_root: str, served: dict) -> dict:
     check(sum(launches[x] for x in SMALL_ENTRY)
           > sum(after_session[x] for x in SMALL_ENTRY),
           "HTTP phase launched no small-k kernel")
-    check(all(launches[x] > 0 for x in ("topk_score_keys", "topk_gather")),
+    check(all(launches[x] > 0 for x in LARGE_ENTRY),
           "k=2000 requests launched no large-k kernel")
     out = {"phase": "serve", "session": session, "http_requests": counts,
            "sim_bit_exact": sim_bits_exact,
@@ -1052,6 +1110,79 @@ def _step_breakdown(trainer, params, opt_state, loader, gen, steps: int):
             "top_kernels_ms_per_step": {k: v / 1e3 / steps for k, v in top}}
 
 
+def _host_us(fn, calls: int, batch: int = 200) -> float:
+    """Host microseconds per call of ``fn`` over ``calls`` calls, timed in
+    batches of ``batch`` with a synchronise between batches (not timed),
+    so launches never wait for a full queue: the host's own cost."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(calls // batch):
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total * 1e6 / (calls // batch * batch)
+
+
+def kge_host_breakdown(card: str, calls: int = 2000) -> dict:
+    """Host time of one ``kge_score_forward`` call (DistMult at
+    KGE_SHAPE) by part, each part timed alone over ``calls`` calls as
+    the wrapper runs it, beside the whole call and the host time of the
+    ``bmm`` yardstick."""
+    import torch
+    from repro_torch.kernels import _build, kge_score as tk
+
+    B, K, d = KGE_SHAPE
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    h, r, t, neg, ch = _kge_inputs(B, K, d, "random", False, gen)
+    dev = h.device
+    fn = tk._LIB._bind()["kge_score_forward"]
+    pos, negs = tk.forward_outputs(B, K, dev)
+    mid = tk._model_id("distmult")
+    args = (h.data_ptr(), r.data_ptr(), t.data_ptr(), neg.data_ptr(),
+            ch.data_ptr(), B, K, d, mid, pos.data_ptr(), negs.data_ptr(),
+            _build.stream_handle(dev))
+    packer = tk._LIB.packers["kge_score_forward"]
+    packed = packer.pack(*args)
+    counts, lock = {"kge_score_forward": 0}, threading.Lock()
+
+    def count():
+        with lock:
+            counts["kge_score_forward"] += 1
+
+    def device_context():
+        with _build.on_device(dev):
+            pass
+
+    parts = {
+        "model_id": lambda: tk._model_id("distmult"),
+        "checks": lambda: tk._check(h, r, t, neg, ch),
+        "device_context": device_context,
+        "allocation": lambda: tk.forward_outputs(B, K, dev),
+        "stream_handle": lambda: _build.stream_handle(dev),
+        "pointers": lambda: (h.data_ptr(), r.data_ptr(), t.data_ptr(),
+                             neg.data_ptr(), ch.data_ptr(), pos.data_ptr(),
+                             negs.data_ptr()),
+        "pack_arguments": lambda: packer.pack(*args),
+        "ctypes_call": lambda: fn(packed),
+        "launch_counter": count,
+    }
+    us = {name: _host_us(f, calls) for name, f in parts.items()}
+    qs = torch.stack([r * t, h * r], dim=2)
+    rec = {"model": "distmult", "B": B, "K": K, "d": d, "calls": calls,
+           "host_us_by_part": us, "host_us_parts_sum": sum(us.values()),
+           "host_us_whole_call": _host_us(
+               lambda: tk.kge_score_forward(h, r, t, neg, ch, "distmult"),
+               calls),
+           "host_us_bmm": _host_us(lambda: torch.bmm(neg, qs), calls),
+           "card": card}
+    emit({"kge_host_breakdown": rec})
+    return rec
+
+
 def kge_numbers(card: str) -> dict:
     """kge_score forward/backward at (1024, 32, 200) for each model, and
     one GO-size training step of each model: its launches, its time and
@@ -1127,7 +1258,8 @@ def kge_numbers(card: str) -> dict:
         steps.append(rec)
         del params, opt_state
     torch.cuda.synchronize()
-    return {"kge_rows": rows, "train_steps": steps}
+    return {"kge_rows": rows, "train_steps": steps,
+            "host_breakdown": kge_host_breakdown(card)}
 
 
 def swa_pairs(sq: int, skv: int, window: int, q_offset: int) -> int:
@@ -1138,14 +1270,15 @@ def swa_pairs(sq: int, skv: int, window: int, q_offset: int) -> int:
 
 
 def swa_bound_ms(B: int, hq: int, hkv: int, S: int, hd: int, W: int,
-                 dtype_bytes: int) -> tuple:
+                 dtype_bytes: int, flop_per_s: float = BF16_FLOP_PER_S
+                 ) -> tuple:
     """Least time for one SWA call: q, k, v read once and o written once;
     4 * hd operations per visible (query, key) pair (two products), at the
-    bf16 tensor-core rate."""
+    type's peak rate (bf16 tensor cores; fp32 on the CUDA cores)."""
     nbytes = (2 * B * hq + 2 * B * hkv) * S * hd * dtype_bytes
     ops = 4.0 * hd * swa_pairs(S, S, W, 0) * B * hq
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / BF16_FLOP_PER_S * 1e3
+    t_ops = ops / flop_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1190,11 +1323,33 @@ def swa_numbers(card: str) -> dict:
            "library_ms": _cuda_ms(lib, iters=10, warmup=2),
            "bound_ms": b_ms, "bound_by": b_by,
            "library_vs_kernel_max_abs": lib_err, "card": card}
+    del q4, k4, v4
+    # the same layer in fp32: kernel (FMA), plain, and SDPA with the band
+    # mask in fp32 (no TF32), which computes the same function
     qf, kf, vf = (x.float() for x in (q, k, v))
-    rec["fp32_ms"] = _cuda_ms(lambda: sw.swa_attention_forward(qf, kf, vf, W),
-                              iters=5, warmup=1)
+    del q, k, v
+    torch.cuda.empty_cache()
+    kern32 = lambda: sw.swa_attention_forward(qf, kf, vf, W)
+    plain32 = lambda: ref.swa_attention_ref(qf[None], kf[None], vf[None], W)
+    q4, k4 = qf.reshape(B, hq, S, hd), kf.reshape(B, hkv, S, hd)
+    v4 = vf.reshape(B, hkv, S, hd)
+    lib32 = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=band,
+                                                   enable_gqa=True)
+    lib32_err = float((lib32().reshape(B * hq, S, hd) - kern32()).abs().max())
+    check(lib32_err <= SWA_TOL,
+          f"fp32: the library yardstick differs from the kernel by "
+          f"{lib32_err}")
+    ours32 = {n: t for n, t in _device_ms(kern32, iters=3).items()
+              if "swa_" in n}
+    b32, b32_by = swa_bound_ms(B, hq, hkv, S, hd, W, 4, FP32_FLOP_PER_S)
+    rec.update({"fp32_ms": _cuda_ms(kern32, iters=5, warmup=1),
+                "fp32_device_ms": sum(ours32.values()) if ours32 else None,
+                "fp32_plain_ms": _cuda_ms(plain32, iters=2, warmup=1),
+                "fp32_library_ms": _cuda_ms(lib32, iters=5, warmup=1),
+                "fp32_bound_ms": b32, "fp32_bound_by": b32_by,
+                "fp32_library_vs_kernel_max_abs": lib32_err})
     emit({"numbers": rec})
-    del q, k, v, q4, k4, v4, qf, kf, vf, band
+    del q4, k4, v4, qf, kf, vf, band
     torch.cuda.empty_cache()
 
     # where the device time of a bf16 prefill and of a decode step goes
@@ -1270,7 +1425,7 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
     for name, entries, key, err in (
             ("topk_cosine_step (k <= 64: select + merge)", SMALL_ENTRY,
              (GO_ROWS, 32, 10), kern["max_abs_err_small"]),
-            ("topk_cosine_step (k > 64: keys + bitonic sort + gather)",
+            ("topk_cosine_step (k > 64: score + select/sort + merge path)",
              LARGE_ENTRY, (GO_ROWS, 1, 2000), kern["max_abs_err_large"])):
         r = by[key]
         out.append({
@@ -1283,19 +1438,26 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
             "plain_ms": r["step_plain_ms"], "bound_ms": r["step_bound_ms"],
             "bound_by": r["step_bound_by"],
             "library_ms": r["step_library_ms"]})
-    # kge_score at the training step's shape, TransE-L1 (the GO update's
-    # first model); launches counted over the whole update phase
+    # kge_score at the training step's shape: TransE-L1 (the GO update's
+    # first model) both ways, and DistMult's forward, which one bmm
+    # computes.  The entry point's launches are counted over the whole
+    # update phase, one count for both models: each row says so
     k_launch = update_out["launches"]
-    r = next(x for x in numbers["kge"]["kge_rows"]
-             if x["model"] == "transe_l1")
-    for name, entry, key in (("kge_score forward", "kge_score_forward",
-                              "forward"),
-                             ("kge_score backward", "kge_score_backward",
-                              "backward")):
+    rows = {x["model"]: x for x in numbers["kge"]["kge_rows"]}
+    for name, entry, key, model, label in (
+            ("kge_score forward", "kge_score_forward", "forward",
+             "transe_l1", "TransE-L1"),
+            ("kge_score backward", "kge_score_backward", "backward",
+             "transe_l1", "TransE-L1"),
+            ("kge_score forward", "kge_score_forward", "forward",
+             "distmult", "DistMult")):
+        r = rows[model]
         out.append({
-            "name": f"{name} (TransE-L1, B=1024 K=32 d=200)",
+            "name": f"{name} ({label}, B=1024 K=32 d=200)",
             "route": "cuda", "source": KGE_SOURCE, "replaces": KGE_REPLACES,
             "launches": k_launch[entry],
+            "launches_over": "update phase, TransE-L1 and DistMult "
+                             "together (v1, warm v2, cold v2)",
             "max_abs_err": kge[f"max_abs_err_{key}"],
             "ms": r[f"{key}_ms"], "device_ms": r[f"{key}_device_ms"],
             "plain_ms": r[f"{key}_plain_ms"],

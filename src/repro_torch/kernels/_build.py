@@ -14,19 +14,26 @@ written to a temporary name and moved into place, so a reader never loads
 a half-written file.  All sources build in parallel, one ``nvcc`` each.
 Nothing here runs at import time: the CPU tests import this module on
 machines with no CUDA toolkit.
+
+:class:`Library` binds one source's C entry points once and launches
+them: the wrappers' lean path from a CUDA tensor to the kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -127,3 +134,73 @@ def load(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(path))
                 _libs[name] = lib
     return lib
+
+
+class Library:
+    """The C entry points of ``csrc/<source>.cu``, built, loaded and bound
+    once at the first launch; and ``launches``, the kernel launches of
+    each entry point since the last :meth:`reset` (one dict, mutated in
+    place).
+
+    ``signatures`` maps each entry point to the number of its arguments.
+    Every entry point takes them packed: one pointer to that many 64-bit
+    integers (pointers, ints and the stream, in order).  One conversion
+    instead of one per argument is most of what a launch through ctypes
+    costs the host."""
+
+    def __init__(self, source: str, signatures: Dict[str, int]):
+        self.source = source
+        self.signatures = dict(signatures)
+        self.launches = {name: 0 for name in self.signatures}
+        self.packers = {name: struct.Struct(f"<{n}q")
+                        for name, n in self.signatures.items()}
+        self._fns: Dict[str, Callable[..., int]] = {}
+        self._bind_lock = threading.Lock()
+        self._count_lock = threading.Lock()
+
+    def reset(self) -> None:
+        with self._count_lock:
+            for name in self.launches:
+                self.launches[name] = 0
+
+    def _bind(self) -> Dict[str, Callable[..., int]]:
+        with self._bind_lock:
+            if not self._fns:
+                lib = load(self.source)
+                fns = {}
+                for name in self.signatures:
+                    fn = getattr(lib, name)
+                    fn.argtypes = [ctypes.c_char_p]
+                    fn.restype = ctypes.c_int
+                    fns[name] = fn
+                self._fns = fns
+        return self._fns
+
+    def launch(self, name: str, *args) -> None:
+        """Call entry point ``name`` (one kernel launch), raise on the
+        CUDA error it returns, and count the launch."""
+        fn = (self._fns or self._bind())[name]
+        rc = fn(self.packers[name].pack(*args))
+        if rc != 0:
+            raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+        with self._count_lock:
+            self.launches[name] += 1
+
+
+def stream_handle(dev: torch.device) -> int:
+    """The ``cudaStream_t`` of the current stream on ``dev``, as
+    ``torch.cuda.current_stream(dev).cuda_stream`` gives it, without
+    building a ``Stream`` object (PyTorch's own generated kernels launch
+    through the same call)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+_NO_GUARD = contextlib.nullcontext()
+
+
+def on_device(dev: torch.device):
+    """A context that makes ``dev`` the current CUDA device: nothing to do
+    (and nothing paid) when it already is."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return _NO_GUARD
+    return torch.cuda.device(dev)

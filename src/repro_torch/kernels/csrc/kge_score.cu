@@ -40,6 +40,8 @@
 //
 // Every entry point launches exactly one kernel on the given stream,
 // allocates nothing, never synchronises, and returns cudaGetLastError().
+// Its arguments come packed in one array of 64-bit integers (see the
+// end of this file).
 
 #include <cuda_runtime.h>
 
@@ -236,15 +238,10 @@ inline int bwd_threads(int d) {
   return n < 64 ? 64 : (n > BWD_MAX_THREADS ? BWD_MAX_THREADS : n);
 }
 
-}  // namespace
-
-extern "C" {
-
 // model: 0 TransE-L1, 1 TransE-L2, 2 DistMult.  One block per positive.
-int kge_score_forward(const float* h, const float* r, const float* t,
-                      const float* neg, const unsigned char* ch, int B, int K,
-                      int d, int model, float* pos, float* negs,
-                      void* stream) {
+int forward_launch(const float* h, const float* r, const float* t,
+                   const float* neg, const unsigned char* ch, int B, int K,
+                   int d, int model, float* pos, float* negs, void* stream) {
   const size_t smem = 3 * (size_t)d * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
   switch (model) {
@@ -266,11 +263,11 @@ int kge_score_forward(const float* h, const float* r, const float* t,
   return (int)cudaGetLastError();
 }
 
-int kge_score_backward(const float* h, const float* r, const float* t,
-                       const float* neg, const unsigned char* ch,
-                       const float* g_pos, const float* g_negs, int B, int K,
-                       int d, int model, float* gh, float* gr, float* gt,
-                       float* gneg, void* stream) {
+int backward_launch(const float* h, const float* r, const float* t,
+                    const float* neg, const unsigned char* ch,
+                    const float* g_pos, const float* g_negs, int B, int K,
+                    int d, int model, float* gh, float* gr, float* gt,
+                    float* gneg, void* stream) {
   const size_t smem = ((size_t)(K + 1) * sizeof(float) + K + 15) / 16 * 16;
   const int threads = bwd_threads(d);
   cudaStream_t s = (cudaStream_t)stream;
@@ -291,6 +288,31 @@ int kge_score_backward(const float* h, const float* r, const float* t,
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The entry points take their arguments packed as 64-bit integers, in
+// the order of the launch functions above (pointers, then ints, then the
+// stream): one argument for ctypes to convert instead of twelve or
+// sixteen, which is most of a call's host time.
+extern "C" {
+
+int kge_score_forward(const long long* a) {
+  return forward_launch((const float*)a[0], (const float*)a[1],
+                        (const float*)a[2], (const float*)a[3],
+                        (const unsigned char*)a[4], (int)a[5], (int)a[6],
+                        (int)a[7], (int)a[8], (float*)a[9], (float*)a[10],
+                        (void*)a[11]);
+}
+
+int kge_score_backward(const long long* a) {
+  return backward_launch((const float*)a[0], (const float*)a[1],
+                         (const float*)a[2], (const float*)a[3],
+                         (const unsigned char*)a[4], (const float*)a[5],
+                         (const float*)a[6], (int)a[7], (int)a[8], (int)a[9],
+                         (int)a[10], (float*)a[11], (float*)a[12],
+                         (float*)a[13], (float*)a[14], (void*)a[15]);
 }
 
 }  // extern "C"

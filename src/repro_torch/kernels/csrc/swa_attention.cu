@@ -51,6 +51,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cmath>
 #include <type_traits>
 
 namespace {
@@ -448,14 +449,19 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// q, k, v, o device pointers; is_bf16: 1 for bf16 tensors, 0 for fp32.
-extern "C" int swa_attention_forward(const void* q, const void* k,
-                                     const void* v, void* o, int bhq, int bhkv,
-                                     int sq, int skv, int hd, int window,
-                                     int q_offset, float scale, int is_bf16,
-                                     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
+// a: q, k, v, o (device pointers), bhq, bhkv, sq, skv, hd, window,
+// q_offset, is_bf16 (1 for bf16 tensors, 0 for fp32), stream.  The scale
+// hd^-1/2 is rounded once to fp32 here.
+extern "C" int swa_attention_forward(const long long* a) {
+  const int hd = (int)a[8];
+  const float scale = (float)(1.0 / std::sqrt((double)hd));
+  const void *q = (const void*)a[0], *k = (const void*)a[1],
+             *v = (const void*)a[2];
+  void* o = (void*)a[3];
+  const int bhq = (int)a[4], bhkv = (int)a[5], sq = (int)a[6],
+            skv = (int)a[7], window = (int)a[9], q_offset = (int)a[10];
+  cudaStream_t s = (cudaStream_t)a[12];
+  if (a[11])
     return dispatch<__nv_bfloat16>(hd, q, k, v, o, bhq, bhkv, sq, skv, window,
                                    q_offset, scale, s);
   return dispatch<float>(hd, q, k, v, o, bhq, bhkv, sq, skv, window, q_offset,

@@ -16,9 +16,7 @@ kernel launches of each C entry point.
 """
 from __future__ import annotations
 
-import ctypes
-import threading
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -29,86 +27,69 @@ MAX_DIM = 4096
 #: largest K (K + 1 floats and K flags in 48 KB of shared memory)
 MAX_NEGS = 8192
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    # h, r, t, neg, ch, B, K, d, model, pos, negs, stream
-    "kge_score_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
-    # h, r, t, neg, ch, g_pos, g_negs, B, K, d, model, gh, gr, gt, gneg,
-    # stream
-    "kge_score_backward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
-                           _P, _P, _P, _P),
-}
-
+# Both entry points take their arguments packed (``_build.Library``):
+#   forward:  h, r, t, neg, ch, B, K, d, model, pos, negs, stream
+#   backward: h, r, t, neg, ch, g_pos, g_negs, B, K, d, model, gh, gr, gt,
+#             gneg, stream
+_LIB = _build.Library("kge_score", {"kge_score_forward": 12,
+                                    "kge_score_backward": 16})
 #: kernel launches per C entry point since the last reset_launches()
-launches = {name: 0 for name in _SIGNATURES}
-_count_lock = threading.Lock()
-_lib_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-
-
-def reset_launches() -> None:
-    with _count_lock:
-        for name in launches:
-            launches[name] = 0
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = _build.load("kge_score")
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
-
-
-def _launch(name: str, *args) -> None:
-    rc = getattr(_library(), name)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-    with _count_lock:
-        launches[name] += 1
+launches = _LIB.launches
+reset_launches = _LIB.reset
+_MODEL_IDS = {m: i for i, m in enumerate(ref.KGE_MODELS)}
+_F32 = torch.float32
+_MASK_DTYPES = (torch.bool, torch.uint8)
 
 
 def _model_id(model: str) -> int:
-    if model not in ref.KGE_MODELS:
+    mid = _MODEL_IDS.get(model)
+    if mid is None:
         raise ValueError(f"unknown kge_score model {model!r}; have "
                          f"{ref.KGE_MODELS}")
-    return ref.KGE_MODELS.index(model)
+    return mid
 
 
 def _check(h, r, t, neg, corrupt_head) -> Tuple[int, int, int]:
-    dev = h.device
-    if h.dim() != 2:
-        raise ValueError(f"h must be (B, d), got {tuple(h.shape)}")
-    b, d = h.shape
+    """``(B, K, d)``; raises ``ValueError`` on anything the kernels do not
+    take.  Each tensor's metadata is read once; the detailed message is
+    only built for a tensor that fails."""
+    hs, ns = h.shape, neg.shape
+    if len(hs) != 2:
+        raise ValueError(f"h must be (B, d), got {tuple(hs)}")
+    b, d = hs
     if b < 1 or not 1 <= d <= MAX_DIM:
         raise ValueError(f"need B >= 1 and 1 <= d <= {MAX_DIM}, got "
-                         f"{tuple(h.shape)}")
-    if neg.dim() != 3 or neg.shape[0] != b or neg.shape[2] != d:
-        raise ValueError(f"neg must be ({b}, K, {d}), got {tuple(neg.shape)}")
-    k = neg.shape[1]
+                         f"{tuple(hs)}")
+    if len(ns) != 3 or ns[0] != b or ns[2] != d:
+        raise ValueError(f"neg must be ({b}, K, {d}), got {tuple(ns)}")
+    k = ns[1]
     if not 1 <= k <= MAX_NEGS:
         raise ValueError(f"need 1 <= K <= {MAX_NEGS}, got {k}")
-    for name, x, shape in (("h", h, (b, d)), ("r", r, (b, d)),
-                           ("t", t, (b, d)), ("neg", neg, (b, k, d))):
-        if x.device != dev or x.dtype != torch.float32 \
-                or tuple(x.shape) != shape or not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32 {shape} on "
-                             f"{dev}, got {x.dtype} {tuple(x.shape)} on "
-                             f"{x.device}")
-    if corrupt_head.device != dev \
-            or corrupt_head.dtype not in (torch.bool, torch.uint8) \
-            or tuple(corrupt_head.shape) != (b, k) \
-            or not corrupt_head.is_contiguous():
+    dev = h.device
+    for name, x, shape in (("h", h, hs), ("r", r, hs), ("t", t, hs),
+                           ("neg", neg, ns)):
+        if x.dtype is not _F32 or x.shape != shape \
+                or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"{name} must be contiguous float32 "
+                             f"{tuple(shape)} on {dev}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    if corrupt_head.dtype not in _MASK_DTYPES \
+            or corrupt_head.shape != (b, k) \
+            or not corrupt_head.is_contiguous() or corrupt_head.device != dev:
         raise ValueError(f"corrupt_head must be contiguous bool or uint8 "
                          f"({b}, {k}) on {dev}, got {corrupt_head.dtype} "
                          f"{tuple(corrupt_head.shape)} on "
                          f"{corrupt_head.device}")
     return b, k, d
+
+
+def forward_outputs(b: int, k: int, device) -> Tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """``pos (B,)`` and ``negs (B, K)``, float32.  Two allocations, sizes
+    passed as ints: on an H100 they measured less host time than one
+    buffer and two views of it, or sizes passed as tuples (PERF.md)."""
+    return (torch.empty(b, dtype=_F32, device=device),
+            torch.empty(b, k, dtype=_F32, device=device))
 
 
 def kge_score_forward(h: torch.Tensor, r: torch.Tensor, t: torch.Tensor,
@@ -117,16 +98,16 @@ def kge_score_forward(h: torch.Tensor, r: torch.Tensor, t: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(pos (B,), negs (B, K))`` float32 scores, higher is better."""
     mid = _model_id(model)
-    if h.device.type == "cpu":
+    dev = h.device
+    if dev.type == "cpu":
         return ref.kge_score_ref(h, r, t, neg, corrupt_head, model)
     b, k, d = _check(h, r, t, neg, corrupt_head)
-    with torch.cuda.device(h.device):
-        pos = torch.empty((b,), dtype=torch.float32, device=h.device)
-        negs = torch.empty((b, k), dtype=torch.float32, device=h.device)
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        _launch("kge_score_forward", h.data_ptr(), r.data_ptr(),
-                t.data_ptr(), neg.data_ptr(), corrupt_head.data_ptr(), b, k,
-                d, mid, pos.data_ptr(), negs.data_ptr(), stream)
+    with _build.on_device(dev):
+        pos, negs = forward_outputs(b, k, dev)
+        _LIB.launch("kge_score_forward", h.data_ptr(), r.data_ptr(),
+                    t.data_ptr(), neg.data_ptr(), corrupt_head.data_ptr(), b,
+                    k, d, mid, pos.data_ptr(), negs.data_ptr(),
+                    _build.stream_handle(dev))
     return pos, negs
 
 
@@ -139,25 +120,25 @@ def kge_score_backward(h: torch.Tensor, r: torch.Tensor, t: torch.Tensor,
     """``(grad_h, grad_r, grad_t (B, d), grad_neg (B, K, d))`` for the
     cotangents ``g_pos (B,)`` and ``g_negs (B, K)``."""
     mid = _model_id(model)
-    if h.device.type == "cpu":
+    dev = h.device
+    if dev.type == "cpu":
         return ref.kge_score_backward_ref(h, r, t, neg, corrupt_head, g_pos,
                                           g_negs, model)
     b, k, d = _check(h, r, t, neg, corrupt_head)
     for name, g, shape in (("g_pos", g_pos, (b,)), ("g_negs", g_negs, (b, k))):
-        if g.device != h.device or g.dtype != torch.float32 \
-                or tuple(g.shape) != shape or not g.is_contiguous():
+        if g.dtype is not _F32 or g.shape != shape \
+                or not g.is_contiguous() or g.device != dev:
             raise ValueError(f"{name} must be contiguous float32 {shape} on "
-                             f"{h.device}, got {g.dtype} {tuple(g.shape)} on "
+                             f"{dev}, got {g.dtype} {tuple(g.shape)} on "
                              f"{g.device}")
-    with torch.cuda.device(h.device):
+    with _build.on_device(dev):
         gh = torch.empty_like(h)
         gr = torch.empty_like(r)
         gt = torch.empty_like(t)
         gneg = torch.empty_like(neg)
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        _launch("kge_score_backward", h.data_ptr(), r.data_ptr(),
-                t.data_ptr(), neg.data_ptr(), corrupt_head.data_ptr(),
-                g_pos.data_ptr(), g_negs.data_ptr(), b, k, d, mid,
-                gh.data_ptr(), gr.data_ptr(), gt.data_ptr(), gneg.data_ptr(),
-                stream)
+        _LIB.launch("kge_score_backward", h.data_ptr(), r.data_ptr(),
+                    t.data_ptr(), neg.data_ptr(), corrupt_head.data_ptr(),
+                    g_pos.data_ptr(), g_negs.data_ptr(), b, k, d, mid,
+                    gh.data_ptr(), gr.data_ptr(), gt.data_ptr(),
+                    gneg.data_ptr(), _build.stream_handle(dev))
     return gh, gr, gt, gneg

@@ -17,10 +17,6 @@ padded.  ``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
-import ctypes
-import threading
-from typing import Optional
-
 import torch
 
 from . import _build, ref
@@ -33,33 +29,11 @@ DTYPES = (torch.float32, torch.bfloat16)
 MAX_SEQ = 65535 * 64
 _INT_MAX = 2**31 - 1
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# q, k, v, o, bhq, bhkv, sq, skv, hd, window, q_offset, scale, is_bf16,
-# stream
-_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
-             _P)
-
+# q, k, v, o, bhq, bhkv, sq, skv, hd, window, q_offset, is_bf16, stream
+_LIB = _build.Library("swa_attention", {"swa_attention_forward": 13})
 #: kernel launches since the last reset_launches()
-launches = {"swa_attention_forward": 0}
-_count_lock = threading.Lock()
-_lib_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-
-
-def reset_launches() -> None:
-    with _count_lock:
-        launches["swa_attention_forward"] = 0
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = _build.load("swa_attention")
-            lib.swa_attention_forward.argtypes = list(_ARGTYPES)
-            lib.swa_attention_forward.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+launches = _LIB.launches
+reset_launches = _LIB.reset
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
@@ -100,15 +74,11 @@ def swa_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      q_offset)[0]
     bhq, sq, d = q.shape
     bhkv, skv, _ = k.shape
-    with torch.cuda.device(q.device):
+    with _build.on_device(q.device):
         o = torch.empty_like(q)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _library().swa_attention_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bhq, bhkv,
-            sq, skv, d, min(window, _INT_MAX), q_offset, d ** -0.5,
-            int(q.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"swa_attention_forward: CUDA error {rc} at launch")
-    with _count_lock:
-        launches["swa_attention_forward"] += 1
+        _LIB.launch("swa_attention_forward", q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), o.data_ptr(), bhq, bhkv, sq, skv, d,
+                    min(window, _INT_MAX), q_offset,
+                    int(q.dtype == torch.bfloat16),
+                    _build.stream_handle(q.device))
     return o

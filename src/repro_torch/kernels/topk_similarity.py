@@ -14,8 +14,11 @@ contract is :func:`repro_torch.kernels.ref.stream_step_ref`:
 On a CPU tensor the plain PyTorch version runs.  On a CUDA tensor the
 kernel runs or the call raises: there is no switch and no fallback.
 k <= 64 (the paper's k = 10) takes two launches, per-chunk selection and
-a merge; larger k builds one 64-bit key per candidate and sorts them with
-a bitonic network (several launches).
+a merge.  Larger k takes three stages: score one 64-bit key per slab row,
+select and sort the best k of each sub-slab of at most ``SORT_CAP`` rows
+in shared memory, and merge each sub-slab's sorted keys into the running
+list, which is already sorted, along the merge path: 3 launches for a
+streamed slab, 2 + ceil(rows / SORT_CAP) for a device-resident table.
 
 ``launches`` counts the kernel launches of each C entry point; a run
 resets it and reads it to show that the main path went through the
@@ -23,9 +26,7 @@ kernels.
 """
 from __future__ import annotations
 
-import ctypes
-import threading
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,110 +36,100 @@ from . import _build, ref
 SMALL_K_MAX = 64
 #: rows per scoring block (CHUNK in topk_cosine.cu)
 CHUNK_ROWS = 256
-#: keys per shared-memory bitonic tile (SORT_TILE in topk_cosine.cu)
-SORT_TILE = 2048
+#: rows of one sub-slab of the large-k path, all its keys in shared
+#: memory (SORT_CAP in topk_cosine.cu); >= ops.STREAM_BLOCK_ROWS
+SORT_CAP = 8192
+#: outputs per merge-path block (MERGE_TILE in topk_cosine.cu)
+MERGE_TILE = 256
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    # q, Q, d, tbl, stride, rows, norms, excl, offset, limit, kc, cand, stream
-    "topk_select_chunks": (_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P,
-                           _P),
-    # run_s, run_i, k_run, cand, n_cand, Q, k, out_s, out_i, stream
-    "topk_merge_running": (_P, _P, _I, _P, _I, _I, _I, _P, _P, _P),
-    # q, Q, d, tbl, stride, rows, norms, excl, offset, limit,
-    # run_s, run_i, k_run, keys, P, stream
-    "topk_score_keys": (_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _I,
-                        _P, _I, _P),
-    # keys, Q, P, size, stride, stream
-    "topk_bitonic_global": (_P, _I, _I, _I, _I, _P),
-    # keys, Q, P, size_lo, size_hi, stream
-    "topk_bitonic_shared": (_P, _I, _I, _I, _I, _P),
-    # keys, Q, P, k, out_s, out_i, stream
-    "topk_gather": (_P, _I, _I, _I, _P, _P, _P),
-}
-
+# Every entry point takes its arguments packed (``_build.Library``), in
+# this order; a null pointer is 0:
+#   topk_select_chunks: q, Q, d, tbl, stride, rows, norms, excl, offset,
+#                       limit, kc, cand, stream
+#   topk_merge_running: run_s, run_i, k_run, cand, n_cand, Q, k, out_s,
+#                       out_i, stream
+#   topk_score_keys:    q, Q, d, tbl, stride, rows, norms, excl, offset,
+#                       limit, keys, stream
+#   topk_select_sort:   keys, Q, rows, k, cand, stream
+#   topk_merge_path:    run_s, run_i, k_run, cand, cand_stride, n_cand, Q,
+#                       k_out, out_s, out_i, stream
+_LIB = _build.Library("topk_cosine", {
+    "topk_select_chunks": 13, "topk_merge_running": 10,
+    "topk_score_keys": 12, "topk_select_sort": 6, "topk_merge_path": 11})
+_launch = _LIB.launch
 #: kernel launches per C entry point since the last reset_launches()
-launches = {name: 0 for name in _SIGNATURES}
-_count_lock = threading.Lock()
-_lib_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+launches = _LIB.launches
+reset_launches = _LIB.reset
 
 
-def reset_launches() -> None:
-    with _count_lock:
-        for name in launches:
-            launches[name] = 0
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = _build.load("topk_cosine")
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+def merge_path_split(a: Sequence[int], b: Sequence[int], diag: int) -> int:
+    """How many of the first ``diag`` entries of the descending merge of
+    the descending key lists ``a`` (the running list) and ``b`` (a
+    sub-slab's candidates) come from ``a``; equal keys take ``a`` first.
+    The search each merge-path block's warp runs (``merge_split`` in
+    topk_cosine.cu): per round, 32 lanes test 32 evenly spaced entries of
+    ``a``.  Kept in Python so the CPU tests can replay it."""
+    lo, hi = max(0, diag - len(b)), min(diag, len(a))
+    while lo < hi:
+        step = (hi - lo + 31) // 32
+        n_take = sum(1 for lane in range(32)
+                     if lo + lane * step < hi
+                     and a[lo + lane * step] >= b[diag - 1 - lo - lane * step])
+        next_hi = min(hi, lo + n_take * step)
+        if n_take:
+            lo += (n_take - 1) * step + 1
+        hi = next_hi
+    return lo
 
 
-def _launch(name: str, *args) -> None:
-    rc = getattr(_library(), name)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-    with _count_lock:
-        launches[name] += 1
+def large_k_merges(rows: int, k: int, k_run: int) -> List[Tuple[int, int]]:
+    """The merge-path launches of one large-k step over ``rows`` slab rows:
+    ``(n_cand, k_out)`` per sub-slab, in order; the last ``k_out`` is
+    ``k``."""
+    merges = []
+    for start in range(0, rows, SORT_CAP):
+        n_cand = min(k, rows - start, SORT_CAP)
+        k_run = min(k, k_run + n_cand)
+        merges.append((n_cand, k_run))
+    return merges
 
 
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
-
-
-def bitonic_schedule(P: int):
-    """The launches that sort rows of ``P`` keys (a power of two):
-    ``("shared", size_lo, size_hi)`` runs stages size_lo..size_hi for all
-    strides inside one tile, ``("global", size, stride)`` one wide-stride
-    pass.  Kept in Python so the CPU tests can check the network."""
-    tile = min(SORT_TILE, P)
-    steps = [("shared", 2, tile)]
-    size = 2 * tile
-    while size <= P:
-        stride = size // 2
-        while stride >= tile:
-            steps.append(("global", size, stride))
-            stride //= 2
-        steps.append(("shared", size, size))
-        size *= 2
-    return steps
+_F32, _I32 = torch.float32, torch.int32
 
 
 def _check(q, blk, norms, excl, offset, limit, k, run_s, run_i) -> None:
-    dev = blk.device
-    if blk.dtype != torch.float32 or blk.dim() != 2 or blk.stride(1) != 1:
+    """Raises ``ValueError`` on anything the kernels do not take; each
+    tensor's metadata is read once."""
+    dev, bs = blk.device, blk.shape
+    if blk.dtype is not _F32 or len(bs) != 2 or blk.stride(1) != 1:
         raise ValueError("table slab must be float32 (rows, d) with "
                          f"unit column stride, got {blk.dtype} "
-                         f"{tuple(blk.shape)} strides {blk.stride()}")
-    rows, d = blk.shape
+                         f"{tuple(bs)} strides {blk.stride()}")
+    rows, d = bs
     if rows < 1 or d < 1:
-        raise ValueError(f"empty table slab {tuple(blk.shape)}")
+        raise ValueError(f"empty table slab {tuple(bs)}")
     if rows > 1 and not d <= blk.stride(0) < 2 ** 31:
         raise ValueError(f"table row stride {blk.stride(0)} must be in "
                          f"[{d}, 2**31)")
-    if q.device != dev or q.dtype != torch.float32 or q.dim() != 2 \
-            or q.shape[1] != d or q.shape[0] < 1 or not q.is_contiguous():
+    qs = q.shape
+    if q.dtype is not _F32 or len(qs) != 2 or qs[1] != d or qs[0] < 1 \
+            or not q.is_contiguous() or q.device != dev:
         raise ValueError(f"queries must be contiguous float32 (Q, {d}) on "
-                         f"{dev}, got {q.dtype} {tuple(q.shape)} on {q.device}")
-    qn = q.shape[0]
-    if norms is not None and (norms.device != dev
-                              or norms.dtype != torch.float32
-                              or tuple(norms.shape) != (rows,)
-                              or not norms.is_contiguous()):
+                         f"{dev}, got {q.dtype} {tuple(qs)} on {q.device}")
+    qn = qs[0]
+    if norms is not None and (norms.dtype is not _F32
+                              or norms.shape != (rows,)
+                              or not norms.is_contiguous()
+                              or norms.device != dev):
         raise ValueError(f"norms must be contiguous float32 ({rows},) on "
                          f"{dev}, got {norms.dtype} {tuple(norms.shape)} "
                          f"on {norms.device}")
-    if excl.device != dev or excl.dtype != torch.int32 \
-            or tuple(excl.shape) != (qn,) or not excl.is_contiguous():
+    if excl.dtype is not _I32 or excl.shape != (qn,) \
+            or not excl.is_contiguous() or excl.device != dev:
         raise ValueError(f"exclude_rows must be contiguous int32 ({qn},) on "
                          f"{dev}, got {excl.dtype} {tuple(excl.shape)} on "
                          f"{excl.device}")
@@ -146,12 +137,12 @@ def _check(q, blk, norms, excl, offset, limit, k, run_s, run_i) -> None:
     if (run_s is None) != (run_i is None):
         raise ValueError("run_s and run_i go together")
     if run_s is not None:
-        k_run = run_s.shape[1] if run_s.dim() == 2 else -1
-        if run_s.device != dev or run_i.device != dev \
-                or run_s.dtype != torch.float32 or run_i.dtype != torch.int32 \
-                or tuple(run_s.shape) != (qn, k_run) \
-                or tuple(run_i.shape) != (qn, k_run) \
-                or not run_s.is_contiguous() or not run_i.is_contiguous():
+        rs = run_s.shape
+        k_run = rs[1] if len(rs) == 2 else -1
+        if run_s.dtype is not _F32 or run_i.dtype is not _I32 \
+                or rs != (qn, k_run) or run_i.shape != rs \
+                or not run_s.is_contiguous() or not run_i.is_contiguous() \
+                or run_s.device != dev or run_i.device != dev:
             raise ValueError("running list must be contiguous float32/int32 "
                              f"(Q, k) on {dev}")
     if not 1 <= k <= k_run + rows:
@@ -174,7 +165,7 @@ def topk_cosine_step(q: torch.Tensor, blk: torch.Tensor,
         return ref.stream_step_ref(q, blk, norms, int(offset), int(limit),
                                    excl, run_s, run_i, int(k))
     _check(q, blk, norms, excl, offset, limit, k, run_s, run_i)
-    with torch.cuda.device(blk.device):
+    with _build.on_device(blk.device):
         if k <= SMALL_K_MAX:
             return _step_small(q, blk, norms, excl, offset, limit, k,
                                run_s, run_i)
@@ -186,7 +177,7 @@ def _step_small(q, blk, norms, excl, offset, limit, k, run_s, run_i):
     qn, d = q.shape
     rows = blk.shape[0]
     dev = blk.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.stream_handle(dev)
     n_chunks = -(-rows // CHUNK_ROWS)
     kc = min(k, CHUNK_ROWS)
     cand = torch.empty((qn, n_chunks, kc), dtype=torch.int64, device=dev)
@@ -206,19 +197,24 @@ def _step_large(q, blk, norms, excl, offset, limit, k, run_s, run_i):
     qn, d = q.shape
     rows = blk.shape[0]
     dev = blk.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    k_run = 0 if run_s is None else run_s.shape[1]
-    P = 2
-    while P < k_run + rows:
-        P *= 2
-    keys = torch.empty((qn, P), dtype=torch.int64, device=dev)
+    stream = _build.stream_handle(dev)
+    n_sub, m_cap = -(-rows // SORT_CAP), min(k, SORT_CAP)
+    # one scratch allocation: the keys (Q, rows), then the sorted
+    # candidates (Q, n_sub, m_cap)
+    scratch = torch.empty(qn * (rows + n_sub * m_cap), dtype=torch.int64,
+                          device=dev)
+    keys = scratch.data_ptr()
+    cand = keys + qn * rows * 8
     _launch("topk_score_keys", q.data_ptr(), qn, d, blk.data_ptr(),
             blk.stride(0), rows, _ptr(norms), excl.data_ptr(), offset, limit,
-            _ptr(run_s), _ptr(run_i), k_run, keys.data_ptr(), P, stream)
-    for kind, a, b in bitonic_schedule(P):
-        _launch(f"topk_bitonic_{kind}", keys.data_ptr(), qn, P, a, b, stream)
-    out_s = torch.empty((qn, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
-    _launch("topk_gather", keys.data_ptr(), qn, P, k, out_s.data_ptr(),
-            out_i.data_ptr(), stream)
-    return out_s, out_i
+            keys, stream)
+    _launch("topk_select_sort", keys, qn, rows, k, cand, stream)
+    k_run = 0 if run_s is None else run_s.shape[1]
+    for j, (n_cand, k_out) in enumerate(large_k_merges(rows, k, k_run)):
+        out_s = torch.empty(qn, k_out, dtype=_F32, device=dev)
+        out_i = torch.empty(qn, k_out, dtype=_I32, device=dev)
+        _launch("topk_merge_path", _ptr(run_s), _ptr(run_i), k_run,
+                cand + j * m_cap * 8, n_sub * m_cap, n_cand, qn, k_out,
+                out_s.data_ptr(), out_i.data_ptr(), stream)
+        run_s, run_i, k_run = out_s, out_i, k_out
+    return run_s, run_i

@@ -175,6 +175,64 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         tkge._check(h, r, t, neg, ch)
 
 
+def _bad(case):
+    """Inputs of (3, 2, 4) with one fault; the message ``_check`` gives."""
+    h, r, t, neg, ch = _t(*_inputs(3, 2, 4))
+    if case == "h_3d":
+        return (h[None], r, t, neg, ch), "h must be"
+    if case == "empty_batch":
+        return (h[:0], r[:0], t[:0], neg[:0], ch[:0]), "need B >= 1"
+    if case == "no_negatives":
+        return (h, r, t, neg[:, :0], ch[:, :0]), "need 1 <= K"
+    if case == "too_many_negatives":
+        big = torch.zeros(3, tkge.MAX_NEGS + 1, 4)
+        return (h, r, t, big, torch.zeros(3, tkge.MAX_NEGS + 1,
+                                          dtype=torch.bool)), "need 1 <= K"
+    if case == "r_shape":
+        return (h, r[:2], t, neg, ch), "r must be"
+    if case == "t_on_other_device":
+        return (h, r, t.to("meta"), neg, ch), "t must be"
+    if case == "neg_float64":
+        return (h, r, t, neg.double(), ch), "neg must be"
+    if case == "h_not_contiguous":
+        hh = torch.zeros(4, 3).T
+        return (hh, r, t, neg, ch), "h must be"
+    if case == "mask_shape":
+        return (h, r, t, neg, ch[:, :1]), "corrupt_head must be"
+    if case == "mask_not_contiguous":
+        return (h, r, t, neg, ch.T.contiguous().T), "corrupt_head must be"
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "h_3d", "empty_batch", "no_negatives", "too_many_negatives", "r_shape",
+    "t_on_other_device", "neg_float64", "h_not_contiguous", "mask_shape",
+    "mask_not_contiguous"])
+def test_check_names_each_rejection(case):
+    """The validation reads each tensor's metadata once and still raises
+    ValueError, naming the operand, for everything the kernels refuse."""
+    args, msg = _bad(case)
+    with pytest.raises(ValueError, match=msg):
+        tkge._check(*args)
+
+
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.uint8])
+def test_check_accepts_what_the_kernel_takes(mask_dtype):
+    h, r, t, neg, ch = _t(*_inputs(3, 2, 4))
+    assert tkge._check(h, r, t, neg, ch.to(mask_dtype)) == (3, 2, 4)
+
+
+@pytest.mark.parametrize("B,K", [(1, 1), (3, 2), (1024, 32)])
+def test_forward_outputs_are_contiguous_of_the_right_shapes(B, K):
+    """pos (B,) and negs (B, K): float32, contiguous, not overlapping."""
+    pos, negs = tkge.forward_outputs(B, K, torch.device("cpu"))
+    assert pos.shape == (B,) and negs.shape == (B, K)
+    assert pos.dtype == negs.dtype == torch.float32
+    assert pos.is_contiguous() and negs.is_contiguous()
+    a, b = pos.data_ptr(), negs.data_ptr()
+    assert a + 4 * B <= b or b + 4 * B * K <= a
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("model", MODELS)
 def test_kernels_match_plain_on_card(model):

@@ -215,44 +215,150 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("P", [2, 4, 64, 2048, 4096, 32768])
-def test_bitonic_schedule_sorts_descending(P):
-    """The launch schedule of the k > 64 path, replayed on the host with
-    the kernels' compare-exchange rule, sorts unique keys descending."""
-    keys = np.random.default_rng(P).permutation(P).astype(np.int64)
-    tile = min(tts.SORT_TILE, P)
+def _merge_replay(a, b, k):
+    """The first ``k`` entries of the descending merge of ``a`` and ``b``
+    as the merge-path kernel computes them: per tile of MERGE_TILE
+    outputs, the two splits from ``merge_path_split``, then each entry
+    placed by its rank in the other list's segment."""
+    out = np.zeros(k, a.dtype)
+    for o0 in range(0, k, tts.MERGE_TILE):
+        o1 = min(o0 + tts.MERGE_TILE, k)
+        a0, a1 = (tts.merge_path_split(a, b, o) for o in (o0, o1))
+        ta, tb = a[a0:a1], b[o0 - a0:o1 - a1]
+        assert len(ta) + len(tb) == o1 - o0
+        # a entry: after the b entries strictly above it; b entry: after
+        # the a entries at or above it (ta, tb descending)
+        pos_a = np.arange(len(ta)) + np.searchsorted(-tb, -ta, side="left")
+        pos_b = np.arange(len(tb)) + np.searchsorted(-ta, -tb, side="right")
+        out[o0 + pos_a] = ta
+        out[o0 + pos_b] = tb
+    return out
 
-    def passes(size, strides):
-        for stride in strides:
-            idx = np.arange(P)
-            i = idx[(idx & stride) == 0]
-            l = i + stride
-            desc = (i & size) == 0
-            a, b = keys[i], keys[l]
-            swap = np.where(desc, a < b, a > b)
-            keys[i[swap]], keys[l[swap]] = b[swap], a[swap]
 
-    for kind, x, y in tts.bitonic_schedule(P):
-        if kind == "global":
-            passes(x, [y])
-        else:
-            size = x
-            while size <= y:
-                stride = min(size, tile) // 2
-                passes(size, [stride >> j for j in range(stride.bit_length())
-                              if stride >> j])
-                size *= 2
-    np.testing.assert_array_equal(keys, np.arange(P)[::-1])
+MERGE_CASES = sorted({(k_run, m, k) for k_run in (0, 65, 2000)
+                      for m in (1, 2000, 8192)
+                      for k in (min(65, k_run + m), k_run + m)})
+
+
+@pytest.mark.parametrize("k_run,m,k", MERGE_CASES)
+def test_merge_path_split_on_every_diagonal(k_run, m, k):
+    """The large-k merge on the host: for random unique keys, the split
+    ``merge_path_split`` finds on every output diagonal is the number of
+    running-list keys among the first ``diag`` of the union, and the
+    kernel's tile-by-tile placement yields the union's top k in order."""
+    rng = np.random.default_rng(1000 * k_run + m + k)
+    keys = rng.choice(2 ** 62, size=k_run + m, replace=False).astype(np.int64)
+    a = np.sort(keys[:k_run])[::-1]
+    b = np.sort(keys[k_run:])[::-1]
+    union = np.sort(keys)[::-1]
+    from_a = np.concatenate([[0], np.cumsum(np.isin(union, a))])
+    for diag in range(k + 1):
+        assert tts.merge_path_split(a, b, diag) == from_a[diag], diag
+    np.testing.assert_array_equal(_merge_replay(a, b, k), union[:k])
+
+
+def test_merge_path_with_repeated_sentinels():
+    """A first streamed step merges a running list of repeated sentinel
+    keys; the replay still gives the union's top k, repeats included."""
+    rng = np.random.default_rng(5)
+    a = np.full(300, 7, np.int64)              # one key, 300 times
+    b = np.sort(rng.choice(np.arange(1, 10 ** 6), 700, replace=False)
+                )[::-1].astype(np.int64)
+    b[400:450] = 7                             # slab entries equal to it
+    b = np.sort(b)[::-1]
+    union = np.sort(np.concatenate([a, b]))[::-1]
+    for k in (65, 513, 1000):
+        np.testing.assert_array_equal(_merge_replay(a, b, k), union[:k])
+
+
+@pytest.mark.parametrize("rows,k,k_run", [
+    (8192, 2000, 2000), (1024, 2000, 2000), (100_000, 300, 0),
+    (100_000, 100_000, 0), (40_000, 65, 0)])
+def test_large_k_merge_schedule(rows, k, k_run):
+    """One merge launch per sub-slab of SORT_CAP rows, each output no
+    longer than what it merges, the last one k long: a streamed slab
+    is one merge (3 launches in all)."""
+    merges = tts.large_k_merges(rows, k, k_run)
+    assert len(merges) == -(-rows // tts.SORT_CAP)
+    have = k_run
+    for n_cand, k_out in merges:
+        assert 1 <= n_cand <= min(k, tts.SORT_CAP)
+        assert k_out == min(k, have + n_cand)
+        have = k_out
+    assert merges[-1][1] == k
+
+
+@pytest.mark.parametrize("k", [65, 130, 257])
+def test_large_k_step_ties_across_running_list_and_slab(k):
+    """Exactly equal scores, half in the running list and half in the
+    next slab: the stream step keeps the lower global index first across
+    the merge, as the reference's one-shot top-k does."""
+    rng = np.random.default_rng(k)
+    base = rng.integers(-2, 3, size=(150, 16)).astype(np.float32)
+    e = np.concatenate([base, base])            # row j == row j + 150
+    q = rng.integers(-2, 3, size=(3, 16)).astype(np.float32)
+    ones = np.ones(300, np.float32)
+    qt, et, nt = (torch.from_numpy(x) for x in (q, e, ones))
+    excl = torch.full((3,), -1, dtype=torch.int32)
+    run_s, run_i = tts.topk_cosine_step(qt, et[:150], nt[:150], excl, 0, 300,
+                                        min(k, 150))
+    s, i = tts.topk_cosine_step(qt, et[150:], nt[150:], excl, 150, 300, k,
+                                run_s, run_i)
+    want = jref.topk_cosine_ref(jnp.asarray(q), jnp.asarray(e), k)
+    _assert_match((s, i, torch.full((3,), k)), want, 300, f"ties k={k}")
+    s, i = s.numpy(), i.numpy()
+    tied = 0
+    for r in range(3):
+        for j in range(k - 1):
+            if s[r, j] == s[r, j + 1]:
+                assert i[r, j] < i[r, j + 1]
+                tied += i[r, j] < 150 <= i[r, j + 1]
+    assert tied > 0             # some ties ran across the merge
+
+
+def _step_args(**bad):
+    """Arguments of one valid slab step (Q 3, rows 10, d 4, k 5 with a
+    running list of 5), with the named ones replaced."""
+    args = dict(q=torch.zeros(3, 4), blk=torch.zeros(10, 4),
+                norms=torch.ones(10),
+                excl=torch.full((3,), -1, dtype=torch.int32),
+                offset=0, limit=10, k=5, run_s=torch.zeros(3, 5),
+                run_i=torch.zeros(3, 5, dtype=torch.int32))
+    args.update(bad)
+    return args
+
+
+@pytest.mark.parametrize("bad,msg", [
+    (dict(blk=torch.zeros(10, 4, dtype=torch.float64)), "table slab"),
+    (dict(blk=torch.zeros(4, 10).T), "table slab"),
+    (dict(blk=torch.zeros(0, 4)), "empty table slab"),
+    (dict(q=torch.zeros(3, 5)), "queries"),
+    (dict(q=torch.zeros(5, 3).T), "queries"),
+    (dict(norms=torch.ones(9)), "norms"),
+    (dict(excl=torch.full((3,), -1, dtype=torch.int64)), "exclude_rows"),
+    (dict(run_i=None), "go together"),
+    (dict(run_i=torch.zeros(3, 4, dtype=torch.int32)), "running list"),
+    (dict(run_s=torch.zeros(3, 5).to("meta")), "running list"),
+    (dict(k=16), "outside"),
+    (dict(offset=2 ** 31 - 5), "int32 range"),
+])
+def test_step_check_rejects_what_the_kernels_do_not_take(bad, msg):
+    """The CUDA path's validation (it reads each tensor's metadata once)
+    raises ValueError for every fault; a valid step passes."""
+    tts._check(**_step_args())
+    with pytest.raises(ValueError, match=msg):
+        tts._check(**_step_args(**bad))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [10, 65])
+@pytest.mark.parametrize("k", [10, 65, 2000, "N"])
 def test_kernel_matches_plain_on_card(k):
     """The CUDA kernel against its plain version on the card (both k
-    paths); skips on machines without one."""
+    paths, k up to N); skips on machines without one."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    k = 3000 if k == "N" else k
     q, e, nrm, excl = _data((8, 3000, 200, k, 512))
     dev = torch.device("cuda")
     tts.reset_launches()
