@@ -11,8 +11,10 @@ Phases, in order; any failure exits non-zero:
               k in {1, 10, 64, 65, 2000, N}, streamed and device-resident,
               1024-row slabs (40 slabs at 40k; at Q = 1 and k = 2000 the
               running list outgrows the slab), one k = 2000 slab step (3
-              launches), and a device-resident k = 300 call at 100k rows
-              (13 sub-slabs, 13 merges)
+              launches), a device-resident k = 300 call at 100k rows
+              (13 sub-slabs, 13 merges), and device-resident k = 10 and 64
+              calls at 100k rows with every row repeated (2 launches, ties
+              to the lower index exactly)
   3. kge      the kge_score forward and backward kernels against their
               plain versions: TransE-L1/L2 and DistMult x (B, K, d) in
               {(1024, 32, 200), (100, 5, 200), (7, 3, 32), (1, 1, 1)} x
@@ -20,8 +22,10 @@ Phases, in order; any failure exits non-zero:
   4. swa      the sliding-window attention kernel against its plain
               version, fp32 and bf16: the reference's test shapes, reduced
               h2o-danube (with and without padded kv groups), q_offset with
-              Sq < Skv, W = 1, W >= S, ragged S, and one full h2o-danube
-              layer (S 6144, W 4096, d 80) on 4 heads
+              Sq < Skv, W = 1, W >= S, ragged S, one full h2o-danube
+              layer (S 6144, W 4096, d 80) on 4 heads, and the tile plan's
+              edges (ragged Sq with q_offset, W and Skv not multiples of
+              the key tile, d = 128, 16 and 32)
   5. serve    two versions of a 40,000 x 200 GO-size snapshot published
               through the port's registry; ``repro_torch.launch.serve``
               in client-session mode, then HTTP over the gateway, every
@@ -116,6 +120,12 @@ SWA_CASES = (
     ("W >= S, ragged", (1, 6, 3, 1000, 1000, 80, 5000, 0)),
     ("ragged S", (2, 4, 1, 131, 131, 128, 50, 0)),
     ("h2o layer, 4 heads", (1, 4, 1, 6144, 6144, 80, 4096, 0)),
+    # the tile plan's edges: ragged Sq with q_offset > 0, W not a multiple
+    # of the 64-key tile, Skv not a multiple of it, d = 128 and 16
+    ("d 128 ragged, q_offset, W 200, Skv 1000",
+     (1, 4, 2, 333, 1000, 128, 200, 700)),
+    ("d 16, q_offset, W 100, Skv 461", (1, 2, 1, 200, 461, 16, 100, 300)),
+    ("d 32 ragged, W 77", (1, 2, 1, 300, 300, 32, 77, 0)),
 )
 #: the LM generation run: h2o-danube-1.8b at its published width, a prompt
 #: longer than its 4096 window (the roll shift after prefill is 2048)
@@ -123,10 +133,10 @@ LM_ARCH = "h2o-danube-1.8b"
 LM_BATCH, LM_PROMPT, LM_STEPS = 2, 6144, 32
 LM_TOL = 2e-3               # the reference's TOL (tests/test_arch_consistency.py)
 BF16_FLOP_PER_S = 989e12    # H100 SXM data sheet, dense bf16 tensor cores
-SMALL_ENTRY = ("topk_select_chunks", "topk_merge_running")
+SMALL_ENTRY = ("topk_score_select", "topk_merge_lists")
 LARGE_ENTRY = ("topk_score_keys", "topk_select_sort", "topk_merge_path")
 #: the device kernels in topk_cosine.cu, as the profiler names them
-_KERNEL_NAMES = ("select_chunks", "merge_running", "score_keys",
+_KERNEL_NAMES = ("score_select", "merge_lists", "score_keys",
                  "select_sort", "merge_path")
 
 RESULTS: dict = {"phases": {}}
@@ -212,6 +222,22 @@ def unit_rows(table: np.ndarray, norms: np.ndarray, rows) -> np.ndarray:
 # --------------------------------------------------------------------- #
 # phases
 # --------------------------------------------------------------------- #
+def _kernel_name(mangled: str) -> str:
+    """``swa_bf16_kernel<80>`` from its mangled name (a length-prefixed
+    ``*_kernel`` and its integer template arguments); other names as
+    they are."""
+    for d in re.finditer(r"\d+(?!\d)", mangled):
+        for i in range(d.start(), d.end()):   # a hash's digits may lead
+            end = d.end() + int(mangled[i:d.end()])
+            name = mangled[d.end():end]
+            if name.endswith("_kernel"):
+                args = re.findall(r"Li(-?\d+)E",
+                                  re.match(r"(I(?:Li-?\d+E)+E)?",
+                                           mangled[end:]).group())
+                return name + (f"<{', '.join(args)}>" if args else "")
+    return mangled
+
+
 def phase_build() -> dict:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -224,7 +250,10 @@ def phase_build() -> dict:
     emit(out)
     for name in libs:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:                       # which kernel the next lines are
+                print(f"[ptxas] {name}: {_kernel_name(m.group(1))}")
+            elif "registers" in line or "spill" in line or "error" in line:
                 print(f"[ptxas] {line.strip()}")
     return out
 
@@ -364,6 +393,30 @@ def phase_kernels(store_tables) -> dict:
             got = ops.topk_cosine(q, table, 2000, exclude_rows=excl,
                                   norms=norms, block_rows=1024, device=dev)
             record(2000, compare(got, want, "slabs1024 Q=1 k=2000"))
+        # device-resident, k <= 64, at 100k rows with every row repeated
+        # (integer data, exact scores): one step of 2 launches, and each
+        # tie goes to the lower index exactly
+        if n_rows == SCALE_ROWS:
+            base = rng.integers(-2, 3, size=(n_rows // 2, D)).astype(
+                np.float32)
+            e_dup = torch.from_numpy(np.concatenate([base, base])).to(dev)
+            q_dup = rng.integers(-2, 3, size=(16, D)).astype(np.float32)
+            ones = torch.ones(n_rows, dtype=torch.float32, device=dev)
+            for k in (10, 64):
+                want = ref.topk_cosine_blocked_ref(
+                    torch.from_numpy(q_dup).to(dev), e_dup, k, norms=ones,
+                    block_n=ops.STREAM_BLOCK_ROWS)
+                ts.reset_launches()
+                got = ops.topk_cosine(q_dup, e_dup, k, norms=ones)
+                check(dict(ts.launches) == {**{e: 0 for e in ts.launches},
+                                            **{e: 1 for e in SMALL_ENTRY}},
+                      f"device N={n_rows} k={k}: {dict(ts.launches)}, want "
+                      f"one launch of each of {SMALL_ENTRY}")
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"duplicate rows N={n_rows} k={k}: ties not resolved "
+                      f"to the lower index exactly")
+                cases += 1
+            del e_dup, ones
         # device-resident, k > 64, more than one sub-slab: one merge per
         # sub-slab of SORT_CAP rows
         if n_rows == SCALE_ROWS:
@@ -996,6 +1049,8 @@ def phase_numbers(store_tables, card: str) -> dict:
                                                  staging=pool)
                 ours = {n: t for n, t in _device_ms(step).items()
                         if n.replace("_kernel", "") in _KERNEL_NAMES}
+                ours_call = {n: t for n, t in _device_ms(call).items()
+                             if n.replace("_kernel", "") in _KERNEL_NAMES}
                 busy = _device_ms(stream, iters=3)
                 b_step, by_step = bound_ms(Q, slab, k, k)
                 b_call, by_call = bound_ms(Q, n_rows, k, 0)
@@ -1011,6 +1066,7 @@ def phase_numbers(store_tables, card: str) -> dict:
                     "call_bound_ms": b_call, "call_bound_by": by_call,
                     "step_device_ms": sum(ours.values()) if ours else None,
                     "step_device_by_kernel": ours,
+                    "call_device_by_kernel": ours_call,
                     "stream_call_ms": _host_ms(stream),
                     "stream_device_busy_ms": sum(busy.values()) if busy
                     else None,
@@ -1423,7 +1479,8 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
     by = {(r["N"], r["Q"], r["k"]): r for r in numbers["rows"]}
     out = []
     for name, entries, key, err in (
-            ("topk_cosine_step (k <= 64: select + merge)", SMALL_ENTRY,
+            ("topk_cosine_step (k <= 64: score/select + merge lists)",
+             SMALL_ENTRY,
              (GO_ROWS, 32, 10), kern["max_abs_err_small"]),
             ("topk_cosine_step (k > 64: score + select/sort + merge path)",
              LARGE_ENTRY, (GO_ROWS, 1, 2000), kern["max_abs_err_large"])):

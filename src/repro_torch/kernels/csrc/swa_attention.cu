@@ -15,10 +15,11 @@
 //   q_offset >= 0: ragged tiles are masked here, nothing is padded.
 //
 // Arithmetic:
-//   * bf16: both products on the tensor cores (mma.sync m16n8k16, fp32
-//     accumulators; bf16 products are exact in fp32).  The scale is
-//     applied to the fp32 scores; p is rounded to bf16 before P.V, as the
-//     reference model path does (models/attention.py); l sums the fp32 p.
+//   * bf16: both products on the tensor cores (wgmma, fp32 accumulators;
+//     bf16 products are exact in fp32).  The scale is applied to the fp32
+//     scores (folded into exp2 with log2 e); p is rounded to bf16 before
+//     P.V, as the reference model path does (models/attention.py), while
+//     l sums the fp32 p.
 //   * fp32: FP32 FMA on the CUDA cores, no TF32 anywhere.
 //   Masked scores are -1e30 and their probabilities are set to 0
 //   explicitly, so a row whose first visited tile is wholly masked does
@@ -29,48 +30,524 @@
 // heads, 8 kv heads, S = 6144, W = 4096, d = 80) each head sees 16.8 M
 // (query, key) pairs: 4 * d * pairs = 343.6 GFLOP per call, 0.347 ms at
 // 989 TFLOP/s bf16, while q, k, v and o are 157 MB, 0.047 ms at
-// 3.35 TB/s.  The tensor cores bound it.  Design, simple and right first:
-//   * one block of 4 warps per (64-query tile, q head); each warp owns 16
-//     query rows and keeps q (bf16: as mma A fragments), the online-softmax
-//     state (m, l) and the output accumulator in registers, fp32;
-//   * the block loops only over the 64-key tiles that meet its band
-//     [q_lo - W + 1, q_hi] (the Pallas grid visits every kv block and
-//     masks it): 4,160 of the 9,216 tiles per head at the shape above;
-//     a warp skips a tile that misses its own 16 rows' band;
-//   * K and V tiles of the head's kv row are staged in shared memory with
-//     cp.async, double-buffered, zero-filled past Skv; V's B fragments
-//     come from ldmatrix.trans;
-//   * q tiles are scheduled heaviest first, and the q heads that share a
-//     kv row are neighbours in the grid, so their K/V tiles meet in L2.
-// Later work: wgmma with TMA-fed tiles, a persistent schedule.
+// 3.35 TB/s.  The tensor cores bound it; next come the exp2 of every
+// visible pair (16 a clock per SM) and the softmax's other FP32 work.
+//
+// The tile plan (both kernels; swa_attention.py::swa_tile_plan replays
+// it): a block of query rows visits only the BK-key tiles that meet the
+// keys its real rows see together, [q_offset + first - W + 1,
+// q_offset + last] cut to [0, Skv); a tile in which every (real row, key)
+// pair is visible is interior and skips the mask, and only the tiles on
+// the diagonal, the window's lower edge and Skv's edge compute it: 2 of
+// ~66 per 64-row block at W = 4096 and S = 6144.
+//
+// bf16 design (swa_bf16_kernel): one CTA per (128-query tile, q head) of
+// two consumer warpgroups, 64 rows each, and one producer warp; 2^x of
+// the softmax on the SFU (ex2.approx) with scale * log2 e folded in.
+//   * The producer loads the Q tile once and keeps a STAGES-deep ring of
+//     K and V tiles (BK keys) in flight with TMA, one full and one empty
+//     mbarrier per stage; the consumers' eight warps each release a
+//     stage after their last wgmma on it has completed.
+//   * S = Q K^T is wgmma with both operands in shared memory (K-major),
+//     d / 16 k-steps; O += P V is wgmma with P from registers: the S
+//     accumulator's layout, packed to bf16, is wgmma's A-fragment layout
+//     (two 8-key column blocks make one 16-key k-step); V is read through
+//     MN-major ("transposed-B") descriptors, N = a panel's width.
+//   * q tiles run heaviest first, and the q heads that share a kv row
+//     are neighbours in the grid, so their K/V tiles meet in L2.
+// Where the trouble lies, and what the design does about it:
+//   * d = 80 and TMA swizzle: a 160 B row is wider than a 128 B swizzle
+//     span, so d is loaded in panels, each its own TMA box and swizzle:
+//     64-column panels with 128 B swizzle, then a 16- or 32-column tail
+//     with 32 B or 64 B swizzle (d = 128 is two 64-column panels).  Each
+//     panel has its own wgmma descriptors: k-steps of Q K^T walk the
+//     panels, and P V issues one instruction per panel (N = 64 or the
+//     tail's width), into that panel's columns of O.
+//   * Zero-fill stops at the head: each map is 3-D (d, S, rows of the
+//     folded tensor), so keys past Skv and queries past Sq are out of
+//     bounds and come back zero instead of the next head's rows; O is
+//     stored from registers, row by row, only for rows below Sq.
+//   * Tensor maps on the host: cuTensorMapEncodeTiled is a driver
+//     function, reached through cudaGetDriverEntryPoint so the library
+//     needs no -lcuda; the maps are encoded per call (microseconds
+//     against a millisecond-long call) and passed as a
+//     __grid_constant__ parameter beside the scalar arguments.  The
+//     wrapper keeps its checks on 16 B alignment and contiguity, which
+//     TMA needs.
+//   * Register pressure: S is 64 x BK fp32 per warpgroup (32 a thread),
+//     O 64 x d (d / 2 a thread), P 16 registers.  Occupancy matters more
+//     than overlap inside a warpgroup: with two CTAs an SM (four consumer
+//     warpgroups), one warpgroup's softmax runs while another's wgmma
+//     does.  A software-pipelined loop (S of tile i beside P V of tile
+//     i - 1) needs more registers than two CTAs an SM leave at d = 80,
+//     and at one CTA an SM it was not faster on an H100.  So d <= 80 is
+//     bounded to two CTAs (ptxas
+//     then gives d = 80 90 registers and 128 B of spills), d = 128 runs
+//     one (147 registers, no spills); the producer is a single warp, so
+//     there is no setmaxnreg split.  Read -Xptxas=-v (chip_smoke.py's
+//     build phase prints it) for spills.
+//   * Build time: the kernel is instantiated for 5 head dims; TMA and
+//     wgmma need no extra headers beyond cuda.h's types.
+//
+// fp32 design (swa_f32_kernel, unchanged in shape): one block of 4 warps
+// per (64-query tile, q head), each warp 16 query rows with q, the
+// online-softmax state and the output accumulator in registers; K and V
+// tiles staged with cp.async, double-buffered, zero-filled past Skv; the
+// same tile plan, so interior tiles skip the mask.
 //
 // The entry point launches exactly one kernel on the given stream,
 // allocates nothing, never synchronises, and returns cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <cmath>
-#include <type_traits>
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per block, 16 per warp
-constexpr int BK = 64;         // keys per kv tile
-constexpr int THREADS = 128;   // 4 warps
-constexpr int NT = BK / 8;     // 8-key column tiles of a score fragment
+typedef unsigned long long u64;
+
+constexpr int BK = 64;         // keys per kv tile (both kernels)
+constexpr int NT = BK / 8;     // 8-key column blocks of a score tile
 constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
-// elements per 16-byte chunk; a shared row is padded by one chunk so
-// the rows of a fragment load fall in different banks
-template <typename T>
-constexpr int VEC = 16 / (int)sizeof(T);
+// ---- the tile plan ----------------------------------------------------- //
+// Keys [band_lo, band_hi] are what the real rows [first, last] see
+// together (none when band_lo > band_hi).
+__device__ __forceinline__ int band_lo(int first, int q_offset, int window) {
+  return max(0, q_offset + first - window + 1);
+}
+
+__device__ __forceinline__ int band_hi(int last, int q_offset, int skv) {
+  return min(skv - 1, q_offset + last);
+}
+
+// Every pair of real rows [first, last] x keys [k0, k0 + BK) is visible.
+__device__ __forceinline__ bool tile_interior(int k0, int first, int last,
+                                              int q_offset, int window,
+                                              int skv) {
+  return k0 + BK - 1 <= q_offset + first &&
+         k0 >= q_offset + last - window + 1 && k0 + BK <= skv;
+}
+
+// 2^x on the SFU (ex2.approx, relative error ~2^-22); -1e30-like inputs
+// give 0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The score tile of a warp is the mma / wgmma accumulator layout: s[4 j +
+// e] holds row g + 8 (e >> 1), key 8 j + 2 t + (e & 1) of its 16 rows x
+// BK keys, g = lane / 4, t = lane % 4.
+//
+// Mask (unless the tile is interior) and fold one tile of scores into the
+// online softmax: m (raw-score maximum) and l (this lane's part of the
+// row sum) are updated, alpha gets the factor the accumulator must be
+// rescaled by, s becomes p.  scale_log2 = d^-1/2 * log2 e.
+__device__ __forceinline__ void online_softmax(float (&s)[4 * NT],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2],
+                                               bool interior, int key_base,
+                                               int qpos0, int window, int skv,
+                                               float scale_log2) {
+  if (!interior) {
+#pragma unroll
+    for (int e = 0; e < 4 * NT; ++e) {
+      const int key = key_base + 8 * (e >> 2) + (e & 1);
+      const int qp = qpos0 + 8 * ((e >> 1) & 1);
+      const bool ok = key <= qp && qp - key < window && key < skv;
+      s[e] = ok ? s[e] : NEG;
+    }
+  }
+  float mx[2] = {NEG, NEG};
+#pragma unroll
+  for (int e = 0; e < 4 * NT; ++e)
+    mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+  float mc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = fast_exp2((m[r] - m_new) * scale_log2);
+    m[r] = m_new;
+    mc[r] = m_new * scale_log2;
+  }
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int e = 0; e < 4 * NT; ++e) {
+    const int r = (e >> 1) & 1;
+    const float p = (interior || s[e] > 0.5f * NEG)
+                        ? fast_exp2(fmaf(s[e], scale_log2, -mc[r]))
+                        : 0.0f;
+    s[e] = p;
+    sum[r] += p;
+  }
+  l[0] = l[0] * alpha[0] + sum[0];
+  l[1] = l[1] * alpha[1] + sum[1];
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x is the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- bf16: TMA, mbarriers, wgmma ---------------------------------------- //
+constexpr int BQ = 128;            // queries per CTA: two warpgroups of 64
+constexpr int STAGES = 3;          // K/V ring depth
+constexpr int CONSUMER_WARPS = 8;
+constexpr int BF16_THREADS = 32 * CONSUMER_WARPS + 32;   // + the producer
+
+// d in panels: NF full 64-column panels (128 B rows, 128 B swizzle),
+// then a tail of TW = 16 or 32 columns (32 B or 64 B rows and swizzle).
+// A tile of `rows` rows stores its panels one after another, each
+// rows x row-bytes, full panels first; every panel starts on a multiple
+// of 1024 B, the 128 B swizzle's period.
+template <int HD>
+struct Panels {
+  static constexpr int NF = HD / 64;
+  static constexpr int TW = HD % 64;
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;
+  static_assert(TW == 0 || TW == 16 || TW == 32, "d must be 16, 32 or 64k (+16/32)");
+  __host__ __device__ static constexpr int offset(int p, int rows) {
+    return rows * 128 * p;
+  }
+};
+
+// The tensor maps of one call: [0] the 64-column panels, [1] the tail.
+struct SwaMaps {
+  CUtensorMap q[2], k[2], v[2];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// Returns once the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA box of a 3-D map at (column, row, folded head) into shared
+// memory; completion counts on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<u64>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a swizzled tile whose rows are
+// `row_bytes` (128, 64 or 32) apart: start address, leading offset 1
+// (unused by swizzled layouts), 8-row groups 8 * row_bytes apart, the
+// swizzle of that width.
+__device__ __forceinline__ u64 smem_desc(uint32_t addr, int row_bytes) {
+  const u64 layout = row_bytes == 128 ? 1 : row_bytes == 64 ? 2 : 3;
+  return (u64)((addr & 0x3FFFF) >> 4) | ((u64)1 << 16) |
+         ((u64)((8 * row_bytes) >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Ties registers to this point: the compiler may not read or move them
+// across it (wgmma writes them asynchronously).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (m64 x n64, fp32) = A B + (scale_d ? d : 0): A (64 x 16) and
+// B (16 x 64) bf16 from shared memory through descriptors, both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, u64 desc_a, u64 desc_b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (m64 x n64, fp32) += A B: A (64 x 16 bf16) from registers, B
+// (16 x 64 bf16) from shared memory through a descriptor, MN-major.
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                            u64 desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (m64 x n32, fp32) += A B: A (64 x 16 bf16) from registers, B
+// (16 x 32 bf16) from shared memory through a descriptor, MN-major.
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                            u64 desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (m64 x n16, fp32) += A B: A (64 x 16 bf16) from registers, B
+// (16 x 16 bf16) from shared memory through a descriptor, MN-major.
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
+                                            u64 desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d <= 80 asks for two CTAs an SM (d = 80: 90 registers, 128 B of
+// spills), d = 128 for one (147 registers, no spills).
+template <int HD>
+__global__ void __launch_bounds__(BF16_THREADS, HD <= 80 ? 2 : 1)
+swa_bf16_kernel(const __grid_constant__ SwaMaps maps,
+                __nv_bfloat16* __restrict__ o, int sq, int skv, int group,
+                int window, int q_offset, float scale_log2) {
+  using P = Panels<HD>;
+  constexpr int NF = P::NF, TW = P::TW;
+  extern __shared__ unsigned char smem_bf16[];
+  const uint32_t s_q = (smem_u32(smem_bf16) + 1023u) & ~1023u;
+  const uint32_t s_k = s_q + P::Q_BYTES;             // stage s: + s * KV_BYTES
+  const uint32_t s_v = s_k + STAGES * P::KV_BYTES;
+  const uint32_t bar_full = s_v + STAGES * P::KV_BYTES;  // STAGES barriers
+  const uint32_t bar_empty = bar_full + 8 * STAGES;
+  const uint32_t bar_q = bar_empty + 8 * STAGES;
+
+  const int head = blockIdx.x, kvh = head / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest tiles first
+  const int k_lo = band_lo(q0, q_offset, window);
+  const int k_hi = band_hi(min(q0 + BQ, sq) - 1, q_offset, skv);
+  const int tile0 = k_lo / BK;
+  const int n_tiles = k_lo <= k_hi ? k_hi / BK - tile0 + 1 : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, CONSUMER_WARPS);
+    }
+    mbar_init(bar_q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {        // the producer: one thread issues TMA
+    if (lane == 0) {
+      mbar_expect_tx(bar_q, P::Q_BYTES);
+      for (int p = 0; p < NF; ++p)
+        tma_load_3d(s_q + P::offset(p, BQ), &maps.q[0], bar_q, 64 * p, q0, head);
+      if (TW) tma_load_3d(s_q + P::offset(NF, BQ), &maps.q[1], bar_q, 64 * NF, q0, head);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(bar_empty + 8 * s, (i / STAGES - 1) & 1);
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, 2 * P::KV_BYTES);
+        const int key0 = (tile0 + i) * BK;
+        const uint32_t k_dst = s_k + s * P::KV_BYTES, v_dst = s_v + s * P::KV_BYTES;
+        for (int p = 0; p < NF; ++p) {
+          tma_load_3d(k_dst + P::offset(p, BK), &maps.k[0], full, 64 * p, key0, kvh);
+          tma_load_3d(v_dst + P::offset(p, BK), &maps.v[0], full, 64 * p, key0, kvh);
+        }
+        if (TW) {
+          tma_load_3d(k_dst + P::offset(NF, BK), &maps.k[1], full, 64 * NF, key0, kvh);
+          tma_load_3d(v_dst + P::offset(NF, BK), &maps.v[1], full, 64 * NF, key0, kvh);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  const int first = q0 + 64 * wg, last = min(first + 63, sq - 1);
+  const bool live = first < sq;
+  const int wk_lo = band_lo(first, q_offset, window);
+  const int wk_hi = band_hi(last, q_offset, skv);
+  const int row0 = first + 16 * (warp % 4) + g;      // rows row0, row0 + 8
+  float acc[HD / 2];                 // O: acc[4 j + e] is column 8 j + 2 t + (e & 1)
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
+  mbar_wait(bar_q, 0);
+  const uint32_t q_wg = s_q + 64 * wg * 128;         // + the panel's offset
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(bar_full + 8 * s, (i / STAGES) & 1);
+    const int k0 = (tile0 + i) * BK;
+    if (live && k0 <= wk_hi && k0 + BK - 1 >= wk_lo) {
+      const uint32_t k_t = s_k + s * P::KV_BYTES, v_t = s_v + s * P::KV_BYTES;
+      float sc[4 * NT];
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < NF; ++p) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n64(sc, smem_desc(q_wg + P::offset(p, BQ) + 32 * kk, 128),
+                       smem_desc(k_t + P::offset(p, BK) + 32 * kk, 128),
+                       p + kk > 0);
+      }
+      if constexpr (TW > 0) {
+        // the tail's rows are 2 TW bytes: the warpgroup's rows start at
+        // 64 * 2 TW within it
+        const uint32_t qa = s_q + P::offset(NF, BQ) + 64 * wg * 2 * TW;
+#pragma unroll
+        for (int kk = 0; kk < TW / 16; ++kk)
+          wgmma_ss_n64(sc, smem_desc(qa + 32 * kk, 2 * TW),
+                       smem_desc(k_t + P::offset(NF, BK) + 32 * kk, 2 * TW),
+                       NF + kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      const bool interior = tile_interior(k0, first, last, q_offset, window, skv);
+      float alpha[2];
+      online_softmax(sc, m, l, alpha, interior, k0 + 2 * t, q_offset + row0,
+                     window, skv, scale_log2);
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        acc[4 * j] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+      // two 8-key column blocks of the score layout are one 16-key
+      // k-step of wgmma's A fragment: p rounded to bf16 here
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // 16 keys a k-step: 16 rows of each V panel further on
+#pragma unroll
+        for (int p = 0; p < NF; ++p)
+          wgmma_rs_n64(acc + 32 * p, pa[kk],
+                       smem_desc(v_t + P::offset(p, BK) + kk * 16 * 128, 128));
+        if constexpr (TW == 32)
+          wgmma_rs_n32(acc + 32 * NF, pa[kk],
+                       smem_desc(v_t + P::offset(NF, BK) + kk * 16 * 64, 64));
+        if constexpr (TW == 16)
+          wgmma_rs_n16(acc + 32 * NF, pa[kk],
+                       smem_desc(v_t + P::offset(NF, BK) + kk * 16 * 32, 32));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);    // this warp is done with it
+  }
+
+  __nv_bfloat16* oh = o + (size_t)head * sq * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lt = l[r] + __shfl_xor_sync(FULL, l[r], 1);
+    lt += __shfl_xor_sync(FULL, lt, 2);
+    const int qi = row0 + 8 * r;
+    if (qi >= sq) continue;
+    const float den = fmaxf(lt, 1e-30f);
+    __nv_bfloat16* orow = oh + (size_t)qi * HD + 2 * t;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * r] / den, acc[4 * j + 2 * r + 1] / den);
+  }
+}
+
+// ---- fp32: CUDA-core FMA ---------------------------------------------- //
+constexpr int F32_BQ = 64;         // query rows per block, 16 per warp
+constexpr int F32_THREADS = 128;   // 4 warps
+constexpr int F32_LD = 4;          // row padding (floats): rows of a
+                                   // fragment load fall in different banks
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const unsigned s = smem_u32(smem);
   const int n = valid ? 16 : 0;   // 0: nothing read, 16 zero bytes written
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(n));
@@ -85,40 +562,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// D = A (16x16 bf16, row) * B (16x8 bf16, col) + D, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices, transposed: lanes 8i..8i+7 give the row
-// addresses of matrix i; r[i] is matrix i's B fragment half
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* smem) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x is the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // Stage rows [key0, key0 + BK) of one kv head's K and V in shared memory
-// (row stride LD elements); rows at or past skv are zero-filled.
-template <typename T, int HD>
-__device__ __forceinline__ void load_kv_tile(T* sk, T* sv, const T* kh,
-                                             const T* vh, int key0, int skv) {
-  constexpr int V = VEC<T>, LD = HD + V, CHUNKS = HD / V;
-  for (int c = threadIdx.x; c < BK * CHUNKS; c += THREADS) {
-    const int r = c / CHUNKS, col = (c % CHUNKS) * V;
+// (row stride HD + F32_LD floats); rows at or past skv are zero-filled.
+template <int HD>
+__device__ __forceinline__ void load_kv_tile(float* sk, float* sv,
+                                             const float* kh, const float* vh,
+                                             int key0, int skv) {
+  constexpr int LD = HD + F32_LD, CHUNKS = HD / 4;
+  for (int c = threadIdx.x; c < BK * CHUNKS; c += F32_THREADS) {
+    const int r = c / CHUNKS, col = (c % CHUNKS) * 4;
     const int key = key0 + r;
     const bool ok = key < skv;
     const size_t off = (size_t)(ok ? key : 0) * HD + col;
@@ -127,103 +579,6 @@ __device__ __forceinline__ void load_kv_tile(T* sk, T* sv, const T* kh,
   }
 }
 
-// The score fragment s[nt][e] of a warp holds row (g + 8 * (e >> 1)),
-// column (8 * nt + 2 * t + (e & 1)) of its 16 x BK tile, g = lane / 4,
-// t = lane % 4: the mma accumulator layout, used by both paths.
-//
-// Mask and scale one tile of scores, then fold it into the online softmax:
-// m and l (this lane's part of the row sum) are updated, alpha gets the
-// factor the accumulator must be rescaled by, s becomes p.
-__device__ __forceinline__ void online_softmax(float (&s)[NT][4], float (&m)[2],
-                                               float (&l)[2], float (&alpha)[2],
-                                               int key_base, int qpos0,
-                                               int window, int skv,
-                                               float scale) {
-  float mx[2] = {NEG, NEG};
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = key_base + 8 * nt + (e & 1);
-      const int qp = qpos0 + 8 * (e >> 1);
-      const bool ok = key <= qp && qp - key < window && key < skv;
-      const float x = ok ? s[nt][e] * scale : NEG;
-      s[nt][e] = x;
-      mx[e >> 1] = fmaxf(mx[e >> 1], x);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
-    const float m_new = fmaxf(m[r], mx[r]);
-    alpha[r] = expf(m[r] - m_new);
-    m[r] = m_new;
-  }
-  float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = e >> 1;
-      const float p = s[nt][e] > 0.5f * NEG ? expf(s[nt][e] - m[r]) : 0.0f;
-      s[nt][e] = p;
-      sum[r] += p;
-    }
-  }
-  l[0] = l[0] * alpha[0] + sum[0];
-  l[1] = l[1] * alpha[1] + sum[1];
-}
-
-// ---- bf16: tensor cores ------------------------------------------------ //
-template <int HD>
-__device__ __forceinline__ void scores_bf16(float (&s)[NT][4],
-                                            const uint32_t (&qa)[HD / 16][4],
-                                            const __nv_bfloat16* sk, int g,
-                                            int t) {
-  constexpr int LD = HD + 8;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-    const __nv_bfloat16* krow = sk + (8 * nt + g) * LD + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + 16 * kk);
-      const uint32_t b1 =
-          *reinterpret_cast<const uint32_t*>(krow + 16 * kk + 8);
-      mma_bf16(s[nt], qa[kk], b0, b1);
-    }
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ void pv_bf16(float (&acc)[HD / 8][4],
-                                        const float (&p)[NT][4],
-                                        const __nv_bfloat16* sv, int lane) {
-  constexpr int LD = HD + 8;
-  const int mat = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int ks = 0; ks < BK / 16; ++ks) {
-    // the accumulator layout of two 8-key score tiles is the A layout of
-    // one 16-key step of P
-    const uint32_t pa[4] = {pack_bf16(p[2 * ks][0], p[2 * ks][1]),
-                            pack_bf16(p[2 * ks][2], p[2 * ks][3]),
-                            pack_bf16(p[2 * ks + 1][0], p[2 * ks + 1][1]),
-                            pack_bf16(p[2 * ks + 1][2], p[2 * ks + 1][3])};
-    // matrix mat: keys 16 ks + 8 (mat & 1) + [0, 8), dims 8 (mat >> 1) + [0, 8)
-    const __nv_bfloat16* base =
-        sv + (16 * ks + 8 * (mat & 1) + r) * LD + 8 * (mat >> 1);
-#pragma unroll
-    for (int nd = 0; nd < HD / 16; ++nd) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, base + 16 * nd);
-      mma_bf16(acc[2 * nd], pa, b[0], b[1]);
-      mma_bf16(acc[2 * nd + 1], pa, b[2], b[3]);
-    }
-  }
-}
-
-// ---- fp32: CUDA-core FMA, same fragment layout --------------------------- //
 __device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
   acc = fmaf(a.x, b.x, acc);
   acc = fmaf(a.y, b.y, acc);
@@ -232,11 +587,11 @@ __device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
 }
 
 template <int HD>
-__device__ __forceinline__ void scores_f32(float (&s)[NT][4], const float* sq,
+__device__ __forceinline__ void scores_f32(float (&s)[4 * NT], const float* sq,
                                            const float* sk, int row, int t) {
-  constexpr int LD = HD + 4;
+  constexpr int LD = HD + F32_LD;
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
+  for (int e = 0; e < 4 * NT; ++e) s[e] = 0.0f;
   const float* qa = sq + row * LD;
   const float* qb = qa + 8 * LD;
 #pragma unroll 2
@@ -248,19 +603,19 @@ __device__ __forceinline__ void scores_f32(float (&s)[NT][4], const float* sq,
       const float* k0 = sk + (8 * nt + 2 * t) * LD + d;
       const float4 x = *reinterpret_cast<const float4*>(k0);
       const float4 y = *reinterpret_cast<const float4*>(k0 + LD);
-      s[nt][0] = dot4(s[nt][0], a, x);
-      s[nt][1] = dot4(s[nt][1], a, y);
-      s[nt][2] = dot4(s[nt][2], b, x);
-      s[nt][3] = dot4(s[nt][3], b, y);
+      s[4 * nt] = dot4(s[4 * nt], a, x);
+      s[4 * nt + 1] = dot4(s[4 * nt + 1], a, y);
+      s[4 * nt + 2] = dot4(s[4 * nt + 2], b, x);
+      s[4 * nt + 3] = dot4(s[4 * nt + 3], b, y);
     }
   }
 }
 
 template <int HD>
-__device__ __forceinline__ void pv_f32(float (&acc)[HD / 8][4],
-                                       const float (&p)[NT][4], const float* sv,
-                                       int lane) {
-  constexpr int LD = HD + 4;
+__device__ __forceinline__ void pv_f32(float (&acc)[HD / 2],
+                                       const float (&p)[4 * NT],
+                                       const float* sv, int lane) {
+  constexpr int LD = HD + F32_LD;
   const int t = lane & 3, quad = lane & ~3;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
@@ -270,51 +625,50 @@ __device__ __forceinline__ void pv_f32(float (&acc)[HD / 8][4],
       for (int i = 0; i < 2; ++i) {
         // p of key 8 nt + 2 tp + i for rows g and g + 8 sits in lane
         // (g, tp) of this quad
-        const float p0 = __shfl_sync(FULL, p[nt][i], quad + tp);
-        const float p1 = __shfl_sync(FULL, p[nt][2 + i], quad + tp);
+        const float p0 = __shfl_sync(FULL, p[4 * nt + i], quad + tp);
+        const float p1 = __shfl_sync(FULL, p[4 * nt + 2 + i], quad + tp);
         const float* vrow = sv + (8 * nt + 2 * tp + i) * LD + 2 * t;
 #pragma unroll
         for (int nd = 0; nd < HD / 8; ++nd) {
           const float2 x = *reinterpret_cast<const float2*>(vrow + 8 * nd);
-          acc[nd][0] = fmaf(p0, x.x, acc[nd][0]);
-          acc[nd][1] = fmaf(p0, x.y, acc[nd][1]);
-          acc[nd][2] = fmaf(p1, x.x, acc[nd][2]);
-          acc[nd][3] = fmaf(p1, x.y, acc[nd][3]);
+          acc[4 * nd] = fmaf(p0, x.x, acc[4 * nd]);
+          acc[4 * nd + 1] = fmaf(p0, x.y, acc[4 * nd + 1]);
+          acc[4 * nd + 2] = fmaf(p1, x.x, acc[4 * nd + 2]);
+          acc[4 * nd + 3] = fmaf(p1, x.y, acc[4 * nd + 3]);
         }
       }
     }
   }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-swa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, T* __restrict__ o, int sq,
-                   int skv, int group, int window, int q_offset,
-                   float scale) {
-  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int LD = HD + VEC<T>;
+template <int HD>
+__global__ void __launch_bounds__(F32_THREADS)
+swa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o, int sq,
+               int skv, int group, int window, int q_offset,
+               float scale_log2) {
+  constexpr int LD = HD + F32_LD;
   constexpr int TILE = BK * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  T* s_q = smem;                                  // fp32 only: BQ x LD
-  T* s_kv = BF16 ? smem : smem + BQ * LD;         // 2 x (K tile, V tile)
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  float* s_q = reinterpret_cast<float*>(smem_f32);    // F32_BQ x LD
+  float* s_kv = s_q + F32_BQ * LD;                     // 2 x (K tile, V tile)
 
   const int head = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest tiles first
-  const T* qh = q + (size_t)head * sq * HD;
-  const T* kh = k + (size_t)(head / group) * skv * HD;
-  const T* vh = v + (size_t)(head / group) * skv * HD;
-  T* oh = o + (size_t)head * sq * HD;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * F32_BQ;   // heaviest first
+  const float* qh = q + (size_t)head * sq * HD;
+  const float* kh = k + (size_t)(head / group) * skv * HD;
+  const float* vh = v + (size_t)(head / group) * skv * HD;
+  float* oh = o + (size_t)head * sq * HD;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = warp * 16 + g;                 // rows row0, row0 + 8
   const int qpos0 = q_offset + q0 + row0;
 
-  // keys any row of the block sees, and those of this warp's rows
-  const int k_lo = max(0, q_offset + q0 - window + 1);
-  const int k_hi = min(skv - 1, q_offset + min(q0 + BQ, sq) - 1);
+  // keys the block's real rows see, and those of this warp's rows
+  const int last = min(q0 + F32_BQ, sq) - 1;
+  const int k_lo = band_lo(q0, q_offset, window);
+  const int k_hi = band_hi(last, q_offset, skv);
   const int w_first = q0 + warp * 16;
   const bool warp_live = w_first < sq;
   const int wk_lo = q_offset + w_first - window + 1;
@@ -322,47 +676,28 @@ swa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tile0 = k_lo / BK;
   const int n_tiles = k_lo <= k_hi ? k_hi / BK - tile0 + 1 : 0;
 
-  if constexpr (!BF16) {
+  {
     constexpr int CH = HD / 4;
-    for (int c = threadIdx.x; c < BQ * CH; c += THREADS) {
+    for (int c = threadIdx.x; c < F32_BQ * CH; c += F32_THREADS) {
       const int r = c / CH, col = (c % CH) * 4;
       const bool ok = q0 + r < sq;
       cp_async16(s_q + r * LD + col, qh + (size_t)(ok ? q0 + r : 0) * HD + col,
                  ok);
     }
   }
-  if (n_tiles > 0)
-    load_kv_tile<T, HD>(s_kv, s_kv + TILE, kh, vh, tile0 * BK, skv);
+  if (n_tiles > 0) load_kv_tile<HD>(s_kv, s_kv + TILE, kh, vh, tile0 * BK, skv);
   cp_async_commit();
 
-  uint32_t qa[BF16 ? HD / 16 : 1][4];
-  if constexpr (BF16) {
-    // A fragments of this warp's 16 query rows: rows row0 / row0 + 8,
-    // columns 16 kk + 2 t (+ 8); rows past sq are zero
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = q0 + row0 + 8 * (j & 1);
-        const int col = 16 * kk + 2 * t + 8 * (j >> 1);
-        qa[kk][j] = r < sq ? *reinterpret_cast<const uint32_t*>(
-                                 qh + (size_t)r * HD + col)
-                           : 0u;
-      }
-    }
-  }
-
   float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
-  float acc[HD / 8][4];
+  float acc[HD / 2];
 #pragma unroll
-  for (int nd = 0; nd < HD / 8; ++nd)
-    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.0f;
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
 
   for (int i = 0; i < n_tiles; ++i) {
-    T* sk = s_kv + (i & 1) * 2 * TILE;
+    float* sk = s_kv + (i & 1) * 2 * TILE;
     if (i + 1 < n_tiles) {
-      T* nk = s_kv + ((i + 1) & 1) * 2 * TILE;
-      load_kv_tile<T, HD>(nk, nk + TILE, kh, vh, (tile0 + i + 1) * BK, skv);
+      float* nk = s_kv + ((i + 1) & 1) * 2 * TILE;
+      load_kv_tile<HD>(nk, nk + TILE, kh, vh, (tile0 + i + 1) * BK, skv);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -371,23 +706,19 @@ swa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     const int key0 = (tile0 + i) * BK;
     if (warp_live && key0 <= wk_hi && key0 + BK - 1 >= wk_lo) {
-      float s[NT][4], alpha[2];
-      if constexpr (BF16)
-        scores_bf16<HD>(s, qa, sk, g, t);
-      else
-        scores_f32<HD>(s, s_q, sk, row0, t);
-      online_softmax(s, m, l, alpha, key0 + 2 * t, qpos0, window, skv, scale);
+      float s[4 * NT], alpha[2];
+      scores_f32<HD>(s, s_q, sk, row0, t);
+      online_softmax(s, m, l, alpha,
+                     tile_interior(key0, q0, last, q_offset, window, skv),
+                     key0 + 2 * t, qpos0, window, skv, scale_log2);
 #pragma unroll
       for (int nd = 0; nd < HD / 8; ++nd) {
-        acc[nd][0] *= alpha[0];
-        acc[nd][1] *= alpha[0];
-        acc[nd][2] *= alpha[1];
-        acc[nd][3] *= alpha[1];
+        acc[4 * nd] *= alpha[0];
+        acc[4 * nd + 1] *= alpha[0];
+        acc[4 * nd + 2] *= alpha[1];
+        acc[4 * nd + 3] *= alpha[1];
       }
-      if constexpr (BF16)
-        pv_bf16<HD>(acc, s, sk + TILE, lane);
-      else
-        pv_f32<HD>(acc, s, sk + TILE, lane);
+      pv_f32<HD>(acc, s, sk + TILE, lane);
     }
     __syncthreads();
   }
@@ -400,51 +731,123 @@ swa_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + row0 + 8 * r;
     if (qi >= sq) continue;
     const float den = fmaxf(lt, 1e-30f);
-    T* orow = oh + (size_t)qi * HD + 2 * t;
+    float* orow = oh + (size_t)qi * HD + 2 * t;
 #pragma unroll
-    for (int nd = 0; nd < HD / 8; ++nd) {
-      const float a = acc[nd][2 * r] / den, b = acc[nd][2 * r + 1] / den;
-      if constexpr (BF16)
-        *reinterpret_cast<uint32_t*>(orow + 8 * nd) = pack_bf16(a, b);
-      else
-        *reinterpret_cast<float2*>(orow + 8 * nd) = make_float2(a, b);
-    }
+    for (int nd = 0; nd < HD / 8; ++nd)
+      *reinterpret_cast<float2*>(orow + 8 * nd) =
+          make_float2(acc[4 * nd + 2 * r] / den, acc[4 * nd + 2 * r + 1] / den);
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int bhq,
-           int bhkv, int sq, int skv, int window, int q_offset, float scale,
-           cudaStream_t stream) {
-  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int LD = HD + VEC<T>;
-  constexpr size_t smem = ((BF16 ? 0 : BQ * LD) + 4 * BK * LD) * sizeof(T);
-  auto kern = swa_forward_kernel<T, HD>;
+// ---- host ------------------------------------------------------------- //
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, from the driver the runtime has loaded
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A folded (rows, s, d) bf16 tensor as a 3-D map (d, s, rows): boxes of
+// `width` columns x box_rows rows of one folded head, swizzled to the
+// width's span; rows past s read as zero.
+bool encode(CUtensorMap* map, const void* ptr, int rows, int s, int d,
+            int width, int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)rows};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)width, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw = width == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : width == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                              : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int bhq,
+                int bhkv, int sq, int skv, int window, int q_offset,
+                float scale, cudaStream_t stream) {
+  using P = Panels<HD>;
+  SwaMaps maps = {};
+  bool ok = true;
+  for (int j = 0; j < 2; ++j) {        // [0]: 64-column panels, [1]: tail
+    const int width = j == 0 ? 64 : P::TW;
+    if (j == 0 ? P::NF == 0 : P::TW == 0) continue;
+    ok = ok && encode(&maps.q[j], q, bhq, sq, HD, width, BQ) &&
+         encode(&maps.k[j], k, bhkv, skv, HD, width, BK) &&
+         encode(&maps.v[j], v, bhkv, skv, HD, width, BK);
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const int smem = 1024 + P::Q_BYTES + 2 * STAGES * P::KV_BYTES +
+                   8 * (2 * STAGES + 1);
+  auto kern = swa_bf16_kernel<HD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // all of the SM's unified memory as shared memory: only then do two
+  // CTAs (83 KB each at d = 80) fit on an SM
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(bhq, (sq + BQ - 1) / BQ);
+  kern<<<grid, BF16_THREADS, smem, stream>>>(
+      maps, static_cast<__nv_bfloat16*>(o), sq, skv, bhq / bhkv, window,
+      q_offset, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int bhq,
+               int bhkv, int sq, int skv, int window, int q_offset,
+               float scale, cudaStream_t stream) {
+  constexpr int LD = HD + F32_LD;
+  constexpr size_t smem = (F32_BQ * LD + 4 * BK * LD) * sizeof(float);
+  auto kern = swa_f32_kernel<HD>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid(bhq, (sq + BQ - 1) / BQ);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, skv, bhq / bhkv,
-      window, q_offset, scale);
+  const dim3 grid(bhq, (sq + F32_BQ - 1) / F32_BQ);
+  kern<<<grid, F32_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), sq, skv,
+      bhq / bhkv, window, q_offset, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
-             int bhq, int bhkv, int sq, int skv, int window, int q_offset,
-             float scale, cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, bhq, bhkv, sq, skv, window, q_offset, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, bhq, bhkv, sq, skv, window, q_offset, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, bhq, bhkv, sq, skv, window, q_offset, scale, s);
-    case 80: return launch<T, 80>(q, k, v, o, bhq, bhkv, sq, skv, window, q_offset, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, bhq, bhkv, sq, skv, window, q_offset, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+template <int HD>
+int launch(bool bf16, const void* q, const void* k, const void* v, void* o,
+           int bhq, int bhkv, int sq, int skv, int window, int q_offset,
+           float scale, cudaStream_t s) {
+  return bf16 ? launch_bf16<HD>(q, k, v, o, bhq, bhkv, sq, skv, window,
+                                q_offset, scale, s)
+              : launch_f32<HD>(q, k, v, o, bhq, bhkv, sq, skv, window,
+                               q_offset, scale, s);
 }
 
 }  // namespace
@@ -460,10 +863,14 @@ extern "C" int swa_attention_forward(const long long* a) {
   void* o = (void*)a[3];
   const int bhq = (int)a[4], bhkv = (int)a[5], sq = (int)a[6],
             skv = (int)a[7], window = (int)a[9], q_offset = (int)a[10];
+  const bool bf16 = a[11] != 0;
   cudaStream_t s = (cudaStream_t)a[12];
-  if (a[11])
-    return dispatch<__nv_bfloat16>(hd, q, k, v, o, bhq, bhkv, sq, skv, window,
-                                   q_offset, scale, s);
-  return dispatch<float>(hd, q, k, v, o, bhq, bhkv, sq, skv, window, q_offset,
-                         scale, s);
+  switch (hd) {
+    case 16: return launch<16>(bf16, q, k, v, o, bhq, bhkv, sq, skv, window, q_offset, scale, s);
+    case 32: return launch<32>(bf16, q, k, v, o, bhq, bhkv, sq, skv, window, q_offset, scale, s);
+    case 64: return launch<64>(bf16, q, k, v, o, bhq, bhkv, sq, skv, window, q_offset, scale, s);
+    case 80: return launch<80>(bf16, q, k, v, o, bhq, bhkv, sq, skv, window, q_offset, scale, s);
+    case 128: return launch<128>(bf16, q, k, v, o, bhq, bhkv, sq, skv, window, q_offset, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

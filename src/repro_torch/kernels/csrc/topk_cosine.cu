@@ -4,49 +4,52 @@
 // topk_cosine_pallas (kernel body _topk_kernel) together with the merge
 // step of src/repro/kernels/ops.py::_topk_stream.  The Pallas grid walks
 // the table one slab at a time on one core; here the slab is split into
-// 256-row chunks x 16-query tiles, so every SM gets blocks, and the
-// per-chunk results are merged by a second pass.
+// 64-row blocks x 4-64-query tiles, so every SM gets blocks, and the
+// per-block results are merged by a later launch.
 //
 // Contract of one step (plain version: kernels/ref.py::stream_step_ref):
 //   score = q . (e / max(norm, 1e-12)), fp32 accumulation, no TF32;
 //   columns >= limit and each query's excluded column score -1e30;
 //   result = the k best of (running list + slab), ordered by score
-//   descending, then by global index ascending.
+//   descending, then by global index ascending.  The running list is
+//   sorted (every step's result is).
 //
 // Ordering trick: every candidate is one 64-bit key,
 //   (order-preserving bits of the score) << 32 | (0xFFFFFFFF - index),
-// so "larger key" is exactly "better candidate" and the keys of one slab
-// never repeat (a running list may repeat its sentinel (-1e30, 0); equal
-// keys decode alike).  Small-k selection takes k rounds of "largest key
-// below the last one taken", which needs no removal and resolves ties by
-// index for free.  Key 0 means "nothing left" and decodes to the sentinel
-// (-1e30, 0).
+// so "larger key" is exactly "better candidate", ties go to the lower
+// index for free, and the keys of one slab never repeat (a running list
+// may repeat its sentinel (-1e30, 0); equal keys decode alike).  Key 0
+// means "nothing" (a row past the slab) and decodes to the sentinel.
 //
 // What bounds it on an H100: on the serving path the slab has just come
 // over PCIe, so the step reads it once from HBM (rows*d*4 bytes) and does
 // 2*Q*rows*d fp32 operations on the CUDA cores: Q/2 operations per byte,
 // 32 at Q = 64.  The fp32 ridge of the card is 67 TFLOP/s over 3.35 TB/s
 // = 20, so a full batch is bound by the fp32 rate, a small one by HBM.
-// The design reads each chunk tile into shared memory with coalesced
-// loads once per 16 queries, keeps 16 partial sums per thread in
-// registers, and never writes the (Q, rows) score matrix to device memory
-// for small k.
+// Both paths score with one scorer (score_block): 64-row blocks whose
+// threads keep a stage's slab loads in flight together, each slab column
+// read into shared memory once per 4-64 queries, 1-16 partial sums per
+// thread in registers.
 //
-// k > 64 (up to N) takes three stages, and the running list, which is
-// already sorted, is never sorted again:
-//   1. score: one key per slab row and query into scratch (Q x rows), by
-//      its own scorer: 64-row blocks that keep a stage's loads in flight
-//      together (the small path's 256-row scorer waits on them one at a
-//      time).  The two scorers compute the same masked score; the
-//      duplication is deliberate and temporary: the small-k path is to
-//      move onto this scorer, and score_rows to go, when that path is
-//      redesigned next (ROADMAP.md, Queue 2);
+// k <= 64 (the paper's k = 10) takes two launches, and the (Q, rows)
+// scores never reach device memory:
+//   1. score and select: the block's scores go through shared memory to
+//      one warp per query, which sorts the 64 keys in registers (a
+//      bitonic network, two keys a lane) and writes the best min(k, 64),
+//      sorted: ceil(rows / 64) runs of candidates per query;
+//   2. merge lists: one block per query streams its runs, each warp
+//      keeping its best 64 in registers and dropping, after one load, a
+//      run whose head cannot enter its first k; then the warps' lists
+//      meet pairwise (bitonic merges).  Each candidate is read once.
+//
+// k > 64 (up to N) takes three stages, and the running list is never
+// sorted again:
+//   1. score: one key per slab row and query into scratch (Q x rows);
 //   2. select and sort: one block per (sub-slab of <= SORT_CAP rows,
 //      query) holds the sub-slab's keys in registers, finds the m-th
 //      largest key (m = min(k, sub-slab rows)) by a radix select over its
-//      8 bytes,
-//      compacts the m survivors into shared memory and sorts only them
-//      (64-key runs in registers, then merge rounds);
+//      8 bytes, compacts the m survivors into shared memory and sorts only
+//      them (64-key runs in registers, then merge rounds);
 //   3. merge path: the sorted running list and one sub-slab's sorted keys
 //      are merged into the first k; each block finds its two split points
 //      by binary search along its output diagonal and places its tile's
@@ -61,16 +64,13 @@
 
 namespace {
 
-constexpr int CHUNK = 256;        // rows per scoring block = its threads
-constexpr int QT = 16;            // queries per scoring block
-constexpr int DT = 32;            // feature columns per shared tile
-constexpr int MERGE_THREADS = 256;
-constexpr int SR = 64;            // slab rows per large-k scoring block
+constexpr int SR = 64;            // slab rows per scoring block
 constexpr int SCORE_THREADS = 256;
 constexpr int SORT_CAP = 8192;    // keys of one sub-slab (large k)
 constexpr int SORT_THREADS = 1024;
 constexpr int SORT_KPT = SORT_CAP / SORT_THREADS;  // keys per thread
 constexpr int MERGE_TILE = 256;   // outputs per merge-path block (threads)
+constexpr int LIST_MERGE_THREADS = 1024;  // most threads of a list merge
 constexpr float NEG_INF = -1e30f;
 
 typedef unsigned long long u64;
@@ -92,182 +92,103 @@ __device__ __forceinline__ int key_index(u64 key) {
   return (int)(0xFFFFFFFFu - (unsigned)(key & 0xFFFFFFFFull));
 }
 
-__device__ __forceinline__ u64 warp_max(u64 v) {
+// Sorts the 64 keys a warp holds, two a lane (v0, v1 at positions
+// 2 lane and 2 lane + 1), descending: a bitonic network over shuffles, no
+// barriers.
+__device__ __forceinline__ void warp_sort64(u64& v0, u64& v1) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int size = 2; size <= 64; size <<= 1) {
+    const bool desc = ((2 * lane) & size) == 0;
+#pragma unroll
+    for (int o = size / 4; o > 0; o >>= 1) {     // stride 2 * o: lane ^ o
+      const u64 w0 = __shfl_xor_sync(0xffffffffu, v0, o);
+      const u64 w1 = __shfl_xor_sync(0xffffffffu, v1, o);
+      const bool keep_max = ((lane & o) == 0) == desc;
+      v0 = keep_max ? (w0 > v0 ? w0 : v0) : (w0 < v0 ? w0 : v0);
+      v1 = keep_max ? (w1 > v1 ? w1 : v1) : (w1 < v1 ? w1 : v1);
+    }
+    if ((v0 < v1) == desc) {                     // stride 1, in the lane
+      const u64 x = v0;
+      v0 = v1;
+      v1 = x;
+    }
+  }
+}
+
+// (v0, v1) becomes the best 64 of two descending 64-key runs held as
+// warp_sort64 leaves them, (v0, v1) and (b0, b1), descending: the larger
+// of a[p] and b[63 - p] is the top half of the union as a bitonic
+// sequence, and a bitonic merge sorts it.
+__device__ __forceinline__ void warp_merge64(u64& v0, u64& v1, u64 b0,
+                                             u64 b1) {
+  const int lane = threadIdx.x % 32;
+  const u64 r0 = __shfl_sync(0xffffffffu, b1, 31 - lane);  // b[63 - 2 lane]
+  const u64 r1 = __shfl_sync(0xffffffffu, b0, 31 - lane);  // b[62 - 2 lane]
+  v0 = r0 > v0 ? r0 : v0;
+  v1 = r1 > v1 ? r1 : v1;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    const u64 w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = w > v ? w : v;
+    const u64 w0 = __shfl_xor_sync(0xffffffffu, v0, o);
+    const u64 w1 = __shfl_xor_sync(0xffffffffu, v1, o);
+    const bool keep_max = (lane & o) == 0;
+    v0 = keep_max ? (w0 > v0 ? w0 : v0) : (w0 < v0 ? w0 : v0);
+    v1 = keep_max ? (w1 > v1 ? w1 : v1) : (w1 < v1 ? w1 : v1);
   }
-  return v;
-}
-
-// Scores slab rows [r0, r0 + CHUNK) against queries [q0, q0 + QT): thread
-// t ends with the masked scores of row r0 + t in acc[].  All threads of
-// the block must call it (it synchronises).
-__device__ __forceinline__ void score_rows(
-    const float* __restrict__ q, int Q, int d,
-    const float* __restrict__ tbl, long long stride, int rows,
-    const float* __restrict__ norms, const int* __restrict__ excl,
-    int offset, int limit, int r0, int q0,
-    float* qs, float* es, float* nrm_s, float acc[QT]) {
-  const int tid = threadIdx.x;
-  const int nq = min(QT, Q - q0);
-  {
-    const int r = r0 + tid;
-    nrm_s[tid] = (norms != nullptr && r < rows) ? fmaxf(norms[r], 1e-12f)
-                                                : 1.0f;
-  }
-#pragma unroll
-  for (int i = 0; i < QT; ++i) acc[i] = 0.0f;
-  __syncthreads();
-  for (int c0 = 0; c0 < d; c0 += DT) {
-    const int dc = min(DT, d - c0);
-    // a warp reads DT consecutive floats of one row: coalesced; the
-    // transposed store lands on distinct banks thanks to the +1 pad
-    for (int e = tid; e < CHUNK * DT; e += CHUNK) {
-      const int r = e / DT, c = e % DT;
-      float v = 0.0f;
-      if (r0 + r < rows && c < dc) {
-        v = tbl[(long long)(r0 + r) * stride + c0 + c];
-        if (norms != nullptr) v = v / nrm_s[r];
-      }
-      es[c * (CHUNK + 1) + r] = v;
-    }
-    for (int e = tid; e < QT * DT; e += CHUNK) {
-      const int i = e / DT, c = e % DT;
-      qs[i * (DT + 1) + c] =
-          (i < nq && c < dc) ? q[(long long)(q0 + i) * d + c0 + c] : 0.0f;
-    }
-    __syncthreads();
-    for (int c = 0; c < dc; ++c) {
-      const float ev = es[c * (CHUNK + 1) + tid];
-#pragma unroll
-      for (int i = 0; i < QT; ++i) acc[i] = fmaf(qs[i * (DT + 1) + c], ev, acc[i]);
-    }
-    __syncthreads();
-  }
-  const int r = r0 + tid;
-  const int col = offset + r;
-#pragma unroll
-  for (int i = 0; i < QT; ++i) {
-    const bool live = i < nq && r < rows && col < limit && col != excl[q0 + i];
-    acc[i] = live ? acc[i] : NEG_INF;
+  if (v0 < v1) {
+    const u64 x = v0;
+    v0 = v1;
+    v1 = x;
   }
 }
 
-// Small k, stage 1: the best kc keys of each (chunk, query).
-// cand[(query * n_chunks + chunk) * kc + j], descending.
-__global__ void __launch_bounds__(CHUNK) select_chunks_kernel(
-    const float* __restrict__ q, int Q, int d,
-    const float* __restrict__ tbl, long long stride, int rows,
-    const float* __restrict__ norms, const int* __restrict__ excl,
-    int offset, int limit, int kc, int n_chunks, u64* __restrict__ cand) {
-  __shared__ float qs[QT * (DT + 1)];
-  __shared__ __align__(16) float es[DT * (CHUNK + 1)];
-  __shared__ float nrm_s[CHUNK];
-  const int chunk = blockIdx.x;
-  const int q0 = blockIdx.y * QT;
-  const int r0 = chunk * CHUNK;
-  float acc[QT];
-  score_rows(q, Q, d, tbl, stride, rows, norms, excl, offset, limit, r0, q0,
-             qs, es, nrm_s, acc);
-  float* sc = es;                   // reuse the tile: QT x CHUNK scores
-#pragma unroll
-  for (int i = 0; i < QT; ++i) sc[i * CHUNK + threadIdx.x] = acc[i];
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nq = min(QT, Q - q0);
-  for (int i = warp; i < nq; i += CHUNK / 32) {
-    u64 keys[CHUNK / 32];
-#pragma unroll
-    for (int m = 0; m < CHUNK / 32; ++m) {
-      const int r = lane + 32 * m;
-      keys[m] = make_key(sc[i * CHUNK + r], offset + r0 + r);
-    }
-    u64* out = cand + ((long long)(q0 + i) * n_chunks + chunk) * kc;
-    u64 prev = ~0ull;
-    for (int j = 0; j < kc; ++j) {
-      u64 best = 0;
-#pragma unroll
-      for (int m = 0; m < CHUNK / 32; ++m)
-        best = (keys[m] < prev && keys[m] > best) ? keys[m] : best;
-      best = warp_max(best);
-      if (lane == 0) out[j] = best;
-      prev = best;
-    }
-  }
-}
-
-// Small k, stage 2: one block per query merges the running list and the
-// stage-1 candidates into the new running list of k entries.
-__global__ void __launch_bounds__(MERGE_THREADS) merge_running_kernel(
-    const float* __restrict__ run_s, const int* __restrict__ run_i, int k_run,
-    const u64* __restrict__ cand, int n_cand, int k,
-    float* __restrict__ out_s, int* __restrict__ out_i) {
-  __shared__ u64 red[MERGE_THREADS / 32];
-  const int qi = blockIdx.x;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int total = k_run + n_cand;
-  const float* rs = run_s + (long long)qi * k_run;
-  const int* ri = run_i + (long long)qi * k_run;
-  const u64* cq = cand + (long long)qi * n_cand;
-  u64 prev = ~0ull;
-  for (int j = 0; j < k; ++j) {
-    u64 best = 0;
-    for (int t = threadIdx.x; t < total; t += MERGE_THREADS) {
-      const u64 key = t < k_run ? make_key(rs[t], ri[t]) : cq[t - k_run];
-      best = (key < prev && key > best) ? key : best;
-    }
-    best = warp_max(best);
-    if (lane == 0) red[warp] = best;
-    __syncthreads();
-    if (warp == 0) {
-      u64 v = lane < MERGE_THREADS / 32 ? red[lane] : 0;
-      v = warp_max(v);
-      if (lane == 0) red[0] = v;
-    }
-    __syncthreads();
-    best = red[0];
-    __syncthreads();                // red is rewritten next round
-    if (threadIdx.x == 0) {
-      out_s[(long long)qi * k + j] = best ? key_score(best) : NEG_INF;
-      out_i[(long long)qi * k + j] = best ? key_index(best) : 0;
-    }
-    prev = best;
-  }
-}
-
-// Large k, stage 1: the key of every slab row for every query,
-// keys[query * rows + r].  Block = SR rows x 4 * QPT queries; thread
-// (group g, row r) sums queries g * QPT .. + QPT of row r.  Each stage
-// issues all of its SD columns' loads (SR * SD / 256 floats of the slab
-// per thread) before it stores any, so a block has 16-32 KB in flight,
-// and SR = 64 rows per block puts a block on every SM for an 8192-row
-// slab.  SD is 128 columns (two stages at d = 200) where the queries'
-// tile leaves room in 48 KB of shared memory (QPT <= 4), else 64.
-// QPT follows Q (1, 4 or 16), so a single query wastes no threads' work
-// and a batch of 64 shares each shared slab column among 16 sums.
+// Shared memory of one scoring block: the transposed slab tile, the
+// queries' tile and the rows' norms while it scores; its scores, query
+// by query, after.
 template <int QPT, int SD>
-__global__ void __launch_bounds__(SCORE_THREADS) score_keys_kernel(
+struct ScoreSmem {
+  static constexpr int KQ = 4 * QPT;                  // queries per block
+  static constexpr int QP = KQ + (QPT >= 4 ? 4 : 1);  // float4 rows if QPT >= 4
+  static_assert(KQ * SR <= SD * (SR + 1), "scores must fit the slab tile");
+  float es[SD * (SR + 1)];
+  alignas(16) float qs[SD * QP];
+  float nrm[SR];
+};
+
+// The scorer of both paths.  Block (x, y) scores slab rows x * SR ..
+// + SR against queries y * KQ .. + KQ, KQ = 4 * QPT; thread (group g,
+// row r) ends with the scores of row r for queries g * QPT .. + QPT in
+// acc[], masked: -1e30 for columns >= limit, each query's excluded
+// column and queries past Q.  Each stage issues all of its SD columns'
+// loads (SR * SD / 256 floats of the slab per thread) before it stores
+// any, so a block has 16-32 KB in flight, and SR = 64 rows per block
+// puts a block on every SM for an 8192-row slab.  SD is 128 columns (two
+// stages at d = 200) at QPT = 4, else 64: at QPT = 16 the queries' tile
+// must fit 48 KB of shared memory, and at QPT = 1 a 128-column stage
+// holds a thread at 226 registers, one block an SM, which measured 2.7x
+// slower on an H100 over a 100k-row table than 64 columns.  QPT
+// follows Q (1, 4 or 16), so a single query wastes no threads' work and
+// a batch of 64 shares each shared slab column among 16 sums.  All
+// threads call it (it synchronises); on return the block's shared memory
+// is free.
+template <int QPT, int SD>
+__device__ __forceinline__ void score_block(
     const float* __restrict__ q, int Q, int d,
     const float* __restrict__ tbl, long long stride, int rows,
     const float* __restrict__ norms, const int* __restrict__ excl,
-    int offset, int limit, u64* __restrict__ keys) {
-  constexpr int KQ = 4 * QPT;                   // queries per block
-  constexpr int QP = KQ + (QPT >= 4 ? 4 : 1);   // float4 rows when QPT >= 4
+    int offset, int limit, ScoreSmem<QPT, SD>& sm, float (&acc)[QPT]) {
+  constexpr int KQ = ScoreSmem<QPT, SD>::KQ, QP = ScoreSmem<QPT, SD>::QP;
   constexpr int EPT = SR * SD / SCORE_THREADS;  // slab floats per thread
   constexpr int QPTL = KQ * SD / SCORE_THREADS; // query floats per thread
-  __shared__ float es[SD * (SR + 1)];
-  __shared__ __align__(16) float qs[SD * QP];
-  __shared__ float nrm_s[SR];
+  float* es = sm.es;
+  float* qs = sm.qs;
   const int tid = threadIdx.x, row = tid % SR, grp = tid / SR;
   const int r0 = blockIdx.x * SR, q0 = blockIdx.y * KQ;
   const int nr = min(SR, rows - r0), nq = min(KQ, Q - q0);
   const bool busy = grp * QPT < nq;             // uniform per warp
   if (tid < SR)
-    nrm_s[tid] = (norms != nullptr && tid < nr) ? fmaxf(norms[r0 + tid], 1e-12f)
-                                                : 1.0f;
-  float acc[QPT];
+    sm.nrm[tid] = (norms != nullptr && tid < nr) ? fmaxf(norms[r0 + tid], 1e-12f)
+                                                 : 1.0f;
 #pragma unroll
   for (int i = 0; i < QPT; ++i) acc[i] = 0.0f;
   __syncthreads();
@@ -288,7 +209,7 @@ __global__ void __launch_bounds__(SCORE_THREADS) score_keys_kernel(
 #pragma unroll
     for (int u = 0; u < EPT; ++u) {
       const int e = u * SCORE_THREADS + tid, r = e / SD, c = e % SD;
-      es[c * (SR + 1) + r] = norms != nullptr ? ev[u] / nrm_s[r] : ev[u];
+      es[c * (SR + 1) + r] = norms != nullptr ? ev[u] / sm.nrm[r] : ev[u];
     }
 #pragma unroll
     for (int u = 0; u < QPTL; ++u) {
@@ -317,23 +238,149 @@ __global__ void __launch_bounds__(SCORE_THREADS) score_keys_kernel(
     }
     __syncthreads();
   }
-  if (!busy || row >= nr) return;
   const int col = offset + r0 + row;
 #pragma unroll
   for (int i = 0; i < QPT; ++i) {
     const int qi = q0 + grp * QPT + i;
-    if (qi < Q) {
-      const bool live = col < limit && col != excl[qi];
-      keys[(long long)qi * rows + r0 + row] =
-          make_key(live ? acc[i] : NEG_INF, col);
+    const bool live = qi < Q && col < limit && col != excl[qi];
+    acc[i] = live ? acc[i] : NEG_INF;
+  }
+}
+
+// Small k, stage 1: score (score_block), then each query's best kc
+// (<= 64) keys of the block's 64 rows, sorted, at
+// cand[(query * n_blocks + block) * kc + j]; rows past the slab give key
+// 0.  The (Q, rows) scores never leave the chip: they go through shared
+// memory to one warp per query, which sorts the 64 keys in registers.
+template <int QPT, int SD>
+__global__ void __launch_bounds__(SCORE_THREADS) score_select_kernel(
+    const float* __restrict__ q, int Q, int d,
+    const float* __restrict__ tbl, long long stride, int rows,
+    const float* __restrict__ norms, const int* __restrict__ excl,
+    int offset, int limit, int kc, u64* __restrict__ cand) {
+  constexpr int KQ = ScoreSmem<QPT, SD>::KQ;
+  __shared__ ScoreSmem<QPT, SD> sm;
+  float acc[QPT];
+  score_block<QPT, SD>(q, Q, d, tbl, stride, rows, norms, excl, offset,
+                       limit, sm, acc);
+  const int tid = threadIdx.x, row = tid % SR, grp = tid / SR;
+  float* sc = sm.es;                            // sc[query * SR + row]
+#pragma unroll
+  for (int i = 0; i < QPT; ++i) sc[(grp * QPT + i) * SR + row] = acc[i];
+  __syncthreads();
+  const int lane = tid % 32, warp = tid / 32;
+  const int r0 = blockIdx.x * SR, q0 = blockIdx.y * KQ;
+  const int nr = min(SR, rows - r0), nq = min(KQ, Q - q0);
+  const int c0 = offset + r0 + 2 * lane;
+  for (int i = warp; i < nq; i += SCORE_THREADS / 32) {
+    const float2 s = *reinterpret_cast<const float2*>(&sc[i * SR + 2 * lane]);
+    u64 v0 = 2 * lane < nr ? make_key(s.x, c0) : 0;
+    u64 v1 = 2 * lane + 1 < nr ? make_key(s.y, c0 + 1) : 0;
+    warp_sort64(v0, v1);
+    u64* out = cand + ((long long)(q0 + i) * gridDim.x + blockIdx.x) * kc;
+    if (2 * lane < kc) out[2 * lane] = v0;
+    if (2 * lane + 1 < kc) out[2 * lane + 1] = v1;
+  }
+}
+
+// Small k, stage 2: block qi merges query qi's running list and its
+// n_lists sorted candidate runs of kc keys into the first k (<= 64) of
+// their union, decoded.  The running list is sorted, so only its first
+// min(k_run, 64) entries can stay.  Each warp walks every n_warps-th run,
+// AHEAD runs' loads in flight, and keeps its best 64 keys in registers,
+// sorted: a run whose head is not above the warp's k-th key cannot
+// change the first k and is dropped after its load; any other is merged
+// in (warp_merge64).  Then the warps' lists are merged pairwise through
+// shared memory, one barrier a round.  Each candidate is read once, and
+// costs a load and a compare unless its run displaces one of the k best.
+__global__ void __launch_bounds__(LIST_MERGE_THREADS) merge_lists_kernel(
+    const float* __restrict__ run_s, const int* __restrict__ run_i,
+    int k_run, const u64* __restrict__ cand, int n_lists, int kc, int k,
+    float* __restrict__ out_s, int* __restrict__ out_i) {
+  constexpr int AHEAD = 4;
+  __shared__ u64 part[LIST_MERGE_THREADS / 32][64];
+  const int qi = blockIdx.x, lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int n_warps = blockDim.x / 32;          // a power of two
+  u64 v0 = 0, v1 = 0;
+  if (warp == 0 && k_run > 0) {
+    const float* rs = run_s + (long long)qi * k_run;
+    const int* ri = run_i + (long long)qi * k_run;
+    if (2 * lane < k_run) v0 = make_key(rs[2 * lane], ri[2 * lane]);
+    if (2 * lane + 1 < k_run) v1 = make_key(rs[2 * lane + 1], ri[2 * lane + 1]);
+  }
+  const int kl = k - 1;                         // position of the k-th key
+  u64 thr = __shfl_sync(0xffffffffu, (kl & 1) ? v1 : v0, kl >> 1);
+  const u64* cq = cand + (long long)qi * n_lists * kc;
+  const bool has0 = 2 * lane < kc, has1 = 2 * lane + 1 < kc;
+  for (int b0 = warp; b0 < n_lists; b0 += AHEAD * n_warps) {
+    u64 a0[AHEAD], a1[AHEAD];
+#pragma unroll
+    for (int u = 0; u < AHEAD; ++u) {
+      const int b = b0 + u * n_warps;
+      const u64* run = cq + (long long)b * kc;
+      a0[u] = (b < n_lists && has0) ? run[2 * lane] : 0;
+      a1[u] = (b < n_lists && has1) ? run[2 * lane + 1] : 0;
     }
+#pragma unroll
+    for (int u = 0; u < AHEAD; ++u) {
+      if (__shfl_sync(0xffffffffu, a0[u], 0) > thr) {   // uniform per warp
+        warp_merge64(v0, v1, a0[u], a1[u]);
+        thr = __shfl_sync(0xffffffffu, (kl & 1) ? v1 : v0, kl >> 1);
+      }
+    }
+  }
+  // warps [s, 2s) hand their lists to warps [0, s); the next round writes
+  // [s/2, s), which this round does not read, so one barrier a round
+  for (int s = n_warps / 2; s > 0; s >>= 1) {
+    if (warp >= s && warp < 2 * s) {
+      part[warp][2 * lane] = v0;
+      part[warp][2 * lane + 1] = v1;
+    }
+    __syncthreads();
+    if (warp < s)
+      warp_merge64(v0, v1, part[warp + s][2 * lane],
+                   part[warp + s][2 * lane + 1]);
+  }
+  if (warp == 0) {
+    float* os = out_s + (long long)qi * k;
+    int* oi = out_i + (long long)qi * k;
+    if (2 * lane < k) {
+      os[2 * lane] = v0 ? key_score(v0) : NEG_INF;
+      oi[2 * lane] = v0 ? key_index(v0) : 0;
+    }
+    if (2 * lane + 1 < k) {
+      os[2 * lane + 1] = v1 ? key_score(v1) : NEG_INF;
+      oi[2 * lane + 1] = v1 ? key_index(v1) : 0;
+    }
+  }
+}
+
+// Large k, stage 1: score (score_block), then the key of every slab row
+// for every query, keys[query * rows + r].
+template <int QPT, int SD>
+__global__ void __launch_bounds__(SCORE_THREADS) score_keys_kernel(
+    const float* __restrict__ q, int Q, int d,
+    const float* __restrict__ tbl, long long stride, int rows,
+    const float* __restrict__ norms, const int* __restrict__ excl,
+    int offset, int limit, u64* __restrict__ keys) {
+  __shared__ ScoreSmem<QPT, SD> sm;
+  float acc[QPT];
+  score_block<QPT, SD>(q, Q, d, tbl, stride, rows, norms, excl, offset,
+                       limit, sm, acc);
+  const int row = threadIdx.x % SR, grp = threadIdx.x / SR;
+  const int r = blockIdx.x * SR + row;
+  if (r >= rows) return;
+#pragma unroll
+  for (int i = 0; i < QPT; ++i) {
+    const int qi = blockIdx.y * ScoreSmem<QPT, SD>::KQ + grp * QPT + i;
+    if (qi < Q) keys[(long long)qi * rows + r] = make_key(acc[i], offset + r);
   }
 }
 
 // Descending sort of buf[0, P) (P a power of two, >= 64) by the block;
 // returns the buffer that holds the result (buf or tmp, P keys each).
-// First every warp sorts runs of 64 keys in registers, two keys a lane,
-// with a bitonic network over shuffles (no barriers); then rounds of
+// First every warp sorts runs of 64 keys in registers (warp_sort64);
+// then rounds of
 // pairwise merges double the run length, one barrier a round: each thread
 // finds where its few consecutive outputs start on the merge path (a
 // binary search, ties: the first run's key first) and merges them one
@@ -344,21 +391,7 @@ __device__ __forceinline__ u64* sort_keys(u64* buf, u64* tmp, int P) {
   for (int w = warp; w < P / 64; w += n_warps) {
     u64* run = buf + w * 64;
     u64 v0 = run[2 * lane], v1 = run[2 * lane + 1];
-    for (int size = 2; size <= 64; size <<= 1) {
-      const bool desc = ((2 * lane) & size) == 0;
-      for (int o = size / 4; o > 0; o >>= 1) {   // stride 2 * o: lane ^ o
-        const u64 w0 = __shfl_xor_sync(0xffffffffu, v0, o);
-        const u64 w1 = __shfl_xor_sync(0xffffffffu, v1, o);
-        const bool keep_max = ((lane & o) == 0) == desc;
-        v0 = keep_max ? (w0 > v0 ? w0 : v0) : (w0 < v0 ? w0 : v0);
-        v1 = keep_max ? (w1 > v1 ? w1 : v1) : (w1 < v1 ? w1 : v1);
-      }
-      if ((v0 < v1) == desc) {                   // stride 1, in the lane
-        const u64 x = v0;
-        v0 = v1;
-        v1 = x;
-      }
-    }
+    warp_sort64(v0, v1);
     run[2 * lane] = v0;
     run[2 * lane + 1] = v1;
   }
@@ -595,23 +628,38 @@ __global__ void __launch_bounds__(MERGE_TILE) merge_path_kernel(
 
 inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
-int topk_select_chunks_launch(const float* q, int Q, int d, const float* tbl,
-                              int stride, int rows, const float* norms,
-                              const int* excl, int offset, int limit, int kc,
-                              void* cand, void* stream) {
-  const int n_chunks = ceil_div(rows, CHUNK);
-  select_chunks_kernel<<<dim3(n_chunks, ceil_div(Q, QT)), CHUNK, 0,
-                         (cudaStream_t)stream>>>(
-      q, Q, d, tbl, stride, rows, norms, excl, offset, limit, kc, n_chunks,
-      (u64*)cand);
+int topk_score_select_launch(const float* q, int Q, int d, const float* tbl,
+                             int stride, int rows, const float* norms,
+                             const int* excl, int offset, int limit, int kc,
+                             void* cand, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int nb = ceil_div(rows, SR);
+  if (Q <= 4)
+    score_select_kernel<1, 64>
+        <<<dim3(nb, ceil_div(Q, 4)), SCORE_THREADS, 0, st>>>(
+            q, Q, d, tbl, stride, rows, norms, excl, offset, limit, kc,
+            (u64*)cand);
+  else if (Q <= 16)
+    score_select_kernel<4, 128>
+        <<<dim3(nb, ceil_div(Q, 16)), SCORE_THREADS, 0, st>>>(
+            q, Q, d, tbl, stride, rows, norms, excl, offset, limit, kc,
+            (u64*)cand);
+  else
+    score_select_kernel<16, 64>
+        <<<dim3(nb, ceil_div(Q, 64)), SCORE_THREADS, 0, st>>>(
+            q, Q, d, tbl, stride, rows, norms, excl, offset, limit, kc,
+            (u64*)cand);
   return (int)cudaGetLastError();
 }
 
-int topk_merge_running_launch(const float* run_s, const int* run_i, int k_run,
-                              const void* cand, int n_cand, int Q, int k,
-                              float* out_s, int* out_i, void* stream) {
-  merge_running_kernel<<<Q, MERGE_THREADS, 0, (cudaStream_t)stream>>>(
-      run_s, run_i, k_run, (const u64*)cand, n_cand, k, out_s, out_i);
+int topk_merge_lists_launch(const float* run_s, const int* run_i, int k_run,
+                            const void* cand, int n_lists, int kc, int Q,
+                            int k, float* out_s, int* out_i, void* stream) {
+  // about 8 runs a warp, a power of two of warps, at most 32
+  int warps = 1;
+  while (warps < LIST_MERGE_THREADS / 32 && warps * 8 < n_lists) warps <<= 1;
+  merge_lists_kernel<<<Q, 32 * warps, 0, (cudaStream_t)stream>>>(
+      run_s, run_i, k_run, (const u64*)cand, n_lists, kc, k, out_s, out_i);
   return (int)cudaGetLastError();
 }
 
@@ -622,7 +670,7 @@ int topk_score_keys_launch(const float* q, int Q, int d, const float* tbl,
   const cudaStream_t st = (cudaStream_t)stream;
   const int nb = ceil_div(rows, SR);
   if (Q <= 4)
-    score_keys_kernel<1, 128>
+    score_keys_kernel<1, 64>
         <<<dim3(nb, ceil_div(Q, 4)), SCORE_THREADS, 0, st>>>(
             q, Q, d, tbl, stride, rows, norms, excl, offset, limit,
             (u64*)keys);
@@ -676,18 +724,18 @@ int topk_merge_path_launch(const float* run_s, const int* run_i, int k_run,
 // convert instead of up to thirteen); a null pointer is 0.
 extern "C" {
 
-int topk_select_chunks(const long long* a) {
-  return topk_select_chunks_launch(
+int topk_score_select(const long long* a) {
+  return topk_score_select_launch(
       (const float*)a[0], (int)a[1], (int)a[2], (const float*)a[3],
       (int)a[4], (int)a[5], (const float*)a[6], (const int*)a[7], (int)a[8],
       (int)a[9], (int)a[10], (void*)a[11], (void*)a[12]);
 }
 
-int topk_merge_running(const long long* a) {
-  return topk_merge_running_launch(
+int topk_merge_lists(const long long* a) {
+  return topk_merge_lists_launch(
       (const float*)a[0], (const int*)a[1], (int)a[2], (const void*)a[3],
-      (int)a[4], (int)a[5], (int)a[6], (float*)a[7], (int*)a[8],
-      (void*)a[9]);
+      (int)a[4], (int)a[5], (int)a[6], (int)a[7], (float*)a[8], (int*)a[9],
+      (void*)a[10]);
 }
 
 int topk_score_keys(const long long* a) {

@@ -13,9 +13,13 @@ On CPU tensors the plain PyTorch version runs.  On CUDA tensors the
 kernel runs or the call raises: there is no switch and no fallback.  Both
 take the same inputs: fp32 or bf16, contiguous, ``d`` in
 :data:`HEAD_DIMS`.  Ragged Sq and Skv are masked in the kernel, not
-padded.  ``launches`` counts kernel launches.
+padded.  bf16 runs on wgmma with TMA-fed K/V tiles, fp32 on the CUDA
+cores; both walk the tiles :func:`swa_tile_plan` gives and mask only the
+tiles it does not call interior.  ``launches`` counts kernel launches.
 """
 from __future__ import annotations
+
+from typing import List, Tuple
 
 import torch
 
@@ -27,6 +31,9 @@ HEAD_DIMS = (16, 32, 64, 80, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 #: 64-query tiles per head on the grid's y axis (at most 65535 of them)
 MAX_SEQ = 65535 * 64
+#: query rows of one tile-plan block (a bf16 warpgroup, an fp32 block)
+#: and keys of one K/V tile (BK in swa_attention.cu)
+PLAN_ROWS, KEY_TILE = 64, 64
 _INT_MAX = 2**31 - 1
 
 # q, k, v, o, bhq, bhkv, sq, skv, hd, window, q_offset, is_bf16, stream
@@ -34,6 +41,30 @@ _LIB = _build.Library("swa_attention", {"swa_attention_forward": 13})
 #: kernel launches since the last reset_launches()
 launches = _LIB.launches
 reset_launches = _LIB.reset
+
+
+def swa_tile_plan(sq: int, skv: int, window: int, q_offset: int,
+                  bq: int = PLAN_ROWS, bk: int = KEY_TILE
+                  ) -> List[Tuple[int, List[Tuple[int, bool]]]]:
+    """The key tiles each block of ``bq`` query rows visits, as the
+    kernels walk them (``band_lo``, ``band_hi`` and ``tile_interior`` in
+    swa_attention.cu): ``[(q0, [(k0, interior), ...]), ...]``.
+
+    A block visits the ``bk``-key tiles that meet the keys its real rows
+    (those below ``sq``) see together, ``[q_offset + q0 - window + 1,
+    q_offset + last]`` cut to ``[0, skv)``.  A tile is interior when every
+    (real row, key) pair in it is visible and it ends inside ``skv``; the
+    kernels skip the mask there and compute it on every other tile."""
+    plan = []
+    for q0 in range(0, sq, bq):
+        last = min(q0 + bq, sq) - 1
+        lo = max(0, q_offset + q0 - window + 1)
+        hi = min(skv - 1, q_offset + last)
+        tiles = [(k0, k0 + bk - 1 <= q_offset + q0
+                  and k0 >= q_offset + last - window + 1 and k0 + bk <= skv)
+                 for k0 in range(lo - lo % bk, hi + 1, bk)] if lo <= hi else []
+        plan.append((q0, tiles))
+    return plan
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,

@@ -13,12 +13,16 @@ contract is :func:`repro_torch.kernels.ref.stream_step_ref`:
 
 On a CPU tensor the plain PyTorch version runs.  On a CUDA tensor the
 kernel runs or the call raises: there is no switch and no fallback.
-k <= 64 (the paper's k = 10) takes two launches, per-chunk selection and
-a merge.  Larger k takes three stages: score one 64-bit key per slab row,
-select and sort the best k of each sub-slab of at most ``SORT_CAP`` rows
-in shared memory, and merge each sub-slab's sorted keys into the running
-list, which is already sorted, along the merge path: 3 launches for a
-streamed slab, 2 + ceil(rows / SORT_CAP) for a device-resident table.
+Both paths score with one scorer, in blocks of ``SCORE_ROWS`` slab rows.
+k <= 64 (the paper's k = 10) takes two launches: score and keep each
+block's best ``min(k, 64)`` per query, sorted, then merge those runs and
+the running list (:func:`small_k_merge_model` replays both on the host).
+Larger k takes three stages: score one 64-bit key per slab row, select
+and sort the best k of each sub-slab of at most ``SORT_CAP`` rows in
+shared memory, and merge each sub-slab's sorted keys into the running
+list along the merge path: 3 launches for a streamed slab,
+2 + ceil(rows / SORT_CAP) for a device-resident table.  The running list
+is sorted, as every step returns it.
 
 ``launches`` counts the kernel launches of each C entry point; a run
 resets it and reads it to show that the main path went through the
@@ -28,14 +32,16 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import _build, ref
 
 #: largest k served by the two-launch select/merge path
 SMALL_K_MAX = 64
-#: rows per scoring block (CHUNK in topk_cosine.cu)
-CHUNK_ROWS = 256
+#: slab rows per scoring block (SR in topk_cosine.cu): the k <= 64 path
+#: keeps the best min(k, 64) of each block
+SCORE_ROWS = 64
 #: rows of one sub-slab of the large-k path, all its keys in shared
 #: memory (SORT_CAP in topk_cosine.cu); >= ops.STREAM_BLOCK_ROWS
 SORT_CAP = 8192
@@ -44,17 +50,17 @@ MERGE_TILE = 256
 
 # Every entry point takes its arguments packed (``_build.Library``), in
 # this order; a null pointer is 0:
-#   topk_select_chunks: q, Q, d, tbl, stride, rows, norms, excl, offset,
+#   topk_score_select:  q, Q, d, tbl, stride, rows, norms, excl, offset,
 #                       limit, kc, cand, stream
-#   topk_merge_running: run_s, run_i, k_run, cand, n_cand, Q, k, out_s,
-#                       out_i, stream
+#   topk_merge_lists:   run_s, run_i, k_run, cand, n_lists, kc, Q, k,
+#                       out_s, out_i, stream
 #   topk_score_keys:    q, Q, d, tbl, stride, rows, norms, excl, offset,
 #                       limit, keys, stream
 #   topk_select_sort:   keys, Q, rows, k, cand, stream
 #   topk_merge_path:    run_s, run_i, k_run, cand, cand_stride, n_cand, Q,
 #                       k_out, out_s, out_i, stream
 _LIB = _build.Library("topk_cosine", {
-    "topk_select_chunks": 13, "topk_merge_running": 10,
+    "topk_score_select": 13, "topk_merge_lists": 11,
     "topk_score_keys": 12, "topk_select_sort": 6, "topk_merge_path": 11})
 _launch = _LIB.launch
 #: kernel launches per C entry point since the last reset_launches()
@@ -96,6 +102,82 @@ def large_k_merges(rows: int, k: int, k_run: int) -> List[Tuple[int, int]]:
         k_run = min(k, k_run + n_cand)
         merges.append((n_cand, k_run))
     return merges
+
+
+def score_keys(scores: np.ndarray, index: np.ndarray) -> np.ndarray:
+    """``make_key`` of topk_cosine.cu: one uint64 per (fp32 score, global
+    index) pair (the two broadcast), larger exactly when better (score,
+    then lower index)."""
+    s = np.where(scores == 0, 0, scores).astype(np.float32)    # -0 is +0
+    u = s.view(np.uint32).astype(np.uint64)
+    u = np.where(u >> np.uint64(31), ~u & np.uint64(0xFFFFFFFF),
+                 u | np.uint64(0x80000000))
+    idx = np.asarray(index).astype(np.uint64)
+    return (u << np.uint64(32)) | (np.uint64(0xFFFFFFFF) - idx)
+
+
+def decode_keys(keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``(scores float32, indices int32)`` of uint64 keys; key 0 is the
+    sentinel ``(-1e30, 0)``."""
+    u = (keys >> np.uint64(32)).astype(np.uint32)
+    u = np.where(u >> 31, u & np.uint32(0x7FFFFFFF), ~u).astype(np.uint32)
+    idx = (np.uint64(0xFFFFFFFF) - (keys & np.uint64(0xFFFFFFFF)))
+    none = keys == 0
+    return (np.where(none, np.float32(ref.NEG_INF), u.view(np.float32)),
+            np.where(none, 0, idx.astype(np.int64)).astype(np.int32))
+
+
+def merge_lists_warps(n_lists: int) -> int:
+    """Warps of one ``merge_lists_kernel`` block: about 8 runs a warp, a
+    power of two, at most 32 (``topk_merge_lists_launch``)."""
+    warps = 1
+    while warps < 32 and warps * 8 < n_lists:
+        warps <<= 1
+    return warps
+
+
+def small_k_merge_model(keys: np.ndarray, run_keys: Optional[np.ndarray],
+                        k: int) -> np.ndarray:
+    """The k <= 64 step on the host, key for key: ``keys (Q, rows)`` of
+    one slab's masked scores (:func:`score_keys`), the sorted running
+    list's keys ``(Q, k_run)`` or None.  Each block of
+    ``SCORE_ROWS`` rows keeps its best ``kc = min(k, 64)`` (rows past the
+    slab are key 0); each warp of the merge walks every ``n_warps``-th
+    run, skips a run whose head is not above its k-th key and otherwise
+    keeps the best 64 of the union; the warps' lists meet pairwise.
+    Returns the ``(Q, k)`` result keys.  Kept in Python so the CPU tests
+    can replay the kernels' selection against the plain version."""
+    qn, rows = keys.shape
+    kc = min(k, SCORE_ROWS)
+    n_lists = -(-rows // SCORE_ROWS)
+    pad = np.zeros((qn, n_lists * SCORE_ROWS), np.uint64)
+    pad[:, :rows] = keys
+    blocks = np.sort(pad.reshape(qn, n_lists, SCORE_ROWS), axis=2)
+    cand = blocks[:, :, ::-1][:, :, :kc]                # sorted, descending
+    n_warps = merge_lists_warps(n_lists)
+
+    def best64(a, b):
+        return np.sort(np.concatenate([a, b]))[::-1][:64]
+
+    out = np.zeros((qn, k), np.uint64)
+    for qi in range(qn):
+        lists = []
+        for w in range(n_warps):
+            best = np.zeros(64, np.uint64)
+            if w == 0 and run_keys is not None:
+                head = run_keys[qi, :64]
+                best[:len(head)] = head
+            for b in range(w, n_lists, n_warps):
+                if cand[qi, b, 0] > best[k - 1]:
+                    best = best64(best, cand[qi, b])
+            lists.append(best)
+        s = n_warps // 2
+        while s:
+            for w in range(s):
+                lists[w] = best64(lists[w], lists[w + s])
+            s //= 2
+        out[qi] = lists[0][:k]
+    return out
 
 
 _F32, _I32 = torch.float32, torch.int32
@@ -158,8 +240,8 @@ def topk_cosine_step(q: torch.Tensor, blk: torch.Tensor,
                      run_i: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One slab step: the best ``k`` of the running list (``run_s``,
-    ``run_i``; None for none) and the slab ``blk`` whose row 0 is global
-    row ``offset``.  Returns the new ``(scores (Q, k) float32, indices
+    ``run_i``, sorted as a step returns it; None for none) and the slab
+    ``blk`` whose row 0 is global row ``offset``.  Returns the new ``(scores (Q, k) float32, indices
     (Q, k) int32)``.  Entries past the real candidates hold ``-1e30``."""
     if blk.device.type == "cpu":
         return ref.stream_step_ref(q, blk, norms, int(offset), int(limit),
@@ -178,17 +260,17 @@ def _step_small(q, blk, norms, excl, offset, limit, k, run_s, run_i):
     rows = blk.shape[0]
     dev = blk.device
     stream = _build.stream_handle(dev)
-    n_chunks = -(-rows // CHUNK_ROWS)
-    kc = min(k, CHUNK_ROWS)
-    cand = torch.empty((qn, n_chunks, kc), dtype=torch.int64, device=dev)
-    _launch("topk_select_chunks", q.data_ptr(), qn, d, blk.data_ptr(),
+    n_lists = -(-rows // SCORE_ROWS)
+    kc = min(k, SCORE_ROWS)
+    cand = torch.empty((qn, n_lists, kc), dtype=torch.int64, device=dev)
+    _launch("topk_score_select", q.data_ptr(), qn, d, blk.data_ptr(),
             blk.stride(0), rows, _ptr(norms), excl.data_ptr(), offset,
             limit, kc, cand.data_ptr(), stream)
     out_s = torch.empty((qn, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
     k_run = 0 if run_s is None else run_s.shape[1]
-    _launch("topk_merge_running", _ptr(run_s), _ptr(run_i), k_run,
-            cand.data_ptr(), n_chunks * kc, qn, k, out_s.data_ptr(),
+    _launch("topk_merge_lists", _ptr(run_s), _ptr(run_i), k_run,
+            cand.data_ptr(), n_lists, kc, qn, k, out_s.data_ptr(),
             out_i.data_ptr(), stream)
     return out_s, out_i
 

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.kernels import ref as jref
 from repro.kernels.swa_attention import swa_attention_pallas
@@ -150,6 +151,123 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         tswa.swa_attention_forward(q, k, v, W, off)
 
 
+# --------------------------- the tile plan ----------------------------- #
+def _visible(sq, skv, window, q_offset):
+    """visible[i, j]: query i sees key j (the kernel's contract)."""
+    i = q_offset + np.arange(sq)[:, None]
+    j = np.arange(skv)[None, :]
+    return (j <= i) & (i - j < window)
+
+
+def _assert_plan_holds(sq, skv, window, q_offset, bq, bk):
+    """Every visible pair lies in a visited tile; every visited tile holds
+    a visible pair; an interior tile is wholly visible and ends inside
+    Skv; a masked tile holds at least one invisible pair (keys past Skv
+    count as invisible)."""
+    vis = _visible(sq, skv, window, q_offset)
+    plan = tswa.swa_tile_plan(sq, skv, window, q_offset, bq, bk)
+    assert [q0 for q0, _ in plan] == list(range(0, sq, bq))
+    for q0, tiles in plan:
+        rows = vis[q0:q0 + bq]
+        k0s = [k0 for k0, _ in tiles]
+        assert k0s == sorted(set(k0s)) and all(k0 % bk == 0 for k0 in k0s)
+        seen = np.zeros(skv, bool)
+        for k0, interior in tiles:
+            block = np.zeros((rows.shape[0], bk), bool)
+            part = rows[:, k0:k0 + bk]
+            block[:, :part.shape[1]] = part
+            assert block.any(), (q0, k0)
+            assert interior == bool(block.all()), (q0, k0, interior)
+            seen[k0:k0 + bk] = True
+        assert not (rows & ~seen[None, :]).any(), q0
+
+
+PLAN_EDGES = [
+    (1, 1, 1, 0), (64, 64, 64, 0), (130, 130, 1, 0),      # W = 1
+    (131, 131, 50, 0),                                     # ragged, W < BK
+    (200, 200, 100, 0),                                    # W not k * BK
+    (1000, 1000, 5000, 0), (45, 45, 1000, 0),              # W >= S
+    (37, 300, 128, 263), (1, 517, 64, 516),                # q_offset > 0
+    (40, 200, 64, 160), (33, 50, 7, 60),                   # rows see nothing
+    (6144, 6144, 4096, 0),                                 # h2o-danube layer
+]
+
+
+@pytest.mark.parametrize("bq", [64, 128])
+@pytest.mark.parametrize("sq,skv,window,q_offset", PLAN_EDGES, ids=str)
+def test_tile_plan_covers_the_band_and_masks_only_edges(sq, skv, window,
+                                                        q_offset, bq):
+    _assert_plan_holds(sq, skv, window, q_offset, bq, tswa.KEY_TILE)
+
+
+@settings(max_examples=60, deadline=None)
+@given(sq=st.integers(1, 300), extra=st.integers(0, 200),
+       window=st.integers(1, 400), bk=st.sampled_from([16, 64, 128]),
+       bq=st.sampled_from([16, 64, 128]), offset_frac=st.floats(0, 1))
+def test_tile_plan_holds_on_random_shapes(sq, extra, window, bk, bq,
+                                          offset_frac):
+    """The plan's properties over ragged Sq and Skv, W below, above and
+    not a multiple of the key tile, and 0 <= q_offset <= Skv - 1."""
+    skv = sq + extra
+    q_offset = int(offset_frac * extra)
+    _assert_plan_holds(sq, skv, window, q_offset, bq, bk)
+
+
+def test_tile_plan_of_the_cta_covers_its_warpgroups():
+    """A bf16 CTA loads the tiles of its 128 rows; each of its two
+    64-row warpgroups visits a subset of them."""
+    for sq, skv, window, q_offset in PLAN_EDGES:
+        cta = dict(tswa.swa_tile_plan(sq, skv, window, q_offset, 128))
+        for q0, tiles in tswa.swa_tile_plan(sq, skv, window, q_offset, 64):
+            assert {k for k, _ in tiles} <= {k for k, _ in cta[q0 - q0 % 128]}
+
+
+def _plan_replay(q, k, v, window, q_offset, bq=64, bk=64):
+    """The kernels' online softmax over the tile plan, in fp32 on the
+    host: masks only on tiles the plan does not call interior, exp2 with
+    the scale and log2 e folded in, a row that sees nothing is 0."""
+    sq, d = q.shape
+    skv = k.shape[0]
+    c = d ** -0.5 * np.log2(np.e)
+    out = np.zeros_like(q)
+    vis = _visible(sq, skv, window, q_offset)
+    for q0, tiles in tswa.swa_tile_plan(sq, skv, window, q_offset, bq, bk):
+        rows = slice(q0, min(q0 + bq, sq))
+        m = np.full(rows.stop - q0, -1e30, np.float32)
+        l = np.zeros_like(m)
+        acc = np.zeros((rows.stop - q0, d), np.float32)
+        for k0, interior in tiles:
+            keys = slice(k0, min(k0 + bk, skv))
+            s = q[rows] @ k[keys].T
+            if not interior:
+                s = np.where(vis[rows, keys], s, np.float32(-1e30))
+            m_new = np.maximum(m, s.max(1))
+            alpha = np.exp2((m - m_new) * c)
+            p = np.exp2(s * c - (m_new * c)[:, None])
+            if not interior:
+                p = np.where(s > -5e29, p, 0)
+            l = l * alpha + p.sum(1)
+            acc = acc * alpha[:, None] + p @ v[keys]
+            m = m_new
+        out[rows] = acc / np.maximum(l, 1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("sq,skv,window,q_offset", PLAN_EDGES[:-1], ids=str)
+def test_plan_replay_matches_the_reference(sq, skv, window, q_offset):
+    """Skipping the mask on interior tiles changes nothing: the replay
+    equals the JAX reference (fp32) within 1e-5, and a row that sees no
+    key (where the reference's softmax is NaN) is 0."""
+    q, k, v = (x[0, 0] for x in _qkv(1, 1, 1, sq, skv, 32, seed=sq + window))
+    want = np.asarray(jref.swa_attention_ref(
+        *(jnp.asarray(x[None, None]) for x in (q, k, v)), window=window,
+        q_offset=q_offset)[0, 0])
+    got = _plan_replay(q, k, v, window, q_offset)
+    blind = ~_visible(sq, skv, window, q_offset).any(1)
+    assert (got[blind] == 0).all() and np.isnan(want[blind]).all()
+    _close(got[~blind], want[~blind], TOL)
+
+
 # ----------------- models/attention.py against JAX's ------------------ #
 def _grouped(B, sq, sk, G, H, hd, seed):
     rng = np.random.default_rng(seed)
@@ -219,6 +337,16 @@ def test_decode_attention_matches_jax(n_valid):
     _close(got, want, TOL)
 
 
+#: the card's extra cases: d = 16 and 128, ragged Sq with q_offset, W
+#: not a multiple of the key tile, Skv not a multiple of it
+CARD_CASES = REF_CASES + [
+    (1, 2, 1, 200, 461, 16, 100, 300),
+    (1, 4, 2, 333, 1000, 128, 200, 700),
+    (2, 2, 1, 190, 190, 128, 77, 0),
+    (1, 2, 2, 70, 333, 16, 1000, 263),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_on_card(dtype):
@@ -228,7 +356,7 @@ def test_kernel_matches_plain_on_card(dtype):
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     dt = getattr(torch, dtype)
     tswa.reset_launches()
-    for B, hq, hkv, sq, skv, d, W, off in REF_CASES:
+    for B, hq, hkv, sq, skv, d, W, off in CARD_CASES:
         q, k, v = (torch.from_numpy(_fold(x)).cuda().to(dt)
                    for x in _qkv(B, hq, hkv, sq, skv, d))
         got = tswa.swa_attention_forward(q, k, v, W, off).float()
@@ -236,4 +364,4 @@ def test_kernel_matches_plain_on_card(dtype):
                                       off)[0].float()
         tol = PALLAS_TOL if dt == torch.float32 else 1e-2 * (1 + want.abs())
         assert bool(((got - want).abs() <= tol).all())
-    assert tswa.launches["swa_attention_forward"] == len(REF_CASES)
+    assert tswa.launches["swa_attention_forward"] == len(CARD_CASES)

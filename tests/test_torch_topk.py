@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -314,6 +315,108 @@ def test_large_k_step_ties_across_running_list_and_slab(k):
                 assert i[r, j] < i[r, j + 1]
                 tied += i[r, j] < 150 <= i[r, j + 1]
     assert tied > 0             # some ties ran across the merge
+
+
+def _masked_scores(q, blk, offset, limit, excl):
+    """The slab's masked scores as ``stream_step_ref`` forms them."""
+    s = (torch.from_numpy(q) @ torch.from_numpy(blk).T).numpy()
+    col = offset + np.arange(blk.shape[0])
+    s = np.where(col[None, :] < limit, s, np.float32(tref.NEG_INF))
+    return np.where(col[None, :] == excl[:, None], np.float32(tref.NEG_INF),
+                    s).astype(np.float32)
+
+
+@settings(max_examples=60, deadline=None)
+@given(qn=st.integers(1, 3), rows=st.integers(1, 300),
+       prev=st.integers(0, 150), k=st.integers(1, 64),
+       k_run=st.integers(1, 70), limit_cut=st.integers(0, 40),
+       dup=st.booleans(), excl_mode=st.sampled_from(["none", "slab", "prev"]),
+       seed=st.integers(0, 10 ** 6))
+def test_small_k_block_select_and_merge_match_the_plain_step(
+        qn, rows, prev, k, k_run, limit_cut, dup, excl_mode, seed):
+    """The k <= 64 step's index logic, replayed on the host
+    (``small_k_merge_model``: each 64-row block's best min(k, 64), then
+    the warps' pruned merges of those runs and the running list), equals
+    ``stream_step_ref`` exactly: integer data makes ties everywhere,
+    duplicate rows must resolve to the lower index, ``limit`` may cut
+    the slab, the running list repeats its sentinel when the rows before
+    the slab were fewer than it holds, the last block is ragged, and k
+    may exceed the slab's rows."""
+    rng = np.random.default_rng(seed)
+    d = 8
+    k = min(k, k_run + rows)
+    table = rng.integers(-2, 3, size=(prev + rows, d)).astype(np.float32)
+    if dup and prev + rows > 1:        # copies of earlier rows, some across
+        src = rng.integers(0, prev + rows - 1, size=(prev + rows) // 3)
+        dst = rng.integers(src + 1, prev + rows)
+        table[dst] = table[src]
+    q = rng.integers(-2, 3, size=(qn, d)).astype(np.float32)
+    limit = prev + rows - min(limit_cut, rows - 1)
+    excl = {"none": np.full(qn, -1),
+            "slab": rng.integers(prev, prev + rows, qn),
+            "prev": rng.integers(0, max(prev, 1), qn)}[excl_mode]
+    excl = excl.astype(np.int32)
+    qt, xt = torch.from_numpy(q), torch.from_numpy(excl)
+    # the running list as the streaming driver builds it: sentinels, then
+    # the step over the rows before the slab
+    run_s = torch.full((qn, k_run), tref.NEG_INF, dtype=torch.float32)
+    run_i = torch.zeros((qn, k_run), dtype=torch.int32)
+    if prev:
+        run_s, run_i = tref.stream_step_ref(
+            qt, torch.from_numpy(table[:prev]), None, 0, limit, xt, run_s,
+            run_i, k_run)
+    want_s, want_i = tref.stream_step_ref(
+        qt, torch.from_numpy(table[prev:]), None, prev, limit, xt, run_s,
+        run_i, k)
+    keys = tts.score_keys(_masked_scores(q, table[prev:], prev, limit, excl),
+                          prev + np.arange(rows))
+    run_keys = tts.score_keys(run_s.numpy(), run_i.numpy())
+    assert (run_keys[:, :-1] >= run_keys[:, 1:]).all()      # sorted
+    got_s, got_i = tts.decode_keys(tts.small_k_merge_model(keys, run_keys, k))
+    np.testing.assert_array_equal(got_s, want_s.numpy())
+    np.testing.assert_array_equal(got_i, want_i.numpy())
+
+
+@pytest.mark.parametrize("rows,k", [(1, 1), (5, 10), (63, 64), (64, 64),
+                                    (65, 10), (8192, 10), (100_000, 10)])
+def test_small_k_first_step_without_running_list(rows, k):
+    """With no running list (a device-resident call steps once over the
+    whole table) the replay is the table's top k; rows < k pads with
+    the sentinel.  Large row counts only exercise the warp schedule, so
+    their scores are cheap random integers."""
+    rng = np.random.default_rng(rows + k)
+    scores = rng.integers(-50, 50, size=(2, rows)).astype(np.float32)
+    keys = tts.score_keys(scores, np.arange(rows))
+    got_s, got_i = tts.decode_keys(tts.small_k_merge_model(keys, None, k))
+    order = np.lexsort((np.arange(rows)[None, :].repeat(2, 0), -scores))
+    for r in range(2):
+        n = min(k, rows)
+        np.testing.assert_array_equal(got_i[r, :n], order[r, :n])
+        np.testing.assert_array_equal(got_s[r, :n], scores[r, order[r, :n]])
+        assert (got_s[r, n:] == tref.NEG_INF).all() and (got_i[r, n:] == 0).all()
+
+
+def test_score_keys_order_and_round_trip():
+    """Keys sort as (score descending, index ascending), -0 equals +0,
+    and decode back exactly; key 0 decodes to the sentinel."""
+    s = np.array([1.5, -0.0, 0.0, -1e30, 1.5, -2.25, 3e-8], np.float32)
+    i = np.array([7, 3, 2, 0, 4, 1, 9], np.int32)
+    keys = tts.score_keys(s, i)
+    want = sorted(range(len(s)), key=lambda j: (-float(s[j]), int(i[j])))
+    assert [int(x) for x in np.argsort(keys)[::-1]] == want
+    ds, di = tts.decode_keys(keys)
+    np.testing.assert_array_equal(ds, np.where(s == 0, 0, s))
+    np.testing.assert_array_equal(di, i)
+    zs, zi = tts.decode_keys(np.zeros(2, np.uint64))
+    assert (zs == tref.NEG_INF).all() and (zi == 0).all()
+
+
+@pytest.mark.parametrize("n_lists,warps", [(1, 1), (8, 1), (9, 2), (128, 16),
+                                          (129, 32), (1563, 32)])
+def test_merge_lists_warps(n_lists, warps):
+    """About 8 runs a warp, a power of two, at most 32 warps: a streamed
+    8192-row slab (128 runs) gets 16 warps, a 100k-row table 32."""
+    assert tts.merge_lists_warps(n_lists) == warps
 
 
 def _step_args(**bad):
