@@ -12,9 +12,10 @@ Phases, in order; any failure exits non-zero:
               1024-row slabs (40 slabs at 40k; at Q = 1 and k = 2000 the
               running list outgrows the slab), one k = 2000 slab step (3
               launches), a device-resident k = 300 call at 100k rows
-              (13 sub-slabs, 13 merges), and device-resident k = 10 and 64
+              (13 sub-slabs, 13 merges), device-resident k = 10 and 64
               calls at 100k rows with every row repeated (2 launches, ties
-              to the lower index exactly)
+              to the lower index exactly), and one k = 100 slab step of
+              65,536 queries, past the grid's y limit
   3. kge      the kge_score forward and backward kernels against their
               plain versions: TransE-L1/L2 and DistMult x (B, K, d) in
               {(1024, 32, 200), (100, 5, 200), (7, 3, 32), (1, 1, 1)} x
@@ -30,18 +31,31 @@ Phases, in order; any failure exits non-zero:
               through the port's registry; ``repro_torch.launch.serve``
               in client-session mode, then HTTP over the gateway, every
               answer checked against the plain version
-  6. update   the update path at the GO workload's full width and the
-              paper's budget (100 epochs): a 40k-term synthetic GO release
-              published by ``Updater.run_once`` (TransE, DistMult), evolved
+  6. workers  pre-forked serving on the card over the same registry:
+              ``launch.serve --http 0`` as one process, then with
+              ``--workers 2`` and ``--workers 4``, one HTTP client session
+              five HTTP client sessions each (``bench_http.run_mp``'s: 16
+              keep-alive clients, 2,048 requests, k = 10; fresh rows a
+              session), q/s and p50/p99 as median and range, every
+              answer against the plain top-k; per pool: the merged /stats
+              count, a worker SIGKILLed under load and restarted (no 5xx),
+              a new sealed version adopted by every worker, and every
+              worker pid (not the parent's) among the card's compute
+              processes in ``nvidia-smi``
+  7. update   the update path at the GO workload's full width: a 40k-term
+              synthetic GO release published by ``Updater.run_once`` with
+              the paper's six models (TransE and DistMult through the
+              kge_score kernels; 6,000 steps a full run: 100 epochs of the
+              triples, a depth cut for RDF2vec's skip-gram pairs), evolved
               to v2 and updated incrementally, a cold v2 in a second
               registry, closest-concepts for v2 from the engine the
-              updater invalidated, and MRR warm against cold
-  7. lm       h2o-danube-1.8b at its published width: in fp32 the last
+              updater invalidated, and MRR warm against cold per model
+  8. lm       h2o-danube-1.8b at its published width: in fp32 the last
               logits of prefill(6145) against prefill(6144) + decode_step
               (2e-3, same argmax), 24 SWA launches per prefill; then a
               bf16 generation through ``repro_torch.launch.generate``
               (batch 2, prompt 6144, 32 greedy decode steps), ids in vocab
-  8. numbers  top-k kernel, plain, library and host-to-device times (CUDA
+  9. numbers  top-k kernel, plain, library and host-to-device times (CUDA
               events) at N = 40k and 100k; kge_score forward and backward
               times at (1024, 32, 200), and the forward wrapper's host time
               by part; the device-busy share of a training step by part
@@ -57,15 +71,17 @@ Run from the repository root with no arguments::
 It prints JSON lines as it goes, then the card's name and power limit,
 the kernels line, and last ``{"ok": true, "device": {...}}``.
 ``--phases`` runs a subset (``build,kernels``, ``build,kge`` or
-``build,swa,lm`` is a quick check of one slice; ``build,kge,update`` the
-update path alone);
+``build,swa,lm`` is a quick check of one slice; ``build,serve,workers``
+the serving paths; ``build,kge,update`` the update path alone);
 ``--out PATH`` also writes every result to one JSON file.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -95,7 +111,13 @@ KGE_REPLACES = "src/repro/kernels/kge_score.py:54"
 KGE_TOL = 1e-4              # kernel vs plain, the reference's own (test_kernels.py)
 KGE_MODELS = ("transe_l1", "transe_l2", "distmult")
 KGE_SHAPE = (1024, 32, 200)  # TrainConfig batch, negatives; PAPER_DIM
-UPDATE_MODELS = ("transe", "distmult")
+#: the paper's six models, every one of them on the update path
+UPDATE_MODELS = ("transe", "transr", "distmult", "hole", "boxe", "rdf2vec")
+#: steps of a full run of every model (Updater.steps_override; an
+#: incremental run takes warm_frac of it): 100 epochs of the GO triples
+#: (60 steps of 1024 an epoch), and a cut in depth for RDF2vec, whose
+#: 100 epochs of skip-gram pairs would be about 12,000 steps an epoch
+UPDATE_STEPS = 6000
 GO_TRIPLES = 61_749          # triples of generate(GO_SPEC, seed=0, n_terms=40000)
 #: bench_update.py's low-churn release evolution and MRR band
 CALM = dict(add_frac=0.02, obsolete_frac=0.005, rewire_frac=0.005)
@@ -440,7 +462,40 @@ def phase_kernels(store_tables) -> dict:
                                          f"({n_sub} sub-slabs)"))
         del table_dev, norms_dev
         torch.cuda.synchronize()
+    # -- k > 64 past the grid's y limit: one slab step of 65,536 queries
+    # (select/sort and merge path launch twice, 65,535 queries + 1) ---- #
+    table, norms = store_tables[GO_ROWS]
+    qn, slab, k = ts.MAX_GRID_Y + 1, 1024, 100
+    q_big = rng.standard_normal((qn, D)).astype(np.float32)
+    q_big /= np.linalg.norm(q_big, axis=1, keepdims=True)
+    q_dev = torch.from_numpy(q_big).to(dev)
+    blk = torch.from_numpy(np.array(table[:slab])).to(dev)
+    nrm = torch.from_numpy(np.array(norms[:slab])).to(dev)
+    x_dev = torch.from_numpy((np.arange(qn) % slab).astype(np.int32)).to(dev)
+    ts.reset_launches()
+    got = ts.topk_cosine_step(q_dev, blk, nrm, x_dev, 0, GO_ROWS, k)
+    big_launches = dict(ts.launches)
+    check(big_launches["topk_select_sort"] == 2
+          and big_launches["topk_merge_path"] == 2
+          and big_launches["topk_score_keys"] == 1,
+          f"Q={qn} k={k}: {big_launches}, want 1 score, 2 select/sort and "
+          f"2 merge-path launches")
+    want = ref.stream_step_ref(q_dev, blk, nrm, 0, GO_ROWS, x_dev, None,
+                               None, k)
+    s_g, i_g = (t.cpu().numpy() for t in got)
+    s_w, i_w = (t.cpu().numpy() for t in want)
+    big_err = float(np.abs(s_g - s_w).max())
+    check(big_err <= SCORE_TOL, f"Q={qn} k={k}: score error {big_err}")
+    for r in np.flatnonzero((i_g != i_w).any(axis=1)):
+        relaxed_total += _ids_agree(i_g[r], i_w[r], s_w[r])
+    errs["large"] = max(errs["large"], big_err)
+    cases += 1
+    del q_dev, blk, nrm, x_dev, got, want
+    torch.cuda.synchronize()
     out = {"phase": "kernels", "cases": cases,
+           "q_past_grid_y": {"Q": qn, "k": k, "slab": slab,
+                             "max_abs_err": big_err,
+                             "launches": big_launches},
            "max_abs_err_small": errs["small"],
            "max_abs_err_large": errs["large"],
            "tie_runs_compared_by_set": relaxed_total,
@@ -713,6 +768,443 @@ def phase_serve(registry_root: str, served: dict) -> dict:
     return out
 
 
+#: the workers phase: HTTP client sessions (keep-alive connections, one
+#: per thread) against one serving process, then pools of 2 and 4; a
+#: session is ``benchmarks/bench_http.py`` ``run_mp``'s (16 clients,
+#: 2,048 requests, k = 10), run WORKER_SESSIONS times a pool on rows no
+#: other session asks for (no result-cache hits), so each pool gets a
+#: median and a spread over fresh connection-to-worker splits
+WORKER_POOLS = (2, 4)
+WORKER_THREADS, WORKER_REQUESTS, WORKER_K = 16, 2048, 10
+WORKER_SESSIONS = 5
+WATCH_INTERVAL_S = 0.25     # WorkerPool's default store-watch interval
+
+
+def _env_src() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    return env
+
+
+def _start_server(registry_root: str, workers: int, state_dir: str):
+    """``python -m repro_torch.launch.serve --http 0 [--workers N]`` in a
+    process of its own (this one holds a CUDA context, which must not
+    cross the pool's fork); returns (process, port) once it serves."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--registry",
+           registry_root, "--http", "0", "--device", DEV, "--batch", "32"]
+    if workers > 1:
+        cmd += ["--workers", str(workers), "--state-dir", state_dir]
+    log = open(Path(state_dir) / f"serve-{workers}.log", "w")
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=log,
+                            text=True, env=_env_src(), cwd=str(ROOT))
+    lines = []
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+
+    threading.Thread(target=read, daemon=True).start()
+    deadline = time.monotonic() + 240
+    port = None
+    while time.monotonic() < deadline and port is None:
+        for line in list(lines):
+            m = re.search(r"HTTP service on http://127\.0\.0\.1:(\d+)", line)
+            if m:
+                port = int(m.group(1))
+        if proc.poll() is not None:
+            break
+        time.sleep(0.1)
+    if port is None:
+        proc.kill()
+        log.close()
+        raise SmokeFailure(
+            f"launch.serve --workers {workers} did not come up: "
+            f"{''.join(lines)[-2000:]} "
+            f"{(Path(state_dir) / f'serve-{workers}.log').read_text()[-3000:]}")
+    for _ in range(600):
+        try:
+            st, _ = _http_get(port, "/health")
+            if st == 200:
+                break
+        except OSError:
+            time.sleep(0.1)
+    proc.log = log
+    return proc, port
+
+
+def _stop_server(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    proc.log.close()
+
+
+def _http_get(port: int, path: str, timeout: float = 60):
+    """One GET on a fresh connection: (status, body bytes)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+#: one client process of the workers phase's HTTP session: stdlib only,
+#: ``threads`` keep-alive connections; reads its job as one JSON line,
+#: says "ready", waits for "go", answers one JSON line
+_CLIENT = r"""
+import http.client, json, sys, threading, time
+job = json.loads(sys.stdin.readline())
+port, paths = job["port"], job["paths"]
+chunks = [list(range(i, len(paths), job["threads"]))
+          for i in range(job["threads"])]
+res, lock = {"lat": [], "answers": [], "errors": []}, threading.Lock()
+def get(conn, path):
+    conn.request("GET", path)
+    r = conn.getresponse()
+    return r.status, r.read().decode()
+def client(mine):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    lat, got, errs = [], [], []
+    for i in mine:
+        t0 = time.perf_counter()
+        for attempt in range(3):
+            try:
+                st, body = get(conn, paths[i])
+                break
+            except (OSError, http.client.HTTPException) as e:
+                # the connection's worker died: reconnect, and the kernel
+                # routes the new connection to a live worker
+                errs.append(repr(e))
+                conn.close()
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=60)
+        else:
+            st, body = 0, ""
+        lat.append((time.perf_counter() - t0) * 1e3)
+        got.append((i, st, body))
+    conn.close()
+    with lock:
+        res["lat"] += lat
+        res["answers"] += got
+        res["errors"] += errs
+ths = [threading.Thread(target=client, args=(c,)) for c in chunks]
+print("ready", flush=True)
+sys.stdin.readline()
+cpu0, res["t0"] = time.process_time(), time.time()
+for t in ths:
+    t.start()
+for t in ths:
+    t.join()
+res["t1"], res["cpu_s"] = time.time(), time.process_time() - cpu0
+print(json.dumps(res), flush=True)
+"""
+#: client processes of the session (its threads split over them), so the
+#: client's own GIL does not cap what the servers answer
+CLIENT_PROCS = 4
+
+
+def _client_session(port: int, ids, rows, k: int, threads: int):
+    """``threads`` clients, each with one keep-alive connection, spread
+    over CLIENT_PROCS processes, send the closest-concepts requests of
+    ``rows``; returns (seconds, latencies ms, answers [(row, status,
+    body)], errors, client CPU share: CPU seconds per wall second of the
+    busiest client process)."""
+    procs = []
+    for c in range(CLIENT_PROCS):
+        mine = rows[c::CLIENT_PROCS]
+        p = subprocess.Popen([sys.executable, "-c", _CLIENT],
+                             stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                             text=True)
+        p.stdin.write(json.dumps({
+            "port": port, "threads": threads // CLIENT_PROCS,
+            "paths": [f"/closest-concepts/go/transe?query={ids[r]}&k={k}"
+                      for r in mine]}) + "\n")
+        p.stdin.flush()
+        procs.append((p, mine))
+    for p, _ in procs:
+        check(p.stdout.readline().strip() == "ready", "client did not start")
+    for p, _ in procs:
+        p.stdin.write("go\n")
+        p.stdin.flush()
+    lat, answers, errors, outs = [], [], [], []
+    for p, mine in procs:
+        line = p.stdout.readline()
+        p.wait(timeout=60)
+        check(p.returncode == 0 and line, "an HTTP client process failed")
+        out = json.loads(line)
+        outs.append(out)
+        lat += out["lat"]
+        errors += out["errors"]
+        answers += [(mine[i], st, body) for i, st, body in out["answers"]]
+    seconds = max(o["t1"] for o in outs) - min(o["t0"] for o in outs)
+    cpu_share = max(o["cpu_s"] / max(o["t1"] - o["t0"], 1e-9) for o in outs)
+    return seconds, lat, answers, errors, cpu_share
+
+
+def _gpu_pids() -> list:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi compute-apps: {out.stderr}")
+    return [int(x) for x in out.stdout.split() if x.strip().isdigit()]
+
+
+def phase_workers(registry_root: str, served: dict) -> dict:
+    """Pre-forked multi-process serving on the card, through
+    ``launch.serve --http 0 --workers N``: the same client session against
+    one process and pools of 2 and 4, every answer against the plain
+    top-k, the merged /stats count, a worker SIGKILLed under load and
+    restarted, a publish adopted by every worker, and every worker pid
+    holding a CUDA context."""
+    import torch
+    from repro_torch.api.workers import read_worker_states
+    from repro_torch.core.registry import EmbeddingRegistry
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device(DEV)
+    ids, labels, emb = served["ids"], served["labels"], served["emb"]
+    n = len(ids)
+    norms = np.linalg.norm(emb, axis=1).astype(np.float32)
+    rng = np.random.default_rng(SEED + 21)
+    # distinct rows: 256 to warm up, WORKER_SESSIONS timed sessions, and
+    # 1,024 for the SIGKILL session; every pool gets the same sessions
+    perm = [int(r) for r in rng.permutation(n)]
+    warm_rows = perm[:256]
+    sessions = [perm[256 + i * WORKER_REQUESTS:256 + (i + 1) * WORKER_REQUESTS]
+                for i in range(WORKER_SESSIONS)]
+    kill_rows = perm[256 + WORKER_SESSIONS * WORKER_REQUESTS:][:1024]
+    # the plain top-k of every query row, once, on the card
+    uniq = sorted(set(perm[:256 + WORKER_SESSIONS * WORKER_REQUESTS + 1024]))
+    s_ref, i_ref, v_ref = ref.topk_cosine_blocked_ref(
+        torch.from_numpy(unit_rows(emb, norms, uniq)).to(dev),
+        torch.from_numpy(emb).to(dev), WORKER_K,
+        exclude_rows=torch.tensor(uniq, dtype=torch.int32, device=dev),
+        norms=torch.from_numpy(norms).to(dev),
+        block_n=ops.STREAM_BLOCK_ROWS)
+    plain = {r: (s_ref[j].cpu().numpy(), i_ref[j].cpu().numpy(),
+                 int(v_ref[j])) for j, r in enumerate(uniq)}
+    del s_ref, i_ref, v_ref
+    torch.cuda.empty_cache()
+
+    def check_answers(answers, note):
+        ties = 0
+        for row, st, body in answers:
+            check(st == 200, f"{note}: closest {ids[row]} answered {st}")
+            hits = json.loads(body)["results"]
+            s_p, i_p, nv = plain[row]
+            check(len(hits) == nv, f"{note}: {len(hits)} hits, want {nv}")
+            s_got = np.array([h["score"] for h in hits], np.float64)
+            check(float(np.abs(s_got - s_p[:nv]).max()) <= SCORE_TOL,
+                  f"{note}: closest {ids[row]} scores off the plain top-k")
+            ties += _ids_agree(
+                np.array([int(h["identifier"][3:]) for h in hits]),
+                i_p[:nv], s_p[:nv].astype(np.float64))
+        return ties
+
+    # compute processes on the card before any server: this one
+    base_procs = len(_gpu_pids())
+    runs = {}
+    reg = EmbeddingRegistry(registry_root)
+    v_latest = reg.store.latest_version("go")
+    for n_proc in (1,) + WORKER_POOLS:
+        state = tempfile.mkdtemp(prefix=f"biokg-workers{n_proc}-",
+                                 dir=registry_root)
+        # the previous server's processes have left the card
+        deadline = time.monotonic() + 30
+        while len(_gpu_pids()) > base_procs and time.monotonic() < deadline:
+            time.sleep(0.2)
+        t_up = time.perf_counter()
+        proc, port = _start_server(registry_root, n_proc, state)
+        up_s = time.perf_counter() - t_up
+        try:
+            run = {"processes": n_proc, "startup_s": up_s}
+            if n_proc > 1:
+                # one request per fresh connection until every worker has
+                # served through the kernel (SO_REUSEPORT spreads accepts)
+                deadline = time.monotonic() + 120
+                while time.monotonic() < deadline:
+                    for r in warm_rows[:16]:
+                        _http_get(port, f"/closest-concepts/go/transe?"
+                                        f"query={ids[r]}&k={WORKER_K}")
+                    time.sleep(1.2)
+                    states = read_worker_states(state)
+                    if len(states) == n_proc and all(
+                            sum(x["kernel_launches"].values()) > 0
+                            for x in states):
+                        break
+                pids = sorted(x["pid"] for x in states)
+                check(len(pids) == n_proc and all(
+                    sum(x["kernel_launches"].values()) > 0 for x in states),
+                      f"pool of {n_proc}: not every worker served through "
+                      f"the top-k kernel: "
+                      f"{[(x['pid'], x['kernel_launches']) for x in states]}")
+                gpu = _gpu_pids()
+                sup = json.loads((Path(state) / "supervisor.json").read_text())
+                run["worker_pids"] = pids
+                run["nvidia_smi_pids"] = gpu
+                run["card_processes"] = {"before": base_procs,
+                                         "with_pool": len(gpu)}
+                if set(pids) <= set(gpu):
+                    check(proc.pid not in gpu, f"the pool's parent "
+                                               f"{proc.pid} holds a CUDA "
+                                               f"context")
+                    run["pids_matched"] = True
+                else:
+                    # nvidia-smi reports the pids of another pid namespace
+                    # (in a container every entry may read 1): then the
+                    # card must list exactly one more process per worker
+                    check(len(gpu) - base_procs == n_proc,
+                          f"pool of {n_proc}: the card lists {len(gpu)} "
+                          f"compute processes ({gpu}), {base_procs} before "
+                          f"the pool; want one more per worker")
+                    run["pids_matched"] = False
+                check(sup["cuda_initialized"] is False,
+                      f"the pool's parent {proc.pid} initialised CUDA")
+                check(all(x["device"].startswith("cuda") for x in states),
+                      f"workers on {[x['device'] for x in states]}")
+            # warm every worker's padding buckets, then the timed session
+            _client_session(port, ids, warm_rows, WORKER_K, WORKER_THREADS)
+            sent_before = None
+            if n_proc > 1:
+                time.sleep(1.2)
+                sent_before = json.loads(_http_get(port, "/stats")[1])
+            timed, ties, cpu_share = [], 0, 0.0
+            for rows in sessions:
+                dt, lat, answers, errors, cpu = _client_session(
+                    port, ids, rows, WORKER_K, WORKER_THREADS)
+                check(not errors,
+                      f"{n_proc} processes: client errors {errors}")
+                ties += check_answers(answers, f"{n_proc} proc")
+                cpu_share = max(cpu_share, cpu)
+                lat_ms = np.array(lat)
+                timed.append({"seconds": dt, "qps": len(rows) / dt,
+                              "p50_ms": float(np.percentile(lat_ms, 50)),
+                              "p99_ms": float(np.percentile(lat_ms, 99))})
+            run["ties_by_set"] = ties
+            run.update({"requests_per_session": WORKER_REQUESTS,
+                        "sessions": timed, "threads": WORKER_THREADS,
+                        "client_processes": CLIENT_PROCS,
+                        "client_cpu_share": cpu_share, "k": WORKER_K})
+            for key in ("qps", "p50_ms", "p99_ms"):
+                vals = [x[key] for x in timed]
+                run[key] = float(np.median(vals))
+                run[key + "_range"] = [min(vals), max(vals)]
+            if n_proc > 1:
+                # ---- merged /stats: the pool saw what was sent -------- #
+                want = sent_before["gateway"]["by_route"].get(
+                    "closest-concepts", 0) + WORKER_SESSIONS * WORKER_REQUESTS
+                deadline = time.monotonic() + 15
+                while time.monotonic() < deadline:
+                    st = json.loads(_http_get(port, "/stats")[1])
+                    got = st["gateway"]["by_route"].get("closest-concepts")
+                    if got == want and st["workers"]["count"] == n_proc:
+                        break
+                    time.sleep(0.3)
+                check(got == want and st["workers"]["count"] == n_proc,
+                      f"pool of {n_proc}: merged /stats counts {got} "
+                      f"closest-concepts requests, {want} were sent")
+                run["merged_closest_requests"] = got
+                run["per_worker_requests"] = sorted(
+                    x["stats"]["gateway"]["by_route"].get(
+                        "closest-concepts", 0)
+                    for x in read_worker_states(state))
+                # ---- SIGKILL one worker under load -------------------- #
+                victim = st["workers"]["pids"][0]
+                load = {}
+
+                def under_load():
+                    load["out"] = _client_session(
+                        port, ids, kill_rows, WORKER_K, WORKER_THREADS)
+
+                th = threading.Thread(target=under_load)
+                th.start()
+                time.sleep(0.3)
+                os.kill(victim, signal.SIGKILL)
+                th.join()
+                _, _, k_answers, k_errors, _ = load["out"]
+                five = [st_ for _, st_, _ in k_answers if st_ >= 500]
+                check(not five, f"pool of {n_proc}: {len(five)} 5xx "
+                                f"after SIGKILL")
+                check(len(k_errors) <= WORKER_THREADS,
+                      f"pool of {n_proc}: {len(k_errors)} connection errors"
+                      f" after SIGKILL, more than its connections")
+                check_answers(k_answers, f"{n_proc} proc under SIGKILL")
+                deadline = time.monotonic() + 60
+                while time.monotonic() < deadline:
+                    w = json.loads(_http_get(port, "/stats")[1])["workers"]
+                    if w["count"] == n_proc and w["restarts"] >= 1 \
+                            and victim not in w["pids"]:
+                        break
+                    time.sleep(0.3)
+                check(w["count"] == n_proc and w["restarts"] >= 1
+                      and victim not in w["pids"],
+                      f"pool of {n_proc}: worker {victim} not restarted: {w}")
+                run["restart"] = {"victim": victim,
+                                  "connection_errors": len(k_errors),
+                                  "http_5xx": len(five),
+                                  "restarts": w["restarts"]}
+                # ---- publish: every worker adopts the sealed version -- #
+                scale = float(2 ** (len(runs)))
+                v_new = f"2025-0{3 + len(runs) - 1}"
+                before = {x["pid"]: x["adoptions"]
+                          for x in read_worker_states(state)}
+                t_pub = time.perf_counter()
+                reg.publish("go", v_new, "transe", ids, labels, emb * scale,
+                            ontology_checksum=f"seed-{SEED}-x{scale:g}",
+                            hyperparameters={"dim": D, "seed": SEED},
+                            generated_at="2025-01-01T00:00:00+00:00")
+                reg.seal("go", v_new)
+                t_seal = time.perf_counter()
+                deadline = time.monotonic() + 30
+                while time.monotonic() < deadline:
+                    states = read_worker_states(state)
+                    if len(states) == n_proc and all(
+                            x["adoptions"] > before.get(x["pid"], 0)
+                            or x["pid"] not in before for x in states):
+                        break
+                    time.sleep(0.05)
+                adopt_s = time.perf_counter() - t_seal
+                check(all(x["adoptions"] > before.get(x["pid"], 0)
+                          for x in states if x["pid"] in before),
+                      f"pool of {n_proc}: not every worker adopted {v_new}")
+                for r in warm_rows[:32]:      # fresh connections: any worker
+                    st_, body = _http_get(
+                        port, f"/get-vector/go/transe?query={ids[r]}")
+                    got_v = json.loads(body)
+                    check(st_ == 200 and got_v["version"] == v_new
+                          and got_v["vector"] == [float(x) for x in
+                                                  emb[r] * scale],
+                          f"pool of {n_proc}: get-vector not from {v_new}")
+                run["publish"] = {"version": v_new,
+                                  "publish_s": t_seal - t_pub,
+                                  "adopted_by_all_s": adopt_s,
+                                  "watch_interval_s": WATCH_INTERVAL_S}
+                v_latest = v_new
+                states = read_worker_states(state)
+                run["kernel_launches_by_worker"] = {
+                    x["pid"]: x["kernel_launches"] for x in states}
+        finally:
+            _stop_server(proc)
+        runs[n_proc] = run
+        emit({"phase": "workers", **run})
+    out = {"phase": "workers", "runs": runs, "latest_version": v_latest,
+           "qps": {p: r["qps"] for p, r in runs.items()},
+           "p50_ms": {p: r["p50_ms"] for p, r in runs.items()},
+           "p99_ms": {p: r["p99_ms"] for p, r in runs.items()},
+           "qps_range": {p: r["qps_range"] for p, r in runs.items()},
+           "vs_one_process": {p: r["qps"] / runs[1]["qps"]
+                              for p, r in runs.items()}}
+    emit({k: v for k, v in out.items() if k != "runs"})
+    return out
+
+
 _RELEASES: dict = {}
 
 
@@ -751,9 +1243,11 @@ def phase_update(tmp: str) -> dict:
     engine = ServingEngine(warm_reg, device=DEV)
     gw = Gateway(engine, max_batch=32, flush_after_ms=2.0)
     warm = Updater(warm_reg, engine=engine, models=UPDATE_MODELS,
-                   dim=CONFIG.dim, train_cfg=CONFIG.train, device=DEV)
+                   dim=CONFIG.dim, train_cfg=CONFIG.train,
+                   steps_override=UPDATE_STEPS, device=DEV)
     cold = Updater(cold_reg, models=UPDATE_MODELS, dim=CONFIG.dim,
-                   train_cfg=CONFIG.train, device=DEV)
+                   train_cfg=CONFIG.train, steps_override=UPDATE_STEPS,
+                   device=DEV)
     channel = SyntheticReleaseChannel("go")
     reports = {}
 
@@ -795,7 +1289,9 @@ def phase_update(tmp: str) -> dict:
         table, norms, header = warm_reg.store.open_table("go", v2, m)
         params, _ = warm_reg.get_params("go", m, v2)
         arrays, _ = warm_reg.store.load("go", v2, m)
-        trained = np.ascontiguousarray(params["entity"], np.float32)
+        # rdf2vec serves the graph entities' rows of its token table
+        trained = np.ascontiguousarray(
+            params["entity"][:kg2.num_entities], np.float32)
         check(np.asarray(table).tobytes() == trained.tobytes()
               and arrays["embeddings"].tobytes() == trained.tobytes(),
               f"{m}: published table differs from the trained embeddings")
@@ -823,8 +1319,14 @@ def phase_update(tmp: str) -> dict:
         mrr = {}
         for name, reg in (("warm", warm_reg), ("cold", cold_reg)):
             arr, _ = reg.get_params("go", m, v2)
-            model = make_model(m, kg2.num_entities, kg2.num_relations,
-                               dim=CONFIG.dim)
+            if m == "rdf2vec":
+                # link prediction by <in[h], out[t]> over the graph's
+                # entities: the served rows of both SGNS tables
+                model = make_model(m, kg2.num_entities, 1, dim=CONFIG.dim)
+                arr = {k: v[:kg2.num_entities] for k, v in arr.items()}
+            else:
+                model = make_model(m, kg2.num_entities, kg2.num_relations,
+                                   dim=CONFIG.dim)
             mrr[name] = rank_based_eval(
                 model, params_from_numpy(model, arr, DEV), sample,
                 kg2.triples)["mrr"]
@@ -851,6 +1353,7 @@ def phase_update(tmp: str) -> dict:
                for k, d in (("v1", d1), ("warm", dw), ("cold", dc))}}
         del emb_dev, nrm_dev, table, norms
     out = {"phase": "update", "models": list(UPDATE_MODELS),
+           "steps_override": UPDATE_STEPS,
            "entities": [kg1.num_entities, kg2.num_entities],
            "triples": [kg1.num_triples, kg2.num_triples],
            "plan_v2": reports["v2_warm"].reason,
@@ -1549,7 +2052,8 @@ def card_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,kge,swa,serve,update,lm,numbers")
+                    default="build,kernels,kge,swa,serve,workers,update,"
+                            "lm,numbers")
     ap.add_argument("--out", default=None, help="also write results here")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1575,7 +2079,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="biokg-smoke-") as tmp:
         store_tables = {}
         served = None
-        if phases & {"kernels", "serve", "numbers"}:
+        if phases & {"kernels", "serve", "workers", "numbers"}:
             reg = EmbeddingRegistry(tmp)
             for i, version in enumerate(("2025-01", "2025-02")):
                 ids, labels, emb = go_table(GO_ROWS, SEED + i)
@@ -1608,6 +2112,9 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
         if "serve" in phases:
             RESULTS["phases"]["serve"] = phase_serve(tmp, served)
+            torch.cuda.synchronize()
+        if "workers" in phases:
+            RESULTS["phases"]["workers"] = phase_workers(tmp, served)
             torch.cuda.synchronize()
         if "update" in phases:
             RESULTS["phases"]["update"] = phase_update(tmp)

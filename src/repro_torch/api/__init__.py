@@ -3,9 +3,9 @@ bodies as ``repro.api``, served over the port's scheduler and kernels.
 
 :class:`Gateway` dispatches route strings to typed handlers, every
 similarity-shaped read rides the ``BatchScheduler``, and the HTTP front
-end (:func:`serve_http`) is a thin shim over ``Gateway.handle``.  The
-batch-job routes, the async front end and the pre-forked worker pool are
-not ported yet.
+end (:func:`serve_http`) is a thin shim over ``Gateway.handle``;
+``api.workers.WorkerPool`` pre-forks N such HTTP stacks over one store.
+The batch-job routes and the async front end are not ported yet.
 """
 from .cache import ResultCache
 from .gateway import API_VERSION, CACHED_ROUTES, Gateway, download_etag
@@ -18,6 +18,7 @@ from .schema import (CODE_STATUS, ApiError, AutocompleteRequest,
                      SimilarityRequest, SimilarityResponse, StatsRequest,
                      StatsResponse, VectorResponse, VersionsRequest,
                      VersionsResponse, from_wire, payload_to, to_wire)
+from .workers import StoreWatcher, WorkerPool, merge_stats_wires
 
 __all__ = [
     "API_VERSION", "Gateway", "ResultCache", "CACHED_ROUTES",
@@ -31,4 +32,5 @@ __all__ = [
     "HealthRequest", "HealthResponse", "StatsRequest", "StatsResponse",
     "VersionsRequest", "VersionsResponse",
     "LineageRequest", "LineageResponse",
+    "WorkerPool", "StoreWatcher", "merge_stats_wires",
 ]

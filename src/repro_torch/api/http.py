@@ -44,18 +44,18 @@ Usage::
 or ``python -m repro_torch.launch.serve --http 8080`` for a full service.
 
 This is the port of ``repro.api.http`` without the batch-job result
-routes and without the worker-pool hooks (an adopted listening socket,
-a cross-worker ``/stats`` merge); those come with their own slices.
+routes; those come with the jobs slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
+import socket
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 from urllib.parse import parse_qsl, urlsplit
 
 from ..core.metrics import LatencyHistogram
@@ -316,10 +316,21 @@ class GatewayHTTPHandler(BaseHTTPRequestHandler):
             match = (name, cls, _handler, route_params) if name else None
             wire = gw.handle(path, payload, match=match)
             if wire.get("type") == "stats_response":
-                # transport-level block: 304s and streams are answered
-                # before dispatch, so without this they'd be invisible
-                # exactly when ETag traffic makes "cheap hit" the common
-                # case
+                if self.server.stats_hook is not None:
+                    # multi-process serving: the pool installs a hook that
+                    # folds the sibling workers' counter/histogram
+                    # snapshots into this worker's stats body
+                    # (fixed-bucket histograms merge by adding counts)
+                    try:
+                        wire = self.server.stats_hook(wire) or wire
+                    except Exception:
+                        self.server._count("internal_errors")
+                # transport-level block appended after any merge: 304s
+                # and streams are answered before dispatch, so without
+                # this they'd be invisible exactly when ETag traffic
+                # makes "cheap hit" the common case. In a worker pool
+                # this block is *this* worker's transport; the hook's
+                # ["workers"]["http"] block carries the pool-wide merge.
                 wire = {**wire, "http": self.server.http_snapshot()}
             status = wire.get("status", 200) if wire.get("type") == "error" \
                 else 200
@@ -540,9 +551,30 @@ class GatewayHTTPServer(ThreadingHTTPServer):
 
     def __init__(self, gateway: Gateway,
                  address: Tuple[str, int] = ("127.0.0.1", 0), *,
-                 stream_page_rows: int = 2048, verbose_log: bool = False):
-        super().__init__(address, GatewayHTTPHandler)
+                 stream_page_rows: int = 2048, verbose_log: bool = False,
+                 sock: Optional[socket.socket] = None,
+                 stats_hook: Optional[
+                     Callable[[Dict[str, Any]], Dict[str, Any]]] = None):
+        if sock is None:
+            super().__init__(address, GatewayHTTPHandler)
+        else:
+            # adopt an externally-created listening socket (the worker
+            # pool's SO_REUSEPORT socket, or a listener inherited across
+            # fork): skip bind, keep the rest of the server machinery
+            super().__init__(address, GatewayHTTPHandler,
+                             bind_and_activate=False)
+            self.socket.close()          # the unused fresh socket
+            self.socket = sock
+            self.server_address = sock.getsockname()
+            host, port = self.server_address[:2]
+            self.server_name = socket.getfqdn(host)
+            self.server_port = port
+            self.server_activate()       # listen() — idempotent
         self.gateway = gateway
+        #: optional post-processor for /stats wire bodies (multi-process
+        #: merge); data routes are never touched, so wire parity with the
+        #: in-process gateway holds everywhere else
+        self.stats_hook = stats_hook
         #: page size (rows) the streaming path requests per cursor step —
         #: the peak-memory bound of a streamed download
         self.stream_page_rows = stream_page_rows
@@ -585,14 +617,16 @@ class GatewayHTTPServer(ThreadingHTTPServer):
 
     def http_counts(self) -> Dict[str, int]:
         """Point-in-time copy of the transport counters.  The lock makes
-        the snapshot consistent across counters — callers must use this
-        instead of copying ``http_stats`` while request threads mutate
-        it."""
+        the snapshot consistent across counters — callers (the worker
+        state dump, the pool-merged /stats) must use this instead of
+        copying ``http_stats`` while request threads mutate it."""
         with self._stats_lock:
             return dict(self.http_stats)
 
     def http_snapshot(self) -> Dict[str, Any]:
-        """Transport counters + 304 latency for /stats bodies."""
+        """Transport counters + 304 latency for /stats bodies (and the
+        worker-pool state dumps — histograms merge across workers via
+        ``LatencyHistogram.merge_snapshots``, never by naive dict-add)."""
         counts: Dict[str, Any] = self.http_counts()
         counts["latency_ms"] = {
             "not_modified": self.not_modified_latency.snapshot()}
@@ -643,15 +677,21 @@ class GatewayHTTPServer(ThreadingHTTPServer):
 
 def serve_http(gateway: Gateway, host: str = "127.0.0.1", port: int = 0, *,
                stream_page_rows: int = 2048, start: bool = True,
-               verbose_log: bool = False) -> GatewayHTTPServer:
+               verbose_log: bool = False,
+               sock: Optional[socket.socket] = None,
+               stats_hook=None) -> GatewayHTTPServer:
     """Stand up the HTTP front end over ``gateway``. ``port=0`` binds an
     ephemeral port (see ``server.port``/``server.url``). With ``start``
     (default) the accept loop runs in a daemon thread; pass
     ``start=False`` to drive ``serve_forever()`` yourself (e.g. the
-    ``launch.serve --http`` foreground mode)."""
+    ``launch.serve --http`` foreground mode). ``sock`` adopts an
+    externally-bound listener instead of binding (the worker pool's
+    SO_REUSEPORT path); ``stats_hook`` post-processes /stats bodies
+    (cross-worker merge)."""
     server = GatewayHTTPServer(gateway, (host, port),
                                stream_page_rows=stream_page_rows,
-                               verbose_log=verbose_log)
+                               verbose_log=verbose_log, sock=sock,
+                               stats_hook=stats_hook)
     if start:
         server.start()
     return server

@@ -30,9 +30,9 @@ a version the other published.
 
 The port of ``repro.core.updater``.  Training runs on the updater's
 device (default: the card) through the port's KGE trainer; the params
-stay there and become numpy only at publish.  This slice trains TransE
-and DistMult; asking for a model the port has not registered yet raises
-``NotImplementedError`` when the updater is built, naming the model.
+stay there and become numpy only at publish.  It trains the paper's six
+models; RDF2vec trains on skip-gram pairs of a random-walk corpus drawn
+on the same device.
 """
 from __future__ import annotations
 
@@ -41,7 +41,11 @@ import time
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+import torch
+
 from ..checkpoint import version_sort_key
+from ..data.walks import corpus, skipgram_pairs, token_vocab
 from ..device import resolve_device
 from ..kge import (KGETrainer, TrainConfig, available_models, make_model,
                    params_to_numpy, vocab_remap, PAPER_DIM, PAPER_EPOCHS)
@@ -51,12 +55,6 @@ from .serving import ServingEngine
 
 #: the paper's six models
 PAPER_MODELS = ("transe", "transr", "distmult", "hole", "boxe", "rdf2vec")
-
-
-def unported_models(models: Sequence[str]) -> List[str]:
-    """The paper's models in ``models`` that the port cannot train yet."""
-    have = set(available_models())
-    return [m for m in models if m in PAPER_MODELS and m not in have]
 
 
 class ReleaseChannel:
@@ -147,15 +145,12 @@ class Updater:
         dim: int = PAPER_DIM,
         train_cfg: Optional[TrainConfig] = None,
         steps_override: Optional[int] = None,   # tests/examples: cap work
+        walks_per_entity: int = 10,
+        walk_length: int = 4,
         churn_threshold: float = 0.25,
         warm_frac: float = 0.3,
         device=None,
     ):
-        missing = unported_models(models)
-        if missing:
-            raise NotImplementedError(
-                f"the PyTorch port cannot train {missing} yet (it trains "
-                f"{list(available_models())}); pass models= without them")
         for m in models:
             if m not in available_models():
                 raise KeyError(f"unknown KGE model {m!r}; have "
@@ -166,6 +161,8 @@ class Updater:
         self.dim = dim
         self.train_cfg = train_cfg or TrainConfig(epochs=PAPER_EPOCHS)
         self.steps_override = steps_override
+        self.walks_per_entity = walks_per_entity
+        self.walk_length = walk_length
         #: go incremental only below this GraphDelta.churn_fraction;
         #: churn_threshold=0.0 disables warm starts entirely
         self.churn_threshold = churn_threshold
@@ -300,10 +297,28 @@ class Updater:
         cfg = dataclasses.replace(self.train_cfg, seed=seed)
         hypers = {"dim": self.dim, "epochs": cfg.epochs, "optimizer": cfg.optimizer,
                   "lr": cfg.lr, "batch_size": cfg.batch_size, "num_negs": cfg.num_negs}
-        model = make_model(model_name, kg.num_entities, kg.num_relations,
-                           dim=self.dim)
-        entity_vocab = list(kg.entities)
-        relation_vocab = list(kg.relations)
+        if model_name == "rdf2vec":
+            walks, vocab_size, pad = corpus(
+                kg, torch.Generator(device=self.device).manual_seed(seed),
+                walks_per_entity=self.walks_per_entity,
+                walk_length=self.walk_length)
+            pairs = skipgram_pairs(walks, window=2, pad_token=pad, seed=seed)
+            trips = np.stack(
+                [pairs[:, 0], np.zeros(len(pairs), dtype=np.int32),
+                 pairs[:, 1]], axis=1)
+            model = make_model("rdf2vec", vocab_size, 1, dim=self.dim)
+            # warm-start vocabulary = walk tokens (entities + relation
+            # tokens + pad), matched by name across versions
+            entity_vocab: List[str] = token_vocab(kg)
+            relation_vocab: List[str] = []
+            hypers.update({"walks_per_entity": self.walks_per_entity,
+                           "walk_length": self.walk_length, "window": 2})
+        else:
+            trips = kg.triples
+            model = make_model(model_name, kg.num_entities, kg.num_relations,
+                               dim=self.dim)
+            entity_vocab = list(kg.entities)
+            relation_vocab = list(kg.relations)
 
         trainer = KGETrainer(model, cfg, device=self.device)
         warm = None
@@ -314,13 +329,13 @@ class Updater:
         steps, epochs = self._budget(budget_frac)
         if warm is not None:
             params0, opt_state0, carry = warm
-            params, _, stats = trainer.fit(kg.triples, params=params0,
+            params, _, stats = trainer.fit(trips, params=params0,
                                            opt_state=opt_state0,
                                            epochs=epochs, steps=steps)
             stats["mode"] = "incremental"
             stats["carried_rows"] = carry["entity_carried"]
         else:
-            params, _, stats = trainer.fit(kg.triples, epochs=epochs,
+            params, _, stats = trainer.fit(trips, epochs=epochs,
                                            steps=steps)
             stats["mode"] = "full"
             stats["carried_rows"] = 0
@@ -329,8 +344,10 @@ class Updater:
         # wall-clock speedup
         stats["step_budget_ratio"] = round(1.0 / max(budget_frac, 1e-9), 3)
 
-        # the only copies to the host: the served table and the params
-        emb = model.entity_embeddings(params).detach().cpu().numpy()
+        # the only copies to the host: the served table (rdf2vec: the
+        # graph entities' rows of its token table) and the params
+        emb = model.entity_embeddings(params)[:kg.num_entities].detach()
+        emb = emb.cpu().numpy()
         params_np = params_to_numpy(params)
         vocab = {"entity": entity_vocab, "relation": relation_vocab}
         return emb, stats, hypers, params_np, vocab
@@ -346,7 +363,7 @@ def poll_loop(
     """The cron-job equivalent: N polling rounds over all channels.
 
     Each round trains with its own seed (``base_seed + round``) — a fixed
-    seed would make every retraining round draw identical negatives.
+    seed would make every retraining round draw identical walks/negatives.
     """
     reports = []
     for it in range(iterations):

@@ -11,8 +11,9 @@ same tensors with a batch axis of 1.
 
 On CPU tensors the plain PyTorch version runs.  On CUDA tensors the
 kernel runs or the call raises: there is no switch and no fallback.  Both
-take the same inputs: fp32 or bf16, contiguous, ``d`` in
-:data:`HEAD_DIMS`.  Ragged Sq and Skv are masked in the kernel, not
+take fp32 or bf16 and any head dim the reference takes; the kernel also
+needs contiguous tensors and ``d`` in :data:`HEAD_DIMS`
+(:func:`_check_kernel`).  Ragged Sq and Skv are masked in the kernel, not
 padded.  bf16 runs on wgmma with TMA-fed K/V tiles, fp32 on the CUDA
 cores; both walk the tiles :func:`swa_tile_plan` gives and mask only the
 tiles it does not call interior.  ``launches`` counts kernel launches.
@@ -74,8 +75,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     bhq, sq, d = q.shape
     bhkv, skv, _ = k.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if bhkv < 1 or bhq % bhkv or tuple(k.shape) != (bhkv, skv, d) \
             or tuple(v.shape) != (bhkv, skv, d):
         raise ValueError(f"k and v must be (B*Hkv, Skv, {d}) with B*Hkv "
@@ -88,11 +87,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
                          f"{window}, q_offset {q_offset}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype not in DTYPES or x.dtype != q.dtype \
-                or x.device != q.device or not x.is_contiguous() \
-                or x.data_ptr() % 16:
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                             f"{q.dtype} tensor on {q.device} (fp32 or "
-                             f"bf16), got {x.dtype} on {x.device}")
+                or x.device != q.device:
+            raise ValueError(f"{name} must be a {q.dtype} tensor on "
+                             f"{q.device} (fp32 or bf16), got {x.dtype} on "
+                             f"{x.device}")
+
+
+def _check_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """The kernel's own limits, past :func:`_check`: a head dim it is built
+    for and contiguous, 16-byte aligned tensors.  The plain version takes
+    any head dim and any strides."""
+    d = q.shape[-1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             f"aligned for the kernel")
 
 
 def swa_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -103,6 +114,7 @@ def swa_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ref.swa_attention_ref(q[None], k[None], v[None], window,
                                      q_offset)[0]
+    _check_kernel(q, k, v)
     bhq, sq, d = q.shape
     bhkv, skv, _ = k.shape
     with _build.on_device(q.device):

@@ -21,7 +21,9 @@ Larger k takes three stages: score one 64-bit key per slab row, select
 and sort the best k of each sub-slab of at most ``SORT_CAP`` rows in
 shared memory, and merge each sub-slab's sorted keys into the running
 list along the merge path: 3 launches for a streamed slab,
-2 + ceil(rows / SORT_CAP) for a device-resident table.  The running list
+2 + ceil(rows / SORT_CAP) for a device-resident table, and one more of
+the last two for every 65,535 queries past the first (the grid's y
+limit; :func:`query_chunks`).  The running list
 is sorted, as every step returns it.
 
 ``launches`` counts the kernel launches of each C entry point; a run
@@ -47,6 +49,9 @@ SCORE_ROWS = 64
 SORT_CAP = 8192
 #: outputs per merge-path block (MERGE_TILE in topk_cosine.cu)
 MERGE_TILE = 256
+#: queries of one select/sort or merge-path launch: both put the query on
+#: the grid's y axis, whose limit this is
+MAX_GRID_Y = 65535
 
 # Every entry point takes its arguments packed (``_build.Library``), in
 # this order; a null pointer is 0:
@@ -290,13 +295,29 @@ def _step_large(q, blk, norms, excl, offset, limit, k, run_s, run_i):
     _launch("topk_score_keys", q.data_ptr(), qn, d, blk.data_ptr(),
             blk.stride(0), rows, _ptr(norms), excl.data_ptr(), offset, limit,
             keys, stream)
-    _launch("topk_select_sort", keys, qn, rows, k, cand, stream)
+    chunks = query_chunks(qn)
+    for q0, nq in chunks:
+        _launch("topk_select_sort", keys + q0 * rows * 8, nq, rows, k,
+                cand + q0 * n_sub * m_cap * 8, stream)
     k_run = 0 if run_s is None else run_s.shape[1]
     for j, (n_cand, k_out) in enumerate(large_k_merges(rows, k, k_run)):
         out_s = torch.empty(qn, k_out, dtype=_F32, device=dev)
         out_i = torch.empty(qn, k_out, dtype=_I32, device=dev)
-        _launch("topk_merge_path", _ptr(run_s), _ptr(run_i), k_run,
-                cand + j * m_cap * 8, n_sub * m_cap, n_cand, qn, k_out,
-                out_s.data_ptr(), out_i.data_ptr(), stream)
+        rs, ri = _ptr(run_s), _ptr(run_i)
+        for q0, nq in chunks:
+            # a row of the running list and of the output is 4 bytes an
+            # entry; a null running list stays null
+            _launch("topk_merge_path", rs and rs + q0 * k_run * 4,
+                    ri and ri + q0 * k_run * 4, k_run,
+                    cand + (q0 * n_sub + j) * m_cap * 8, n_sub * m_cap,
+                    n_cand, nq, k_out, out_s.data_ptr() + q0 * k_out * 4,
+                    out_i.data_ptr() + q0 * k_out * 4, stream)
         run_s, run_i, k_run = out_s, out_i, k_out
     return run_s, run_i
+
+
+def query_chunks(qn: int) -> List[Tuple[int, int]]:
+    """``(first query, queries)`` of each select/sort and merge-path launch
+    of a large-k step over ``qn`` queries: one launch up to
+    :data:`MAX_GRID_Y` queries, more past it."""
+    return [(q0, min(MAX_GRID_Y, qn - q0)) for q0 in range(0, qn, MAX_GRID_Y)]

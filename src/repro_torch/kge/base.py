@@ -151,6 +151,17 @@ _MODEL_DEFAULTS: Dict[str, Dict[str, Any]] = {
 }
 
 
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for an id tensor of any shape, through
+    ``index_select``.  Its backward scatters with atomic adds; the
+    backward of advanced indexing sorts the ids and walks each id's
+    duplicates serially, so a (1024, 32) batch of ids into a 3-row
+    relation table (or onto RDF2vec's few relation tokens) puts ~11,000
+    duplicates of a row through one serial loop."""
+    return table.index_select(0, ids.reshape(-1)).view(
+        *ids.shape, *table.shape[1:])
+
+
 def _uniform_init(generator: torch.Generator, shape: Tuple[int, ...],
                   dim: int, dtype) -> torch.Tensor:
     """PyKEEN/TransE-style xavier-uniform: U(-6/sqrt(d), 6/sqrt(d)), drawn

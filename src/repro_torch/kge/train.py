@@ -1,12 +1,19 @@
 """KGE trainer (the port of ``repro.kge.train``, without its mesh branch).
 
-One step: gather the batch's rows from the tables, draw negatives, score
-positives and negatives in one fused call (``kernels.ops.kge_score``: the
-CUDA kernel on the card, its plain version on the CPU), apply the model's
-loss, backpropagate (the kernel's backward gives the gradients of the
-gathered rows, and autograd's gather backward scatters them into the
-tables), Adam/Adagrad update, post-step constraint.  Params and optimizer
-state stay on the trainer's device and are updated in place.
+One step: draw negatives, score positives and negatives, apply the
+model's loss, backpropagate, Adam/Adagrad update, post-step constraint.
+Params and optimizer state stay on the trainer's device and are updated
+in place.  Scoring takes one of two paths:
+
+* a model with a ``kge_score_model`` (TransE, DistMult) gathers the
+  batch's rows once and scores positives and negatives in one fused call
+  (``kernels.ops.kge_score``: the CUDA kernel on the card, its plain
+  version on the CPU); the kernel's backward gives the gradients of the
+  gathered rows, and autograd's gather backward scatters them into the
+  tables;
+* every other model (TransR, HolE, BoxE, RDF2vec) scores through its own
+  ``model.score`` on the corrupted ``(h, r, t)`` ids, as the reference
+  does, and autograd gives the gradients.
 """
 from __future__ import annotations
 
@@ -52,19 +59,11 @@ class TrainStep(NamedTuple):
     loss_and_grads: Callable[..., Tuple[torch.Tensor, Params]]
 
 
-def make_train_step(model: KGEModel, optimizer: Optimizer,
-                    cfg: TrainConfig) -> TrainStep:
-    if model.kge_score_model is None:
-        raise ValueError(f"{model.spec.name} has no fused kge_score model")
-    loss_fn = get_loss(model.spec.loss)
-    loss_kwargs: Dict[str, Any] = {}
-    if model.spec.loss in ("margin", "nssa"):
-        loss_kwargs["margin"] = model.spec.margin
-
-    def loss_and_grads(params: Params, triples: torch.Tensor,
-                       rand_ents: torch.Tensor, corrupt_head: torch.Tensor):
-        names = list(params)
-        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+def _fused_scores(model: KGEModel):
+    """(leaves, triples, rand_ents, corrupt_head) -> (pos (B,), neg (B, K))
+    through ``ops.kge_score``."""
+    def scores(leaves: Params, triples: torch.Tensor,
+               rand_ents: torch.Tensor, corrupt_head: torch.Tensor):
         ent, rel = leaves["entity"], leaves["relation"]
         b, k = rand_ents.shape
         # one gather of every entity row the step reads: h, t, then the
@@ -74,14 +73,49 @@ def make_train_step(model: KGEModel, optimizer: Optimizer,
         h, t, neg = rows.split([b, b, b * k])
         neg = neg.view(b, k, -1)
         r = rel.index_select(0, triples[:, 1])
-        pos, negs = ops.kge_score(h, r, t, neg, corrupt_head,
-                                  model.kge_score_model)
+        return ops.kge_score(h, r, t, neg, corrupt_head,
+                             model.kge_score_model)
+    return scores
+
+
+def _model_scores(model: KGEModel):
+    """The same through ``model.score``: the negatives as the reference's
+    ``corrupt`` builds them, ``(h, r, t)`` ids of shape (B, K)."""
+    def scores(leaves: Params, triples: torch.Tensor,
+               rand_ents: torch.Tensor, corrupt_head: torch.Tensor):
+        h, r, t = triples[:, 0], triples[:, 1], triples[:, 2]
+        pos = model.score(leaves, h, r, t)
+        nh = torch.where(corrupt_head, rand_ents, h[:, None])
+        nt = torch.where(corrupt_head, t[:, None], rand_ents)
+        neg = model.score(leaves, nh, r[:, None].expand_as(rand_ents), nt)
+        return pos, neg
+    return scores
+
+
+def make_train_step(model: KGEModel, optimizer: Optimizer,
+                    cfg: TrainConfig) -> TrainStep:
+    loss_fn = get_loss(model.spec.loss)
+    loss_kwargs: Dict[str, Any] = {}
+    if model.spec.loss in ("margin", "nssa"):
+        loss_kwargs["margin"] = model.spec.margin
+    scores = (_model_scores(model) if model.kge_score_model is None
+              else _fused_scores(model))
+
+    def loss_and_grads(params: Params, triples: torch.Tensor,
+                       rand_ents: torch.Tensor, corrupt_head: torch.Tensor):
+        names = list(params)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        pos, negs = scores(leaves, triples, rand_ents, corrupt_head)
         loss = loss_fn(pos, negs, **loss_kwargs)
         if cfg.reg_weight:
             loss = loss + cfg.reg_weight * model.regularizer(
                 leaves, triples[:, 0], triples[:, 1], triples[:, 2])
-        grads = torch.autograd.grad(loss, [leaves[n] for n in names])
-        return loss.detach(), dict(zip(names, grads))
+        grads = torch.autograd.grad(loss, [leaves[n] for n in names],
+                                    allow_unused=True)
+        # a table the batch's loss does not reach gets a zero gradient,
+        # as jax.grad gives it
+        return loss.detach(), {n: torch.zeros_like(leaves[n]) if g is None
+                               else g for n, g in zip(names, grads)}
 
     def step_with(params: Params, opt_state: OptState, triples: torch.Tensor,
                   rand_ents: torch.Tensor, corrupt_head: torch.Tensor):

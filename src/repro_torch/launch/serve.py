@@ -12,20 +12,31 @@ first).  Top-k runs in the CUDA kernel on the card.
         --requests 200 --batch 32 --threads 8 --flush-after-ms 2
 
 With ``--http PORT`` the launcher instead serves the gateway over HTTP
-in the foreground until interrupted:
+in the foreground until interrupted; ``--workers N`` pre-forks N serving
+processes (``api.workers.WorkerPool``) over the same mmap-resident store,
+each on the card:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --registry /tmp/biokg \\
-        --http 8080
+        --http 8080 --workers 4
     curl 'localhost:8080/closest-concepts/go/transe?query=GO:0000001&k=5'
 
-The registry must already hold a published snapshot (from either
-package: the store format is shared); the trainer is not ported yet.
+A registry with no published snapshot of ``--ontology`` is trained first
+(``--train-if-missing``, on by default: the workload's six models, 150
+steps, 800 terms), in a subprocess when workers will fork, so that no
+CUDA context crosses the fork; with ``--no-train-if-missing`` an empty
+registry is an error.  Either package's store serves as is.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import signal
+import subprocess
+import sys
+import tempfile
 import threading
 import time
+from pathlib import Path
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -39,8 +50,10 @@ from ..device import resolve_device
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--registry", required=True,
-                    help="snapshot store root (a published registry)")
+    ap.add_argument("--registry",
+                    default=str(Path(tempfile.gettempdir()) / "biokgvec2go"),
+                    help="snapshot store root (default: biokgvec2go under "
+                         "the process's temporary directory)")
     ap.add_argument("--ontology", default="go")
     ap.add_argument("--model", default="transe")
     ap.add_argument("--device", default="cuda",
@@ -61,6 +74,21 @@ def _parser() -> argparse.ArgumentParser:
                          "session")
     ap.add_argument("--host", default="127.0.0.1",
                     help="bind address for --http")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="with --http: pre-fork this many worker "
+                         "processes (SO_REUSEPORT) over the shared "
+                         "mmap-resident snapshot store; 1 = classic "
+                         "single-process serving")
+    ap.add_argument("--state-dir", default=None,
+                    help="with --workers > 1: where the workers dump their "
+                         "state (default: a fresh temporary directory)")
+    ap.add_argument("--train-if-missing", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="train and publish the workload's models first "
+                         "when the registry has no --ontology snapshot "
+                         "(on by default, as in the reference; with "
+                         "--no-train-if-missing an empty registry is an "
+                         "error)")
     ap.add_argument("--max-pending", type=int, default=None,
                     help="scheduler intake bound; past it submissions "
                          "fast-reject with OVERLOADED / HTTP 429 + "
@@ -78,13 +106,36 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[Dict[str, Any]]:
     measurements (``qps``, ``p50_ms``, ``p99_ms`` of the concurrent
     top-k phase, ``sim_p50_ms``/``sim_p99_ms``, ``classes``)."""
     args = _parser().parse_args(argv)
-    device = resolve_device(args.device)
+    pool = args.http is not None and args.workers > 1
+    # the pool's parent never resolves the device: that would create the
+    # CUDA driver state its forked workers cannot use
+    device = None if pool else resolve_device(args.device)
     registry = EmbeddingRegistry(args.registry)
     if not registry.versions(args.ontology):
-        raise SystemExit(
-            f"[serve] no published {args.ontology!r} snapshots under "
-            f"{args.registry}: publish one first (the trainer is not "
-            f"ported yet; a store written by the JAX package serves as is)")
+        if not args.train_if_missing:
+            raise SystemExit(
+                f"[serve] no published {args.ontology!r} snapshots under "
+                f"{args.registry} (--no-train-if-missing)")
+        print(f"[serve] registry empty; training {args.ontology} snapshots")
+        if pool:
+            # train in a subprocess: training creates a CUDA context, and
+            # a CUDA context must never cross the fork the worker pool is
+            # about to do
+            code = ("from repro_torch.launch.train import train_kge; "
+                    f"train_kge({args.ontology!r}, {args.registry!r}, "
+                    f"steps=150, n_terms=800, device={args.device!r})")
+            env = dict(os.environ)
+            env["PYTHONPATH"] = os.pathsep.join(
+                p for p in sys.path if p) + os.pathsep + env.get(
+                    "PYTHONPATH", "")
+            subprocess.run([sys.executable, "-c", code], env=env, check=True)
+        else:
+            from .train import train_kge
+            train_kge(args.ontology, args.registry, steps=150, n_terms=800,
+                      device=device)
+    if pool:
+        _serve_pool(args)
+        return None
 
     engine = ServingEngine(registry, device=device)
     gw = Gateway(engine, max_batch=args.batch,
@@ -128,6 +179,44 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[Dict[str, Any]]:
         return _session(args, gw, device)
     finally:
         gw.close()
+
+
+def _serve_pool(args) -> None:
+    """``--http PORT --workers N``: the pre-forked pool in the foreground.
+    This process only supervises; it never touches the card, and each
+    worker resolves ``--device`` after the fork."""
+    from ..api.workers import READY_TIMEOUT_S, WorkerPool
+    pool = WorkerPool(args.registry, port=args.http, host=args.host,
+                      workers=args.workers, device=args.device,
+                      max_batch=args.batch,
+                      flush_after_ms=args.flush_after_ms,
+                      max_pending=args.max_pending,
+                      result_cache_entries=args.cache_entries,
+                      result_cache_bytes=args.cache_bytes,
+                      state_dir=args.state_dir)
+    pool.start()
+    try:
+        pool.wait_ready(READY_TIMEOUT_S)
+        base = pool.url
+        print(f"[serve] HTTP service on {base} — {args.workers} workers on "
+              f"{args.device} (pids {', '.join(map(str, pool.pids()))}; "
+              f"{'SO_REUSEPORT' if pool.reuseport else 'inherited listener'}"
+              f"; state {pool.state_dir})", flush=True)
+        print(f"[serve]   curl '{base}/health'")
+        print(f"[serve]   curl '{base}/closest-concepts/{args.ontology}/"
+              f"{args.model}?query=GO:0000001&k=5'")
+        print(f"[serve]   curl '{base}/stats'   # merged across workers",
+              flush=True)
+        stop = threading.Event()
+        # SIGTERM stops the pool as Ctrl-C does (the workers ignore SIGINT)
+        signal.signal(signal.SIGTERM, lambda *_: stop.set())
+        try:
+            while not stop.wait(0.5):
+                pass
+        except KeyboardInterrupt:
+            print("\n[serve] shutting down worker pool")
+    finally:
+        pool.stop()
 
 
 def _session(args, gw: Gateway, device) -> Dict[str, Any]:

@@ -147,8 +147,30 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         off = -1
     elif bad == "dims":
         q = q[None]
+    if bad in ("hd", "contiguous"):
+        # the kernel's own limits: the plain version on these CPU tensors
+        # answers, and only the card path refuses them
+        assert tswa.swa_attention_forward(q, k, v, W, off).shape == q.shape
+        with pytest.raises(ValueError):
+            tswa._check_kernel(q, k, v)
+        return
     with pytest.raises(ValueError):
         tswa.swa_attention_forward(q, k, v, W, off)
+
+
+@pytest.mark.parametrize("d", [96, 256])
+def test_plain_path_takes_head_dims_the_kernel_does_not(d):
+    """Head dims outside the kernel's build (96; recurrentgemma's 256) go
+    through the plain version on CPU tensors, as the reference computes
+    them."""
+    assert d not in tswa.HEAD_DIMS
+    B, hq, hkv, S, W = 1, 2, 1, 40, 8
+    q, k, v = _qkv(B, hq, hkv, S, S, d, seed=d)
+    want = jref.swa_attention_ref(*map(jnp.asarray, (q, k, v)), window=W)
+    got = tswa.swa_attention_forward(*_t(_fold(q), _fold(k), _fold(v)), W)
+    assert got.shape == (B * hq, S, d)
+    _close(got.reshape(B, hq, S, d), want, PALLAS_TOL)
+    _close(tops.swa_attention(*_t(q, k, v), W), want, PALLAS_TOL)
 
 
 # --------------------------- the tile plan ----------------------------- #

@@ -474,3 +474,41 @@ def test_kernel_matches_plain_on_card(k):
         norms=torch.from_numpy(nrm).to(dev), block_n=512)
     _assert_match(tuple(t.cpu() for t in got), tuple(t.cpu() for t in want),
                   3000, f"card k={k}")
+
+
+@pytest.mark.parametrize("qn,want", [
+    (1, [(0, 1)]), (65_535, [(0, 65_535)]),
+    (65_536, [(0, 65_535), (65_535, 1)]),
+    (140_000, [(0, 65_535), (65_535, 65_535), (131_070, 8_930)])])
+def test_large_k_query_chunks_cover_every_query_once(qn, want):
+    """Select/sort and merge path put the query on the grid's y axis:
+    one launch each up to 65,535 queries, one more per 65,535 past it."""
+    chunks = tts.query_chunks(qn)
+    assert chunks == want
+    assert all(0 < n <= tts.MAX_GRID_Y for _, n in chunks)
+    assert sum(n for _, n in chunks) == qn
+
+
+@pytest.mark.cuda
+def test_large_k_step_past_the_grid_y_limit_on_card():
+    """A k > 64 slab step over 65,536 queries (one past the grid's y
+    limit) against the plain step on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    qn, rows, d, k = 65_536, 512, 64, 100
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((qn, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    e = rng.standard_normal((rows, d)).astype(np.float32)
+    q_d, e_d = torch.from_numpy(q).to(dev), torch.from_numpy(e).to(dev)
+    excl = torch.from_numpy((np.arange(qn) % rows).astype(np.int32)).to(dev)
+    tts.reset_launches()
+    got = tts.topk_cosine_step(q_d, e_d, None, excl, 0, rows, k)
+    assert tts.launches["topk_select_sort"] == 2
+    assert tts.launches["topk_merge_path"] == 2
+    want = tref.stream_step_ref(q_d, e_d, None, 0, rows, excl, None, None, k)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].cpu().numpy())
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=TOL, atol=TOL)

@@ -221,20 +221,25 @@ def test_trained_mrr_within_the_band_of_the_reference(tmp_path, model):
 
 # -------------------------- ported models only ------------------------ #
 def test_unported_models_are_refused_by_name(tmp_path):
+    """No paper model is left unported: the default is the paper's six;
+    a model the port does not have is refused by name."""
     reg = EmbeddingRegistry(tmp_path)
-    with pytest.raises(NotImplementedError, match="transr"):
-        Updater(reg, models=("transe", "transr"), device="cpu")
-    with pytest.raises(NotImplementedError, match="rdf2vec"):
-        Updater(reg, device="cpu")                 # the paper's six
-    with pytest.raises(KeyError):
-        Updater(reg, models=("nope",), device="cpu")
+    assert Updater(reg, device="cpu").models == (
+        "transe", "transr", "distmult", "hole", "boxe", "rdf2vec")
+    Updater(reg, models=("transe", "transr"), device="cpu")
+    with pytest.raises(KeyError, match="nope"):
+        Updater(reg, models=("transe", "nope"), device="cpu")
 
 
 def test_launcher_needs_models_and_trains_them(tmp_path, capsys):
-    with pytest.raises(SystemExit, match="boxe"):
-        tlaunch.main(["--workload", "go", "--registry", str(tmp_path),
-                      "--device", "cpu", "--n-terms", "100", "--steps", "2"])
-    assert not list(tmp_path.iterdir())           # nothing trained
+    """Without --models the launcher trains the workload's six; --models
+    picks a subset of them and refuses anything else."""
+    rep = tlaunch.main(["--workload", "go", "--registry",
+                        str(tmp_path / "six"), "--device", "cpu",
+                        "--n-terms", "100", "--steps", "2"])
+    assert rep.trained_models == list(tgo.CONFIG.models)
+    assert sorted(EmbeddingRegistry(tmp_path / "six").models("go")) \
+        == sorted(tgo.CONFIG.models)
     with pytest.raises(SystemExit, match="workload has"):
         tlaunch.main(["--workload", "hp", "--registry", str(tmp_path),
                       "--models", "transe,bogus", "--device", "cpu"])
