@@ -18,8 +18,13 @@ Phases, in order; any failure exits non-zero:
               65,536 queries, past the grid's y limit
   3. kge      the kge_score forward and backward kernels against their
               plain versions: TransE-L1/L2 and DistMult x (B, K, d) in
-              {(1024, 32, 200), (100, 5, 200), (7, 3, 32), (1, 1, 1)} x
-              masks all-true/all-false/random, with and without t = h + r
+              {(1024, 32, 200), (100, 5, 200), (7, 3, 32), (1, 1, 1),
+              (3, 7, 13), (4, 8192, 200), (2, 64, 4096)} x masks
+              all-true/all-false/random, with and without t = h + r; the
+              backward's staging paths (one bulk copy a slab, 4-byte
+              cp.async, the two-stage ring, column tiles) and every input
+              one float off 16-byte alignment; two backward launches give
+              the same bits
   4. swa      the sliding-window attention kernel against its plain
               version, fp32 and bf16: the reference's test shapes, reduced
               h2o-danube (with and without padded kv groups), q_offset with
@@ -45,11 +50,19 @@ Phases, in order; any failure exits non-zero:
   7. update   the update path at the GO workload's full width: a 40k-term
               synthetic GO release published by ``Updater.run_once`` with
               the paper's six models (TransE and DistMult through the
-              kge_score kernels; 6,000 steps a full run: 100 epochs of the
-              triples, a depth cut for RDF2vec's skip-gram pairs), evolved
-              to v2 and updated incrementally, a cold v2 in a second
-              registry, closest-concepts for v2 from the engine the
-              updater invalidated, and MRR warm against cold per model
+              kge_score kernels, each run's step captured as one CUDA
+              graph; 6,000 steps a full run: 100 epochs of the triples, a
+              depth cut for RDF2vec's skip-gram pairs), evolved to v2 and
+              updated incrementally, a cold v2 in a second registry,
+              closest-concepts for v2 from the engine the updater
+              invalidated, and MRR warm against cold per model; graph
+              replays per run (the steps less the warm-up); the kge_score
+              launches each capture recorded, from this run's own
+              counters (one an entry point, as a capture of the same step
+              alone records), and the launches on the path (eager steps
+              plus replays x that count); TransE's and DistMult's replayed
+              step against the eager step over 50 steps (losses within
+              1e-4 relative), its wall and device ms, steps/s
   8. lm       h2o-danube-1.8b at its published width: in fp32 the last
               logits of prefill(6145) against prefill(6144) + decode_step
               (2e-3, same argmax), 24 SWA launches per prefill; then a
@@ -57,12 +70,18 @@ Phases, in order; any failure exits non-zero:
               (batch 2, prompt 6144, 32 greedy decode steps), ids in vocab
   9. numbers  top-k kernel, plain, library and host-to-device times (CUDA
               events) at N = 40k and 100k; kge_score forward and backward
-              times at (1024, 32, 200), and the forward wrapper's host time
-              by part; the device-busy share of a training step by part
-              (torch.profiler); the SWA kernel at one h2o-danube layer's
-              shape, bf16 and fp32, against its bound, its plain version
-              and ``scaled_dot_product_attention``; the device-busy share
-              of a full-width decode step
+              times at (1024, 32, 200) (back-to-back calls, profiler device
+              time, 50 calls replayed from one CUDA graph) and the
+              forward wrapper's host time by part; the device-busy share
+              of an eager training step by part (torch.profiler); the SWA
+              kernel at one h2o-danube layer's shape, bf16 and fp32,
+              against its bound, its plain version and
+              ``scaled_dot_product_attention``; the device-busy share of a
+              full-width decode step
+ 10. alloc    only when ``--phases`` names it: host time of the kge_score
+              backward's output allocations two ways, in turns: four
+              tensors (what the wrapper allocates) against one (3, B, d)
+              buffer seen three ways
 
 Run from the repository root with no arguments::
 
@@ -72,7 +91,8 @@ It prints JSON lines as it goes, then the card's name and power limit,
 the kernels line, and last ``{"ok": true, "device": {...}}``.
 ``--phases`` runs a subset (``build,kernels``, ``build,kge`` or
 ``build,swa,lm`` is a quick check of one slice; ``build,serve,workers``
-the serving paths; ``build,kge,update`` the update path alone);
+the serving paths; ``build,kge,update`` the update path alone; ``alloc``
+the backward's allocation choice);
 ``--out PATH`` also writes every result to one JSON file.
 """
 from __future__ import annotations
@@ -111,6 +131,13 @@ KGE_REPLACES = "src/repro/kernels/kge_score.py:54"
 KGE_TOL = 1e-4              # kernel vs plain, the reference's own (test_kernels.py)
 KGE_MODELS = ("transe_l1", "transe_l2", "distmult")
 KGE_SHAPE = (1024, 32, 200)  # TrainConfig batch, negatives; PAPER_DIM
+#: phase_kge's shapes: the training shape, the reference's test shapes, and
+#: the backward's staging paths (K * d not a multiple of 4; a slab past
+#: one stage; d past 128 float4 columns)
+KGE_CASES = (KGE_SHAPE, (100, 5, 200), (7, 3, 32), (1, 1, 1), (3, 7, 13),
+             (4, 8192, 200), (2, 64, 4096))
+#: ... and the shapes run again with every input one float off alignment
+KGE_OFFSET_CASES = (KGE_SHAPE, (4, 8192, 200), (2, 64, 4096))
 #: the paper's six models, every one of them on the update path
 UPDATE_MODELS = ("transe", "transr", "distmult", "hole", "boxe", "rdf2vec")
 #: steps of a full run of every model (Updater.steps_override; an
@@ -505,14 +532,24 @@ def phase_kernels(store_tables) -> dict:
 
 
 def _kge_inputs(B: int, K: int, d: int, mask: str, t_is_h_plus_r: bool,
-                gen):
+                gen, offset: int = 0):
+    """h, r, t, neg, corrupt_head on the card; with ``offset``, each float
+    tensor lies that many floats into a larger buffer (no row 16-byte
+    aligned)."""
     import torch
     dev = torch.device(DEV)
-    h, r, t = (torch.randn((B, d), generator=gen, device=dev)
-               for _ in range(3))
+
+    def randn(*shape):
+        x = torch.randn(shape, generator=gen, device=dev)
+        if not offset:
+            return x
+        buf = torch.empty(x.numel() + offset, device=dev)
+        return buf[offset:].view(shape).copy_(x)
+
+    h, r, t = (randn(B, d) for _ in range(3))
     if t_is_h_plus_r:
-        t = h + r                   # every coordinate of h + r - t is 0
-    neg = torch.randn((B, K, d), generator=gen, device=dev)
+        t.copy_(h + r)              # every coordinate of h + r - t is 0
+    neg = randn(B, K, d)
     if mask == "random":
         ch = torch.rand((B, K), generator=gen, device=dev) < 0.5
     else:
@@ -540,13 +577,17 @@ def phase_kge() -> dict:
 
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     err = {"forward": 0.0, "backward": 0.0}
-    cases = exact = 0
+    cases = exact = same_bits = 0
+    grid = [(shape, 0) for shape in KGE_CASES] + [
+        (shape, 1) for shape in KGE_OFFSET_CASES]
     for model in KGE_MODELS:
-        for B, K, d in (KGE_SHAPE, (100, 5, 200), (7, 3, 32), (1, 1, 1)):
+        for (B, K, d), offset in grid:
             for mask in ("true", "false", "random"):
                 for tz in (False, True):
-                    note = f"{model} {(B, K, d)} mask={mask} t=h+r:{tz}"
-                    h, r, t, neg, ch = _kge_inputs(B, K, d, mask, tz, gen)
+                    note = (f"{model} {(B, K, d)} mask={mask} t=h+r:{tz} "
+                            f"offset={offset}")
+                    h, r, t, neg, ch = _kge_inputs(B, K, d, mask, tz, gen,
+                                                   offset)
                     g_pos = torch.randn((B,), generator=gen, device=DEV)
                     g_negs = torch.randn((B, K), generator=gen, device=DEV)
                     err["forward"] = max(err["forward"], _kge_err(
@@ -572,8 +613,19 @@ def phase_kge() -> dict:
                             check(torch.equal(a, b), f"grad_{name} at "
                                   f"t = h + r differs from plain: {note}")
                         exact += 1
+                    elif mask == "random":
+                        # no atomics: a second launch gives the same bits
+                        first = tk.kge_score_backward(h, r, t, neg, ch, g_pos,
+                                                      g_negs, model)
+                        second = tk.kge_score_backward(h, r, t, neg, ch,
+                                                       g_pos, g_negs, model)
+                        check(all(torch.equal(a, b)
+                                  for a, b in zip(first, second)),
+                              f"two backward launches differ: {note}")
+                        same_bits += 1
         torch.cuda.synchronize()
     out = {"phase": "kge", "cases": cases, "exact_cases_t_eq_h_plus_r": exact,
+           "same_bits_cases": same_bits,
            "max_abs_err_forward": err["forward"],
            "max_abs_err_backward": err["backward"],
            "tolerance": {"rtol": KGE_TOL, "atol": KGE_TOL}}
@@ -1220,6 +1272,100 @@ def go_releases():
     return _RELEASES["v1"], _RELEASES["v2"]
 
 
+#: steps over which a replayed step's losses are held to the eager step's
+GRAPH_CHECK_STEPS = 50
+#: relative tolerance of that comparison: the index scatter-adds sum
+#: colliding rows in whatever order their atomics land
+GRAPH_LOSS_RTOL = 1e-4
+
+
+def _graph_against_eager(trainer, triples, steps: int) -> dict:
+    """The losses of ``steps`` steps run by ``train_step.step`` and by a
+    :class:`GraphedStep` (warm-up steps, one capture, replays), each from
+    the same init, loader and generator seed; fails unless every replayed
+    step's loss is within ``GRAPH_LOSS_RTOL`` of the eager one's."""
+    import torch
+    from repro_torch.data import TripleLoader
+    from repro_torch.kge.train import GRAPH_WARMUP_STEPS, GraphedStep
+
+    losses = {}
+    for form in ("eager", "graph"):
+        params, opt_state = trainer.init()
+        loader = iter(TripleLoader(triples, trainer.cfg.batch_size))
+        gen = trainer.generator(1)
+        if form == "eager":
+            got = [float(trainer.train_step.step(
+                params, opt_state,
+                torch.from_numpy(next(loader)).to(DEV, torch.int64), gen))
+                for _ in range(steps)]
+        else:
+            graphed = GraphedStep(trainer, params, opt_state)
+            got = [float(x) for x in graphed.warm_up(loader, gen,
+                                                     GRAPH_WARMUP_STEPS)]
+            graphed.capture()
+            got += [float(graphed.replay(next(loader), gen))
+                    for _ in range(steps - GRAPH_WARMUP_STEPS)]
+            check(graphed.replays == steps - GRAPH_WARMUP_STEPS,
+                  f"{graphed.replays} replays in {steps} steps")
+            del graphed
+        losses[form] = np.array(got)
+        del params, opt_state
+    eager, graph = losses["eager"], losses["graph"]
+    rel = np.abs(graph - eager) / np.maximum(np.abs(eager), 1e-30)
+    check(bool(np.isfinite(graph).all())
+          and float(rel.max()) <= GRAPH_LOSS_RTOL,
+          f"{trainer.model.spec.name}: a replayed step's loss differs from "
+          f"the eager step's by {float(rel.max()):.3g} relative")
+    return {"steps": steps, "max_rel_loss_diff": float(rel.max()),
+            "first_loss": float(eager[0]), "last_loss": float(eager[-1])}
+
+
+def graphed_step_numbers(steps: int = 30) -> dict:
+    """TransE's and DistMult's GO-size training step as ``KGETrainer.fit``
+    runs it on the card: warm-up steps, one capture, then one replay a step
+    (its batch staged and its negatives drawn outside the graph).  Per
+    model: the replayed step's losses against the eager step's over
+    ``GRAPH_CHECK_STEPS`` steps; the kge_score launches a capture records;
+    wall and device ms a replayed step (torch.profiler), ms a step and
+    steps/s unprofiled, and the replays."""
+    from repro_torch.configs.go_kge import CONFIG
+    from repro_torch.data import TripleLoader
+    from repro_torch.kernels import kge_score as tk
+    from repro_torch.kge import KGETrainer, make_model
+    from repro_torch.kge.train import GRAPH_WARMUP_STEPS, GraphedStep
+
+    (_, kg1), _ = go_releases()
+    out = {}
+    for name in ("transe", "distmult"):
+        model = make_model(name, kg1.num_entities, kg1.num_relations,
+                           dim=CONFIG.dim)
+        trainer = KGETrainer(model, CONFIG.train, device=DEV)
+        against_eager = _graph_against_eager(trainer, kg1.triples,
+                                             GRAPH_CHECK_STEPS)
+        params, opt_state = trainer.init()
+        loader = iter(TripleLoader(kg1.triples, CONFIG.train.batch_size))
+        gen = trainer.generator(1)
+        graphed = GraphedStep(trainer, params, opt_state)
+        graphed.warm_up(loader, gen, GRAPH_WARMUP_STEPS)
+        before = dict(tk.launches)
+        graphed.capture()
+        per_replay = {e: tk.launches[e] - before[e] for e in before}
+
+        def one():
+            graphed.replay(next(loader), gen)
+
+        rec = {"model": name, "against_eager": against_eager,
+               "launches_per_replay": per_replay,
+               **_step_breakdown(one, steps)}
+        rec["unprofiled_ms_per_step"] = _host_ms(one, iters=200, warmup=5)
+        rec["steps_per_s_unprofiled"] = 1e3 / rec["unprofiled_ms_per_step"]
+        rec["graph_replays"] = graphed.replays
+        emit({"graphed_step": rec})
+        out[name] = rec
+        del graphed, params, opt_state
+    return out
+
+
 def phase_update(tmp: str) -> dict:
     """The update path at full width and budget: publish v1, update to v2
     incrementally, train a cold v2, serve v2 from the invalidated engine,
@@ -1233,6 +1379,7 @@ def phase_update(tmp: str) -> dict:
     from repro_torch.kernels import kge_score as tk, ops, ref
     from repro_torch.kernels import topk_similarity as ts
     from repro_torch.kge import make_model, params_from_numpy, rank_based_eval
+    from repro_torch.kge.train import GRAPH_WARMUP_STEPS
 
     (v1, kg1), (v2, kg2) = go_releases()
     check((kg1.num_entities, kg1.num_triples) == (CONFIG.n_terms, GO_TRIPLES),
@@ -1280,6 +1427,38 @@ def phase_update(tmp: str) -> dict:
           "the update path launched no kge_score kernel")
     check(sum(ts.launches[e] for e in SMALL_ENTRY) > 0,
           "serving v2 launched no top-k kernel")
+
+    # TransE and DistMult trained through one captured graph a run: the
+    # counters saw the eager warm-up steps and each capture once; the card
+    # ran each replay's kernels too
+    captures = replays = 0
+    for key, rep in reports.items():
+        for m in UPDATE_MODELS:
+            det = rep.details[m]
+            if m in ("transe", "distmult"):
+                check(det["graph_replays"]
+                      == det["steps"] - GRAPH_WARMUP_STEPS,
+                      f"{key} {m}: {det['graph_replays']} graph replays in "
+                      f"{det['steps']} steps")
+                captures += 1
+                replays += det["graph_replays"]
+            else:
+                check(det["graph_replays"] == 0, f"{key} {m} was captured")
+    # what each of this run's captures recorded, from its own counters:
+    # one launch an entry point, as a capture of the same step alone does
+    check(captures == 2 * len(reports), f"{captures} captured runs")
+    graphed = graphed_step_numbers()
+    per_capture, kge_path = {}, {}
+    for e in ("kge_score_forward", "kge_score_backward"):
+        recorded, rem = divmod(launches[e] - captures * GRAPH_WARMUP_STEPS,
+                               captures)
+        alone = [graphed[m]["launches_per_replay"][e] for m in graphed]
+        check(rem == 0 and recorded == 1 and alone == [1, 1],
+              f"{e}: {launches[e]} launches counted in {captures} captured "
+              f"runs of {GRAPH_WARMUP_STEPS} eager steps each; a capture "
+              f"alone records {alone}")
+        per_capture[e] = recorded
+        kge_path[e] = captures * GRAPH_WARMUP_STEPS + replays * recorded
 
     # -------- what came out: published table, answers, MRR ------------ #
     per_model = {}
@@ -1350,6 +1529,8 @@ def phase_update(tmp: str) -> dict:
             **{f"{k}_loss_curve": d["losses"][::10] + d["losses"][-1:]
                for k, d in (("v1", d1), ("warm", dw), ("cold", dc))},
             **{f"{k}_steps_per_s": d["steps"] / d["wall_s"]
+               for k, d in (("v1", d1), ("warm", dw), ("cold", dc))},
+            **{f"{k}_graph_replays": d["graph_replays"]
                for k, d in (("v1", d1), ("warm", dw), ("cold", dc))}}
         del emb_dev, nrm_dev, table, norms
     out = {"phase": "update", "models": list(UPDATE_MODELS),
@@ -1359,7 +1540,11 @@ def phase_update(tmp: str) -> dict:
            "plan_v2": reports["v2_warm"].reason,
            "delta_v2": reports["v2_warm"].delta,
            "update_wall_s": {k: r.wall_s for k, r in reports.items()},
-           "per_model": per_model, "launches": launches}
+           "per_model": per_model, "launches": launches,
+           "kge_launches_on_path": kge_path,
+           "kge_launches_per_capture": per_capture,
+           "graph_captures": captures,
+           "graph_replays": replays, "graphed_steps": graphed}
     emit(out)
     return out
 
@@ -1465,6 +1650,35 @@ def _host_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _graph_ms(fn, calls: int = 50, replays: int = 5) -> float:
+    """ms per call of ``fn`` over ``calls`` back-to-back calls captured in
+    one CUDA graph, by CUDA events around its replays: the calls' device
+    time with no host launch path between them."""
+    import torch
+    main = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    main.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    del graph
+    return a.elapsed_time(b) / (replays * calls)
 
 
 def _device_ms(fn, iters: int = 10) -> dict:
@@ -1603,15 +1817,10 @@ def kge_bound_ms(B: int, K: int, d: int, backward: bool) -> tuple:
 _STEP_PARTS = ("ks.forward_backward", "ks.adam", "ks.constrain")
 
 
-def _step_breakdown(trainer, params, opt_state, loader, gen, steps: int):
-    """Device time of ``steps`` training steps by part, from torch.profiler:
-    the kge_score kernels, the row gathers and their scatter-adds (index
-    kernels), Adam (kernels under the ``ks.adam`` range), TransE's norm
-    clamp (``ks.constrain``), and the rest; and the busy share of the
-    window's wall time.  None where the profiler shows no device time."""
+def _eager_step(trainer, params, opt_state, loader, gen):
+    """One eager training step, its parts in profiler ranges."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
     from repro_torch.kge.negatives import corrupt
 
     ts_, model, opt = trainer.train_step, trainer.model, trainer.optimizer
@@ -1626,6 +1835,20 @@ def _step_breakdown(trainer, params, opt_state, loader, gen, steps: int):
             opt.update(grads, opt_state, params)
         with record_function(_STEP_PARTS[2]):
             model.constrain(params)
+    return one
+
+
+def _step_breakdown(one, steps: int):
+    """Device time of ``steps`` training steps (calls of ``one``) by part,
+    from torch.profiler: the kge_score kernels, the row gathers and their
+    scatter-adds (index kernels), Adam (kernels under the ``ks.adam``
+    range), TransE's norm clamp (``ks.constrain``), and the rest; and the
+    busy share of the window's wall time.  A replayed graph opens no
+    ranges: its Adam and clamp count in the rest.  None where the profiler
+    shows no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
         one()
@@ -1742,10 +1965,42 @@ def kge_host_breakdown(card: str, calls: int = 2000) -> dict:
     return rec
 
 
+def phase_alloc(card: str, calls: int = 2000) -> dict:
+    """Host us a call of the backward wrapper's output allocations at
+    KGE_SHAPE, in turns (four, one, one, four): grad h, r, t and grad neg
+    as four tensors, as ``kge_score.kge_score_backward`` allocates them,
+    against one (3, B, d) buffer seen three ways plus grad neg."""
+    import torch
+
+    B, K, d = KGE_SHAPE
+    h = torch.empty((B, d), dtype=torch.float32, device=DEV)
+    neg = torch.empty((B, K, d), dtype=torch.float32, device=DEV)
+
+    def four():
+        return (torch.empty_like(h), torch.empty_like(h),
+                torch.empty_like(h), torch.empty_like(neg))
+
+    def one():
+        return (*torch.empty((3, B, d), dtype=torch.float32,
+                             device=DEV).unbind(0), torch.empty_like(neg))
+
+    runs = {"four": [], "one": []}
+    for name, fn in (("four", four), ("one", one), ("one", one),
+                     ("four", four)):
+        runs[name].append(_host_us(fn, calls))
+    out = {"phase": "alloc", "B": B, "K": K, "d": d, "calls": calls,
+           "host_us_four_tensors": runs["four"],
+           "host_us_one_3bd_buffer": runs["one"], "card": card}
+    emit(out)
+    return out
+
+
 def kge_numbers(card: str) -> dict:
-    """kge_score forward/backward at (1024, 32, 200) for each model, and
-    one GO-size training step of each model: its launches, its time and
-    where the device time goes."""
+    """kge_score forward/backward at (1024, 32, 200) for each model (CUDA
+    events over back-to-back calls, profiler device time, and 50 calls
+    replayed from one captured graph), and one GO-size eager training step
+    of each model: its launches, its time and where the device time
+    goes."""
     import torch
     from repro_torch.configs.go_kge import CONFIG
     from repro_torch.data import TripleLoader
@@ -1781,6 +2036,7 @@ def kge_numbers(card: str) -> dict:
             rec.update({f"{name}_ms": _cuda_ms(fn, iters=50),
                         f"{name}_device_ms": sum(ours.values()) if ours
                         else None,
+                        f"{name}_graph_ms": _graph_ms(fn),
                         f"{name}_plain_ms": _cuda_ms(plain, iters=20),
                         f"{name}_library_ms": _cuda_ms(lib, iters=50)
                         if lib else None,
@@ -1811,8 +2067,9 @@ def kge_numbers(card: str) -> dict:
         rec = {"model": name, "launches_per_step": per_step,
                "step_host_ms": _host_ms(step, iters=50, warmup=5),
                "step_event_ms": _cuda_ms(step, iters=50, warmup=5),
-               **_step_breakdown(trainer, params, opt_state, loader, sgen,
-                                 steps=30), "card": card}
+               **_step_breakdown(_eager_step(trainer, params, opt_state,
+                                             loader, sgen), steps=30),
+               "card": card}
         emit({"train_step": rec})
         steps.append(rec)
         del params, opt_state
@@ -2002,7 +2259,7 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
     # first model) both ways, and DistMult's forward, which one bmm
     # computes.  The entry point's launches are counted over the whole
     # update phase, one count for both models: each row says so
-    k_launch = update_out["launches"]
+    k_launch = update_out["kge_launches_on_path"]
     rows = {x["model"]: x for x in numbers["kge"]["kge_rows"]}
     for name, entry, key, model, label in (
             ("kge_score forward", "kge_score_forward", "forward",
@@ -2017,9 +2274,12 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
             "route": "cuda", "source": KGE_SOURCE, "replaces": KGE_REPLACES,
             "launches": k_launch[entry],
             "launches_over": "update phase, TransE-L1 and DistMult "
-                             "together (v1, warm v2, cold v2)",
+                             "together (v1, warm v2, cold v2): eager "
+                             "warm-up steps plus graph replays x launches "
+                             "a replay",
             "max_abs_err": kge[f"max_abs_err_{key}"],
             "ms": r[f"{key}_ms"], "device_ms": r[f"{key}_device_ms"],
+            "graph_ms": r[f"{key}_graph_ms"],
             "plain_ms": r[f"{key}_plain_ms"],
             "bound_ms": r[f"{key}_bound_ms"],
             "bound_by": r[f"{key}_bound_by"],
@@ -2129,6 +2389,8 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             RESULTS["phases"]["numbers"]["swa"] = swa_numbers(card)
             torch.cuda.synchronize()
+        if "alloc" in phases:
+            RESULTS["phases"]["alloc"] = phase_alloc(card)
         store_tables.clear()
     RESULTS["seconds"] = time.perf_counter() - t_start
     RESULTS["card"] = card

@@ -241,6 +241,9 @@ class Updater:
                 "triples_per_s": stats.get("triples_per_s"),
                 "wall_s": stats.get("wall_s"),
                 "steps": stats.get("steps"),
+                # steps replayed from the captured CUDA graph (TransE and
+                # DistMult on the card; 0 elsewhere)
+                "graph_replays": stats.get("graph_replays", 0),
                 "mode": stats["mode"],
                 "budget_frac": stats["budget_frac"],
                 "step_budget_ratio": stats["step_budget_ratio"],

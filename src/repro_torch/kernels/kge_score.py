@@ -22,9 +22,11 @@ import torch
 
 from . import _build, ref
 
-#: largest d (three rows of d floats in 48 KB of shared memory)
+#: largest d (the forward's three rows of d floats, the backward's stage
+#: of at least one row of d floats: 48 KB of shared memory)
 MAX_DIM = 4096
-#: largest K (K + 1 floats and K flags in 48 KB of shared memory)
+#: largest K the wrapper takes (the backward streams any slab in chunks
+#: of rows)
 MAX_NEGS = 8192
 
 # Both entry points take their arguments packed (``_build.Library``):

@@ -14,12 +14,18 @@ in place.  Scoring takes one of two paths:
 * every other model (TransR, HolE, BoxE, RDF2vec) scores through its own
   ``model.score`` on the corrupted ``(h, r, t)`` ids, as the reference
   does, and autograd gives the gradients.
+
+On the card, ``KGETrainer.fit`` runs the fused models' step as one
+captured CUDA graph (:class:`GraphedStep`), the port's counterpart of the
+reference's ``jax.jit(step, donate_argnums=(0, 1))``; every other model,
+and every step on the CPU, runs eagerly.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -133,6 +139,139 @@ def make_train_step(model: KGEModel, optimizer: Optimizer,
     return TrainStep(step, step_with, loss_and_grads)
 
 
+#: eager steps before a capture, on a side stream, as ``torch.cuda.graphs``
+#: asks; each is a real step of the run
+GRAPH_WARMUP_STEPS = 3
+
+
+class GraphedStep:
+    """The training step of a model with a ``kge_score_model`` (TransE,
+    DistMult) in the form a CUDA graph captures, for one ``params`` and
+    ``opt_state``.
+
+    The captured part (:meth:`_body`) is the gather, ``ops.kge_score``
+    forward, the loss, ``autograd.grad`` (the backward kernel and the index
+    scatter-adds), Adam and ``model.constrain``.  It reads fixed tensors
+    that :meth:`stage` fills before each step, in the eager step's order:
+    the batch and the step's reciprocal bias corrections
+    (``Optimizer.corrections``, the floats the eager step multiplies by),
+    copied from pinned memory without blocking the host, then the
+    negatives, drawn from the trainer's generator by the eager step's
+    calls (``corrupt(..., out=)``).  The body updates through
+    ``Optimizer.update_corrected``; ``opt_state.step`` stays the host's int
+    and advances once a step here.  Params and moments are updated in
+    place, so they are the graph's own tensors: new params need a new
+    capture.
+
+    :meth:`run` runs one step eagerly (the warm-up steps before a capture;
+    the CPU tests hold it to the eager step); :meth:`capture` records the
+    body once; :meth:`replay` stages a batch and replays it.  Python launch counters
+    count the graph's kernels once, at the capture; ``replays`` counts the
+    replays.
+    """
+
+    #: pinned host batches (and bias corrections) in turn, so the host
+    #: writes one while the previous one's copy may still be queued
+    HOST_SLOTS = 2
+
+    def __init__(self, trainer: "KGETrainer", params: Params,
+                 opt_state: OptState):
+        cfg, dev = trainer.cfg, trainer.device
+        self.model = trainer.model
+        self.optimizer = trainer.optimizer
+        self.loss_and_grads = trainer.train_step.loss_and_grads
+        self.params, self.opt_state = params, opt_state
+        self.num_negs = cfg.num_negs
+        self.on_card = dev.type == "cuda"
+        b, k = cfg.batch_size, cfg.num_negs
+        self.batch = torch.empty((b, 3), dtype=torch.int64, device=dev)
+        self.draws = (torch.empty((b, k), dtype=torch.int64, device=dev),
+                      torch.empty((b, k), dtype=torch.float32, device=dev),
+                      torch.empty((b, k), dtype=torch.bool, device=dev))
+        n_bc = len(self.optimizer.corrections(1))
+        self.corrections = torch.empty(n_bc, dtype=torch.float64, device=dev)
+        self._host = [(torch.empty((b, 3), dtype=torch.int64,
+                                   pin_memory=self.on_card),
+                       torch.empty(n_bc, dtype=torch.float64,
+                                   pin_memory=self.on_card))
+                      for _ in range(self.HOST_SLOTS)]
+        self._copied = [None] * self.HOST_SLOTS
+        self._slot = 0
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.loss: Optional[torch.Tensor] = None
+        self.replays = 0
+
+    def stage(self, batch: np.ndarray, generator: torch.Generator) -> None:
+        """Upload ``batch`` (B, 3) and the next step's bias corrections into
+        their fixed tensors and draw the batch's negatives into the fixed
+        draw tensors, on the current stream."""
+        slot = self._slot
+        self._slot = (slot + 1) % self.HOST_SLOTS
+        host, host_bc = self._host[slot]
+        if self._copied[slot] is not None:
+            self._copied[slot].synchronize()   # its last copy has read it
+        np.copyto(host.numpy(), batch, casting="safe")
+        host_bc.numpy()[:] = self.optimizer.corrections(
+            self.opt_state.step + 1)
+        self.batch.copy_(host, non_blocking=True)
+        self.corrections.copy_(host_bc, non_blocking=True)
+        if self.on_card:
+            if self._copied[slot] is None:
+                self._copied[slot] = torch.cuda.Event()
+            self._copied[slot].record()
+        corrupt(generator, self.batch, self.model.spec.n_entities,
+                self.num_negs, out=self.draws)
+
+    def _body(self) -> torch.Tensor:
+        rand_ents, _, corrupt_head = self.draws
+        loss, grads = self.loss_and_grads(self.params, self.batch, rand_ents,
+                                          corrupt_head)
+        self.optimizer.update_corrected(grads, self.opt_state, self.params,
+                                        self.corrections)
+        self.model.constrain(self.params)
+        return loss
+
+    def run(self, batch: np.ndarray, generator: torch.Generator
+            ) -> torch.Tensor:
+        """One step, eagerly; returns its loss."""
+        self.stage(batch, generator)
+        loss = self._body()
+        self.opt_state.step += 1
+        return loss
+
+    def warm_up(self, batches: Iterator[np.ndarray],
+                generator: torch.Generator, steps: int
+                ) -> List[torch.Tensor]:
+        """``steps`` eager steps on a side stream, as a capture needs them
+        first; returns their losses."""
+        main = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            losses = [self.run(next(batches), generator)
+                      for _ in range(steps)]
+        main.wait_stream(side)
+        return losses
+
+    def capture(self) -> None:
+        """Record the body as one CUDA graph; raises if the capture fails.
+        Warm-up steps (:meth:`warm_up`) come first."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.loss = self._body()
+        self.graph = graph
+
+    def replay(self, batch: np.ndarray, generator: torch.Generator
+               ) -> torch.Tensor:
+        """One step through the captured graph; returns the graph's loss
+        tensor, which holds this step's loss until the next replay."""
+        self.stage(batch, generator)
+        self.graph.replay()
+        self.opt_state.step += 1
+        self.replays += 1
+        return self.loss
+
+
 class KGETrainer:
     """Drives the step over a TripleLoader on one device (default: the
     card; ``device="cpu"`` for the plain PyTorch path)."""
@@ -181,7 +320,13 @@ class KGETrainer:
         steps: Optional[int] = None,
         log: Optional[Callable[[Dict[str, Any]], None]] = None,
     ) -> Tuple[Params, OptState, Dict[str, Any]]:
-        """Train for ``epochs`` (paper default 100) or an explicit ``steps``."""
+        """Train for ``epochs`` (paper default 100) or an explicit ``steps``.
+
+        On the card a model with a ``kge_score_model`` trains through one
+        :class:`GraphedStep` captured for this call: the first
+        ``GRAPH_WARMUP_STEPS`` steps run eagerly on a side stream, the rest
+        replay the graph (``stats["graph_replays"]``); every step counts in
+        ``steps``.  A failed capture raises."""
         cfg = self.cfg
         if params is None:
             params, opt_state = self.init()
@@ -194,15 +339,30 @@ class KGETrainer:
         gen = self.generator(cfg.seed + 1)
         it = iter(loader)
         losses = []
-        t0 = time.perf_counter()
-        for i in range(total_steps):
-            batch = torch.from_numpy(next(it)).to(self.device, torch.int64)
-            loss = self.train_step.step(params, opt_state, batch, gen)
+
+        def logged(i: int, loss: torch.Tensor) -> None:
             if i % cfg.log_every == 0 or i == total_steps - 1:
                 l = float(loss)
                 losses.append((i, l))
                 if log:
                     log({"step": i, "loss": l})
+
+        t0 = time.perf_counter()
+        graphed = None
+        if self.device.type == "cuda" and self.model.kge_score_model:
+            graphed = GraphedStep(self, params, opt_state)
+            warm = min(total_steps, GRAPH_WARMUP_STEPS)
+            with torch.cuda.device(self.device):
+                for i, loss in enumerate(graphed.warm_up(it, gen, warm)):
+                    logged(i, loss)
+                if total_steps > warm:
+                    graphed.capture()
+                for i in range(warm, total_steps):
+                    logged(i, graphed.replay(next(it), gen))
+        else:
+            for i in range(total_steps):
+                batch = torch.from_numpy(next(it)).to(self.device, torch.int64)
+                logged(i, self.train_step.step(params, opt_state, batch, gen))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         elapsed = time.perf_counter() - t0
@@ -212,5 +372,6 @@ class KGETrainer:
             "losses": losses,
             "wall_s": elapsed,
             "triples_per_s": total_steps * cfg.batch_size / max(elapsed, 1e-9),
+            "graph_replays": graphed.replays if graphed else 0,
         }
         return params, opt_state, stats

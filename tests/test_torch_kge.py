@@ -46,7 +46,8 @@ from repro_torch.kge import (available_models, make_model, params_from_numpy,
                              vocab_remap)
 from repro_torch.kge import losses as tlosses
 from repro_torch.kge.negatives import corrupt
-from repro_torch.kge.train import KGETrainer, TrainConfig, make_train_step
+from repro_torch.kge.train import (GRAPH_WARMUP_STEPS, GraphedStep,
+                                   KGETrainer, TrainConfig, make_train_step)
 from repro_torch.ontology import GraphDelta
 from repro_torch.ontology import synthetic as tsyn
 from repro_torch.ontology.obo import parse_obo, write_obo
@@ -294,6 +295,119 @@ def test_step_draws_negatives_from_the_generator():
         assert torch.equal(tp[p], tp2[p])
 
 
+def _fused_trainer(name, kw, device, n_terms=60, dim=8, batch=16, negs=4,
+                   log_every=1):
+    kg = tsyn.generate(tsyn.GO_SPEC, seed=0, n_terms=n_terms)
+    model = make_model(name, kg.num_entities, kg.num_relations, dim=dim, **kw)
+    cfg = TrainConfig(batch_size=batch, num_negs=negs, log_every=log_every)
+    return kg, KGETrainer(model, cfg, device=device)
+
+
+@pytest.mark.parametrize("name,kw", MODELS, ids=IDS)
+def test_graphed_step_form_equals_the_eager_step(name, kw):
+    """The step split the way a CUDA graph needs it (the batch staged
+    through a fixed tensor, the negatives drawn into fixed buffers, Adam
+    reading its bias corrections from a tensor) gives the eager step's
+    losses, params, moments and step, bit for bit, from the same generator
+    and loader."""
+    kg, tr = _fused_trainer(name, kw, "cpu")
+    p_eager, s_eager = tr.init()
+    p_split, s_split = tr.init()
+    gen_eager, gen_split = tr.generator(7), tr.generator(7)
+    loader_eager = iter(TripleLoader(kg.triples, 16, seed=0))
+    loader_split = iter(TripleLoader(kg.triples, 16, seed=0))
+    split = GraphedStep(tr, p_split, s_split)
+    for _ in range(6):
+        want = tr.train_step.step(
+            p_eager, s_eager, torch.from_numpy(next(loader_eager)).long(),
+            gen_eager)
+        got = split.run(next(loader_split), gen_split)
+        assert float(got) == float(want)
+    for p in p_eager:
+        assert torch.equal(p_split[p], p_eager[p])
+        assert torch.equal(s_split.mu[p], s_eager.mu[p])
+        assert torch.equal(s_split.nu[p], s_eager.nu[p])
+    assert s_split.step == s_eager.step == 6
+    assert tuple(split.corrections.tolist()) == tr.optimizer.corrections(6)
+    assert split.replays == 0 and split.graph is None
+
+
+def test_corrupt_into_buffers_takes_the_same_draws():
+    batch = torch.zeros(16, 3, dtype=torch.int64)
+    want = corrupt(torch.Generator().manual_seed(3), batch, 100, 5)
+    bufs = (torch.empty(16, 5, dtype=torch.int64), torch.empty(16, 5),
+            torch.empty(16, 5, dtype=torch.bool))
+    got = corrupt(torch.Generator().manual_seed(3), batch, 100, 5, out=bufs)
+    assert got[0] is bufs[0] and got[1] is bufs[2]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [MODELS[0], MODELS[2]],
+                         ids=[IDS[0], IDS[2]])
+def test_captured_fit_matches_the_eager_steps_on_card(name, kw):
+    """Over 50 steps ``fit`` (3 eager warm-up steps, then 47 replays of the
+    captured graph) logs the eager step's losses within 1e-4 relative: the
+    index scatter-adds sum with atomics, and the eager Adam divides by a
+    host scalar where the captured one divides by a device tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA graph has no CPU mode")
+    kg, tr = _fused_trainer(name, kw, "cuda", n_terms=400, dim=32, batch=64,
+                            negs=8)
+    params, opt_state = tr.init()
+    _, _, stats = tr.fit(kg.triples, params=params, opt_state=opt_state,
+                         steps=50)
+    assert stats["steps"] == 50 and opt_state.step == 50
+    assert stats["graph_replays"] == 50 - GRAPH_WARMUP_STEPS
+    eager_p, eager_s = tr.init()
+    loader = iter(TripleLoader(kg.triples, 64, seed=tr.cfg.seed))
+    gen = tr.generator(tr.cfg.seed + 1)
+    want = [float(tr.train_step.step(
+        eager_p, eager_s, torch.from_numpy(next(loader)).to("cuda",
+                                                          torch.int64), gen))
+        for _ in range(50)]
+    got = [loss for _, loss in stats["losses"]]
+    assert len(got) == 50
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", MODELS, ids=IDS)
+def test_captured_gradients_match_eager_on_card(name, kw):
+    """One step's loss and gradients replayed from a captured graph equal
+    the eager ones within 1e-5 (the scatter-adds' atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA graph has no CPU mode")
+    kg, tr = _fused_trainer(name, kw, "cuda", n_terms=400, dim=32, batch=64,
+                            negs=8)
+    params, opt_state = tr.init()
+    step = GraphedStep(tr, params, opt_state)
+    step.stage(next(iter(TripleLoader(kg.triples, 64, seed=0))),
+               tr.generator(1))
+    rand_ents, _, corrupt_head = step.draws
+
+    def grads():
+        return step.loss_and_grads(params, step.batch, rand_ents,
+                                   corrupt_head)
+
+    want_loss, want = grads()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            grads()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got_loss, got = grads()
+    graph.replay()
+    torch.cuda.synchronize()
+    _close(got_loss.cpu(), want_loss.cpu().numpy())
+    for p in want:
+        _close(got[p].cpu(), want[p].cpu().numpy())
+
+
 # ------------------------------ optimizers ----------------------------- #
 @pytest.mark.parametrize("which", ["adam", "adam_schedule", "adagrad"])
 def test_optimizer_updates_match(which):
@@ -319,6 +433,42 @@ def test_optimizer_updates_match(which):
         for k in p0:
             _close(tp[k], jp[k], 1e-6)
     assert ts.step == int(js.step)
+
+
+@pytest.mark.parametrize("which", ["adam", "adagrad"])
+def test_corrected_update_equals_the_int_step_update(which):
+    """Adam with its bias corrections read from a float64 tensor filled
+    with ``corrections(step)`` (what a captured step holds) equals Adam on
+    ``state.step`` over 5 steps, bit for bit; ``update_corrected`` leaves
+    ``state.step`` alone."""
+    rng = np.random.default_rng(6)
+    make = adam if which == "adam" else adagrad
+    opt = make(1e-2)
+    p0 = {"entity": rng.standard_normal((20, 8)).astype(np.float32),
+          "relation": rng.standard_normal((3, 8)).astype(np.float32)}
+    by_int = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    by_bc = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    s_int, s_bc = opt.init(by_int), opt.init(by_bc)
+    for step in range(1, 6):
+        g = {k: torch.from_numpy(rng.standard_normal(v.shape)
+                                 .astype(np.float32)) for k, v in p0.items()}
+        g["entity"][::3] = 0.0
+        opt.update(g, s_int, by_int)
+        bc = torch.tensor(opt.corrections(step), dtype=torch.float64)
+        opt.update_corrected(g, s_bc, by_bc, bc)
+        for k in p0:
+            assert torch.equal(by_bc[k], by_int[k])
+            assert torch.equal(s_bc.mu[k], s_int.mu[k])
+    assert s_int.step == 5 and s_bc.step == 0
+
+
+def test_corrected_update_needs_a_constant_lr():
+    opt = adam(tsched.linear_warmup_cosine(1e-2, 2, 6))
+    p = {"entity": torch.zeros(3, 2)}
+    with pytest.raises(ValueError, match="constant lr"):
+        opt.update_corrected(p, opt.init(p), p,
+                             torch.tensor(opt.corrections(1),
+                                          dtype=torch.float64))
 
 
 @pytest.mark.parametrize("fn,args", [
@@ -392,6 +542,24 @@ def test_trainer_warm_init_and_fit_on_cpu():
                                    np.arange(kg.num_relations), seed=3)
     assert carry["entity_carried"] == kg.num_entities and st.step == 0
     assert torch.equal(warm["entity"], params["entity"])
+
+
+@pytest.mark.parametrize("name,kw", [MODELS[0], MODELS[2]],
+                         ids=[IDS[0], IDS[2]])
+def test_fit_on_cpu_runs_every_step_eagerly(name, kw):
+    """On the CPU ``fit`` captures nothing: 0 replays, the step count and
+    the loss at each step as the eager step gives them."""
+    kg, tr = _fused_trainer(name, kw, "cpu")
+    params, opt_state = tr.init()
+    _, _, stats = tr.fit(kg.triples, params=params, opt_state=opt_state,
+                         steps=7)
+    assert stats["graph_replays"] == 0 and opt_state.step == 7
+    p2, s2 = tr.init()
+    loader = iter(TripleLoader(kg.triples, 16, seed=tr.cfg.seed))
+    gen = tr.generator(tr.cfg.seed + 1)
+    want = [float(tr.train_step.step(p2, s2, torch.from_numpy(next(loader))
+                                     .long(), gen)) for _ in range(7)]
+    assert [loss for _, loss in stats["losses"]] == want
 
 
 # ------------------------------ evaluation ----------------------------- #

@@ -233,6 +233,87 @@ def test_forward_outputs_are_contiguous_of_the_right_shapes(B, K):
     assert a + 4 * B <= b or b + 4 * B * K <= a
 
 
+@pytest.mark.parametrize("B,K,d", [(1, 1, 1), (3, 7, 13), (1024, 32, 200)])
+def test_backward_returns_separate_tensors_of_the_right_shapes(B, K, d):
+    """grad h, r, t (B, d) and grad neg (B, K, d): float32, contiguous, not
+    overlapping."""
+    rng = np.random.default_rng(B + K + d)
+    h, r, t = (torch.from_numpy(rng.standard_normal((B, d), np.float32))
+               for _ in range(3))
+    neg = torch.from_numpy(rng.standard_normal((B, K, d), np.float32))
+    ch = torch.from_numpy(rng.random((B, K)) < 0.5)
+    g_pos = torch.ones(B)
+    g_negs = torch.ones(B, K)
+    outs = tkge.kge_score_backward(h, r, t, neg, ch, g_pos, g_negs,
+                                   "transe_l1")
+    assert [o.shape for o in outs] == [(B, d)] * 3 + [(B, K, d)]
+    assert all(o.dtype == torch.float32 and o.is_contiguous() for o in outs)
+    spans = sorted((o.data_ptr(), o.data_ptr() + 4 * o.numel()) for o in outs)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+
+
+#: the backward kernel's staging cases: the training shape (one bulk copy
+#: a slab); K * d not a multiple of 4 (4-byte cp.async); one negative of
+#: one coordinate; a slab larger than one stage (the two-stage ring of
+#: bulk copies); d past 128 float4 columns (one group, column tiles)
+CARD_GRID = [(1024, 32, 200), (3, 7, 13), (1, 1, 1), (4, 8192, 200),
+             (2, 64, 4096)]
+
+
+def _on_card(arrays, offset=0):
+    """The arrays on the card; ``offset`` floats into a larger buffer, so
+    that no row is 16-byte aligned."""
+    out = []
+    for a in arrays:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if offset and t.dtype == torch.float32:
+            buf = torch.empty(t.numel() + offset, device="cuda")
+            view = buf[offset:].view(t.shape)
+            view.copy_(t)
+            out.append(view)
+        else:
+            out.append(t.to("cuda"))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", ["random", "true", "false"])
+@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("B,K,d", CARD_GRID)
+def test_backward_kernel_matches_plain_on_card(B, K, d, model, mask):
+    """The backward kernel against its plain version within 1e-4 (sums
+    over K in another order), on every staging path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(B + K + d)
+    arrays = (*_inputs(B, K, d, seed=B * K + d, mask=mask),
+              rng.standard_normal(B).astype(np.float32),
+              rng.standard_normal((B, K)).astype(np.float32))
+    for offset in (0, 1):
+        args = _on_card(arrays, offset)
+        got = tkge.kge_score_backward(*args, model)
+        want = tref.kge_score_backward_ref(*args, model)
+        for g, w in zip(got, want):
+            _close(g.cpu().numpy(), w.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", MODELS)
+def test_backward_kernel_gives_the_same_bits_twice_on_card(model):
+    """No atomics: the sums over K are combined in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    for B, K, d in ((1024, 32, 200), (4, 8192, 200), (3, 7, 13)):
+        rng = np.random.default_rng(K)
+        args = _on_card((*_inputs(B, K, d, seed=1),
+                         rng.standard_normal(B).astype(np.float32),
+                         rng.standard_normal((B, K)).astype(np.float32)))
+        first = tkge.kge_score_backward(*args, model)
+        second = tkge.kge_score_backward(*args, model)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("model", MODELS)
 def test_kernels_match_plain_on_card(model):

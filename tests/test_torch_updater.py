@@ -274,18 +274,26 @@ def test_update_entry_points_need_the_card_unless_asked_for_cpu(entry,
 
 @pytest.mark.cuda
 def test_update_path_on_card(tmp_path):
-    """A short run_once on the card goes through both kge_score kernels."""
+    """A short run_once on the card goes through both kge_score kernels:
+    each model's fit runs its warm-up steps eagerly, captures the step
+    once (the counters see each kernel once there) and replays it for the
+    rest of its 10 steps."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     from repro_torch.kernels import kge_score as tk
+    from repro_torch.kge.train import GRAPH_WARMUP_STEPS
     reg = EmbeddingRegistry(tmp_path)
     tk.reset_launches()
     upd = Updater(reg, models=MODELS, dim=32, train_cfg=TrainConfig(**FAST),
                   steps_override=10, device="cuda")
     rep = upd.run_once(SyntheticReleaseChannel("go", *_series(1)[0]))
     assert rep.mode == "full"
-    assert tk.launches["kge_score_forward"] == 20
-    assert tk.launches["kge_score_backward"] == 20
+    counted = len(MODELS) * (GRAPH_WARMUP_STEPS + 1)
+    assert tk.launches["kge_score_forward"] == counted
+    assert tk.launches["kge_score_backward"] == counted
+    for m in MODELS:
+        assert rep.details[m]["steps"] == 10
+        assert rep.details[m]["graph_replays"] == 10 - GRAPH_WARMUP_STEPS
 
 
 def test_file_release_channel_matches_the_reference(tmp_path):
