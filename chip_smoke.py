@@ -63,12 +63,30 @@ Phases, in order; any failure exits non-zero:
               plus replays x that count); TransE's and DistMult's replayed
               step against the eager step over 50 steps (losses within
               1e-4 relative), its wall and device ms, steps/s
-  8. lm       h2o-danube-1.8b at its published width: in fp32 the last
+  8. jobs     batch-analytics jobs through the port's gateway: a
+              knn-join of all 40,000 classes of the serve table at k = 10
+              and one of 1,024 at k = 100 (512 and 256 sampled rows equal
+              to one serial ``top_k_rows`` call each, bit for bit, and to
+              the plain top-k), drift v1 -> v2 of the update registry for
+              TransE and DistMult on 4,096 classes (256 Jaccards against
+              serial ``top_k_rows``, graph_delta against ``GraphDelta``),
+              compare of every model at sample 1,000 ("kge" MRR against
+              ``rank_based_eval``, RDF2vec by cosine, then all cached),
+              64 ``AsyncGateway`` coroutines against the sync answers,
+              the serve session alone and beside a 40k join; over
+              ``launch.serve --http 0 --max-jobs-queued 2``: pages with
+              304 on their ETags, ``?stream=true``, a running 40k join
+              cancelled (409) and the queue bound (429); a pool of 2:
+              polls answered by both workers from the shared state dir,
+              the owner SIGKILLed mid-join (FAILED) and restarted.  Run
+              alone (``--phases build,jobs``) it trains its own v1 and
+              v2 with TransE and DistMult at 300 steps
+  9. lm       h2o-danube-1.8b at its published width: in fp32 the last
               logits of prefill(6145) against prefill(6144) + decode_step
               (2e-3, same argmax), 24 SWA launches per prefill; then a
               bf16 generation through ``repro_torch.launch.generate``
               (batch 2, prompt 6144, 32 greedy decode steps), ids in vocab
-  9. numbers  top-k kernel, plain, library and host-to-device times (CUDA
+ 10. numbers  top-k kernel, plain, library and host-to-device times (CUDA
               events) at N = 40k and 100k; kge_score forward and backward
               times at (1024, 32, 200) (back-to-back calls, profiler device
               time, 50 calls replayed from one CUDA graph) and the
@@ -78,7 +96,7 @@ Phases, in order; any failure exits non-zero:
               against its bound, its plain version and
               ``scaled_dot_product_attention``; the device-busy share of a
               full-width decode step
- 10. alloc    only when ``--phases`` names it: host time of the kge_score
+ 11. alloc    only when ``--phases`` names it: host time of the kge_score
               backward's output allocations two ways, in turns: four
               tensors (what the wrapper allocates) against one (3, B, d)
               buffer seen three ways
@@ -91,8 +109,9 @@ It prints JSON lines as it goes, then the card's name and power limit,
 the kernels line, and last ``{"ok": true, "device": {...}}``.
 ``--phases`` runs a subset (``build,kernels``, ``build,kge`` or
 ``build,swa,lm`` is a quick check of one slice; ``build,serve,workers``
-the serving paths; ``build,kge,update`` the update path alone; ``alloc``
-the backward's allocation choice);
+the serving paths; ``build,kge,update`` the update path alone;
+``build,jobs`` the batch jobs; ``alloc`` the backward's allocation
+choice);
 ``--out PATH`` also writes every result to one JSON file.
 """
 from __future__ import annotations
@@ -188,7 +207,7 @@ LARGE_ENTRY = ("topk_score_keys", "topk_select_sort", "topk_merge_path")
 _KERNEL_NAMES = ("score_select", "merge_lists", "score_keys",
                  "select_sort", "merge_path")
 
-RESULTS: dict = {"phases": {}}
+RESULTS: dict = {"phases": {}, "phase_seconds": {}}
 #: the card; the phases take it from here
 DEV = "cuda"
 
@@ -839,12 +858,15 @@ def _env_src() -> dict:
     return env
 
 
-def _start_server(registry_root: str, workers: int, state_dir: str):
-    """``python -m repro_torch.launch.serve --http 0 [--workers N]`` in a
-    process of its own (this one holds a CUDA context, which must not
-    cross the pool's fork); returns (process, port) once it serves."""
+def _start_server(registry_root: str, workers: int, state_dir: str,
+                  extra=()):
+    """``python -m repro_torch.launch.serve --http 0 [--workers N]
+    [extra...]`` in a process of its own (this one holds a CUDA context,
+    which must not cross the pool's fork); returns (process, port) once it
+    serves."""
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--registry",
-           registry_root, "--http", "0", "--device", DEV, "--batch", "32"]
+           registry_root, "--http", "0", "--device", DEV, "--batch", "32",
+           *extra]
     if workers > 1:
         cmd += ["--workers", str(workers), "--state-dir", state_dir]
     log = open(Path(state_dir) / f"serve-{workers}.log", "w")
@@ -895,16 +917,25 @@ def _stop_server(proc) -> None:
     proc.log.close()
 
 
-def _http_get(port: int, path: str, timeout: float = 60):
-    """One GET on a fresh connection: (status, body bytes)."""
+def _http_req(port: int, method: str, path: str, body=None,
+              headers=None, timeout: float = 60):
+    """One request on a fresh connection: (status, headers, body bytes)."""
     import http.client
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     try:
-        conn.request("GET", path)
+        conn.request(method, path,
+                     body=None if body is None else json.dumps(body),
+                     headers=headers or {})
         resp = conn.getresponse()
-        return resp.status, resp.read()
+        return resp.status, dict(resp.getheaders()), resp.read()
     finally:
         conn.close()
+
+
+def _http_get(port: int, path: str, timeout: float = 60):
+    """One GET on a fresh connection: (status, body bytes)."""
+    st, _, body = _http_req(port, "GET", path, timeout=timeout)
+    return st, body
 
 
 #: one client process of the workers phase's HTTP session: stdlib only,
@@ -1546,6 +1577,457 @@ def phase_update(tmp: str) -> dict:
            "graph_captures": captures,
            "graph_replays": replays, "graphed_steps": graphed}
     emit(out)
+    return out
+
+
+#: the jobs phase: a knn-join of every class of the GO serve table at the
+#: paper's k, a large-k join, drift and compare on the update registry,
+#: the /jobs routes over HTTP, a pool of 2, and the async front end
+JOBS_K = 10
+JOBS_SAMPLE = 512            # join rows held to serial top_k_rows
+JOBS_LARGE_K, JOBS_LARGE_CLASSES, JOBS_LARGE_SAMPLE = 100, 1024, 256
+DRIFT_CLASSES, DRIFT_SAMPLE = 4096, 256
+COMPARE_SAMPLE = 1000
+JOBS_HTTP_CLASSES, JOBS_HTTP_PAGE = 2000, 500
+JOBS_MAX_QUEUED = 2
+JOBS_PROBE_SLABS = 20        # join slabs timed outside a job, by part
+#: with ``--phases build,jobs`` (no update phase before it) the phase
+#: trains its own two releases: TransE and DistMult at this step count
+JOBS_ALONE_MODELS = ("transe", "distmult")
+JOBS_ALONE_STEPS = 300
+
+
+def _http_job(port: int, jid: str, until, timeout: float = 300) -> dict:
+    """Poll GET /jobs/{jid} (reconnecting past a dead worker) until
+    ``until(status)``; returns the status."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            st, _, body = _http_req(port, "GET", f"/jobs/{jid}")
+            job = json.loads(body)
+            check(st == 200, f"GET /jobs/{jid}: {st} {job}")
+            if until(job):
+                return job
+        except OSError:
+            pass
+        check(time.monotonic() < deadline,
+              f"job {jid} did not get there in {timeout} s")
+        time.sleep(0.05)
+
+
+def _job_rows(gw, jid: str) -> list:
+    rows, offset = [], 0
+    while offset is not None:
+        page = gw.job_result(jid, offset=offset, limit=gw.page_limit_max)
+        rows += page.rows
+        offset = page.next_offset
+    return rows
+
+
+def _check_join(idx, rows, sample, k, pos, table, norms, note) -> dict:
+    """Rows ``sample`` of a join: ids and scores equal to one serial
+    ``top_k_rows([row], k)`` call each, bit for bit; and against the plain
+    top-k, scores within SCORE_TOL and ids by ``_ids_agree``."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    for r in sample:
+        want = idx.top_k_rows([r], k)[0]
+        ident, hits = rows[r]
+        check(ident == idx.entity_ids[r], f"{note}: row {r} is {ident}")
+        check([h[0] for h in hits] == [c.identifier for c in want]
+              and [h[1] for h in hits] == [c.score for c in want],
+              f"{note}: {ident} differs from serial top_k_rows")
+    q = torch.from_numpy(unit_rows(table, norms, sample)).to(DEV)
+    s_ref, i_ref, v_ref = ref.topk_cosine_blocked_ref(
+        q, torch.from_numpy(np.array(table)).to(DEV), k,
+        exclude_rows=torch.tensor(sample, dtype=torch.int32, device=DEV),
+        norms=torch.from_numpy(np.array(norms)).to(DEV),
+        block_n=ops.STREAM_BLOCK_ROWS)
+    s_ref, i_ref, v_ref = (t.cpu().numpy() for t in (s_ref, i_ref, v_ref))
+    ties, err = 0, 0.0
+    for j, r in enumerate(sample):
+        hits, nv = rows[r][1], int(v_ref[j])
+        check(len(hits) == nv, f"{note}: {len(hits)} hits, want {nv}")
+        s_plain = s_ref[j, :nv].astype(np.float64)
+        e = float(np.abs(np.array([h[1] for h in hits]) - s_plain).max())
+        check(e <= SCORE_TOL, f"{note}: {rows[r][0]} scores off the plain")
+        err = max(err, e)
+        ties += _ids_agree(np.array([pos[h[0]] for h in hits]),
+                           i_ref[j, :nv], s_plain)
+    return {"serial_bit_equal": len(sample), "plain_checked": len(sample),
+            "max_abs_err": err, "tie_runs_by_set": ties}
+
+
+def _jobs_update_registry(tmp: str):
+    """The update phase's warm registry (six models, v1 and v2 of the GO
+    release), or, when that phase did not run, two releases trained here
+    with TransE and DistMult at JOBS_ALONE_STEPS steps."""
+    root = Path(tmp) / "warm"
+    if (root / "go").is_dir():
+        return root, list(UPDATE_MODELS), None
+    from repro_torch.configs.go_kge import CONFIG
+    from repro_torch.core.registry import EmbeddingRegistry
+    from repro_torch.core.updater import SyntheticReleaseChannel, Updater
+    root = Path(tmp) / "jobs-update"
+    (v1, kg1), (v2, kg2) = go_releases()
+    up = Updater(EmbeddingRegistry(root), models=JOBS_ALONE_MODELS,
+                 dim=CONFIG.dim, train_cfg=CONFIG.train,
+                 steps_override=JOBS_ALONE_STEPS, device=DEV)
+    channel = SyntheticReleaseChannel("go")
+    channel.bump(v1, kg1)
+    up.run_once(channel, seed=0)
+    channel.bump(v2, kg2)
+    up.run_once(channel, seed=1)
+    note = (f"no update phase ran: v1 and v2 trained here with "
+            f"{', '.join(JOBS_ALONE_MODELS)} at {JOBS_ALONE_STEPS} steps")
+    print(f"[chip_smoke] jobs: {note}", flush=True)
+    return root, list(JOBS_ALONE_MODELS), note
+
+
+def phase_jobs(tmp: str, card: str) -> dict:
+    """Batch-analytics jobs on the card through the port's gateway: a
+    knn-join of all 40,000 classes at k = 10 and one of 1,024 at k = 100
+    (sampled rows bit-equal to serial top_k_rows, and against the plain
+    top-k), drift and compare on the update registry, the /jobs routes
+    over ``launch.serve --http 0`` (pages, 304, stream, cancel -> 409,
+    queue bound -> 429), the orphan rule in a pool of 2, 64 async
+    closest-concepts, and the serve session alone and beside a 40k join."""
+    import asyncio
+    import torch
+    from repro_torch.api import AsyncGateway, Gateway
+    from repro_torch.api.workers import read_worker_states
+    from repro_torch.core.registry import EmbeddingRegistry
+    from repro_torch.core.serving import ServingEngine
+    from repro_torch.kge import make_model, params_from_numpy, rank_based_eval
+    from repro_torch.kernels import ops, topk_similarity as ts
+    from repro_torch.launch import serve
+    from repro_torch.ontology.delta import GraphDelta
+
+    out: dict = {"phase": "jobs", "card": card}
+    reg = EmbeddingRegistry(tmp)
+    engine = ServingEngine(reg, device=DEV)
+    # no result cache: the two sessions below ask for the same rows
+    gw = Gateway(engine, max_batch=32, flush_after_ms=2.0,
+                 result_cache_entries=0)
+    rng = np.random.default_rng(SEED + 31)
+    try:
+        version = engine.latest_version("go")
+        idx = engine._index("go", "transe", version)
+        ids = list(idx.entity_ids)
+        n = len(ids)
+        check(n == GO_ROWS, f"serve table has {n} rows")
+        pos = {x: i for i, x in enumerate(ids)}
+        table, norms, _ = reg.store.open_table("go", version, "transe")
+
+        # ------------- main path: a join of every class --------------- #
+        ts.reset_launches()
+        sub = gw.submit_job("knn-join", "go", model="transe", classes=ids,
+                            k=JOBS_K)
+        st = gw.job_wait(sub.job_id, timeout=600)
+        torch.cuda.synchronize()
+        small = {e: ts.launches[e] for e in SMALL_ENTRY}
+        check(st.state == "DONE", f"40k join {st.state}: {st.error}")
+        check(st.total == n and st.summary["n_queries"] == n,
+              f"40k join: {st.total} rows")
+        check(sum(small.values()) > 0, "the 40k join launched no top-k")
+        rows = _job_rows(gw, sub.job_id)
+        check([r[0] for r in rows] == ids, "40k join: rows out of order")
+        sample = sorted(int(r) for r in rng.choice(n, JOBS_SAMPLE,
+                                                   replace=False))
+        summ = st.summary
+        out["join"] = {
+            "queries": n, "k": JOBS_K, "wall_s": st.wall_s,
+            "queries_per_s": n / st.wall_s,
+            "compute_s": summ["compute_s"], "slabs": summ["slabs"],
+            # the job's yield to interactive traffic included (duty 1.0:
+            # a pause as long as the slab itself after each slab)
+            "ms_per_slab": st.wall_s * 1e3 / summ["slabs"],
+            "launches": small, "launches_total": sum(small.values()),
+            **_check_join(idx, rows, sample, JOBS_K, pos, table, norms,
+                          "40k join")}
+        emit({"jobs_join": out["join"]})
+
+        # where a join slab's time goes, outside a job (no yield): the
+        # streamed calls alone, then with the conversion to hits
+        probe = np.arange(64 * JOBS_PROBE_SLABS, dtype=np.int32)
+        t0 = time.perf_counter()
+        for _ in ops.topk_cosine_join(
+                idx.unit_rows(probe), idx.embeddings, JOBS_K,
+                exclude_rows=probe, norms=idx.norms, query_block_rows=64,
+                block_rows=idx.block_rows, device=DEV,
+                staging=idx._staging):
+            pass
+        t1 = time.perf_counter()
+        for _ in idx.knn_join_rows(probe, JOBS_K, slab=64):
+            pass
+        t2 = time.perf_counter()
+        out["slab_ms"] = {
+            "streamed_call": (t1 - t0) * 1e3 / JOBS_PROBE_SLABS,
+            "with_hits": (t2 - t1) * 1e3 / JOBS_PROBE_SLABS,
+            "in_the_job_with_yield": out["join"]["ms_per_slab"]}
+
+        # ------------- the large-k path: k = 100 ---------------------- #
+        rows_l = sorted(int(r) for r in rng.choice(n, JOBS_LARGE_CLASSES,
+                                                   replace=False))
+        before = dict(ts.launches)
+        sub = gw.submit_job("knn-join", "go", model="transe",
+                            classes=[ids[r] for r in rows_l],
+                            k=JOBS_LARGE_K)
+        st = gw.job_wait(sub.job_id, timeout=300)
+        torch.cuda.synchronize()
+        large = {e: ts.launches[e] - before[e] for e in LARGE_ENTRY}
+        check(st.state == "DONE", f"k=100 join {st.state}: {st.error}")
+        check(all(v > 0 for v in large.values()),
+              f"the k=100 join missed a large-k kernel: {large}")
+        got = _job_rows(gw, sub.job_id)
+        by_row = {r: got[j] for j, r in enumerate(rows_l)}
+        sub_sample = sorted(int(r) for r in rng.choice(
+            rows_l, JOBS_LARGE_SAMPLE, replace=False))
+        out["join_large"] = {
+            "queries": len(rows_l), "k": JOBS_LARGE_K, "wall_s": st.wall_s,
+            "queries_per_s": len(rows_l) / st.wall_s,
+            "slabs": st.summary["slabs"], "launches": large,
+            "launches_total": sum(large.values()),
+            **_check_join(idx, by_row, sub_sample, JOBS_LARGE_K, pos, table,
+                          norms, "k=100 join")}
+        emit({"jobs_join_large": out["join_large"]})
+
+        # host gather of one join slab: each slab's call gathers the whole
+        # table into pinned staging (the streaming driver's np.copyto)
+        pinned = torch.empty((n, D), dtype=torch.float32,
+                             pin_memory=DEV == "cuda")
+        out["host_gather_ms_per_slab"] = _host_ms(
+            lambda: np.copyto(pinned.numpy(), table))
+        del pinned
+
+        # ------------- async: 64 coroutines against sync -------------- #
+        ag = AsyncGateway(gw)
+        q_rows = [int(r) for r in rng.choice(n, 64, replace=False)]
+
+        async def gather64():
+            return await asyncio.gather(*(
+                ag.closest_concepts("go", "transe", ids[r], k=JOBS_K)
+                for r in q_rows))
+
+        answers = asyncio.run(gather64())
+        for r, a in zip(q_rows, answers):
+            s = gw.closest_concepts("go", "transe", ids[r], k=JOBS_K)
+            check([(h.identifier, h.score) for h in a.results]
+                  == [(h.identifier, h.score) for h in s.results],
+                  f"async closest {ids[r]} differs from the sync answer")
+        out["async"] = {"coroutines": len(answers), "equal_to_sync": True}
+
+        # ------------- serve session alone, then beside a join -------- #
+        args = serve._parser().parse_args(
+            ["--registry", tmp, "--requests", "512", "--batch", "32",
+             "--threads", "8", "--k", str(JOBS_K), "--device", DEV])
+        alone = serve._session(args, gw, torch.device(DEV))
+        sub = gw.submit_job("knn-join", "go", model="transe", classes=ids,
+                            k=JOBS_K)
+        deadline = time.monotonic() + 60
+        while gw.job_status(sub.job_id).state == "PENDING":
+            check(time.monotonic() < deadline, "join never started")
+            time.sleep(0.01)
+        loaded = serve._session(args, gw, torch.device(DEV))
+        state_after = gw.job_status(sub.job_id).state
+        st = gw.job_wait(sub.job_id, timeout=600)
+        check(st.state == "DONE", f"join under load {st.state}: {st.error}")
+        out["session"] = {
+            "alone": {k: alone[k] for k in ("qps", "p50_ms", "p99_ms")},
+            "beside_join": {k: loaded[k] for k in ("qps", "p50_ms",
+                                                   "p99_ms")},
+            "join_running_when_session_ended": state_after == "RUNNING",
+            "join_wall_s_alone": out["join"]["wall_s"],
+            "join_wall_s_under_load": st.wall_s}
+        emit({"jobs_session": out["session"]})
+    finally:
+        gw.close()
+
+    # ------------- drift and compare on the update registry ----------- #
+    upd_root, models, note = _jobs_update_registry(tmp)
+    out["update_registry"] = {"models": models, "note": note}
+    (v1, kg1), (v2, kg2) = go_releases()
+    eng_u = ServingEngine(EmbeddingRegistry(upd_root), device=DEV)
+    gw_u = Gateway(eng_u, max_batch=32, flush_after_ms=2.0)
+    try:
+        in_v1 = set(kg1.entities)
+        common = [e for e in kg2.entities if e in in_v1]
+        classes = [common[int(i)] for i in sorted(rng.choice(
+            len(common), DRIFT_CLASSES, replace=False))]
+        delta = GraphDelta.compute(kg1, kg2).stats()
+        out["drift"] = {}
+        for m in ("transe", "distmult"):
+            sub = gw_u.submit_job("drift", "go", model=m, version=v1,
+                                  version_b=v2, k=JOBS_K, classes=classes)
+            st = gw_u.job_wait(sub.job_id, timeout=300)
+            check(st.state == "DONE", f"drift {m} {st.state}: {st.error}")
+            got = dict(_job_rows(gw_u, sub.job_id))
+            check(list(got) == classes, f"drift {m}: rows differ")
+            check(st.summary["graph_delta"] == delta,
+                  f"drift {m}: graph_delta {st.summary['graph_delta']} "
+                  f"!= {delta}")
+            ia, ib = (eng_u._index("go", m, v) for v in (v1, v2))
+            for e in (classes[int(i)] for i in rng.choice(
+                    len(classes), DRIFT_SAMPLE, replace=False)):
+                sa = {c.identifier for c in ia.top_k_rows(
+                    [ia.resolve(e)], JOBS_K)[0]}
+                sb = {c.identifier for c in ib.top_k_rows(
+                    [ib.resolve(e)], JOBS_K)[0]}
+                check(got[e] == len(sa & sb) / len(sa | sb),
+                      f"drift {m}: {e} Jaccard {got[e]}")
+            out["drift"][m] = {"classes": len(classes), "wall_s": st.wall_s,
+                               "mean_jaccard": st.summary["mean_jaccard"],
+                               "jaccard_checked": DRIFT_SAMPLE}
+        emit({"jobs_drift": out["drift"]})
+
+        store = eng_u.registry.store
+        sub = gw_u.submit_job("compare", "go", version=v2, models=models,
+                              sample=COMPARE_SAMPLE)
+        st = gw_u.job_wait(sub.job_id, timeout=600)
+        check(st.state == "DONE", f"compare {st.state}: {st.error}")
+        got = dict(_job_rows(gw_u, sub.job_id))
+        kg = store.load_graph("go", v2)
+        perm = np.random.default_rng(0).permutation(len(kg.triples))
+        trip = np.asarray(kg.triples)
+        cmp_out = {}
+        for m in models:
+            met = got[m]
+            want_method = "cosine" if m == "rdf2vec" else "kge"
+            check(met["method"] == want_method and not met["cached"]
+                  and met["sample"] == COMPARE_SAMPLE,
+                  f"compare {m}: {met}")
+            if want_method == "kge":
+                params, _ = store.load_params("go", v2, m)
+                model = make_model(m, kg.num_entities, kg.num_relations,
+                                   dim=params["entity"].shape[-1])
+                want = rank_based_eval(
+                    model, params_from_numpy(model, params, DEV),
+                    trip[perm[:COMPARE_SAMPLE]], trip, batch_size=64)
+                check(abs(met["mrr"] - want["mrr"]) <= 1e-5,
+                      f"compare {m}: MRR {met['mrr']} != {want['mrr']}")
+            cmp_out[m] = {"method": met["method"], "mrr": met["mrr"],
+                          "hits@10": met["hits@10"]}
+        out["compare"] = {"models": cmp_out, "wall_s": st.wall_s}
+        sub = gw_u.submit_job("compare", "go", version=v2, models=models,
+                              sample=COMPARE_SAMPLE)
+        st2 = gw_u.job_wait(sub.job_id, timeout=60)
+        check(st2.state == "DONE" and all(
+            r[1]["cached"] for r in _job_rows(gw_u, sub.job_id)),
+              "compare again: not every model cached")
+        out["compare"]["cached_wall_s"] = st2.wall_s
+        emit({"jobs_compare": out["compare"]})
+    finally:
+        gw_u.close()
+
+    # ------------- HTTP: launch.serve --http 0 ------------------------ #
+    http_dir = Path(tmp) / "jobs-http"
+    http_dir.mkdir(exist_ok=True)
+    proc, port = _start_server(tmp, 1, str(http_dir), extra=[
+        "--max-jobs-queued", str(JOBS_MAX_QUEUED)])
+    try:
+        cls = [ids[int(r)] for r in rng.choice(n, JOBS_HTTP_CLASSES,
+                                               replace=False)]
+        st, _, body = _http_req(port, "POST", "/jobs/submit", {
+            "kind": "knn-join", "ontology": "go", "model": "transe",
+            "classes": cls, "k": JOBS_K})
+        check(st == 200, f"POST /jobs/submit: {st} {body[:300]}")
+        jid = json.loads(body)["job_id"]
+        _http_job(port, jid, lambda j: j["state"] == "DONE")
+        pages, offset, n_pages = [], 0, 0
+        while offset is not None:
+            path = f"/jobs/{jid}/result?offset={offset}&limit={JOBS_HTTP_PAGE}"
+            st, hdr, body = _http_req(port, "GET", path)
+            check(st == 200 and hdr.get("ETag"), f"GET {path}: {st}")
+            page = json.loads(body)
+            st2, hdr2, body2 = _http_req(port, "GET", path, headers={
+                "If-None-Match": hdr["ETag"]})
+            check(st2 == 304 and body2 == b"" and hdr2.get("ETag")
+                  == hdr["ETag"], f"If-None-Match {path}: {st2}")
+            n_pages += 1
+            pages += page["rows"]
+            offset = page["next_offset"]
+        check([r[0] for r in pages] == cls, "HTTP join: rows differ")
+        check(all(r[1] == rows[pos[r[0]]][1] for r in pages),
+              "HTTP join rows differ from the in-process join's")
+        st, hdr, body = _http_req(port, "GET",
+                                  f"/jobs/{jid}/result?stream=true")
+        check(st == 200 and hdr.get("X-Bio-KGvec2go-Job") == jid
+              and json.loads(body) == pages,
+              "streamed job result differs from its pages")
+        big = {"kind": "knn-join", "ontology": "go", "model": "transe",
+               "classes": ids, "k": JOBS_K}
+        a = json.loads(_http_req(port, "POST", "/jobs/submit", big)[2])
+        _http_job(port, a["job_id"], lambda j: j["state"] == "RUNNING"
+                  and j["progress"] > 0)
+        queued = [json.loads(_http_req(port, "POST", "/jobs/submit",
+                                       big)[2]) for _ in range(
+            JOBS_MAX_QUEUED)]
+        check(all(q["state"] == "PENDING" for q in queued),
+              f"queued joins: {[q['state'] for q in queued]}")
+        st, hdr, body = _http_req(port, "POST", "/jobs/submit", big)
+        check(st == 429 and hdr.get("Retry-After")
+              and json.loads(body)["code"] == "OVERLOADED",
+              f"submit past --max-jobs-queued: {st} {hdr}")
+        for j in [a] + queued:
+            st, _, _ = _http_req(port, "POST", f"/jobs/{j['job_id']}/cancel",
+                                 {})
+            check(st == 200, f"cancel {j['job_id']}: {st}")
+        for j in [a] + queued:
+            _http_job(port, j["job_id"], lambda x: x["state"] == "CANCELLED")
+        st, _, body = _http_req(port, "GET", f"/jobs/{a['job_id']}/result")
+        check(st == 409 and json.loads(body)["code"] == "JOB_CANCELLED",
+              f"result of a cancelled join: {st}")
+        out["http"] = {"pages_each_304": n_pages, "stream_equal": True,
+                       "cancelled_running": True, "rejected_429": True}
+    finally:
+        _stop_server(proc)
+
+    # ------------- pool of 2: shared state, the orphan rule ----------- #
+    pool_dir = Path(tmp) / "jobs-pool"
+    pool_dir.mkdir(exist_ok=True)
+    proc, port = _start_server(tmp, 2, str(pool_dir))
+    try:
+        st, _, body = _http_req(port, "POST", "/jobs/submit", big)
+        check(st == 200, f"pool submit: {st} {body[:300]}")
+        job = json.loads(body)
+        jid, owner = job["job_id"], job["owner_pid"]
+        check((pool_dir / "jobs" / f"job-{jid}.json").exists(),
+              "the job is not in the pool's shared state dir")
+        for _ in range(60):           # fresh connections: both workers
+            j = json.loads(_http_req(port, "GET", f"/jobs/{jid}")[2])
+            check(j["state"] in ("PENDING", "RUNNING"), f"pool job {j}")
+        time.sleep(1.2)               # the workers dump stats every 0.5 s
+        polls = {x["pid"]: x["stats"]["gateway"]["by_route"].get(
+            "job-status", 0) for x in read_worker_states(pool_dir)}
+        others = [p for p in polls if p != owner]
+        check(len(polls) == 2 and others and polls[others[0]] > 0,
+              f"no poll answered by the non-owner: {polls} owner {owner}")
+        _http_job(port, jid, lambda x: x["state"] == "RUNNING")
+        os.kill(owner, signal.SIGKILL)
+        dead = _http_job(port, jid, lambda x: x["state"] != "RUNNING",
+                         timeout=60)
+        check(dead["state"] == "FAILED" and "died" in (dead["error"] or ""),
+              f"orphaned job: {dead}")
+        deadline, w = time.monotonic() + 90, {}
+        while time.monotonic() < deadline:
+            try:
+                w = json.loads(_http_get(port, "/stats")[1])["workers"]
+                if w["count"] == 2 and w["restarts"] >= 1 \
+                        and owner not in w["pids"]:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.3)
+        check(w.get("count") == 2 and w["restarts"] >= 1
+              and owner not in w["pids"], f"owner not restarted: {w}")
+        out["pool"] = {"polls_by_worker": list(polls.values()),
+                       "orphan_state": dead["state"],
+                       "restarts": w["restarts"]}
+    finally:
+        _stop_server(proc)
+    out["launches_jobs"] = {"small": out["join"]["launches_total"],
+                            "large": out["join_large"]["launches_total"]}
+    emit({k: v for k, v in out.items() if k not in ("join", "join_large")})
     return out
 
 
@@ -2229,27 +2711,31 @@ def _busy_share(fn, steps: int) -> dict:
 
 
 def kernels_line(kern: dict, serve_out: dict, kge: dict,
-                 update_out: dict, numbers: dict, swa: dict,
+                 update_out: dict, jobs: dict, numbers: dict, swa: dict,
                  lm: dict) -> dict:
     """One entry per kernel path, at the shapes the main path gives it:
     a 8192-row slab of the 40k table with its running list, Q = 32 and
     k = 10 for the small path (the serve session's batches), Q = 1 and
-    k = 2000 for the large one (the k = 2000 HTTP requests)."""
+    k = 2000 for the large one (the k = 2000 HTTP requests).  The top-k
+    entries' ``launches_jobs`` are the launches of the jobs phase's 40k
+    k = 10 join (small) and its 1,024-class k = 100 join (large)."""
     launches = serve_out["launches"]
     by = {(r["N"], r["Q"], r["k"]): r for r in numbers["rows"]}
     out = []
-    for name, entries, key, err in (
+    for name, entries, key, err, path in (
             ("topk_cosine_step (k <= 64: score/select + merge lists)",
              SMALL_ENTRY,
-             (GO_ROWS, 32, 10), kern["max_abs_err_small"]),
+             (GO_ROWS, 32, 10), kern["max_abs_err_small"], "small"),
             ("topk_cosine_step (k > 64: score + select/sort + merge path)",
-             LARGE_ENTRY, (GO_ROWS, 1, 2000), kern["max_abs_err_large"])):
+             LARGE_ENTRY, (GO_ROWS, 1, 2000), kern["max_abs_err_large"],
+             "large")):
         r = by[key]
         out.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES,
             "launches": sum(launches[e] for e in entries),
             "launches_by_entry": {e: launches[e] for e in entries},
+            "launches_jobs": jobs["launches_jobs"][path],
             "max_abs_err": err, "ms": r["step_ms"],
             "device_ms": r["step_device_ms"],
             "plain_ms": r["step_plain_ms"], "bound_ms": r["step_bound_ms"],
@@ -2313,7 +2799,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,kge,swa,serve,workers,update,"
-                            "lm,numbers")
+                            "jobs,lm,numbers")
     ap.add_argument("--out", default=None, help="also write results here")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2339,7 +2825,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="biokg-smoke-") as tmp:
         store_tables = {}
         served = None
-        if phases & {"kernels", "serve", "workers", "numbers"}:
+        if phases & {"kernels", "serve", "workers", "jobs", "numbers"}:
             reg = EmbeddingRegistry(tmp)
             for i, version in enumerate(("2025-01", "2025-02")):
                 ids, labels, emb = go_table(GO_ROWS, SEED + i)
@@ -2359,38 +2845,32 @@ def main(argv=None) -> int:
                 table, norms, _ = reg.store.open_table(
                     ont, reg.store.latest_version(ont), "transe")
                 store_tables[n_rows] = (table, norms)
-        if "build" in phases:
-            RESULTS["phases"]["build"] = phase_build()
-        if "kernels" in phases:
-            RESULTS["phases"]["kernels"] = phase_kernels(store_tables)
+
+        def numbers():
+            out = phase_numbers(store_tables, card)
             torch.cuda.synchronize()
-        if "kge" in phases:
-            RESULTS["phases"]["kge"] = phase_kge()
+            out["kge"] = kge_numbers(card)
             torch.cuda.synchronize()
-        if "swa" in phases:
-            RESULTS["phases"]["swa"] = phase_swa()
-            torch.cuda.synchronize()
-        if "serve" in phases:
-            RESULTS["phases"]["serve"] = phase_serve(tmp, served)
-            torch.cuda.synchronize()
-        if "workers" in phases:
-            RESULTS["phases"]["workers"] = phase_workers(tmp, served)
-            torch.cuda.synchronize()
-        if "update" in phases:
-            RESULTS["phases"]["update"] = phase_update(tmp)
-            torch.cuda.synchronize()
-        if "lm" in phases:
-            RESULTS["phases"]["lm"] = phase_lm()
-            torch.cuda.synchronize()
-        if "numbers" in phases:
-            RESULTS["phases"]["numbers"] = phase_numbers(store_tables, card)
-            torch.cuda.synchronize()
-            RESULTS["phases"]["numbers"]["kge"] = kge_numbers(card)
-            torch.cuda.synchronize()
-            RESULTS["phases"]["numbers"]["swa"] = swa_numbers(card)
-            torch.cuda.synchronize()
-        if "alloc" in phases:
-            RESULTS["phases"]["alloc"] = phase_alloc(card)
+            out["swa"] = swa_numbers(card)
+            return out
+
+        # in this order; each phase's wall seconds are kept beside it
+        for name, run in (
+                ("build", phase_build),
+                ("kernels", lambda: phase_kernels(store_tables)),
+                ("kge", phase_kge), ("swa", phase_swa),
+                ("serve", lambda: phase_serve(tmp, served)),
+                ("workers", lambda: phase_workers(tmp, served)),
+                ("update", lambda: phase_update(tmp)),
+                ("jobs", lambda: phase_jobs(tmp, card)),
+                ("lm", phase_lm), ("numbers", numbers),
+                ("alloc", lambda: phase_alloc(card))):
+            if name in phases:
+                t0 = time.perf_counter()
+                RESULTS["phases"][name] = run()
+                torch.cuda.synchronize()
+                RESULTS["phase_seconds"][name] = time.perf_counter() - t0
+        emit({"phase_seconds": RESULTS["phase_seconds"]})
         store_tables.clear()
     RESULTS["seconds"] = time.perf_counter() - t_start
     RESULTS["card"] = card
@@ -2398,12 +2878,12 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(RESULTS, indent=1))
     print(card)
-    if {"kernels", "kge", "swa", "serve", "update", "lm",
+    if {"kernels", "kge", "swa", "serve", "update", "jobs", "lm",
             "numbers"} <= phases:
         ph = RESULTS["phases"]
         print(json.dumps(kernels_line(ph["kernels"], ph["serve"], ph["kge"],
-                                      ph["update"], ph["numbers"], ph["swa"],
-                                      ph["lm"])))
+                                      ph["update"], ph["jobs"],
+                                      ph["numbers"], ph["swa"], ph["lm"])))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

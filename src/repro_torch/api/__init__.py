@@ -5,8 +5,10 @@ bodies as ``repro.api``, served over the port's scheduler and kernels.
 similarity-shaped read rides the ``BatchScheduler``, and the HTTP front
 end (:func:`serve_http`) is a thin shim over ``Gateway.handle``;
 ``api.workers.WorkerPool`` pre-forks N such HTTP stacks over one store.
-The batch-job routes and the async front end are not ported yet.
+The batch-job routes (``/jobs/...``) run in ``api.jobs.JobManager``, and
+:class:`AsyncGateway` exposes the same surface as awaitables.
 """
+from .aio import AsyncGateway, ticket_future
 from .cache import ResultCache
 from .gateway import API_VERSION, CACHED_ROUTES, Gateway, download_etag
 from .http import GatewayHTTPServer, serve_http
@@ -21,7 +23,8 @@ from .schema import (CODE_STATUS, ApiError, AutocompleteRequest,
 from .workers import StoreWatcher, WorkerPool, merge_stats_wires
 
 __all__ = [
-    "API_VERSION", "Gateway", "ResultCache", "CACHED_ROUTES",
+    "API_VERSION", "AsyncGateway", "Gateway", "ticket_future",
+    "ResultCache", "CACHED_ROUTES",
     "GatewayHTTPServer", "serve_http", "download_etag",
     "CODE_STATUS", "ApiError", "from_wire", "payload_to", "to_wire",
     "GetVectorRequest", "VectorResponse",

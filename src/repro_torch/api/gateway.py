@@ -3,8 +3,8 @@ over the serving runtime.
 
 ``Gateway`` is the transport-agnostic public surface of Bio-KGvec2go
 (the real HTTP front end over it lives in ``repro_torch.api.http``).
-It is the port of ``repro.api.gateway`` without the batch-job routes
-(``/jobs/...``), which come with the jobs/analytics slice. Design
+It is the port of ``repro.api.gateway``, the batch-job routes
+(``/jobs/...``, run by ``api.jobs.JobManager``) included. Design
 points:
 
 * **batch-first routing** — every similarity-shaped read (``sim`` AND
@@ -51,16 +51,24 @@ from ..core.metrics import LatencyHistogram
 from ..core.serving import (BatchScheduler, SchedulerError, ServingEngine,
                             SimRequest, Ticket, TopKRequest)
 from .cache import ResultCache, canonical_payload
+from .jobs import JOB_KINDS, JobManager
 from .schema import (ApiError, AutocompleteRequest, AutocompleteResponse,
                      ClosestConceptsRequest, ClosestConceptsResponse,
                      ConceptHit, DownloadPage, DownloadRequest,
                      GetVectorRequest, HealthRequest, HealthResponse,
-                     LineageRequest, LineageResponse, SimilarityRequest,
-                     SimilarityResponse, StatsRequest, StatsResponse,
-                     VectorResponse, VersionsRequest, VersionsResponse,
-                     payload_to, to_wire)
+                     JobCancelRequest, JobListRequest, JobListResponse,
+                     JobResultPage, JobResultRequest, JobStatusRequest,
+                     JobStatusResponse, JobSubmitRequest, LineageRequest,
+                     LineageResponse, SimilarityRequest, SimilarityResponse,
+                     StatsRequest, StatsResponse, VectorResponse,
+                     VersionsRequest, VersionsResponse, payload_to, to_wire)
 
 API_VERSION = "v1"
+
+#: route names whose handlers round-trip a scheduler Ticket — the async
+#: front end must provide a future-bridged implementation for each of
+#: these (AsyncGateway asserts coverage at construction)
+TICKET_ROUTES = ("sim", "closest-concepts")
 
 #: routes whose responses are pure functions of (resolved version,
 #: payload) — the only ones the result cache may serve. download is
@@ -86,6 +94,22 @@ def download_etag(ontology: str, model: str, version: str,
         requested_limit = limit
     key = (f"{API_VERSION}|{ontology}|{model}|{version}|{offset}"
            f"|{limit}|{requested_limit}")
+    return '"' + hashlib.sha1(key.encode("utf-8")).hexdigest()[:24] + '"'
+
+
+def job_etag(job_id: str, offset: int, limit: int,
+             requested_limit: Optional[int] = None) -> str:
+    """Strong ETag for one job-result page. A DONE job's rows are
+    immutable and job ids are never reused (pid + per-process sequence),
+    so the page coordinates fully determine its bytes — the same
+    argument as :func:`download_etag`, with the job id standing in for
+    the snapshot coordinates. The HTTP layer still verifies the job is
+    actually DONE before vouching a 304 (an in-flight job has no page
+    to validate against)."""
+    if requested_limit is None:
+        requested_limit = limit
+    key = (f"{API_VERSION}|job|{job_id}|{offset}|{limit}"
+           f"|{requested_limit}")
     return '"' + hashlib.sha1(key.encode("utf-8")).hexdigest()[:24] + '"'
 
 
@@ -137,7 +161,13 @@ class Gateway:
                  max_pending: Optional[int] = None,
                  route_budgets: Optional[Dict[str, float]] = None,
                  result_cache_entries: int = 4096,
-                 result_cache_bytes: int = 32 << 20):
+                 result_cache_bytes: int = 32 << 20,
+                 max_jobs_queued: int = 8,
+                 jobs_keep_finished: int = 64,
+                 jobs_yield_s: float = 0.002,
+                 jobs_yield_duty: float = 1.0,
+                 jobs_slab: int = 64,
+                 jobs_state_dir: Optional[str] = None):
         self.engine = engine
         self.scheduler = scheduler or BatchScheduler(
             engine, max_batch=max_batch, flush_after_ms=flush_after_ms,
@@ -164,6 +194,12 @@ class Gateway:
             "by_route": Counter(), "by_code": Counter()}
         #: route name -> wall-time histogram over every _run (ok + error)
         self.latency: Dict[str, LatencyHistogram] = {}
+        #: async batch-analytics jobs, pinned to this process's executor
+        self.jobs = JobManager(
+            engine, max_queued=max_jobs_queued,
+            keep_finished=jobs_keep_finished, yield_s=jobs_yield_s,
+            yield_duty=jobs_yield_duty, slab=jobs_slab,
+            state_dir=jobs_state_dir)
         engine.add_invalidate_listener(self._on_invalidate)
         self._routes = (
             ("get-vector", ("get-vector", "{ontology}", "{model}"),
@@ -182,6 +218,18 @@ class Gateway:
              VersionsRequest, self._handle_versions),
             ("lineage", ("lineage", "{ontology}"),
              LineageRequest, self._handle_lineage),
+            # the "submit" literal MUST precede the {job_id} wildcard:
+            # _match takes the first full match among equal-length
+            # patterns, and both are two segments under /jobs
+            ("job-submit", ("jobs", "submit"),
+             JobSubmitRequest, self._handle_job_submit),
+            ("job-result", ("jobs", "{job_id}", "result"),
+             JobResultRequest, self._handle_job_result),
+            ("job-cancel", ("jobs", "{job_id}", "cancel"),
+             JobCancelRequest, self._handle_job_cancel),
+            ("jobs", ("jobs",), JobListRequest, self._handle_jobs_list),
+            ("job-status", ("jobs", "{job_id}"),
+             JobStatusRequest, self._handle_job_status),
         )
 
     # --------------------------- lifecycle ----------------------------- #
@@ -192,6 +240,7 @@ class Gateway:
         (and keep notifying) a dead gateway."""
         self._closed = True
         self.engine.remove_invalidate_listener(self._on_invalidate)
+        self.jobs.close()
         if self._owns_scheduler:
             self.scheduler.stop(drain=True, timeout=timeout)
 
@@ -437,6 +486,7 @@ class Gateway:
             hists = dict(self.latency)
         if self.result_cache is not None:
             gw["result_cache"] = self.result_cache.stats()
+        gw["jobs"] = self.jobs.stats()
         return StatsResponse(
             scheduler=sched, cache=self.engine.cache_stats(), gateway=gw,
             latency={route: h.snapshot()
@@ -453,6 +503,130 @@ class Gateway:
         return VersionsResponse(
             ontology=req.ontology, versions=list(versions), latest=latest,
             models=self._models(req.ontology, latest))
+
+    # ------------------------- job handlers ---------------------------- #
+    @staticmethod
+    def _job_status_response(pub: Dict[str, Any]) -> JobStatusResponse:
+        fields = {f.name for f in dataclasses.fields(JobStatusResponse)}
+        return JobStatusResponse(**{k: v for k, v in pub.items()
+                                    if k in fields})
+
+    def _req_str_list(self, name: str, value) -> List[str]:
+        if not isinstance(value, list) or not value or \
+                not all(isinstance(x, str) and x.strip() for x in value):
+            raise ApiError(
+                "BAD_REQUEST",
+                f"{name} must be a non-empty list of non-empty strings",
+                details={"field": name})
+        return list(value)
+
+    def _validate_job_submit(self, req: JobSubmitRequest
+                             ) -> Tuple[str, Dict[str, Any]]:
+        """Full boundary validation of one job submission — coordinates
+        resolve, per-kind required fields are present, defaults (latest
+        version, previous release, all models) are pinned here so the
+        job's status echoes exactly what will run. No analytics work
+        happens before the queue-bound check in ``JobManager.submit``
+        (which this precedes only by dict lookups — the OVERLOADED
+        fast-reject budget stays in the sub-millisecond range)."""
+        kind = _req_str("kind", req.kind)
+        if kind not in JOB_KINDS:
+            raise ApiError(
+                "BAD_REQUEST",
+                f"unknown job kind {kind!r}; expected one of "
+                f"{', '.join(JOB_KINDS)}",
+                details={"kind": kind, "known_kinds": list(JOB_KINDS)})
+        ontology = _req_str("ontology", req.ontology)
+        k = _req_int("k", req.k, minimum=1)
+        spec: Dict[str, Any] = {"ontology": ontology, "k": k,
+                                "model": None, "version": None,
+                                "version_b": None}
+        if kind == "knn-join":
+            model = _req_str("model", req.model)
+            classes = self._req_str_list("classes", req.classes)
+            spec["model"] = model
+            spec["version"] = self._resolve_coords(
+                ontology, model, _opt_version(req.version))
+            spec["classes"] = classes
+        elif kind == "drift":
+            model = _req_str("model", req.model)
+            spec["model"] = model
+            version_b = self._resolve_coords(
+                ontology, model, _opt_version(req.version_b))
+            if req.version is None:
+                versions = self._versions(ontology)
+                i = versions.index(version_b)
+                if i == 0:
+                    raise ApiError(
+                        "BAD_REQUEST",
+                        f"drift needs two releases: {version_b!r} is the "
+                        f"oldest published version of {ontology!r}",
+                        details={"ontology": ontology,
+                                 "version_b": version_b})
+                version_a = versions[i - 1]
+            else:
+                version_a = _req_str("version", req.version)
+            if version_a == version_b:
+                raise ApiError(
+                    "BAD_REQUEST",
+                    f"drift versions must differ, got {version_a!r} twice",
+                    details={"version": version_a})
+            # the older release must also carry this model
+            self._resolve_coords(ontology, model, version_a)
+            spec["version"] = version_a
+            spec["version_b"] = version_b
+            spec["classes"] = (None if req.classes is None
+                               else self._req_str_list("classes",
+                                                       req.classes))
+        else:  # compare
+            version = self._resolve_coords(ontology, None,
+                                           _opt_version(req.version))
+            spec["version"] = version
+            if req.models is None:
+                models = self._models(ontology, version)
+            else:
+                models = self._req_str_list("models", req.models)
+                for m in models:
+                    self._resolve_coords(ontology, m, version)
+            spec["models"] = models
+            spec["sample"] = (None if req.sample is None
+                              else _req_int("sample", req.sample,
+                                            minimum=1))
+        return kind, spec
+
+    def _handle_job_submit(self, req: JobSubmitRequest) -> JobStatusResponse:
+        self._check_open()
+        kind, spec = self._validate_job_submit(req)
+        return self._job_status_response(self.jobs.submit(kind, spec))
+
+    def _handle_job_status(self, req: JobStatusRequest) -> JobStatusResponse:
+        _req_str("job_id", req.job_id)
+        return self._job_status_response(self.jobs.status(req.job_id))
+
+    def _handle_job_result(self, req: JobResultRequest) -> JobResultPage:
+        self._check_open()
+        _req_str("job_id", req.job_id)
+        offset = _req_int("offset", req.offset, minimum=0)
+        requested = _req_int("limit", req.limit, minimum=1)
+        limit = min(requested, self.page_limit_max)
+        kind, rows = self.jobs.result_rows(req.job_id)
+        total = len(rows)
+        page = rows[offset:offset + limit]
+        end = offset + len(page)
+        return JobResultPage(
+            job_id=req.job_id, kind=kind, offset=offset, limit=limit,
+            total=total, rows=page,
+            next_offset=end if end < total else None,
+            requested_limit=requested,
+            etag=job_etag(req.job_id, offset, limit, requested))
+
+    def _handle_job_cancel(self, req: JobCancelRequest) -> JobStatusResponse:
+        _req_str("job_id", req.job_id)
+        return self._job_status_response(self.jobs.cancel(req.job_id))
+
+    def _handle_jobs_list(self, req: JobListRequest) -> JobListResponse:
+        return JobListResponse(jobs=[self._job_status_response(d)
+                                     for d in self.jobs.list_jobs()])
 
     def _handle_lineage(self, req: LineageRequest) -> LineageResponse:
         version = self._resolve_coords(req.ontology, None,
@@ -560,6 +734,51 @@ class Gateway:
                 version: Optional[str] = None) -> LineageResponse:
         return self._run("lineage", LineageRequest(ontology, version),
                          self._handle_lineage)
+
+    def submit_job(self, kind: str, ontology: str, *,
+                   model: Optional[str] = None,
+                   version: Optional[str] = None,
+                   version_b: Optional[str] = None,
+                   classes: Optional[List[str]] = None, k: int = 10,
+                   models: Optional[List[str]] = None,
+                   sample: Optional[int] = None) -> JobStatusResponse:
+        return self._run("job-submit", JobSubmitRequest(
+            kind=kind, ontology=ontology, model=model, version=version,
+            version_b=version_b, classes=classes, k=k, models=models,
+            sample=sample), self._handle_job_submit)
+
+    def job_status(self, job_id: str) -> JobStatusResponse:
+        return self._run("job-status", JobStatusRequest(job_id),
+                         self._handle_job_status)
+
+    def job_result(self, job_id: str, *, offset: int = 0,
+                   limit: int = 1000) -> JobResultPage:
+        return self._run("job-result",
+                         JobResultRequest(job_id, offset, limit),
+                         self._handle_job_result)
+
+    def job_cancel(self, job_id: str) -> JobStatusResponse:
+        return self._run("job-cancel", JobCancelRequest(job_id),
+                         self._handle_job_cancel)
+
+    def jobs_list(self) -> JobListResponse:
+        return self._run("jobs", JobListRequest(), self._handle_jobs_list)
+
+    def job_wait(self, job_id: str, *, poll_s: float = 0.02,
+                 timeout: Optional[float] = None) -> JobStatusResponse:
+        """Poll until the job reaches a terminal state (test/CLI helper;
+        network clients poll the route themselves)."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            st = self.job_status(job_id)
+            if st.state in ("DONE", "FAILED", "CANCELLED"):
+                return st
+            if deadline is not None and time.monotonic() > deadline:
+                raise ApiError("TIMEOUT",
+                               f"job {job_id} unresolved after {timeout}s",
+                               details={"job_id": job_id,
+                                        "state": st.state})
+            time.sleep(poll_s)
 
     # ---------------------------- dispatch ----------------------------- #
     def _count_error(self, e: ApiError) -> None:

@@ -31,6 +31,10 @@ semantics — nothing here reaches past ``Gateway``'s public surface):
   pages (pinned to the first page's version) and emitting the paper's
   ``{class: vector}`` JSON object one page-sized chunk at a time — the
   full body of a >100k-class ontology is never materialized.
+* **batch-job results** — ``GET /jobs/{id}/result`` rides the same
+  cursor machinery: pages of a DONE job carry strong ETags (304-able —
+  a finished job's rows are immutable), and ``?stream=true`` chunks the
+  full row set as one JSON array, one page in memory at a time.
 * **latency histograms** — requests dispatch through ``Gateway._run``,
   so ``/stats`` over HTTP reports the same per-route histograms as the
   in-process gateway, now including this transport's traffic.
@@ -43,8 +47,7 @@ Usage::
 
 or ``python -m repro_torch.launch.serve --http 8080`` for a full service.
 
-This is the port of ``repro.api.http`` without the batch-job result
-routes; those come with the jobs slice.
+This is the port of ``repro.api.http``, job-result routes included.
 """
 from __future__ import annotations
 
@@ -59,8 +62,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 from urllib.parse import parse_qsl, urlsplit
 
 from ..core.metrics import LatencyHistogram
-from .gateway import API_VERSION, Gateway, download_etag
-from .schema import ApiError, DownloadRequest
+from .gateway import API_VERSION, Gateway, download_etag, job_etag
+from .schema import ApiError, DownloadRequest, JobResultRequest
 
 _TRUE = frozenset(("1", "true", "yes", "on"))
 _FALSE = frozenset(("0", "false", "no", "off"))
@@ -70,6 +73,12 @@ _FALSE = frozenset(("0", "false", "no", "off"))
 #: keyed on the effective limit)
 _DOWNLOAD_DEFAULTS = {f.name: f.default
                       for f in dataclasses.fields(DownloadRequest)}
+_JOB_RESULT_DEFAULTS = {f.name: f.default
+                        for f in dataclasses.fields(JobResultRequest)}
+
+#: routes whose responses are paged cursors: they accept the transport
+#: `stream` flag and carry a strong ETag on every page
+_PAGED_ROUTES = frozenset(("download", "job-result"))
 
 
 def _parse_bool(raw) -> Any:
@@ -256,11 +265,12 @@ class GatewayHTTPHandler(BaseHTTPRequestHandler):
                 name, cls, _handler, route_params = gw._match(path)
             except ApiError:
                 name, cls, _handler, route_params = None, None, None, {}
-            # `stream` is a transport flag on the download route only; on
-            # any other route it stays in the payload so the schema
-            # rejects it exactly like the in-process entry point would
+            # `stream` is a transport flag on the paged routes (download,
+            # job-result) only; on any other route it stays in the
+            # payload so the schema rejects it exactly like the
+            # in-process entry point would
             stream = False
-            if name == "download":
+            if name in _PAGED_ROUTES:
                 flags = []
                 if "stream" in payload:
                     flags.append(payload.pop("stream"))
@@ -313,6 +323,13 @@ class GatewayHTTPHandler(BaseHTTPRequestHandler):
                     return
                 if stream:
                     return self._stream_download(gw, route_params, payload)
+            elif name == "job-result":
+                if not stream and self.command == "GET" \
+                        and self._maybe_job_not_modified(gw, route_params,
+                                                         payload):
+                    return
+                if stream:
+                    return self._stream_job_result(gw, route_params, payload)
             match = (name, cls, _handler, route_params) if name else None
             wire = gw.handle(path, payload, match=match)
             if wire.get("type") == "stats_response":
@@ -335,7 +352,8 @@ class GatewayHTTPHandler(BaseHTTPRequestHandler):
             status = wire.get("status", 200) if wire.get("type") == "error" \
                 else 200
             headers: Tuple[Tuple[str, str], ...] = ()
-            if wire.get("type") == "download_page" and wire.get("etag"):
+            if wire.get("type") in ("download_page", "job_result_page") \
+                    and wire.get("etag"):
                 headers = (("ETag", wire["etag"]),)
             self._send_json(status, wire, headers)
         except (BrokenPipeError, ConnectionResetError):
@@ -402,6 +420,49 @@ class GatewayHTTPHandler(BaseHTTPRequestHandler):
         self.send_response(304)
         self.send_header("ETag", etag)
         self.end_headers()             # 304 carries no body by definition
+        return True
+
+    def _maybe_job_not_modified(self, gw: Gateway,
+                                route_params: Dict[str, str],
+                                payload: Dict[str, Any]) -> bool:
+        """If-None-Match short circuit for job-result pages. Same
+        strictness contract as the download shortcut, plus one extra
+        gate: the stored validator only vouches for a **DONE** job —
+        a matching ETag presented while the job is still running (or
+        cancelled/failed) falls through so the gateway produces its
+        structured per-state error instead of a bogus 304."""
+        t0 = time.perf_counter()
+        inm = self.headers.get("If-None-Match")
+        if not inm or gw._closed:
+            return False
+        job_id = route_params.get("job_id")
+        if set(payload) - set(_JOB_RESULT_DEFAULTS):
+            return False               # unknown fields → full path 400s
+        if payload.get("job_id", job_id) != job_id:
+            return False               # route conflict → full path 400s
+        offset = payload.get("offset", _JOB_RESULT_DEFAULTS["offset"])
+        limit = payload.get("limit", _JOB_RESULT_DEFAULTS["limit"])
+        if not (isinstance(job_id, str) and job_id.strip()
+                and isinstance(offset, int) and isinstance(limit, int)
+                and not isinstance(offset, bool)
+                and not isinstance(limit, bool)
+                and limit >= 1 and offset >= 0):
+            return False               # malformed → full path rejects it
+        try:
+            state = gw.jobs.status(job_id).get("state")
+        except Exception:
+            return False               # unknown job → full path 404s
+        if state != "DONE":
+            return False
+        etag = job_etag(job_id, offset, min(limit, gw.page_limit_max),
+                        limit)
+        if not _etag_matches(inm, etag):
+            return False
+        self.server._count("not_modified")
+        self.server._observe_304(time.perf_counter() - t0)
+        self.send_response(304)
+        self.send_header("ETag", etag)
+        self.end_headers()
         return True
 
     # ------------------------- streaming download ---------------------- #
@@ -489,6 +550,82 @@ class GatewayHTTPHandler(BaseHTTPRequestHandler):
         except Exception:
             # headers are gone — the only honest signal left is a torn
             # chunked body, which every client treats as a failed fetch
+            self.close_connection = True
+
+    def _stream_job_result(self, gw: Gateway, route_params: Dict[str, str],
+                           payload: Dict[str, Any]) -> None:
+        """Chunked stream of a DONE job's result rows as one JSON array,
+        walking the gateway's cursor pages — the bulk-analytics
+        counterpart of ``_stream_download``. Same cursor semantics:
+        ``offset`` starts the stream, an explicit ``limit`` caps total
+        rows without the page clamp, peak memory is one page. Rows are
+        immutable once the job is DONE, so no version pinning is needed;
+        any non-DONE state surfaces as the gateway's structured error
+        before headers go out."""
+        known = set(_JOB_RESULT_DEFAULTS)
+        unknown = sorted(set(payload) - known)
+        if unknown:
+            return self._send_error(ApiError(
+                "BAD_REQUEST",
+                f"unknown field(s) for job-result stream: "
+                f"{', '.join(unknown)}",
+                details={"unknown_fields": unknown}))
+        clash = sorted(k for k in route_params
+                       if k in payload and payload[k] != route_params[k])
+        if clash:
+            return self._send_error(ApiError(
+                "BAD_REQUEST",
+                f"payload field(s) conflict with route: {', '.join(clash)}",
+                details={"conflicting_fields": clash}))
+        job_id = route_params.get("job_id")
+        cap = payload.get("limit")
+        if cap is not None and (isinstance(cap, bool)
+                                or not isinstance(cap, int) or cap < 1):
+            return self._send_error(ApiError(
+                "BAD_REQUEST",
+                f"limit must be an integer >= 1, got {cap!r}",
+                details={"field": "limit"}))
+        page_rows = self.server.stream_page_rows
+        try:
+            page = gw.job_result(
+                job_id, offset=payload.get("offset", 0),
+                limit=page_rows if cap is None else min(cap, page_rows))
+        except ApiError as e:
+            return self._send_error(e)
+        self.server._count("streams")
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.send_header("X-Bio-KGvec2go-Job", page.job_id)
+        self.send_header("X-Bio-KGvec2go-Kind", page.kind)
+        self.send_header("X-Bio-KGvec2go-Total", str(page.total))
+        self.end_headers()
+        try:
+            self._write_chunk(b"[")
+            first = True
+            remaining = cap
+            while True:
+                rows = page.rows if remaining is None \
+                    else page.rows[:remaining]
+                parts = []
+                for row in rows:
+                    parts.append(("" if first else ", ") + json.dumps(row))
+                    first = False
+                if parts:
+                    self._write_chunk("".join(parts).encode("utf-8"))
+                if remaining is not None:
+                    remaining -= len(rows)
+                    if remaining <= 0:
+                        break
+                if page.next_offset is None:
+                    break
+                page = gw.job_result(
+                    job_id, offset=page.next_offset,
+                    limit=page_rows if remaining is None
+                    else min(remaining, page_rows))
+            self._write_chunk(b"]")
+            self.wfile.write(b"0\r\n\r\n")           # chunked terminator
+        except Exception:
             self.close_connection = True
 
     def _write_chunk(self, data: bytes) -> None:

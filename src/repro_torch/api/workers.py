@@ -48,8 +48,8 @@ CPU intra-op thread pool does not survive a fork either).
 ``launch.serve --workers`` therefore trains in a subprocess before the
 pool starts.
 
-The port of ``repro.api.workers``, without the batch-job arguments (the
-port's gateway has no job routes yet).
+The port of ``repro.api.workers``; every worker's batch jobs mirror into
+one shared ``state_dir / "jobs"``.
 """
 from __future__ import annotations
 
@@ -268,7 +268,8 @@ def _worker_main(idx: int, registry_root: str, host: str, port: int,
                  stats_interval_s: float,
                  max_pending: Optional[int] = None,
                  result_cache_entries: int = 4096,
-                 result_cache_bytes: int = 32 << 20) -> None:
+                 result_cache_bytes: int = 32 << 20,
+                 max_jobs_queued: int = 8) -> None:
     """Body of one worker process (runs post-fork; exits via os._exit).
 
     Resolves its device and builds the full serving stack from scratch —
@@ -289,10 +290,17 @@ def _worker_main(idx: int, registry_root: str, host: str, port: int,
     registry = EmbeddingRegistry(registry_root)
     engine = ServingEngine(registry, cache_capacity=cache_capacity,
                            device=dev)
+    # jobs_state_dir is shared across the pool: each worker's JobManager
+    # mirrors its jobs there, so any worker can answer status/result/
+    # cancel for a job pinned to a sibling — and report a SIGKILL'd
+    # sibling's in-flight jobs as FAILED (the orphan rule).  The job
+    # executor thread starts on the first submit, after ``dev`` above.
     gw = Gateway(engine, max_batch=max_batch, flush_after_ms=flush_after_ms,
                  max_pending=max_pending,
                  result_cache_entries=result_cache_entries,
-                 result_cache_bytes=result_cache_bytes)
+                 result_cache_bytes=result_cache_bytes,
+                 max_jobs_queued=max_jobs_queued,
+                 jobs_state_dir=state_dir / "jobs")
 
     if inherited is not None:
         sock = inherited                      # fallback: contended accept
@@ -437,6 +445,7 @@ class WorkerPool:
                  max_pending: Optional[int] = None,
                  result_cache_entries: int = 4096,
                  result_cache_bytes: int = 32 << 20,
+                 max_jobs_queued: int = 8,
                  state_dir: Optional[str | Path] = None,
                  use_reuseport: Optional[bool] = None,
                  watch_interval_s: float = 0.25,
@@ -461,6 +470,7 @@ class WorkerPool:
         self.max_pending = max_pending
         self.result_cache_entries = result_cache_entries
         self.result_cache_bytes = result_cache_bytes
+        self.max_jobs_queued = max_jobs_queued
         self.restart = restart
         self.watch_interval_s = watch_interval_s
         self.stats_interval_s = stats_interval_s
@@ -546,7 +556,8 @@ class WorkerPool:
                     stats_interval_s=self.stats_interval_s,
                     max_pending=self.max_pending,
                     result_cache_entries=self.result_cache_entries,
-                    result_cache_bytes=self.result_cache_bytes)
+                    result_cache_bytes=self.result_cache_bytes,
+                    max_jobs_queued=self.max_jobs_queued)
             finally:
                 # _worker_main exits via its own os._exit(0); reaching
                 # here means it raised before serving
@@ -688,6 +699,9 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="result-cache entry bound per worker (0 disables)")
     ap.add_argument("--cache-bytes", type=int, default=32 << 20,
                     help="result-cache byte bound per worker (0 disables)")
+    ap.add_argument("--max-jobs-queued", type=int, default=8,
+                    help="per-worker batch-job queue bound; past it "
+                         "submissions fast-reject with HTTP 429")
     ap.add_argument("--no-reuseport", action="store_true",
                     help="force the inherited-listener fallback")
     args = ap.parse_args(argv)
@@ -699,6 +713,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         max_pending=args.max_pending,
         result_cache_entries=args.cache_entries,
         result_cache_bytes=args.cache_bytes,
+        max_jobs_queued=args.max_jobs_queued,
         state_dir=args.state_dir,
         use_reuseport=False if args.no_reuseport else None,
         watch_interval_s=args.watch_interval_ms / 1e3,

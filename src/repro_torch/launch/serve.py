@@ -98,6 +98,10 @@ def _parser() -> argparse.ArgumentParser:
                          "(0 disables the cache)")
     ap.add_argument("--cache-bytes", type=int, default=32 << 20,
                     help="result-cache wire-byte bound (0 disables)")
+    ap.add_argument("--max-jobs-queued", type=int, default=8,
+                    help="batch-job queue bound (per worker); past it "
+                         "job submissions fast-reject with OVERLOADED / "
+                         "HTTP 429 + Retry-After")
     return ap
 
 
@@ -142,7 +146,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[Dict[str, Any]]:
                  flush_after_ms=args.flush_after_ms,
                  max_pending=args.max_pending,
                  result_cache_entries=args.cache_entries,
-                 result_cache_bytes=args.cache_bytes)
+                 result_cache_bytes=args.cache_bytes,
+                 max_jobs_queued=args.max_jobs_queued)
 
     if args.http is not None:
         server = serve_http(gw, host=args.host, port=args.http, start=False)
@@ -164,6 +169,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[Dict[str, Any]]:
                 f"?stream=true'   # chunked full table",
                 f"curl '{base}/autocomplete/{args.ontology}/{args.model}"
                 f"?prefix=term'",
+                f"curl -X POST '{base}/jobs/submit' -d '{{\"kind\": "
+                f"\"knn-join\", \"ontology\": \"{args.ontology}\", "
+                f"\"model\": \"{args.model}\", \"classes\": [\"{q}\"], "
+                f"\"k\": 5}}'   # -> {{job_id}}; poll /jobs/{{job_id}}",
+                f"curl '{base}/jobs/JOB_ID/result?stream=true'"
+                f"   # chunked rows once DONE",
                 f"curl '{base}/stats'   # per-route latency histograms"):
             print(f"[serve]   {line}")
         try:
@@ -193,6 +204,7 @@ def _serve_pool(args) -> None:
                       max_pending=args.max_pending,
                       result_cache_entries=args.cache_entries,
                       result_cache_bytes=args.cache_bytes,
+                      max_jobs_queued=args.max_jobs_queued,
                       state_dir=args.state_dir)
     pool.start()
     try:
@@ -205,6 +217,10 @@ def _serve_pool(args) -> None:
         print(f"[serve]   curl '{base}/health'")
         print(f"[serve]   curl '{base}/closest-concepts/{args.ontology}/"
               f"{args.model}?query=GO:0000001&k=5'")
+        print(f"[serve]   curl -X POST '{base}/jobs/submit' -d "
+              f"'{{\"kind\": \"knn-join\", \"ontology\": \"{args.ontology}\", "
+              f"\"model\": \"{args.model}\", "
+              f"\"classes\": [\"GO:0000001\"], \"k\": 5}}'")
         print(f"[serve]   curl '{base}/stats'   # merged across workers",
               flush=True)
         stop = threading.Event()

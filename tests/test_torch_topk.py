@@ -72,6 +72,74 @@ def _assert_match(got, want, n, note=""):
         assert (i[r, :v[r]] < n).all(), note           # no pad row leaks
 
 
+TIE_TOL = 1e-6      # on the card, runs of plain scores this close order freely
+
+
+def _ids_agree(a, b, s_plain):
+    """The card's contract (chip_smoke's rule, copied): ids equal position
+    by position, except inside runs of plain scores closer than TIE_TOL,
+    where only the sets must match; a run cut by the end of the row may
+    hold different members.  Returns one (lo, hi, span) per run that
+    needed the set rule, span being the run's plain-score spread."""
+    if np.array_equal(a, b):
+        return []
+    n = len(a)
+    brk = np.ones(n, bool)
+    brk[1:] = (s_plain[:-1] - s_plain[1:]) >= TIE_TOL
+    starts = np.flatnonzero(brk)
+    ends = np.append(starts[1:], n)
+    run_of = np.cumsum(brk) - 1
+    runs = []
+    for rid in np.unique(run_of[a != b]):
+        lo, hi = int(starts[rid]), int(ends[rid])
+        if hi < n:
+            assert np.array_equal(np.sort(a[lo:hi]), np.sort(b[lo:hi])), (
+                f"ids differ outside a near-tie run at [{lo}, {hi}): "
+                f"{a[lo:hi]} vs {b[lo:hi]}, plain scores {s_plain[lo:hi]}")
+        runs.append((lo, hi, float(s_plain[lo] - s_plain[hi - 1])))
+    assert len(np.unique(a)) == n, "duplicate ids in the kernel's result"
+    return runs
+
+
+def _assert_match_card(got, want, n, note=""):
+    """_assert_match with ids under the near-tie rule; prints each run
+    the rule relaxed (row, positions, ids both ways, plain-score span)."""
+    s, i, v = (_np(x) for x in got)
+    sr, ir, vr = (_np(x) for x in want)
+    np.testing.assert_array_equal(v, vr, err_msg=note)
+    assert s.shape == sr.shape, (note, s.shape, sr.shape)
+    for r in range(s.shape[0]):
+        for lo, hi, span in _ids_agree(i[r, :v[r]], ir[r, :v[r]],
+                                       sr[r, :v[r]]):
+            print(f"{note} row {r} near-tie run [{lo}, {hi}): kernel ids "
+                  f"{i[r, lo:hi].tolist()} plain ids {ir[r, lo:hi].tolist()}"
+                  f" plain scores {sr[r, lo:hi].tolist()} kernel scores "
+                  f"{s[r, lo:hi].tolist()} span {span:.3e}")
+        np.testing.assert_allclose(s[r, :v[r]], sr[r, :v[r]], rtol=TOL,
+                                   atol=TOL, err_msg=note)
+        assert (s[r, v[r]:] < -1e29).all(), note       # sentinel tail
+        assert (i[r, :v[r]] < n).all(), note           # no pad row leaks
+
+
+@pytest.mark.parametrize("swap,ok", [((3, 4), True), ((2, 3), False),
+                                     ((5, 6), True), ((0, 6), False)])
+def test_near_tie_rule(swap, ok):
+    """The card's id rule: a swap inside a run of plain scores closer
+    than TIE_TOL passes (a run cut by the row's end too), a swap across
+    runs fails."""
+    s = np.array([0.9, 0.8, 0.7, 0.6, 0.6 - 5e-7, 0.5, 0.5 - 2e-7],
+                 np.float32)
+    b = np.arange(7, dtype=np.int32)
+    a = b.copy()
+    a[list(swap)] = a[list(swap[::-1])]
+    if ok:
+        assert [lo for lo, _, _ in _ids_agree(a, b, s)] == [swap[0]]
+    else:
+        with pytest.raises(AssertionError, match="outside a near-tie"):
+            _ids_agree(a, b, s)
+    assert _ids_agree(b, b, s) == []
+
+
 def _jax_oracle(q, e, nrm, k, excl):
     return jref.topk_cosine_ref(jnp.asarray(q), jnp.asarray(_unit(e, nrm)), k,
                                 exclude_rows=jnp.asarray(excl))
@@ -457,7 +525,8 @@ def test_step_check_rejects_what_the_kernels_do_not_take(bad, msg):
 @pytest.mark.parametrize("k", [10, 65, 2000, "N"])
 def test_kernel_matches_plain_on_card(k):
     """The CUDA kernel against its plain version on the card (both k
-    paths, k up to N); skips on machines without one."""
+    paths, k up to N), ids under the near-tie rule (the two sum in another
+    order); skips on machines without one."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -472,8 +541,8 @@ def test_kernel_matches_plain_on_card(k):
         torch.from_numpy(q).to(dev), torch.from_numpy(e).to(dev), k,
         exclude_rows=torch.from_numpy(excl).to(dev),
         norms=torch.from_numpy(nrm).to(dev), block_n=512)
-    _assert_match(tuple(t.cpu() for t in got), tuple(t.cpu() for t in want),
-                  3000, f"card k={k}")
+    _assert_match_card(tuple(t.cpu() for t in got),
+                       tuple(t.cpu() for t in want), 3000, f"card k={k}")
 
 
 @pytest.mark.parametrize("qn,want", [
