@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's serving, update and LM-generation paths the way a user
-does and holds every kernel to its plain PyTorch version on the card.
+Drives the port's serving, update, LM-generation and LM-training paths the
+way a user does and holds every kernel to its plain PyTorch version on the
+card.
 Phases, in order; any failure exits non-zero:
 
   1. build    compile ``src/repro_torch/kernels/csrc/*.cu`` (nvcc, sm_90a,
@@ -31,7 +32,10 @@ Phases, in order; any failure exits non-zero:
               Sq < Skv, W = 1, W >= S, ragged S, one full h2o-danube
               layer (S 6144, W 4096, d 80) on 4 heads, and the tile plan's
               edges (ragged Sq with q_offset, W and Skv not multiples of
-              the key tile, d = 128, 16 and 32)
+              the key tile, d = 128, 16 and 32); on each, the forward's
+              log-sum-exp and the three backward kernels (bwd_dot,
+              backward_dkdv, backward_dq) on the plain forward's saved
+              tensors, and two backward launches bit for bit on a few
   5. serve    two versions of a 40,000 x 200 GO-size snapshot published
               through the port's registry; ``repro_torch.launch.serve``
               in client-session mode, then HTTP over the gateway, every
@@ -86,7 +90,18 @@ Phases, in order; any failure exits non-zero:
               (2e-3, same argmax), 24 SWA launches per prefill; then a
               bf16 generation through ``repro_torch.launch.generate``
               (batch 2, prompt 6144, 32 greedy decode steps), ids in vocab
- 10. numbers  top-k kernel, plain, library and host-to-device times (CUDA
+ 10. train    h2o-danube-1.8b training at its published width: in fp32
+              two layers (B = 1, S = 6144 > W) with the kernels against the
+              same step with the plain SWA forward and backward
+              substituted (loss 1e-5 relative, each gradient leaf 2e-4 *
+              max|g|); then bf16, 24 layers, remat "full", through
+              ``repro_torch.launch.train`` (a 2-step warm-up run, then 5
+              measured steps): step ms, tokens/s, peak memory, 48 SWA
+              forwards and 24 launches of each backward entry point a
+              step, finite losses; 8 steps on one repeated batch, whose
+              losses fall, 2 of them under torch.profiler (device-busy
+              share, device ms by kernel group)
+ 11. numbers  top-k kernel, plain, library and host-to-device times (CUDA
               events) at N = 40k and 100k; kge_score forward and backward
               times at (1024, 32, 200) (back-to-back calls, profiler device
               time, 50 calls replayed from one CUDA graph) and the
@@ -95,8 +110,11 @@ Phases, in order; any failure exits non-zero:
               kernel at one h2o-danube layer's shape, bf16 and fp32,
               against its bound, its plain version and
               ``scaled_dot_product_attention``; the device-busy share of a
-              full-width decode step
- 11. alloc    only when ``--phases`` names it: host time of the kge_score
+              full-width decode step; the SWA backward at one layer's
+              shape (B = 1 and 2, bf16 and fp32) against its bound, its
+              plain version and SDPA forward + backward, and the forward
+              with its log-sum-exp against without
+ 12. alloc    only when ``--phases`` names it: host time of the kge_score
               backward's output allocations two ways, in turns: four
               tensors (what the wrapper allocates) against one (3, B, d)
               buffer seen three ways
@@ -107,8 +125,9 @@ Run from the repository root with no arguments::
 
 It prints JSON lines as it goes, then the card's name and power limit,
 the kernels line, and last ``{"ok": true, "device": {...}}``.
-``--phases`` runs a subset (``build,kernels``, ``build,kge`` or
-``build,swa,lm`` is a quick check of one slice; ``build,serve,workers``
+``--phases`` runs a subset (``build,kernels``, ``build,kge``,
+``build,swa,lm`` or ``build,swa,train`` is a quick check of one slice;
+``build,serve,workers``
 the serving paths; ``build,kge,update`` the update path alone;
 ``build,jobs`` the batch jobs; ``alloc`` the backward's allocation
 choice);
@@ -200,6 +219,21 @@ SWA_CASES = (
 LM_ARCH = "h2o-danube-1.8b"
 LM_BATCH, LM_PROMPT, LM_STEPS = 2, 6144, 32
 LM_TOL = 2e-3               # the reference's TOL (tests/test_arch_consistency.py)
+#: the training run: h2o-danube-1.8b at its published width and depth,
+#: bf16, remat "full", one sequence of 6144 tokens (past the 4096 window)
+TRAIN_BATCH, TRAIN_SEQ = 1, 6144
+TRAIN_WARM_STEPS, TRAIN_STEPS = 2, 5
+#: profiled steps on one repeated batch (3 warm-up + 2 profiled + 1 + 2
+#: timed: 8 steps, whose losses must fall over the first 5)
+TRAIN_REPEAT_STEPS = 2
+#: the fp32 check: 2 layers at full width, the kernels' step against the
+#: plain SWA forward and backward substituted; loss within 1e-5
+#: relative, each gradient leaf within 2e-4 * max|g_plain| of the leaf
+#: (fp32 sums in another order, as tests/test_torch_lm_train.py holds the
+#: port to the reference)
+TRAIN_CHECK_LAYERS = 2
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 2e-4
 BF16_FLOP_PER_S = 989e12    # H100 SXM data sheet, dense bf16 tensor cores
 SMALL_ENTRY = ("topk_score_select", "topk_merge_lists")
 LARGE_ENTRY = ("topk_score_keys", "topk_select_sort", "topk_merge_path")
@@ -661,39 +695,87 @@ def _swa_inputs(B: int, hq: int, hkv: int, sq: int, skv: int, hd: int,
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
+def _swa_close(got, want, dtype, note: str) -> float:
+    """Max abs error of ``got`` against ``want``; fails past the tolerance:
+    fp32 SWA_TOL, bf16 SWA_BF16_TOL * (1 + |plain|)."""
+    import torch
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    tol = SWA_TOL if dtype == torch.float32 else SWA_BF16_TOL * (1 + want.abs())
+    check(bool(torch.isfinite(got).all()) and bool((diff <= tol).all()),
+          f"{note}: off by {float(diff.max())}")
+    return float(diff.max())
+
+
 def phase_swa() -> dict:
-    """The sliding-window attention kernel against its plain version on the
-    card, fp32 and bf16, over the reference's test shapes, reduced and full
-    h2o-danube, and the edges of the mask."""
+    """The sliding-window attention kernels against their plain versions on
+    the card, fp32 and bf16, over the reference's test shapes, reduced and
+    full h2o-danube, and the edges of the mask: the forward; the forward's
+    log-sum-exp (SWA_TOL * (1 + |plain|) in both dtypes: it is fp32 on
+    both sides); the three backward kernels on the plain forward's saved
+    tensors; two backward launches bit for bit on three cases."""
     import torch
     from repro_torch.kernels import ref, swa_attention as sw
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
     err = {"float32": 0.0, "bfloat16": 0.0}
-    cases = []
+    err_lse, err_bwd = dict(err), dict(err)
+    cases, same_bits = [], 0
     sw.reset_launches()
-    for note, (B, hq, hkv, sq, skv, hd, W, off) in SWA_CASES:
+    for n, (note, (B, hq, hkv, sq, skv, hd, W, off)) in enumerate(SWA_CASES):
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = _swa_inputs(B, hq, hkv, sq, skv, hd, dtype, gen)
-            got = sw.swa_attention_forward(q, k, v, W, off).float()
-            want = ref.swa_attention_ref(q[None], k[None], v[None], W,
-                                         off)[0].float()
-            diff = (got - want).abs()
             name = str(dtype).replace("torch.", "")
-            tol = SWA_TOL if dtype == torch.float32 \
-                else SWA_BF16_TOL * (1 + want.abs())
-            check(bool(torch.isfinite(got).all()) and bool((diff <= tol).all()),
-                  f"swa {note} {name}: off by {float(diff.max())}")
-            err[name] = max(err[name], float(diff.max()))
+            q, k, v = _swa_inputs(B, hq, hkv, sq, skv, hd, dtype, gen)
+            want = ref.swa_attention_ref(q[None], k[None], v[None], W,
+                                         off)[0]
+            err[name] = max(err[name], _swa_close(
+                sw.swa_attention_forward(q, k, v, W, off), want, dtype,
+                f"swa {note} {name}"))
+            # the training forward: the same output and the log-sum-exp
+            o, lse = sw.swa_attention_forward(q, k, v, W, off,
+                                              return_lse=True)
+            _swa_close(o, want, dtype, f"swa {note} {name} (with lse)")
+            lse_p = ref.swa_attention_lse_ref(q[None], k[None], W, off)[0]
+            seen = torch.isfinite(lse_p)
+            check(torch.equal(torch.isfinite(lse), seen),
+                  f"swa {note} {name}: lse finite where the plain one is not")
+            d_lse = (lse - lse_p).abs()[seen]
+            check(bool((d_lse <= SWA_TOL * (1 + lse_p.abs()[seen])).all()),
+                  f"swa {note} {name}: lse off by {float(d_lse.max())}")
+            err_lse[name] = max(err_lse[name], float(d_lse.max()))
+            # the backward on the plain forward's saved tensors
+            do = torch.randn(q.shape, generator=gen, device=DEV).to(dtype)
+            got = sw.swa_attention_backward(q, k, v, want, lse_p, do, W, off)
+            plain = ref.swa_attention_backward_ref(
+                q[None], k[None], v[None], want[None], lse_p[None], do[None],
+                W, off)
+            for g, w, what in zip(got, plain, ("dq", "dk", "dv")):
+                err_bwd[name] = max(err_bwd[name], _swa_close(
+                    g, w[0], dtype, f"swa backward {what} {note} {name}"))
+            if n % 5 == 4:
+                again = sw.swa_attention_backward(q, k, v, want, lse_p, do,
+                                                  W, off)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"swa backward {note} {name}: two launches differ")
+                same_bits += 1
             cases.append(f"{note} {name}")
-            del q, k, v, got, want, diff
+            del q, k, v, want, o, lse, lse_p, do, got, plain
     torch.cuda.synchronize()
-    check(sw.launches["swa_attention_forward"] == len(cases),
-          "swa: a case launched no kernel")
+    n_bwd = len(cases) + same_bits
+    check(sw.launches == {"swa_attention_forward": 2 * len(cases),
+                          "swa_attention_bwd_dot": n_bwd,
+                          "swa_attention_backward_dkdv": n_bwd,
+                          "swa_attention_backward_dq": n_bwd},
+          f"swa: launches {sw.launches}, want one a call")
     out = {"phase": "swa", "cases": len(cases), "max_abs_err_fp32":
            err["float32"], "max_abs_err_bf16": err["bfloat16"],
+           "max_abs_err_lse": err_lse,
+           "max_abs_err_backward_fp32": err_bwd["float32"],
+           "max_abs_err_backward_bf16": err_bwd["bfloat16"],
+           "backward_same_bits_cases": same_bits,
            "tolerance": {"fp32": SWA_TOL,
-                         "bf16": f"{SWA_BF16_TOL} * (1 + |plain|)"}}
+                         "bf16": f"{SWA_BF16_TOL} * (1 + |plain|)",
+                         "lse": f"{SWA_TOL} * (1 + |plain|)"}}
     emit(out)
     return out
 
@@ -2094,8 +2176,12 @@ def phase_lm() -> dict:
     run = generate.main(argv)
     torch.cuda.synchronize()
     launches = dict(sw.launches)
-    check(launches["swa_attention_forward"] == get_config(LM_ARCH).n_layers,
-          f"generation launched {launches} SWA kernels, want one per layer")
+    check(launches == {"swa_attention_forward": get_config(LM_ARCH).n_layers,
+                       "swa_attention_bwd_dot": 0,
+                       "swa_attention_backward_dkdv": 0,
+                       "swa_attention_backward_dq": 0},
+          f"generation launched {launches} SWA kernels, want one forward "
+          f"per layer and no backward")
     ids = np.asarray(run["ids"])
     check(ids.shape == (LM_BATCH, LM_STEPS + 1), f"ids shape {ids.shape}")
     out = {"phase": "lm", "fp32_consistency": consistency,
@@ -2103,6 +2189,170 @@ def phase_lm() -> dict:
            "warmup_generation": {k: warm[k] for k in (
                "prefill_ms", "decode_ms_per_token")},
            "ids_row0": run["ids"][0], "launches": launches}
+    emit(out)
+    return out
+
+
+def _train_batch(cfg, seed: int) -> dict:
+    import torch
+    rng = np.random.default_rng(seed)
+    return {name: torch.from_numpy(rng.integers(
+        0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(DEV)
+        for name in ("tokens", "labels")}
+
+
+def _plain_swa_fn():
+    """A stand-in for ``SWAAttentionFn`` built from the plain forward, its
+    log-sum-exp and the plain backward (``kernels/ref.py``): the fp32
+    check's substitute, made here and never a switch of the package."""
+    import torch
+    from repro_torch.kernels import ref
+
+    class PlainSWA(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, window, q_offset):
+            o = ref.swa_attention_ref(q[None], k[None], v[None], window,
+                                      q_offset)[0]
+            lse = ref.swa_attention_lse_ref(q[None], k[None], window,
+                                            q_offset)[0]
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.band = (window, q_offset)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            dq, dk, dv = ref.swa_attention_backward_ref(
+                q[None], k[None], v[None], o[None], lse[None], do[None],
+                *ctx.band)
+            return dq[0], dk[0], dv[0], None, None
+
+    return PlainSWA
+
+
+def _loss_and_grads(model, batch):
+    import torch
+    for p in model.params.parameters():
+        p.grad = None
+    loss, _ = model.loss(batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.detach().clone()
+             for n, p in model.params.named_parameters()}
+    return float(loss.detach()), grads
+
+
+def _swa_step_launches(n_layers: int, steps: int) -> dict:
+    """SWA launches of ``steps`` training steps under remat "full": the
+    forward twice a layer (the step and its recompute), each backward
+    entry point once."""
+    return {"swa_attention_forward": 2 * n_layers * steps,
+            "swa_attention_bwd_dot": n_layers * steps,
+            "swa_attention_backward_dkdv": n_layers * steps,
+            "swa_attention_backward_dq": n_layers * steps}
+
+
+def phase_train(card: str) -> dict:
+    """Dense-LM training at h2o-danube-1.8b's published width.
+
+    fp32: a 2-layer h2o-danube at full width, B = 1, S = 6144: loss and
+    every gradient leaf of the kernels' step against the same step with
+    the plain SWA forward and backward substituted.  bf16, the main path:
+    ``launch.train``'s main (24 layers, remat "full"), a warm-up run then
+    the measured one: step ms, tokens/s, peak memory, the SWA launches (48
+    forwards and 24 of each backward entry point a step), every loss
+    finite; then steps on one repeated batch under torch.profiler: the
+    device-busy share, device ms by kernel group, and losses that fall."""
+    import torch
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.launch import train
+    from repro_torch.models import build, get_config
+    from repro_torch.models.steps import make_train_step
+
+    # ---------- fp32: the kernels' step against the plain step ---------- #
+    t0 = time.perf_counter()
+    cfg32 = get_config(LM_ARCH).with_(dtype="float32",
+                                      n_layers=TRAIN_CHECK_LAYERS)
+    model = build(cfg32).init(torch.Generator(device=DEV).manual_seed(SEED))
+    model.params.requires_grad_(True)
+    batch = _train_batch(cfg32, SEED + 14)
+    sw.reset_launches()
+    loss_k, grads_k = _loss_and_grads(model, batch)
+    launches32 = dict(sw.launches)
+    check(launches32 == _swa_step_launches(TRAIN_CHECK_LAYERS, 1),
+          f"fp32 step launched {launches32}")
+    kernel_fn = sw.SWAAttentionFn
+    sw.SWAAttentionFn = _plain_swa_fn()
+    try:
+        loss_p, grads_p = _loss_and_grads(model, batch)
+    finally:
+        sw.SWAAttentionFn = kernel_fn
+    check(sw.launches == launches32, "the plain step launched a kernel")
+    check(abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p),
+          f"fp32 loss {loss_k} against plain {loss_p}")
+    worst, worst_leaf = 0.0, None
+    for name, g in grads_p.items():
+        scale = float(g.abs().max())
+        err = float((grads_k[name] - g).abs().max())
+        check(bool(torch.isfinite(grads_k[name]).all())
+              and err <= TRAIN_GRAD_TOL * max(scale, 1e-30),
+              f"fp32 grad {name}: off by {err} (max |g| {scale})")
+        if err / max(scale, 1e-30) > worst:
+            worst, worst_leaf = err / max(scale, 1e-30), name
+    fp32 = {"layers": TRAIN_CHECK_LAYERS, "loss_kernel": loss_k,
+            "loss_plain": loss_p, "leaves": len(grads_p),
+            "worst_grad_err_over_max": worst, "worst_leaf": worst_leaf,
+            "launches": launches32, "seconds": time.perf_counter() - t0,
+            "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
+                          "grad": f"{TRAIN_GRAD_TOL} * max|g_plain| a leaf"}}
+    emit({"train_fp32_check": fp32})
+    del model, batch, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # -------------- main path: bf16 training at full width -------------- #
+    argv = ["--arch", LM_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--seed", str(SEED), "--device", DEV]
+    warm = train.main(argv + ["--steps", str(TRAIN_WARM_STEPS)])
+    torch.cuda.empty_cache()
+    sw.reset_launches()
+    run = train.main(argv + ["--steps", str(TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    launches = dict(sw.launches)
+    n_layers = get_config(LM_ARCH).n_layers
+    check(launches == run["swa_launches"]
+          == _swa_step_launches(n_layers, TRAIN_STEPS),
+          f"training launched {launches}, want "
+          f"{_swa_step_launches(n_layers, TRAIN_STEPS)}")
+    check(all(np.isfinite(warm["losses"] + run["losses"])),
+          f"a loss is not finite: {warm['losses']} {run['losses']}")
+    torch.cuda.empty_cache()
+
+    # ------- one repeated batch: the loss falls; the profiler's view ----- #
+    cfg = get_config(LM_ARCH)
+    model = build(cfg).init(torch.Generator(device=DEV).manual_seed(SEED))
+    step, optimizer = make_train_step(model)
+    state = optimizer.init(dict(model.params.named_parameters()))
+    batch = _train_batch(cfg, SEED + 15)
+    losses = []
+
+    def one_step():
+        nonlocal state
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+
+    busy = _busy_share(one_step, steps=TRAIN_REPEAT_STEPS)
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"repeated batch: losses {losses}")
+    check(all(b < a for a, b in zip(losses[:5], losses[1:5])),
+          f"repeated batch: the loss does not fall: {losses}")
+    del model, state, batch, step, optimizer
+    torch.cuda.empty_cache()
+    out = {"phase": "train", "card": card, "fp32_check": fp32,
+           "run": {k: v for k, v in run.items() if k != "accs"},
+           "warmup": {k: warm[k] for k in ("step_ms", "losses")},
+           "launches": launches,
+           "launches_per_step": _swa_step_launches(n_layers, 1),
+           "repeated_batch_losses": losses, "profile": busy}
     emit(out)
     return out
 
@@ -2673,6 +2923,107 @@ def swa_numbers(card: str) -> dict:
     return {"swa": rec, "prefill": prefill, "decode_step": busy}
 
 
+def swa_bwd_bound_ms(B: int, hq: int, hkv: int, S: int, hd: int, W: int,
+                     dtype_bytes: int, flop_per_s: float = BF16_FLOP_PER_S
+                     ) -> tuple:
+    """Least time for one SWA backward: q, k, v, o, dO and lse read once,
+    dq, dk and dv written once; 10 * hd operations per visible (query,
+    key) pair (five products: S, dP, dV, dK, dQ), at the type's peak
+    rate."""
+    nbytes = ((4 * B * hq + 4 * B * hkv) * S * hd * dtype_bytes
+              + 4 * B * hq * S)
+    ops = 10.0 * hd * swa_pairs(S, S, W, 0) * B * hq
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / flop_per_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def swa_backward_numbers(card: str) -> dict:
+    """The SWA backward (bwd_dot + backward_dkdv + backward_dq) at one
+    h2o-danube layer's shape (32 q / 8 kv heads, S = 6144, W = 4096, d =
+    80), B = 1 (the training run's) and 2, bf16 and fp32: kernel ms (CUDA
+    events over the three launches), device ms by kernel (profiler), the
+    plain backward's ms, the bound, and SDPA forward + backward with the
+    band mask and ``enable_gqa`` beside our forward (with lse) +
+    backward; and the forward with its log-sum-exp against without."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, swa_attention as sw
+    from repro_torch.models import get_config
+
+    cfg = get_config(LM_ARCH)
+    hq, hkv, S, hd, W = (cfg.n_heads, cfg.n_kv_heads, TRAIN_SEQ, cfg.hd,
+                         cfg.window)
+    pos = torch.arange(S, device=DEV)
+    band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < W)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 16)
+    rows = []
+    for B in (1, 2):
+        for dtype, nbytes, peak in ((torch.bfloat16, 2, BF16_FLOP_PER_S),
+                                    (torch.float32, 4, FP32_FLOP_PER_S)):
+            q, k, v = _swa_inputs(B, hq, hkv, S, S, hd, dtype, gen)
+            do = torch.randn(q.shape, generator=gen, device=DEV).to(dtype)
+            o, lse = sw.swa_attention_forward(q, k, v, W, return_lse=True)
+            kern = lambda: sw.swa_attention_backward(q, k, v, o, lse, do, W)
+            plain = lambda: ref.swa_attention_backward_ref(
+                q[None], k[None], v[None], o[None], lse[None], do[None], W)
+            ours = {n: t for n, t in _device_ms(kern, iters=3).items()
+                    if "swa_" in n}
+            q4, k4, v4 = (x.reshape(B, -1, S, hd).detach().requires_grad_(True)
+                          for x in (q, k, v))
+            do4 = do.reshape(B, hq, S, hd)
+
+            def lib():
+                for x in (q4, k4, v4):
+                    x.grad = None
+                F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=band, enable_gqa=True).backward(do4)
+
+            def fwd_bwd():
+                o2, lse2 = sw.swa_attention_forward(q, k, v, W,
+                                                    return_lse=True)
+                return sw.swa_attention_backward(q, k, v, o2, lse2, do, W)
+
+            # the yardstick computes the same gradients (recorded, loosely
+            # held: SDPA's own kernels round bf16 differently)
+            lib()
+            got = kern()
+            lib_err = max(float(((a.grad.reshape(b.shape).float()
+                                  - b.float()).abs()
+                                 / (1 + b.float().abs())).max())
+                          for a, b in zip((q4, k4, v4), got))
+            check(lib_err <= (5e-2 if dtype == torch.bfloat16 else 1e-3),
+                  f"SDPA's gradients differ from the kernels' by {lib_err}")
+            del got
+            b_ms, b_by = swa_bwd_bound_ms(B, hq, hkv, S, hd, W, nbytes, peak)
+            fwd_b_ms, fwd_b_by = swa_bound_ms(B, hq, hkv, S, hd, W, nbytes,
+                                              peak)
+            rec = {"B": B, "Hq": hq, "Hkv": hkv, "S": S, "d": hd, "W": W,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "ms": _cuda_ms(kern, iters=5, warmup=1),
+                   "device_ms_by_kernel": ours or None,
+                   "device_ms": sum(ours.values()) if ours else None,
+                   "plain_ms": _cuda_ms(plain, iters=2, warmup=1),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "fwd_lse_bwd_ms": _cuda_ms(fwd_bwd, iters=3, warmup=1),
+                   "library_fwd_bwd_ms": _cuda_ms(lib, iters=3, warmup=1),
+                   "library_vs_kernel_max_rel": lib_err,
+                   "fwd_ms": _cuda_ms(
+                       lambda: sw.swa_attention_forward(q, k, v, W),
+                       iters=10, warmup=2),
+                   "fwd_lse_ms": _cuda_ms(
+                       lambda: sw.swa_attention_forward(q, k, v, W,
+                                                        return_lse=True),
+                       iters=10, warmup=2),
+                   "fwd_bound_ms": fwd_b_ms, "fwd_bound_by": fwd_b_by,
+                   "card": card}
+            emit({"swa_backward": rec})
+            rows.append(rec)
+            del q, k, v, do, o, lse, q4, k4, v4, do4
+            torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
 def _busy_share(fn, steps: int) -> dict:
     """Wall time and device busy time per call of ``fn`` over ``steps``
     calls, from torch.profiler (kernels and copies on the device)."""
@@ -2690,11 +3041,14 @@ def _busy_share(fn, steps: int) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
+    by_group: dict = {}
     ops = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) \
                 + e.device_time_total
+            g = _kernel_group(e.name)
+            by_group[g] = by_group.get(g, 0.0) + e.device_time_total
             ops += 1
     busy = sum(by_name.values())
     if busy == 0:
@@ -2707,18 +3061,48 @@ def _busy_share(fn, steps: int) -> dict:
             "swa_kernel_ms_per_step": sum(
                 v for k, v in by_name.items() if "swa_" in k) / 1e3 / steps,
             "top_kernels_ms_per_step": {k: v / 1e3 / steps for k, v in top},
+            "device_ms_per_step_by_group": {
+                k: v / 1e3 / steps for k, v in sorted(
+                    by_group.items(), key=lambda kv: -kv[1])},
             "unprofiled_ms_per_step": _host_ms(fn, iters=steps, warmup=1)}
+
+
+def _kernel_group(name: str) -> str:
+    """A device kernel's group for the breakdowns: each SWA kernel by
+    itself, then GEMMs, copies, and PyTorch's elementwise and reduction
+    kernels."""
+    n = name.lower()
+    for key, group in (("swa_bf16_kernel", "swa forward"),
+                       ("swa_f32_kernel", "swa forward"),
+                       ("swa_bwd_dot", "swa bwd_dot"),
+                       ("swa_bwd_dkdv", "swa backward_dkdv"),
+                       ("swa_bwd_dq", "swa backward_dq")):
+        if key in n:
+            return group
+    if any(t in n for t in ("gemm", "xmma", "cutlass", "cublas", "nvjet",
+                            "_mma", "splitk")):
+        return "GEMM"
+    if "memcpy" in n or "memset" in n:
+        return "copies"
+    if any(t in n for t in ("elementwise", "vectorized", "unrolled",
+                            "reduce", "softmax", "index", "scatter",
+                            "gather", "cat", "norm", "sort", "fill")):
+        return "elementwise and reductions"
+    return "other"
 
 
 def kernels_line(kern: dict, serve_out: dict, kge: dict,
                  update_out: dict, jobs: dict, numbers: dict, swa: dict,
-                 lm: dict) -> dict:
+                 lm: dict, train: dict) -> dict:
     """One entry per kernel path, at the shapes the main path gives it:
     a 8192-row slab of the 40k table with its running list, Q = 32 and
     k = 10 for the small path (the serve session's batches), Q = 1 and
     k = 2000 for the large one (the k = 2000 HTTP requests).  The top-k
     entries' ``launches_jobs`` are the launches of the jobs phase's 40k
-    k = 10 join (small) and its 1,024-class k = 100 join (large)."""
+    k = 10 join (small) and its 1,024-class k = 100 join (large).  The SWA
+    forward's ``launches`` are the generation run's prefill and its
+    ``launches_train`` the measured training run's; the backward's are the
+    training run's (its three entry points)."""
     launches = serve_out["launches"]
     by = {(r["N"], r["Q"], r["k"]): r for r in numbers["rows"]}
     out = []
@@ -2771,18 +3155,60 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
             "bound_by": r[f"{key}_bound_by"],
             "library_ms": r[f"{key}_library_ms"]})
     # swa at one h2o-danube layer's shape in bf16; launches counted over
-    # the measured generation run (one prefill of 24 layers)
+    # the measured generation run (one prefill of 24 layers) and the
+    # measured training run (48 a step).  Beside the numbers phase's
+    # device ms (a profiler session of the call alone), each entry point's
+    # device ms a launch inside the profiled training step
+    by_group = train["profile"].get("device_ms_per_step_by_group", {})
+    per_step = train["launches_per_step"]
+
+    def in_step(group: str, entry: str):
+        return by_group[group] / per_step[entry] if group in by_group \
+            else None
+
     r = numbers["swa"]["swa"]
     out.append({
         "name": f"swa_attention_forward (bf16, B={r['B']} Hq={r['Hq']} "
                 f"Hkv={r['Hkv']} S={r['S']} W={r['W']} d={r['d']})",
         "route": "cuda", "source": SWA_SOURCE, "replaces": SWA_REPLACES,
         "launches": lm["launches"]["swa_attention_forward"],
+        "launches_train": train["launches"]["swa_attention_forward"],
         "max_abs_err": swa["max_abs_err_bf16"],
         "max_abs_err_fp32": swa["max_abs_err_fp32"],
         "ms": r["ms"], "device_ms": r["device_ms"],
+        "device_ms_in_train_step": in_step("swa forward",
+                                           "swa_attention_forward"),
+        "train_batch": TRAIN_BATCH,
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the backward at the training run's shape (B = 1) in bf16; library:
+    # SDPA forward + backward, beside our forward with lse + backward
+    r = next(x for x in numbers["swa_backward"]["rows"]
+             if x["B"] == TRAIN_BATCH and x["dtype"] == "bfloat16")
+    entries = ("swa_attention_bwd_dot", "swa_attention_backward_dkdv",
+               "swa_attention_backward_dq")
+    out.append({
+        "name": f"swa_attention_backward (bwd_dot + backward_dkdv + "
+                f"backward_dq; bf16, B={r['B']} Hq={r['Hq']} Hkv={r['Hkv']} "
+                f"S={r['S']} W={r['W']} d={r['d']})",
+        "route": "cuda", "source": SWA_SOURCE,
+        "replaces": "src/repro/models/attention.py:123 (autodiff of the jnp "
+                    "scan; no Pallas backward)",
+        "launches": sum(train["launches"][e] for e in entries),
+        "launches_by_entry": {e: train["launches"][e] for e in entries},
+        "max_abs_err": swa["max_abs_err_backward_bf16"],
+        "max_abs_err_fp32": swa["max_abs_err_backward_fp32"],
+        "ms": r["ms"], "device_ms": r["device_ms"],
+        "device_ms_by_kernel": r["device_ms_by_kernel"],
+        "device_ms_in_train_step": {
+            e: in_step(g, e) for g, e in (
+                ("swa bwd_dot", "swa_attention_bwd_dot"),
+                ("swa backward_dkdv", "swa_attention_backward_dkdv"),
+                ("swa backward_dq", "swa_attention_backward_dq"))},
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_fwd_bwd_ms"],
+        "library_is": "SDPA forward + backward, band mask, enable_gqa",
+        "fwd_lse_bwd_ms": r["fwd_lse_bwd_ms"]})
     return {"kernels": out}
 
 
@@ -2799,7 +3225,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,kge,swa,serve,workers,update,"
-                            "jobs,lm,numbers")
+                            "jobs,lm,train,numbers")
     ap.add_argument("--out", default=None, help="also write results here")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2852,6 +3278,8 @@ def main(argv=None) -> int:
             out["kge"] = kge_numbers(card)
             torch.cuda.synchronize()
             out["swa"] = swa_numbers(card)
+            torch.cuda.synchronize()
+            out["swa_backward"] = swa_backward_numbers(card)
             return out
 
         # in this order; each phase's wall seconds are kept beside it
@@ -2863,7 +3291,8 @@ def main(argv=None) -> int:
                 ("workers", lambda: phase_workers(tmp, served)),
                 ("update", lambda: phase_update(tmp)),
                 ("jobs", lambda: phase_jobs(tmp, card)),
-                ("lm", phase_lm), ("numbers", numbers),
+                ("lm", phase_lm), ("train", lambda: phase_train(card)),
+                ("numbers", numbers),
                 ("alloc", lambda: phase_alloc(card))):
             if name in phases:
                 t0 = time.perf_counter()
@@ -2878,12 +3307,13 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(RESULTS, indent=1))
     print(card)
-    if {"kernels", "kge", "swa", "serve", "update", "jobs", "lm",
+    if {"kernels", "kge", "swa", "serve", "update", "jobs", "lm", "train",
             "numbers"} <= phases:
         ph = RESULTS["phases"]
         print(json.dumps(kernels_line(ph["kernels"], ph["serve"], ph["kge"],
                                       ph["update"], ph["jobs"],
-                                      ph["numbers"], ph["swa"], ph["lm"])))
+                                      ph["numbers"], ph["swa"], ph["lm"],
+                                      ph["train"])))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,12 @@
-// Sliding-window GQA flash attention for Hopper (sm_90a), forward: the
-// attention of every layer of every h2o-danube prefill in the port.
+// Sliding-window GQA flash attention for Hopper (sm_90a): the attention
+// of every layer of every h2o-danube prefill and training step in the
+// port, forward and backward.
 //
 // Replaces the TPU kernel src/repro/kernels/swa_attention.py::
-// swa_attention_pallas (kernel body _swa_kernel).
+// swa_attention_pallas (kernel body _swa_kernel).  The backward has no
+// Pallas counterpart: the reference differentiates its jnp scan
+// (src/repro/models/attention.py::swa_attention); it is described at
+// "backward" below.
 //
 // Contract (plain version: kernels/ref.py::swa_attention_ref on the
 // folded layout), heads folded into the leading dim:
@@ -11,6 +15,9 @@
 //   key j is visible to query i iff  q_offset + i - window < j <= q_offset + i
 //   (and j < Skv); scores scaled by d^-1/2; softmax in fp32;
 //   o (BHq, Sq, d) in q's dtype; a row that sees no key is 0.
+//   Optionally lse (BHq, Sq) fp32: ln sum_j exp(scale q_i.k_j) over the
+//   visible keys, -inf for a row that sees none (training saves it for
+//   the backward; prefill passes no pointer).
 //   d in {16, 32, 64, 80, 128}; any Sq, Skv >= 1, window >= 1,
 //   q_offset >= 0: ragged tiles are masked here, nothing is padded.
 //
@@ -95,7 +102,7 @@
 // tiles staged with cp.async, double-buffered, zero-filled past Skv; the
 // same tile plan, so interior tiles skip the mask.
 //
-// The entry point launches exactly one kernel on the given stream,
+// Each entry point launches exactly one kernel on the given stream,
 // allocates nothing, never synchronises, and returns cudaGetLastError().
 
 #include <cuda.h>
@@ -113,6 +120,7 @@ constexpr int BK = 64;         // keys per kv tile (both kernels)
 constexpr int NT = BK / 8;     // 8-key column blocks of a score tile
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 
 // ---- the tile plan ----------------------------------------------------- //
@@ -196,6 +204,14 @@ __device__ __forceinline__ void online_softmax(float (&s)[4 * NT],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x is the low half
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A row's log-sum-exp of the scaled scores, in natural-log units, from
+// its raw-score maximum m and its sum lt of 2^(s * scale_log2 - m *
+// scale_log2): ln(sum_j exp(scale * s_j)) = (m * scale_log2 + log2 lt) *
+// ln 2.  -inf for a row that sees no key.
+__device__ __forceinline__ float row_lse(float m, float lt, float scale_log2) {
+  return lt > 0.0f ? (m * scale_log2 + log2f(lt)) * LN2 : -INFINITY;
 }
 
 // ---- bf16: TMA, mbarriers, wgmma ---------------------------------------- //
@@ -380,8 +396,9 @@ __device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
 template <int HD>
 __global__ void __launch_bounds__(BF16_THREADS, HD <= 80 ? 2 : 1)
 swa_bf16_kernel(const __grid_constant__ SwaMaps maps,
-                __nv_bfloat16* __restrict__ o, int sq, int skv, int group,
-                int window, int q_offset, float scale_log2) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int sq, int skv, int group, int window, int q_offset,
+                float scale_log2) {
   using P = Panels<HD>;
   constexpr int NF = P::NF, TW = P::TW;
   extern __shared__ unsigned char smem_bf16[];
@@ -530,6 +547,7 @@ swa_bf16_kernel(const __grid_constant__ SwaMaps maps,
     lt += __shfl_xor_sync(FULL, lt, 2);
     const int qi = row0 + 8 * r;
     if (qi >= sq) continue;
+    if (lse != nullptr && t == 0) lse[(size_t)head * sq + qi] = row_lse(m[r], lt, scale_log2);
     const float den = fmaxf(lt, 1e-30f);
     __nv_bfloat16* orow = oh + (size_t)qi * HD + 2 * t;
 #pragma unroll
@@ -644,9 +662,9 @@ __device__ __forceinline__ void pv_f32(float (&acc)[HD / 2],
 template <int HD>
 __global__ void __launch_bounds__(F32_THREADS)
 swa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o, int sq,
-               int skv, int group, int window, int q_offset,
-               float scale_log2) {
+               const float* __restrict__ v, float* __restrict__ o,
+               float* __restrict__ lse, int sq, int skv, int group,
+               int window, int q_offset, float scale_log2) {
   constexpr int LD = HD + F32_LD;
   constexpr int TILE = BK * LD;
   extern __shared__ __align__(16) unsigned char smem_f32[];
@@ -730,6 +748,7 @@ swa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     lt += __shfl_xor_sync(FULL, lt, 2);
     const int qi = q0 + row0 + 8 * r;
     if (qi >= sq) continue;
+    if (lse != nullptr && t == 0) lse[(size_t)head * sq + qi] = row_lse(m[r], lt, scale_log2);
     const float den = fmaxf(lt, 1e-30f);
     float* orow = oh + (size_t)qi * HD + 2 * t;
 #pragma unroll
@@ -787,9 +806,9 @@ bool encode(CUtensorMap* map, const void* ptr, int rows, int s, int d,
 }
 
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int bhq,
-                int bhkv, int sq, int skv, int window, int q_offset,
-                float scale, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int bhq, int bhkv, int sq, int skv, int window,
+                int q_offset, float scale, cudaStream_t stream) {
   using P = Panels<HD>;
   SwaMaps maps = {};
   bool ok = true;
@@ -815,15 +834,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int bhq,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(bhq, (sq + BQ - 1) / BQ);
   kern<<<grid, BF16_THREADS, smem, stream>>>(
-      maps, static_cast<__nv_bfloat16*>(o), sq, skv, bhq / bhkv, window,
-      q_offset, scale * LOG2E);
+      maps, static_cast<__nv_bfloat16*>(o), lse, sq, skv, bhq / bhkv,
+      window, q_offset, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int bhq,
-               int bhkv, int sq, int skv, int window, int q_offset,
-               float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int bhq, int bhkv, int sq, int skv, int window,
+               int q_offset, float scale, cudaStream_t stream) {
   constexpr int LD = HD + F32_LD;
   constexpr size_t smem = (F32_BQ * LD + 4 * BK * LD) * sizeof(float);
   auto kern = swa_f32_kernel<HD>;
@@ -835,42 +854,520 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int bhq,
   const dim3 grid(bhq, (sq + F32_BQ - 1) / F32_BQ);
   kern<<<grid, F32_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, skv,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, sq, skv,
       bhq / bhkv, window, q_offset, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch(bool bf16, const void* q, const void* k, const void* v, void* o,
-           int bhq, int bhkv, int sq, int skv, int window, int q_offset,
-           float scale, cudaStream_t s) {
-  return bf16 ? launch_bf16<HD>(q, k, v, o, bhq, bhkv, sq, skv, window,
+           float* lse, int bhq, int bhkv, int sq, int skv, int window,
+           int q_offset, float scale, cudaStream_t s) {
+  return bf16 ? launch_bf16<HD>(q, k, v, o, lse, bhq, bhkv, sq, skv, window,
                                 q_offset, scale, s)
-              : launch_f32<HD>(q, k, v, o, bhq, bhkv, sq, skv, window,
+              : launch_f32<HD>(q, k, v, o, lse, bhq, bhkv, sq, skv, window,
                                q_offset, scale, s);
 }
 
+// ---- backward: dQ, dK, dV ---------------------------------------------- //
+// The gradient of the forward's contract, with P recomputed from the
+// forward's log-sum-exp: for a visible pair (i, j),
+//   P_ij = exp(scale q_i.k_j - lse_i),  D_i = dO_i . O_i,
+//   dS_ij = P_ij (dO_i . v_j - D_i),
+//   dV_j = sum_i P_ij dO_i,  dK_j = scale sum_i dS_ij q_i,
+//   dQ_i = scale sum_j dS_ij k_j,
+// summed over the q heads of a kv row for dK and dV (the GQA fold).
+// Every product runs in fp32 FMA on the CUDA cores, bf16 inputs widened
+// as they are staged; the gradients are rounded to the inputs' dtype once.
+//
+// Three kernels, each output written exactly once, no atomics, every sum
+// in a fixed order (the same bits on every run):
+//   * swa_bwd_dot_kernel: D, one warp a row.
+//   * swa_bwd_dkdv_kernel: one CTA per (kv row, 64-key tile).  K and V
+//     stay in shared memory; it walks the q heads of the kv row and, for
+//     each, the 64-query tiles whose band meets the key tile (the
+//     transpose of the forward's plan), recomputes S and dP for the tile
+//     pair, stages P and dS in shared memory, and accumulates dK and dV
+//     in registers.
+//   * swa_bwd_dq_kernel: one CTA per (q row, 64-query tile), walking the
+//     forward's key tiles; dS is staged transposed and dQ accumulates in
+//     registers.
+// Both mask only the tile pairs tile_interior does not call interior;
+// rows past Sq are staged as zero with lse = +inf (their p is 0), keys
+// past Skv are zero and masked.
+//
+// What bounds it on an H100: 10 d operations a visible pair (five
+// products; the two kernels recompute S and dP, 14 d in all), on fp32
+// FMA here: at h2o-danube's layer shape (B = 1) ~0.6 TFLOP of FMA work,
+// ~9 ms at 67 TFLOP/s.  Each thread holds a 4 x 4 block of the score
+// tile (16-byte shared loads of q / k rows, 128 FMAs for 16 loads); the
+// accumulation reads one 16-byte P / dS quad and d / 16 scalars of each
+// operand a row.  A tensor-core (wgmma) redesign is later work.
+constexpr int BWD_THREADS = 256;     // 8 warps
+constexpr int BWD_BQ = 64;           // query rows of a tile
+constexpr int BWD_LDS = BK + 16;     // row stride of P, dS [query][key]
+constexpr int BWD_LDT = BWD_BQ + 4;  // row stride of dS^T [key][query]
+
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static __device__ __forceinline__ float4 load4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  static __device__ __forceinline__ float get(const float* p) { return *p; }
+  static __device__ __forceinline__ void put(float* p, float x) { *p = x; }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+  static __device__ __forceinline__ float get(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+    *p = __float2bfloat16(x);
+  }
+};
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Rows [row0, row0 + 64) of one head's (n, HD) matrix into a 64 x (HD + 4)
+// fp32 tile; rows at or past n are zero.
+template <typename T, int HD>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, int row0,
+                                          int n) {
+  constexpr int LD = HD + F32_LD, CH = HD / 4;
+  for (int c = threadIdx.x; c < 64 * CH; c += BWD_THREADS) {
+    const int r = c / CH, col = (c % CH) * 4;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (row0 + r < n) x = Elem<T>::load4(src + (size_t)(row0 + r) * HD + col);
+    *reinterpret_cast<float4*>(dst + r * LD + col) = x;
+  }
+}
+
+// lse (in log2 units) and D of rows [row0, row0 + 64): rows past n get
+// +inf and 0, so their p and dS are 0.
+__device__ __forceinline__ void load_stats(float* s_l, float* s_d,
+                                           const float* lse,
+                                           const float* dvec, int row0,
+                                           int n) {
+  for (int r = threadIdx.x; r < BWD_BQ; r += BWD_THREADS) {
+    const bool ok = row0 + r < n;
+    s_l[r] = ok ? lse[row0 + r] * LOG2E : INFINITY;
+    s_d[r] = ok ? dvec[row0 + r] : 0.0f;
+  }
+}
+
+// S = Q K^T and dP = dO V^T for the thread's 4 x 4 pairs of the tile:
+// rows tq + 16 i, keys tk + 16 j.
+template <int HD>
+__device__ __forceinline__ void scores_bwd(float (&s)[4][4], float (&dp)[4][4],
+                                           const float* sQ, const float* sK,
+                                           const float* sDO, const float* sV,
+                                           int tq, int tk) {
+  constexpr int LD = HD + F32_LD;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+#pragma unroll 2
+  for (int c = 0; c < HD; c += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = lds4(sQ + (tq + 16 * i) * LD + c);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = lds4(sK + (tk + 16 * j) * LD + c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dot4(s[i][j], a[i], b[j]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = lds4(sDO + (tq + 16 * i) * LD + c);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = lds4(sV + (tk + 16 * j) * LD + c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dp[i][j] = dot4(dp[i][j], a[i], b[j]);
+  }
+}
+
+// s becomes P = 2^(s scale_log2 - lse_log2) on visible pairs (0 on the
+// others) and dp becomes dS = P (dp - D).  Tile row r is query q0 + r,
+// tile key c is key k0 + c.
+__device__ __forceinline__ void probs_bwd(float (&s)[4][4], float (&dp)[4][4],
+                                          const float* s_l, const float* s_d,
+                                          int tq, int tk, int q0, int k0,
+                                          bool interior, int sq, int skv,
+                                          int window, int q_offset,
+                                          float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = tq + 16 * i;
+    const int qp = q_offset + q0 + r;
+    const float l = s_l[r], dd = s_d[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = k0 + tk + 16 * j;
+      const bool ok = interior || (q0 + r < sq && key < skv && key <= qp &&
+                                   qp - key < window);
+      const float p = ok ? fast_exp2(fmaf(s[i][j], scale_log2, -l)) : 0.0f;
+      s[i][j] = p;
+      dp[i][j] = p * (dp[i][j] - dd);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS)
+swa_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                   float* __restrict__ dvec, long long rows, int hd) {
+  const long long row =
+      (long long)blockIdx.x * (BWD_THREADS / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;                  // the whole warp leaves
+  const T* orow = o + row * hd;
+  const T* drow = dout + row * hd;
+  float acc = 0.0f;
+  for (int c = lane; c < hd; c += 32)
+    acc = fmaf(Elem<T>::get(orow + c), Elem<T>::get(drow + c), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(FULL, acc, off);
+  if (lane == 0) dvec[row] = acc;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(BWD_THREADS)
+swa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ dvec, T* __restrict__ dk,
+                    T* __restrict__ dv, int sq, int skv, int group,
+                    int window, int q_offset, float scale,
+                    float scale_log2) {
+  constexpr int LD = HD + F32_LD, TILE = 64 * LD, NM = HD / 16;
+  extern __shared__ __align__(16) unsigned char smem_bwd[];
+  float* sK = reinterpret_cast<float*>(smem_bwd);
+  float* sV = sK + TILE;
+  float* sQ = sV + TILE;
+  float* sDO = sQ + TILE;
+  float* sP = sDO + TILE;                   // BWD_BQ x BWD_LDS
+  float* sS = sP + BWD_BQ * BWD_LDS;        // dS, the same layout
+  float* sL = sS + BWD_BQ * BWD_LDS;
+  float* sD = sL + BWD_BQ;
+
+  const int kvh = blockIdx.x, k0 = blockIdx.y * BK;
+  const int tid = threadIdx.x;
+  const int tq = tid / 16, tk = tid % 16;   // score tile: rows tq + 16 i, keys tk + 16 j
+  const int ka = tid % 16, cb = tid / 16;   // dK, dV: keys 4 ka + r, columns cb + 16 m
+  load_rows<T, HD>(sK, k + (size_t)kvh * skv * HD, k0, skv);
+  load_rows<T, HD>(sV, v + (size_t)kvh * skv * HD, k0, skv);
+
+  float adk[4][NM], adv[4][NM];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int m = 0; m < NM; ++m) adk[r][m] = adv[r][m] = 0.0f;
+
+  // the queries that see a key of [k0, k_last]: q_offset + i in
+  // [k0, k_last + window - 1], cut to [0, sq)
+  const int k_last = min(k0 + BK, skv) - 1;
+  const long long lo = max(0LL, (long long)k0 - q_offset);
+  const long long hi = min((long long)sq - 1,
+                           (long long)k_last - q_offset + window - 1);
+  if (lo <= hi) {
+    const int t0 = (int)(lo / BWD_BQ), t1 = (int)(hi / BWD_BQ);
+    for (int h = 0; h < group; ++h) {
+      const size_t head = (size_t)kvh * group + h;
+      const T* qh = q + head * sq * HD;
+      const T* doh = dout + head * sq * HD;
+      for (int t = t0; t <= t1; ++t) {
+        const int q0 = t * BWD_BQ, last = min(q0 + BWD_BQ, sq) - 1;
+        __syncthreads();                    // the last tile's readers are done
+        load_rows<T, HD>(sQ, qh, q0, sq);
+        load_rows<T, HD>(sDO, doh, q0, sq);
+        load_stats(sL, sD, lse + head * sq, dvec + head * sq, q0, sq);
+        __syncthreads();
+        float s[4][4], dp[4][4];
+        scores_bwd<HD>(s, dp, sQ, sK, sDO, sV, tq, tk);
+        probs_bwd(s, dp, sL, sD, tq, tk, q0, k0,
+                  tile_interior(k0, q0, last, q_offset, window, skv), sq, skv,
+                  window, q_offset, scale_log2);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            sP[(tq + 16 * i) * BWD_LDS + tk + 16 * j] = s[i][j];
+            sS[(tq + 16 * i) * BWD_LDS + tk + 16 * j] = dp[i][j];
+          }
+        __syncthreads();
+#pragma unroll 2
+        for (int r = 0; r < BWD_BQ; ++r) {
+          const float4 p = lds4(sP + r * BWD_LDS + 4 * ka);
+          const float4 d = lds4(sS + r * BWD_LDS + 4 * ka);
+#pragma unroll
+          for (int m = 0; m < NM; ++m) {
+            const float g = sDO[r * LD + cb + 16 * m];
+            const float x = sQ[r * LD + cb + 16 * m];
+            adv[0][m] = fmaf(p.x, g, adv[0][m]);
+            adv[1][m] = fmaf(p.y, g, adv[1][m]);
+            adv[2][m] = fmaf(p.z, g, adv[2][m]);
+            adv[3][m] = fmaf(p.w, g, adv[3][m]);
+            adk[0][m] = fmaf(d.x, x, adk[0][m]);
+            adk[1][m] = fmaf(d.y, x, adk[1][m]);
+            adk[2][m] = fmaf(d.z, x, adk[2][m]);
+            adk[3][m] = fmaf(d.w, x, adk[3][m]);
+          }
+        }
+      }
+    }
+  }
+  // every key of the tile below skv is written, 0 where no query sees it
+  T* dkh = dk + (size_t)kvh * skv * HD;
+  T* dvh = dv + (size_t)kvh * skv * HD;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int key = k0 + 4 * ka + r;
+    if (key >= skv) continue;
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+      Elem<T>::put(dkh + (size_t)key * HD + cb + 16 * m, scale * adk[r][m]);
+      Elem<T>::put(dvh + (size_t)key * HD + cb + 16 * m, adv[r][m]);
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(BWD_THREADS)
+swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ dvec, T* __restrict__ dq, int sq,
+                  int skv, int group, int window, int q_offset, float scale,
+                  float scale_log2) {
+  constexpr int LD = HD + F32_LD, TILE = 64 * LD, NM = HD / 16;
+  extern __shared__ __align__(16) unsigned char smem_bwd[];
+  float* sQ = reinterpret_cast<float*>(smem_bwd);
+  float* sDO = sQ + TILE;
+  float* sK = sDO + TILE;
+  float* sV = sK + TILE;
+  float* sT = sV + TILE;                    // dS^T: BK x BWD_LDT
+  float* sL = sT + BK * BWD_LDT;
+  float* sD = sL + BWD_BQ;
+
+  const size_t head = blockIdx.x;
+  const size_t kvh = head / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BWD_BQ;   // heaviest first
+  const int last = min(q0 + BWD_BQ, sq) - 1;
+  const int tid = threadIdx.x;
+  const int tq = tid / 16, tk = tid % 16;   // score tile
+  const int qa = tid % 16, cb = tid / 16;   // dQ: rows 4 qa + r, columns cb + 16 m
+  const T* kh = k + kvh * skv * HD;
+  const T* vh = v + kvh * skv * HD;
+  load_rows<T, HD>(sQ, q + head * sq * HD, q0, sq);
+  load_rows<T, HD>(sDO, dout + head * sq * HD, q0, sq);
+  load_stats(sL, sD, lse + head * sq, dvec + head * sq, q0, sq);
+
+  float acc[4][NM];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int m = 0; m < NM; ++m) acc[r][m] = 0.0f;
+
+  const int k_lo = band_lo(q0, q_offset, window);
+  const int k_hi = band_hi(last, q_offset, skv);
+  const int tile0 = k_lo / BK;
+  const int n_tiles = k_lo <= k_hi ? k_hi / BK - tile0 + 1 : 0;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = (tile0 + i) * BK;
+    __syncthreads();                        // the last tile's readers are done
+    load_rows<T, HD>(sK, kh, k0, skv);
+    load_rows<T, HD>(sV, vh, k0, skv);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    scores_bwd<HD>(s, dp, sQ, sK, sDO, sV, tq, tk);
+    probs_bwd(s, dp, sL, sD, tq, tk, q0, k0,
+              tile_interior(k0, q0, last, q_offset, window, skv), sq, skv,
+              window, q_offset, scale_log2);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        sT[(tk + 16 * j) * BWD_LDT + tq + 16 * a] = dp[a][j];
+    __syncthreads();
+#pragma unroll 2
+    for (int key = 0; key < BK; ++key) {
+      const float4 d = lds4(sT + key * BWD_LDT + 4 * qa);
+#pragma unroll
+      for (int m = 0; m < NM; ++m) {
+        const float x = sK[key * LD + cb + 16 * m];
+        acc[0][m] = fmaf(d.x, x, acc[0][m]);
+        acc[1][m] = fmaf(d.y, x, acc[1][m]);
+        acc[2][m] = fmaf(d.z, x, acc[2][m]);
+        acc[3][m] = fmaf(d.w, x, acc[3][m]);
+      }
+    }
+  }
+  // every row of the tile below sq is written, 0 where it sees no key
+  T* dqh = dq + head * sq * HD;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = q0 + 4 * qa + r;
+    if (row >= sq) continue;
+#pragma unroll
+    for (int m = 0; m < NM; ++m)
+      Elem<T>::put(dqh + (size_t)row * HD + cb + 16 * m, scale * acc[r][m]);
+  }
+}
+
+template <typename Kern>
+cudaError_t allow_smem(Kern kern, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <int HD>
+constexpr size_t dkdv_smem() {
+  return (4 * 64 * (HD + F32_LD) + 2 * BWD_BQ * BWD_LDS + 2 * BWD_BQ) *
+         sizeof(float);
+}
+
+template <int HD>
+constexpr size_t dq_smem() {
+  return (4 * 64 * (HD + F32_LD) + BK * BWD_LDT + 2 * BWD_BQ) * sizeof(float);
+}
+
+// The tensors and shapes of one backward call.
+struct BwdArgs {
+  const void *q, *k, *v, *dout;
+  const float *lse, *dvec;
+  int bhq, bhkv, sq, skv, window, q_offset;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int HD>
+int launch_dkdv(const BwdArgs& b, void* dk, void* dv) {
+  auto kern = swa_bwd_dkdv_kernel<T, HD>;
+  const cudaError_t e = allow_smem(kern, dkdv_smem<HD>());
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(b.bhkv, (b.skv + BK - 1) / BK);
+  kern<<<grid, BWD_THREADS, dkdv_smem<HD>(), b.stream>>>(
+      static_cast<const T*>(b.q), static_cast<const T*>(b.k),
+      static_cast<const T*>(b.v), static_cast<const T*>(b.dout), b.lse,
+      b.dvec, static_cast<T*>(dk), static_cast<T*>(dv), b.sq, b.skv,
+      b.bhq / b.bhkv, b.window, b.q_offset, b.scale, b.scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int launch_dq(const BwdArgs& b, void* dq) {
+  auto kern = swa_bwd_dq_kernel<T, HD>;
+  const cudaError_t e = allow_smem(kern, dq_smem<HD>());
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(b.bhq, (b.sq + BWD_BQ - 1) / BWD_BQ);
+  kern<<<grid, BWD_THREADS, dq_smem<HD>(), b.stream>>>(
+      static_cast<const T*>(b.q), static_cast<const T*>(b.k),
+      static_cast<const T*>(b.v), static_cast<const T*>(b.dout), b.lse,
+      b.dvec, static_cast<T*>(dq), b.sq, b.skv, b.bhq / b.bhkv, b.window,
+      b.q_offset, b.scale, b.scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+// dK and dV (dq == nullptr) or dQ, by head dim and dtype.
+template <typename T>
+int launch_bwd(int hd, const BwdArgs& b, void* dq, void* dk, void* dv) {
+  switch (hd) {
+    case 16: return dq ? launch_dq<T, 16>(b, dq) : launch_dkdv<T, 16>(b, dk, dv);
+    case 32: return dq ? launch_dq<T, 32>(b, dq) : launch_dkdv<T, 32>(b, dk, dv);
+    case 64: return dq ? launch_dq<T, 64>(b, dq) : launch_dkdv<T, 64>(b, dk, dv);
+    case 80: return dq ? launch_dq<T, 80>(b, dq) : launch_dkdv<T, 80>(b, dk, dv);
+    case 128: return dq ? launch_dq<T, 128>(b, dq) : launch_dkdv<T, 128>(b, dk, dv);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+float head_scale(int hd) { return (float)(1.0 / std::sqrt((double)hd)); }
+
 }  // namespace
 
-// a: q, k, v, o (device pointers), bhq, bhkv, sq, skv, hd, window,
-// q_offset, is_bf16 (1 for bf16 tensors, 0 for fp32), stream.  The scale
-// hd^-1/2 is rounded once to fp32 here.
+// a: q, k, v, o, lse (device pointers; lse 0 to skip it), bhq, bhkv, sq,
+// skv, hd, window, q_offset, is_bf16 (1 for bf16 tensors, 0 for fp32),
+// stream.  The scale hd^-1/2 is rounded once to fp32 here.
 extern "C" int swa_attention_forward(const long long* a) {
-  const int hd = (int)a[8];
-  const float scale = (float)(1.0 / std::sqrt((double)hd));
   const void *q = (const void*)a[0], *k = (const void*)a[1],
              *v = (const void*)a[2];
   void* o = (void*)a[3];
-  const int bhq = (int)a[4], bhkv = (int)a[5], sq = (int)a[6],
-            skv = (int)a[7], window = (int)a[9], q_offset = (int)a[10];
-  const bool bf16 = a[11] != 0;
-  cudaStream_t s = (cudaStream_t)a[12];
+  float* lse = (float*)a[4];
+  const int bhq = (int)a[5], bhkv = (int)a[6], sq = (int)a[7],
+            skv = (int)a[8], hd = (int)a[9], window = (int)a[10],
+            q_offset = (int)a[11];
+  const bool bf16 = a[12] != 0;
+  cudaStream_t s = (cudaStream_t)a[13];
+  const float scale = head_scale(hd);
   switch (hd) {
-    case 16: return launch<16>(bf16, q, k, v, o, bhq, bhkv, sq, skv, window, q_offset, scale, s);
-    case 32: return launch<32>(bf16, q, k, v, o, bhq, bhkv, sq, skv, window, q_offset, scale, s);
-    case 64: return launch<64>(bf16, q, k, v, o, bhq, bhkv, sq, skv, window, q_offset, scale, s);
-    case 80: return launch<80>(bf16, q, k, v, o, bhq, bhkv, sq, skv, window, q_offset, scale, s);
-    case 128: return launch<128>(bf16, q, k, v, o, bhq, bhkv, sq, skv, window, q_offset, scale, s);
+    case 16: return launch<16>(bf16, q, k, v, o, lse, bhq, bhkv, sq, skv, window, q_offset, scale, s);
+    case 32: return launch<32>(bf16, q, k, v, o, lse, bhq, bhkv, sq, skv, window, q_offset, scale, s);
+    case 64: return launch<64>(bf16, q, k, v, o, lse, bhq, bhkv, sq, skv, window, q_offset, scale, s);
+    case 80: return launch<80>(bf16, q, k, v, o, lse, bhq, bhkv, sq, skv, window, q_offset, scale, s);
+    case 128: return launch<128>(bf16, q, k, v, o, lse, bhq, bhkv, sq, skv, window, q_offset, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// a: o, do, dvec (device pointers: O and dO (rows, hd) in one dtype, D
+// (rows,) fp32), rows, hd, is_bf16, stream.  D_i = dO_i . O_i in fp32.
+extern "C" int swa_attention_bwd_dot(const long long* a) {
+  const void *o = (const void*)a[0], *dout = (const void*)a[1];
+  float* dvec = (float*)a[2];
+  const long long rows = a[3];
+  const int hd = (int)a[4];
+  const bool bf16 = a[5] != 0;
+  cudaStream_t s = (cudaStream_t)a[6];
+  const dim3 grid((unsigned)((rows + BWD_THREADS / 32 - 1) / (BWD_THREADS / 32)));
+  if (bf16)
+    swa_bwd_dot_kernel<__nv_bfloat16><<<grid, BWD_THREADS, 0, s>>>(
+        (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, dvec, rows, hd);
+  else
+    swa_bwd_dot_kernel<float><<<grid, BWD_THREADS, 0, s>>>(
+        (const float*)o, (const float*)dout, dvec, rows, hd);
+  return (int)cudaGetLastError();
+}
+
+// a: q, k, v, do, lse, dvec, dk, dv (device pointers; q, do (bhq, sq,
+// hd), k, v, dk, dv (bhkv, skv, hd) in one dtype, lse and D (bhq, sq)
+// fp32), bhq, bhkv, sq, skv, hd, window, q_offset, is_bf16, stream.
+extern "C" int swa_attention_backward_dkdv(const long long* a) {
+  const int hd = (int)a[12];
+  const BwdArgs b = {(const void*)a[0], (const void*)a[1], (const void*)a[2],
+                     (const void*)a[3], (const float*)a[4], (const float*)a[5],
+                     (int)a[8], (int)a[9], (int)a[10], (int)a[11], (int)a[13],
+                     (int)a[14], head_scale(hd), (cudaStream_t)a[16]};
+  void *dk = (void*)a[6], *dv = (void*)a[7];
+  return a[15] != 0 ? launch_bwd<__nv_bfloat16>(hd, b, nullptr, dk, dv)
+                    : launch_bwd<float>(hd, b, nullptr, dk, dv);
+}
+
+// a: q, k, v, do, lse, dvec, dq (device pointers; dq (bhq, sq, hd) in
+// q's dtype), bhq, bhkv, sq, skv, hd, window, q_offset, is_bf16, stream.
+extern "C" int swa_attention_backward_dq(const long long* a) {
+  const int hd = (int)a[11];
+  const BwdArgs b = {(const void*)a[0], (const void*)a[1], (const void*)a[2],
+                     (const void*)a[3], (const float*)a[4], (const float*)a[5],
+                     (int)a[7], (int)a[8], (int)a[9], (int)a[10], (int)a[12],
+                     (int)a[13], head_scale(hd), (cudaStream_t)a[15]};
+  void* dq = (void*)a[6];
+  return a[14] != 0 ? launch_bwd<__nv_bfloat16>(hd, b, dq, nullptr, nullptr)
+                    : launch_bwd<float>(hd, b, dq, nullptr, nullptr);
 }

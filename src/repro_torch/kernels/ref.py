@@ -211,6 +211,23 @@ def kge_score_backward_ref(
 
 
 # ---------------------------- swa_attention ---------------------------- #
+def _swa_logits(q: torch.Tensor, k: torch.Tensor, window: int,
+                q_offset: int):
+    """Scaled fp32 scores (B, Hkv, G, Sq, Skv), -inf where key j is not
+    visible to query i (``q_offset + i - window < j <= q_offset + i``)."""
+    if q.is_cuda:
+        no_tf32()
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    qf = q.float() * (d ** -0.5)
+    qf = qf.reshape(b, hkv, hq // hkv, sq, d)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float())
+    q_pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = (k_pos <= q_pos) & (k_pos > q_pos - window)
+    return logits.masked_fill(~mask, float("-inf"))
+
+
 def swa_attention_ref(
     q: torch.Tensor,      # (B, Hq, Sq, d)
     k: torch.Tensor,      # (B, Hkv, Skv, d)
@@ -220,20 +237,51 @@ def swa_attention_ref(
 ) -> torch.Tensor:
     """Causal sliding-window GQA attention, fp32 softmax. (B, Hq, Sq, d).
     A copy of ``repro.kernels.ref.swa_attention_ref``."""
-    if q.is_cuda:
-        no_tf32()
+    b, hq, sq, d = q.shape
+    probs = torch.softmax(_swa_logits(q, k, window, q_offset), dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.float())
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def swa_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, window: int,
+                          q_offset: int = 0) -> torch.Tensor:
+    """(B, Hq, Sq) fp32: each query's log-sum-exp of its scaled scores over
+    the keys it sees, ``-inf`` for a query that sees none (what the
+    kernel's forward saves for the backward)."""
+    b, hq, sq, _ = q.shape
+    lse = torch.logsumexp(_swa_logits(q, k, window, q_offset), dim=-1)
+    return lse.reshape(b, hq, sq)
+
+
+def swa_attention_backward_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, o: torch.Tensor,
+                               lse: torch.Tensor, do: torch.Tensor,
+                               window: int, q_offset: int = 0):
+    """The gradient of :func:`swa_attention_ref` given its output ``o``, its
+    log-sum-exp ``lse`` (B, Hq, Sq) and the output's gradient ``do``, by
+    the explicit formulas in fp32 (the kernel's, ``swa_attention.cu``)::
+
+        P = exp(scale q k^T - lse) on visible pairs, D = rowsum(dO * O)
+        dS = P * (dO v^T - D)
+        dV = sum over the kv row's q heads of P^T dO
+        dK = scale * sum of dS^T q,   dQ = scale * dS k
+
+    Returns ``(dq, dk, dv)`` in q's, k's and v's dtypes."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     g = hq // hkv
-    qf = q.float() * (d ** -0.5)
-    kf = k.float()
-    vf = v.float()
-    qf = qf.reshape(b, hkv, g, sq, d)
-    logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf)
-    q_pos = q_offset + torch.arange(sq, device=q.device)[:, None]
-    k_pos = torch.arange(skv, device=q.device)[None, :]
-    mask = (k_pos <= q_pos) & (k_pos > q_pos - window)
-    logits = logits.masked_fill(~mask, float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, vf)
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    scale = d ** -0.5
+    lse = lse.float().reshape(b, hkv, g, sq, 1)
+    # a query that sees no key has lse = -inf and no visible pair: 0 keeps
+    # its p at exp(-inf) = 0 instead of nan
+    lse = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    p = torch.exp(_swa_logits(q, k, window, q_offset) - lse)
+    dof = do.float().reshape(b, hkv, g, sq, d)
+    dvec = (dof * o.float().reshape(b, hkv, g, sq, d)).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhgqd,bhkd->bhgqk", dof, v.float()) - dvec)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds,
+                      q.float().reshape(b, hkv, g, sq, d)) * scale
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * scale
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -1,5 +1,5 @@
 """Sliding-window GQA flash attention: the wrapper around
-``csrc/swa_attention.cu``.
+``csrc/swa_attention.cu``, forward and backward.
 
 The port of ``repro.kernels.swa_attention.swa_attention_pallas``, in its
 folded layout: ``q (B*Hq, Sq, d)``, ``k``/``v (B*Hkv, Skv, d)``, kv row =
@@ -7,16 +7,26 @@ q row // (B*Hq / B*Hkv).  Key ``j`` is visible to query ``i`` iff
 ``q_offset + i - window < j <= q_offset + i``; scores are scaled by
 ``d ** -0.5``, the softmax runs in fp32, and the output has q's dtype.
 The contract is :func:`repro_torch.kernels.ref.swa_attention_ref` on the
-same tensors with a batch axis of 1.
+same tensors with a batch axis of 1; the backward's is
+:func:`repro_torch.kernels.ref.swa_attention_backward_ref` (the reference
+differentiates its jnp scan instead: there is no Pallas backward).
 
-On CPU tensors the plain PyTorch version runs.  On CUDA tensors the
-kernel runs or the call raises: there is no switch and no fallback.  Both
-take fp32 or bf16 and any head dim the reference takes; the kernel also
-needs contiguous tensors and ``d`` in :data:`HEAD_DIMS`
-(:func:`_check_kernel`).  Ragged Sq and Skv are masked in the kernel, not
-padded.  bf16 runs on wgmma with TMA-fed K/V tiles, fp32 on the CUDA
-cores; both walk the tiles :func:`swa_tile_plan` gives and mask only the
-tiles it does not call interior.  ``launches`` counts kernel launches.
+:func:`swa_attention_forward` is the no-grad entry that prefill uses;
+:class:`SWAAttentionFn` is the differentiable one that training uses: its
+forward also writes each query's log-sum-exp, and its backward launches
+``swa_attention_bwd_dot`` (D = rowsum(dO * O)),
+``swa_attention_backward_dkdv`` and ``swa_attention_backward_dq``.
+
+On CPU tensors the plain PyTorch versions run.  On CUDA tensors the
+kernels run or the call raises: there is no switch and no fallback.  Both
+take fp32 or bf16 and any head dim the reference takes; the kernels also
+need contiguous tensors and ``d`` in :data:`HEAD_DIMS`
+(:func:`_check_kernel`).  Ragged Sq and Skv are masked in the kernels, not
+padded.  The bf16 forward runs on wgmma with TMA-fed K/V tiles, the fp32
+forward and both backward kernels on the CUDA cores; all walk the tiles
+:func:`swa_tile_plan` gives (the dK/dV kernel its transpose) and mask
+only the tiles it does not call interior.  ``launches`` counts kernel
+launches by entry point.
 """
 from __future__ import annotations
 
@@ -37,8 +47,19 @@ MAX_SEQ = 65535 * 64
 PLAN_ROWS, KEY_TILE = 64, 64
 _INT_MAX = 2**31 - 1
 
-# q, k, v, o, bhq, bhkv, sq, skv, hd, window, q_offset, is_bf16, stream
-_LIB = _build.Library("swa_attention", {"swa_attention_forward": 13})
+_LIB = _build.Library("swa_attention", {
+    # q, k, v, o, lse, bhq, bhkv, sq, skv, hd, window, q_offset, is_bf16,
+    # stream
+    "swa_attention_forward": 14,
+    # o, do, dvec, rows, hd, is_bf16, stream
+    "swa_attention_bwd_dot": 7,
+    # q, k, v, do, lse, dvec, dk, dv, bhq, bhkv, sq, skv, hd, window,
+    # q_offset, is_bf16, stream
+    "swa_attention_backward_dkdv": 17,
+    # q, k, v, do, lse, dvec, dq, bhq, bhkv, sq, skv, hd, window, q_offset,
+    # is_bf16, stream
+    "swa_attention_backward_dq": 16,
+})
 #: kernel launches since the last reset_launches()
 launches = _LIB.launches
 reset_launches = _LIB.reset
@@ -93,35 +114,118 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
                              f"{x.device}")
 
 
-def _check_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  **more: torch.Tensor) -> None:
     """The kernel's own limits, past :func:`_check`: a head dim it is built
-    for and contiguous, 16-byte aligned tensors.  The plain version takes
-    any head dim and any strides."""
+    for and contiguous, 16-byte aligned tensors (q, k, v and the
+    backward's ``more``).  The plain version takes any head dim and any
+    strides."""
     d = q.shape[-1]
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in (("q", q), ("k", k), ("v", v), *more.items()):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              f"aligned for the kernel")
 
 
 def swa_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          window: int, q_offset: int = 0) -> torch.Tensor:
-    """``(B*Hq, Sq, d)`` attention output in q's dtype."""
+                          window: int, q_offset: int = 0, *,
+                          return_lse: bool = False):
+    """``(B*Hq, Sq, d)`` attention output in q's dtype; with ``return_lse``
+    also each query's log-sum-exp ``(B*Hq, Sq)`` fp32 (-inf for a query
+    that sees no key), as ``(o, lse)``."""
     window, q_offset = int(window), int(q_offset)
     _check(q, k, v, window, q_offset)
     if q.device.type == "cpu":
-        return ref.swa_attention_ref(q[None], k[None], v[None], window,
-                                     q_offset)[0]
+        o = ref.swa_attention_ref(q[None], k[None], v[None], window,
+                                  q_offset)[0]
+        if not return_lse:
+            return o
+        return o, ref.swa_attention_lse_ref(q[None], k[None], window,
+                                            q_offset)[0]
     _check_kernel(q, k, v)
     bhq, sq, d = q.shape
     bhkv, skv, _ = k.shape
     with _build.on_device(q.device):
         o = torch.empty_like(q)
+        lse = (torch.empty((bhq, sq), dtype=torch.float32, device=q.device)
+               if return_lse else None)
         _LIB.launch("swa_attention_forward", q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), o.data_ptr(), bhq, bhkv, sq, skv, d,
-                    min(window, _INT_MAX), q_offset,
+                    v.data_ptr(), o.data_ptr(),
+                    0 if lse is None else lse.data_ptr(), bhq, bhkv, sq, skv,
+                    d, min(window, _INT_MAX), q_offset,
                     int(q.dtype == torch.bfloat16),
                     _build.stream_handle(q.device))
-    return o
+    return (o, lse) if return_lse else o
+
+
+def swa_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           o: torch.Tensor, lse: torch.Tensor,
+                           do: torch.Tensor, window: int, q_offset: int = 0
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """``(dq, dk, dv)`` of the folded attention, in q's dtype, from the
+    forward's inputs, its output ``o``, its log-sum-exp ``lse`` and the
+    output's gradient ``do``.  On the card: three launches
+    (``bwd_dot``, ``backward_dkdv``, ``backward_dq``), each gradient
+    written once, no atomics."""
+    window, q_offset = int(window), int(q_offset)
+    _check(q, k, v, window, q_offset)
+    bhq, sq, d = q.shape
+    bhkv, skv, _ = k.shape
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape) \
+            or o.dtype != q.dtype or do.dtype != q.dtype \
+            or tuple(lse.shape) != (bhq, sq) or lse.dtype != torch.float32 \
+            or any(x.device != q.device for x in (o, lse, do)):
+        raise ValueError(f"o and do must be {tuple(q.shape)} {q.dtype} and "
+                         f"lse ({bhq}, {sq}) float32, got {tuple(o.shape)} "
+                         f"{o.dtype}, {tuple(do.shape)} {do.dtype}, "
+                         f"{tuple(lse.shape)} {lse.dtype}, all on "
+                         f"{q.device}")
+    if q.device.type == "cpu":
+        dq, dk, dv = ref.swa_attention_backward_ref(
+            q[None], k[None], v[None], o[None], lse[None], do[None], window,
+            q_offset)
+        return dq[0], dk[0], dv[0]
+    _check_kernel(q, k, v, o=o, do=do, lse=lse)
+    bf16 = int(q.dtype == torch.bfloat16)
+    stream = _build.stream_handle(q.device)
+    w = min(window, _INT_MAX)
+    with _build.on_device(q.device):
+        dvec = torch.empty((bhq, sq), dtype=torch.float32, device=q.device)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        _LIB.launch("swa_attention_bwd_dot", o.data_ptr(), do.data_ptr(),
+                    dvec.data_ptr(), bhq * sq, d, bf16, stream)
+        _LIB.launch("swa_attention_backward_dkdv", q.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), bhq, bhkv, sq, skv, d, w, q_offset, bf16,
+                    stream)
+        _LIB.launch("swa_attention_backward_dq", q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                    dvec.data_ptr(), dq.data_ptr(), bhq, bhkv, sq, skv, d, w,
+                    q_offset, bf16, stream)
+    return dq, dk, dv
+
+
+class SWAAttentionFn(torch.autograd.Function):
+    """The folded attention with a gradient: ``SWAAttentionFn.apply(q, k,
+    v, window, q_offset)``.  Forward saves ``q, k, v, o, lse``; backward
+    is :func:`swa_attention_backward`.  Kernels on CUDA tensors, the plain
+    versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, q_offset: int):
+        o, lse = swa_attention_forward(q, k, v, window, q_offset,
+                                       return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window, ctx.q_offset = int(window), int(q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = swa_attention_backward(q, k, v, o, lse, do.contiguous(),
+                                            ctx.window, ctx.q_offset)
+        return dq, dk, dv, None, None

@@ -7,9 +7,11 @@ Layout convention (the "grouped-MHA" view used everywhere):
     output   (B, Sq, G, H, hd)
 
 Four paths, all accumulating in fp32:
-  * ``swa_attention``      — sliding-window train/prefill: the CUDA kernel
-    ``kernels/csrc/swa_attention.cu`` on the card, its plain version on the
-    CPU (``kernels/swa_attention.py`` decides by the tensor's device).
+  * ``swa_attention``      — sliding-window train/prefill: the CUDA kernels
+    ``kernels/csrc/swa_attention.cu`` on the card, their plain versions on
+    the CPU (``kernels/swa_attention.py`` decides by the tensor's device):
+    the no-grad forward for prefill, ``SWAAttentionFn`` (forward with the
+    log-sum-exp, backward kernels) when a gradient is wanted.
     Heads fold as (B, G, H), so kernel kv row = q row // H = b * G + g.
     The kernel scales the fp32 scores (the Pallas kernel's rounding); the
     reference's jnp scan scales q in q's dtype first.  Both round p to the
@@ -30,7 +32,7 @@ from typing import Tuple
 
 import torch
 
-from ..kernels.swa_attention import swa_attention_forward
+from ..kernels import swa_attention as swa_kernels
 
 NEG = -1e30
 
@@ -129,8 +131,12 @@ def swa_attention(
 ) -> torch.Tensor:
     """Causal sliding-window attention: position i attends (i-window, i].
 
-    Runs in ``kernels/csrc/swa_attention.cu`` on the card; the kernel visits
+    Runs in ``kernels/csrc/swa_attention.cu`` on the card; the kernels visit
     only the key tiles inside each query tile's window: cost O(S * W).
+    With grad enabled and an input that wants one, the call goes through
+    ``SWAAttentionFn``, whose gradients flow back to q, k and v through the
+    fold's permutes and copies; otherwise (prefill, under ``no_grad``) it
+    is one forward launch a layer, with no log-sum-exp.
 
     ``q_offset`` has the kernel's meaning (and ``chunked_attention``'s):
     ``q[:, i]`` sits at position ``q_offset + i`` and ``k[:, j]`` at ``j``.
@@ -143,7 +149,11 @@ def swa_attention(
     qf = q.permute(0, 2, 3, 1, 4).reshape(B * G * H, Sq, hd).contiguous()
     kf = k.permute(0, 2, 1, 3).reshape(B * G, Sk, hd).contiguous()
     vf = v.permute(0, 2, 1, 3).reshape(B * G, Sk, hd).contiguous()
-    out = swa_attention_forward(qf, kf, vf, window, q_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out = swa_kernels.SWAAttentionFn.apply(qf, kf, vf, window, q_offset)
+    else:
+        out = swa_kernels.swa_attention_forward(qf, kf, vf, window, q_offset)
     return out.reshape(B, G, H, Sq, hd).permute(0, 3, 1, 2, 4)
 
 

@@ -2,8 +2,11 @@
 port of ``repro.models.dense``.
 
 h2o-danube uses sliding-window attention (cfg.attention ==
-"sliding_window"), whose prefill runs the CUDA kernel
-``kernels/csrc/swa_attention.cu`` in every layer.
+"sliding_window"), whose prefill and training step run the CUDA kernels
+``kernels/csrc/swa_attention.cu`` in every layer.  The reference's
+``_maybe_seq_shard`` constrains the residual's sharding only under a mesh;
+the port has none yet (ROADMAP Queue 1, sharding), so ``backbone`` leaves
+it out.
 
 The cache keeps the reference's stacked ``(L, B, G, Sc, hd)`` layout, so
 caches compare across the packages.  ``decode_step`` writes the new slot
@@ -17,7 +20,7 @@ import torch
 
 from . import blocks
 from .layers import Gen, apply_norm, mlp
-from .lm import BaseLM
+from .lm import BaseLM, scan_layers
 
 
 class DenseLM(BaseLM):
@@ -36,6 +39,12 @@ class DenseLM(BaseLM):
     def init_layers(self, gen: Gen) -> list:
         return [blocks.block_init(gen, self.cfg)
                 for _ in range(self.cfg.n_layers)]
+
+    def backbone(self, x: torch.Tensor):
+        def body(p, h):
+            return blocks.block_apply(p, h, self.cfg, window=self.window)
+        h = scan_layers(self._p()["layers"], x, body, self.cfg)
+        return h, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def backbone_prefill(self, x: torch.Tensor, cache_len: Optional[int] = None):
         cfg = self.cfg

@@ -20,7 +20,12 @@ from torch import nn
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: dicts become submodules, lists
     ``nn.ModuleList``s, tensors frozen ``nn.Parameter``s.  ``p["k"]`` and
-    ``"k" in p`` read it as the JAX package's dicts are read."""
+    ``"k" in p`` read it as the JAX package's dicts are read.
+
+    Serving needs no gradients, so every leaf starts frozen; training turns
+    them on with ``requires_grad_(True)`` (``steps.make_train_step`` does),
+    and ``named_parameters()`` gives the leaves by dotted path
+    (``layers.0.attn.wq.w``)."""
 
     def __init__(self, tree: Mapping):
         super().__init__()

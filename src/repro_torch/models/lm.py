@@ -1,4 +1,4 @@
-"""Shared LM scaffolding: the port of ``repro.models.lm`` (serving part).
+"""Shared LM scaffolding: the port of ``repro.models.lm``.
 
 Every model exposes the JAX package's surface, with the params held in the
 model (``model.params``, a :class:`~repro_torch.models.layers.ParamTree`
@@ -6,25 +6,80 @@ keyed as the reference's param pytree) instead of passed in:
 
     model.init(generator)                 -> model (params drawn on the
                                              generator's device)
+    model.loss(batch)                     -> (scalar loss, metrics dict)
     model.prefill(batch, cache_len)       -> (last_logits, cache)
     model.decode_step(cache, token, pos)  -> (logits, cache)
     model.cache_spec(batch, seq)          -> meta tensors (shapes, dtypes)
 
 ``models/convert.py`` fills ``model.params`` from the JAX package's params
 instead.  The reference's ``jax.lax.scan`` over stacked layers is a loop
-over ``params["layers"]``, an ``nn.ModuleList``.  ``loss`` and ``xent``
-(training) are not ported yet.
+over ``params["layers"]``, an ``nn.ModuleList`` (:func:`scan_layers`), and
+its ``jax.checkpoint`` policies are ``torch.utils.checkpoint``
+(:func:`maybe_remat`).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..kernels.ref import no_tf32
 from .config import ArchConfig
 from .layers import Gen, ParamTree, apply_norm, norm_init, normal
+
+
+def xent(logits: torch.Tensor, labels: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy with label -1 = ignore, in fp32: logits (B, S, V),
+    labels (B, S) -> (mean loss, accuracy) over the labelled positions."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    n = mask.sum().clamp(min=1.0)
+    loss = ((lse - ll) * mask).sum() / n
+    acc = ((lf.argmax(-1) == labels).float() * mask).sum() / n
+    return loss, acc
+
+
+#: the matmuls with no batch dims (the dense projections: ``x @ w``
+#: reaches ``mm``), which ``jax.checkpoint_policies.
+#: checkpoint_dots_with_no_batch_dims`` saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def maybe_remat(fn: Callable, cfg: ArchConfig) -> Callable:
+    """``fn`` under the config's rematerialisation: ``"full"`` keeps only
+    its inputs and recomputes the rest in backward, ``"dots"`` also keeps
+    the outputs of its dense projections, anything else (``"none"``) keeps
+    everything."""
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    return fn
+
+
+def scan_layers(layers, x: torch.Tensor, body: Callable,
+                cfg: ArchConfig) -> torch.Tensor:
+    """``body(layer_params, x) -> x`` over the layers in order, each under
+    :func:`maybe_remat`."""
+    body_r = maybe_remat(body, cfg)
+    for p in layers:
+        x = body_r(p, x)
+    return x
 
 
 class BaseLM(nn.Module):
@@ -78,6 +133,10 @@ class BaseLM(nn.Module):
         return h @ w
 
     # ---------------- family-specific hooks ---------------- #
+    def backbone(self, x: torch.Tensor):
+        """Full-sequence residual stream (train). Returns (h, aux)."""
+        raise NotImplementedError
+
     def backbone_prefill(self, x: torch.Tensor, cache_len: Optional[int] = None):
         """Returns (h, cache). ``cache_len`` pads attention caches with
         headroom for subsequent decode_step writes (serving allocates the
@@ -89,6 +148,17 @@ class BaseLM(nn.Module):
         raise NotImplementedError
 
     # ---------------- public API ---------------- #
+    def loss(self, batch: Dict[str, torch.Tensor]):
+        """``batch["tokens"]``, ``batch["labels"]`` (B, S) -> (total loss,
+        metrics ``ce``, ``aux``, ``acc``): ``total = ce + 0.01 * aux``.
+        Differentiable in the params once they want gradients."""
+        x = self.embed(batch["tokens"])
+        h, aux = self.backbone(x)
+        h = apply_norm(self._p()["ln_f"], h)
+        loss, acc = xent(self.logits(h), batch["labels"])
+        total = loss + 0.01 * aux
+        return total, {"ce": loss, "aux": aux, "acc": acc}
+
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor],
                 cache_len: Optional[int] = None):

@@ -10,7 +10,16 @@ Tolerances: 1e-5 between the two packages' plain fp32 functions (sums
 taken in another order), 2e-4 against the Pallas kernel (the reference's
 own, ``tests/test_kernels.py``).  The CUDA kernel runs only on a card (the
 ``cuda`` test at the end, and ``chip_smoke.py``).
+
+The backward: the port's plain backward (``ref.swa_attention_backward_ref``
+with ``ref.swa_attention_lse_ref``), folded through the wrapper and
+unfolded, and ``SWAAttentionFn`` on CPU tensors, against ``jax.vjp`` of the
+reference's plain function and of the zoo's jnp scan (what the reference
+trains through), within 2e-4; on the card the three backward kernels and
+the forward's log-sum-exp against the plain versions (fp32 2e-4, bf16 the
+forward's 1e-2 * (1 + |plain|)), and two runs bit for bit.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -118,9 +127,14 @@ def test_bf16_inputs_give_bf16_output_near_fp32():
 
 def test_plain_path_launches_nothing():
     tswa.reset_launches()
-    q, k, v = _qkv(1, 2, 1, 16, 16, 16)
-    tswa.swa_attention_forward(*_t(_fold(q), _fold(k), _fold(v)), 4)
-    assert tswa.launches == {"swa_attention_forward": 0}
+    q, k, v = _t(*(_fold(x) for x in _qkv(1, 2, 1, 16, 16, 16)))
+    tswa.swa_attention_forward(q, k, v, 4)
+    o, lse = tswa.swa_attention_forward(q, k, v, 4, return_lse=True)
+    tswa.swa_attention_backward(q, k, v, o, lse, torch.ones_like(o), 4)
+    assert tswa.launches == {"swa_attention_forward": 0,
+                             "swa_attention_bwd_dot": 0,
+                             "swa_attention_backward_dkdv": 0,
+                             "swa_attention_backward_dq": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "mixed", "hd", "groups", "shape",
@@ -387,3 +401,216 @@ def test_kernel_matches_plain_on_card(dtype):
         tol = PALLAS_TOL if dt == torch.float32 else 1e-2 * (1 + want.abs())
         assert bool(((got - want).abs() <= tol).all())
     assert tswa.launches["swa_attention_forward"] == len(CARD_CASES)
+
+
+# ------------------------------ backward ------------------------------ #
+#: (B, Hq, Hkv, Sq, Skv, d, window, q_offset): d in {16, 32, 64, 80}, GQA
+#: ratios 1, 4 and 8, W < S and W >= S, ragged S, and q_offset with
+#: Sq < Skv (the kernel's meaning; the scan is held only at q_offset 0)
+BWD_CASES = [
+    (1, 2, 2, 48, 48, 16, 16, 0),          # ratio 1, W < S
+    (2, 4, 1, 40, 40, 32, 64, 0),          # ratio 4, W >= S
+    (1, 8, 1, 37, 37, 64, 10, 0),          # ratio 8, ragged, W < S
+    (1, 4, 1, 70, 70, 80, 33, 0),          # h2o's d, ragged
+    (2, 8, 1, 65, 65, 80, 100, 0),         # ratio 8, W >= S
+    (1, 4, 2, 20, 60, 32, 24, 40),         # q_offset, Sq < Skv
+    (2, 4, 4, 80, 80, 64, 64, 0),          # reduced h2o: S wraps W
+]
+
+
+def _do(B, hq, sq, d, seed):
+    return np.random.default_rng(seed).standard_normal(
+        (B, hq, sq, d), dtype=np.float32)
+
+
+def _jax_vjp_ref(q, k, v, do, W, off):
+    """``jax.vjp`` of ``repro.kernels.ref.swa_attention_ref``."""
+    _, vjp = jax.vjp(lambda a, b, c: jref.swa_attention_ref(
+        a, b, c, window=W, q_offset=off), *map(jnp.asarray, (q, k, v)))
+    return vjp(jnp.asarray(do))
+
+
+def _lse_numpy(q, k, W, off):
+    """Each query's log-sum-exp over the keys it sees, in float64."""
+    B, hq, sq, d = q.shape
+    g = hq // k.shape[1]
+    kk = np.repeat(k.astype(np.float64), g, axis=1)
+    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), kk) * d ** -0.5
+    s = np.where(_visible(sq, k.shape[2], W, off), s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    return (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_plain_backward_matches_jax_vjp(case):
+    """The port's plain backward, unfolded (``ref``) and folded through the
+    wrapper, against ``jax.vjp`` of the reference's plain function, from
+    the port's plain output and log-sum-exp; the log-sum-exp against an
+    independent float64 one."""
+    B, hq, hkv, sq, skv, d, W, off = case
+    q, k, v = _qkv(B, hq, hkv, sq, skv, d, seed=sq + d + W)
+    do = _do(B, hq, sq, d, seed=d)
+    want = _jax_vjp_ref(q, k, v, do, W, off)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    o = tref.swa_attention_ref(tq, tk, tv, W, off)
+    lse = tref.swa_attention_lse_ref(tq, tk, W, off)
+    assert lse.shape == (B, hq, sq) and lse.dtype == torch.float32
+    _close(lse, _lse_numpy(q, k, W, off), TOL)
+    for got, w in zip(tref.swa_attention_backward_ref(
+            tq, tk, tv, o, lse, tdo, W, off), want):
+        _close(got, w, PALLAS_TOL)
+    folded = tswa.swa_attention_backward(
+        *(_fold(x) for x in (tq, tk, tv, o)), _fold(lse), _fold(tdo), W, off)
+    for got, w in zip(folded, want):
+        _close(got.reshape(w.shape), w, PALLAS_TOL)
+
+
+@pytest.mark.parametrize("case", [c for c in BWD_CASES if c[-1] == 0],
+                         ids=str)
+def test_model_swa_backward_matches_jax_scan(case):
+    """Gradients through ``models/attention.py``'s ``swa_attention`` (the
+    grouped layout, ``SWAAttentionFn`` on CPU tensors) against ``jax.vjp``
+    of the zoo's jnp scan, the function the reference trains through."""
+    B, hq, hkv, S, _, d, W, _ = case
+    q, k, v = _grouped(B, S, S, hkv, hq // hkv, d, seed=S * d)
+    do = np.random.default_rng(W).standard_normal(q.shape, dtype=np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jattn.swa_attention(
+        a, b, c, window=W, chunk_q=32), *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (x.requires_grad_(True) for x in _t(q, k, v))
+    out = tattn.swa_attention(tq, tk, tv, window=W)
+    out.backward(torch.from_numpy(do))
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        _close(got, w, PALLAS_TOL)
+
+
+@pytest.mark.parametrize("case", BWD_CASES[::2], ids=str)
+def test_autograd_function_on_cpu_is_the_plain_backward(case):
+    """``SWAAttentionFn`` on CPU tensors: its output is the plain forward
+    and its gradients are the plain backward's, bit for bit; both equal
+    autograd through the plain forward within 1e-5."""
+    B, hq, hkv, sq, skv, d, W, off = case
+    q, k, v = (torch.from_numpy(_fold(x)) for x in _qkv(
+        B, hq, hkv, sq, skv, d, seed=W))
+    do = torch.from_numpy(_fold(_do(B, hq, sq, d, seed=sq)))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = tswa.SWAAttentionFn.apply(*leaves, W, off)
+    out.backward(do)
+    o, lse = tswa.swa_attention_forward(q, k, v, W, off, return_lse=True)
+    assert torch.equal(out.detach(), o)
+    want = tswa.swa_attention_backward(q, k, v, o, lse, do, W, off)
+    auto = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    tref.swa_attention_ref(*(x[None] for x in auto), W, off)[0].backward(do)
+    for leaf, w, a in zip(leaves, want, auto):
+        assert torch.equal(leaf.grad, w)
+        _close(leaf.grad, a.grad, TOL)
+
+
+def test_prefill_under_no_grad_takes_the_forward_without_lse():
+    """With grad enabled and inputs that want it, ``models/attention.py``
+    builds a graph through ``SWAAttentionFn``; under ``no_grad`` (prefill)
+    it does not."""
+    def nodes(fn):
+        """The names of the graph's nodes below ``fn``."""
+        seen, todo = set(), [fn]
+        while todo:
+            f = todo.pop()
+            if f is not None and type(f).__name__ not in seen:
+                seen.add(type(f).__name__)
+                todo += [g for g, _ in f.next_functions]
+        return seen
+
+    q, k, v = (x.requires_grad_(True) for x in _t(*_grouped(1, 20, 20, 2, 2,
+                                                          16, seed=1)))
+    out = tattn.swa_attention(q, k, v, window=8)
+    assert tswa.SWAAttentionFn._backward_cls.__name__ in nodes(out.grad_fn)
+    with torch.no_grad():
+        assert tattn.swa_attention(q, k, v, window=8).grad_fn is None
+
+
+@pytest.mark.parametrize("bad", ["o_shape", "lse_dtype", "do_dtype"])
+def test_backward_rejects_mismatched_saved_tensors(bad):
+    q, k, v = torch.zeros(4, 16, 32), torch.zeros(2, 16, 32), \
+        torch.zeros(2, 16, 32)
+    o, lse, do = torch.zeros(4, 16, 32), torch.zeros(4, 16), \
+        torch.zeros(4, 16, 32)
+    if bad == "o_shape":
+        o = o[:, :8]
+    elif bad == "lse_dtype":
+        lse = lse.double()
+    else:
+        do = do.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        tswa.swa_attention_backward(q, k, v, o, lse, do, 8)
+
+
+#: the card's extra backward cases: d = 16 and 128, misaligned Sq and Skv
+#: with q_offset > 0, W not a multiple of the key tile, rows that see no
+#: key (Skv short of q_offset + Sq), and reduced h2o's training shape
+BWD_CARD_CASES = BWD_CASES + [
+    (1, 2, 1, 200, 461, 16, 100, 300),
+    (1, 4, 2, 333, 1000, 128, 200, 700),
+    (2, 2, 1, 190, 190, 128, 77, 0),
+    (1, 4, 2, 100, 130, 64, 40, 60),
+    (2, 4, 2, 96, 96, 64, 64, 0),
+]
+
+
+def _card_bwd_inputs(case, dt):
+    B, hq, hkv, sq, skv, d, W, off = case
+    q, k, v = (torch.from_numpy(_fold(x)).cuda().to(dt)
+               for x in _qkv(B, hq, hkv, sq, skv, d, seed=sq + skv))
+    do = torch.from_numpy(_fold(_do(B, hq, sq, d, seed=d))).cuda().to(dt)
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernels_match_plain_on_card(dtype):
+    """The forward's log-sum-exp and the three backward kernels against the
+    plain versions on the card, on the same saved tensors; one launch of
+    each entry point a case; skips on machines without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    tswa.reset_launches()
+    for B, hq, hkv, sq, skv, d, W, off in BWD_CARD_CASES:
+        q, k, v, do = _card_bwd_inputs((B, hq, hkv, sq, skv, d, W, off), dt)
+        o, lse = tswa.swa_attention_forward(q, k, v, W, off, return_lse=True)
+        lse_p = tref.swa_attention_lse_ref(q[None], k[None], W, off)[0]
+        seen = torch.isfinite(lse_p)
+        assert torch.equal(torch.isfinite(lse), seen)
+        assert bool(((lse - lse_p).abs()[seen]
+                     <= PALLAS_TOL * (1 + lse_p.abs()[seen])).all())
+        o_p = tref.swa_attention_ref(q[None], k[None], v[None], W, off)[0]
+        got = tswa.swa_attention_backward(q, k, v, o_p, lse_p, do, W, off)
+        want = tref.swa_attention_backward_ref(
+            q[None], k[None], v[None], o_p[None], lse_p[None], do[None], W,
+            off)
+        for g, w in zip(got, want):
+            g, w = g.float(), w[0].float()
+            tol = PALLAS_TOL if dt == torch.float32 else 1e-2 * (1 + w.abs())
+            assert g.dtype == torch.float32 and bool(
+                ((g - w).abs() <= tol).all())
+    n = len(BWD_CARD_CASES)
+    assert tswa.launches == {"swa_attention_forward": n,
+                             "swa_attention_bwd_dot": n,
+                             "swa_attention_backward_dkdv": n,
+                             "swa_attention_backward_dq": n}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernels_give_the_same_bits_twice(dtype):
+    """No atomics: two backward launches on the same inputs are equal bit
+    for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    dt = getattr(torch, dtype)
+    for case in (BWD_CARD_CASES[4], BWD_CARD_CASES[8]):
+        q, k, v, do = _card_bwd_inputs(case, dt)
+        W, off = case[6], case[7]
+        o, lse = tswa.swa_attention_forward(q, k, v, W, off, return_lse=True)
+        first = tswa.swa_attention_backward(q, k, v, o, lse, do, W, off)
+        second = tswa.swa_attention_backward(q, k, v, o, lse, do, W, off)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
