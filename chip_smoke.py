@@ -6,7 +6,9 @@ card.
 Phases, in order; any failure exits non-zero:
 
   1. build    compile ``src/repro_torch/kernels/csrc/*.cu`` (nvcc, sm_90a,
-              one nvcc per source, all at once)
+              one nvcc per source, all at once); each kernel's ptxas
+              registers and spills, and HGMMA in the SASS of every bf16
+              SWA backward kernel (``cuobjdump -sass``)
   2. kernels  the top-k kernel against its plain version: the edge grid,
               exact duplicate rows, N in {40k, 100k} x Q in {1, 32, 64} x
               k in {1, 10, 64, 65, 2000, N}, streamed and device-resident,
@@ -32,10 +34,13 @@ Phases, in order; any failure exits non-zero:
               Sq < Skv, W = 1, W >= S, ragged S, one full h2o-danube
               layer (S 6144, W 4096, d 80) on 4 heads, and the tile plan's
               edges (ragged Sq with q_offset, W and Skv not multiples of
-              the key tile, d = 128, 16 and 32); on each, the forward's
-              log-sum-exp and the three backward kernels (bwd_dot,
-              backward_dkdv, backward_dq) on the plain forward's saved
-              tensors, and two backward launches bit for bit on a few
+              the key tile, d = 128, 16 and 32) and the bf16 dK/dV
+              tiling's (a 128-key CTA half past Skv, group 1 and 8, d =
+              16, 32 and 128 at W not a multiple of 64); on each, the
+              forward's log-sum-exp and the three backward kernels
+              (bwd_dot, backward_dkdv, backward_dq) on the plain forward's
+              saved tensors, and two backward launches bit for bit on a
+              few
   5. serve    two versions of a 40,000 x 200 GO-size snapshot published
               through the port's registry; ``repro_torch.launch.serve``
               in client-session mode, then HTTP over the gateway, every
@@ -107,13 +112,17 @@ Phases, in order; any failure exits non-zero:
               time, 50 calls replayed from one CUDA graph) and the
               forward wrapper's host time by part; the device-busy share
               of an eager training step by part (torch.profiler); the SWA
-              kernel at one h2o-danube layer's shape, bf16 and fp32,
-              against its bound, its plain version and
-              ``scaled_dot_product_attention``; the device-busy share of a
-              full-width decode step; the SWA backward at one layer's
-              shape (B = 1 and 2, bf16 and fp32) against its bound, its
-              plain version and SDPA forward + backward, and the forward
-              with its log-sum-exp against without
+              kernel at one h2o-danube layer's shape, bf16 (B = 2, and
+              B = 1, the training shape) and fp32, against its bound, its
+              plain version and ``scaled_dot_product_attention``; the
+              device-busy share of a full-width decode step; the SWA
+              backward at one layer's shape (B = 1 and 2, bf16 and fp32)
+              against its bounds (the function's, the two-kernel
+              design's), its plain version and SDPA forward + backward,
+              and the forward with its log-sum-exp against without.
+              After other phases it runs in a fresh child process
+              (``--phases numbers``), whose profiler sessions read the
+              device; every kge and SWA row must carry a device time
  12. alloc    only when ``--phases`` names it: host time of the kge_score
               backward's output allocations two ways, in turns: four
               tensors (what the wrapper allocates) against one (3, B, d)
@@ -213,6 +222,13 @@ SWA_CASES = (
      (1, 4, 2, 333, 1000, 128, 200, 700)),
     ("d 16, q_offset, W 100, Skv 461", (1, 2, 1, 200, 461, 16, 100, 300)),
     ("d 32 ragged, W 77", (1, 2, 1, 300, 300, 32, 77, 0)),
+    # the bf16 dK/dV tiling's edges: a 128-key CTA half past Skv, group 1
+    # and group 8, d = 16, 32 and 128 at W not a multiple of 64
+    ("128-key CTA half past Skv, group 1", (1, 2, 2, 178, 178, 80, 100, 0)),
+    ("group 8, Skv 300", (1, 8, 1, 300, 300, 80, 150, 0)),
+    ("d 16, W 100", (1, 4, 2, 150, 150, 16, 100, 0)),
+    ("d 32, W 77, one key past 128", (2, 4, 1, 129, 129, 32, 77, 0)),
+    ("d 128, W 130, q_offset, Skv 250", (1, 4, 2, 190, 250, 128, 130, 60)),
 )
 #: the LM generation run: h2o-danube-1.8b at its published width, a prompt
 #: longer than its 4096 window (the roll shift after prefill is 2048)
@@ -235,6 +251,8 @@ TRAIN_CHECK_LAYERS = 2
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_TOL = 2e-4
 BF16_FLOP_PER_S = 989e12    # H100 SXM data sheet, dense bf16 tensor cores
+#: the bf16 SWA backward kernels, which must run on wgmma (HGMMA in SASS)
+BF16_BWD_KERNELS = ("swa_bwd_dkdv_bf16_kernel", "swa_bwd_dq_bf16_kernel")
 SMALL_ENTRY = ("topk_score_select", "topk_merge_lists")
 LARGE_ENTRY = ("topk_score_keys", "topk_select_sort", "topk_merge_path")
 #: the device kernels in topk_cosine.cu, as the profiler names them
@@ -340,8 +358,49 @@ def _kernel_name(mangled: str) -> str:
     return mangled
 
 
-def phase_build() -> dict:
+def _ptxas_kernels(log: str) -> dict:
+    """``{kernel: {"registers", "spill_stores", "spill_loads"}}`` from
+    ``nvcc -Xptxas=-v``'s output."""
+    out: dict = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def _sass_functions(lib: Path) -> dict:
+    """``{kernel: SASS}`` of a built library, from ``cuobjdump -sass``
+    (beside nvcc in the toolkit)."""
     from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {lib}: {out.stderr[-400:]}")
+    funcs = {}
+    for chunk in re.split(r"\n\s*Function : ", out.stdout)[1:]:
+        name, _, body = chunk.partition("\n")
+        funcs[_kernel_name(name.strip())] = body
+    return funcs
+
+
+def phase_build() -> dict:
+    """Build every source; print each kernel's ptxas line; the SWA
+    backward kernels' registers and spills, and fail unless every bf16
+    one runs on the tensor cores (HGMMA in its SASS)."""
+    from repro_torch.kernels import _build, swa_attention as sw
     t0 = time.perf_counter()
     libs = _build.build_all()
     import torch
@@ -349,14 +408,25 @@ def phase_build() -> dict:
            "torch": torch.__version__, "cuda": torch.version.cuda,
            "compile_s": _build.last_build_s,
            "libraries": {k: str(p.relative_to(ROOT)) for k, p in libs.items()}}
-    emit(out)
     for name in libs:
         for line in _build.build_log(name).splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:                       # which kernel the next lines are
                 print(f"[ptxas] {name}: {_kernel_name(m.group(1))}")
-            elif "registers" in line or "spill" in line or "error" in line:
+            elif any(w in line for w in ("registers", "spill", "error",
+                                         "warning")):
                 print(f"[ptxas] {line.strip()}")
+    ptxas = _ptxas_kernels(_build.build_log("swa_attention"))
+    sass = _sass_functions(libs["swa_attention"])
+    bwd = {}
+    for name, regs in sorted(ptxas.items()):
+        if name.startswith("swa_bwd_"):
+            bwd[name] = {**regs, "hgmma": sass.get(name, "").count("HGMMA")}
+    bf16 = [f"{k}<{d}>" for k in BF16_BWD_KERNELS for d in sw.HEAD_DIMS]
+    missing = [k for k in bf16 if not bwd.get(k, {}).get("hgmma")]
+    check(not missing, f"no HGMMA in the SASS of {missing}")
+    out["swa_backward_kernels"] = bwd
+    emit(out)
     return out
 
 
@@ -2414,26 +2484,83 @@ def _graph_ms(fn, calls: int = 50, replays: int = 5) -> float:
 
 
 def _device_ms(fn, iters: int = 10) -> dict:
-    """Device time per call by kernel (or copy) name, from torch.profiler's
-    CUPTI trace; empty when the profiler reports no device time."""
+    """Device time per call by kernel (or copy) name, from the device
+    activities (CUPTI) of a CPU + CUDA torch.profiler session over
+    ``iters`` calls, as ``_busy_share`` reads them: each name's mean
+    duration times its runs a call (its activities over ``iters``,
+    rounded).  The mean, not the sum over ``iters``: on some cards a
+    session drops an activity of a name (the SWA backward's kernels read
+    2/3 of their time over 3 calls, the forward 9/10 over 10).  Empty
+    when the profiler reports none (in a process that ran the other
+    phases first: see ``_numbers_in_child``)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    out: dict = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0)
-        if us:
-            m = re.search(r"(\w+_kernel)\b", evt.key)
-            name = m.group(1) if m else evt.key[:48]
-            out[name] = out.get(name, 0.0) + us / 1e3 / iters
-    return out
+    runs: dict = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA and evt.device_time_total:
+            m = re.search(r"(\w+_kernel)\b", evt.name)
+            name = m.group(1) if m else evt.name[:48]
+            runs.setdefault(name, []).append(evt.device_time_total)
+    return _per_call_ms(runs, iters)
+
+
+def _per_call_ms(runs: dict, iters: int) -> dict:
+    """``{name: ms a call}`` from ``{name: [us of each activity]}`` over
+    ``iters`` calls: the mean activity times the activities a call."""
+    return {name: sum(us) / len(us) * max(1, round(len(us) / iters)) / 1e3
+            for name, us in runs.items()}
+
+
+def _numbers_in_child(tmp: str, card: str) -> dict:
+    """The numbers phase in a fresh process (``--phases numbers``), its
+    lines passed through and its results read back.  In a process that
+    has run the other phases, torch.profiler's short sessions stop
+    reporting the device activity of the kge and SWA kernels, while a
+    fresh process reads them (ROADMAP Queue 3, item 8)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()            # the child needs the card's memory
+    path = Path(tmp) / "numbers.json"
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--phases",
+         "numbers", "--out", str(path)], stdout=subprocess.PIPE, text=True,
+        cwd=str(ROOT))
+    try:
+        for line in proc.stdout:
+            if line.strip() != card and not line.startswith(
+                    ('{"ok"', '{"phase_seconds"', "[chip_smoke]")):
+                print(line, end="", flush=True)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(rc == 0, f"numbers: the child process exited with {rc}")
+    return json.loads(path.read_text())["phases"]["numbers"]
+
+
+def _check_device_times(numbers: dict) -> None:
+    """A blind profiler fails the run: every kge and SWA row of the
+    numbers phase must carry a device ms."""
+    rows = [(f"kge_score {part} {r['model']}", r[f"{part}_device_ms"])
+            for r in numbers["kge"]["kge_rows"]
+            for part in ("forward", "backward")]
+    fwd = numbers["swa"]["swa"]
+    rows += [("swa forward bf16", fwd["device_ms"]),
+             ("swa forward fp32", fwd["fp32_device_ms"]),
+             ("swa forward bf16 B=1", fwd["train_batch"]["device_ms"])]
+    rows += [(f"swa backward {r['dtype']} B={r['B']}", r["device_ms"])
+             for r in numbers["swa_backward"]["rows"]]
+    blind = [name for name, ms in rows if not ms]
+    check(not blind, f"numbers: no device time for {blind}")
 
 
 def bound_ms(Q: int, rows: int, k: int, k_run: int) -> tuple:
@@ -2871,7 +2998,19 @@ def swa_numbers(card: str) -> dict:
            "library_ms": _cuda_ms(lib, iters=10, warmup=2),
            "bound_ms": b_ms, "bound_by": b_by,
            "library_vs_kernel_max_abs": lib_err, "card": card}
-    del q4, k4, v4
+    # the training shape (B = 1): the first batch row's heads
+    q1, k1, v1 = q[:hq], k[:hkv], v[:hkv]
+    kern1 = lambda: sw.swa_attention_forward(q1, k1, v1, W)
+    lib1 = lambda: F.scaled_dot_product_attention(
+        q4[:1], k4[:1], v4[:1], attn_mask=band, enable_gqa=True)
+    ours1 = {n: t for n, t in _device_ms(kern1).items() if "swa_" in n}
+    b1_ms, b1_by = swa_bound_ms(1, hq, hkv, S, hd, W, 2)
+    rec["train_batch"] = {
+        "B": 1, "ms": _cuda_ms(kern1, iters=20),
+        "device_ms": sum(ours1.values()) if ours1 else None,
+        "library_ms": _cuda_ms(lib1, iters=10, warmup=2),
+        "bound_ms": b1_ms, "bound_by": b1_by}
+    del q4, k4, v4, q1, k1, v1
     # the same layer in fp32: kernel (FMA), plain, and SDPA with the band
     # mask in fp32 (no TF32), which computes the same function
     qf, kf, vf = (x.float() for x in (q, k, v))
@@ -2924,15 +3063,17 @@ def swa_numbers(card: str) -> dict:
 
 
 def swa_bwd_bound_ms(B: int, hq: int, hkv: int, S: int, hd: int, W: int,
-                     dtype_bytes: int, flop_per_s: float = BF16_FLOP_PER_S
-                     ) -> tuple:
+                     dtype_bytes: int, flop_per_s: float = BF16_FLOP_PER_S,
+                     products: int = 5) -> tuple:
     """Least time for one SWA backward: q, k, v, o, dO and lse read once,
-    dq, dk and dv written once; 10 * hd operations per visible (query,
-    key) pair (five products: S, dP, dV, dK, dQ), at the type's peak
-    rate."""
+    dq, dk and dv written once; 2 * hd operations per visible (query,
+    key) pair and product, at the type's peak rate.  The function has
+    five products (S, dP, dV, dK, dQ); the two-kernel design recomputes
+    S and dP (``products=7``), and the bf16 kernels also take dV, dK and
+    dQ twice, as bf16 hi + lo parts of P and dS (``products=10``)."""
     nbytes = ((4 * B * hq + 4 * B * hkv) * S * hd * dtype_bytes
               + 4 * B * hq * S)
-    ops = 10.0 * hd * swa_pairs(S, S, W, 0) * B * hq
+    ops = 2.0 * products * hd * swa_pairs(S, S, W, 0) * B * hq
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / flop_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -2943,9 +3084,11 @@ def swa_backward_numbers(card: str) -> dict:
     h2o-danube layer's shape (32 q / 8 kv heads, S = 6144, W = 4096, d =
     80), B = 1 (the training run's) and 2, bf16 and fp32: kernel ms (CUDA
     events over the three launches), device ms by kernel (profiler), the
-    plain backward's ms, the bound, and SDPA forward + backward with the
-    band mask and ``enable_gqa`` beside our forward (with lse) +
-    backward; and the forward with its log-sum-exp against without."""
+    plain backward's ms, the function's bound (five products), the
+    two-kernel design's (seven) and the bound of what the kernels issue,
+    and SDPA forward + backward with the band mask and ``enable_gqa``
+    beside our forward (with lse) + backward; and the forward with its
+    log-sum-exp against without."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref, swa_attention as sw
@@ -2996,6 +3139,12 @@ def swa_backward_numbers(card: str) -> dict:
                   f"SDPA's gradients differ from the kernels' by {lib_err}")
             del got
             b_ms, b_by = swa_bwd_bound_ms(B, hq, hkv, S, hd, W, nbytes, peak)
+            design_ms, _ = swa_bwd_bound_ms(B, hq, hkv, S, hd, W, nbytes,
+                                            peak, products=7)
+            # the bf16 kernels take dV, dK and dQ as hi + lo products
+            issued_ms, _ = swa_bwd_bound_ms(
+                B, hq, hkv, S, hd, W, nbytes, peak,
+                products=10 if dtype == torch.bfloat16 else 7)
             fwd_b_ms, fwd_b_by = swa_bound_ms(B, hq, hkv, S, hd, W, nbytes,
                                               peak)
             rec = {"B": B, "Hq": hq, "Hkv": hkv, "S": S, "d": hd, "W": W,
@@ -3005,6 +3154,8 @@ def swa_backward_numbers(card: str) -> dict:
                    "device_ms": sum(ours.values()) if ours else None,
                    "plain_ms": _cuda_ms(plain, iters=2, warmup=1),
                    "bound_ms": b_ms, "bound_by": b_by,
+                   "design_bound_ms": design_ms,
+                   "issued_bound_ms": issued_ms,
                    "fwd_lse_bwd_ms": _cuda_ms(fwd_bwd, iters=3, warmup=1),
                    "library_fwd_bwd_ms": _cuda_ms(lib, iters=3, warmup=1),
                    "library_vs_kernel_max_rel": lib_err,
@@ -3178,7 +3329,7 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
         "ms": r["ms"], "device_ms": r["device_ms"],
         "device_ms_in_train_step": in_step("swa forward",
                                            "swa_attention_forward"),
-        "train_batch": TRAIN_BATCH,
+        "train_batch": TRAIN_BATCH, "at_train_batch": r["train_batch"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     # the backward at the training run's shape (B = 1) in bf16; library:
@@ -3206,7 +3357,9 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
                 ("swa backward_dkdv", "swa_attention_backward_dkdv"),
                 ("swa backward_dq", "swa_attention_backward_dq"))},
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_fwd_bwd_ms"],
+        "bound_by": r["bound_by"], "design_bound_ms": r["design_bound_ms"],
+        "issued_bound_ms": r["issued_bound_ms"],
+        "library_ms": r["library_fwd_bwd_ms"],
         "library_is": "SDPA forward + backward, band mask, enable_gqa",
         "fwd_lse_bwd_ms": r["fwd_lse_bwd_ms"]})
     return {"kernels": out}
@@ -3273,6 +3426,8 @@ def main(argv=None) -> int:
                 store_tables[n_rows] = (table, norms)
 
         def numbers():
+            if set(RESULTS["phases"]) - {"build"}:
+                return _numbers_in_child(tmp, card)
             out = phase_numbers(store_tables, card)
             torch.cuda.synchronize()
             out["kge"] = kge_numbers(card)
@@ -3280,6 +3435,7 @@ def main(argv=None) -> int:
             out["swa"] = swa_numbers(card)
             torch.cuda.synchronize()
             out["swa_backward"] = swa_backward_numbers(card)
+            _check_device_times(out)
             return out
 
         # in this order; each phase's wall seconds are kept beside it

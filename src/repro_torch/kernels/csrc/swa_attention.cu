@@ -229,9 +229,9 @@ template <int HD>
 struct Panels {
   static constexpr int NF = HD / 64;
   static constexpr int TW = HD % 64;
-  static constexpr int Q_BYTES = BQ * HD * 2;
-  static constexpr int KV_BYTES = BK * HD * 2;
   static_assert(TW == 0 || TW == 16 || TW == 32, "d must be 16, 32 or 64k (+16/32)");
+  // a tile of `rows` rows, all panels
+  __host__ __device__ static constexpr int bytes(int rows) { return rows * HD * 2; }
   __host__ __device__ static constexpr int offset(int p, int rows) {
     return rows * 128 * p;
   }
@@ -310,8 +310,10 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Returns once at most N of this warpgroup's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Ties registers to this point: the compiler may not read or move them
@@ -391,6 +393,111 @@ __device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// One tile of `rows` rows (row r0 of folded head h), every panel of it,
+// onto `bar`: [0] maps the 64-column panels, [1] the tail.
+template <int HD>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int rows, int r0,
+                                         int h) {
+  using P = Panels<HD>;
+#pragma unroll
+  for (int p = 0; p < P::NF; ++p)
+    tma_load_3d(dst + P::offset(p, rows), &map[0], bar, 64 * p, r0, h);
+  if (P::TW) tma_load_3d(dst + P::offset(P::NF, rows), &map[1], bar, 64 * P::NF, r0, h);
+}
+
+// d (m64 x n64, fp32) = A B^T over the head dim: A the 64 rows from
+// `a_row0` of an `a_rows`-row tile, B a 64-row tile, both K-major in
+// shared memory; d / 16 k-steps walking the panels.
+template <int HD>
+__device__ __forceinline__ void wgmma_ss_panels(float* d, uint32_t a_tile,
+                                                int a_rows, int a_row0,
+                                                uint32_t b_tile) {
+  using P = Panels<HD>;
+  constexpr int NF = P::NF, TW = P::TW;
+#pragma unroll
+  for (int p = 0; p < NF; ++p) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n64(d, smem_desc(a_tile + P::offset(p, a_rows) + a_row0 * 128 + 32 * kk, 128),
+                   smem_desc(b_tile + P::offset(p, 64) + 32 * kk, 128), p + kk > 0);
+  }
+  if constexpr (TW > 0) {
+    // the tail's rows are 2 TW bytes
+    const uint32_t aa = a_tile + P::offset(NF, a_rows) + a_row0 * 2 * TW;
+#pragma unroll
+    for (int kk = 0; kk < TW / 16; ++kk)
+      wgmma_ss_n64(d, smem_desc(aa + 32 * kk, 2 * TW),
+                   smem_desc(b_tile + P::offset(NF, 64) + 32 * kk, 2 * TW),
+                   NF + kk > 0);
+  }
+}
+
+// acc (m64 x HD, fp32) += A B: A one 16-deep k-step from registers, B
+// rows [16 kk, 16 kk + 16) of a `rows`-row tile read MN-major, one
+// instruction per panel (N = 64 or the tail's width) into its columns.
+template <int HD>
+__device__ __forceinline__ void wgmma_rs_panels(float* acc, const uint32_t* a,
+                                                uint32_t tile, int rows,
+                                                int kk) {
+  using P = Panels<HD>;
+  constexpr int NF = P::NF, TW = P::TW;
+#pragma unroll
+  for (int p = 0; p < NF; ++p)
+    wgmma_rs_n64(acc + 32 * p, a, smem_desc(tile + P::offset(p, rows) + kk * 16 * 128, 128));
+  if constexpr (TW == 32)
+    wgmma_rs_n32(acc + 32 * NF, a, smem_desc(tile + P::offset(NF, rows) + kk * 16 * 64, 64));
+  if constexpr (TW == 16)
+    wgmma_rs_n16(acc + 32 * NF, a, smem_desc(tile + P::offset(NF, rows) + kk * 16 * 32, 32));
+}
+
+// The score layout (s[4 j + e]: row g + 8 (e >> 1), column 8 j + 2 t +
+// (e & 1)) packed to bf16 as wgmma's A fragments: two 8-column blocks
+// make one 16-deep k-step.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[BK / 16][4],
+                                       const float (&s)[4 * NT]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      a[kk][c] = pack_bf16(s[8 * kk + 2 * c], s[8 * kk + 2 * c + 1]);
+}
+
+// The score layout split into two bf16 A-fragment sets, hi = bf16(s) and
+// lo = bf16(s - hi): hi + lo carries ~16 significant bits, so a product
+// taken as A(hi) B + A(lo) B is as exact as B's own bf16 values allow.
+__device__ __forceinline__ void split_a(uint32_t (&hi)[BK / 16][4],
+                                        uint32_t (&lo)[BK / 16][4],
+                                        const float (&s)[4 * NT]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float x = s[8 * kk + 2 * c], y = s[8 * kk + 2 * c + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+      const float2 hf = __bfloat1622float2(h);
+      hi[kk][c] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[kk][c] = pack_bf16(x - hf.x, y - hf.y);
+    }
+}
+
+// Warp specialisation's register split (setmaxnreg, which every thread
+// of a warpgroup executes together): the producer warpgroup drops to
+// PRODUCER_REGS, each consumer warpgroup rises to CONSUMER_REGS.  Two
+// consumer warpgroups and a producer one (384 threads) start at 168 a
+// thread; after the split they hold 2 x 128 x 232 + 128 x 40 of the SM's
+// 65,536.
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int BWD_BF16_THREADS = 32 * CONSUMER_WARPS + 128;
+
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+}
+
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+}
+
 // d <= 80 asks for two CTAs an SM (d = 80: 90 registers, 128 B of
 // spills), d = 128 for one (147 registers, no spills).
 template <int HD>
@@ -400,12 +507,12 @@ swa_bf16_kernel(const __grid_constant__ SwaMaps maps,
                 int sq, int skv, int group, int window, int q_offset,
                 float scale_log2) {
   using P = Panels<HD>;
-  constexpr int NF = P::NF, TW = P::TW;
+  constexpr int Q_BYTES = P::bytes(BQ), KV_BYTES = P::bytes(BK);
   extern __shared__ unsigned char smem_bf16[];
   const uint32_t s_q = (smem_u32(smem_bf16) + 1023u) & ~1023u;
-  const uint32_t s_k = s_q + P::Q_BYTES;             // stage s: + s * KV_BYTES
-  const uint32_t s_v = s_k + STAGES * P::KV_BYTES;
-  const uint32_t bar_full = s_v + STAGES * P::KV_BYTES;  // STAGES barriers
+  const uint32_t s_k = s_q + Q_BYTES;                // stage s: + s * KV_BYTES
+  const uint32_t s_v = s_k + STAGES * KV_BYTES;
+  const uint32_t bar_full = s_v + STAGES * KV_BYTES;  // STAGES barriers
   const uint32_t bar_empty = bar_full + 8 * STAGES;
   const uint32_t bar_q = bar_empty + 8 * STAGES;
 
@@ -429,25 +536,16 @@ swa_bf16_kernel(const __grid_constant__ SwaMaps maps,
 
   if (warp == CONSUMER_WARPS) {        // the producer: one thread issues TMA
     if (lane == 0) {
-      mbar_expect_tx(bar_q, P::Q_BYTES);
-      for (int p = 0; p < NF; ++p)
-        tma_load_3d(s_q + P::offset(p, BQ), &maps.q[0], bar_q, 64 * p, q0, head);
-      if (TW) tma_load_3d(s_q + P::offset(NF, BQ), &maps.q[1], bar_q, 64 * NF, q0, head);
+      mbar_expect_tx(bar_q, Q_BYTES);
+      tma_tile<HD>(s_q, maps.q, bar_q, BQ, q0, head);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES;
         if (i >= STAGES) mbar_wait(bar_empty + 8 * s, (i / STAGES - 1) & 1);
         const uint32_t full = bar_full + 8 * s;
-        mbar_expect_tx(full, 2 * P::KV_BYTES);
+        mbar_expect_tx(full, 2 * KV_BYTES);
         const int key0 = (tile0 + i) * BK;
-        const uint32_t k_dst = s_k + s * P::KV_BYTES, v_dst = s_v + s * P::KV_BYTES;
-        for (int p = 0; p < NF; ++p) {
-          tma_load_3d(k_dst + P::offset(p, BK), &maps.k[0], full, 64 * p, key0, kvh);
-          tma_load_3d(v_dst + P::offset(p, BK), &maps.v[0], full, 64 * p, key0, kvh);
-        }
-        if (TW) {
-          tma_load_3d(k_dst + P::offset(NF, BK), &maps.k[1], full, 64 * NF, key0, kvh);
-          tma_load_3d(v_dst + P::offset(NF, BK), &maps.v[1], full, 64 * NF, key0, kvh);
-        }
+        tma_tile<HD>(s_k + s * KV_BYTES, maps.k, full, BK, key0, kvh);
+        tma_tile<HD>(s_v + s * KV_BYTES, maps.v, full, BK, key0, kvh);
       }
     }
     return;
@@ -465,35 +563,17 @@ swa_bf16_kernel(const __grid_constant__ SwaMaps maps,
   for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
   float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
   mbar_wait(bar_q, 0);
-  const uint32_t q_wg = s_q + 64 * wg * 128;         // + the panel's offset
   for (int i = 0; i < n_tiles; ++i) {
     const int s = i % STAGES;
     mbar_wait(bar_full + 8 * s, (i / STAGES) & 1);
     const int k0 = (tile0 + i) * BK;
     if (live && k0 <= wk_hi && k0 + BK - 1 >= wk_lo) {
-      const uint32_t k_t = s_k + s * P::KV_BYTES, v_t = s_v + s * P::KV_BYTES;
+      const uint32_t k_t = s_k + s * KV_BYTES, v_t = s_v + s * KV_BYTES;
       float sc[4 * NT];
       wgmma_fence();
-#pragma unroll
-      for (int p = 0; p < NF; ++p) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss_n64(sc, smem_desc(q_wg + P::offset(p, BQ) + 32 * kk, 128),
-                       smem_desc(k_t + P::offset(p, BK) + 32 * kk, 128),
-                       p + kk > 0);
-      }
-      if constexpr (TW > 0) {
-        // the tail's rows are 2 TW bytes: the warpgroup's rows start at
-        // 64 * 2 TW within it
-        const uint32_t qa = s_q + P::offset(NF, BQ) + 64 * wg * 2 * TW;
-#pragma unroll
-        for (int kk = 0; kk < TW / 16; ++kk)
-          wgmma_ss_n64(sc, smem_desc(qa + 32 * kk, 2 * TW),
-                       smem_desc(k_t + P::offset(NF, BK) + 32 * kk, 2 * TW),
-                       NF + kk > 0);
-      }
+      wgmma_ss_panels<HD>(sc, s_q, BQ, 64 * wg, k_t);
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(sc);
       const bool interior = tile_interior(k0, first, last, q_offset, window, skv);
       float alpha[2];
@@ -506,34 +586,14 @@ swa_bf16_kernel(const __grid_constant__ SwaMaps maps,
         acc[4 * j + 2] *= alpha[1];
         acc[4 * j + 3] *= alpha[1];
       }
-      // two 8-key column blocks of the score layout are one 16-key
-      // k-step of wgmma's A fragment: p rounded to bf16 here
-      uint32_t pa[BK / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-      }
+      uint32_t pa[BK / 16][4];       // p rounded to bf16 here
+      pack_a(pa, sc);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        // 16 keys a k-step: 16 rows of each V panel further on
-#pragma unroll
-        for (int p = 0; p < NF; ++p)
-          wgmma_rs_n64(acc + 32 * p, pa[kk],
-                       smem_desc(v_t + P::offset(p, BK) + kk * 16 * 128, 128));
-        if constexpr (TW == 32)
-          wgmma_rs_n32(acc + 32 * NF, pa[kk],
-                       smem_desc(v_t + P::offset(NF, BK) + kk * 16 * 64, 64));
-        if constexpr (TW == 16)
-          wgmma_rs_n16(acc + 32 * NF, pa[kk],
-                       smem_desc(v_t + P::offset(NF, BK) + kk * 16 * 32, 32));
-      }
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs_panels<HD>(acc, pa[kk], v_t, BK, kk);
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(acc);
     }
     __syncwarp();
@@ -820,7 +880,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
          encode(&maps.v[j], v, bhkv, skv, HD, width, BK);
   }
   if (!ok) return (int)cudaErrorInvalidValue;
-  const int smem = 1024 + P::Q_BYTES + 2 * STAGES * P::KV_BYTES +
+  const int smem = 1024 + P::bytes(BQ) + 2 * STAGES * P::bytes(BK) +
                    8 * (2 * STAGES + 1);
   auto kern = swa_bf16_kernel<HD>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -877,79 +937,108 @@ int launch(bool bf16, const void* q, const void* k, const void* v, void* o,
 //   dV_j = sum_i P_ij dO_i,  dK_j = scale sum_i dS_ij q_i,
 //   dQ_i = scale sum_j dS_ij k_j,
 // summed over the q heads of a kv row for dK and dV (the GQA fold).
-// Every product runs in fp32 FMA on the CUDA cores, bf16 inputs widened
-// as they are staged; the gradients are rounded to the inputs' dtype once.
 //
-// Three kernels, each output written exactly once, no atomics, every sum
-// in a fixed order (the same bits on every run):
-//   * swa_bwd_dot_kernel: D, one warp a row.
-//   * swa_bwd_dkdv_kernel: one CTA per (kv row, 64-key tile).  K and V
-//     stay in shared memory; it walks the q heads of the kv row and, for
-//     each, the 64-query tiles whose band meets the key tile (the
-//     transpose of the forward's plan), recomputes S and dP for the tile
-//     pair, stages P and dS in shared memory, and accumulates dK and dV
-//     in registers.
-//   * swa_bwd_dq_kernel: one CTA per (q row, 64-query tile), walking the
-//     forward's key tiles; dS is staged transposed and dQ accumulates in
-//     registers.
+// Three kernels a call, each output written exactly once, no atomics,
+// every sum in a fixed order (the same bits on every run):
+//   * swa_bwd_dot_kernel: D, one warp a row (both dtypes).
+//   * dK and dV: one CTA per (kv row, key tile).  K and V stay in shared
+//     memory; it walks the q heads of the kv row and, for each, the
+//     64-query tiles whose band meets the key tile (the transpose of the
+//     forward's plan: keys [k0, k1] are seen by queries [k0 - q_offset,
+//     k1 - q_offset + W - 1], in 64 bits), recomputing S and dP for each
+//     tile pair; the sum over the q heads stays in the CTA.
+//   * dQ: one CTA per (q row, query tile), walking the forward's key tiles.
 // Both mask only the tile pairs tile_interior does not call interior;
-// rows past Sq are staged as zero with lse = +inf (their p is 0), keys
-// past Skv are zero and masked.
+// rows past Sq read lse = +inf and D = 0 (their p and dS are 0), keys past
+// Skv are zero and masked.
 //
-// What bounds it on an H100: 10 d operations a visible pair (five
-// products; the two kernels recompute S and dP, 14 d in all), on fp32
-// FMA here: at h2o-danube's layer shape (B = 1) ~0.6 TFLOP of FMA work,
-// ~9 ms at 67 TFLOP/s.  Each thread holds a 4 x 4 block of the score
-// tile (16-byte shared loads of q / k rows, 128 FMAs for 16 loads); the
-// accumulation reads one 16-byte P / dS quad and d / 16 scalars of each
-// operand a row.  A tensor-core (wgmma) redesign is later work.
-constexpr int BWD_THREADS = 256;     // 8 warps
+// What bounds it on an H100: at h2o-danube's layer shape (B = 1, 32 q / 8
+// kv heads, S = 6144, W = 4096, d = 80: 537 M visible pairs) the
+// function is 10 d operations a visible pair (five products), 0.43
+// TFLOP, 0.434 ms at 989 TFLOP/s bf16; its bytes (q, k, v, o, dO, the
+// three gradients, lse: 158 MB) take 0.047 ms at 3.35 TB/s.  Two kernels
+// recompute S and dP: 14 d a pair, 0.608 ms.  One pass would need dQ
+// summed across the key tiles' CTAs: atomics (which break the same-bits
+// contract) or per-tile partials (~2.7 GB at this shape).
+//
+// bf16 (swa_bwd_dkdv_bf16_kernel, swa_bwd_dq_bf16_kernel): the forward's
+// machinery, every product on wgmma with fp32 accumulators: a producer
+// keeps a STAGES-deep mbarrier ring of 3-D TMA boxes in flight, the
+// consumer warpgroups release each stage after their last wgmma on it,
+// and d runs in 64-column panels plus a 16- or 32-column tail.
+//   * dK/dV: a CTA holds Dkdv::KEYS keys of one kv row, 64 a consumer
+//     warpgroup.  The ring streams a (Q, dO) tile pair with its lse and D
+//     per (q head, query tile).  A warpgroup computes S^T = K Q^T and
+//     dP^T = V dO^T with both operands in shared memory, K-major (the
+//     forward's Q K^T with the roles swapped; dP^T's wgmma runs while
+//     P^T's exp2s do), P^T = 2^(S^T scale log2 e - lse log2 e) and dS^T =
+//     P^T (dP^T - D), lse and D now per column (8 j + 2 t + {0, 1} of the
+//     accumulator layout), then dV += P^T dO and dK += dS^T Q with A from
+//     registers (the accumulator layout packed to bf16, as the forward's
+//     P V) and dO / Q read through the MN-major descriptors of the
+//     forward's V.  dK is scaled once at the store.
+//   * lse and D are not TMA boxes: a row of Sq floats need not start on
+//     16 bytes, and rows past Sq must read +inf and 0, not TMA's zeros.
+//     The producer's first warp loads them (two rows a lane, before it
+//     waits for the stage), stores them beside the stage's tiles, and
+//     each lane arrives on the stage's full barrier: 32 arrivals plus
+//     the TMA bytes.
+//   * dQ: a CTA of BQ queries (two warpgroups) holds Q and dO; the ring
+//     streams K and V tiles.  S = Q K^T and dP = dO V^T smem-smem, dQ +=
+//     dS K with dS from registers and K MN-major; lse and D are per row.
+//   * Rounding of P and dS: FlashAttention rounds them to bf16 before
+//     the products that take them from registers, as the forward rounds
+//     P before P V.  Here that alone put the h2o-danube layer's dV past
+//     1e-2 (1 + |plain|) of the fp32 plain version (by 0.03125 at |dV| ~
+//     2: the early keys, whose P are near 1, sum a few large, rounded
+//     terms; an emulation of that rounding on the card used 0.5-0.7 of
+//     the tolerance on other seeds).  So each of P^T, dS^T and dS is
+//     split into hi = bf16(x) and lo = bf16(x - hi), and dV, dK and dQ
+//     take A(hi) B + A(lo) B: ~16 bits of P and dS, at the price of those
+//     three products twice (20 d operations a pair in all, 0.869 ms at
+//     this shape).  S, dP, lse, D and every sum stay fp32, and each
+//     gradient is rounded once, at its store.
+//   * Load balance: keys past S - W see fewer queries.  The dK/dV grid
+//     runs key tiles in ascending order with the kv rows fastest, so at
+//     q_offset = 0 the full-band tiles start first; dQ's query tiles run
+//     heaviest first, as the forward's.
+//   * Registers: a dK/dV warpgroup holds S^T and dP^T (32 + 32 a thread),
+//     dK and dV (d / 2 + d / 2) and the split fragments (64).  Two
+//     consumer warpgroups and a producer warpgroup (384 threads) start at
+//     168 registers a thread; the producer drops to 40 and the consumers
+//     rise to 232 (setmaxnreg), and ptxas spills nothing.  At d = 128 a
+//     dK/dV CTA holds one consumer warpgroup (64 keys) and a producer
+//     warp, 160 threads at up to 255 registers.  The dQ kernel takes the
+//     same split.  chip_smoke.py's build phase prints each kernel's
+//     registers and spills and finds HGMMA in its SASS.
+//
+// fp32 (swa_bwd_dkdv_f32_kernel, swa_bwd_dq_f32_kernel; not on the
+// training path): fp32 FMA on the CUDA cores, no TF32, 8 warps a CTA,
+// 64 x 64 tile pairs staged synchronously; each thread holds a 4 x 4
+// block of the score tile, P and dS are staged in shared memory (dS
+// transposed for dQ) and the gradients accumulate in registers.
+constexpr int BWD_THREADS = 256;     // fp32 kernels and bwd_dot: 8 warps
 constexpr int BWD_BQ = 64;           // query rows of a tile
 constexpr int BWD_LDS = BK + 16;     // row stride of P, dS [query][key]
 constexpr int BWD_LDT = BWD_BQ + 4;  // row stride of dS^T [key][query]
 
-template <typename T>
-struct Elem;
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float4 load4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  static __device__ __forceinline__ float get(const float* p) { return *p; }
-  static __device__ __forceinline__ void put(float* p, float x) { *p = x; }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ float get(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16(x);
-  }
-};
-
-__device__ __forceinline__ float4 lds4(const float* p) {
+__device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
 // Rows [row0, row0 + 64) of one head's (n, HD) matrix into a 64 x (HD + 4)
 // fp32 tile; rows at or past n are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int row0,
-                                          int n) {
+template <int HD>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int row0, int n) {
   constexpr int LD = HD + F32_LD, CH = HD / 4;
   for (int c = threadIdx.x; c < 64 * CH; c += BWD_THREADS) {
     const int r = c / CH, col = (c % CH) * 4;
     float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (row0 + r < n) x = Elem<T>::load4(src + (size_t)(row0 + r) * HD + col);
+    if (row0 + r < n) x = ld4(src + (size_t)(row0 + r) * HD + col);
     *reinterpret_cast<float4*>(dst + r * LD + col) = x;
   }
 }
@@ -983,17 +1072,17 @@ __device__ __forceinline__ void scores_bwd(float (&s)[4][4], float (&dp)[4][4],
   for (int c = 0; c < HD; c += 4) {
     float4 a[4], b[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = lds4(sQ + (tq + 16 * i) * LD + c);
+    for (int i = 0; i < 4; ++i) a[i] = ld4(sQ + (tq + 16 * i) * LD + c);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = lds4(sK + (tk + 16 * j) * LD + c);
+    for (int j = 0; j < 4; ++j) b[j] = ld4(sK + (tk + 16 * j) * LD + c);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dot4(s[i][j], a[i], b[j]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = lds4(sDO + (tq + 16 * i) * LD + c);
+    for (int i = 0; i < 4; ++i) a[i] = ld4(sDO + (tq + 16 * i) * LD + c);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = lds4(sV + (tk + 16 * j) * LD + c);
+    for (int j = 0; j < 4; ++j) b[j] = ld4(sV + (tk + 16 * j) * LD + c);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -1039,22 +1128,22 @@ swa_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   const T* drow = dout + row * hd;
   float acc = 0.0f;
   for (int c = lane; c < hd; c += 32)
-    acc = fmaf(Elem<T>::get(orow + c), Elem<T>::get(drow + c), acc);
+    acc = fmaf(to_f32(orow[c]), to_f32(drow[c]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(FULL, acc, off);
   if (lane == 0) dvec[row] = acc;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(BWD_THREADS)
-swa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dvec, T* __restrict__ dk,
-                    T* __restrict__ dv, int sq, int skv, int group,
-                    int window, int q_offset, float scale,
-                    float scale_log2) {
+swa_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ dvec, float* __restrict__ dk,
+                        float* __restrict__ dv, int sq, int skv, int group,
+                        int window, int q_offset, float scale,
+                        float scale_log2) {
   constexpr int LD = HD + F32_LD, TILE = 64 * LD, NM = HD / 16;
   extern __shared__ __align__(16) unsigned char smem_bwd[];
   float* sK = reinterpret_cast<float*>(smem_bwd);
@@ -1070,8 +1159,8 @@ swa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tq = tid / 16, tk = tid % 16;   // score tile: rows tq + 16 i, keys tk + 16 j
   const int ka = tid % 16, cb = tid / 16;   // dK, dV: keys 4 ka + r, columns cb + 16 m
-  load_rows<T, HD>(sK, k + (size_t)kvh * skv * HD, k0, skv);
-  load_rows<T, HD>(sV, v + (size_t)kvh * skv * HD, k0, skv);
+  load_rows<HD>(sK, k + (size_t)kvh * skv * HD, k0, skv);
+  load_rows<HD>(sV, v + (size_t)kvh * skv * HD, k0, skv);
 
   float adk[4][NM], adv[4][NM];
 #pragma unroll
@@ -1089,13 +1178,13 @@ swa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int t0 = (int)(lo / BWD_BQ), t1 = (int)(hi / BWD_BQ);
     for (int h = 0; h < group; ++h) {
       const size_t head = (size_t)kvh * group + h;
-      const T* qh = q + head * sq * HD;
-      const T* doh = dout + head * sq * HD;
+      const float* qh = q + head * sq * HD;
+      const float* doh = dout + head * sq * HD;
       for (int t = t0; t <= t1; ++t) {
         const int q0 = t * BWD_BQ, last = min(q0 + BWD_BQ, sq) - 1;
         __syncthreads();                    // the last tile's readers are done
-        load_rows<T, HD>(sQ, qh, q0, sq);
-        load_rows<T, HD>(sDO, doh, q0, sq);
+        load_rows<HD>(sQ, qh, q0, sq);
+        load_rows<HD>(sDO, doh, q0, sq);
         load_stats(sL, sD, lse + head * sq, dvec + head * sq, q0, sq);
         __syncthreads();
         float s[4][4], dp[4][4];
@@ -1113,8 +1202,8 @@ swa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         __syncthreads();
 #pragma unroll 2
         for (int r = 0; r < BWD_BQ; ++r) {
-          const float4 p = lds4(sP + r * BWD_LDS + 4 * ka);
-          const float4 d = lds4(sS + r * BWD_LDS + 4 * ka);
+          const float4 p = ld4(sP + r * BWD_LDS + 4 * ka);
+          const float4 d = ld4(sS + r * BWD_LDS + 4 * ka);
 #pragma unroll
           for (int m = 0; m < NM; ++m) {
             const float g = sDO[r * LD + cb + 16 * m];
@@ -1133,28 +1222,28 @@ swa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   // every key of the tile below skv is written, 0 where no query sees it
-  T* dkh = dk + (size_t)kvh * skv * HD;
-  T* dvh = dv + (size_t)kvh * skv * HD;
+  float* dkh = dk + (size_t)kvh * skv * HD;
+  float* dvh = dv + (size_t)kvh * skv * HD;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int key = k0 + 4 * ka + r;
     if (key >= skv) continue;
 #pragma unroll
     for (int m = 0; m < NM; ++m) {
-      Elem<T>::put(dkh + (size_t)key * HD + cb + 16 * m, scale * adk[r][m]);
-      Elem<T>::put(dvh + (size_t)key * HD + cb + 16 * m, adv[r][m]);
+      dkh[(size_t)key * HD + cb + 16 * m] = scale * adk[r][m];
+      dvh[(size_t)key * HD + cb + 16 * m] = adv[r][m];
     }
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(BWD_THREADS)
-swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ dvec, T* __restrict__ dq, int sq,
-                  int skv, int group, int window, int q_offset, float scale,
-                  float scale_log2) {
+swa_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ dvec, float* __restrict__ dq,
+                      int sq, int skv, int group, int window, int q_offset,
+                      float scale, float scale_log2) {
   constexpr int LD = HD + F32_LD, TILE = 64 * LD, NM = HD / 16;
   extern __shared__ __align__(16) unsigned char smem_bwd[];
   float* sQ = reinterpret_cast<float*>(smem_bwd);
@@ -1172,10 +1261,10 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tq = tid / 16, tk = tid % 16;   // score tile
   const int qa = tid % 16, cb = tid / 16;   // dQ: rows 4 qa + r, columns cb + 16 m
-  const T* kh = k + kvh * skv * HD;
-  const T* vh = v + kvh * skv * HD;
-  load_rows<T, HD>(sQ, q + head * sq * HD, q0, sq);
-  load_rows<T, HD>(sDO, dout + head * sq * HD, q0, sq);
+  const float* kh = k + kvh * skv * HD;
+  const float* vh = v + kvh * skv * HD;
+  load_rows<HD>(sQ, q + head * sq * HD, q0, sq);
+  load_rows<HD>(sDO, dout + head * sq * HD, q0, sq);
   load_stats(sL, sD, lse + head * sq, dvec + head * sq, q0, sq);
 
   float acc[4][NM];
@@ -1191,8 +1280,8 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < n_tiles; ++i) {
     const int k0 = (tile0 + i) * BK;
     __syncthreads();                        // the last tile's readers are done
-    load_rows<T, HD>(sK, kh, k0, skv);
-    load_rows<T, HD>(sV, vh, k0, skv);
+    load_rows<HD>(sK, kh, k0, skv);
+    load_rows<HD>(sV, vh, k0, skv);
     __syncthreads();
     float s[4][4], dp[4][4];
     scores_bwd<HD>(s, dp, sQ, sK, sDO, sV, tq, tk);
@@ -1207,7 +1296,7 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 #pragma unroll 2
     for (int key = 0; key < BK; ++key) {
-      const float4 d = lds4(sT + key * BWD_LDT + 4 * qa);
+      const float4 d = ld4(sT + key * BWD_LDT + 4 * qa);
 #pragma unroll
       for (int m = 0; m < NM; ++m) {
         const float x = sK[key * LD + cb + 16 * m];
@@ -1219,33 +1308,409 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   // every row of the tile below sq is written, 0 where it sees no key
-  T* dqh = dq + head * sq * HD;
+  float* dqh = dq + head * sq * HD;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = q0 + 4 * qa + r;
     if (row >= sq) continue;
 #pragma unroll
     for (int m = 0; m < NM; ++m)
-      Elem<T>::put(dqh + (size_t)row * HD + cb + 16 * m, scale * acc[r][m]);
+      dqh[(size_t)row * HD + cb + 16 * m] = scale * acc[r][m];
   }
 }
 
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+// ---- bf16 backward: wgmma, TMA ------------------------------------------ //
+constexpr int BT = 64;             // queries of a dK/dV stage (one Q, dO tile)
+constexpr int STAT_BYTES = 2 * BT * 4;   // a stage's lse (log2 units), then D
+
+// The tensor maps of one backward call: [0] the 64-column panels, [1] the
+// tail.  dK/dV: q and dout boxes of BT rows, k and v of Dkdv::KEYS; dQ: q
+// and dout boxes of BQ rows, k and v of BK.
+struct BwdMaps {
+  CUtensorMap q[2], dout[2], k[2], v[2];
+};
+
+// A dK/dV CTA: 64 keys a consumer warpgroup, two at d <= 80, one at d =
+// 128 (whose dK and dV take 64 + 64 registers a thread).
+template <int HD>
+struct Dkdv {
+  static constexpr int WGS = HD <= 80 ? 2 : 1;
+  static constexpr int KEYS = 64 * WGS;
+  static constexpr int CONSUMERS = 4 * WGS;             // warps
+  // + the producer: a warpgroup that gives its registers away (two
+  // consumer warpgroups), or one warp (one: 255 registers a thread)
+  static constexpr int THREADS = 32 * CONSUMERS + (WGS > 1 ? 128 : 32);
+  static constexpr int SMEM = 1024 + 2 * Panels<HD>::bytes(KEYS) +
+                              STAGES * (2 * Panels<HD>::bytes(BT) + STAT_BYTES) +
+                              8 * (2 * STAGES + 1);
+};
+
+// A stage's per-query values (lse or D) at this thread's columns of the
+// score layout: v[4 j + e] is column 8 j + 2 t + (e & 1).
+__device__ __forceinline__ void column_stats(float (&v)[4 * NT],
+                                             const float* st, int t) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float2 x = *reinterpret_cast<const float2*>(st + 8 * j + 2 * t);
+    v[4 * j] = v[4 * j + 2] = x.x;
+    v[4 * j + 1] = v[4 * j + 3] = x.y;
+  }
+}
+
+// P = 2^(s scale_log2 - lse) for each pair of the score layout that is
+// visible (0 for the others); lse[e] (log2 units) is that of element e's
+// query.  Element e is row `row_base` + 8 ((e >> 1) & 1) and column
+// `col_base` + 8 (e >> 2) + (e & 1): row_base holds this lane's g,
+// col_base its 2 t.  `query_rows`: the rows are queries and the columns
+// keys (dQ); else the transpose (dK/dV).
+template <bool query_rows>
+__device__ __forceinline__ void probs_tile(float (&s)[4 * NT],
+                                           const float (&lse)[4 * NT],
+                                           bool interior, int row_base,
+                                           int col_base, int q_offset,
+                                           int window, int skv,
+                                           float scale_log2) {
+#pragma unroll
+  for (int e = 0; e < 4 * NT; ++e) {
+    bool ok = interior;
+    if (!interior) {
+      const int row = row_base + 8 * ((e >> 1) & 1);
+      const int col = col_base + 8 * (e >> 2) + (e & 1);
+      const int key = query_rows ? col : row;
+      const int qp = q_offset + (query_rows ? row : col);
+      ok = key <= qp && qp - key < window && key < skv;
+    }
+    s[e] = ok ? fast_exp2(fmaf(s[e], scale_log2, -lse[e])) : 0.0f;
+  }
 }
 
 template <int HD>
-constexpr size_t dkdv_smem() {
+__global__ void __launch_bounds__(Dkdv<HD>::THREADS, 1)
+swa_bwd_dkdv_bf16_kernel(const __grid_constant__ BwdMaps maps,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ dvec,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int sq, int skv,
+                         int group, int window, int q_offset, float scale,
+                         float scale_log2) {
+  using P = Panels<HD>;
+  using C = Dkdv<HD>;
+  constexpr int KEYS = C::KEYS, KV_BYTES = P::bytes(KEYS), Q_BYTES = P::bytes(BT);
+  extern __shared__ unsigned char smem_dkdv[];
+  const uint32_t base = smem_u32(smem_dkdv);
+  const uint32_t s_k = (base + 1023u) & ~1023u;
+  const uint32_t s_v = s_k + KV_BYTES;
+  const uint32_t s_q = s_v + KV_BYTES;                 // stage s: + s * Q_BYTES
+  const uint32_t s_do = s_q + STAGES * Q_BYTES;
+  const uint32_t s_stat = s_do + STAGES * Q_BYTES;     // stage s: + s * STAT_BYTES
+  const uint32_t bar_full = s_stat + STAGES * STAT_BYTES;
+  const uint32_t bar_empty = bar_full + 8 * STAGES;
+  const uint32_t bar_kv = bar_empty + 8 * STAGES;
+  float* stat = reinterpret_cast<float*>(smem_dkdv + (s_stat - base));
+
+  const int kvh = blockIdx.x, k0 = blockIdx.y * KEYS;
+  // the queries that see a key of [k0, k_last], in 64 bits: q_offset + i
+  // in [k0, k_last + window - 1], cut to [0, sq); their 64-query tiles
+  // for each of the group's q heads, heads outer
+  const int k_last = min(k0 + KEYS, skv) - 1;
+  const long long lo = max(0LL, (long long)k0 - q_offset);
+  const long long hi = min((long long)sq - 1,
+                           (long long)k_last - q_offset + window - 1);
+  const int t0 = lo <= hi ? (int)(lo / BT) : 0;
+  const int nt = lo <= hi ? (int)(hi / BT) - t0 + 1 : 0;
+  const int n_items = group * nt;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 32);           // the producer's lanes
+      mbar_init(bar_empty + 8 * s, C::CONSUMERS);
+    }
+    mbar_init(bar_kv, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= C::CONSUMERS) {          // the producer: its first warp works
+    if constexpr (C::WGS > 1) producer_regs();
+    if (warp > C::CONSUMERS) return;
+    if (n_items > 0 && lane == 0) {
+      mbar_expect_tx(bar_kv, 2 * KV_BYTES);
+      tma_tile<HD>(s_k, maps.k, bar_kv, KEYS, k0, kvh);
+      tma_tile<HD>(s_v, maps.v, bar_kv, KEYS, k0, kvh);
+    }
+    for (int i = 0; i < n_items; ++i) {
+      const int s = i % STAGES;
+      const int head = kvh * group + i / nt, q0 = (t0 + i % nt) * BT;
+      float l2[2], d[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int row = q0 + lane + 32 * u;
+        const bool ok = row < sq;
+        const size_t at = (size_t)head * sq + (ok ? row : 0);
+        l2[u] = ok ? lse[at] * LOG2E : INFINITY;
+        d[u] = ok ? dvec[at] : 0.0f;
+      }
+      if (i >= STAGES) mbar_wait(bar_empty + 8 * s, (i / STAGES - 1) & 1);
+      float* st = stat + s * (2 * BT);
+      st[lane] = l2[0];
+      st[lane + 32] = l2[1];
+      st[BT + lane] = d[0];
+      st[BT + lane + 32] = d[1];
+      const uint32_t full = bar_full + 8 * s;
+      if (lane == 0) {
+        mbar_expect_tx(full, 2 * Q_BYTES);
+        tma_tile<HD>(s_q + s * Q_BYTES, maps.q, full, BT, q0, head);
+        tma_tile<HD>(s_do + s * Q_BYTES, maps.dout, full, BT, q0, head);
+      } else {
+        mbar_arrive(full);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63
+  if constexpr (C::WGS > 1) consumer_regs();
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  const int kw0 = k0 + 64 * wg;
+  const int kw_last = min(kw0 + 63, skv - 1);
+  const long long wlo = max(0LL, (long long)kw0 - q_offset);
+  const long long whi = min((long long)sq - 1,
+                            (long long)kw_last - q_offset + window - 1);
+  const bool live = kw0 < skv && wlo <= whi;     // some query sees its keys
+  const int key0 = kw0 + 16 * (warp % 4) + g;        // keys key0, key0 + 8
+  // dK, dV: [4 j + e] is key key0 + 8 (e >> 1), column 8 j + 2 t + (e & 1)
+  float adk[HD / 2], adv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) adk[i] = adv[i] = 0.0f;
+  if (n_items > 0) mbar_wait(bar_kv, 0);
+  for (int i = 0; i < n_items; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(bar_full + 8 * s, (i / STAGES) & 1);
+    const int q0 = (t0 + i % nt) * BT;
+    if (live && q0 <= whi && q0 + BT - 1 >= wlo) {
+      const uint32_t q_t = s_q + s * Q_BYTES, do_t = s_do + s * Q_BYTES;
+      const float* st = stat + s * (2 * BT);
+      float sc[4 * NT], dp[4 * NT];    // S^T, dP^T: rows keys, columns queries
+      wgmma_fence();
+      wgmma_ss_panels<HD>(sc, s_k, KEYS, 64 * wg, q_t);
+      wgmma_commit();
+      wgmma_ss_panels<HD>(dp, s_v, KEYS, 64 * wg, do_t);
+      wgmma_commit();
+      wgmma_wait<1>();                 // S^T is in; dP^T may still run
+      fence_regs(sc);
+      // each thread's columns 8 j + 2 t + {0, 1}: their lse, then D
+      float col[4 * NT];
+      column_stats(col, st, t);
+      const int qlast = min(q0 + BT, sq) - 1;
+      probs_tile<false>(sc, col, tile_interior(kw0, q0, qlast, q_offset, window, skv),
+                        key0, q0 + 2 * t, q_offset, window, skv, scale_log2);
+      wgmma_wait<0>();
+      fence_regs(dp);
+      column_stats(col, st + BT, t);
+#pragma unroll
+      for (int e = 0; e < 4 * NT; ++e) dp[e] = sc[e] * (dp[e] - col[e]);
+      // P^T and dS^T as bf16 hi + lo A fragments
+      uint32_t ph[BK / 16][4], pl[BK / 16][4], dh[BK / 16][4], dl[BK / 16][4];
+      split_a(ph, pl, sc);
+      split_a(dh, dl, dp);
+      fence_regs(adv);
+      fence_regs(adk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk) {
+        wgmma_rs_panels<HD>(adv, ph[kk], do_t, BT, kk);
+        wgmma_rs_panels<HD>(adv, pl[kk], do_t, BT, kk);
+      }
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk) {
+        wgmma_rs_panels<HD>(adk, dh[kk], q_t, BT, kk);
+        wgmma_rs_panels<HD>(adk, dl[kk], q_t, BT, kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(adv);
+      fence_regs(adk);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);    // this warp is done with it
+  }
+
+  // every key below skv is written, 0 where no query sees it
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= skv) continue;
+    const size_t at = ((size_t)kvh * skv + key) * HD + 2 * t;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + at + 8 * j) =
+          pack_bf16(scale * adk[4 * j + 2 * r], scale * adk[4 * j + 2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dv + at + 8 * j) =
+          pack_bf16(adv[4 * j + 2 * r], adv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(BWD_BF16_THREADS, 1)
+swa_bwd_dq_bf16_kernel(const __grid_constant__ BwdMaps maps,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ dvec,
+                       __nv_bfloat16* __restrict__ dq, int sq, int skv,
+                       int group, int window, int q_offset, float scale,
+                       float scale_log2) {
+  using P = Panels<HD>;
+  constexpr int Q_BYTES = P::bytes(BQ), KV_BYTES = P::bytes(BK);
+  extern __shared__ unsigned char smem_dq[];
+  const uint32_t s_q = (smem_u32(smem_dq) + 1023u) & ~1023u;
+  const uint32_t s_do = s_q + Q_BYTES;
+  const uint32_t s_k = s_do + Q_BYTES;               // stage s: + s * KV_BYTES
+  const uint32_t s_v = s_k + STAGES * KV_BYTES;
+  const uint32_t bar_full = s_v + STAGES * KV_BYTES;
+  const uint32_t bar_empty = bar_full + 8 * STAGES;
+  const uint32_t bar_q = bar_empty + 8 * STAGES;
+
+  const int head = blockIdx.x, kvh = head / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest tiles first
+  const int k_lo = band_lo(q0, q_offset, window);
+  const int k_hi = band_hi(min(q0 + BQ, sq) - 1, q_offset, skv);
+  const int tile0 = k_lo / BK;
+  const int n_tiles = k_lo <= k_hi ? k_hi / BK - tile0 + 1 : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, CONSUMER_WARPS);
+    }
+    mbar_init(bar_q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMER_WARPS) {        // the producer: one thread issues TMA
+    producer_regs();
+    if (warp == CONSUMER_WARPS && lane == 0) {
+      mbar_expect_tx(bar_q, 2 * Q_BYTES);
+      tma_tile<HD>(s_q, maps.q, bar_q, BQ, q0, head);
+      tma_tile<HD>(s_do, maps.dout, bar_q, BQ, q0, head);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(bar_empty + 8 * s, (i / STAGES - 1) & 1);
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, 2 * KV_BYTES);
+        const int key0 = (tile0 + i) * BK;
+        tma_tile<HD>(s_k + s * KV_BYTES, maps.k, full, BK, key0, kvh);
+        tma_tile<HD>(s_v + s * KV_BYTES, maps.v, full, BK, key0, kvh);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+  consumer_regs();
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  const int first = q0 + 64 * wg, last = min(first + 63, sq - 1);
+  const bool live = first < sq;
+  const int wk_lo = band_lo(first, q_offset, window);
+  const int wk_hi = band_hi(last, q_offset, skv);
+  const int row0 = first + 16 * (warp % 4) + g;      // rows row0, row0 + 8
+  // each score element's row: its lse (log2 units) and D; rows past sq
+  // read +inf and 0
+  float row_l[4 * NT], row_d[4 * NT];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    const bool ok = qi < sq;
+    const size_t at = (size_t)head * sq + (ok ? qi : 0);
+    const float l2 = ok ? lse[at] * LOG2E : INFINITY, d = ok ? dvec[at] : 0.0f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      row_l[4 * j + 2 * r] = row_l[4 * j + 2 * r + 1] = l2;
+      row_d[4 * j + 2 * r] = row_d[4 * j + 2 * r + 1] = d;
+    }
+  }
+  float acc[HD / 2];                 // dQ: acc[4 j + e] is column 8 j + 2 t + (e & 1)
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  mbar_wait(bar_q, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(bar_full + 8 * s, (i / STAGES) & 1);
+    const int k0 = (tile0 + i) * BK;
+    if (live && k0 <= wk_hi && k0 + BK - 1 >= wk_lo) {
+      const uint32_t k_t = s_k + s * KV_BYTES, v_t = s_v + s * KV_BYTES;
+      float sc[4 * NT], dp[4 * NT];
+      wgmma_fence();
+      wgmma_ss_panels<HD>(sc, s_q, BQ, 64 * wg, k_t);
+      wgmma_commit();
+      wgmma_ss_panels<HD>(dp, s_do, BQ, 64 * wg, v_t);
+      wgmma_commit();
+      wgmma_wait<1>();                 // S is in; dP may still run
+      fence_regs(sc);
+      probs_tile<true>(sc, row_l, tile_interior(k0, first, last, q_offset, window, skv),
+                       row0, k0 + 2 * t, q_offset, window, skv, scale_log2);
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int e = 0; e < 4 * NT; ++e) dp[e] = sc[e] * (dp[e] - row_d[e]);
+      uint32_t dh[BK / 16][4], dl[BK / 16][4];   // dS as bf16 hi + lo
+      split_a(dh, dl, dp);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        wgmma_rs_panels<HD>(acc, dh[kk], k_t, BK, kk);
+        wgmma_rs_panels<HD>(acc, dl[kk], k_t, BK, kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);    // this warp is done with it
+  }
+
+  // every row below sq is written, 0 where it sees no key
+  __nv_bfloat16* dqh = dq + (size_t)head * sq * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= sq) continue;
+    __nv_bfloat16* row = dqh + (size_t)qi * HD + 2 * t;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          pack_bf16(scale * acc[4 * j + 2 * r], scale * acc[4 * j + 2 * r + 1]);
+  }
+}
+
+// ---- backward launchers ------------------------------------------------ //
+template <typename Kern>
+cudaError_t allow_smem(Kern kern, size_t bytes) {
+  cudaError_t e = cudaSuccess;
+  if (bytes > 48 * 1024)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  return e;
+}
+
+template <int HD>
+constexpr size_t dkdv_f32_smem() {
   return (4 * 64 * (HD + F32_LD) + 2 * BWD_BQ * BWD_LDS + 2 * BWD_BQ) *
          sizeof(float);
 }
 
 template <int HD>
-constexpr size_t dq_smem() {
+constexpr size_t dq_f32_smem() {
   return (4 * 64 * (HD + F32_LD) + BK * BWD_LDT + 2 * BWD_BQ) * sizeof(float);
+}
+
+template <int HD>
+constexpr int dq_bf16_smem() {
+  return 1024 + 2 * Panels<HD>::bytes(BQ) + 2 * STAGES * Panels<HD>::bytes(BK) +
+         8 * (2 * STAGES + 1);
 }
 
 // The tensors and shapes of one backward call.
@@ -1257,43 +1722,107 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-template <typename T, int HD>
-int launch_dkdv(const BwdArgs& b, void* dk, void* dv) {
-  auto kern = swa_bwd_dkdv_kernel<T, HD>;
-  const cudaError_t e = allow_smem(kern, dkdv_smem<HD>());
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(b.bhkv, (b.skv + BK - 1) / BK);
-  kern<<<grid, BWD_THREADS, dkdv_smem<HD>(), b.stream>>>(
-      static_cast<const T*>(b.q), static_cast<const T*>(b.k),
-      static_cast<const T*>(b.v), static_cast<const T*>(b.dout), b.lse,
-      b.dvec, static_cast<T*>(dk), static_cast<T*>(dv), b.sq, b.skv,
-      b.bhq / b.bhkv, b.window, b.q_offset, b.scale, b.scale * LOG2E);
-  return (int)cudaGetLastError();
+// The four maps of a bf16 backward call: q and dout boxes of q_rows rows,
+// k and v boxes of kv_rows.
+template <int HD>
+bool encode_bwd(BwdMaps* maps, const BwdArgs& b, int q_rows, int kv_rows) {
+  using P = Panels<HD>;
+  bool ok = true;
+  for (int j = 0; j < 2; ++j) {        // [0]: 64-column panels, [1]: tail
+    const int width = j == 0 ? 64 : P::TW;
+    if (j == 0 ? P::NF == 0 : P::TW == 0) continue;
+    ok = ok && encode(&maps->q[j], b.q, b.bhq, b.sq, HD, width, q_rows) &&
+         encode(&maps->dout[j], b.dout, b.bhq, b.sq, HD, width, q_rows) &&
+         encode(&maps->k[j], b.k, b.bhkv, b.skv, HD, width, kv_rows) &&
+         encode(&maps->v[j], b.v, b.bhkv, b.skv, HD, width, kv_rows);
+  }
+  return ok;
 }
 
-template <typename T, int HD>
-int launch_dq(const BwdArgs& b, void* dq) {
-  auto kern = swa_bwd_dq_kernel<T, HD>;
-  const cudaError_t e = allow_smem(kern, dq_smem<HD>());
+template <typename Kern>
+cudaError_t prepare_bf16(Kern kern, int smem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
+template <int HD>
+int launch_dkdv_bf16(const BwdArgs& b, void* dk, void* dv) {
+  using C = Dkdv<HD>;
+  BwdMaps maps = {};
+  if (!encode_bwd<HD>(&maps, b, BT, C::KEYS)) return (int)cudaErrorInvalidValue;
+  auto kern = swa_bwd_dkdv_bf16_kernel<HD>;
+  const cudaError_t e = prepare_bf16(kern, C::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(b.bhq, (b.sq + BWD_BQ - 1) / BWD_BQ);
-  kern<<<grid, BWD_THREADS, dq_smem<HD>(), b.stream>>>(
-      static_cast<const T*>(b.q), static_cast<const T*>(b.k),
-      static_cast<const T*>(b.v), static_cast<const T*>(b.dout), b.lse,
-      b.dvec, static_cast<T*>(dq), b.sq, b.skv, b.bhq / b.bhkv, b.window,
+  const dim3 grid(b.bhkv, (b.skv + C::KEYS - 1) / C::KEYS);
+  kern<<<grid, C::THREADS, C::SMEM, b.stream>>>(
+      maps, b.lse, b.dvec, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), b.sq, b.skv, b.bhq / b.bhkv, b.window,
       b.q_offset, b.scale, b.scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
-// dK and dV (dq == nullptr) or dQ, by head dim and dtype.
-template <typename T>
-int launch_bwd(int hd, const BwdArgs& b, void* dq, void* dk, void* dv) {
+template <int HD>
+int launch_dq_bf16(const BwdArgs& b, void* dq) {
+  BwdMaps maps = {};
+  if (!encode_bwd<HD>(&maps, b, BQ, BK)) return (int)cudaErrorInvalidValue;
+  auto kern = swa_bwd_dq_bf16_kernel<HD>;
+  const cudaError_t e = prepare_bf16(kern, dq_bf16_smem<HD>());
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(b.bhq, (b.sq + BQ - 1) / BQ);
+  kern<<<grid, BWD_BF16_THREADS, dq_bf16_smem<HD>(), b.stream>>>(
+      maps, b.lse, b.dvec, static_cast<__nv_bfloat16*>(dq), b.sq, b.skv,
+      b.bhq / b.bhkv, b.window, b.q_offset, b.scale, b.scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_dkdv_f32(const BwdArgs& b, void* dk, void* dv) {
+  auto kern = swa_bwd_dkdv_f32_kernel<HD>;
+  const cudaError_t e = allow_smem(kern, dkdv_f32_smem<HD>());
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(b.bhkv, (b.skv + BK - 1) / BK);
+  kern<<<grid, BWD_THREADS, dkdv_f32_smem<HD>(), b.stream>>>(
+      static_cast<const float*>(b.q), static_cast<const float*>(b.k),
+      static_cast<const float*>(b.v), static_cast<const float*>(b.dout), b.lse,
+      b.dvec, static_cast<float*>(dk), static_cast<float*>(dv), b.sq, b.skv,
+      b.bhq / b.bhkv, b.window, b.q_offset, b.scale, b.scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_dq_f32(const BwdArgs& b, void* dq) {
+  auto kern = swa_bwd_dq_f32_kernel<HD>;
+  const cudaError_t e = allow_smem(kern, dq_f32_smem<HD>());
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(b.bhq, (b.sq + BWD_BQ - 1) / BWD_BQ);
+  kern<<<grid, BWD_THREADS, dq_f32_smem<HD>(), b.stream>>>(
+      static_cast<const float*>(b.q), static_cast<const float*>(b.k),
+      static_cast<const float*>(b.v), static_cast<const float*>(b.dout), b.lse,
+      b.dvec, static_cast<float*>(dq), b.sq, b.skv, b.bhq / b.bhkv, b.window,
+      b.q_offset, b.scale, b.scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+// dK and dV (dq == nullptr) or dQ, by dtype and head dim: bf16 on
+// wgmma, fp32 on FMA.
+template <int HD>
+int launch_bwd_hd(bool bf16, const BwdArgs& b, void* dq, void* dk, void* dv) {
+  if (bf16) return dq ? launch_dq_bf16<HD>(b, dq) : launch_dkdv_bf16<HD>(b, dk, dv);
+  return dq ? launch_dq_f32<HD>(b, dq) : launch_dkdv_f32<HD>(b, dk, dv);
+}
+
+int launch_bwd(bool bf16, int hd, const BwdArgs& b, void* dq, void* dk,
+               void* dv) {
   switch (hd) {
-    case 16: return dq ? launch_dq<T, 16>(b, dq) : launch_dkdv<T, 16>(b, dk, dv);
-    case 32: return dq ? launch_dq<T, 32>(b, dq) : launch_dkdv<T, 32>(b, dk, dv);
-    case 64: return dq ? launch_dq<T, 64>(b, dq) : launch_dkdv<T, 64>(b, dk, dv);
-    case 80: return dq ? launch_dq<T, 80>(b, dq) : launch_dkdv<T, 80>(b, dk, dv);
-    case 128: return dq ? launch_dq<T, 128>(b, dq) : launch_dkdv<T, 128>(b, dk, dv);
+    case 16: return launch_bwd_hd<16>(bf16, b, dq, dk, dv);
+    case 32: return launch_bwd_hd<32>(bf16, b, dq, dk, dv);
+    case 64: return launch_bwd_hd<64>(bf16, b, dq, dk, dv);
+    case 80: return launch_bwd_hd<80>(bf16, b, dq, dk, dv);
+    case 128: return launch_bwd_hd<128>(bf16, b, dq, dk, dv);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1355,8 +1884,7 @@ extern "C" int swa_attention_backward_dkdv(const long long* a) {
                      (int)a[8], (int)a[9], (int)a[10], (int)a[11], (int)a[13],
                      (int)a[14], head_scale(hd), (cudaStream_t)a[16]};
   void *dk = (void*)a[6], *dv = (void*)a[7];
-  return a[15] != 0 ? launch_bwd<__nv_bfloat16>(hd, b, nullptr, dk, dv)
-                    : launch_bwd<float>(hd, b, nullptr, dk, dv);
+  return launch_bwd(a[15] != 0, hd, b, nullptr, dk, dv);
 }
 
 // a: q, k, v, do, lse, dvec, dq (device pointers; dq (bhq, sq, hd) in
@@ -1368,6 +1896,5 @@ extern "C" int swa_attention_backward_dq(const long long* a) {
                      (int)a[7], (int)a[8], (int)a[9], (int)a[10], (int)a[12],
                      (int)a[13], head_scale(hd), (cudaStream_t)a[15]};
   void* dq = (void*)a[6];
-  return a[14] != 0 ? launch_bwd<__nv_bfloat16>(hd, b, dq, nullptr, nullptr)
-                    : launch_bwd<float>(hd, b, dq, nullptr, nullptr);
+  return launch_bwd(a[14] != 0, hd, b, dq, nullptr, nullptr);
 }

@@ -22,11 +22,11 @@ kernels run or the call raises: there is no switch and no fallback.  Both
 take fp32 or bf16 and any head dim the reference takes; the kernels also
 need contiguous tensors and ``d`` in :data:`HEAD_DIMS`
 (:func:`_check_kernel`).  Ragged Sq and Skv are masked in the kernels, not
-padded.  The bf16 forward runs on wgmma with TMA-fed K/V tiles, the fp32
-forward and both backward kernels on the CUDA cores; all walk the tiles
-:func:`swa_tile_plan` gives (the dK/dV kernel its transpose) and mask
-only the tiles it does not call interior.  ``launches`` counts kernel
-launches by entry point.
+padded.  bf16 runs on wgmma with TMA-fed tiles (forward and backward),
+fp32 on the CUDA cores; the forward and dQ kernels walk the tiles
+:func:`swa_tile_plan` gives, the dK/dV kernels those of
+:func:`swa_key_tile_plan`, and all mask only the tiles the plan does not
+call interior.  ``launches`` counts kernel launches by entry point.
 """
 from __future__ import annotations
 
@@ -65,12 +65,22 @@ launches = _LIB.launches
 reset_launches = _LIB.reset
 
 
+def _interior(k0: int, first: int, last: int, q_offset: int, window: int,
+              skv: int, bk: int) -> bool:
+    """``tile_interior`` in swa_attention.cu: every pair of the real query
+    rows ``[first, last]`` and the keys ``[k0, k0 + bk)`` is visible, and
+    the tile ends inside ``skv``."""
+    return (k0 + bk - 1 <= q_offset + first
+            and k0 >= q_offset + last - window + 1 and k0 + bk <= skv)
+
+
 def swa_tile_plan(sq: int, skv: int, window: int, q_offset: int,
                   bq: int = PLAN_ROWS, bk: int = KEY_TILE
                   ) -> List[Tuple[int, List[Tuple[int, bool]]]]:
     """The key tiles each block of ``bq`` query rows visits, as the
-    kernels walk them (``band_lo``, ``band_hi`` and ``tile_interior`` in
-    swa_attention.cu): ``[(q0, [(k0, interior), ...]), ...]``.
+    forward and dQ kernels walk them (``band_lo``, ``band_hi`` and
+    ``tile_interior`` in swa_attention.cu): ``[(q0, [(k0, interior),
+    ...]), ...]``.
 
     A block visits the ``bk``-key tiles that meet the keys its real rows
     (those below ``sq``) see together, ``[q_offset + q0 - window + 1,
@@ -82,10 +92,48 @@ def swa_tile_plan(sq: int, skv: int, window: int, q_offset: int,
         last = min(q0 + bq, sq) - 1
         lo = max(0, q_offset + q0 - window + 1)
         hi = min(skv - 1, q_offset + last)
-        tiles = [(k0, k0 + bk - 1 <= q_offset + q0
-                  and k0 >= q_offset + last - window + 1 and k0 + bk <= skv)
+        tiles = [(k0, _interior(k0, q0, last, q_offset, window, skv, bk))
                  for k0 in range(lo - lo % bk, hi + 1, bk)] if lo <= hi else []
         plan.append((q0, tiles))
+    return plan
+
+
+def dkdv_keys(d: int) -> int:
+    """Keys of one CTA of the bf16 dK/dV kernel (``Dkdv`` in
+    swa_attention.cu): 64 a consumer warpgroup, two of them at d <= 80,
+    one at d = 128."""
+    return 2 * KEY_TILE if d <= 80 else KEY_TILE
+
+
+def swa_key_tile_plan(sq: int, skv: int, window: int, q_offset: int,
+                      keys: int = 2 * KEY_TILE, bk: int = KEY_TILE,
+                      bq: int = PLAN_ROWS
+                      ) -> List[Tuple[int, List[Tuple[int, bool]]]]:
+    """The query tiles each ``bk``-key tile visits in the dK/dV kernels,
+    the transpose of :func:`swa_tile_plan`: ``[(k0, [(q0, interior),
+    ...]), ...]``, over the key tiles that hold a key below ``skv``.
+
+    A CTA holds the ``keys`` keys from ``c0`` and streams the ``bq``-query
+    tiles that meet the queries its real keys are seen by, ``[c0 -
+    q_offset, c_last - q_offset + window - 1]`` cut to ``[0, sq)``; each of
+    its ``bk``-key tiles (a warpgroup's) visits those that meet its own
+    such range and masks the ones ``tile_interior`` does not call
+    interior.  A tile wholly past ``skv`` belongs to no warpgroup."""
+    plan = []
+    for c0 in range(0, skv, keys):
+        c_last = min(c0 + keys, skv) - 1
+        lo, hi = max(0, c0 - q_offset), min(sq - 1,
+                                            c_last - q_offset + window - 1)
+        cta = range(lo - lo % bq, hi + 1, bq) if lo <= hi else range(0)
+        for k0 in range(c0, c_last + 1, bk):
+            k_last = min(k0 + bk, skv) - 1
+            wlo = max(0, k0 - q_offset)
+            whi = min(sq - 1, k_last - q_offset + window - 1)
+            plan.append((k0, [
+                (q0, _interior(k0, q0, min(q0 + bq, sq) - 1, q_offset,
+                               window, skv, bk))
+                for q0 in cta if wlo <= whi and q0 <= whi
+                and q0 + bq - 1 >= wlo]))
     return plan
 
 

@@ -49,6 +49,7 @@ from repro_torch.api import ApiError, AsyncGateway, Gateway, serve_http
 from repro_torch.api.gateway import job_etag
 from repro_torch.core.registry import EmbeddingRegistry
 from repro_torch.core.serving import ServingEngine
+from repro_torch.kernels import _build
 from repro_torch.kge.base import make_model as torch_make_model
 
 REPO = Path(__file__).resolve().parents[1]
@@ -650,6 +651,9 @@ def test_knn_join_bit_equal_to_serial_top_k_rows_on_card(tmp_path):
     (query, row) pair in column order whatever the batch)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    # the kernels' one-time nvcc build is set-up, as a pool does it before
+    # it serves (api/workers.py), not part of the job that _run times
+    _build.build_all()
     n, d = 3000, 200
     registry = EmbeddingRegistry(tmp_path / "registry")
     rng = np.random.default_rng(5)

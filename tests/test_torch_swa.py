@@ -17,7 +17,11 @@ unfolded, and ``SWAAttentionFn`` on CPU tensors, against ``jax.vjp`` of the
 reference's plain function and of the zoo's jnp scan (what the reference
 trains through), within 2e-4; on the card the three backward kernels and
 the forward's log-sum-exp against the plain versions (fp32 2e-4, bf16 the
-forward's 1e-2 * (1 + |plain|)), and two runs bit for bit.
+forward's 1e-2 * (1 + |plain|)), and two runs bit for bit.  The tile
+plans the kernels walk (the forward's and dQ's, and the dK/dV kernels'
+transpose of it) are replayed on the host: they cover the band exactly,
+mask only edge tiles, and the replay of the dK/dV arithmetic over the
+transposed plan equals the plain backward.
 """
 import jax
 import jax.numpy as jnp
@@ -304,6 +308,136 @@ def test_plan_replay_matches_the_reference(sq, skv, window, q_offset):
     _close(got[~blind], want[~blind], TOL)
 
 
+# -------------- the dK/dV kernels' transposed tile plan --------------- #
+def _assert_key_plan_holds(sq, skv, window, q_offset, keys, bk, bq):
+    """Every key tile with a key below Skv is listed once, in order; every
+    visible pair lies in a visited tile pair; every visited pair holds a
+    visible pair; an interior one is wholly visible and ends inside Skv;
+    a masked one holds an invisible pair (keys past Skv count as
+    invisible, query rows past Sq as absent)."""
+    vis = _visible(sq, skv, window, q_offset)
+    plan = tswa.swa_key_tile_plan(sq, skv, window, q_offset, keys, bk, bq)
+    assert [k0 for k0, _ in plan] == list(range(0, skv, bk))
+    for k0, tiles in plan:
+        cols = np.zeros((sq, bk), bool)
+        part = vis[:, k0:k0 + bk]
+        cols[:, :part.shape[1]] = part
+        q0s = [q0 for q0, _ in tiles]
+        assert q0s == sorted(set(q0s)) and all(q0 % bq == 0 for q0 in q0s)
+        seen = np.zeros(sq, bool)
+        for q0, interior in tiles:
+            block = cols[q0:q0 + bq]
+            assert block.any(), (k0, q0)
+            assert interior == bool(block.all()), (k0, q0, interior)
+            seen[q0:q0 + bq] = True
+        assert not (cols & ~seen[:, None]).any(), k0
+
+
+#: the forward's edges, then a 128-key CTA whose second warpgroup lies
+#: past Skv (178, 129: one real key), and q_offset > 0 with Sq < Skv and
+#: Skv ragged
+KEY_PLAN_EDGES = PLAN_EDGES + [
+    (178, 178, 100, 0), (129, 129, 77, 0), (150, 330, 64, 180),
+    (64, 300, 200, 236),
+]
+
+
+@pytest.mark.parametrize("keys", [64, 128])
+@pytest.mark.parametrize("sq,skv,window,q_offset", KEY_PLAN_EDGES, ids=str)
+def test_tile_plan_of_the_keys_covers_the_band_and_masks_only_edges(
+        sq, skv, window, q_offset, keys):
+    _assert_key_plan_holds(sq, skv, window, q_offset, keys, tswa.KEY_TILE,
+                           tswa.PLAN_ROWS)
+
+
+@settings(max_examples=60, deadline=None)
+@given(sq=st.integers(1, 300), extra=st.integers(0, 200),
+       window=st.integers(1, 400), keys=st.sampled_from([64, 128]),
+       bq=st.sampled_from([16, 64]), offset_frac=st.floats(0, 1))
+def test_tile_plan_of_the_keys_holds_on_random_shapes(sq, extra, window,
+                                                      keys, bq, offset_frac):
+    """The transposed plan's properties over ragged Sq and Skv, W below,
+    above and not a multiple of the tiles, and 0 <= q_offset <= Skv - 1."""
+    skv = sq + extra
+    q_offset = int(offset_frac * extra)
+    _assert_key_plan_holds(sq, skv, window, q_offset, keys, 64, bq)
+
+
+@pytest.mark.parametrize("sq,skv,window,q_offset", KEY_PLAN_EDGES, ids=str)
+def test_tile_plan_of_a_key_cta_is_that_of_its_warpgroups(sq, skv, window,
+                                                          q_offset):
+    """A 128-key CTA streams the query tiles of all its keys; each of its
+    warpgroups visits exactly those a 64-key CTA of its own would."""
+    assert (tswa.swa_key_tile_plan(sq, skv, window, q_offset, 128)
+            == tswa.swa_key_tile_plan(sq, skv, window, q_offset, 64))
+    assert tswa.dkdv_keys(80) == 128 and tswa.dkdv_keys(128) == 64
+
+
+def _saved(q, k, v, window, q_offset):
+    """The forward's saved output and log-sum-exp of one (Sq, d) head, as
+    the kernel writes them: the plain versions, a row that sees no key 0
+    (the plain softmax gives NaN there)."""
+    tq, tk, tv = _t(q[None, None], k[None, None], v[None, None])
+    o = tref.swa_attention_ref(tq, tk, tv, window, q_offset)
+    return (torch.nan_to_num(o, nan=0.0),
+            tref.swa_attention_lse_ref(tq, tk, window, q_offset))
+
+
+def _key_plan_replay(q, k, v, do, window, q_offset, keys=128, bq=64,
+                     bk=64):
+    """dK and dV as the dK/dV kernels compute them, in fp32 on the host,
+    over the transposed plan: P^T = 2^(S^T c - lse c) with lse per
+    column, masks only on tiles the plan does not call interior, query
+    rows past Sq padded with zeros, lse = +inf and D = 0."""
+    sq, d = q.shape
+    skv = k.shape[0]
+    c = np.float32(d ** -0.5 * np.log2(np.e))
+    vis = _visible(sq, skv, window, q_offset)
+    o, lse = (x[0, 0].numpy() for x in _saved(q, k, v, window, q_offset))
+    n = -(-sq // bq) * bq
+    pad = lambda x, fill: np.concatenate(
+        [x, np.full((n - sq,) + x.shape[1:], fill, np.float32)])
+    qp, dop = pad(q, 0), pad(do, 0)
+    l2 = pad((lse * np.log2(np.e)).astype(np.float32), np.inf)
+    dd = pad((do * o).sum(1), 0)
+    visp = np.concatenate([vis, np.zeros((n - sq, skv), bool)])
+    dk, dv = np.zeros_like(k), np.zeros_like(v)
+    with np.errstate(over="ignore", invalid="ignore"):
+        for k0, tiles in tswa.swa_key_tile_plan(sq, skv, window, q_offset,
+                                                keys, bk, bq):
+            ks = slice(k0, min(k0 + bk, skv))
+            for q0, interior in tiles:
+                rs = slice(q0, q0 + bq)
+                p = np.exp2(k[ks] @ qp[rs].T * c - l2[rs][None, :])
+                if not interior:
+                    p = np.where(visp[rs, ks].T, p, 0)
+                ds = p * (v[ks] @ dop[rs].T - dd[rs][None, :])
+                dv[ks] += p @ dop[rs]
+                dk[ks] += ds @ qp[rs]
+    return dk * np.float32(d ** -0.5), dv
+
+
+@pytest.mark.parametrize("sq,skv,window,q_offset", KEY_PLAN_EDGES[:-2],
+                         ids=str)
+def test_key_plan_replay_matches_the_plain_backward(sq, skv, window,
+                                                   q_offset):
+    """Skipping the mask on interior tile pairs and padding rows past Sq
+    with lse = +inf changes nothing: the replay's dK and dV equal the
+    plain backward's (fp32) within 2e-4, keys no query sees are 0."""
+    q, k, v = (x[0, 0] for x in _qkv(1, 1, 1, sq, skv, 16, seed=sq + skv))
+    do = _do(1, 1, sq, 16, seed=window)[0, 0]
+    got_dk, got_dv = _key_plan_replay(q, k, v, do, window, q_offset)
+    tq, tk, tv, tdo = _t(q[None, None], k[None, None], v[None, None],
+                         do[None, None])
+    _, want_dk, want_dv = tref.swa_attention_backward_ref(
+        tq, tk, tv, *_saved(q, k, v, window, q_offset), tdo, window,
+        q_offset)
+    _close(got_dk, want_dk[0, 0], PALLAS_TOL)
+    _close(got_dv, want_dv[0, 0], PALLAS_TOL)
+    unseen = ~_visible(sq, skv, window, q_offset).any(0)
+    assert (got_dk[unseen] == 0).all() and (got_dv[unseen] == 0).all()
+
+
 # ----------------- models/attention.py against JAX's ------------------ #
 def _grouped(B, sq, sk, G, H, hd, seed):
     rng = np.random.default_rng(seed)
@@ -553,6 +687,14 @@ BWD_CARD_CASES = BWD_CASES + [
     (2, 2, 1, 190, 190, 128, 77, 0),
     (1, 4, 2, 100, 130, 64, 40, 60),
     (2, 4, 2, 96, 96, 64, 64, 0),
+    # the bf16 dK/dV tiling's edges: a 128-key CTA half past Skv (group 1;
+    # one real key at 129), group 8, and d = 16, 32, 128 at W not a
+    # multiple of 64
+    (1, 2, 2, 178, 178, 80, 100, 0),
+    (1, 8, 1, 300, 300, 80, 150, 0),
+    (1, 4, 2, 150, 150, 16, 100, 0),
+    (2, 4, 1, 129, 129, 32, 77, 0),
+    (1, 4, 2, 190, 250, 128, 130, 60),
 ]
 
 
