@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's serving, update, LM-generation and LM-training paths the
-way a user does and holds every kernel to its plain PyTorch version on the
-card.
+Drives the port's serving, update, LM-generation (dense and MoE) and
+LM-training paths the way a user does and holds every kernel to its plain
+PyTorch version on the card.
 Phases, in order; any failure exits non-zero:
 
   1. build    compile ``src/repro_torch/kernels/csrc/*.cu`` (nvcc, sm_90a,
@@ -36,7 +36,10 @@ Phases, in order; any failure exits non-zero:
               edges (ragged Sq with q_offset, W and Skv not multiples of
               the key tile, d = 128, 16 and 32) and the bf16 dK/dV
               tiling's (a 128-key CTA half past Skv, group 1 and 8, d =
-              16, 32 and 128 at W not a multiple of 64); on each, the
+              16, 32 and 128 at W not a multiple of 64), and full causal
+              attention as a window over every key (one olmoe-1b-7b layer:
+              B 2, 16 heads, S 2048, W 2048, d 128; and W = q_offset + Sq
+              with q_offset > 0); on each, the
               forward's log-sum-exp and the three backward kernels
               (bwd_dot, backward_dkdv, backward_dq) on the plain forward's
               saved tensors, and two backward launches bit for bit on a
@@ -94,7 +97,21 @@ Phases, in order; any failure exits non-zero:
               logits of prefill(6145) against prefill(6144) + decode_step
               (2e-3, same argmax), 24 SWA launches per prefill; then a
               bf16 generation through ``repro_torch.launch.generate``
-              (batch 2, prompt 6144, 32 greedy decode steps), ids in vocab
+              (batch 2, prompt 6144, 32 greedy decode steps), ids in vocab;
+              the same generation with ``--kv-cache-dtype int8`` (decode ms
+              a token and the cache's bytes beside the bf16 cache's); the
+              int8 cache against the fp cache in fp32 at full width, cut to
+              2 layers (tests/test_int8_kv_cache.py's contract: rtol 0.1,
+              atol 0.15, the same top-1)
+     moe      olmoe-1b-7b at its published width and depth: in fp32, 2
+              layers, capacity factor 16, the last logits of
+              prefill(2049) against prefill(2048) + decode_step (2e-3,
+              same argmax); then a bf16 generation through
+              ``launch.generate`` (batch 2, prompt 2048, 32 greedy decode
+              steps): prefill ms, tokens/s, decode ms a token, peak memory,
+              16 causal SWA launches per prefill, the dropped (token, slot)
+              pairs per prefill and per decode step, beside the expert
+              products' and the decode weight read's bounds
  10. train    h2o-danube-1.8b training at its published width: in fp32
               two layers (B = 1, S = 6144 > W) with the kernels against the
               same step with the plain SWA forward and backward
@@ -114,7 +131,10 @@ Phases, in order; any failure exits non-zero:
               of an eager training step by part (torch.profiler); the SWA
               kernel at one h2o-danube layer's shape, bf16 (B = 2, and
               B = 1, the training shape) and fp32, against its bound, its
-              plain version and ``scaled_dot_product_attention``; the
+              plain version and ``scaled_dot_product_attention``, and at
+              one olmoe-1b-7b prefill layer's causal shape against SDPA
+              ``is_causal``; where the device time of an olmoe-1b-7b
+              prefill and decode step goes, and their busy shares; the
               device-busy share of a full-width decode step; the SWA
               backward at one layer's shape (B = 1 and 2, bf16 and fp32)
               against its bounds (the function's, the two-kernel
@@ -135,7 +155,8 @@ Run from the repository root with no arguments::
 It prints JSON lines as it goes, then the card's name and power limit,
 the kernels line, and last ``{"ok": true, "device": {...}}``.
 ``--phases`` runs a subset (``build,kernels``, ``build,kge``,
-``build,swa,lm`` or ``build,swa,train`` is a quick check of one slice;
+``build,swa,lm``, ``build,swa,moe`` or ``build,swa,train`` is a quick
+check of one slice;
 ``build,serve,workers``
 the serving paths; ``build,kge,update`` the update path alone;
 ``build,jobs`` the batch jobs; ``alloc`` the backward's allocation
@@ -229,12 +250,30 @@ SWA_CASES = (
     ("d 16, W 100", (1, 4, 2, 150, 150, 16, 100, 0)),
     ("d 32, W 77, one key past 128", (2, 4, 1, 129, 129, 32, 77, 0)),
     ("d 128, W 130, q_offset, Skv 250", (1, 4, 2, 190, 250, 128, 130, 60)),
+    # full causal attention, a window over every key (W >= q_offset + Sq):
+    # one olmoe-1b-7b prefill layer, and a causal block past q_offset
+    ("causal: olmoe layer, W = S", (2, 16, 16, 2048, 2048, 128, 2048, 0)),
+    ("causal: q_offset, W = q_offset + Sq",
+     (1, 4, 4, 300, 812, 128, 812, 512)),
 )
 #: the LM generation run: h2o-danube-1.8b at its published width, a prompt
 #: longer than its 4096 window (the roll shift after prefill is 2048)
 LM_ARCH = "h2o-danube-1.8b"
 LM_BATCH, LM_PROMPT, LM_STEPS = 2, 6144, 32
 LM_TOL = 2e-3               # the reference's TOL (tests/test_arch_consistency.py)
+#: the int8 cache against the fp cache: h2o-danube at full width, fp32,
+#: cut to 2 layers; the contract of tests/test_int8_kv_cache.py
+INT8_CHECK_LAYERS = 2
+INT8_RTOL, INT8_ATOL = 0.1, 0.15
+#: the MoE generation run: olmoe-1b-7b at its published width and depth
+#: (causal attention, no window: every prefill layer on the SWA kernel
+#: with W = S)
+MOE_ARCH = "olmoe-1b-7b"
+MOE_BATCH, MOE_PROMPT, MOE_STEPS = 2, 2048, 32
+#: the fp32 prefill(S + 1) / prefill(S) + decode check: full width, 2
+#: layers, capacity factor 16 (no drop, as tests/test_arch_consistency.py
+#: runs the MoE archs: dropping depends on which tokens share a prefill)
+MOE_CHECK_LAYERS, MOE_CHECK_CF = 2, 16.0
 #: the training run: h2o-danube-1.8b at its published width and depth,
 #: bf16, remat "full", one sequence of 6144 tokens (past the 4096 window)
 TRAIN_BATCH, TRAIN_SEQ = 1, 6144
@@ -789,7 +828,7 @@ def phase_swa() -> dict:
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
     err = {"float32": 0.0, "bfloat16": 0.0}
-    err_lse, err_bwd = dict(err), dict(err)
+    err_lse, err_bwd, err_causal = dict(err), dict(err), dict(err)
     cases, same_bits = [], 0
     sw.reset_launches()
     for n, (note, (B, hq, hkv, sq, skv, hd, W, off)) in enumerate(SWA_CASES):
@@ -798,9 +837,11 @@ def phase_swa() -> dict:
             q, k, v = _swa_inputs(B, hq, hkv, sq, skv, hd, dtype, gen)
             want = ref.swa_attention_ref(q[None], k[None], v[None], W,
                                          off)[0]
-            err[name] = max(err[name], _swa_close(
-                sw.swa_attention_forward(q, k, v, W, off), want, dtype,
-                f"swa {note} {name}"))
+            e = _swa_close(sw.swa_attention_forward(q, k, v, W, off), want,
+                           dtype, f"swa {note} {name}")
+            err[name] = max(err[name], e)
+            if note.startswith("causal"):
+                err_causal[name] = max(err_causal[name], e)
             # the training forward: the same output and the log-sum-exp
             o, lse = sw.swa_attention_forward(q, k, v, W, off,
                                               return_lse=True)
@@ -840,6 +881,7 @@ def phase_swa() -> dict:
     out = {"phase": "swa", "cases": len(cases), "max_abs_err_fp32":
            err["float32"], "max_abs_err_bf16": err["bfloat16"],
            "max_abs_err_lse": err_lse,
+           "max_abs_err_causal": err_causal,
            "max_abs_err_backward_fp32": err_bwd["float32"],
            "max_abs_err_backward_bf16": err_bwd["bfloat16"],
            "backward_same_bits_cases": same_bits,
@@ -2254,13 +2296,184 @@ def phase_lm() -> dict:
           f"per layer and no backward")
     ids = np.asarray(run["ids"])
     check(ids.shape == (LM_BATCH, LM_STEPS + 1), f"ids shape {ids.shape}")
+    torch.cuda.empty_cache()
+
+    # the same generation with the int8 cache: a warm-up run, then the
+    # measured one
+    argv8 = argv + ["--kv-cache-dtype", "int8"]
+    generate.main(argv8)
+    torch.cuda.empty_cache()
+    run8 = generate.main(argv8)
+    ids8 = np.asarray(run8["ids"])
+    check(ids8.shape == ids.shape and ((ids8 >= 0) & (
+        ids8 < cfg.padded_vocab)).all(), f"int8 ids {ids8.shape}")
+    check(run8["cache_bytes"] < 0.6 * run["cache_bytes"],
+          f"int8 cache {run8['cache_bytes']} B against the bf16 cache's "
+          f"{run['cache_bytes']}")
+    torch.cuda.empty_cache()
     out = {"phase": "lm", "fp32_consistency": consistency,
            "generation": {k: v for k, v in run.items() if k != "ids"},
            "warmup_generation": {k: warm[k] for k in (
                "prefill_ms", "decode_ms_per_token")},
+           "int8_generation": {k: v for k, v in run8.items() if k != "ids"},
+           "int8_vs_fp32_cache": _int8_against_fp(),
            "ids_row0": run["ids"][0], "launches": launches}
     emit(out)
     return out
+
+
+def _int8_against_fp() -> dict:
+    """tests/test_int8_kv_cache.py's contract at h2o-danube's full width in
+    fp32, cut to INT8_CHECK_LAYERS layers: prefill(S - 1) with room for
+    one more token, then one decode step, through the fp cache and through
+    the int8 cache on the same params: logits within rtol 0.1 and atol
+    0.15, the same top-1."""
+    import torch
+    from repro_torch.models import build, get_config
+
+    cfg = get_config(LM_ARCH).with_(dtype="float32",
+                                    n_layers=INT8_CHECK_LAYERS)
+    fp = build(cfg).init(torch.Generator(device=DEV).manual_seed(SEED))
+    q8 = build(cfg.with_(kv_cache_dtype="int8"))
+    q8.params = fp.params
+    toks = _lm_prompt(cfg, LM_PROMPT)
+    out = {"layers": INT8_CHECK_LAYERS, "prompt": LM_PROMPT - 1}
+    logits = {}
+    for name, model in (("fp32", fp), ("int8", q8)):
+        _, cache = model.prefill({"tokens": toks[:, :-1]},
+                                 cache_len=LM_PROMPT)
+        logits[name], cache = model.decode_step(cache, toks[:, -1:],
+                                                LM_PROMPT - 1)
+        out[f"{name}_cache_bytes"] = sum(t.numel() * t.element_size()
+                                         for t in cache.values())
+        del cache
+    torch.cuda.synchronize()
+    lf, lq = logits["fp32"], logits["int8"]
+    diff = (lq - lf).abs()
+    check(bool(torch.isfinite(lq).all())
+          and bool((diff <= INT8_ATOL + INT8_RTOL * lf.abs()).all()),
+          f"int8 cache against fp32: off by {float(diff.max())}")
+    top2 = lf.topk(2, dim=-1).values
+    same = bool(torch.equal(lq.argmax(-1), lf.argmax(-1)))
+    out.update({"max_abs_diff": float(diff.max()),
+                "max_abs_logit": float(lf.abs().max()),
+                "fp32_top2_gap_min": float((top2[..., 0]
+                                            - top2[..., 1]).min()),
+                "top1_equal": same,
+                "tolerance": {"rtol": INT8_RTOL, "atol": INT8_ATOL}})
+    check(same, f"int8 cache against fp32: top-1 differs ({out})")
+    del fp, q8, lf, lq, diff
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe() -> dict:
+    """MoE generation at olmoe-1b-7b's published width and depth.
+
+    fp32, 2 of its 16 layers, capacity factor 16: the last logits of
+    prefill(S + 1) against prefill(S) + decode_step, S = 2048: the SWA
+    kernel's causal band (W = S) in every prefill layer against the plain
+    decode attention, and the MoE dispatch at no drop.  bf16: the
+    generation of ``launch.generate`` (a warm-up run, then the measured
+    one), its ids in the vocab, one SWA forward a layer of the prefill,
+    the dropped (token, slot) pairs, and the bounds of the expert
+    products (prefill) and of reading every expert's weights (a decode
+    step at capacity 1)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.launch import generate
+    from repro_torch.models import build, get_config
+
+    full = get_config(MOE_ARCH)
+    cfg = full.with_(dtype="float32", n_layers=MOE_CHECK_LAYERS,
+                     moe=dataclasses.replace(full.moe,
+                                             capacity_factor=MOE_CHECK_CF))
+    model = build(cfg).init(torch.Generator(device=DEV).manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 14)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        MOE_BATCH, MOE_PROMPT + 1), dtype=np.int32)).to(DEV)
+    t0 = time.perf_counter()
+    sw.reset_launches()
+    whole, _ = model.prefill({"tokens": toks})
+    torch.cuda.synchronize()
+    launches_full = sw.launches["swa_attention_forward"]
+    sw.reset_launches()
+    _, cache = model.prefill({"tokens": toks[:, :-1]},
+                             cache_len=MOE_PROMPT + 1)
+    dec, _ = model.decode_step(cache, toks[:, -1:], MOE_PROMPT)
+    torch.cuda.synchronize()
+    launches_part = sw.launches["swa_attention_forward"]
+    fp32_s = time.perf_counter() - t0
+    dropped = model.take_dropped()
+    check(launches_full == cfg.n_layers and launches_part == cfg.n_layers,
+          f"fp32 prefills launched {launches_full} and {launches_part} SWA "
+          f"kernels, want {cfg.n_layers} each")
+    check(dropped == 0, f"fp32 at capacity factor {MOE_CHECK_CF} dropped "
+                        f"{dropped} (token, slot) pairs")
+    check(tuple(whole.shape) == (MOE_BATCH, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(whole).all())
+          and bool(torch.isfinite(dec).all()), "fp32 logits not finite")
+    diff = (dec - whole).abs()
+    check(bool((diff <= LM_TOL * (1 + whole.abs())).all()),
+          f"moe prefill(S+1) vs prefill(S) + decode: off by "
+          f"{float(diff.max())}")
+    argmax_same = bool(torch.equal(dec.argmax(-1), whole.argmax(-1)))
+    check(argmax_same, "moe prefill(S+1) vs prefill(S) + decode: argmax "
+                       "differs")
+    consistency = {"layers": cfg.n_layers, "capacity_factor": MOE_CHECK_CF,
+                   "max_abs_diff": float(diff.max()),
+                   "max_abs_logit": float(whole.abs().max()),
+                   "argmax_equal": argmax_same, "seconds": fp32_s,
+                   "swa_launches_per_prefill": launches_full}
+    del model, cache, whole, dec, diff
+    torch.cuda.empty_cache()
+
+    argv = ["--arch", MOE_ARCH, "--batch", str(MOE_BATCH), "--prompt-len",
+            str(MOE_PROMPT), "--steps", str(MOE_STEPS), "--seed",
+            str(SEED), "--device", DEV]
+    warm = generate.main(argv)
+    torch.cuda.empty_cache()
+    # ----------------- main path: bf16 generation --------------------- #
+    sw.reset_launches()
+    run = generate.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(sw.launches)
+    check(launches == {"swa_attention_forward": full.n_layers,
+                       "swa_attention_bwd_dot": 0,
+                       "swa_attention_backward_dkdv": 0,
+                       "swa_attention_backward_dq": 0},
+          f"generation launched {launches} SWA kernels, want one forward "
+          f"per layer and no backward")
+    ids = np.asarray(run["ids"])
+    check(ids.shape == (MOE_BATCH, MOE_STEPS + 1) and ((ids >= 0) & (
+        ids < full.padded_vocab)).all(), f"ids {ids.shape}")
+    torch.cuda.empty_cache()
+    out = {"phase": "moe", "fp32_consistency": consistency,
+           "generation": {k: v for k, v in run.items() if k != "ids"},
+           "warmup_generation": {k: warm[k] for k in (
+               "prefill_ms", "decode_ms_per_token")},
+           "bounds": moe_bounds(full, MOE_BATCH, MOE_PROMPT),
+           "ids_row0": run["ids"][0], "launches": launches}
+    emit(out)
+    return out
+
+
+def moe_bounds(cfg, B: int, S: int) -> dict:
+    """Least times of an MoE generation's largest terms: the prefill's
+    expert products (gate, up and down over the E x C dispatch buffer, 6
+    d ff operations a row, at bf16's peak) and a decode step's read of
+    every expert's weights (at capacity 1 every expert runs a row)."""
+    E, K, L = cfg.moe.n_experts, cfg.moe.top_k, cfg.n_layers
+    d, ff = cfg.d_model, cfg.d_ff
+    C = max(1, int(np.ceil(B * S * K / E * cfg.moe.capacity_factor)))
+    flop = 6.0 * E * C * d * ff * L
+    weight_bytes = 3.0 * E * d * ff * L * 2
+    return {"prefill_capacity": C, "prefill_expert_flop": flop,
+            "prefill_expert_bound_ms": flop / BF16_FLOP_PER_S * 1e3,
+            "decode_weight_bytes": weight_bytes,
+            "decode_weight_read_bound_ms":
+                weight_bytes / HBM_BYTES_PER_S * 1e3}
 
 
 def _train_batch(cfg, seed: int) -> dict:
@@ -2556,7 +2769,8 @@ def _check_device_times(numbers: dict) -> None:
     fwd = numbers["swa"]["swa"]
     rows += [("swa forward bf16", fwd["device_ms"]),
              ("swa forward fp32", fwd["fp32_device_ms"]),
-             ("swa forward bf16 B=1", fwd["train_batch"]["device_ms"])]
+             ("swa forward bf16 B=1", fwd["train_batch"]["device_ms"]),
+             ("swa forward causal bf16", fwd["causal"]["device_ms"])]
     rows += [(f"swa backward {r['dtype']} B={r['B']}", r["device_ms"])
              for r in numbers["swa_backward"]["rows"]]
     blind = [name for name, ms in rows if not ms]
@@ -3035,9 +3249,10 @@ def swa_numbers(card: str) -> dict:
                 "fp32_library_ms": _cuda_ms(lib32, iters=5, warmup=1),
                 "fp32_bound_ms": b32, "fp32_bound_by": b32_by,
                 "fp32_library_vs_kernel_max_abs": lib32_err})
-    emit({"numbers": rec})
     del q4, k4, v4, qf, kf, vf, band
     torch.cuda.empty_cache()
+    rec["causal"] = swa_causal_numbers(gen)
+    emit({"numbers": rec})
 
     # where the device time of a bf16 prefill and of a decode step goes
     model = build(cfg).init(torch.Generator(device=DEV).manual_seed(SEED))
@@ -3062,6 +3277,45 @@ def swa_numbers(card: str) -> dict:
     return {"swa": rec, "prefill": prefill, "decode_step": busy}
 
 
+def swa_causal_numbers(gen) -> dict:
+    """The SWA kernel as full causal attention (W = S) at one olmoe-1b-7b
+    prefill layer's shape (B = 2, 16 q and kv heads, S = 2048, d = 128,
+    bf16): kernel, device, plain and library times beside the bound; the
+    library is ``scaled_dot_product_attention(is_causal=True)``, which
+    computes the same function."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, swa_attention as sw
+    from repro_torch.models import get_config
+
+    cfg = get_config(MOE_ARCH)
+    B, hq, hkv, S, hd = (MOE_BATCH, cfg.n_heads, cfg.n_kv_heads, MOE_PROMPT,
+                         cfg.hd)
+    q, k, v = _swa_inputs(B, hq, hkv, S, S, hd, torch.bfloat16, gen)
+    kern = lambda: sw.swa_attention_forward(q, k, v, S)
+    plain = lambda: ref.swa_attention_ref(q[None], k[None], v[None], S)
+    q4 = q.reshape(B, hq, S, hd)
+    k4, v4 = k.reshape(B, hkv, S, hd), v.reshape(B, hkv, S, hd)
+    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                 enable_gqa=hq != hkv)
+    lib_err = float((lib().reshape(B * hq, S, hd).float()
+                     - kern().float()).abs().max())
+    check(lib_err <= 2 * SWA_BF16_TOL,
+          f"causal: the library yardstick differs from the kernel by "
+          f"{lib_err}")
+    ours = {n: t for n, t in _device_ms(kern).items() if "swa_" in n}
+    b_ms, b_by = swa_bound_ms(B, hq, hkv, S, hd, S, 2)
+    return {"B": B, "Hq": hq, "Hkv": hkv, "S": S, "d": hd, "W": S,
+            "dtype": "bfloat16", "pairs_per_head": swa_pairs(S, S, S, 0),
+            "ms": _cuda_ms(kern, iters=20),
+            "device_ms": sum(ours.values()) if ours else None,
+            "plain_ms": _cuda_ms(plain, iters=3, warmup=1),
+            "library_ms": _cuda_ms(lib, iters=20),
+            "library_is": "SDPA is_causal=True",
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_vs_kernel_max_abs": lib_err}
+
+
 def swa_bwd_bound_ms(B: int, hq: int, hkv: int, S: int, hd: int, W: int,
                      dtype_bytes: int, flop_per_s: float = BF16_FLOP_PER_S,
                      products: int = 5) -> tuple:
@@ -3077,6 +3331,40 @@ def swa_bwd_bound_ms(B: int, hq: int, hkv: int, S: int, hd: int, W: int,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / flop_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def moe_numbers(card: str) -> dict:
+    """Where the device time of an olmoe-1b-7b bf16 prefill (B = 2, 2048
+    tokens) and of a decode step after it goes, and their device-busy
+    shares, at full width and depth."""
+    import torch
+    from repro_torch.models import build, get_config
+    from repro_torch.models.steps import make_serve_step
+
+    cfg = get_config(MOE_ARCH)
+    model = build(cfg).init(torch.Generator(device=DEV).manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 14)
+    prompt = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (MOE_BATCH, MOE_PROMPT), dtype=np.int32)).to(DEV)}
+    prefill = _busy_share(lambda: model.prefill(prompt,
+                                                cache_len=MOE_PROMPT + 64),
+                          steps=2)
+    emit({"moe_prefill": {**prefill, "card": card}})
+    _, cache = model.prefill(prompt, cache_len=MOE_PROMPT + 64)
+    serve = make_serve_step(model)
+    tok = torch.zeros((MOE_BATCH, 1), dtype=torch.int32, device=DEV)
+    state = {"pos": MOE_PROMPT}
+
+    def step():
+        nonlocal tok, cache
+        tok, cache = serve(cache, tok, state["pos"])
+        state["pos"] += 1
+
+    busy = _busy_share(step, steps=16)
+    emit({"moe_decode_step": {**busy, "card": card}})
+    del model, cache
+    torch.cuda.empty_cache()
+    return {"prefill": prefill, "decode_step": busy}
 
 
 def swa_backward_numbers(card: str) -> dict:
@@ -3244,7 +3532,7 @@ def _kernel_group(name: str) -> str:
 
 def kernels_line(kern: dict, serve_out: dict, kge: dict,
                  update_out: dict, jobs: dict, numbers: dict, swa: dict,
-                 lm: dict, train: dict) -> dict:
+                 lm: dict, moe: dict, train: dict) -> dict:
     """One entry per kernel path, at the shapes the main path gives it:
     a 8192-row slab of the 40k table with its running list, Q = 32 and
     k = 10 for the small path (the serve session's batches), Q = 1 and
@@ -3252,8 +3540,9 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
     entries' ``launches_jobs`` are the launches of the jobs phase's 40k
     k = 10 join (small) and its 1,024-class k = 100 join (large).  The SWA
     forward's ``launches`` are the generation run's prefill and its
-    ``launches_train`` the measured training run's; the backward's are the
-    training run's (its three entry points)."""
+    ``launches_train`` the measured training run's; the causal forward's
+    (W = S) the olmoe-1b-7b generation run's prefill; the backward's are
+    the training run's (its three entry points)."""
     launches = serve_out["launches"]
     by = {(r["N"], r["Q"], r["k"]): r for r in numbers["rows"]}
     out = []
@@ -3332,6 +3621,22 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
         "train_batch": TRAIN_BATCH, "at_train_batch": r["train_batch"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the same kernel as full causal attention (W = S) at one olmoe-1b-7b
+    # prefill layer's shape; launches: the MoE generation run's prefill
+    c = numbers["swa"]["swa"]["causal"]
+    out.append({
+        "name": f"swa_attention_forward (causal, W = S; bf16, B={c['B']} "
+                f"Hq={c['Hq']} Hkv={c['Hkv']} S={c['S']} d={c['d']})",
+        "route": "cuda", "source": SWA_SOURCE, "replaces": SWA_REPLACES,
+        "in_place_of": "src/repro/models/blocks.py:105,140 "
+                       "chunked_attention(causal=True) (jnp)",
+        "launches": moe["launches"]["swa_attention_forward"],
+        "max_abs_err": swa["max_abs_err_causal"]["bfloat16"],
+        "max_abs_err_fp32": swa["max_abs_err_causal"]["float32"],
+        "ms": c["ms"], "device_ms": c["device_ms"],
+        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+        "library_is": c["library_is"]})
     # the backward at the training run's shape (B = 1) in bf16; library:
     # SDPA forward + backward, beside our forward with lse + backward
     r = next(x for x in numbers["swa_backward"]["rows"]
@@ -3378,7 +3683,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,kge,swa,serve,workers,update,"
-                            "jobs,lm,train,numbers")
+                            "jobs,lm,moe,train,numbers")
     ap.add_argument("--out", default=None, help="also write results here")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3435,6 +3740,8 @@ def main(argv=None) -> int:
             out["swa"] = swa_numbers(card)
             torch.cuda.synchronize()
             out["swa_backward"] = swa_backward_numbers(card)
+            torch.cuda.synchronize()
+            out["moe"] = moe_numbers(card)
             _check_device_times(out)
             return out
 
@@ -3447,7 +3754,8 @@ def main(argv=None) -> int:
                 ("workers", lambda: phase_workers(tmp, served)),
                 ("update", lambda: phase_update(tmp)),
                 ("jobs", lambda: phase_jobs(tmp, card)),
-                ("lm", phase_lm), ("train", lambda: phase_train(card)),
+                ("lm", phase_lm), ("moe", phase_moe),
+                ("train", lambda: phase_train(card)),
                 ("numbers", numbers),
                 ("alloc", lambda: phase_alloc(card))):
             if name in phases:
@@ -3463,13 +3771,13 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(RESULTS, indent=1))
     print(card)
-    if {"kernels", "kge", "swa", "serve", "update", "jobs", "lm", "train",
-            "numbers"} <= phases:
+    if {"kernels", "kge", "swa", "serve", "update", "jobs", "lm", "moe",
+            "train", "numbers"} <= phases:
         ph = RESULTS["phases"]
         print(json.dumps(kernels_line(ph["kernels"], ph["serve"], ph["kge"],
                                       ph["update"], ph["jobs"],
                                       ph["numbers"], ph["swa"], ph["lm"],
-                                      ph["train"])))
+                                      ph["moe"], ph["train"])))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -56,6 +56,7 @@ import bisect
 import dataclasses
 import functools
 import itertools
+import json
 import threading
 import time
 from collections import OrderedDict
@@ -181,6 +182,19 @@ class EmbeddingIndex:
         sub = np.asarray(self.embeddings[rows], dtype=np.float32)
         n = np.asarray(self.norms[rows], dtype=np.float32)
         return sub / np.maximum(n[..., None], 1e-12)
+
+    @property
+    def unit(self) -> np.ndarray:
+        """Full normalized table, materialized per call — kept for
+        callers/tests that want the whole matrix; hot paths use
+        ``unit_rows`` or the streaming kernel path."""
+        return self.unit_rows(slice(None))
+
+    def device_table_bytes(self) -> int:
+        """Bytes of *table* data pinned on devices by this index: always 0
+        here — the table stays on the host and only transient O(block)
+        slabs land on the device (the port has no sharded table)."""
+        return 0
 
     # ------------------------------------------------------------------ #
     def autocomplete(self, prefix: str, limit: int = 10) -> List[str]:
@@ -407,6 +421,9 @@ class ServingEngine:
         #: swap — the gateway subscribes so versions/lineage caches track
         #: publishes immediately
         self._invalidate_listeners: List = []
+        #: the engine's own gateway, built on first use by ``gateway()``
+        self._default_gateway = None
+        self._gw_lock = threading.Lock()
 
     # ------------------------- version resolution ---------------------- #
     def latest_version(self, ontology: str) -> str:
@@ -503,6 +520,88 @@ class ServingEngine:
 
     def cache_stats(self) -> Dict[str, int]:
         return self.cache.stats()
+
+    # --------------------- the endpoints (deprecated) ------------------ #
+    # Thin delegates kept for callers of the pre-gateway surface. The
+    # public surface is repro_torch.api.Gateway — ``engine.gateway()`` —
+    # which routes similarity-shaped reads through the BatchScheduler,
+    # returns typed responses and raises structured ApiErrors. The
+    # delegates translate ApiError back to the legacy KeyError/ValueError
+    # contract.
+
+    def gateway(self):
+        """This engine's default :class:`repro_torch.api.Gateway` (lazily
+        built; synchronous flush mode — pair it with
+        ``scheduler.start()`` or a dedicated Gateway for loop mode)."""
+        gw = self._default_gateway
+        if gw is None:
+            # imported here: api.gateway imports this module
+            from ..api.gateway import Gateway
+            with self._gw_lock:
+                if self._default_gateway is None:
+                    self._default_gateway = Gateway(self)
+                gw = self._default_gateway
+        return gw
+
+    def _legacy(self, call):
+        from ..api.schema import ApiError
+        try:
+            return call()
+        except ApiError as e:
+            raise e.legacy() from None
+
+    def download(self, ontology: str, model: str,
+                 version: Optional[str] = None) -> str:
+        """Full download payload as one JSON string (deprecated: use
+        ``engine.gateway().download(...)``, cursor-paginated)."""
+        def run():
+            gw = self.gateway()
+            page = gw.download(ontology, model, version=version,
+                               offset=0, limit=2048)
+            rows = list(page.rows)
+            while page.next_offset is not None:
+                page = gw.download(ontology, model, version=page.version,
+                                   offset=page.next_offset, limit=page.limit)
+                rows.extend(page.rows)
+            return json.dumps({ident: vec for ident, vec in rows})
+        return self._legacy(run)
+
+    def get_vector(self, ontology: str, model: str, query: str,
+                   fuzzy: bool = False,
+                   version: Optional[str] = None) -> np.ndarray:
+        """The paper's ``get-vector`` endpoint, the raw embedding row
+        (deprecated: use ``engine.gateway().get_vector(...)``)."""
+        return self._legacy(lambda: np.asarray(
+            self.gateway().get_vector(ontology, model, query, fuzzy=fuzzy,
+                                      version=version).vector,
+            dtype=np.float32))
+
+    def similarity(self, ontology: str, model: str, a: str, b: str,
+                   fuzzy: bool = False, version: Optional[str] = None) -> float:
+        """Cosine similarity between two classes, through the gateway and
+        its BatchScheduler (deprecated: use
+        ``engine.gateway().similarity(...)``)."""
+        return self._legacy(lambda: self.gateway().similarity(
+            ontology, model, a, b, fuzzy=fuzzy, version=version).score)
+
+    def closest_concepts(self, ontology: str, model: str, query: str,
+                         k: int = 10, fuzzy: bool = False,
+                         version: Optional[str] = None) -> List[ClosestConcept]:
+        """Top-k closest concepts, through the gateway's batch-first path
+        (deprecated: use ``engine.gateway().closest_concepts(...)``)."""
+        def run():
+            resp = self.gateway().closest_concepts(
+                ontology, model, query, k=k, fuzzy=fuzzy, version=version)
+            return [ClosestConcept(h.identifier, h.label, h.score, h.url)
+                    for h in resp.results]
+        return self._legacy(run)
+
+    def autocomplete(self, ontology: str, model: str, prefix: str,
+                     limit: int = 10, version: Optional[str] = None) -> List[str]:
+        """Concept-label autocomplete (deprecated: use
+        ``engine.gateway().autocomplete(...)``)."""
+        return self._legacy(lambda: self.gateway().autocomplete(
+            ontology, model, prefix, limit=limit, version=version).completions)
 
 
 @dataclasses.dataclass

@@ -3,16 +3,24 @@
 
     PYTHONPATH=src python -m repro_torch.launch.generate --arch h2o-danube-1.8b
     PYTHONPATH=src python -m repro_torch.launch.generate --arch h2o-danube-1.8b \\
+        --kv-cache-dtype int8
+    PYTHONPATH=src python -m repro_torch.launch.generate --arch olmoe-1b-7b \\
+        --prompt-len 2048 --steps 32
+    PYTHONPATH=src python -m repro_torch.launch.generate --arch h2o-danube-1.8b \\
         --reduced --device cpu
 
-Builds the arch (the published config unless ``--reduced``) with random
-params drawn from ``--seed`` on ``--device`` (default ``cuda``), prefills a
-seeded random prompt with ``cache_len = prompt + steps``, then decodes
-``--steps`` tokens greedily with ``make_serve_step``.  Prints the prefill
-time, the decode time per token, the rates and the continuation ids (the
-prefill's token, then one per decode step), and checks that every id lies
-in ``[0, padded_vocab)``.  On the card, sliding-window prefill runs the
-CUDA kernel once per layer (``kernels.swa_attention.launches``).
+Builds the arch (the published config unless ``--reduced``; with
+``--kv-cache-dtype int8`` the int8 KV cache) with random params drawn from
+``--seed`` on ``--device`` (default ``cuda``), prefills a seeded random
+prompt with ``cache_len = prompt + steps``, then decodes ``--steps``
+tokens greedily with ``make_serve_step``.  Prints the prefill time, the
+decode time per token, the rates, the cache's bytes, the peak device
+memory, for an MoE arch the (token, slot) pairs its capacity dropped, and
+the continuation ids (the prefill's token, then one per decode step), and
+checks that every id lies in ``[0, padded_vocab)``.  On the card every
+causal attention layer of the prefill (sliding-window, or full as a
+window over every key) runs the SWA kernel once
+(``kernels.swa_attention.launches``).
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import swa_attention
-from ..models import get_model
+from ..models import build, get_config
 from ..models.steps import make_prefill_step, make_serve_step
 
 
@@ -40,6 +48,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--steps", type=int, default=24)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kv-cache-dtype", choices=("model", "int8"),
+                    default="model",
+                    help="the KV cache in the model's dtype (default) or "
+                         "int8 with per-slot fp32 scales (dense archs)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the plain PyTorch path)")
     return ap
@@ -55,7 +67,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.batch < 1 or args.prompt_len < 1 or args.steps < 1:
         raise SystemExit("--batch, --prompt-len and --steps must be >= 1")
     dev = resolve_device(args.device)
-    cfg, model = get_model(args.arch, reduced=args.reduced)
+    cfg = get_config(args.arch, reduced=args.reduced).with_(
+        kv_cache_dtype=args.kv_cache_dtype)
+    if cfg.kv_cache_dtype == "int8" and cfg.family != "dense":
+        raise SystemExit(f"--kv-cache-dtype int8: {cfg.arch_id} is a "
+                         f"{cfg.family} arch; the int8 KV cache is the dense "
+                         f"family's (as in the reference)")
+    model = build(cfg)
     print(f"[gen] {cfg.arch_id} ({cfg.n_params() / 1e6:.1f}M params, "
           f"{cfg.dtype}) on {dev}", flush=True)
     model.init(torch.Generator(device=dev).manual_seed(args.seed))
@@ -65,7 +83,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         rng.integers(0, cfg.vocab, (B, P), dtype=np.int32)).to(dev)
     prefill, serve = make_prefill_step(model), make_serve_step(model)
 
+    moe = cfg.moe is not None
     swa_attention.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = prefill({"tokens": prompt}, cache_len=P + args.steps)
@@ -73,6 +94,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     prefill_launches = swa_attention.launches["swa_attention_forward"]
+    prefill_dropped = model.take_dropped() if moe else None
 
     seq = [tok]
     t0 = time.perf_counter()
@@ -81,6 +103,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         seq.append(tok)
     _sync(dev)
     decode_s = time.perf_counter() - t0
+    decode_dropped = model.take_dropped() if moe else None
 
     ids = torch.cat(seq, dim=1).cpu().numpy()
     if not ((ids >= 0) & (ids < cfg.padded_vocab)).all():
@@ -93,12 +116,22 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         "decode_ms_per_token": decode_s * 1e3 / args.steps,
         "decode_tok_per_s": B * args.steps / decode_s,
         "swa_launches_prefill": prefill_launches,
+        "kv_cache_dtype": cfg.kv_cache_dtype,
+        "cache_bytes": sum(t.numel() * t.element_size()
+                           for t in cache.values()),
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None),
         "ids": ids.tolist(),
     }
+    if moe:
+        # (token, slot) pairs past an expert's capacity, over all layers
+        out["dropped_prefill"] = prefill_dropped
+        out["dropped_per_decode_step"] = decode_dropped / args.steps
     print(f"[gen] prefill({P} tokens x {B}) {out['prefill_ms']:.1f} ms "
           f"({out['prefill_tok_per_s']:.0f} tok/s)")
     print(f"[gen] {args.steps} decode steps: {out['decode_ms_per_token']:.2f} "
-          f"ms/token ({out['decode_tok_per_s']:.1f} tok/s at batch {B})")
+          f"ms/token ({out['decode_tok_per_s']:.1f} tok/s at batch {B}); "
+          f"{cfg.kv_cache_dtype} cache {out['cache_bytes'] / 2**20:.1f} MiB")
     print(f"[gen] continuation ids (seq 0): {ids[0].tolist()}")
     print(json.dumps({k: v for k, v in out.items() if k != "ids"}), flush=True)
     return out

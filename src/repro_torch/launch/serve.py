@@ -68,6 +68,11 @@ def _parser() -> argparse.ArgumentParser:
                     help="flush-loop deadline")
     ap.add_argument("--page", type=int, default=2000,
                     help="download page size (cursor pagination)")
+    ap.add_argument("--no-shard", action="store_true",
+                    help="force the single-device path (the reference's "
+                         "flag; the port serves from one device, so the "
+                         "single-device path is its only path and this "
+                         "flag changes nothing)")
     ap.add_argument("--http", type=int, default=None, metavar="PORT",
                     help="serve the gateway over HTTP on PORT (foreground; "
                          "0 = ephemeral) instead of running the client "

@@ -1,6 +1,7 @@
-"""The LM zoo on PyTorch: the port of ``repro.models`` for the dense family
-(configs, layers, attention, blocks, ``BaseLM``, ``DenseLM``, the zoo, the
-serving steps and the carry-over of the JAX package's params)."""
+"""The LM zoo on PyTorch: the port of ``repro.models`` for the dense and
+MoE families (configs, layers, attention, blocks, ``BaseLM``, ``DenseLM``,
+``MoELM``, the zoo, the serving steps and the carry-over of the JAX
+package's params)."""
 from .config import ArchConfig, HybridConfig, MoEConfig, SSMConfig
 from .zoo import ARCH_IDS, FAMILIES, build, get_config, get_model, normalize_arch_id
 

@@ -1,5 +1,5 @@
-"""Layer blocks for the dense family: the port of the attention and
-transformer-block part of ``repro.models.blocks``.
+"""Layer blocks for the dense and MoE families: the port of the attention,
+transformer-block and MoE parts of ``repro.models.blocks``.
 
 Every block is a pair ``*_init(gen, cfg) -> params dict`` and
 ``*_apply(p, x, cfg, ...) -> y`` on the residual stream (B, S, d), where
@@ -8,23 +8,33 @@ dict ``*_init`` returned).  Decode variants take an explicit cache.
 
 The attention block is GQA in the grouped-MHA view (``config.padded_heads``
 / kv repeated to ``cfg.groups``), full or sliding-window, with RoPE.
-Sliding-window prefill runs the CUDA kernel through
-:func:`repro_torch.models.attention.swa_attention`.
+Causal prefill and training attention, sliding-window or full, run the
+CUDA kernel through :func:`repro_torch.models.attention.swa_attention`:
+full causal attention is the band of a window that covers every key
+(``window = max(Sk, q_offset + Sq)``), where the reference runs its jnp
+``chunked_attention``.  Non-causal attention stays plain.
 
 Decode writes the new slot into the caller's cache in place (the JAX
-package re-emits the cache).  The int8 KV cache and the MoE, Mamba and
-RG-LRU blocks are not ported yet (ROADMAP, Queue 1).
+package re-emits the cache), optionally into an int8 cache with per-slot
+fp32 scales (``quantize_kv``).
+
+The MoE block is the reference's capacity-dropped top-k dispatch
+(``moe_apply``): plain PyTorch, as the reference computes it outside any
+Pallas kernel.  The Mamba and RG-LRU blocks are not ported yet (ROADMAP,
+Queue 1).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .attention import chunked_attention, decode_attention, swa_attention
 from .config import ArchConfig
 from .layers import (Gen, apply_norm, dense, dense_init, init_device, mlp,
-                     mlp_init, norm_init, rope_qk)
+                     mlp_init, norm_init, normal, rope_qk)
 
 
 # ===================================================================== #
@@ -82,6 +92,15 @@ def _positions(start: int, n: int, device) -> torch.Tensor:
     return torch.arange(start, start + n, device=device)
 
 
+def _causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_offset: int) -> torch.Tensor:
+    """Full causal attention on the SWA kernel: with a window that covers
+    every key, ``q_offset + i - W < j`` holds for every key ``j >= 0``, so
+    the band is ``chunked_attention(causal=True)``'s mask."""
+    window = max(k.shape[1], q_offset + q.shape[1])
+    return swa_attention(q, k, v, window=window, q_offset=q_offset)
+
+
 def attn_apply(p, x: torch.Tensor, cfg: ArchConfig, *, causal: bool = True,
                window: Optional[int] = None, q_offset: int = 0
                ) -> torch.Tensor:
@@ -94,7 +113,7 @@ def attn_apply(p, x: torch.Tensor, cfg: ArchConfig, *, causal: bool = True,
     if window is not None:
         o = swa_attention(q, k, v, window=window, q_offset=q_offset)
     elif causal:
-        o = chunked_attention(q, k, v, causal=True, q_offset=q_offset)
+        o = _causal_attention(q, k, v, q_offset)
     else:
         o = chunked_attention(q, k, v, causal=False)
     return dense(p["wo"], o.reshape(B, S, -1))
@@ -127,7 +146,7 @@ def attn_prefill(p, x: torch.Tensor, cfg: ArchConfig, *,
             kc = torch.nn.functional.pad(k, pad)
             vc = torch.nn.functional.pad(v, pad)
     else:
-        o = chunked_attention(q, k, v, causal=True)
+        o = _causal_attention(q, k, v, 0)
         kc, vc = k, v
     o = dense(p["wo"], o.reshape(B, S, -1))
     return o, kc.movedim(1, 2), vc.movedim(1, 2)
@@ -161,21 +180,54 @@ def attn_decode(p, x: torch.Tensor, k_cache: torch.Tensor,
     return dense(p["wo"], o.reshape(B, 1, -1)), k_cache, v_cache
 
 
+def quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(..., slot) int8 quantization over the trailing hd
+    axis: t (..., hd) -> (int8 (..., hd), scale fp32 (...,)).  The
+    reference's arithmetic: amax in fp32, ``scale = max(amax, 1e-8) /
+    127``, ``round(t / scale)`` half to even, clipped to [-127, 127]."""
+    tf = t.float()
+    scale = torch.clamp(tf.abs().amax(-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(tf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
+
+
 def attn_decode_inplace(p, x: torch.Tensor, k_cache: torch.Tensor,
                         v_cache: torch.Tensor, layer: int, pos: int,
-                        cfg: ArchConfig, *, window: Optional[int] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                        cfg: ArchConfig, *, window: Optional[int] = None,
+                        k_scale: Optional[torch.Tensor] = None,
+                        v_scale: Optional[torch.Tensor] = None):
     """Like attn_decode but on the STACKED (L, B, G, S, hd) caches: writes
     the one (B, G, hd) slot at (layer, :, :, slot) and attends over that
-    layer's rows."""
+    layer's rows.
+
+    int8 KV mode: when ``k_scale`` / ``v_scale`` (L, B, G, S) fp32 are
+    given, the caches are int8; the new slot is quantized on write (its
+    scale written beside it) and the layer's rows are dequantized to the
+    model's dtype for the attention dot.  Returns (out (B, 1, d), k_cache,
+    v_cache), then k_scale, v_scale in int8 mode."""
     B = x.shape[0]
     q, k, v = _project_one(p, x, pos, cfg)
     Sc = k_cache.shape[3]
     slot = pos % Sc if window is not None else pos
+    quant = k_scale is not None
+    if quant:
+        k, k_scale[layer, :, :, slot] = quantize_kv(k)
+        v, v_scale[layer, :, :, slot] = quantize_kv(v)
     k_cache[layer, :, :, slot] = k.to(k_cache.dtype)
     v_cache[layer, :, :, slot] = v.to(v_cache.dtype)
-    o = decode_attention(q, k_cache[layer], v_cache[layer], min(pos + 1, Sc))
-    return dense(p["wo"], o.reshape(B, 1, -1)), k_cache, v_cache
+    row_k, row_v = k_cache[layer], v_cache[layer]
+    if quant:
+        row_k = dequantize_kv(row_k, k_scale[layer], x.dtype)
+        row_v = dequantize_kv(row_v, v_scale[layer], x.dtype)
+    o = decode_attention(q, row_k, row_v, min(pos + 1, Sc))
+    o = dense(p["wo"], o.reshape(B, 1, -1))
+    if quant:
+        return o, k_cache, v_cache, k_scale, v_scale
+    return o, k_cache, v_cache
 
 
 # ===================================================================== #
@@ -213,3 +265,174 @@ def block_decode(p, x: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     x = x + a
     x = x + mlp(p["mlp"], apply_norm(p["ln2"], x), cfg.act)
     return x, kc, vc
+
+
+# ===================================================================== #
+# MoE block
+# ===================================================================== #
+def _moe_dims(cfg: ArchConfig):
+    """(E_virtual, ff_virtual, split). moe_ff_split=r slices each expert's
+    ff into r column blocks => E*r virtual experts of ff/r each. down-proj
+    halves sum, so dispatching a token to all r virtual slices of its
+    routed expert computes exactly the original expert."""
+    E, ff = cfg.moe.n_experts, cfg.d_ff
+    r = max(1, cfg.moe_ff_split or 1)
+    return E * r, ff // r, r
+
+
+def moe_init(gen: Gen, cfg: ArchConfig) -> dict:
+    d, E = cfg.d_model, cfg.moe.n_experts
+    Ev, ffv, _ = _moe_dims(cfg)
+    dt = cfg.jdtype
+    sc = 1.0 / math.sqrt(d)
+    scf = 1.0 / math.sqrt(cfg.d_ff)
+    return {
+        "router": normal(gen, (d, E), sc, dt),
+        "gate": normal(gen, (Ev, d, ffv), sc, dt),
+        "up": normal(gen, (Ev, d, ffv), sc, dt),
+        "down": normal(gen, (Ev, ffv, d), scf, dt),
+    }
+
+
+def moe_route(p, x: torch.Tensor, cfg: ArchConfig):
+    """The router and the capacity ranking of ``moe_apply``, for x
+    (B, S, d): returns ``(probs (nb, Tb, E0) fp32, w (nb, Tb*K) fp32,
+    idx (nb, Tb, K), keep (nb, Tb*K) bool, slot (nb, Tb*K), C)`` with K
+    and the expert ids over the virtual experts when ``moe_ff_split`` > 1.
+
+    Top-k sends ties to the lower expert index (``jax.lax.top_k``'s
+    order): a stable descending sort keeps equal probabilities in index
+    order.  Each (token, slot) pair's rank in its expert's queue counts
+    the pairs before it in token-major order, as the reference's
+    cumulative sum over a one-hot does; pairs ranked past the capacity
+    ``C`` go to the scratch row ``E * C``."""
+    B, S, d = x.shape
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    Ev, _, r = _moe_dims(cfg)
+    T = B * S
+    nb = max(1, cfg.moe_dp_blocks or 1)
+    if T % nb:
+        nb = 1
+    Tb = T // nb
+    xb = x.reshape(nb, Tb, d)
+
+    logits = (xb @ p["router"]).float()                      # (nb, Tb, E)
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, idx = w[..., :K], idx[..., :K]                         # (nb, Tb, K)
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+
+    if r > 1:
+        # dispatch to every ff-slice of the routed expert (slices sum)
+        idx = (idx[..., None] * r + torch.arange(r, device=x.device)
+               ).reshape(nb, Tb, K * r)
+        w = w.repeat_interleave(r, dim=-1)
+        E, K = Ev, K * r
+    C = max(1, int(math.ceil(Tb * K / E * cfg.moe.capacity_factor)))
+
+    flat_idx = idx.reshape(nb, Tb * K)
+    # a stable sort by expert keeps each expert's pairs in token-major
+    # order, so a pair's rank is its place in the sorted order less the
+    # place where its expert's run starts (the same integers as the
+    # one-hot cumsum, without a scan down Tb*K rows of E columns)
+    by_expert, order = torch.sort(flat_idx, dim=1, stable=True)
+    first = torch.searchsorted(by_expert, by_expert)
+    place = torch.arange(Tb * K, device=x.device).expand(nb, -1)
+    rank = torch.empty_like(flat_idx).scatter_(1, order, place - first)
+    keep = rank < C
+    slot = torch.where(keep, flat_idx * C + rank, E * C)     # drop -> scratch
+    return probs, w.reshape(nb, Tb * K), idx, keep, slot, C
+
+
+def moe_apply(p, x: torch.Tensor, cfg: ArchConfig,
+              drops: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (B,S,d), aux_loss fp32 scalar). Capacity-dropped top-k
+    MoE, block-local dispatch (``cfg.moe_dp_blocks`` blocks, each with its
+    own capacity), step for step as the reference's ``moe_apply``: the
+    router in the model's dtype widened to fp32, softmax, top-k and
+    renormalised weights; the scatter of each kept (token, slot) pair's
+    row into an (E*C + 1, d) buffer by ``index_add_`` (kept slots are
+    unique, so only the discarded scratch row sums several rows); the
+    gate / up / down products in the model's dtype; the combine gather
+    times ``w * keep``; the Switch aux loss per block over the original
+    experts.
+
+    ``drops``, a 0-dim int64 tensor on x's device, gains the number of
+    dropped (token, slot) pairs, in place (no host sync)."""
+    B, S, d = x.shape
+    E0 = cfg.moe.n_experts
+    E, _, r = _moe_dims(cfg)
+    probs, w, idx, keep, slot, C = moe_route(p, x, cfg)
+    nb, K = slot.shape[0], idx.shape[-1]
+    if drops is not None:
+        drops += (~keep).sum()
+
+    # each block's (E*C + 1, d) buffer, the blocks stacked on one axis
+    src = x.reshape(nb, -1, d).repeat_interleave(K, dim=1)   # (nb, Tb*K, d)
+    rows = E * C + 1
+    at = slot + (torch.arange(nb, device=x.device) * rows)[:, None]
+    buf = x.new_zeros((nb * rows, d)).index_add(0, at.reshape(-1),
+                                                src.reshape(-1, d))
+    h = buf.reshape(nb, rows, d)[:, :E * C].reshape(nb, E, C, d)
+
+    g = F.silu(torch.einsum("becd,edf->becf", h, p["gate"]))
+    u = torch.einsum("becd,edf->becf", h, p["up"])
+    o = torch.einsum("becf,efd->becd", g * u, p["down"])
+
+    out_rows = torch.cat([o.reshape(nb, E * C, d),
+                          o.new_zeros((nb, 1, d))], dim=1)
+    y = torch.gather(out_rows, 1, slot[..., None].expand(-1, -1, d))
+    y = y * (w * keep)[..., None].to(x.dtype)                # combine
+    y = y.reshape(nb, -1, K, d).sum(dim=2)
+
+    # load-balance aux loss (Switch): E * sum_e f_e * p_e, per block and
+    # averaged, over the ORIGINAL experts (virtual ff-slices are a layout)
+    top1 = idx[..., 0] // r if r > 1 else idx[..., 0]        # (nb, Tb)
+    f = F.one_hot(top1, E0).float().mean(dim=1)
+    pmean = probs.mean(dim=1)                                # (nb, E0)
+    aux = E0 * (f * pmean).sum(-1).mean()
+    return y.reshape(B, S, d), aux
+
+
+def moe_dispatch(p, x: torch.Tensor, cfg: ArchConfig,
+                 drops: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_apply``: the port runs on one device.  The reference's
+    explicit expert-parallel ``moe_apply_shard_map`` branch (taken under a
+    mesh with ``cfg.moe_impl == "shard_map"``) waits for the port's mesh
+    (ROADMAP Queue 1 item 6)."""
+    return moe_apply(p, x, cfg, drops)
+
+
+def moe_block_init(gen: Gen, cfg: ArchConfig) -> dict:
+    return {
+        "ln1": norm_init(gen, cfg.d_model, cfg.jdtype, cfg.norm),
+        "attn": attn_init(gen, cfg),
+        "ln2": norm_init(gen, cfg.d_model, cfg.jdtype, cfg.norm),
+        "moe": moe_init(gen, cfg),
+    }
+
+
+def moe_block_apply(p, x: torch.Tensor, cfg: ArchConfig):
+    x = x + attn_apply(p["attn"], apply_norm(p["ln1"], x), cfg, causal=True)
+    y, aux = moe_dispatch(p["moe"], apply_norm(p["ln2"], x), cfg)
+    return x + y, aux
+
+
+def moe_block_prefill(p, x: torch.Tensor, cfg: ArchConfig,
+                      drops: Optional[torch.Tensor] = None):
+    a, kc, vc = attn_prefill(p["attn"], apply_norm(p["ln1"], x), cfg)
+    x = x + a
+    y, _ = moe_dispatch(p["moe"], apply_norm(p["ln2"], x), cfg, drops)
+    return x + y, kc, vc
+
+
+def moe_block_decode(p, x: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                     pos: int, cfg: ArchConfig,
+                     drops: Optional[torch.Tensor] = None):
+    a, kc, vc = attn_decode(p["attn"], apply_norm(p["ln1"], x), kc, vc, pos,
+                            cfg)
+    x = x + a
+    y, _ = moe_dispatch(p["moe"], apply_norm(p["ln2"], x), cfg, drops)
+    return x + y, kc, vc

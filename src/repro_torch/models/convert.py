@@ -4,7 +4,9 @@ The reference's params are a pytree of arrays: ``embed (V, d)``,
 ``layers`` (each leaf stacked on a leading ``(L, ...)`` axis, as
 ``stacked_init`` makes them), ``ln_f`` and ``lm_head (d, V)``.  The port
 keeps the same keys and the same ``(d_in, d_out)`` weight layout, with
-``layers`` split into one entry per layer; no leaf is transposed.
+``layers`` split into one entry per layer; no leaf is transposed.  An MoE
+layer's stacked ``moe.router (L, d, E)`` and ``moe.gate`` / ``moe.up``
+``(L, E, d, ff)`` / ``moe.down (L, E, ff, d)`` split the same way.
 """
 from __future__ import annotations
 

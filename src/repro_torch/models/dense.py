@@ -10,7 +10,11 @@ it out.
 
 The cache keeps the reference's stacked ``(L, B, G, Sc, hd)`` layout, so
 caches compare across the packages.  ``decode_step`` writes the new slot
-into it in place, where the JAX package re-emits the cache.
+into it in place, where the JAX package re-emits the cache.  With
+``kv_cache_dtype="int8"`` the cache is int8 with ``(L, B, G, Sc)`` fp32
+scales beside it (``k_scale``, ``v_scale``): prefill quantizes the whole
+cache, decode quantizes each new slot on write and dequantizes a layer's
+rows for its attention.
 """
 from __future__ import annotations
 
@@ -24,17 +28,13 @@ from .lm import BaseLM, scan_layers
 
 
 class DenseLM(BaseLM):
-    def __init__(self, cfg):
-        if cfg.kv_cache_dtype != "model":
-            raise NotImplementedError(
-                f"kv_cache_dtype={cfg.kv_cache_dtype!r}: the int8 KV cache is "
-                f"not ported yet (ROADMAP Queue 1, the slice of the other zoo "
-                f"families and the int8 KV cache)")
-        super().__init__(cfg)
-
     @property
     def window(self) -> Optional[int]:
         return self.cfg.window if self.cfg.attention == "sliding_window" else None
+
+    @property
+    def quantized_cache(self) -> bool:
+        return self.cfg.kv_cache_dtype == "int8"
 
     def init_layers(self, gen: Gen) -> list:
         return [blocks.block_init(gen, self.cfg)
@@ -61,24 +61,39 @@ class DenseLM(BaseLM):
             h, kc, vc = blocks.block_prefill(p, h, cfg, window=self.window)
             kcs[i, :, :, :kc.shape[2]] = kc
             vcs[i, :, :, :vc.shape[2]] = vc
+        if self.quantized_cache:
+            kq, ks = blocks.quantize_kv(kcs)
+            vq, vs = blocks.quantize_kv(vcs)
+            return h, {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
         return h, {"k": kcs, "v": vcs}
 
     def backbone_decode(self, cache, x: torch.Tensor, pos: int):
         cfg = self.cfg
-        kc, vc = cache["k"], cache["v"]
+        names = (("k", "v", "k_scale", "v_scale") if self.quantized_cache
+                 else ("k", "v"))
+        caches = [cache[n] for n in names]
         h = x
         for i, p in enumerate(self._p()["layers"]):
-            a, kc, vc = blocks.attn_decode_inplace(
+            kc, vc, *scales = caches
+            a, *caches = blocks.attn_decode_inplace(
                 p["attn"], apply_norm(p["ln1"], h), kc, vc, i, pos, cfg,
-                window=self.window)
+                window=self.window, k_scale=scales[0] if scales else None,
+                v_scale=scales[1] if scales else None)
             h = h + a
             h = h + mlp(p["mlp"], apply_norm(p["ln2"], h), cfg.act)
-        return h, {"k": kc, "v": vc}
+        return h, dict(zip(names, caches))
 
     def cache_spec(self, batch: int, seq: int):
         cfg = self.cfg
         Sc = min(seq, cfg.window) if self.window is not None else seq
         shp = (cfg.n_layers, batch, cfg.groups, Sc, cfg.hd)
+        if self.quantized_cache:
+            return {"k": torch.empty(shp, dtype=torch.int8, device="meta"),
+                    "v": torch.empty(shp, dtype=torch.int8, device="meta"),
+                    "k_scale": torch.empty(shp[:-1], dtype=torch.float32,
+                                           device="meta"),
+                    "v_scale": torch.empty(shp[:-1], dtype=torch.float32,
+                                           device="meta")}
         return {"k": torch.empty(shp, dtype=cfg.jdtype, device="meta"),
                 "v": torch.empty(shp, dtype=cfg.jdtype, device="meta")}
 

@@ -73,10 +73,18 @@ def maybe_remat(fn: Callable, cfg: ArchConfig) -> Callable:
 
 
 def scan_layers(layers, x: torch.Tensor, body: Callable,
-                cfg: ArchConfig) -> torch.Tensor:
+                cfg: ArchConfig, with_aux: bool = False):
     """``body(layer_params, x) -> x`` over the layers in order, each under
-    :func:`maybe_remat`."""
+    :func:`maybe_remat`.  With ``with_aux`` the body returns ``(x, aux)``
+    and the result is ``(x, sum of the layers' aux)``, the sum in fp32
+    from 0 as the reference's scan carries it."""
     body_r = maybe_remat(body, cfg)
+    if with_aux:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for p in layers:
+            x, a = body_r(p, x)
+            aux = aux + a
+        return x, aux
     for p in layers:
         x = body_r(p, x)
     return x

@@ -8,17 +8,21 @@ from typing import Tuple
 from .config import ArchConfig
 from .dense import DenseLM
 from .lm import BaseLM
+from .moe import MoELM
 
 FAMILIES = {
     "dense": DenseLM,
+    "moe": MoELM,
 }
 
-#: the zoo's dense archs, whose configs the port carries
+#: the zoo's dense and MoE archs, whose configs the port carries
 ARCH_IDS = (
     "h2o_danube_1_8b",
     "mistral_large_123b",
     "qwen2_72b",
     "internlm2_20b",
+    "olmoe_1b_7b",
+    "grok_1_314b",
 )
 
 #: the reference zoo's other archs, by family: not ported yet
@@ -26,13 +30,11 @@ UNPORTED = {
     "llava_next_34b": "vlm",
     "falcon_mamba_7b": "ssm",
     "whisper_base": "audio",
-    "olmoe_1b_7b": "moe",
-    "grok_1_314b": "moe",
     "recurrentgemma_2b": "hybrid",
 }
 
 _LATER = ("is not ported yet: it arrives with ROADMAP Queue 1's slice of the "
-          "other zoo families (recurrentgemma, MoE, Mamba, audio, VLM)")
+          "other zoo families (Mamba, audio, VLM, recurrentgemma)")
 
 
 def normalize_arch_id(arch: str) -> str:

@@ -1,7 +1,8 @@
 """``chip_smoke.py``'s host-side helpers on the CPU: how the build phase
 reads ptxas's report, how the breakdowns name the SWA backward kernels,
-the backward's bounds, and that a blind profiler fails the numbers
-phase.  Nothing here needs a card or a compiler."""
+the backward's bounds, the causal forward's and the MoE generation's
+bounds, and that a blind profiler fails the numbers phase.  Nothing here
+needs a card or a compiler."""
 import re
 import sys
 from pathlib import Path
@@ -77,6 +78,29 @@ def test_backward_bounds_at_the_training_shape():
         assert by == "operations" and round(got, 3) == ms
 
 
+def test_causal_forward_bound_at_olmoes_prefill_layer():
+    """W = S over one olmoe-1b-7b layer (B 2, 16 heads, S 2048, d 128):
+    S (S + 1) / 2 visible pairs a head, 4 d operations each, 34.4 GFLOP
+    at bf16's 989 TFLOP/s: 0.0348 ms, bound by operations."""
+    assert chip_smoke.swa_pairs(2048, 2048, 2048, 0) == 2048 * 2049 // 2
+    got, by = chip_smoke.swa_bound_ms(2, 16, 16, 2048, 128, 2048, 2)
+    assert by == "operations" and round(got, 4) == 0.0348
+
+
+def test_moe_bounds_at_olmoes_full_width():
+    """olmoe-1b-7b at B 2, S 2048: capacity ceil(4096 * 8 / 64 * 1.25) =
+    640, the expert products 6 x 64 x 640 x 2048 x 1024 a layer, 8.25
+    TFLOP over 16 layers (8.3 ms at bf16's peak); a decode step reads
+    12.9 GB of expert weights (3.85 ms at 3.35 TB/s)."""
+    from repro_torch.models import get_config
+    b = chip_smoke.moe_bounds(get_config("olmoe-1b-7b"), 2, 2048)
+    assert b["prefill_capacity"] == 640
+    assert b["prefill_expert_flop"] == 6 * 64 * 640 * 2048 * 1024 * 16
+    assert round(b["prefill_expert_bound_ms"], 1) == 8.3
+    assert round(b["decode_weight_bytes"] / 1e9, 1) == 12.9
+    assert round(b["decode_weight_read_bound_ms"], 2) == 3.85
+
+
 def test_device_ms_a_call_survives_a_dropped_activity():
     """Three calls, each one run of a 2 ms kernel and two of a 10 us one:
     one activity of each name missing from the profile leaves the time
@@ -94,7 +118,8 @@ def _numbers(device_ms):
            "backward_device_ms": 0.018}
     return {"kge": {"kge_rows": [row]},
             "swa": {"swa": {"device_ms": 0.97, "fp32_device_ms": 12.7,
-                            "train_batch": {"device_ms": 0.58}}},
+                            "train_batch": {"device_ms": 0.58},
+                            "causal": {"device_ms": 0.09}}},
             "swa_backward": {"rows": [{"dtype": "bfloat16", "B": 1,
                                        "device_ms": device_ms}]}}
 

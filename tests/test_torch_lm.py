@@ -1,17 +1,19 @@
-"""The port's dense LMs against the JAX package's.
+"""The port's dense and MoE LMs against the JAX package's.
 
-Each dense arch's ``REDUCED`` config runs in fp32 in both packages
+Each dense and MoE arch's ``REDUCED`` config runs in fp32 in both packages
 (``cfg.with_(dtype="float32")``, as ``tests/test_arch_consistency.py``
 does): the reference's params, drawn from its key, are carried into the
 port by ``models.convert.params_from_numpy``, and the same token ids, made
 by numpy from a seed, go through both.  Tolerances: last prefill logits
 and decode logits within 2e-4, caches within 1e-5 (fp32 sums in another
 order), greedy ids equal; the port's own prefill/decode consistency
-within 2e-3, the reference's ``TOL``.  h2o-danube's prompt is 80 tokens,
-which wraps its reduced window of 64 as ``test_arch_consistency.py``
-does; the full-attention archs use 48.  On the CPU the sliding-window
-layers run the kernel's plain version; the ``cuda`` test at the end runs
-the kernel.
+within 2e-3, the reference's ``TOL`` (the MoE archs there at capacity
+factor 16, as ``test_arch_consistency.py`` runs them: dropping depends on
+which tokens share a prefill).  h2o-danube's prompt is 80 tokens, which
+wraps its reduced window of 64 as ``test_arch_consistency.py`` does; the
+full-attention archs use 48.  On the CPU every causal attention layer
+(sliding-window, or full as a window over every key) runs the kernel's
+plain version; the ``cuda`` test at the end runs the kernel.
 """
 import dataclasses
 
@@ -30,6 +32,7 @@ from repro_torch.configs import shapes as tshapes
 from repro_torch.kernels import swa_attention as tswa
 from repro_torch.launch import generate
 from repro_torch.models import ARCH_IDS, build, get_config
+from repro_torch.models import attention as tattention
 from repro_torch.models import blocks as tblocks
 from repro_torch.models import layers as tlayers
 from repro_torch.models.convert import params_from_numpy
@@ -40,10 +43,13 @@ LOGIT_TOL = 2e-4
 CACHE_TOL = 1e-5
 CONSISTENCY_TOL = 2e-3
 DECODE_STEPS = 8
-#: (arch, kv_groups): the four dense archs, and h2o-danube with its KV
-#: heads repeated to 4 groups and, at 8 groups, its q heads padded 4 -> 8
+#: (arch, kv_groups): the dense and MoE archs; h2o-danube with its KV
+#: heads repeated to 4 groups and, at 8 groups, its q heads padded 4 -> 8;
+#: olmoe's q heads padded 4 -> 8, grok's KV heads repeated 2 -> 4
 CASES = [(a, 0) for a in ARCH_IDS] + [("h2o_danube_1_8b", 4),
-                                      ("h2o_danube_1_8b", 8)]
+                                      ("h2o_danube_1_8b", 8),
+                                      ("olmoe_1b_7b", 8),
+                                      ("grok_1_314b", 4)]
 
 
 def _close(got, want, tol):
@@ -115,6 +121,15 @@ def test_configs_are_copies(arch, reduced):
         jget_config(arch, reduced).n_params()
 
 
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_ported_head_dim_is_a_kernel_head_dim(arch, reduced):
+    """Every ported arch's causal attention runs the SWA kernel (a window
+    over every key where it has none), which is built for the head dims
+    in ``HEAD_DIMS``."""
+    assert get_config(arch, reduced).hd in tswa.HEAD_DIMS
+
+
 def test_h2o_danube_is_about_1_8b_params():
     cfg = get_config("h2o-danube-1.8b")
     assert 1.7e9 < cfg.n_params() < 1.9e9
@@ -140,11 +155,9 @@ def test_shapes_and_cache_specs_match(arch):
 
 def test_unported_families_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("olmoe-1b-7b")
+        get_config("falcon-mamba-7b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(get_config("qwen2-72b").with_(family="moe"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(get_config("qwen2-72b", True).with_(kv_cache_dtype="int8"))
+        build(get_config("qwen2-72b").with_(family="ssm"))
     with pytest.raises(ValueError):
         get_config("no-such-arch")
 
@@ -246,6 +259,49 @@ def test_block_decode_matches_jax(arch):
     _close(tv, jv, CACHE_TOL)
 
 
+@pytest.mark.parametrize("q_offset", [0, 37])
+def test_causal_attention_runs_on_the_swa_kernel(q_offset, monkeypatch):
+    """Full causal attention goes through the SWA kernel's wrapper with a
+    window over every key, and equals ``chunked_attention(causal=True)``
+    within 2e-4: at the attention level (keys from 0 to q_offset + Sq) and
+    through ``attn_apply`` (qwen2's reduced block, Sk = Sq)."""
+    calls = []
+    real = tswa.swa_attention_forward
+
+    def spy(q, k, v, window, q_offset=0, **kw):
+        calls.append((window, q_offset))
+        return real(q, k, v, window, q_offset, **kw)
+
+    monkeypatch.setattr(tswa, "swa_attention_forward", spy)
+    rng = np.random.default_rng(8 + q_offset)
+    B, Sq, G, H, hd = 2, 40, 2, 3, 16
+    Sk = q_offset + Sq
+    q = torch.from_numpy(rng.standard_normal((B, Sq, G, H, hd),
+                                             dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((B, Sk, G, hd),
+                                                 dtype=np.float32))
+            for _ in range(2))
+    got = tblocks._causal_attention(q, k, v, q_offset)
+    assert calls == [(Sk, q_offset)]
+    _close(got, tattention.chunked_attention(q, k, v, causal=True,
+                                             q_offset=q_offset), 2e-4)
+
+    jcfg, tcfg, _, tp = _block_params("qwen2_72b")
+    x = torch.from_numpy(rng.standard_normal((2, Sq, tcfg.d_model),
+                                             dtype=np.float32))
+    calls.clear()
+    got = tblocks.attn_apply(tp["attn"], x, tcfg, causal=True,
+                             q_offset=q_offset)
+    assert calls == [(q_offset + Sq, q_offset)]
+    monkeypatch.setattr(tblocks, "_causal_attention",
+                        lambda q, k, v, off: tattention.chunked_attention(
+                            q, k, v, causal=True, q_offset=off))
+    want = tblocks.attn_apply(tp["attn"], x, tcfg, causal=True,
+                              q_offset=q_offset)
+    assert len(calls) == 1
+    _close(got, want, 2e-4)
+
+
 # --------------------------- the whole LM ----------------------------- #
 @pytest.mark.parametrize("case", CASES, ids=_case_id)
 def test_prefill_logits_match_jax(case):
@@ -279,6 +335,13 @@ def test_prefill_then_decode_equals_longer_prefill(case):
     absolute positions and the rolling SWA buffer."""
     r = _run(*case)
     model, toks, S = r["model"], torch.from_numpy(r["toks"]), r["S"]
+    if model.cfg.moe is not None:
+        # the same params at no-drop capacity: which (token, slot) pairs a
+        # capacity drops depends on the tokens a prefill holds
+        params, cfg = model.params, model.cfg
+        model = build(cfg.with_(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=16.0)))
+        model.params = params
     full, _ = model.prefill({"tokens": toks})
     _, cache = model.prefill({"tokens": toks[:, :-1]}, cache_len=S)
     dec, _ = model.decode_step(cache, toks[:, -1:], S - 1)

@@ -5,9 +5,9 @@ as ``tests/test_arch_consistency.py`` runs them): the reference's params,
 drawn from its key, are carried into the port by
 ``models.convert.params_from_numpy``, and the same token ids and labels
 (some -1), made by numpy from a seed, go through both.  h2o-danube's
-sliding-window layers run the plain SWA forward and backward here (the
-kernels' contract); qwen2's full causal attention the plain
-``chunked_attention`` under autograd.
+sliding-window layers and qwen2's full causal attention (a window over
+every key) run the plain SWA forward and backward here (the kernels'
+contract).
 
 Tolerances: the loss within 1e-5 relative; each gradient leaf within
 2e-4 * max|g_ref| of the leaf (fp32 sums in another order, through up to
