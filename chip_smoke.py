@@ -1,14 +1,15 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's serving, update, LM-generation (dense and MoE) and
-LM-training paths the way a user does and holds every kernel to its plain
-PyTorch version on the card.
+Drives the port's serving, update, LM-generation (dense, MoE, SSM, audio
+and VLM) and LM-training paths the way a user does and holds every kernel
+to its plain PyTorch version on the card.
 Phases, in order; any failure exits non-zero:
 
   1. build    compile ``src/repro_torch/kernels/csrc/*.cu`` (nvcc, sm_90a,
               one nvcc per source, all at once); each kernel's ptxas
-              registers and spills, and HGMMA in the SASS of every bf16
-              SWA backward kernel (``cuobjdump -sass``)
+              registers and spills (the six selective-scan instances
+              too), and HGMMA in the SASS of every bf16 SWA backward
+              kernel (``cuobjdump -sass``)
   2. kernels  the top-k kernel against its plain version: the edge grid,
               exact duplicate rows, N in {40k, 100k} x Q in {1, 32, 64} x
               k in {1, 10, 64, 65, 2000, N}, streamed and device-resident,
@@ -38,20 +39,29 @@ Phases, in order; any failure exits non-zero:
               tiling's (a 128-key CTA half past Skv, group 1 and 8, d =
               16, 32 and 128 at W not a multiple of 64), and full causal
               attention as a window over every key (one olmoe-1b-7b layer:
-              B 2, 16 heads, S 2048, W 2048, d 128; and W = q_offset + Sq
-              with q_offset > 0); on each, the
+              B 2, 16 heads, S 2048, W 2048, d 128; W = q_offset + Sq
+              with q_offset > 0; whisper-base's decoder, 8 heads of 64,
+              at its 64-token prompt and its 448-token cap; one
+              llava-next-34b layer, 56 q heads over 8 kv heads of 128,
+              over 2,880 image + 64 text tokens); on each, the
               forward's log-sum-exp and the three backward kernels
               (bwd_dot, backward_dkdv, backward_dq) on the plain forward's
               saved tensors, and two backward launches bit for bit on a
               few
+     scan     the selective-scan kernel against its plain version, fp32
+              and bf16 inputs, on y and h_last (rtol = atol = 2e-4):
+              d_state 4 and 8 at S 24, 33, 300 and 1, and one
+              falcon-mamba-7b layer (B 2, S 2048, d_in 8192, d_state 16)
+              from h0 != 0, launched twice (the same bits); a gradient
+              asked of it on the card raises
   5. serve    two versions of a 40,000 x 200 GO-size snapshot published
               through the port's registry; ``repro_torch.launch.serve``
               in client-session mode, then HTTP over the gateway, every
               answer checked against the plain version
   6. workers  pre-forked serving on the card over the same registry:
               ``launch.serve --http 0`` as one process, then with
-              ``--workers 2`` and ``--workers 4``, one HTTP client session
-              five HTTP client sessions each (``bench_http.run_mp``'s: 16
+              ``--workers 2`` and ``--workers 4``, three HTTP client
+              sessions each (``bench_http.run_mp``'s: 16
               keep-alive clients, 2,048 requests, k = 10; fresh rows a
               session), q/s and p50/p99 as median and range, every
               answer against the plain top-k; per pool: the merged /stats
@@ -112,6 +122,26 @@ Phases, in order; any failure exits non-zero:
               16 causal SWA launches per prefill, the dropped (token, slot)
               pairs per prefill and per decode step, beside the expert
               products' and the decode weight read's bounds
+     mamba    falcon-mamba-7b at its published width and depth: in fp32,
+              2 layers, the last logits of prefill(2049) against
+              prefill(2048) + decode_step (2e-3, same argmax), one scan
+              launch a layer a prefill; then a bf16 ``launch.generate``
+              (batch 2, prompt 2048, 32 steps): prefill ms, tokens/s,
+              decode ms a token, the state's bytes, peak memory, 64 scan
+              launches per prefill
+     whisper  whisper-base at its published width and depth: in fp32,
+              1,500 encoder frames, a 65-token decoder prefill against
+              64 + decode_step (2e-3, same argmax), 6 causal SWA launches
+              (d 64) a prefill; then a bf16 ``launch.generate`` (batch 2,
+              1,500 frames, prompt 64, 32 steps)
+     llava    llava-next-34b at its published width and depth, in a fresh
+              child process (68.8 GB of bf16 weights): in fp32, 2 layers,
+              2,880 image embeddings + 65 text tokens against 64 +
+              decode_step at position 2,944 (2e-3, same argmax); then a
+              bf16 ``launch.generate`` (batch 2, 2,880 image + 64 text
+              tokens, 32 steps), 60 causal SWA launches (56 / 8 heads,
+              d 128) a prefill; where a prefill's and a decode step's
+              device time goes
  10. train    h2o-danube-1.8b training at its published width: in fp32
               two layers (B = 1, S = 6144 > W) with the kernels against the
               same step with the plain SWA forward and backward
@@ -132,14 +162,18 @@ Phases, in order; any failure exits non-zero:
               kernel at one h2o-danube layer's shape, bf16 (B = 2, and
               B = 1, the training shape) and fp32, against its bound, its
               plain version and ``scaled_dot_product_attention``, and at
-              one olmoe-1b-7b prefill layer's causal shape against SDPA
-              ``is_causal``; where the device time of an olmoe-1b-7b
+              one olmoe-1b-7b and one llava-next-34b prefill layer's
+              causal shape against SDPA ``is_causal``; where the device time of an olmoe-1b-7b
               prefill and decode step goes, and their busy shares; the
               device-busy share of a full-width decode step; the SWA
               backward at one layer's shape (B = 1 and 2, bf16 and fp32)
               against its bounds (the function's, the two-kernel
               design's), its plain version and SDPA forward + backward,
-              and the forward with its log-sum-exp against without.
+              and the forward with its log-sum-exp against without; the
+              selective scan at one falcon-mamba-7b layer's shape against
+              its bound (exps on the SFUs, bytes) and its plain version;
+              where a falcon-mamba-7b and a whisper-base prefill and
+              decode step spend their device time.
               After other phases it runs in a fresh child process
               (``--phases numbers``), whose profiler sessions read the
               device; every kge and SWA row must carry a device time
@@ -155,8 +189,9 @@ Run from the repository root with no arguments::
 It prints JSON lines as it goes, then the card's name and power limit,
 the kernels line, and last ``{"ok": true, "device": {...}}``.
 ``--phases`` runs a subset (``build,kernels``, ``build,kge``,
-``build,swa,lm``, ``build,swa,moe`` or ``build,swa,train`` is a quick
-check of one slice;
+``build,swa,lm``, ``build,swa,moe``, ``build,scan,mamba``,
+``build,swa,whisper``, ``build,swa,llava`` or ``build,swa,train`` is a
+quick check of one slice;
 ``build,serve,workers``
 the serving paths; ``build,kge,update`` the update path alone;
 ``build,jobs`` the batch jobs; ``alloc`` the backward's allocation
@@ -255,6 +290,14 @@ SWA_CASES = (
     ("causal: olmoe layer, W = S", (2, 16, 16, 2048, 2048, 128, 2048, 0)),
     ("causal: q_offset, W = q_offset + Sq",
      (1, 4, 4, 300, 812, 128, 812, 512)),
+    # whisper-base's decoder (8 heads of 64): its prompt and its 448-token
+    # cap; one llava-next-34b layer (56 q heads over 8 kv heads, d 128)
+    # over 2,880 image tokens and a 64-token prompt
+    ("causal: whisper decoder prompt, W = S", (2, 8, 8, 64, 64, 64, 64, 0)),
+    ("causal: whisper decoder at its cap, W = S",
+     (2, 8, 8, 448, 448, 64, 448, 0)),
+    ("causal: llava layer, 56 / 8 heads, W = S",
+     (1, 56, 8, 2944, 2944, 128, 2944, 0)),
 )
 #: the LM generation run: h2o-danube-1.8b at its published width, a prompt
 #: longer than its 4096 window (the roll shift after prefill is 2048)
@@ -274,6 +317,43 @@ MOE_BATCH, MOE_PROMPT, MOE_STEPS = 2, 2048, 32
 #: layers, capacity factor 16 (no drop, as tests/test_arch_consistency.py
 #: runs the MoE archs: dropping depends on which tokens share a prefill)
 MOE_CHECK_LAYERS, MOE_CHECK_CF = 2, 16.0
+#: the selective-scan kernel against its plain version: rtol = atol =
+#: 2e-4 on y and h_last (tests/test_recurrent_blocks.py's tolerance for
+#: the chunked scan against the stepwise decode)
+SCAN_SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
+SCAN_REPLACES = ("src/repro/models/blocks.py:605 _selective_scan_chunk "
+                 "(jnp associative scan under lax.scan; no Pallas kernel)")
+SCAN_TOL = 2e-4
+#: (B, S, d_in, d_state, h0 = 0): the reference's test config (d 32 ->
+#: d_in 64, d_state 4), reduced falcon-mamba (d_in 512, d_state 8) with S
+#: past one 256-step chunk and not a multiple of it, S = 1, and one
+#: falcon-mamba-7b layer from a state h0 != 0
+SCAN_CASES = (
+    ("test config, S 24", (2, 24, 64, 4, True)),
+    ("test config, S 33, h0", (1, 33, 64, 4, False)),
+    ("reduced falcon-mamba, S 300", (2, 300, 512, 8, True)),
+    ("reduced falcon-mamba, S 1, h0", (2, 1, 512, 8, False)),
+    ("falcon-mamba-7b layer, h0", (2, 2048, 8192, 16, False)),
+)
+#: exps an H100 SXM's SFUs give a second: 16 a clock an SM, 132 SMs, the
+#: 1.98 GHz boost clock (NVIDIA's throughput table and data sheet)
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
+#: the SSM generation run: falcon-mamba-7b at its published width and
+#: depth; the fp32 prefill(S + 1) / prefill(S) + decode check at 2 layers
+MAMBA_ARCH = "falcon-mamba-7b"
+MAMBA_BATCH, MAMBA_PROMPT, MAMBA_STEPS = 2, 2048, 32
+MAMBA_CHECK_LAYERS = 2
+#: the audio run: whisper-base at its published width and depth, 1,500
+#: encoder frames (its 30-s window after the conv stem, arXiv:2212.04356),
+#: a 64-token decoder prompt, 32 steps (inside its 448-token cap)
+WHISPER_ARCH = "whisper-base"
+WHISPER_BATCH, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_STEPS = 2, 1500, 64, 32
+#: the VLM run: llava-next-34b at its published width and depth (68.8 GB
+#: of bf16 weights), 2,880 image tokens and a 64-token text prompt, 32
+#: steps; the fp32 check at 2 layers
+LLAVA_ARCH = "llava-next-34b"
+LLAVA_BATCH, LLAVA_PROMPT, LLAVA_STEPS = 2, 64, 32
+LLAVA_CHECK_LAYERS = 2
 #: the training run: h2o-danube-1.8b at its published width and depth,
 #: bf16, remat "full", one sequence of 6144 tokens (past the 4096 window)
 TRAIN_BATCH, TRAIN_SEQ = 1, 6144
@@ -381,18 +461,22 @@ def unit_rows(table: np.ndarray, norms: np.ndarray, rows) -> np.ndarray:
 # --------------------------------------------------------------------- #
 # phases
 # --------------------------------------------------------------------- #
+#: the template arguments ``_kernel_name`` reads: an int, float, bf16
+_TEMPLATE_ARG = r"Li(-?\d+)E|(f)|13(__nv_bfloat16)"
+
+
 def _kernel_name(mangled: str) -> str:
-    """``swa_bf16_kernel<80>`` from its mangled name (a length-prefixed
-    ``*_kernel`` and its integer template arguments); other names as
-    they are."""
+    """``swa_bf16_kernel<80>`` or ``selective_scan_kernel<16, float>``
+    from its mangled name (a length-prefixed ``*_kernel`` and its integer,
+    float and bf16 template arguments); other names as they are."""
     for d in re.finditer(r"\d+(?!\d)", mangled):
         for i in range(d.start(), d.end()):   # a hash's digits may lead
             end = d.end() + int(mangled[i:d.end()])
             name = mangled[d.end():end]
             if name.endswith("_kernel"):
-                args = re.findall(r"Li(-?\d+)E",
-                                  re.match(r"(I(?:Li-?\d+E)+E)?",
-                                           mangled[end:]).group())
+                m = re.match(rf"I((?:{_TEMPLATE_ARG})+)E", mangled[end:])
+                args = [n or ("float" if f else "bf16") for n, f, _ in
+                        re.findall(_TEMPLATE_ARG, m.group(1))] if m else []
                 return name + (f"<{', '.join(args)}>" if args else "")
     return mangled
 
@@ -465,6 +549,10 @@ def phase_build() -> dict:
     missing = [k for k in bf16 if not bwd.get(k, {}).get("hgmma")]
     check(not missing, f"no HGMMA in the SASS of {missing}")
     out["swa_backward_kernels"] = bwd
+    # the selective scan's instances (d_state 4 / 8 / 16 x fp32 / bf16)
+    out["scan_kernels"] = _ptxas_kernels(_build.build_log("selective_scan"))
+    check(len(out["scan_kernels"]) == 6,
+          f"selective_scan: {sorted(out['scan_kernels'])}, want 6 kernels")
     emit(out)
     return out
 
@@ -1041,7 +1129,7 @@ def phase_serve(registry_root: str, served: dict) -> dict:
 #: median and a spread over fresh connection-to-worker splits
 WORKER_POOLS = (2, 4)
 WORKER_THREADS, WORKER_REQUESTS, WORKER_K = 16, 2048, 10
-WORKER_SESSIONS = 5
+WORKER_SESSIONS = 3
 WATCH_INTERVAL_S = 0.25     # WorkerPool's default store-watch interval
 
 
@@ -2476,6 +2564,428 @@ def moe_bounds(cfg, B: int, S: int) -> dict:
                 weight_bytes / HBM_BYTES_PER_S * 1e3}
 
 
+# ------------------------ the selective scan ------------------------- #
+def _scan_inputs(B: int, S: int, d_in: int, st: int, dtype, gen,
+                 h0_zero: bool):
+    """dt (softplus of N(0, 1), fp32), x, Bm, Cm (N(0, 1) in ``dtype``,
+    Bm and Cm column slices of one (B, S, 16 + 2 st) tensor, as the model
+    cuts them from x_proj's output), A = -(1 .. st) per channel (the
+    model's init), h0 (0, or N(0, 1))."""
+    import torch
+    import torch.nn.functional as F
+    dt = F.softplus(torch.randn((B, S, d_in), generator=gen, device=DEV))
+    x = torch.randn((B, S, d_in), generator=gen, device=DEV).to(dtype)
+    dbc = torch.randn((B, S, 16 + 2 * st), generator=gen,
+                      device=DEV).to(dtype)
+    Bm, Cm = dbc[..., 16:16 + st], dbc[..., 16 + st:]
+    A = -torch.arange(1, st + 1, dtype=torch.float32,
+                      device=DEV).expand(d_in, st).contiguous()
+    h0 = torch.zeros((B, d_in, st), device=DEV) if h0_zero else \
+        torch.randn((B, d_in, st), generator=gen, device=DEV)
+    return h0, dt, Bm, Cm, A, x
+
+
+def _scan_close(got, want, note: str) -> float:
+    """max |got - want|; fails past SCAN_TOL + SCAN_TOL * |want|."""
+    import torch
+    diff = (got - want).abs()
+    check(bool(torch.isfinite(got).all())
+          and bool((diff <= SCAN_TOL * (1 + want.abs())).all()),
+          f"{note}: off by {float(diff.max())}")
+    return float(diff.max())
+
+
+def phase_scan() -> dict:
+    """The selective-scan kernel against its plain version on the card, on
+    y and h_last (rtol = atol = 2e-4, the reference's own tolerance for
+    its chunked scan against the stepwise decode), fp32 and bf16 inputs:
+    the reduced shapes (d_state 4 and 8, S not a multiple of the 256-step
+    chunk, S = 1) and one falcon-mamba-7b layer (B 2, S 2048, d_in 8192,
+    d_state 16) from a state h0 != 0; two launches give the same bits; a
+    gradient asked of it on the card raises."""
+    import torch
+    from repro_torch.kernels import ref, selective_scan as ss
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 21)
+    ss.reset_launches()
+    err = {"float32": {"y": 0.0, "h_last": 0.0},
+           "bfloat16": {"y": 0.0, "h_last": 0.0}}
+    cases, calls = [], 0
+    for note, (B, S, d_in, st, h0_zero) in SCAN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            args = _scan_inputs(B, S, d_in, st, dtype, gen, h0_zero)
+            h_k, y_k = ss.selective_scan(*args)
+            h_p, y_p = ref.selective_scan(*args)
+            calls += 1
+            for what, g, w in (("y", y_k, y_p), ("h_last", h_k, h_p)):
+                err[name][what] = max(err[name][what], _scan_close(
+                    g, w, f"scan {note} {name} {what}"))
+            if note.startswith("falcon"):
+                h2, y2 = ss.selective_scan(*args)
+                calls += 1
+                check(torch.equal(h2, h_k) and torch.equal(y2, y_k),
+                      f"scan {note} {name}: two launches differ")
+            cases.append(f"{note} {name}")
+            del args, h_k, y_k, h_p, y_p
+    torch.cuda.synchronize()
+    check(ss.launches == {"selective_scan_forward": calls},
+          f"scan: launches {ss.launches}, want {calls}")
+    h0, dt, Bm, Cm, A, x = _scan_inputs(1, 8, 64, 4, torch.float32, gen,
+                                         True)
+    dt.requires_grad_(True)
+    try:
+        ss.selective_scan(h0, dt, Bm, Cm, A, x)
+        raised = False
+    except NotImplementedError:
+        raised = True
+    check(raised, "scan: a gradient asked on the card did not raise")
+    out = {"phase": "scan", "cases": cases, "max_abs_err": err,
+           "tolerance": f"{SCAN_TOL} + {SCAN_TOL} * |plain|",
+           "grad_on_card_raises": raised}
+    emit(out)
+    return out
+
+
+def scan_bound_ms(B: int, S: int, d_in: int, st: int, in_bytes: int
+                  ) -> tuple:
+    """Least time for one layer's scan: dt (fp32), x, Bm, Cm (``in_bytes``
+    each), A and h0 read once, y and h_last written once; against one exp
+    per (b, t, channel, state) on the SFUs and 5 fp32 operations per
+    (b, t, channel, state) on the CUDA cores.  Returns (ms, bound_by,
+    the three times)."""
+    nbytes = (B * S * d_in * (4 + in_bytes + 4) + 2 * B * S * st * in_bytes
+              + d_in * st * 4 + 2 * B * d_in * st * 4)
+    elems = B * S * d_in * st
+    t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+         "exp": elems / SFU_EXP_PER_S * 1e3,
+         "fp32": 5.0 * elems / FP32_FLOP_PER_S * 1e3}
+    by = max(t, key=t.get)
+    return t[by], ("bytes" if by == "bytes" else "operations"), t
+
+
+def scan_numbers(card: str) -> dict:
+    """The selective-scan kernel at one falcon-mamba-7b prefill layer's
+    shape (B 2, S 2048, d_in 8192, d_state 16, bf16 x / Bm / Cm, h0 = 0):
+    kernel ms (CUDA events), device ms (profiler), the plain version's ms
+    and the bound.  No single PyTorch call computes the scan, so there is
+    no library time."""
+    import torch
+    from repro_torch.kernels import ref, selective_scan as ss
+    from repro_torch.models import get_config
+
+    cfg = get_config(MAMBA_ARCH)
+    B, S = MAMBA_BATCH, MAMBA_PROMPT
+    d_in, st = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 22)
+    args = _scan_inputs(B, S, d_in, st, torch.bfloat16, gen, True)
+    kern = lambda: ss.selective_scan(*args)
+    plain = lambda: ref.selective_scan(*args)
+    ours = {n: t for n, t in _device_ms(kern).items() if "selective_scan" in n}
+    b_ms, b_by, parts = scan_bound_ms(B, S, d_in, st, 2)
+    rec = {"B": B, "S": S, "d_in": d_in, "d_state": st, "dtype": "bfloat16",
+           "ms": _cuda_ms(kern, iters=20),
+           "device_ms": sum(ours.values()) if ours else None,
+           "plain_ms": _cuda_ms(plain, iters=2, warmup=1),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "bound_parts_ms": parts, "card": card}
+    emit({"scan_numbers": rec})
+    del args
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ----------------------- the other zoo families ----------------------- #
+def _consistency(model, full_batch: dict, part_batch: dict, pos: int,
+                 token, counters: dict) -> dict:
+    """fp32: the last logits of prefill(full_batch) against
+    prefill(part_batch) + decode_step(token, pos) (the reference's TOL,
+    the same argmax); each counter in ``counters`` (name -> (reset, read))
+    read after each prefill."""
+    import torch
+    t0 = time.perf_counter()
+    per_prefill = {}
+    for n, (reset, _) in counters.items():
+        reset()
+    whole, _ = model.prefill(full_batch)
+    torch.cuda.synchronize()
+    per_prefill["full"] = {n: read() for n, (_, read) in counters.items()}
+    for n, (reset, _) in counters.items():
+        reset()
+    _, cache = model.prefill(part_batch, cache_len=pos + 1)
+    per_prefill["part"] = {n: read() for n, (_, read) in counters.items()}
+    dec, _ = model.decode_step(cache, token, pos)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(whole).all())
+          and bool(torch.isfinite(dec).all()), "fp32 logits not finite")
+    diff = (dec - whole).abs()
+    check(bool((diff <= LM_TOL * (1 + whole.abs())).all()),
+          f"prefill(S+1) vs prefill(S) + decode: off by {float(diff.max())}")
+    same = bool(torch.equal(dec.argmax(-1), whole.argmax(-1)))
+    check(same, "prefill(S+1) vs prefill(S) + decode: argmax differs")
+    return {"layers": model.cfg.n_layers, "max_abs_diff": float(diff.max()),
+            "max_abs_logit": float(whole.abs().max()), "argmax_equal": same,
+            "seconds": time.perf_counter() - t0,
+            "launches_per_prefill": per_prefill}
+
+
+def _launch_counters() -> dict:
+    from repro_torch.kernels import selective_scan as ss, swa_attention as sw
+    return {"swa": (sw.reset_launches,
+                    lambda: sw.launches["swa_attention_forward"]),
+            "scan": (ss.reset_launches,
+                     lambda: ss.launches["selective_scan_forward"])}
+
+
+def _generate(argv: list, swa_want: int, scan_want: int, vocab: int,
+              ids_shape: tuple, warm_up: bool = True) -> tuple:
+    """``launch.generate`` with ``argv``: a warm-up run (unless the caller
+    warmed the same shapes up), then the measured one, whose prefill must
+    launch ``swa_want`` SWA forwards and ``scan_want`` scans (and no SWA
+    backward); its ids in the vocab.  Returns (warm-up result or None,
+    measured result, launches)."""
+    import torch
+    from repro_torch.kernels import selective_scan as ss, swa_attention as sw
+    from repro_torch.launch import generate
+    warm = generate.main(argv) if warm_up else None
+    torch.cuda.empty_cache()
+    sw.reset_launches()
+    ss.reset_launches()
+    run = generate.main(argv)
+    torch.cuda.synchronize()
+    launches = {**sw.launches, **ss.launches}
+    check(launches == {"swa_attention_forward": swa_want,
+                       "swa_attention_bwd_dot": 0,
+                       "swa_attention_backward_dkdv": 0,
+                       "swa_attention_backward_dq": 0,
+                       "selective_scan_forward": scan_want},
+          f"generation launched {launches}, want {swa_want} SWA forwards "
+          f"and {scan_want} scans")
+    ids = np.asarray(run["ids"])
+    check(ids.shape == ids_shape and ((ids >= 0) & (ids < vocab)).all(),
+          f"ids {ids.shape}")
+    torch.cuda.empty_cache()
+    return warm, run, launches
+
+
+def phase_mamba() -> dict:
+    """falcon-mamba-7b at its published width and depth.
+
+    fp32, 2 of its 64 layers: the last logits of prefill(S + 1) against
+    prefill(S) + decode_step, S = 2048: the scan kernel (one launch a
+    layer, both prefills) against the plain one-step state update of
+    decode.  bf16: the generation of ``launch.generate`` (a warm-up run,
+    then the measured one): prefill ms, tokens/s, decode ms a token, the
+    state's bytes, peak memory, 64 scan launches a prefill."""
+    import torch
+    from repro_torch.models import build, get_config
+
+    full = get_config(MAMBA_ARCH)
+    cfg = full.with_(dtype="float32", n_layers=MAMBA_CHECK_LAYERS)
+    model = build(cfg).init(torch.Generator(device=DEV).manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 23)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        MAMBA_BATCH, MAMBA_PROMPT + 1), dtype=np.int32)).to(DEV)
+    consistency = _consistency(model, {"tokens": toks},
+                               {"tokens": toks[:, :-1]}, MAMBA_PROMPT,
+                               toks[:, -1:], _launch_counters())
+    check(all(c["scan"] == cfg.n_layers and c["swa"] == 0
+              for c in consistency["launches_per_prefill"].values()),
+          f"fp32 prefills launched {consistency['launches_per_prefill']}, "
+          f"want {cfg.n_layers} scans each")
+    del model
+    torch.cuda.empty_cache()
+
+    argv = ["--arch", MAMBA_ARCH, "--batch", str(MAMBA_BATCH),
+            "--prompt-len", str(MAMBA_PROMPT), "--steps", str(MAMBA_STEPS),
+            "--seed", str(SEED), "--device", DEV]
+    # ----------------- main path: bf16 generation --------------------- #
+    warm, run, launches = _generate(
+        argv, 0, full.n_layers, full.padded_vocab,
+        (MAMBA_BATCH, MAMBA_STEPS + 1))
+    check(run["state_bytes"] > 0, "no state bytes")
+    out = {"phase": "mamba", "fp32_consistency": consistency,
+           "generation": {k: v for k, v in run.items() if k != "ids"},
+           "warmup_generation": {k: warm[k] for k in (
+               "prefill_ms", "decode_ms_per_token")},
+           "decode_weight_read_bound_ms":
+               2.0 * full.n_params() / HBM_BYTES_PER_S * 1e3,
+           "ids_row0": run["ids"][0], "launches": launches}
+    emit(out)
+    return out
+
+
+def _frames(cfg, n: int, seed: int, dtype):
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(
+        (WHISPER_BATCH, n, cfg.d_model), dtype=np.float32)).to(DEV, dtype)
+
+
+def phase_whisper() -> dict:
+    """whisper-base at its published width and depth.
+
+    fp32: 1,500 encoder frames, the last logits of a 65-token decoder
+    prefill against a 64-token prefill + decode_step: the SWA kernel's
+    causal band (W = S, d = 64) in every decoder layer of the prefill
+    against the plain decode attention over the 448-slot cache.  bf16: the
+    generation of ``launch.generate`` (1,500 frames, prompt 64, 32 steps;
+    a warm-up run, then the measured one), 6 SWA launches a prefill."""
+    import torch
+    from repro_torch.models import build, get_config
+
+    full = get_config(WHISPER_ARCH)
+    cfg = full.with_(dtype="float32")
+    model = build(cfg).init(torch.Generator(device=DEV).manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 24)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        WHISPER_BATCH, WHISPER_PROMPT + 1), dtype=np.int32)).to(DEV)
+    frames = _frames(cfg, WHISPER_FRAMES, SEED + 25, torch.float32)
+    consistency = _consistency(
+        model, {"frames": frames, "tokens": toks},
+        {"frames": frames, "tokens": toks[:, :-1]}, WHISPER_PROMPT,
+        toks[:, -1:], _launch_counters())
+    check(all(c["swa"] == cfg.n_layers and c["scan"] == 0
+              for c in consistency["launches_per_prefill"].values()),
+          f"fp32 prefills launched {consistency['launches_per_prefill']}, "
+          f"want {cfg.n_layers} SWA forwards each")
+    del model
+    torch.cuda.empty_cache()
+
+    argv = ["--arch", WHISPER_ARCH, "--batch", str(WHISPER_BATCH),
+            "--frames", str(WHISPER_FRAMES), "--prompt-len",
+            str(WHISPER_PROMPT), "--steps", str(WHISPER_STEPS), "--seed",
+            str(SEED), "--device", DEV]
+    # ----------------- main path: bf16 generation --------------------- #
+    warm, run, launches = _generate(
+        argv, full.n_layers, 0, full.padded_vocab,
+        (WHISPER_BATCH, WHISPER_STEPS + 1))
+    out = {"phase": "whisper", "fp32_consistency": consistency,
+           "generation": {k: v for k, v in run.items() if k != "ids"},
+           "warmup_generation": {k: warm[k] for k in (
+               "prefill_ms", "decode_ms_per_token")},
+           "ids_row0": run["ids"][0], "launches": launches}
+    emit(out)
+    return out
+
+
+def phase_llava(card: str) -> dict:
+    """llava-next-34b at its published width and depth.
+
+    fp32, 2 layers: 2,880 image embeddings and a 65-token text prompt, the
+    last logits of that prefill against the 64-token one + decode_step at
+    position 2,944: the SWA kernel's causal band (W = S, d = 128, 7 q
+    heads a kv head) in every prefill layer against the plain decode
+    attention.  bf16: where a prefill's and a decode step's device time
+    goes (torch.profiler, which also warms the shapes up), then the
+    generation of ``launch.generate`` (B 2, 2,880 image tokens + 64 text
+    tokens, 32 steps), one SWA launch a layer of the prefill.  The weights
+    alone are 68.8 GB, so the phase runs in a fresh process on a clean
+    card."""
+    import torch
+    from repro_torch.models import build, get_config
+
+    full = get_config(LLAVA_ARCH)
+    cfg = full.with_(dtype="float32", n_layers=LLAVA_CHECK_LAYERS)
+    model = build(cfg).init(torch.Generator(device=DEV).manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 26)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        LLAVA_BATCH, LLAVA_PROMPT + 1), dtype=np.int32)).to(DEV)
+    img = torch.from_numpy(rng.standard_normal(
+        (LLAVA_BATCH, cfg.n_frontend_tokens, cfg.d_model),
+        dtype=np.float32)).to(DEV)
+    pos = cfg.n_frontend_tokens + LLAVA_PROMPT
+    consistency = _consistency(
+        model, {"tokens": toks, "image_embeds": img},
+        {"tokens": toks[:, :-1], "image_embeds": img}, pos, toks[:, -1:],
+        _launch_counters())
+    check(all(c["swa"] == cfg.n_layers and c["scan"] == 0
+              for c in consistency["launches_per_prefill"].values()),
+          f"fp32 prefills launched {consistency['launches_per_prefill']}, "
+          f"want {cfg.n_layers} SWA forwards each")
+    consistency["decode_position"] = pos
+    del model, img
+    torch.cuda.empty_cache()
+
+    # where the device time of a prefill and of a decode step goes; this
+    # also warms the bf16 shapes up for the measured generation below
+    model = build(full).init(torch.Generator(device=DEV).manual_seed(SEED))
+    batch = {"tokens": toks[:, :-1],
+             "image_embeds": torch.from_numpy(rng.standard_normal(
+                 (LLAVA_BATCH, full.n_frontend_tokens, full.d_model),
+                 dtype=np.float32)).to(DEV, full.jdtype)}
+    prefill_profile = _busy_share(
+        lambda: model.prefill(batch, cache_len=pos + 32), steps=2)
+    _, cache = model.prefill(batch, cache_len=pos + 32)
+    decode_profile = _decode_busy(model, cache, pos, steps=8)
+    emit({"llava_profile": {"prefill": prefill_profile,
+                            "decode_step": decode_profile, "card": card}})
+    del model, cache, batch
+    torch.cuda.empty_cache()
+
+    argv = ["--arch", LLAVA_ARCH, "--batch", str(LLAVA_BATCH),
+            "--prompt-len", str(LLAVA_PROMPT), "--steps", str(LLAVA_STEPS),
+            "--seed", str(SEED), "--device", DEV]
+    # ----------------- main path: bf16 generation --------------------- #
+    _, run, launches = _generate(
+        argv, full.n_layers, 0, full.padded_vocab,
+        (LLAVA_BATCH, LLAVA_STEPS + 1), warm_up=False)
+    out = {"phase": "llava", "layers": full.n_layers,
+           "fp32_consistency": consistency,
+           "generation": {k: v for k, v in run.items() if k != "ids"},
+           "decode_weight_read_bound_ms":
+               2.0 * full.n_params() / HBM_BYTES_PER_S * 1e3,
+           "ids_row0": run["ids"][0], "launches": launches,
+           "prefill_profile": prefill_profile,
+           "decode_profile": decode_profile}
+    emit(out)
+    return out
+
+
+def _decode_busy(model, cache, pos: int, steps: int) -> dict:
+    """``_busy_share`` of greedy decode steps from ``pos`` on ``cache``."""
+    import torch
+    from repro_torch.models.steps import make_serve_step
+    serve = make_serve_step(model)
+    batch = next(iter(cache.values())).shape[1]     # (L, B, ...) tensors
+    state = {"tok": torch.zeros((batch, 1), dtype=torch.int32, device=DEV),
+             "pos": pos, "cache": cache}
+
+    def step():
+        state["tok"], state["cache"] = serve(state["cache"], state["tok"],
+                                             state["pos"])
+        state["pos"] += 1
+    return _busy_share(step, steps=steps)
+
+
+def zoo_numbers(card: str) -> dict:
+    """Where the device time of a falcon-mamba-7b bf16 prefill (B 2, 2048
+    tokens) and of a decode step goes, and of whisper-base's (1,500
+    frames, a 64-token decoder prompt), with their device-busy shares."""
+    import torch
+    from repro_torch.models import build, get_config
+
+    out = {}
+    for arch, pos in ((MAMBA_ARCH, MAMBA_PROMPT),
+                      (WHISPER_ARCH, WHISPER_PROMPT)):
+        cfg = get_config(arch)
+        model = build(cfg).init(torch.Generator(device=DEV).manual_seed(SEED))
+        rng = np.random.default_rng(SEED + 27)
+        b = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (2, pos), dtype=np.int32)).to(DEV)}
+        if cfg.family == "audio":
+            b["frames"] = _frames(cfg, WHISPER_FRAMES, SEED + 28, cfg.jdtype)
+        prefill = _busy_share(lambda: model.prefill(b, cache_len=pos + 16),
+                              steps=2)
+        _, cache = model.prefill(b, cache_len=pos + 16)
+        decode = _decode_busy(model, cache, pos, steps=8)
+        out[arch] = {"prefill": prefill, "decode_step": decode}
+        emit({"zoo_profile": {"arch": arch, **out[arch], "card": card}})
+        del model, cache
+        torch.cuda.empty_cache()
+    return out
+
+
 def _train_batch(cfg, seed: int) -> dict:
     import torch
     rng = np.random.default_rng(seed)
@@ -2705,7 +3215,7 @@ def _device_ms(fn, iters: int = 10) -> dict:
     session drops an activity of a name (the SWA backward's kernels read
     2/3 of their time over 3 calls, the forward 9/10 over 10).  Empty
     when the profiler reports none (in a process that ran the other
-    phases first: see ``_numbers_in_child``)."""
+    phases first: see ``_phase_in_child``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2732,19 +3242,20 @@ def _per_call_ms(runs: dict, iters: int) -> dict:
             for name, us in runs.items()}
 
 
-def _numbers_in_child(tmp: str, card: str) -> dict:
-    """The numbers phase in a fresh process (``--phases numbers``), its
-    lines passed through and its results read back.  In a process that
-    has run the other phases, torch.profiler's short sessions stop
-    reporting the device activity of the kge and SWA kernels, while a
-    fresh process reads them (ROADMAP Queue 3, item 8)."""
+def _phase_in_child(name: str, tmp: str, card: str) -> dict:
+    """Phase ``name`` in a fresh process (``--phases name``), its lines
+    passed through and its results read back.  In a process that has run
+    the other phases, torch.profiler's short sessions stop reporting the
+    device activity of the kge and SWA kernels, while a fresh process
+    reads them (ROADMAP Queue 3, item 8): the numbers phase runs so.  The
+    llava phase runs so for a clean card: its weights take 68.8 GB."""
     import torch
     torch.cuda.synchronize()
     torch.cuda.empty_cache()            # the child needs the card's memory
-    path = Path(tmp) / "numbers.json"
+    path = Path(tmp) / f"{name}.json"
     proc = subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--phases",
-         "numbers", "--out", str(path)], stdout=subprocess.PIPE, text=True,
+         name, "--out", str(path)], stdout=subprocess.PIPE, text=True,
         cwd=str(ROOT))
     try:
         for line in proc.stdout:
@@ -2756,8 +3267,8 @@ def _numbers_in_child(tmp: str, card: str) -> dict:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    check(rc == 0, f"numbers: the child process exited with {rc}")
-    return json.loads(path.read_text())["phases"]["numbers"]
+    check(rc == 0, f"{name}: the child process exited with {rc}")
+    return json.loads(path.read_text())["phases"][name]
 
 
 def _check_device_times(numbers: dict) -> None:
@@ -2770,9 +3281,12 @@ def _check_device_times(numbers: dict) -> None:
     rows += [("swa forward bf16", fwd["device_ms"]),
              ("swa forward fp32", fwd["fp32_device_ms"]),
              ("swa forward bf16 B=1", fwd["train_batch"]["device_ms"]),
-             ("swa forward causal bf16", fwd["causal"]["device_ms"])]
+             ("swa forward causal bf16", fwd["causal"]["device_ms"]),
+             ("swa forward causal bf16 llava",
+              fwd["causal_llava"]["device_ms"])]
     rows += [(f"swa backward {r['dtype']} B={r['B']}", r["device_ms"])
              for r in numbers["swa_backward"]["rows"]]
+    rows += [("selective scan", numbers["scan"]["device_ms"])]
     blind = [name for name, ms in rows if not ms]
     check(not blind, f"numbers: no device time for {blind}")
 
@@ -3252,6 +3766,9 @@ def swa_numbers(card: str) -> dict:
     del q4, k4, v4, qf, kf, vf, band
     torch.cuda.empty_cache()
     rec["causal"] = swa_causal_numbers(gen)
+    rec["causal_llava"] = swa_causal_numbers(
+        gen, LLAVA_ARCH, LLAVA_BATCH,
+        get_config(LLAVA_ARCH).n_frontend_tokens + LLAVA_PROMPT)
     emit({"numbers": rec})
 
     # where the device time of a bf16 prefill and of a decode step goes
@@ -3277,20 +3794,21 @@ def swa_numbers(card: str) -> dict:
     return {"swa": rec, "prefill": prefill, "decode_step": busy}
 
 
-def swa_causal_numbers(gen) -> dict:
-    """The SWA kernel as full causal attention (W = S) at one olmoe-1b-7b
-    prefill layer's shape (B = 2, 16 q and kv heads, S = 2048, d = 128,
-    bf16): kernel, device, plain and library times beside the bound; the
-    library is ``scaled_dot_product_attention(is_causal=True)``, which
-    computes the same function."""
+def swa_causal_numbers(gen, arch: str = MOE_ARCH, B: int = MOE_BATCH,
+                       S: int = MOE_PROMPT) -> dict:
+    """The SWA kernel as full causal attention (W = S) at one prefill
+    layer's shape of ``arch`` (olmoe-1b-7b: B = 2, 16 q and kv heads, S =
+    2048, d = 128; llava-next-34b: B = 2, 56 q over 8 kv heads, S = 2,944,
+    d = 128), bf16: kernel, device, plain and library times beside the
+    bound; the library is ``scaled_dot_product_attention(is_causal=True)``,
+    which computes the same function."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref, swa_attention as sw
     from repro_torch.models import get_config
 
-    cfg = get_config(MOE_ARCH)
-    B, hq, hkv, S, hd = (MOE_BATCH, cfg.n_heads, cfg.n_kv_heads, MOE_PROMPT,
-                         cfg.hd)
+    cfg = get_config(arch)
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q, k, v = _swa_inputs(B, hq, hkv, S, S, hd, torch.bfloat16, gen)
     kern = lambda: sw.swa_attention_forward(q, k, v, S)
     plain = lambda: ref.swa_attention_ref(q[None], k[None], v[None], S)
@@ -3515,7 +4033,8 @@ def _kernel_group(name: str) -> str:
                        ("swa_f32_kernel", "swa forward"),
                        ("swa_bwd_dot", "swa bwd_dot"),
                        ("swa_bwd_dkdv", "swa backward_dkdv"),
-                       ("swa_bwd_dq", "swa backward_dq")):
+                       ("swa_bwd_dq", "swa backward_dq"),
+                       ("selective_scan_kernel", "selective scan")):
         if key in n:
             return group
     if any(t in n for t in ("gemm", "xmma", "cutlass", "cublas", "nvjet",
@@ -3532,7 +4051,8 @@ def _kernel_group(name: str) -> str:
 
 def kernels_line(kern: dict, serve_out: dict, kge: dict,
                  update_out: dict, jobs: dict, numbers: dict, swa: dict,
-                 lm: dict, moe: dict, train: dict) -> dict:
+                 lm: dict, moe: dict, train: dict, scan: dict, mamba: dict,
+                 whisper: dict, llava: dict) -> dict:
     """One entry per kernel path, at the shapes the main path gives it:
     a 8192-row slab of the 40k table with its running list, Q = 32 and
     k = 10 for the small path (the serve session's batches), Q = 1 and
@@ -3542,7 +4062,10 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
     forward's ``launches`` are the generation run's prefill and its
     ``launches_train`` the measured training run's; the causal forward's
     (W = S) the olmoe-1b-7b generation run's prefill; the backward's are
-    the training run's (its three entry points)."""
+    the training run's (its three entry points); the causal forward's
+    ``launches_whisper`` and ``launches_llava`` those phases' measured
+    prefills.  The selective scan's are the falcon-mamba-7b generation
+    run's prefill."""
     launches = serve_out["launches"]
     by = {(r["N"], r["Q"], r["k"]): r for r in numbers["rows"]}
     out = []
@@ -3631,6 +4154,8 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
         "in_place_of": "src/repro/models/blocks.py:105,140 "
                        "chunked_attention(causal=True) (jnp)",
         "launches": moe["launches"]["swa_attention_forward"],
+        "launches_whisper": whisper["launches"]["swa_attention_forward"],
+        "launches_llava": llava["launches"]["swa_attention_forward"],
         "max_abs_err": swa["max_abs_err_causal"]["bfloat16"],
         "max_abs_err_fp32": swa["max_abs_err_causal"]["float32"],
         "ms": c["ms"], "device_ms": c["device_ms"],
@@ -3667,6 +4192,21 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
         "library_ms": r["library_fwd_bwd_ms"],
         "library_is": "SDPA forward + backward, band mask, enable_gqa",
         "fwd_lse_bwd_ms": r["fwd_lse_bwd_ms"]})
+    # the selective scan at one falcon-mamba-7b prefill layer's shape
+    # (bf16 x, Bm, Cm); no single PyTorch call computes it
+    r = numbers["scan"]
+    err = scan["max_abs_err"]
+    out.append({
+        "name": f"selective_scan_forward (bf16, B={r['B']} S={r['S']} "
+                f"d_in={r['d_in']} d_state={r['d_state']})",
+        "route": "cuda", "source": SCAN_SOURCE, "replaces": SCAN_REPLACES,
+        "launches": mamba["launches"]["selective_scan_forward"],
+        "max_abs_err": max(err["bfloat16"].values()),
+        "max_abs_err_fp32": max(err["float32"].values()),
+        "ms": r["ms"], "device_ms": r["device_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "bound_parts_ms": r["bound_parts_ms"],
+        "library_ms": None})
     return {"kernels": out}
 
 
@@ -3682,8 +4222,9 @@ def card_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,kge,swa,serve,workers,update,"
-                            "jobs,lm,moe,train,numbers")
+                    default="build,kernels,kge,swa,scan,serve,workers,"
+                            "update,jobs,lm,moe,mamba,whisper,llava,train,"
+                            "numbers")
     ap.add_argument("--out", default=None, help="also write results here")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3732,7 +4273,7 @@ def main(argv=None) -> int:
 
         def numbers():
             if set(RESULTS["phases"]) - {"build"}:
-                return _numbers_in_child(tmp, card)
+                return _phase_in_child("numbers", tmp, card)
             out = phase_numbers(store_tables, card)
             torch.cuda.synchronize()
             out["kge"] = kge_numbers(card)
@@ -3742,19 +4283,31 @@ def main(argv=None) -> int:
             out["swa_backward"] = swa_backward_numbers(card)
             torch.cuda.synchronize()
             out["moe"] = moe_numbers(card)
+            torch.cuda.synchronize()
+            out["scan"] = scan_numbers(card)
+            torch.cuda.synchronize()
+            out["zoo"] = zoo_numbers(card)
             _check_device_times(out)
             return out
+
+        def llava():
+            if set(RESULTS["phases"]) - {"build"}:
+                return _phase_in_child("llava", tmp, card)
+            return phase_llava(card)
 
         # in this order; each phase's wall seconds are kept beside it
         for name, run in (
                 ("build", phase_build),
                 ("kernels", lambda: phase_kernels(store_tables)),
                 ("kge", phase_kge), ("swa", phase_swa),
+                ("scan", phase_scan),
                 ("serve", lambda: phase_serve(tmp, served)),
                 ("workers", lambda: phase_workers(tmp, served)),
                 ("update", lambda: phase_update(tmp)),
                 ("jobs", lambda: phase_jobs(tmp, card)),
                 ("lm", phase_lm), ("moe", phase_moe),
+                ("mamba", phase_mamba), ("whisper", phase_whisper),
+                ("llava", llava),
                 ("train", lambda: phase_train(card)),
                 ("numbers", numbers),
                 ("alloc", lambda: phase_alloc(card))):
@@ -3771,13 +4324,15 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(RESULTS, indent=1))
     print(card)
-    if {"kernels", "kge", "swa", "serve", "update", "jobs", "lm", "moe",
-            "train", "numbers"} <= phases:
+    if {"kernels", "kge", "swa", "scan", "serve", "update", "jobs", "lm",
+            "moe", "mamba", "whisper", "llava", "train", "numbers"} <= phases:
         ph = RESULTS["phases"]
         print(json.dumps(kernels_line(ph["kernels"], ph["serve"], ph["kge"],
                                       ph["update"], ph["jobs"],
                                       ph["numbers"], ph["swa"], ph["lm"],
-                                      ph["moe"], ph["train"])))
+                                      ph["moe"], ph["train"], ph["scan"],
+                                      ph["mamba"], ph["whisper"],
+                                      ph["llava"])))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels (top-k, KGE scoring,
-sliding-window attention): the semantics each CUDA kernel is held to.
+sliding-window attention, Mamba's selective scan): the semantics each CUDA
+kernel is held to.
 
 These run on the CPU (the tests) and on the card (``chip_smoke.py``
 compares the kernel with them on the same inputs).  They are
@@ -285,3 +286,30 @@ def swa_attention_backward_ref(q: torch.Tensor, k: torch.Tensor,
     dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * scale
     return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+# ---------------------------- selective_scan --------------------------- #
+def selective_scan(h0: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+                   Cm: torch.Tensor, A: torch.Tensor, xc: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba's selective scan over one chunk, step by step in fp32: the
+    contract of ``repro.models.blocks._selective_scan_chunk`` (which runs
+    a log-depth associative scan instead).
+
+    h0 (B, d_in, st) fp32; dt (B, c, d_in); Bm, Cm (B, c, st); A (d_in,
+    st) fp32; xc (B, c, d_in).  For each step t::
+
+        h = exp(dt_t * A) * h + (dt_t * x_t) B_t,   y_t = <h, C_t>
+
+    Returns ``(h_last (B, d_in, st), y (B, c, d_in))``, both fp32.
+    Differentiable (autograd through the steps)."""
+    dtf, xf = dt.float(), xc.float()
+    Bf, Cf = Bm.float(), Cm.float()
+    h = h0.float()
+    ys = []
+    for t in range(dtf.shape[1]):
+        d = dtf[:, t, :, None]                                # (B, d_in, 1)
+        h = torch.exp(d * A) * h + (d * xf[:, t, :, None]) * Bf[:, t, None, :]
+        ys.append((h * Cf[:, t, None, :]).sum(-1))
+    y = torch.stack(ys, dim=1) if ys else dtf.new_zeros(dtf.shape)
+    return h, y

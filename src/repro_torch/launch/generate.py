@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels import swa_attention
+from ..kernels import selective_scan, swa_attention
 from ..models import build, get_config
 from ..models.steps import make_prefill_step, make_serve_step
 
@@ -47,6 +47,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--steps", type=int, default=24)
+    ap.add_argument("--frames", type=int, default=1500,
+                    help="an audio arch's encoder frames (default 1500: "
+                         "whisper's 30-s window after its conv stem, "
+                         "arXiv:2212.04356)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kv-cache-dtype", choices=("model", "int8"),
                     default="model",
@@ -73,6 +77,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         raise SystemExit(f"--kv-cache-dtype int8: {cfg.arch_id} is a "
                          f"{cfg.family} arch; the int8 KV cache is the dense "
                          f"family's (as in the reference)")
+    if cfg.family == "audio" and args.prompt_len + args.steps > cfg.dec_len_cap:
+        raise SystemExit(f"{cfg.arch_id}: --prompt-len {args.prompt_len} + "
+                         f"--steps {args.steps} is past the decoder's cap of "
+                         f"{cfg.dec_len_cap} tokens")
     model = build(cfg)
     print(f"[gen] {cfg.arch_id} ({cfg.n_params() / 1e6:.1f}M params, "
           f"{cfg.dtype}) on {dev}", flush=True)
@@ -81,25 +89,38 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     B, P = args.batch, args.prompt_len
     prompt = torch.from_numpy(
         rng.integers(0, cfg.vocab, (B, P), dtype=np.int32)).to(dev)
+    batch = {"tokens": prompt}
+    pos0 = P                     # the first decode step's position
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, args.frames, cfg.d_model), dtype=np.float32)).to(
+                dev, cfg.jdtype)
+    elif cfg.family == "vlm":
+        batch["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.n_frontend_tokens, cfg.d_model), dtype=np.float32)).to(
+                dev, cfg.jdtype)
+        pos0 += cfg.n_frontend_tokens
     prefill, serve = make_prefill_step(model), make_serve_step(model)
 
     moe = cfg.moe is not None
     swa_attention.reset_launches()
+    selective_scan.reset_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill({"tokens": prompt}, cache_len=P + args.steps)
+    logits, cache = prefill(batch, cache_len=pos0 + args.steps)
     tok = logits.argmax(-1).to(torch.int32)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     prefill_launches = swa_attention.launches["swa_attention_forward"]
+    scan_launches = selective_scan.launches["selective_scan_forward"]
     prefill_dropped = model.take_dropped() if moe else None
 
     seq = [tok]
     t0 = time.perf_counter()
     for i in range(args.steps):
-        tok, cache = serve(cache, tok, P + i)
+        tok, cache = serve(cache, tok, pos0 + i)
         seq.append(tok)
     _sync(dev)
     decode_s = time.perf_counter() - t0
@@ -108,26 +129,35 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ids = torch.cat(seq, dim=1).cpu().numpy()
     if not ((ids >= 0) & (ids < cfg.padded_vocab)).all():
         raise RuntimeError(f"ids outside [0, {cfg.padded_vocab}): {ids}")
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
     out = {
         "arch": cfg.arch_id, "device": str(dev), "dtype": cfg.dtype,
         "batch": B, "prompt_len": P, "steps": args.steps,
         "prefill_ms": prefill_s * 1e3,
-        "prefill_tok_per_s": B * P / prefill_s,
+        # the positions a prefill fills: a VLM's image tokens count; an
+        # audio arch counts its decoder prompt (the frames are its input)
+        "prefill_tok_per_s": B * pos0 / prefill_s,
         "decode_ms_per_token": decode_s * 1e3 / args.steps,
         "decode_tok_per_s": B * args.steps / decode_s,
         "swa_launches_prefill": prefill_launches,
+        "scan_launches_prefill": scan_launches,
         "kv_cache_dtype": cfg.kv_cache_dtype,
-        "cache_bytes": sum(t.numel() * t.element_size()
-                           for t in cache.values()),
+        "cache_bytes": cache_bytes,
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else None),
         "ids": ids.tolist(),
     }
+    if cfg.family == "ssm":
+        out["state_bytes"] = cache_bytes      # the cache is the SSM state
+    elif cfg.family == "audio":
+        out["frames"] = args.frames
+    elif cfg.family == "vlm":
+        out["image_tokens"] = cfg.n_frontend_tokens
     if moe:
         # (token, slot) pairs past an expert's capacity, over all layers
         out["dropped_prefill"] = prefill_dropped
         out["dropped_per_decode_step"] = decode_dropped / args.steps
-    print(f"[gen] prefill({P} tokens x {B}) {out['prefill_ms']:.1f} ms "
+    print(f"[gen] prefill({pos0} tokens x {B}) {out['prefill_ms']:.1f} ms "
           f"({out['prefill_tok_per_s']:.0f} tok/s)")
     print(f"[gen] {args.steps} decode steps: {out['decode_ms_per_token']:.2f} "
           f"ms/token ({out['decode_tok_per_s']:.1f} tok/s at batch {B}); "

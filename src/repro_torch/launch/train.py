@@ -19,9 +19,11 @@ that already holds a parent version gets an incremental update.
 LM (``--arch``): the arch's config (``--reduced`` for its small one)
 with random params drawn from ``--seed``,
 ``--steps`` Adam steps (default 20, lr 3e-4) through
-``models.steps.make_train_step`` on batches of random token ids drawn as
-``repro.launch.train.train_lm`` draws them (numpy ``default_rng(seed)``:
-tokens, then labels, each step).  Prints the reference's loss line every
+``models.steps.make_train_step`` on random batches drawn as
+``repro.launch.train.train_lm`` draws them (numpy ``default_rng(seed)``,
+each step, in the order of ``model.batch_spec``'s keys: token ids for
+tokens and labels, N(0, 1) for whisper's frames and llava's image
+embeddings).  Prints the reference's loss line every
 ``max(1, steps // 10)`` steps, then step ms, tokens/s and peak device
 memory.  On the card every sliding-window layer runs the SWA forward
 kernel (twice a step under ``remat="full"``: once more in the recompute)
@@ -143,11 +145,21 @@ def train_lm(arch: str, reduced: bool = False, steps: int = 20,
 
     rng = np.random.default_rng(seed)
 
+    spec = model.batch_spec(batch, seq)
+
     def make_batch():
-        # the reference's order: batch_spec's keys, tokens then labels
-        return {name: torch.from_numpy(
-                    rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32)
-                ).to(dev) for name in ("tokens", "labels")}
+        # the reference's draws, in batch_spec's key order: token ids for
+        # the int32 entries, N(0, 1) for the others (frames, image
+        # embeddings) in the model's dtype
+        out = {}
+        for name, like in spec.items():
+            if like.dtype == torch.int32:
+                a = rng.integers(0, cfg.vocab, tuple(like.shape)).astype(
+                    np.int32)
+            else:
+                a = rng.normal(size=tuple(like.shape))
+            out[name] = torch.from_numpy(a).to(dev, like.dtype)
+        return out
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)

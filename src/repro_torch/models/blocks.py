@@ -20,8 +20,14 @@ fp32 scales (``quantize_kv``).
 
 The MoE block is the reference's capacity-dropped top-k dispatch
 (``moe_apply``): plain PyTorch, as the reference computes it outside any
-Pallas kernel.  The Mamba and RG-LRU blocks are not ported yet (ROADMAP,
-Queue 1).
+Pallas kernel.
+
+The Mamba block (mamba1) keeps the reference's projections, causal conv
+and dtype order; its selective scan runs in
+``kernels/csrc/selective_scan.cu`` on the card, one launch a layer over
+the whole sequence, and its plain version chunk by chunk on the CPU, as
+the reference scans.  The RG-LRU block is not ported yet (ROADMAP,
+Queue 1 item 5(f)).
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels import selective_scan as scan_kernels
 from .attention import chunked_attention, decode_attention, swa_attention
 from .config import ArchConfig
 from .layers import (Gen, apply_norm, dense, dense_init, init_device, mlp,
@@ -436,3 +443,140 @@ def moe_block_decode(p, x: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     x = x + a
     y, _ = moe_dispatch(p["moe"], apply_norm(p["ln2"], x), cfg, drops)
     return x + y, kc, vc
+
+
+# ===================================================================== #
+# Mamba (mamba1 selective-scan) block
+# ===================================================================== #
+def _mamba_dims(cfg: ArchConfig):
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    dtr = s.dt_rank or -(-cfg.d_model // 16)
+    return d_in, dtr, s.d_state, s.d_conv
+
+
+def mamba_init(gen: Gen, cfg: ArchConfig) -> dict:
+    d = cfg.d_model
+    d_in, dtr, st, cw = _mamba_dims(cfg)
+    dt = cfg.jdtype
+    dev = init_device(gen)
+    A = torch.arange(1, st + 1, dtype=torch.float32, device=dev)[None, :]
+    return {
+        "in_proj": dense_init(gen, d, 2 * d_in, dt),
+        "conv_w": normal(gen, (cw, d_in), 1.0 / math.sqrt(cw), dt),
+        "conv_b": torch.zeros((d_in,), dtype=dt, device=dev),
+        "x_proj": dense_init(gen, d_in, dtr + 2 * st, dt),
+        "dt_proj": dense_init(gen, dtr, d_in, dt, bias=True),
+        "A_log": torch.log(A.expand(d_in, st).clone()),     # (d_in, st) f32
+        "D": torch.ones((d_in,), dtype=torch.float32, device=dev),
+        "out_proj": dense_init(gen, d_in, d, dt),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv. x (B,S,d_in), w (cw,d_in).
+    state (B,cw-1,d_in) holds the trailing inputs of the previous segment."""
+    cw = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, cw - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    y = 0
+    for i in range(cw):                  # the reference's sum, in its order
+        y = y + xp[:, i:i + S] * w[i]
+    return y + b
+
+
+def _selective_scan_chunk(h0: torch.Tensor, dt: torch.Tensor,
+                          Bm: torch.Tensor, Cm: torch.Tensor,
+                          A: torch.Tensor, xc: torch.Tensor):
+    """One chunk of the mamba scan.
+    h0 (B,d_in,st) f32; dt (B,c,d_in); Bm/Cm (B,c,st); xc (B,c,d_in).
+    Returns (h_last, y (B,c,d_in)) fp32: the kernel on the card, the plain
+    version on the CPU (``kernels.selective_scan``)."""
+    return scan_kernels.selective_scan(h0, dt, Bm, Cm, A, xc)
+
+
+def _mamba_scan(dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                A: torch.Tensor, xc: torch.Tensor, chunk: int):
+    """The scan over the whole sequence from a zero state: (h_last, y).
+    On the card one kernel launch, whatever ``chunk`` is; on the CPU the
+    plain version chunk by chunk, as the reference's ``lax.scan`` carries
+    the state (its zero padding of the last chunk leaves the state as it
+    is: ``exp(0 * A) = 1`` and ``0 * x = 0``, so no padding is needed)."""
+    B, S, d_in = xc.shape
+    h = torch.zeros((B, d_in, A.shape[1]), dtype=torch.float32,
+                    device=xc.device)
+    if xc.is_cuda:
+        return _selective_scan_chunk(h, dt, Bm, Cm, A, xc)
+    c = min(chunk, S)
+    ys = []
+    for t0 in range(0, S, c):
+        cut = slice(t0, t0 + c)
+        h, y = _selective_scan_chunk(h, dt[:, cut], Bm[:, cut], Cm[:, cut],
+                                     A, xc[:, cut])
+        ys.append(y)
+    return h, torch.cat(ys, dim=1)
+
+
+def _mamba_inner(p, xi: torch.Tensor, z: torch.Tensor, cfg: ArchConfig,
+                 chunk: int):
+    """conv, projections, scan, D skip and gate of ``mamba_apply`` and
+    ``mamba_prefill``: xi, z (B,S,d_in) -> (y (B,S,d) , h_last)."""
+    _, dtr, st, _ = _mamba_dims(cfg)
+    xc = F.silu(_causal_conv(xi, p["conv_w"], p["conv_b"]))
+    dbc = dense(p["x_proj"], xc)
+    dt_r, Bm, Cm = torch.split(dbc, [dtr, st, st], dim=-1)
+    dt = F.softplus(dense(p["dt_proj"], dt_r).float())
+    A = -torch.exp(p["A_log"])                                # (d_in, st)
+    h_last, y = _mamba_scan(dt, Bm, Cm, A, xc, chunk)
+    y = y + p["D"] * xc.float()
+    y = (y * F.silu(z.float())).to(xi.dtype)
+    return dense(p["out_proj"], y), h_last
+
+
+def mamba_apply(p, x: torch.Tensor, cfg: ArchConfig, *,
+                chunk: int = 256) -> torch.Tensor:
+    """Train/prefill. x (B,S,d) -> (B,S,d)."""
+    xi, z = dense(p["in_proj"], x).chunk(2, dim=-1)           # (B,S,d_in)
+    return _mamba_inner(p, xi, z, cfg, chunk)[0]
+
+
+def mamba_prefill(p, x: torch.Tensor, cfg: ArchConfig):
+    """Returns (y, h_state (B,d_in,st) f32, conv_state (B,cw-1,d_in))."""
+    S = x.shape[1]
+    _, _, _, cw = _mamba_dims(cfg)
+    xi, z = dense(p["in_proj"], x).chunk(2, dim=-1)
+    if S >= cw - 1:
+        # a copy: a view would keep the layer's whole (B, S, 2 d_in)
+        # in_proj output alive in the cache
+        conv_state = xi[:, S - (cw - 1):, :].clone()
+    else:
+        conv_state = F.pad(xi, (0, 0, cw - 1 - S, 0))
+    y, h_last = _mamba_inner(p, xi, z, cfg, 256)
+    return y, h_last, conv_state
+
+
+def mamba_decode(p, x: torch.Tensor, h: torch.Tensor,
+                 conv_state: torch.Tensor, cfg: ArchConfig):
+    """Single step. x (B,1,d); h (B,d_in,st) f32; conv_state (B,cw-1,d_in).
+    Returns (y (B,1,d), h, conv_state), plain PyTorch as the reference's."""
+    _, dtr, st, _ = _mamba_dims(cfg)
+    xi, z = dense(p["in_proj"], x).chunk(2, dim=-1)           # (B,1,d_in)
+    window = torch.cat([conv_state.to(x.dtype), xi], dim=1)   # (B,cw,d_in)
+    xc = F.silu(torch.einsum("bcd,cd->bd", window, p["conv_w"])
+                + p["conv_b"])
+    conv_state = window[:, 1:]
+    dbc = dense(p["x_proj"], xc)
+    dt_r, Bm, Cm = torch.split(dbc, [dtr, st, st], dim=-1)
+    dt = F.softplus(dense(p["dt_proj"], dt_r).float())        # (B,d_in)
+    A = -torch.exp(p["A_log"])
+    Abar = torch.exp(dt[..., None] * A)                       # (B,d_in,st)
+    Bx = (dt * xc.float())[..., None] * Bm.float()[:, None, :]
+    h = Abar * h + Bx
+    y = torch.einsum("bds,bs->bd", h, Cm.float())
+    y = y + p["D"] * xc.float()
+    y = (y * F.silu(z[:, 0].float())).to(x.dtype)
+    return dense(p["out_proj"], y)[:, None, :], h, conv_state

@@ -9,6 +9,7 @@ keyed as the reference's param pytree) instead of passed in:
     model.loss(batch)                     -> (scalar loss, metrics dict)
     model.prefill(batch, cache_len)       -> (last_logits, cache)
     model.decode_step(cache, token, pos)  -> (logits, cache)
+    model.batch_spec(batch, seq)          -> meta tensors of a training batch
     model.cache_spec(batch, seq)          -> meta tensors (shapes, dtypes)
 
 ``models/convert.py`` fills ``model.params`` from the JAX package's params
@@ -155,12 +156,18 @@ class BaseLM(nn.Module):
         """Returns (h (B,1,d), cache)."""
         raise NotImplementedError
 
+    def embed_batch(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The residual stream's input for ``loss`` and ``prefill``: the
+        token embeddings here; a family with other inputs (the VLM's image
+        embeddings) overrides it."""
+        return self.embed(batch["tokens"])
+
     # ---------------- public API ---------------- #
     def loss(self, batch: Dict[str, torch.Tensor]):
         """``batch["tokens"]``, ``batch["labels"]`` (B, S) -> (total loss,
         metrics ``ce``, ``aux``, ``acc``): ``total = ce + 0.01 * aux``.
         Differentiable in the params once they want gradients."""
-        x = self.embed(batch["tokens"])
+        x = self.embed_batch(batch)
         h, aux = self.backbone(x)
         h = apply_norm(self._p()["ln_f"], h)
         loss, acc = xent(self.logits(h), batch["labels"])
@@ -172,7 +179,7 @@ class BaseLM(nn.Module):
                 cache_len: Optional[int] = None):
         """``batch["tokens"]`` (B, S) -> (logits (B, 1, V) of the last
         position, cache)."""
-        x = self.embed(batch["tokens"])
+        x = self.embed_batch(batch)
         h, cache = self.backbone_prefill(x, cache_len)
         h = apply_norm(self._p()["ln_f"], h[:, -1:])
         return self.logits(h), cache
@@ -185,6 +192,14 @@ class BaseLM(nn.Module):
         h, cache = self.backbone_decode(cache, x, int(pos))
         h = apply_norm(self._p()["ln_f"], h)
         return self.logits(h), cache
+
+    def batch_spec(self, batch: int, seq: int) -> Dict[str, torch.Tensor]:
+        """A training batch's tensors on the meta device, in the
+        reference's key order (``launch.train`` draws them in it)."""
+        return {"tokens": torch.empty((batch, seq), dtype=torch.int32,
+                                      device="meta"),
+                "labels": torch.empty((batch, seq), dtype=torch.int32,
+                                      device="meta")}
 
     def cache_spec(self, batch: int, seq: int):
         raise NotImplementedError

@@ -1,5 +1,6 @@
 """Model registry: family -> class, arch-id -> (config, model).  The port of
-``repro.models.zoo`` for the families ported so far."""
+``repro.models.zoo`` for the families ported so far: all but the hybrid
+(recurrentgemma)."""
 from __future__ import annotations
 
 import importlib
@@ -7,15 +8,22 @@ from typing import Tuple
 
 from .config import ArchConfig
 from .dense import DenseLM
+from .encdec import EncDecModel
 from .lm import BaseLM
 from .moe import MoELM
+from .ssm import MambaLM
+from .vlm import VLM
 
 FAMILIES = {
     "dense": DenseLM,
     "moe": MoELM,
+    "ssm": MambaLM,
+    "audio": EncDecModel,
+    "vlm": VLM,
 }
 
-#: the zoo's dense and MoE archs, whose configs the port carries
+#: the zoo's archs whose configs the port carries: dense, MoE, SSM, audio
+#: and VLM
 ARCH_IDS = (
     "h2o_danube_1_8b",
     "mistral_large_123b",
@@ -23,18 +31,18 @@ ARCH_IDS = (
     "internlm2_20b",
     "olmoe_1b_7b",
     "grok_1_314b",
+    "falcon_mamba_7b",
+    "whisper_base",
+    "llava_next_34b",
 )
 
 #: the reference zoo's other archs, by family: not ported yet
 UNPORTED = {
-    "llava_next_34b": "vlm",
-    "falcon_mamba_7b": "ssm",
-    "whisper_base": "audio",
     "recurrentgemma_2b": "hybrid",
 }
 
-_LATER = ("is not ported yet: it arrives with ROADMAP Queue 1's slice of the "
-          "other zoo families (Mamba, audio, VLM, recurrentgemma)")
+_LATER = ("is not ported yet: it waits for ROADMAP Queue 2 item 4 (the SWA "
+          "kernels at head dim 256), then Queue 1 item 5(f) (recurrentgemma)")
 
 
 def normalize_arch_id(arch: str) -> str:

@@ -9,11 +9,12 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import kge_score as tkge
+from repro_torch.kernels import selective_scan as tss
 from repro_torch.kernels import swa_attention as tswa
 from repro_torch.kernels import topk_similarity as tts
 
 LIBS = {"topk_cosine": tts._LIB, "kge_score": tkge._LIB,
-        "swa_attention": tswa._LIB}
+        "swa_attention": tswa._LIB, "selective_scan": tss._LIB}
 PACKED = [(src, name) for src, lib in LIBS.items() for name in lib.packers]
 
 

@@ -1,8 +1,11 @@
 """``chip_smoke.py``'s host-side helpers on the CPU: how the build phase
-reads ptxas's report, how the breakdowns name the SWA backward kernels,
-the backward's bounds, the causal forward's and the MoE generation's
-bounds, and that a blind profiler fails the numbers phase.  Nothing here
-needs a card or a compiler."""
+reads ptxas's report (the selective scan's float and bf16 instances
+too), how the breakdowns name the SWA backward and scan kernels, the
+backward's bounds, the causal forward's, the MoE generation's and the
+selective scan's bounds, the new phases' cases and constants, that a
+blind profiler fails the numbers phase, and that every entry of the
+kernels line carries the contract's keys.  Nothing here needs a card or
+a compiler."""
 import re
 import sys
 from pathlib import Path
@@ -35,8 +38,8 @@ def test_ptxas_report_gives_registers_and_spills_by_kernel():
     assert got == {
         "swa_bwd_dkdv_bf16_kernel<80>": {"registers": 168, "spill_stores": 8,
                                          "spill_loads": 4},
-        "swa_bwd_dot_kernel": {"registers": 31, "spill_stores": 0,
-                               "spill_loads": 0}}
+        "swa_bwd_dot_kernel<float>": {"registers": 31, "spill_stores": 0,
+                                      "spill_loads": 0}}
 
 
 def test_bf16_backward_kernels_are_in_the_source_for_every_head_dim():
@@ -119,12 +122,150 @@ def _numbers(device_ms):
     return {"kge": {"kge_rows": [row]},
             "swa": {"swa": {"device_ms": 0.97, "fp32_device_ms": 12.7,
                             "train_batch": {"device_ms": 0.58},
-                            "causal": {"device_ms": 0.09}}},
+                            "causal": {"device_ms": 0.09},
+                            "causal_llava": {"device_ms": 0.76}}},
             "swa_backward": {"rows": [{"dtype": "bfloat16", "B": 1,
-                                       "device_ms": device_ms}]}}
+                                       "device_ms": device_ms}]},
+            "scan": {"device_ms": 0.6}}
 
 
 def test_a_blind_profiler_fails_the_numbers_phase():
     chip_smoke._check_device_times(_numbers(2.27))
     with pytest.raises(chip_smoke.SmokeFailure, match="swa backward"):
         chip_smoke._check_device_times(_numbers(None))
+
+
+_SCAN_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121selective_scan_kernelILi16EfEEvPKfPKT0_S4_S4_xS2_S2_PfS5_ii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121selective_scan_kernelILi16EfEEvPKfPKT0_S4_S4_xS2_S2_PfS5_ii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 16384 bytes smem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121selective_scan_kernelILi16E13__nv_bfloat16EEvPKfPKT0_S5_S5_xS3_S3_PfS6_ii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121selective_scan_kernelILi16E13__nv_bfloat16EEvPKfPKT0_S5_S5_xS3_S3_PfS6_ii
+    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 16384 bytes smem
+"""
+
+
+def test_scan_instances_are_told_apart_by_state_size_and_dtype():
+    """The build phase counts six scan kernels (d_state 4, 8, 16 x fp32,
+    bf16): the demangler keeps their type arguments apart."""
+    got = chip_smoke._ptxas_kernels(_SCAN_PTXAS)
+    assert got == {
+        "selective_scan_kernel<16, float>": {"registers": 128,
+                                             "spill_stores": 0,
+                                             "spill_loads": 0},
+        "selective_scan_kernel<16, bf16>": {"registers": 128,
+                                            "spill_stores": 4,
+                                            "spill_loads": 4}}
+    assert chip_smoke._kernel_group(
+        "void (anonymous namespace)::selective_scan_kernel<16, "
+        "__nv_bfloat16>(const float*)") == "selective scan"
+
+
+def test_scan_source_instantiates_every_state_size():
+    from repro_torch.kernels import selective_scan as tss
+    text = (_build.CSRC / "selective_scan.cu").read_text()
+    for st in tss.D_STATES:
+        assert f"case {st}: return launch<{st}, In>(" in text
+    assert len(tss.D_STATES) * 2 == 6
+
+
+def test_scan_bound_at_falcon_mambas_layer():
+    """One falcon-mamba-7b layer (B 2, S 2048, d_in 8192, d_state 16, bf16
+    x / Bm / Cm): 537 M exps at 16 a clock on 132 SMs at 1.98 GHz, 0.128
+    ms, above the ~0.101 ms of bytes: bound by operations."""
+    got, by, parts = chip_smoke.scan_bound_ms(2, 2048, 8192, 16, 2)
+    assert by == "operations" and round(got, 3) == 0.128
+    assert round(parts["bytes"], 3) == 0.101
+    assert parts["fp32"] < parts["bytes"] < parts["exp"]
+
+
+def test_new_phase_cases_sit_where_the_models_run():
+    """The scan cases hold the zoo's state sizes and one full layer; the
+    SWA phase holds whisper's decoder and one llava layer at W = S; the
+    phases run at the published widths."""
+    from repro_torch.models import get_config
+    states = {c[3] for _, c in chip_smoke.SCAN_CASES}
+    assert states == {4, 8, 16}
+    assert any(c[:4] == (2, 2048, 8192, 16) and not c[4]
+               for _, c in chip_smoke.SCAN_CASES)
+    assert any(s % 256 and s > 256 for _, (_, s, *_) in chip_smoke.SCAN_CASES)
+    swa = dict(chip_smoke.SWA_CASES)
+    whisper, llava = get_config("whisper-base"), get_config("llava-next-34b")
+    assert swa["causal: whisper decoder prompt, W = S"][5] == whisper.hd
+    case = swa["causal: llava layer, 56 / 8 heads, W = S"]
+    assert case[1:3] == (llava.n_heads, llava.n_kv_heads)
+    assert case[3] == case[6] == llava.n_frontend_tokens + \
+        chip_smoke.LLAVA_PROMPT
+    assert chip_smoke.WHISPER_PROMPT + chip_smoke.WHISPER_STEPS <= \
+        whisper.dec_len_cap
+
+
+def _line_inputs():
+    """The smallest phase results ``kernels_line`` reads."""
+    r = dict(ms=1.0, device_ms=0.5, plain_ms=9.0, bound_ms=0.1,
+             bound_by="operations", library_ms=0.8)
+    swa_f = {"swa": dict(r, B=2, Hq=32, Hkv=8, S=6144, W=4096, d=80,
+                         train_batch={}, causal=dict(
+                             r, B=2, Hq=16, Hkv=16, S=2048, d=128,
+                             library_is="SDPA"))}
+    bwd = dict(r, B=1, dtype="bfloat16", Hq=32, Hkv=8, S=6144, W=4096, d=80,
+               device_ms_by_kernel={}, design_bound_ms=0.6,
+               issued_bound_ms=0.9, library_fwd_bwd_ms=7.0,
+               fwd_lse_bwd_ms=2.9)
+    kge_row = {f"{part}_{k}": v for part in ("forward", "backward")
+               for k, v in dict(r, graph_ms=0.01).items()}
+    numbers = {
+        "rows": [{"N": chip_smoke.GO_ROWS, "Q": q, "k": k, "step_ms": 1.0,
+                  "step_device_ms": 0.5, "step_plain_ms": 9.0,
+                  "step_bound_ms": 0.1, "step_bound_by": "bytes",
+                  "step_library_ms": 0.8} for q, k in ((32, 10), (1, 2000))],
+        "kge": {"kge_rows": [dict(kge_row, model=m)
+                             for m in ("transe_l1", "distmult")]},
+        "swa": swa_f, "swa_backward": {"rows": [bwd]},
+        "scan": dict(r, B=2, S=2048, d_in=8192, d_state=16, library_ms=None,
+                     bound_parts_ms={})}
+    swa_l = {"swa_attention_forward": 60, "swa_attention_bwd_dot": 0,
+             "swa_attention_backward_dkdv": 0,
+             "swa_attention_backward_dq": 0,
+             "selective_scan_forward": 64}
+    return dict(
+        kern={"max_abs_err_small": 0.0, "max_abs_err_large": 0.0},
+        serve_out={"launches": {e: 1 for e in chip_smoke.SMALL_ENTRY
+                                + chip_smoke.LARGE_ENTRY}},
+        kge={"max_abs_err_forward": 0.0, "max_abs_err_backward": 0.0},
+        update_out={"kge_launches_on_path": {"kge_score_forward": 1,
+                                             "kge_score_backward": 1}},
+        jobs={"launches_jobs": {"small": 1, "large": 1}}, numbers=numbers,
+        swa={"max_abs_err_bf16": 0.0, "max_abs_err_fp32": 0.0,
+             "max_abs_err_causal": {"bfloat16": 0.0, "float32": 0.0},
+             "max_abs_err_backward_bf16": 0.0,
+             "max_abs_err_backward_fp32": 0.0},
+        lm={"launches": swa_l}, moe={"launches": swa_l},
+        train={"profile": {}, "launches_per_step": {}, "launches": swa_l},
+        scan={"max_abs_err": {"bfloat16": {"y": 1e-5, "h_last": 1e-6},
+                              "float32": {"y": 3e-5, "h_last": 1e-6}}},
+        mamba={"launches": swa_l}, whisper={"launches": swa_l},
+        llava={"launches": swa_l})
+
+
+def test_every_kernels_line_entry_has_the_contracts_keys():
+    """Every entry of the kernels line, the selective scan's included,
+    carries the keys the contract names; the scan's launches are the
+    falcon-mamba generation's and its library time is null."""
+    line = chip_smoke.kernels_line(**_line_inputs())
+    keys = {"name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms"}
+    for entry in line["kernels"]:
+        assert keys <= set(entry), entry["name"]
+        assert entry["route"] == "cuda"
+        assert (chip_smoke.ROOT / entry["source"]).is_file()
+    scan = [e for e in line["kernels"] if e["name"].startswith(
+        "selective_scan_forward")]
+    assert len(scan) == 1
+    assert scan[0]["launches"] == 64 and scan[0]["library_ms"] is None
+    assert scan[0]["max_abs_err"] == 1e-5
+    causal = [e for e in line["kernels"] if "causal" in e["name"]][0]
+    assert causal["launches_whisper"] == causal["launches_llava"] == 60

@@ -46,7 +46,12 @@ DECODE_STEPS = 8
 #: (arch, kv_groups): the dense and MoE archs; h2o-danube with its KV
 #: heads repeated to 4 groups and, at 8 groups, its q heads padded 4 -> 8;
 #: olmoe's q heads padded 4 -> 8, grok's KV heads repeated 2 -> 4
-CASES = [(a, 0) for a in ARCH_IDS] + [("h2o_danube_1_8b", 4),
+#: the decoder-only token LMs (the dense and MoE families); the SSM, audio
+#: and VLM archs have their own files (test_torch_mamba.py,
+#: test_torch_encdec.py, test_torch_vlm.py)
+LM_ARCHS = tuple(a for a in ARCH_IDS
+                 if get_config(a).family in ("dense", "moe"))
+CASES = [(a, 0) for a in LM_ARCHS] + [("h2o_danube_1_8b", 4),
                                       ("h2o_danube_1_8b", 8),
                                       ("olmoe_1b_7b", 8),
                                       ("grok_1_314b", 4)]
@@ -122,11 +127,12 @@ def test_configs_are_copies(arch, reduced):
 
 
 @pytest.mark.parametrize("reduced", [False, True])
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
+                                  if get_config(a).n_heads])
 def test_every_ported_head_dim_is_a_kernel_head_dim(arch, reduced):
-    """Every ported arch's causal attention runs the SWA kernel (a window
-    over every key where it has none), which is built for the head dims
-    in ``HEAD_DIMS``."""
+    """Every ported arch with attention runs its causal attention on the
+    SWA kernel (a window over every key where it has none), which is
+    built for the head dims in ``HEAD_DIMS``."""
     assert get_config(arch, reduced).hd in tswa.HEAD_DIMS
 
 
@@ -155,9 +161,9 @@ def test_shapes_and_cache_specs_match(arch):
 
 def test_unported_families_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("falcon-mamba-7b")
+        get_config("recurrentgemma-2b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(get_config("qwen2-72b").with_(family="ssm"))
+        build(get_config("qwen2-72b").with_(family="hybrid"))
     with pytest.raises(ValueError):
         get_config("no-such-arch")
 
