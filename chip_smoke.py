@@ -7,9 +7,10 @@ Phases, in order; any failure exits non-zero:
 
   1. build    compile ``src/repro_torch/kernels/csrc/*.cu`` (nvcc, sm_90a,
               one nvcc per source, all at once); each kernel's ptxas
-              registers and spills (the six selective-scan instances
-              too), and HGMMA in the SASS of every bf16 SWA backward
-              kernel (``cuobjdump -sass``)
+              registers and spills, and HGMMA in the SASS of every bf16
+              SWA backward kernel (``cuobjdump -sass``); the twelve
+              selective-scan instances (d_state x dtype x bare / fused)
+              with their SASS opcode counts, none of which may spill
   2. kernels  the top-k kernel against its plain version: the edge grid,
               exact duplicate rows, N in {40k, 100k} x Q in {1, 32, 64} x
               k in {1, 10, 64, 65, 2000, N}, streamed and device-resident,
@@ -48,12 +49,15 @@ Phases, in order; any failure exits non-zero:
               (bwd_dot, backward_dkdv, backward_dq) on the plain forward's
               saved tensors, and two backward launches bit for bit on a
               few
-     scan     the selective-scan kernel against its plain version, fp32
-              and bf16 inputs, on y and h_last (rtol = atol = 2e-4):
-              d_state 4 and 8 at S 24, 33, 300 and 1, and one
-              falcon-mamba-7b layer (B 2, S 2048, d_in 8192, d_state 16)
-              from h0 != 0, launched twice (the same bits); a gradient
-              asked of it on the card raises
+     scan     the selective-scan kernel's two entry points against their
+              plain versions, fp32 and bf16 inputs: the bare scan on y
+              and h_last (rtol = atol = 2e-4), the fused one (dt's bias
+              and softplus, the D skip, the silu(z) gate, z a strided half
+              of in_proj's output) on h_last and out (the same, plus one
+              bf16 ulp on a bf16 out): d_state 4 and 8 at S 24, 33, 300
+              and 1, and one falcon-mamba-7b layer (B 2, S 2048, d_in
+              8192, d_state 16) from h0 != 0, each launched twice (the
+              same bits); a gradient asked of either on the card raises
   5. serve    two versions of a 40,000 x 200 GO-size snapshot published
               through the port's registry; ``repro_torch.launch.serve``
               in client-session mode, then HTTP over the gateway, every
@@ -124,11 +128,11 @@ Phases, in order; any failure exits non-zero:
               products' and the decode weight read's bounds
      mamba    falcon-mamba-7b at its published width and depth: in fp32,
               2 layers, the last logits of prefill(2049) against
-              prefill(2048) + decode_step (2e-3, same argmax), one scan
-              launch a layer a prefill; then a bf16 ``launch.generate``
-              (batch 2, prompt 2048, 32 steps): prefill ms, tokens/s,
-              decode ms a token, the state's bytes, peak memory, 64 scan
-              launches per prefill
+              prefill(2048) + decode_step (2e-3, same argmax), one fused
+              scan launch a layer a prefill; then a bf16
+              ``launch.generate`` (batch 2, prompt 2048, 32 steps):
+              prefill ms, tokens/s, decode ms a token, the state's bytes,
+              peak memory, 64 fused scan launches per prefill
      whisper  whisper-base at its published width and depth: in fp32,
               1,500 encoder frames, a 65-token decoder prefill against
               64 + decode_step (2e-3, same argmax), 6 causal SWA launches
@@ -170,8 +174,10 @@ Phases, in order; any failure exits non-zero:
               against its bounds (the function's, the two-kernel
               design's), its plain version and SDPA forward + backward,
               and the forward with its log-sum-exp against without; the
-              selective scan at one falcon-mamba-7b layer's shape against
-              its bound (exps on the SFUs, bytes) and its plain version;
+              selective scan at one falcon-mamba-7b layer's shape, bare
+              and fused, against its bound (exps on the SFUs, bytes) and
+              its plain version, the fused one also against the bare
+              kernel with the PyTorch passes it replaces (``unfused``);
               where a falcon-mamba-7b and a whisper-base prefill and
               decode step spend their device time.
               After other phases it runs in a fresh child process
@@ -193,7 +199,8 @@ the kernels line, and last ``{"ok": true, "device": {...}}``.
 ``build,swa,whisper``, ``build,swa,llava`` or ``build,swa,train`` is a
 quick check of one slice;
 ``build,serve,workers``
-the serving paths; ``build,kge,update`` the update path alone;
+the serving paths; ``--sass-of SOURCE.cu`` one source's kernels'
+registers, spills and SASS; ``build,kge,update`` the update path alone;
 ``build,jobs`` the batch jobs; ``alloc`` the backward's allocation
 choice);
 ``--out PATH`` also writes every result to one JSON file.
@@ -324,6 +331,11 @@ SCAN_SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
 SCAN_REPLACES = ("src/repro/models/blocks.py:605 _selective_scan_chunk "
                  "(jnp associative scan under lax.scan; no Pallas kernel)")
 SCAN_TOL = 2e-4
+#: the fused entry point's bf16 out may round the other way at a tie of
+#: its fp32 value: one bf16 ulp (2^-7 |plain|) beyond SCAN_TOL
+BF16_ULP = 2.0 ** -7
+#: the kernel's instances: d_state 4 / 8 / 16 x fp32 / bf16 x bare / fused
+SCAN_INSTANCES = 12
 #: (B, S, d_in, d_state, h0 = 0): the reference's test config (d 32 ->
 #: d_in 64, d_state 4), reduced falcon-mamba (d_in 512, d_state 8) with S
 #: past one 256-step chunk and not a multiple of it, S = 1, and one
@@ -461,21 +473,23 @@ def unit_rows(table: np.ndarray, norms: np.ndarray, rows) -> np.ndarray:
 # --------------------------------------------------------------------- #
 # phases
 # --------------------------------------------------------------------- #
-#: the template arguments ``_kernel_name`` reads: an int, float, bf16
-_TEMPLATE_ARG = r"Li(-?\d+)E|(f)|13(__nv_bfloat16)"
+#: the template arguments ``_kernel_name`` reads: an int, float, bf16, bool
+_TEMPLATE_ARG = r"Li(-?\d+)E|(f)|13(__nv_bfloat16)|Lb([01])E"
 
 
 def _kernel_name(mangled: str) -> str:
-    """``swa_bf16_kernel<80>`` or ``selective_scan_kernel<16, float>``
+    """``swa_bf16_kernel<80>`` or ``selective_scan_kernel<16, bf16, true>``
     from its mangled name (a length-prefixed ``*_kernel`` and its integer,
-    float and bf16 template arguments); other names as they are."""
+    float, bf16 and bool template arguments); other names as they are."""
     for d in re.finditer(r"\d+(?!\d)", mangled):
         for i in range(d.start(), d.end()):   # a hash's digits may lead
             end = d.end() + int(mangled[i:d.end()])
             name = mangled[d.end():end]
             if name.endswith("_kernel"):
                 m = re.match(rf"I((?:{_TEMPLATE_ARG})+)E", mangled[end:])
-                args = [n or ("float" if f else "bf16") for n, f, _ in
+                args = [n or ("float" if f else "bf16" if bf else
+                              "true" if bl == "1" else "false")
+                        for n, f, bf, bl in
                         re.findall(_TEMPLATE_ARG, m.group(1))] if m else []
                 return name + (f"<{', '.join(args)}>" if args else "")
     return mangled
@@ -519,10 +533,61 @@ def _sass_functions(lib: Path) -> dict:
     return funcs
 
 
+#: a SASS instruction's opcode, after its address and any predicate
+_SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_]*)")
+
+
+def _sass_ops(sass: str) -> dict:
+    """``{opcode: count}`` of one kernel's SASS (static instructions, the
+    unrolled loops as compiled), most frequent first, with ``total``."""
+    ops: dict = {}
+    for m in _SASS_OP.finditer(sass):
+        ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    out = dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+    out["total"] = sum(ops.values())
+    return out
+
+
+def scan_instances(log: str, lib: Path) -> dict:
+    """Each selective-scan instance's registers, spills and SASS opcode
+    counts, from the build's ptxas report and ``cuobjdump -sass``."""
+    sass = _sass_functions(lib)
+    return {name: {**regs, "sass_ops": _sass_ops(sass.get(name, ""))}
+            for name, regs in sorted(_ptxas_kernels(log).items())}
+
+
+def sass_of(source: str) -> dict:
+    """Compile one CUDA source with the port's nvcc flags into a scratch
+    directory under ``build/`` and report its kernels as
+    :func:`scan_instances` does: registers, spills, SASS opcode counts,
+    and each kernel's SASS in a file beside the library.  The one way to
+    build a source other than the tree's: ``--sass-of`` (e.g. an earlier
+    revision's kernel, ``git show REV:PATH``) and ``tools/scan_probes.py``
+    (the scan with one cost taken out)."""
+    from repro_torch.kernels import _build
+    src = Path(source).resolve()
+    out_dir = ROOT / "build" / "sass_of" / src.stem
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / f"lib{src.stem}.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                           str(lib), str(src)], capture_output=True,
+                          text=True, timeout=600)
+    check(proc.returncode == 0, f"nvcc {src}: {proc.stdout[-2000:]}"
+                                f"{proc.stderr[-2000:]}")
+    for name, sass in _sass_functions(lib).items():    # beside the library
+        (out_dir / f"{name}.sass").write_text(sass)
+    return {"source": str(src), "sass_dir": str(out_dir.relative_to(ROOT)),
+            "library": str(lib),
+            "kernels": scan_instances(proc.stdout + proc.stderr, lib)}
+
+
 def phase_build() -> dict:
     """Build every source; print each kernel's ptxas line; the SWA
     backward kernels' registers and spills, and fail unless every bf16
-    one runs on the tensor cores (HGMMA in its SASS)."""
+    one runs on the tensor cores (HGMMA in its SASS); the selective
+    scan's twelve instances with their SASS opcode counts, and fail if
+    any of them spills."""
     from repro_torch.kernels import _build, swa_attention as sw
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -549,10 +614,17 @@ def phase_build() -> dict:
     missing = [k for k in bf16 if not bwd.get(k, {}).get("hgmma")]
     check(not missing, f"no HGMMA in the SASS of {missing}")
     out["swa_backward_kernels"] = bwd
-    # the selective scan's instances (d_state 4 / 8 / 16 x fp32 / bf16)
-    out["scan_kernels"] = _ptxas_kernels(_build.build_log("selective_scan"))
-    check(len(out["scan_kernels"]) == 6,
-          f"selective_scan: {sorted(out['scan_kernels'])}, want 6 kernels")
+    # the selective scan's instances (d_state 4 / 8 / 16 x fp32 / bf16 x
+    # bare / fused)
+    scan = scan_instances(_build.build_log("selective_scan"),
+                          libs["selective_scan"])
+    out["scan_kernels"] = scan
+    check(len(scan) == SCAN_INSTANCES,
+          f"selective_scan: {sorted(scan)}, want {SCAN_INSTANCES} kernels")
+    spills = {k: (v.get("spill_stores"), v.get("spill_loads"))
+              for k, v in scan.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    check(not spills, f"selective_scan instances spill: {spills}")
     emit(out)
     return out
 
@@ -2585,91 +2657,180 @@ def _scan_inputs(B: int, S: int, d_in: int, st: int, dtype, gen,
     return h0, dt, Bm, Cm, A, x
 
 
-def _scan_close(got, want, note: str) -> float:
-    """max |got - want|; fails past SCAN_TOL + SCAN_TOL * |want|."""
+def _fused_inputs(B: int, S: int, d_in: int, st: int, dtype, gen,
+                  h0_zero: bool):
+    """The fused entry point's arguments ``(h0, dt, Bm, Cm, A, xc, D, z,
+    dt_bias)``, as ``_mamba_inner`` passes them: dt before softplus and
+    its bias (N(0, 2) in ``dtype``, every 101st value 21.5, past
+    softplus's threshold), z the second half of one (B, S, 2 d_in) tensor
+    (in_proj's output), D N(0, 1) fp32, the bias N(0, 0.5) in ``dtype``,
+    h0 None (zeros) or N(0, 1)."""
     import torch
+    h0, _, Bm, Cm, A, x = _scan_inputs(B, S, d_in, st, dtype, gen, True)
+    dt = torch.randn((B, S, d_in), generator=gen, device=DEV) * 2.0
+    dt.view(-1)[::101] = 21.5
+    xz = torch.randn((B, S, 2 * d_in), generator=gen, device=DEV).to(dtype)
+    D = torch.randn((d_in,), generator=gen, device=DEV)
+    b = (torch.randn((d_in,), generator=gen, device=DEV) * 0.5).to(dtype)
+    h0 = None if h0_zero else torch.randn((B, d_in, st), generator=gen,
+                                          device=DEV)
+    return h0, dt.to(dtype), Bm, Cm, A, x, D, xz[..., d_in:], b
+
+
+def _scan_close(got, want, note: str, ulp: float = 0.0) -> float:
+    """max |got - want|; fails past SCAN_TOL + (SCAN_TOL + ulp) * |want|."""
+    import torch
+    got, want = got.float(), want.float()
     diff = (got - want).abs()
     check(bool(torch.isfinite(got).all())
-          and bool((diff <= SCAN_TOL * (1 + want.abs())).all()),
+          and bool((diff <= SCAN_TOL + (SCAN_TOL + ulp) * want.abs()).all()),
           f"{note}: off by {float(diff.max())}")
     return float(diff.max())
 
 
+def _grad_raises(fn, args, i: int) -> bool:
+    """``fn(*args)`` with args[i] asking for a gradient raises
+    NotImplementedError on the card."""
+    args = list(args)
+    args[i] = args[i].detach().requires_grad_(True)
+    try:
+        fn(*args)
+    except NotImplementedError:
+        return True
+    return False
+
+
 def phase_scan() -> dict:
-    """The selective-scan kernel against its plain version on the card, on
-    y and h_last (rtol = atol = 2e-4, the reference's own tolerance for
-    its chunked scan against the stepwise decode), fp32 and bf16 inputs:
-    the reduced shapes (d_state 4 and 8, S not a multiple of the 256-step
-    chunk, S = 1) and one falcon-mamba-7b layer (B 2, S 2048, d_in 8192,
-    d_state 16) from a state h0 != 0; two launches give the same bits; a
-    gradient asked of it on the card raises."""
+    """The selective-scan kernel's two entry points against their plain
+    versions on the card, fp32 and bf16 inputs: the reduced shapes
+    (d_state 4 and 8, S not a multiple of the 256-step chunk, S = 1) and
+    one falcon-mamba-7b layer (B 2, S 2048, d_in 8192, d_state 16) from a
+    state h0 != 0.  The bare scan on y and h_last (rtol = atol = 2e-4, the
+    reference's own tolerance for its chunked scan against the stepwise
+    decode); the fused one (softplus, dt's bias, the D skip, the silu(z)
+    gate, z a strided half of in_proj's output) on h_last and out (the
+    same, plus one bf16 ulp in bf16).  At the falcon-mamba-7b layer two
+    launches of each give the same bits; a gradient asked of either on
+    the card raises."""
     import torch
     from repro_torch.kernels import ref, selective_scan as ss
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 21)
     ss.reset_launches()
-    err = {"float32": {"y": 0.0, "h_last": 0.0},
-           "bfloat16": {"y": 0.0, "h_last": 0.0}}
-    cases, calls = [], 0
+    err = {n: {"y": 0.0, "h_last": 0.0, "fused_out": 0.0,
+               "fused_h_last": 0.0} for n in ("float32", "bfloat16")}
+    cases, calls = [], {"selective_scan_forward": 0,
+                        "selective_scan_fused": 0}
     for note, (B, S, d_in, st, h0_zero) in SCAN_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
+            twice = note.startswith("falcon")
             args = _scan_inputs(B, S, d_in, st, dtype, gen, h0_zero)
             h_k, y_k = ss.selective_scan(*args)
             h_p, y_p = ref.selective_scan(*args)
-            calls += 1
+            calls["selective_scan_forward"] += 1
             for what, g, w in (("y", y_k, y_p), ("h_last", h_k, h_p)):
                 err[name][what] = max(err[name][what], _scan_close(
                     g, w, f"scan {note} {name} {what}"))
-            if note.startswith("falcon"):
+            if twice:
                 h2, y2 = ss.selective_scan(*args)
-                calls += 1
+                calls["selective_scan_forward"] += 1
                 check(torch.equal(h2, h_k) and torch.equal(y2, y_k),
                       f"scan {note} {name}: two launches differ")
-            cases.append(f"{note} {name}")
             del args, h_k, y_k, h_p, y_p
+            # the fused entry point
+            fargs = _fused_inputs(B, S, d_in, st, dtype, gen, h0_zero)
+            h_k, o_k = ss.selective_scan_fused(*fargs)
+            h_p, o_p = ref.selective_scan_fused(*fargs)
+            calls["selective_scan_fused"] += 1
+            check(o_k.dtype == dtype and tuple(o_k.shape) == (B, S, d_in),
+                  f"fused {note} {name}: out {o_k.dtype} {tuple(o_k.shape)}")
+            ulp = BF16_ULP if dtype == torch.bfloat16 else 0.0
+            err[name]["fused_out"] = max(err[name]["fused_out"], _scan_close(
+                o_k, o_p, f"fused {note} {name} out", ulp))
+            err[name]["fused_h_last"] = max(
+                err[name]["fused_h_last"],
+                _scan_close(h_k, h_p, f"fused {note} {name} h_last"))
+            if twice:
+                h2, o2 = ss.selective_scan_fused(*fargs)
+                calls["selective_scan_fused"] += 1
+                check(torch.equal(h2, h_k) and torch.equal(o2, o_k),
+                      f"fused {note} {name}: two launches differ")
+            cases.append(f"{note} {name}")
+            del fargs, h_k, o_k, h_p, o_p
     torch.cuda.synchronize()
-    check(ss.launches == {"selective_scan_forward": calls},
-          f"scan: launches {ss.launches}, want {calls}")
-    h0, dt, Bm, Cm, A, x = _scan_inputs(1, 8, 64, 4, torch.float32, gen,
-                                         True)
-    dt.requires_grad_(True)
-    try:
-        ss.selective_scan(h0, dt, Bm, Cm, A, x)
-        raised = False
-    except NotImplementedError:
-        raised = True
-    check(raised, "scan: a gradient asked on the card did not raise")
+    check(ss.launches == calls, f"scan: launches {ss.launches}, want {calls}")
+    raised = {
+        "selective_scan": _grad_raises(ss.selective_scan, _scan_inputs(
+            1, 8, 64, 4, torch.float32, gen, True), 1),
+        "selective_scan_fused": _grad_raises(
+            ss.selective_scan_fused, _fused_inputs(
+                1, 8, 64, 4, torch.float32, gen, True), 1)}
+    check(all(raised.values()),
+          f"scan: a gradient asked on the card did not raise: {raised}")
     out = {"phase": "scan", "cases": cases, "max_abs_err": err,
-           "tolerance": f"{SCAN_TOL} + {SCAN_TOL} * |plain|",
+           "launches": calls,
+           "tolerance": f"{SCAN_TOL} + {SCAN_TOL} * |plain| (+ {BF16_ULP} "
+                        f"* |plain| on bf16 out)",
            "grad_on_card_raises": raised}
     emit(out)
     return out
 
 
-def scan_bound_ms(B: int, S: int, d_in: int, st: int, in_bytes: int
-                  ) -> tuple:
-    """Least time for one layer's scan: dt (fp32), x, Bm, Cm (``in_bytes``
-    each), A and h0 read once, y and h_last written once; against one exp
-    per (b, t, channel, state) on the SFUs and 5 fp32 operations per
-    (b, t, channel, state) on the CUDA cores.  Returns (ms, bound_by,
-    the three times)."""
-    nbytes = (B * S * d_in * (4 + in_bytes + 4) + 2 * B * S * st * in_bytes
-              + d_in * st * 4 + 2 * B * d_in * st * 4)
-    elems = B * S * d_in * st
+def scan_bound_ms(B: int, S: int, d_in: int, st: int, in_bytes: int,
+                  fused: bool = False) -> tuple:
+    """Least time for one layer's scan.  Bare: dt (fp32), x, Bm, Cm
+    (``in_bytes`` each), A and h0 read once, y (fp32) and h_last written
+    once; against one exp per (b, t, channel, state) on the SFUs and 5
+    fp32 operations per (b, t, channel, state) on the CUDA cores.  Fused
+    (h0 = 0, as a prefill runs it): dt, x, z, Bm, Cm, dt's bias in the
+    model's dtype, A and D read once, out (model dtype) and h_last written
+    once; the SFUs take, besides the exps, softplus's exp and log and one
+    operation for silu per (b, t, channel) (z/2 (1 + tanh(z/2)): one
+    tanh; the kernel issues an exp and a reciprocal, so its own count is
+    one more), and the CUDA cores 11 more operations per (b, t, channel).
+    Returns (ms, bound_by, the three times)."""
+    elems, chan = B * S * d_in * st, B * S * d_in
+    if fused:
+        nbytes = (chan * 4 * in_bytes + 2 * B * S * st * in_bytes
+                  + d_in * st * 4 + d_in * (4 + in_bytes) + B * d_in * st * 4)
+        sfu, fp32 = elems + 3 * chan, 5.0 * elems + 11.0 * chan
+    else:
+        nbytes = (chan * (4 + in_bytes + 4) + 2 * B * S * st * in_bytes
+                  + d_in * st * 4 + 2 * B * d_in * st * 4)
+        sfu, fp32 = elems, 5.0 * elems
     t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-         "exp": elems / SFU_EXP_PER_S * 1e3,
-         "fp32": 5.0 * elems / FP32_FLOP_PER_S * 1e3}
+         "exp": sfu / SFU_EXP_PER_S * 1e3,
+         "fp32": fp32 / FP32_FLOP_PER_S * 1e3}
     by = max(t, key=t.get)
     return t[by], ("bytes" if by == "bytes" else "operations"), t
 
 
+def _unfused(h0, dt, Bm, Cm, A, xc, D, z, dt_bias):
+    """The chain the fused entry point replaces, as ``_mamba_inner`` ran
+    it on the card before the fusion: dt's bias and softplus, the bare
+    scan kernel from a zero state, the D skip and the gate as PyTorch
+    passes (the yardstick of ``scan_numbers``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import selective_scan as ss
+    dtf = F.softplus((dt + dt_bias).float())
+    if h0 is None:
+        h0 = torch.zeros((dt.shape[0], dt.shape[2], A.shape[1]),
+                         dtype=torch.float32, device=dt.device)
+    h, y = ss.selective_scan(h0, dtf, Bm, Cm, A, xc)
+    y = y + D * xc.float()
+    return h, (y * F.silu(z.float())).to(xc.dtype)
+
+
 def scan_numbers(card: str) -> dict:
     """The selective-scan kernel at one falcon-mamba-7b prefill layer's
-    shape (B 2, S 2048, d_in 8192, d_state 16, bf16 x / Bm / Cm, h0 = 0):
-    kernel ms (CUDA events), device ms (profiler), the plain version's ms
-    and the bound.  No single PyTorch call computes the scan, so there is
-    no library time."""
+    shape (B 2, S 2048, d_in 8192, d_state 16, bf16, h0 = 0): the bare
+    entry point (kernel ms by CUDA events, device ms by the profiler, the
+    plain version's ms, the bound) and, under ``fused``, the main path's
+    fused one: the same, and ``unfused_ms`` / ``unfused_device_ms``, the
+    bare kernel with the PyTorch passes the fused one replaces.  No single
+    PyTorch call computes either, so there is no library time."""
     import torch
     from repro_torch.kernels import ref, selective_scan as ss
     from repro_torch.models import get_config
@@ -2678,19 +2839,36 @@ def scan_numbers(card: str) -> dict:
     B, S = MAMBA_BATCH, MAMBA_PROMPT
     d_in, st = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state
     gen = torch.Generator(device=DEV).manual_seed(SEED + 22)
+
+    def scan_ms(fn) -> float:
+        runs = {n: t for n, t in _device_ms(fn).items()
+                if "selective_scan" in n}
+        return sum(runs.values()) if runs else None
+
     args = _scan_inputs(B, S, d_in, st, torch.bfloat16, gen, True)
     kern = lambda: ss.selective_scan(*args)
-    plain = lambda: ref.selective_scan(*args)
-    ours = {n: t for n, t in _device_ms(kern).items() if "selective_scan" in n}
     b_ms, b_by, parts = scan_bound_ms(B, S, d_in, st, 2)
     rec = {"B": B, "S": S, "d_in": d_in, "d_state": st, "dtype": "bfloat16",
-           "ms": _cuda_ms(kern, iters=20),
-           "device_ms": sum(ours.values()) if ours else None,
-           "plain_ms": _cuda_ms(plain, iters=2, warmup=1),
+           "ms": _cuda_ms(kern, iters=20), "device_ms": scan_ms(kern),
+           "plain_ms": _cuda_ms(lambda: ref.selective_scan(*args), iters=2,
+                                warmup=1),
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
            "bound_parts_ms": parts, "card": card}
-    emit({"scan_numbers": rec})
     del args
+    fargs = _fused_inputs(B, S, d_in, st, torch.bfloat16, gen, True)
+    kern = lambda: ss.selective_scan_fused(*fargs)
+    unfused = lambda: _unfused(*fargs)
+    b_ms, b_by, parts = scan_bound_ms(B, S, d_in, st, 2, fused=True)
+    rec["fused"] = {
+        "ms": _cuda_ms(kern, iters=20), "device_ms": scan_ms(kern),
+        "plain_ms": _cuda_ms(lambda: ref.selective_scan_fused(*fargs),
+                             iters=2, warmup=1),
+        "unfused_ms": _cuda_ms(unfused, iters=20),
+        "unfused_device_ms": sum(_device_ms(unfused).values()),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "bound_parts_ms": parts}
+    emit({"scan_numbers": rec})
+    del fargs
     torch.cuda.empty_cache()
     return rec
 
@@ -2734,15 +2912,17 @@ def _launch_counters() -> dict:
     return {"swa": (sw.reset_launches,
                     lambda: sw.launches["swa_attention_forward"]),
             "scan": (ss.reset_launches,
-                     lambda: ss.launches["selective_scan_forward"])}
+                     lambda: ss.launches["selective_scan_fused"]),
+            "scan_bare": (ss.reset_launches,
+                          lambda: ss.launches["selective_scan_forward"])}
 
 
 def _generate(argv: list, swa_want: int, scan_want: int, vocab: int,
               ids_shape: tuple, warm_up: bool = True) -> tuple:
     """``launch.generate`` with ``argv``: a warm-up run (unless the caller
     warmed the same shapes up), then the measured one, whose prefill must
-    launch ``swa_want`` SWA forwards and ``scan_want`` scans (and no SWA
-    backward); its ids in the vocab.  Returns (warm-up result or None,
+    launch ``swa_want`` SWA forwards and ``scan_want`` fused scans (and no
+    SWA backward, no bare scan); its ids in the vocab.  Returns (warm-up result or None,
     measured result, launches)."""
     import torch
     from repro_torch.kernels import selective_scan as ss, swa_attention as sw
@@ -2758,7 +2938,8 @@ def _generate(argv: list, swa_want: int, scan_want: int, vocab: int,
                        "swa_attention_bwd_dot": 0,
                        "swa_attention_backward_dkdv": 0,
                        "swa_attention_backward_dq": 0,
-                       "selective_scan_forward": scan_want},
+                       "selective_scan_forward": 0,
+                       "selective_scan_fused": scan_want},
           f"generation launched {launches}, want {swa_want} SWA forwards "
           f"and {scan_want} scans")
     ids = np.asarray(run["ids"])
@@ -2772,11 +2953,12 @@ def phase_mamba() -> dict:
     """falcon-mamba-7b at its published width and depth.
 
     fp32, 2 of its 64 layers: the last logits of prefill(S + 1) against
-    prefill(S) + decode_step, S = 2048: the scan kernel (one launch a
-    layer, both prefills) against the plain one-step state update of
-    decode.  bf16: the generation of ``launch.generate`` (a warm-up run,
-    then the measured one): prefill ms, tokens/s, decode ms a token, the
-    state's bytes, peak memory, 64 scan launches a prefill."""
+    prefill(S) + decode_step, S = 2048: the fused scan kernel (one launch
+    a layer, both prefills; no bare one) against the plain one-step state
+    update of decode.  bf16: the generation of ``launch.generate`` (a
+    warm-up run, then the measured one): prefill ms, tokens/s, decode ms a
+    token, the state's bytes, peak memory, 64 fused scan launches a
+    prefill."""
     import torch
     from repro_torch.models import build, get_config
 
@@ -2790,6 +2972,7 @@ def phase_mamba() -> dict:
                                {"tokens": toks[:, :-1]}, MAMBA_PROMPT,
                                toks[:, -1:], _launch_counters())
     check(all(c["scan"] == cfg.n_layers and c["swa"] == 0
+              and c["scan_bare"] == 0
               for c in consistency["launches_per_prefill"].values()),
           f"fp32 prefills launched {consistency['launches_per_prefill']}, "
           f"want {cfg.n_layers} scans each")
@@ -3286,7 +3469,8 @@ def _check_device_times(numbers: dict) -> None:
               fwd["causal_llava"]["device_ms"])]
     rows += [(f"swa backward {r['dtype']} B={r['B']}", r["device_ms"])
              for r in numbers["swa_backward"]["rows"]]
-    rows += [("selective scan", numbers["scan"]["device_ms"])]
+    rows += [("selective scan", numbers["scan"]["device_ms"]),
+             ("selective scan fused", numbers["scan"]["fused"]["device_ms"])]
     blind = [name for name, ms in rows if not ms]
     check(not blind, f"numbers: no device time for {blind}")
 
@@ -4065,7 +4249,8 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
     the training run's (its three entry points); the causal forward's
     ``launches_whisper`` and ``launches_llava`` those phases' measured
     prefills.  The selective scan's are the falcon-mamba-7b generation
-    run's prefill."""
+    run's prefill: 64 fused launches and none of the bare entry point,
+    whose entry also carries the scan phase's launches."""
     launches = serve_out["launches"]
     by = {(r["N"], r["Q"], r["k"]): r for r in numbers["rows"]}
     out = []
@@ -4192,17 +4377,38 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
         "library_ms": r["library_fwd_bwd_ms"],
         "library_is": "SDPA forward + backward, band mask, enable_gqa",
         "fwd_lse_bwd_ms": r["fwd_lse_bwd_ms"]})
-    # the selective scan at one falcon-mamba-7b prefill layer's shape
-    # (bf16 x, Bm, Cm); no single PyTorch call computes it
+    # the selective scan at one falcon-mamba-7b prefill layer's shape, bf16:
+    # the fused entry point (the main path's) and the bare one (the
+    # contract tests'; no longer on the main path); no single PyTorch call
+    # computes either
     r = numbers["scan"]
     err = scan["max_abs_err"]
+    f = r["fused"]
+    shape = (f"bf16, B={r['B']} S={r['S']} d_in={r['d_in']} "
+             f"d_state={r['d_state']}")
     out.append({
-        "name": f"selective_scan_forward (bf16, B={r['B']} S={r['S']} "
-                f"d_in={r['d_in']} d_state={r['d_state']})",
+        "name": f"selective_scan_fused (softplus + scan + D skip + silu(z) "
+                f"gate; {shape})",
+        "route": "cuda", "source": SCAN_SOURCE, "replaces": SCAN_REPLACES,
+        "launches": mamba["launches"]["selective_scan_fused"],
+        "max_abs_err": max(err["bfloat16"]["fused_out"],
+                           err["bfloat16"]["fused_h_last"]),
+        "max_abs_err_fp32": max(err["float32"]["fused_out"],
+                                err["float32"]["fused_h_last"]),
+        "ms": f["ms"], "device_ms": f["device_ms"],
+        "plain_ms": f["plain_ms"], "unfused_ms": f["unfused_ms"],
+        "unfused_device_ms": f["unfused_device_ms"],
+        "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+        "bound_parts_ms": f["bound_parts_ms"], "library_ms": None})
+    out.append({
+        "name": f"selective_scan_forward (bare scan; {shape})",
         "route": "cuda", "source": SCAN_SOURCE, "replaces": SCAN_REPLACES,
         "launches": mamba["launches"]["selective_scan_forward"],
-        "max_abs_err": max(err["bfloat16"].values()),
-        "max_abs_err_fp32": max(err["float32"].values()),
+        "on_main_path": False,
+        "launches_scan_phase": scan["launches"]["selective_scan_forward"],
+        "max_abs_err": max(err["bfloat16"]["y"], err["bfloat16"]["h_last"]),
+        "max_abs_err_fp32": max(err["float32"]["y"],
+                                err["float32"]["h_last"]),
         "ms": r["ms"], "device_ms": r["device_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "bound_parts_ms": r["bound_parts_ms"],
@@ -4226,6 +4432,10 @@ def main(argv=None) -> int:
                             "update,jobs,lm,moe,mamba,whisper,llava,train,"
                             "numbers")
     ap.add_argument("--out", default=None, help="also write results here")
+    ap.add_argument("--sass-of", default=None, metavar="SOURCE.cu",
+                    help="compile one CUDA source with the port's flags "
+                         "and print its kernels' registers, spills and "
+                         "SASS opcode counts, then exit")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -4240,6 +4450,9 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false: this smoke "
               "run needs an NVIDIA card", file=sys.stderr)
         return 2
+    if args.sass_of:
+        emit({"sass_of": sass_of(args.sass_of)})
+        return 0
     card = card_line()
     print(f"[chip_smoke] {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False

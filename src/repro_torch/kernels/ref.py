@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -313,3 +314,31 @@ def selective_scan(h0: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
         ys.append((h * Cf[:, t, None, :]).sum(-1))
     y = torch.stack(ys, dim=1) if ys else dtf.new_zeros(dtf.shape)
     return h, y
+
+
+def selective_scan_fused(h0: Optional[torch.Tensor], dt: torch.Tensor,
+                         Bm: torch.Tensor, Cm: torch.Tensor, A: torch.Tensor,
+                         xc: torch.Tensor, D: torch.Tensor, z: torch.Tensor,
+                         dt_bias: torch.Tensor, chunk: int = 256
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A Mamba layer's tail around the scan, in the reference's order
+    (``repro.models.blocks.mamba_apply``): dt's bias (added in dt's dtype,
+    as ``layers.dense`` adds it), softplus in fp32, :func:`selective_scan`
+    over ``chunk`` steps at a time from ``h0`` (zeros when None), the D
+    skip and the silu(z) gate in fp32, cast back to xc's dtype.
+
+    Returns ``(h_last (B, d_in, st) fp32, out (B, S, d_in) in xc's
+    dtype)``.  Differentiable."""
+    dtf = F.softplus((dt + dt_bias).float())
+    B, S, d_in = xc.shape
+    h = torch.zeros((B, d_in, A.shape[1]), dtype=torch.float32,
+                    device=xc.device) if h0 is None else h0.float()
+    c = min(chunk, S)
+    ys = []
+    for t0 in range(0, S, c):
+        cut = slice(t0, t0 + c)
+        h, y = selective_scan(h, dtf[:, cut], Bm[:, cut], Cm[:, cut], A,
+                              xc[:, cut])
+        ys.append(y)
+    y = torch.cat(ys, dim=1) + D * xc.float()
+    return h, (y * F.silu(z.float())).to(xc.dtype)

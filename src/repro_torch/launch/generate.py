@@ -114,7 +114,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     prefill_launches = swa_attention.launches["swa_attention_forward"]
-    scan_launches = selective_scan.launches["selective_scan_forward"]
+    scan_launches = sum(selective_scan.launches.values())
     prefill_dropped = model.take_dropped() if moe else None
 
     seq = [tok]

@@ -23,9 +23,9 @@ The MoE block is the reference's capacity-dropped top-k dispatch
 Pallas kernel.
 
 The Mamba block (mamba1) keeps the reference's projections, causal conv
-and dtype order; its selective scan runs in
+and dtype order; its softplus, selective scan, D skip and gate run in
 ``kernels/csrc/selective_scan.cu`` on the card, one launch a layer over
-the whole sequence, and its plain version chunk by chunk on the CPU, as
+the whole sequence, and their plain version chunk by chunk on the CPU, as
 the reference scans.  The RG-LRU block is not ported yet (ROADMAP,
 Queue 1 item 5(f)).
 """
@@ -489,51 +489,27 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y + b
 
 
-def _selective_scan_chunk(h0: torch.Tensor, dt: torch.Tensor,
-                          Bm: torch.Tensor, Cm: torch.Tensor,
-                          A: torch.Tensor, xc: torch.Tensor):
-    """One chunk of the mamba scan.
-    h0 (B,d_in,st) f32; dt (B,c,d_in); Bm/Cm (B,c,st); xc (B,c,d_in).
-    Returns (h_last, y (B,c,d_in)) fp32: the kernel on the card, the plain
-    version on the CPU (``kernels.selective_scan``)."""
-    return scan_kernels.selective_scan(h0, dt, Bm, Cm, A, xc)
-
-
-def _mamba_scan(dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
-                A: torch.Tensor, xc: torch.Tensor, chunk: int):
-    """The scan over the whole sequence from a zero state: (h_last, y).
-    On the card one kernel launch, whatever ``chunk`` is; on the CPU the
-    plain version chunk by chunk, as the reference's ``lax.scan`` carries
-    the state (its zero padding of the last chunk leaves the state as it
-    is: ``exp(0 * A) = 1`` and ``0 * x = 0``, so no padding is needed)."""
-    B, S, d_in = xc.shape
-    h = torch.zeros((B, d_in, A.shape[1]), dtype=torch.float32,
-                    device=xc.device)
-    if xc.is_cuda:
-        return _selective_scan_chunk(h, dt, Bm, Cm, A, xc)
-    c = min(chunk, S)
-    ys = []
-    for t0 in range(0, S, c):
-        cut = slice(t0, t0 + c)
-        h, y = _selective_scan_chunk(h, dt[:, cut], Bm[:, cut], Cm[:, cut],
-                                     A, xc[:, cut])
-        ys.append(y)
-    return h, torch.cat(ys, dim=1)
-
-
 def _mamba_inner(p, xi: torch.Tensor, z: torch.Tensor, cfg: ArchConfig,
                  chunk: int):
     """conv, projections, scan, D skip and gate of ``mamba_apply`` and
-    ``mamba_prefill``: xi, z (B,S,d_in) -> (y (B,S,d) , h_last)."""
+    ``mamba_prefill``: xi, z (B,S,d_in) -> (y (B,S,d) , h_last).
+
+    dt_proj's bias, the softplus, the scan from a zero state, the D skip
+    and the silu(z) gate are one call of ``kernels.selective_scan_fused``:
+    one kernel launch on the card, z read in place as the second half of
+    in_proj's output; on the CPU the plain version, chunk by chunk as the
+    reference's ``lax.scan`` carries the state (its zero padding of the
+    last chunk leaves the state as it is: ``exp(0 * A) = 1`` and ``0 * x
+    = 0``, so no padding is needed)."""
     _, dtr, st, _ = _mamba_dims(cfg)
     xc = F.silu(_causal_conv(xi, p["conv_w"], p["conv_b"]))
     dbc = dense(p["x_proj"], xc)
     dt_r, Bm, Cm = torch.split(dbc, [dtr, st, st], dim=-1)
-    dt = F.softplus(dense(p["dt_proj"], dt_r).float())
+    dt_proj = p["dt_proj"]
     A = -torch.exp(p["A_log"])                                # (d_in, st)
-    h_last, y = _mamba_scan(dt, Bm, Cm, A, xc, chunk)
-    y = y + p["D"] * xc.float()
-    y = (y * F.silu(z.float())).to(xi.dtype)
+    h_last, y = scan_kernels.selective_scan_fused(
+        None, dt_r @ dt_proj["w"], Bm, Cm, A, xc, p["D"], z, dt_proj["b"],
+        chunk)
     return dense(p["out_proj"], y), h_last
 
 

@@ -126,7 +126,7 @@ def _numbers(device_ms):
                             "causal_llava": {"device_ms": 0.76}}},
             "swa_backward": {"rows": [{"dtype": "bfloat16", "B": 1,
                                        "device_ms": device_ms}]},
-            "scan": {"device_ms": 0.6}}
+            "scan": {"device_ms": 0.6, "fused": {"device_ms": 0.4}}}
 
 
 def test_a_blind_profiler_fails_the_numbers_phase():
@@ -164,11 +164,36 @@ def test_scan_instances_are_told_apart_by_state_size_and_dtype():
 
 
 def test_scan_source_instantiates_every_state_size():
+    """Every state size, for both entry points (bare and fused) and both
+    dtypes: the twelve instances the build phase counts."""
     from repro_torch.kernels import selective_scan as tss
     text = (_build.CSRC / "selective_scan.cu").read_text()
     for st in tss.D_STATES:
-        assert f"case {st}: return launch<{st}, In>(" in text
-    assert len(tss.D_STATES) * 2 == 6
+        assert f"case {st}: return launch<{st}, In, FUSED>(a);" in text
+    assert "dispatch<false>(c)" in text and "dispatch<true>(c)" in text
+    assert len(tss.D_STATES) * len(tss.DTYPES) * 2 == \
+        chip_smoke.SCAN_INSTANCES == 12
+
+
+def test_scan_instances_are_told_apart_by_entry_point():
+    """The fused and bare instances differ by a bool template argument."""
+    name = ("_ZN12_GLOBAL__N_121selective_scan_kernelILi16E13__nv_bfloat16"
+            "Lb1EEEvNS_8ScanMapsEPKfS4_S4_PKT0_PNS_3GeoIXT_ES5_XT1_EE3OutEPfii")
+    assert chip_smoke._kernel_name(name) == \
+        "selective_scan_kernel<16, bf16, true>"
+    assert chip_smoke._kernel_name(name.replace("Lb1E", "Lb0E")) == \
+        "selective_scan_kernel<16, bf16, false>"
+
+
+def test_sass_opcodes_are_counted_by_opcode():
+    sass = """
+        /*0090*/                   MUFU.EX2 R45, R45 ;   /* 0x00 */
+        /*00a0*/              @!P1 FFMA R4, R12, R29, RZ ;   /* 0x00 */
+        /*00b0*/                   FFMA R5, R12, R29, RZ ;   /* 0x00 */
+        /*00c0*/               @P0 BRA.U.ANY 0x2620 ;   /* 0x00 */
+    """
+    assert chip_smoke._sass_ops(sass) == {"FFMA": 2, "MUFU": 1, "BRA": 1,
+                                          "total": 4}
 
 
 def test_scan_bound_at_falcon_mambas_layer():
@@ -179,6 +204,17 @@ def test_scan_bound_at_falcon_mambas_layer():
     assert by == "operations" and round(got, 3) == 0.128
     assert round(parts["bytes"], 3) == 0.101
     assert parts["fp32"] < parts["bytes"] < parts["exp"]
+
+
+def test_fused_scan_bound_at_falcon_mambas_layer():
+    """The fused tail at the same layer: 537 M state exps + 101 M for
+    softplus (exp, log) and silu (one tanh) on the SFUs, 0.152 ms,
+    against ~270 MB (dt, x, z, out in bf16, B | C, A, D, the bias,
+    h_last), 0.081 ms: bound by operations."""
+    got, by, parts = chip_smoke.scan_bound_ms(2, 2048, 8192, 16, 2,
+                                              fused=True)
+    assert by == "operations" and round(got, 3) == 0.152
+    assert round(parts["bytes"], 3) == 0.081
 
 
 def test_new_phase_cases_sit_where_the_models_run():
@@ -225,11 +261,13 @@ def _line_inputs():
                              for m in ("transe_l1", "distmult")]},
         "swa": swa_f, "swa_backward": {"rows": [bwd]},
         "scan": dict(r, B=2, S=2048, d_in=8192, d_state=16, library_ms=None,
-                     bound_parts_ms={})}
+                     bound_parts_ms={}, fused=dict(
+                         r, library_ms=None, bound_parts_ms={},
+                         unfused_ms=1.5, unfused_device_ms=1.4))}
     swa_l = {"swa_attention_forward": 60, "swa_attention_bwd_dot": 0,
              "swa_attention_backward_dkdv": 0,
              "swa_attention_backward_dq": 0,
-             "selective_scan_forward": 64}
+             "selective_scan_forward": 0, "selective_scan_fused": 64}
     return dict(
         kern={"max_abs_err_small": 0.0, "max_abs_err_large": 0.0},
         serve_out={"launches": {e: 1 for e in chip_smoke.SMALL_ENTRY
@@ -244,16 +282,22 @@ def _line_inputs():
              "max_abs_err_backward_fp32": 0.0},
         lm={"launches": swa_l}, moe={"launches": swa_l},
         train={"profile": {}, "launches_per_step": {}, "launches": swa_l},
-        scan={"max_abs_err": {"bfloat16": {"y": 1e-5, "h_last": 1e-6},
-                              "float32": {"y": 3e-5, "h_last": 1e-6}}},
+        scan={"max_abs_err": {
+            "bfloat16": {"y": 1e-5, "h_last": 1e-6, "fused_out": 0.25,
+                         "fused_h_last": 5e-5},
+            "float32": {"y": 3e-5, "h_last": 1e-6, "fused_out": 8e-4,
+                        "fused_h_last": 7e-5}},
+            "launches": {"selective_scan_forward": 12,
+                         "selective_scan_fused": 12}},
         mamba={"launches": swa_l}, whisper={"launches": swa_l},
         llava={"launches": swa_l})
 
 
 def test_every_kernels_line_entry_has_the_contracts_keys():
     """Every entry of the kernels line, the selective scan's included,
-    carries the keys the contract names; the scan's launches are the
-    falcon-mamba generation's and its library time is null."""
+    carries the keys the contract names; the fused scan's launches are the
+    falcon-mamba generation's (the bare entry point's none, with its scan
+    phase launches beside) and their library times are null."""
     line = chip_smoke.kernels_line(**_line_inputs())
     keys = {"name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -265,7 +309,71 @@ def test_every_kernels_line_entry_has_the_contracts_keys():
     scan = [e for e in line["kernels"] if e["name"].startswith(
         "selective_scan_forward")]
     assert len(scan) == 1
-    assert scan[0]["launches"] == 64 and scan[0]["library_ms"] is None
+    assert scan[0]["launches"] == 0 and scan[0]["library_ms"] is None
+    assert scan[0]["on_main_path"] is False
+    assert scan[0]["launches_scan_phase"] == 12
     assert scan[0]["max_abs_err"] == 1e-5
+    fused = [e for e in line["kernels"] if e["name"].startswith(
+        "selective_scan_fused")]
+    assert len(fused) == 1
+    assert fused[0]["launches"] == 64 and fused[0]["library_ms"] is None
+    assert fused[0]["max_abs_err"] == 0.25
+    assert fused[0]["unfused_ms"] == 1.5
     causal = [e for e in line["kernels"] if "causal" in e["name"]][0]
     assert causal["launches_whisper"] == causal["launches_llava"] == 60
+
+
+def _stub_card(monkeypatch, failures):
+    """chip_smoke on the CPU: DEV = "cpu", the card's timers stubbed by
+    host ones, failed checks collected instead of raised."""
+    import time
+    import torch
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(chip_smoke, "check",
+                        lambda ok, msg: ok or failures.append(msg))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+
+    def host_ms(fn, iters=1, warmup=0):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    monkeypatch.setattr(chip_smoke, "_cuda_ms", host_ms)
+    monkeypatch.setattr(chip_smoke, "_device_ms", lambda fn, iters=1: {
+        "selective_scan_kernel": host_ms(fn)})
+
+
+def test_scan_phase_rehearses_on_the_cpu(monkeypatch):
+    """The scan phase's bare and fused cases at the reduced shapes run on
+    the CPU against the plain versions; only the checks that need the
+    kernel fail (its launch counts; the gradient that must raise)."""
+    failures = []
+    _stub_card(monkeypatch, failures)
+    monkeypatch.setattr(chip_smoke, "SCAN_CASES", chip_smoke.SCAN_CASES[:4])
+    out = chip_smoke.phase_scan()
+    assert out["launches"] == {"selective_scan_forward": 8,
+                               "selective_scan_fused": 8}
+    for dtype in ("float32", "bfloat16"):
+        assert set(out["max_abs_err"][dtype]) == {
+            "y", "h_last", "fused_out", "fused_h_last"}
+    assert len(failures) == 2
+    assert failures[0].startswith("scan: launches")
+    assert "did not raise" in failures[1]
+
+
+def test_scan_numbers_fields_rehearse_on_the_cpu(monkeypatch):
+    """scan_numbers at reduced falcon-mamba (the config module's CONFIG
+    swapped for REDUCED, a 40-token prompt): the bare row and the fused
+    one with its unfused yardstick and bound."""
+    from repro_torch.configs import falcon_mamba_7b
+    failures = []
+    _stub_card(monkeypatch, failures)
+    monkeypatch.setattr(falcon_mamba_7b, "CONFIG", falcon_mamba_7b.REDUCED)
+    monkeypatch.setattr(chip_smoke, "MAMBA_PROMPT", 40)
+    rec = chip_smoke.scan_numbers("cpu")
+    assert (rec["S"], rec["d_in"], rec["d_state"]) == (40, 512, 8)
+    fused = rec["fused"]
+    for key in ("ms", "device_ms", "plain_ms", "unfused_ms",
+                "unfused_device_ms", "bound_ms", "bound_by",
+                "bound_parts_ms"):
+        assert fused[key] is not None, key
+    assert fused["library_ms"] is None and not failures

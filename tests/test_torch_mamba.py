@@ -7,7 +7,10 @@ and the same inputs, made by numpy from a seed, go through both.
 
 - The plain scan (``kernels.ref.selective_scan``, step by step) against
   the reference's ``_selective_scan_chunk`` (a log-depth associative
-  scan): h_last and y within 1e-5 (fp32 products in another order).
+  scan): h_last and y within 1e-5 (fp32 products in another order); the
+  plain fused tail (``kernels.ref.selective_scan_fused``: softplus, the
+  chunked scan, the D skip, the gate) against the reference's own tail of
+  ``mamba_apply``, within 1e-5.
 - ``mamba_apply``, ``mamba_prefill`` (h and conv state) and
   ``mamba_decode`` against the reference's, within 1e-5; S past one
   256-step chunk and not a multiple of it, and S < d_conv - 1 (the conv
@@ -110,7 +113,8 @@ def test_scan_wrapper_runs_the_plain_version_on_cpu_with_a_gradient():
     h, y = tss.selective_scan(*args)
     (h.sum() + y.sum()).backward()
     assert args[1].grad is not None and torch.isfinite(args[1].grad).all()
-    assert tss.launches == {"selective_scan_forward": 0}
+    assert tss.launches == {"selective_scan_forward": 0,
+                            "selective_scan_fused": 0}
     h2, y2 = tref.selective_scan(*args)
     assert torch.equal(h, h2) and torch.equal(y, y2)
 
@@ -124,6 +128,64 @@ def test_scan_wrapper_rejects_shapes_that_do_not_fit(bad):
     args[idx] = val
     with pytest.raises(ValueError):
         tss.selective_scan(*args)
+
+
+def _reference_tail(h0, dt, Bm, Cm, A, xc, D, z, chunk=256):
+    """The reference's tail of ``mamba_apply`` (``repro.models.blocks``,
+    lines 642-659) from a state h0: softplus of dt in fp32, the scan over
+    zero-padded chunks under ``lax.scan`` with ``_selective_scan_chunk``,
+    the D skip, the silu(z) gate, cast to xc's dtype."""
+    dt = jax.nn.softplus(dt.astype(jnp.float32))
+    B, S, d_in = xc.shape
+    c = min(chunk, S)
+    pad = -S % c
+    padded = [jnp.pad(a, ((0, 0), (0, pad), (0, 0)))
+              for a in (dt, Bm, Cm, xc)]
+    n = padded[0].shape[1] // c
+    reshape = lambda a: jnp.moveaxis(a.reshape(B, n, c, -1), 1, 0)
+
+    def step(h, inp):
+        dt_i, B_i, C_i, x_i = inp
+        return jblocks._selective_scan_chunk(h, dt_i, B_i, C_i, A, x_i)
+
+    h, ys = jax.lax.scan(step, h0, tuple(map(reshape, padded)))
+    y = jnp.moveaxis(ys, 0, 1).reshape(B, n * c, d_in)[:, :S]
+    y = y + D * xc.astype(jnp.float32)
+    return h, (y * jax.nn.silu(z.astype(jnp.float32))).astype(xc.dtype)
+
+
+@pytest.mark.parametrize("st", [4, 8])
+@pytest.mark.parametrize("S", [24, 300, 1])
+@pytest.mark.parametrize("h0_zero", [True, False])
+def test_plain_fused_matches_the_references_tail(st, S, h0_zero):
+    """``ref.selective_scan_fused`` against the reference's own tail of
+    ``mamba_apply`` on the same numpy inputs, z a strided half of one
+    (B, S, 2 d_in) tensor, dt_proj's bias added apart (the reference's
+    ``dense`` adds it before the tail), in fp32: h_last and out within
+    1e-5."""
+    B, d_in = 2, 64
+    rng = np.random.default_rng(S * 10 + st + h0_zero)
+    f = lambda *sh: rng.standard_normal(sh, dtype=np.float32)
+    h0 = np.zeros((B, d_in, st), np.float32) if h0_zero else f(B, d_in, st)
+    dt, xc, D = f(B, S, d_in) * 2, f(B, S, d_in), f(d_in)
+    bc, xz = f(B, S, 2 * st), f(B, S, 2 * d_in)
+    A = -np.tile(np.arange(1, st + 1, dtype=np.float32), (d_in, 1)) \
+        * np.exp(0.1 * f(d_in, st))
+    bias = f(d_in) * 0.5
+    jh, jout = _reference_tail(
+        jnp.asarray(h0), jnp.asarray(dt + bias), jnp.asarray(bc[..., :st]),
+        jnp.asarray(bc[..., st:]), jnp.asarray(A), jnp.asarray(xc),
+        jnp.asarray(D), jnp.asarray(xz[..., d_in:]))
+    t = torch.from_numpy
+    tbc, txz = t(bc), t(xz)
+    z = txz[..., d_in:]
+    assert z.stride(1) == 2 * d_in                    # a strided view
+    th, tout = tref.selective_scan_fused(
+        None if h0_zero else t(h0), t(dt), tbc[..., :st], tbc[..., st:],
+        t(A), t(xc), t(D), z, t(bias))
+    assert tout.dtype == torch.float32 and tuple(tout.shape) == (B, S, d_in)
+    _close(th, jh, SCAN_TOL)
+    _close(tout, jout, SCAN_TOL)
 
 
 def test_kernel_state_sizes_are_the_zoos():
@@ -393,7 +455,8 @@ def test_scan_kernel_matches_plain_on_card():
             n += 1
             _close(h.cpu(), hp.cpu(), 2e-4)
             _close(y.cpu(), yp.cpu(), 2e-4)
-    assert tss.launches == {"selective_scan_forward": n}
+    assert tss.launches == {"selective_scan_forward": n,
+                            "selective_scan_fused": 0}
     args[1].requires_grad_(True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tss.selective_scan(*args)

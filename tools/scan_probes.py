@@ -1,0 +1,170 @@
+"""What holds the selective-scan kernel: its time with one cost taken out.
+
+Builds ``src/repro_torch/kernels/csrc/selective_scan.cu`` as it is and in
+probe copies, each with one edit that removes one cost (the results of
+the copies are wrong by design), and times the fused and the bare entry
+points of each at one falcon-mamba-7b layer (B 2, S 2048, d_in 8192,
+d_state 16, bf16) with CUDA events, in turns (as built, the probes, then
+the same in reverse).  A cost whose removal leaves the time where it was
+does not bind the kernel.
+
+Probes:
+  no_sfu_exp      each state exp (MUFU.EX2) replaced by one FMA
+  no_tma_wait     tiles after the first ring never waited for nor loaded
+  no_prologue_epilogue
+                  the prologue (softplus, dt * x) and the epilogue (sum
+                  of partial y, D skip, gate, store) run for the first
+                  tile only
+  bc_rows_once    pass 1 reads two Bm | Cm rows a tile, not eight
+
+Run on a machine with an NVIDIA card and the CUDA toolkit, from the
+repository root::
+
+    python3 tools/scan_probes.py [--out PATH]
+
+It prints one JSON object: the card (``nvidia-smi`` name and power
+limit), each build's registers, spills and SASS opcode counts, and ms a
+call per probe.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import struct
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+SOURCE = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "selective_scan.cu"
+OUT_DIR = ROOT / "build" / "scan_probes"
+#: probe -> [(text in the source, its replacement)]; each text must occur
+#: once
+PROBES = {
+    "as_built": [],
+    "no_sfu_exp": [("const float a = ex2(d * a2[j]);",
+                    "const float a = fmaf(d, a2[j], 1.f);")],
+    "no_tma_wait": [
+        ("    mbar_wait(bar0 + 8 * (k % STAGES), (k / STAGES) & 1);",
+         "    if (k < STAGES)\n"
+         "      mbar_wait(bar0 + 8 * (k % STAGES), (k / STAGES) & 1);"),
+        ("    if (tid == 0 && k >= 2 && k + STAGES - 2 < n_tiles)",
+         "    if (false)")],
+    "no_prologue_epilogue": [
+        ("#pragma unroll 1\n    for (int i = tid; i < CPB * T / 2;",
+         "#pragma unroll 1\n    if (k == 0)\n"
+         "    for (int i = tid; i < CPB * T / 2;"),
+        ("#pragma unroll 1\n    for (int i = tid; i < T * CPB / 2;",
+         "#pragma unroll 1\n    if (j == 0)\n"
+         "    for (int i = tid; i < T * CPB / 2;")],
+    "bc_rows_once": [
+        ("      const float4 bv = ld4(pb + i * 2 * ST);\n"
+         "      const float4 cv = ld4(pb + i * 2 * ST + ST);",
+         "      const float4 bv = ld4(pb + (i & 1) * 2 * ST);\n"
+         "      const float4 cv = ld4(pb + (i & 1) * 2 * ST + ST);")],
+}
+
+
+def build_all() -> dict:
+    """``{probe: (library path, its d_state 16 bf16 instances' registers,
+    spills and SASS opcode counts)}``: each probe's copy of the source
+    under ``build/scan_probes``, built by ``chip_smoke.sass_of`` (the
+    port's nvcc flags), all at once.  A probe whose text no longer occurs
+    once in the source stops the tool: its edit follows the kernel's."""
+    import chip_smoke
+    sources = {}
+    for name, edits in PROBES.items():
+        text = SOURCE.read_text()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise SystemExit(f"probe {name}: the edit's text occurs "
+                                 f"{text.count(old)} times in {SOURCE.name}")
+            text = text.replace(old, new)
+        OUT_DIR.mkdir(parents=True, exist_ok=True)
+        sources[name] = OUT_DIR / f"{SOURCE.stem}_{name}.cu"
+        sources[name].write_text(text)
+    with ThreadPoolExecutor(len(sources)) as pool:    # nvcc in parallel
+        built = dict(zip(sources, pool.map(chip_smoke.sass_of,
+                                           map(str, sources.values()))))
+    return {name: (Path(b["library"]),
+                   {k: v for k, v in b["kernels"].items() if "<16, bf16" in k})
+            for name, b in built.items()}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None, help="also write the result here")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("scan_probes: needs an NVIDIA card", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from repro_torch.kernels import selective_scan as ss
+
+    builds = build_all()
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 22)
+    B, S, d_in, st = 2, 2048, 8192, 16
+    h0, dt, Bm, Cm, A, xc, D, z, bias = cs._fused_inputs(
+        B, S, d_in, st, torch.bfloat16, gen, True)
+    bh0, bdt, bBm, bCm, bA, bx = cs._scan_inputs(
+        B, S, d_in, st, torch.bfloat16, gen, True)
+    bc, bcs = ss._bc_rows(Bm, Cm)
+    bbc, bbcs = ss._bc_rows(bBm, bCm)
+    out = torch.empty((B, S, d_in), dtype=torch.bfloat16, device="cuda")
+    y = torch.empty((B, S, d_in), device="cuda")
+    hl = torch.empty((B, d_in, st), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    fused_args = struct.pack(
+        "<18q", dt.data_ptr(), xc.data_ptr(), z.data_ptr(), bc.data_ptr(),
+        A.data_ptr(), 0, D.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        hl.data_ptr(), B, S, d_in, st, bcs, z.stride(1), 1, stream)
+    bare_args = struct.pack(
+        "<14q", bdt.data_ptr(), bx.data_ptr(), bbc.data_ptr(), bA.data_ptr(),
+        bh0.data_ptr(), y.data_ptr(), hl.data_ptr(), B, S, d_in, st, bbcs, 1,
+        stream)
+    fns = {}
+    for name, (lib, _) in builds.items():
+        dll = ctypes.CDLL(str(lib))
+        for entry in ("selective_scan_fused", "selective_scan_forward"):
+            getattr(dll, entry).argtypes = [ctypes.c_char_p]
+            getattr(dll, entry).restype = ctypes.c_int
+        fns[name] = (dll.selective_scan_fused, dll.selective_scan_forward)
+
+    def ms(fn, packed, iters=50) -> float:
+        for _ in range(3):
+            if fn(packed):
+                raise SystemExit("launch refused")
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(iters):
+            fn(packed)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / iters
+
+    times: dict = {name: {"fused_ms": [], "bare_ms": []} for name in fns}
+    order = list(fns)
+    for name in order + order[::-1]:
+        fused, bare = fns[name]
+        times[name]["fused_ms"].append(ms(fused, fused_args))
+        times[name]["bare_ms"].append(ms(bare, bare_args))
+    rec = {"card": cs.card_line(), "shape": {"B": B, "S": S, "d_in": d_in,
+                                             "d_state": st,
+                                             "dtype": "bfloat16"},
+           "probes": {name: {**times[name], "kernels": regs}
+                      for name, (_, regs) in builds.items()}}
+    print(json.dumps(rec), flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(rec, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
