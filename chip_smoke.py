@@ -8,9 +8,11 @@ Phases, in order; any failure exits non-zero:
   1. build    compile ``src/repro_torch/kernels/csrc/*.cu`` (nvcc, sm_90a,
               one nvcc per source, all at once); each kernel's ptxas
               registers and spills, and HGMMA in the SASS of every bf16
-              SWA backward kernel (``cuobjdump -sass``); the twelve
-              selective-scan instances (d_state x dtype x bare / fused)
-              with their SASS opcode counts, none of which may spill
+              SWA backward kernel (``cuobjdump -sass``); the eighteen
+              selective-scan forward instances (d_state x dtype x bare /
+              fused / fused writing its tile states) and its six backward
+              ones (d_state x dtype), with their SASS opcode counts, none
+              of which may spill
   2. kernels  the top-k kernel against its plain version: the edge grid,
               exact duplicate rows, N in {40k, 100k} x Q in {1, 32, 64} x
               k in {1, 10, 64, 65, 2000, N}, streamed and device-resident,
@@ -49,15 +51,21 @@ Phases, in order; any failure exits non-zero:
               (bwd_dot, backward_dkdv, backward_dq) on the plain forward's
               saved tensors, and two backward launches bit for bit on a
               few
-     scan     the selective-scan kernel's two entry points against their
+     scan     the selective-scan kernel's three entry points against their
               plain versions, fp32 and bf16 inputs: the bare scan on y
               and h_last (rtol = atol = 2e-4), the fused one (dt's bias
               and softplus, the D skip, the silu(z) gate, z a strided half
               of in_proj's output) on h_last and out (the same, plus one
-              bf16 ulp on a bf16 out): d_state 4 and 8 at S 24, 33, 300
-              and 1, and one falcon-mamba-7b layer (B 2, S 2048, d_in
-              8192, d_state 16) from h0 != 0, each launched twice (the
-              same bits); a gradient asked of either on the card raises
+              bf16 ulp on a bf16 out), the fused one with its tile states
+              (the same bits as without), and the fused one's backward on
+              every gradient: ddt, dxc, dz, dh0 as the forward's out,
+              dA, dD, ddt_bias, dBm, dCm within 2e-4 * max|plain| (+ one
+              bf16 ulp in bf16); d_state 4 and 8 at S 24, 33, 300 and 1,
+              and one falcon-mamba-7b layer (B 2, S 2048, d_in 8192,
+              d_state 16) from h0 != 0, each launched twice (the same
+              bits); two cases from a gradient of h_last; a gradient asked
+              of the fused entry point runs its forward and backward
+              kernels, one asked of the bare scan raises
   5. serve    two versions of a 40,000 x 200 GO-size snapshot published
               through the port's registry; ``repro_torch.launch.serve``
               in client-session mode, then HTTP over the gateway, every
@@ -111,7 +119,7 @@ Phases, in order; any failure exits non-zero:
               logits of prefill(6145) against prefill(6144) + decode_step
               (2e-3, same argmax), 24 SWA launches per prefill; then a
               bf16 generation through ``repro_torch.launch.generate``
-              (batch 2, prompt 6144, 32 greedy decode steps), ids in vocab;
+              (batch 2, prompt 6144, 16 greedy decode steps), ids in vocab;
               the same generation with ``--kv-cache-dtype int8`` (decode ms
               a token and the cache's bytes beside the bf16 cache's); the
               int8 cache against the fp cache in fp32 at full width, cut to
@@ -121,7 +129,7 @@ Phases, in order; any failure exits non-zero:
               layers, capacity factor 16, the last logits of
               prefill(2049) against prefill(2048) + decode_step (2e-3,
               same argmax); then a bf16 generation through
-              ``launch.generate`` (batch 2, prompt 2048, 32 greedy decode
+              ``launch.generate`` (batch 2, prompt 2048, 16 greedy decode
               steps): prefill ms, tokens/s, decode ms a token, peak memory,
               16 causal SWA launches per prefill, the dropped (token, slot)
               pairs per prefill and per decode step, beside the expert
@@ -130,20 +138,20 @@ Phases, in order; any failure exits non-zero:
               2 layers, the last logits of prefill(2049) against
               prefill(2048) + decode_step (2e-3, same argmax), one fused
               scan launch a layer a prefill; then a bf16
-              ``launch.generate`` (batch 2, prompt 2048, 32 steps):
+              ``launch.generate`` (batch 2, prompt 2048, 16 steps):
               prefill ms, tokens/s, decode ms a token, the state's bytes,
               peak memory, 64 fused scan launches per prefill
      whisper  whisper-base at its published width and depth: in fp32,
               1,500 encoder frames, a 65-token decoder prefill against
               64 + decode_step (2e-3, same argmax), 6 causal SWA launches
               (d 64) a prefill; then a bf16 ``launch.generate`` (batch 2,
-              1,500 frames, prompt 64, 32 steps)
+              1,500 frames, prompt 64, 16 steps)
      llava    llava-next-34b at its published width and depth, in a fresh
               child process (68.8 GB of bf16 weights): in fp32, 2 layers,
               2,880 image embeddings + 65 text tokens against 64 +
               decode_step at position 2,944 (2e-3, same argmax); then a
               bf16 ``launch.generate`` (batch 2, 2,880 image + 64 text
-              tokens, 32 steps), 60 causal SWA launches (56 / 8 heads,
+              tokens, 16 steps), 60 causal SWA launches (56 / 8 heads,
               d 128) a prefill; where a prefill's and a decode step's
               device time goes
  10. train    h2o-danube-1.8b training at its published width: in fp32
@@ -151,12 +159,24 @@ Phases, in order; any failure exits non-zero:
               same step with the plain SWA forward and backward
               substituted (loss 1e-5 relative, each gradient leaf 2e-4 *
               max|g|); then bf16, 24 layers, remat "full", through
-              ``repro_torch.launch.train`` (a 2-step warm-up run, then 5
+              ``repro_torch.launch.train`` (a 2-step warm-up run, then 3
               measured steps): step ms, tokens/s, peak memory, 48 SWA
               forwards and 24 launches of each backward entry point a
               step, finite losses; 8 steps on one repeated batch, whose
               losses fall, 2 of them under torch.profiler (device-busy
-              share, device ms by kernel group)
+              share, device ms by kernel group).  Then falcon-mamba-7b
+              at its published width: in fp32 two layers (B = 1, S =
+              2048) with the kernels against the same step with the
+              plain fused scan and its plain backward substituted (the
+              same tolerances); then bf16, all 64 layers, remat "full",
+              B 2, S 2048, Adam at lr 3e-4, through ``launch.train`` (a
+              2-step warm-up run, then 3 measured steps): step ms,
+              tokens/s, peak memory, 128 fused scans and 64 backward
+              launches a step, finite losses; 8 steps on one repeated
+              batch, whose losses fall, 2 under torch.profiler.  The
+              generation runs' 16 decode steps (were 32) and the 3
+              measured training steps (were 5) are the depth cut that
+              keeps the whole script near 1,000 s
  11. numbers  top-k kernel, plain, library and host-to-device times (CUDA
               events) at N = 40k and 100k; kge_score forward and backward
               times at (1024, 32, 200) (back-to-back calls, profiler device
@@ -177,12 +197,20 @@ Phases, in order; any failure exits non-zero:
               selective scan at one falcon-mamba-7b layer's shape, bare
               and fused, against its bound (exps on the SFUs, bytes) and
               its plain version, the fused one also against the bare
-              kernel with the PyTorch passes it replaces (``unfused``);
+              kernel with the PyTorch passes it replaces (``unfused``)
+              and with its tile states written against without, in
+              turns, and the fused one's backward as training runs it
+              (kernel, device and plain ms, against its bound: the
+              recomputed exps and softplus / sigmoid / silu on the SFUs
+              and its fp32 operations against the bytes of its inputs,
+              the saved states included, and outputs; the partials' bytes
+              beside it, not in it);
               where a falcon-mamba-7b and a whisper-base prefill and
               decode step spend their device time.
               After other phases it runs in a fresh child process
               (``--phases numbers``), whose profiler sessions read the
-              device; every kge and SWA row must carry a device time
+              device; every kge, SWA and scan row must carry a device
+              time
  12. alloc    only when ``--phases`` names it: host time of the kge_score
               backward's output allocations two ways, in turns: four
               tensors (what the wrapper allocates) against one (3, B, d)
@@ -196,8 +224,9 @@ It prints JSON lines as it goes, then the card's name and power limit,
 the kernels line, and last ``{"ok": true, "device": {...}}``.
 ``--phases`` runs a subset (``build,kernels``, ``build,kge``,
 ``build,swa,lm``, ``build,swa,moe``, ``build,scan,mamba``,
-``build,swa,whisper``, ``build,swa,llava`` or ``build,swa,train`` is a
-quick check of one slice;
+``build,swa,whisper``, ``build,swa,llava``, ``build,swa,train`` or
+``build,scan,train`` (h2o-danube and falcon-mamba training) is a quick
+check of one slice;
 ``build,serve,workers``
 the serving paths; ``--sass-of SOURCE.cu`` one source's kernels'
 registers, spills and SASS; ``build,kge,update`` the update path alone;
@@ -307,9 +336,12 @@ SWA_CASES = (
      (1, 56, 8, 2944, 2944, 128, 2944, 0)),
 )
 #: the LM generation run: h2o-danube-1.8b at its published width, a prompt
-#: longer than its 4096 window (the roll shift after prefill is 2048)
+#: longer than its 4096 window (the roll shift after prefill is 2048).
+#: Every generation run decodes 16 greedy steps (32 before the falcon-mamba
+#: training run joined the train phase: a depth cut that keeps the whole
+#: script near 1,000 s; decode ms a token is measured over them)
 LM_ARCH = "h2o-danube-1.8b"
-LM_BATCH, LM_PROMPT, LM_STEPS = 2, 6144, 32
+LM_BATCH, LM_PROMPT, LM_STEPS = 2, 6144, 16
 LM_TOL = 2e-3               # the reference's TOL (tests/test_arch_consistency.py)
 #: the int8 cache against the fp cache: h2o-danube at full width, fp32,
 #: cut to 2 layers; the contract of tests/test_int8_kv_cache.py
@@ -319,7 +351,7 @@ INT8_RTOL, INT8_ATOL = 0.1, 0.15
 #: (causal attention, no window: every prefill layer on the SWA kernel
 #: with W = S)
 MOE_ARCH = "olmoe-1b-7b"
-MOE_BATCH, MOE_PROMPT, MOE_STEPS = 2, 2048, 32
+MOE_BATCH, MOE_PROMPT, MOE_STEPS = 2, 2048, 16
 #: the fp32 prefill(S + 1) / prefill(S) + decode check: full width, 2
 #: layers, capacity factor 16 (no drop, as tests/test_arch_consistency.py
 #: runs the MoE archs: dropping depends on which tokens share a prefill)
@@ -334,8 +366,11 @@ SCAN_TOL = 2e-4
 #: the fused entry point's bf16 out may round the other way at a tie of
 #: its fp32 value: one bf16 ulp (2^-7 |plain|) beyond SCAN_TOL
 BF16_ULP = 2.0 ** -7
-#: the kernel's instances: d_state 4 / 8 / 16 x fp32 / bf16 x bare / fused
-SCAN_INSTANCES = 12
+#: the forward kernel's instances: d_state 4 / 8 / 16 x fp32 / bf16 x
+#: bare / fused / fused writing its tile states; the backward's: d_state x
+#: dtype
+SCAN_INSTANCES = 18
+SCAN_BWD_INSTANCES = 6
 #: (B, S, d_in, d_state, h0 = 0): the reference's test config (d 32 ->
 #: d_in 64, d_state 4), reduced falcon-mamba (d_in 512, d_state 8) with S
 #: past one 256-step chunk and not a multiple of it, S = 1, and one
@@ -353,23 +388,25 @@ SFU_EXP_PER_S = 16 * 132 * 1.98e9
 #: the SSM generation run: falcon-mamba-7b at its published width and
 #: depth; the fp32 prefill(S + 1) / prefill(S) + decode check at 2 layers
 MAMBA_ARCH = "falcon-mamba-7b"
-MAMBA_BATCH, MAMBA_PROMPT, MAMBA_STEPS = 2, 2048, 32
+MAMBA_BATCH, MAMBA_PROMPT, MAMBA_STEPS = 2, 2048, 16
 MAMBA_CHECK_LAYERS = 2
 #: the audio run: whisper-base at its published width and depth, 1,500
 #: encoder frames (its 30-s window after the conv stem, arXiv:2212.04356),
-#: a 64-token decoder prompt, 32 steps (inside its 448-token cap)
+#: a 64-token decoder prompt, 16 steps (inside its 448-token cap)
 WHISPER_ARCH = "whisper-base"
-WHISPER_BATCH, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_STEPS = 2, 1500, 64, 32
+WHISPER_BATCH, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_STEPS = 2, 1500, 64, 16
 #: the VLM run: llava-next-34b at its published width and depth (68.8 GB
-#: of bf16 weights), 2,880 image tokens and a 64-token text prompt, 32
+#: of bf16 weights), 2,880 image tokens and a 64-token text prompt, 16
 #: steps; the fp32 check at 2 layers
 LLAVA_ARCH = "llava-next-34b"
-LLAVA_BATCH, LLAVA_PROMPT, LLAVA_STEPS = 2, 64, 32
+LLAVA_BATCH, LLAVA_PROMPT, LLAVA_STEPS = 2, 64, 16
 LLAVA_CHECK_LAYERS = 2
 #: the training run: h2o-danube-1.8b at its published width and depth,
-#: bf16, remat "full", one sequence of 6144 tokens (past the 4096 window)
+#: bf16, remat "full", one sequence of 6144 tokens (past the 4096 window);
+#: 3 measured steps after a 2-step warm-up run (5 before the depth cut
+#: above)
 TRAIN_BATCH, TRAIN_SEQ = 1, 6144
-TRAIN_WARM_STEPS, TRAIN_STEPS = 2, 5
+TRAIN_WARM_STEPS, TRAIN_STEPS = 2, 3
 #: profiled steps on one repeated batch (3 warm-up + 2 profiled + 1 + 2
 #: timed: 8 steps, whose losses must fall over the first 5)
 TRAIN_REPEAT_STEPS = 2
@@ -381,6 +418,12 @@ TRAIN_REPEAT_STEPS = 2
 TRAIN_CHECK_LAYERS = 2
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_TOL = 2e-4
+#: the SSM training run: falcon-mamba-7b at its published width and depth,
+#: bf16, remat "full", batch 2 of 2048 tokens (the generation run's
+#: shape), Adam at lr 3e-4: 7.27 B params, which with their gradients and
+#: Adam's two bf16 moments take ~58 GB; the fp32 check at B = 1
+MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ, MAMBA_TRAIN_STEPS = 2, 2048, 3
+MAMBA_CHECK_BATCH = 1
 BF16_FLOP_PER_S = 989e12    # H100 SXM data sheet, dense bf16 tensor cores
 #: the bf16 SWA backward kernels, which must run on wgmma (HGMMA in SASS)
 BF16_BWD_KERNELS = ("swa_bwd_dkdv_bf16_kernel", "swa_bwd_dq_bf16_kernel")
@@ -586,8 +629,9 @@ def phase_build() -> dict:
     """Build every source; print each kernel's ptxas line; the SWA
     backward kernels' registers and spills, and fail unless every bf16
     one runs on the tensor cores (HGMMA in its SASS); the selective
-    scan's twelve instances with their SASS opcode counts, and fail if
-    any of them spills."""
+    scan's eighteen forward and six backward instances and the
+    backward's sum, with their SASS opcode counts, and fail if any of
+    them spills."""
     from repro_torch.kernels import _build, swa_attention as sw
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -615,12 +659,16 @@ def phase_build() -> dict:
     check(not missing, f"no HGMMA in the SASS of {missing}")
     out["swa_backward_kernels"] = bwd
     # the selective scan's instances (d_state 4 / 8 / 16 x fp32 / bf16 x
-    # bare / fused)
+    # bare / fused / fused with states; the backward's d_state x dtype)
     scan = scan_instances(_build.build_log("selective_scan"),
                           libs["selective_scan"])
     out["scan_kernels"] = scan
-    check(len(scan) == SCAN_INSTANCES,
-          f"selective_scan: {sorted(scan)}, want {SCAN_INSTANCES} kernels")
+    counts = [sum(k.startswith(f"{n}<") for k in scan) for n in (
+        "selective_scan_kernel", "selective_scan_bwd_kernel")]
+    check(counts == [SCAN_INSTANCES, SCAN_BWD_INSTANCES]
+          and len(scan) == SCAN_INSTANCES + SCAN_BWD_INSTANCES,
+          f"selective_scan: {sorted(scan)}, want {SCAN_INSTANCES} forward "
+          f"and {SCAN_BWD_INSTANCES} backward instances")
     spills = {k: (v.get("spill_stores"), v.get("spill_loads"))
               for k, v in scan.items()
               if v.get("spill_stores") or v.get("spill_loads")}
@@ -2700,8 +2748,51 @@ def _grad_raises(fn, args, i: int) -> bool:
     return False
 
 
+#: the backward against its plain version: the per-element gradients
+#: (ddt, dxc, dz, dh0) within SCAN_TOL (1 + |plain|), plus one bf16 ulp on
+#: a bf16 one, as the forward's out; the reduced ones (sums over channels,
+#: steps or sequences: dA, dD, ddt_bias, dBm, dCm) within SCAN_TOL *
+#: max|plain| of that gradient, plus one bf16 ulp of each value on a bf16
+#: one (both round one fp32 sum, which may fall either side of a tie)
+SCAN_BWD_ELEMENTWISE = ("dh0", "ddt", "dxc", "dz")
+SCAN_BWD_REDUCED = ("dA", "dD", "ddt_bias", "dBm", "dCm")
+#: the cases whose backward also starts from a gradient of h_last
+SCAN_BWD_DH_LAST = ("test config, S 33, h0", "reduced falcon-mamba, S 300")
+_BWD_NAMES = ("dh0", "ddt", "dBm", "dCm", "dA", "dxc", "dD", "dz",
+              "ddt_bias")
+
+
+def _bwd_close(got, want, note: str) -> dict:
+    """Each gradient of the backward against the plain one, by
+    SCAN_BWD_ELEMENTWISE / SCAN_BWD_REDUCED's rules: ``{name: max abs
+    err}`` (``{name: max abs err / max|plain|}`` under ``relative``)."""
+    import torch
+    out, rel = {}, {}
+    for name, g, w in zip(_BWD_NAMES, got, want):
+        if w is None:
+            check(g is None, f"{note} {name}: got a gradient of no input")
+            continue
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{note} {name}: {g.dtype} {tuple(g.shape)}, want {w.dtype} "
+              f"{tuple(w.shape)}")
+        ulp = BF16_ULP if w.dtype == torch.bfloat16 else 0.0
+        if name in SCAN_BWD_ELEMENTWISE:
+            out[name] = _scan_close(g, w, f"{note} {name}", ulp)
+            continue
+        g, w = g.float(), w.float()
+        diff = (g - w).abs()
+        scale = float(w.abs().max())
+        check(bool(torch.isfinite(g).all()) and bool(
+            (diff <= SCAN_TOL * scale + ulp * w.abs()).all()),
+            f"{note} {name}: off by {float(diff.max())} (max|plain| "
+            f"{scale})")
+        out[name] = float(diff.max())
+        rel[name] = float(diff.max()) / max(scale, 1e-30)
+    return {**out, "relative": rel}
+
+
 def phase_scan() -> dict:
-    """The selective-scan kernel's two entry points against their plain
+    """The selective-scan kernel's three entry points against their plain
     versions on the card, fp32 and bf16 inputs: the reduced shapes
     (d_state 4 and 8, S not a multiple of the 256-step chunk, S = 1) and
     one falcon-mamba-7b layer (B 2, S 2048, d_in 8192, d_state 16) from a
@@ -2709,18 +2800,24 @@ def phase_scan() -> dict:
     reference's own tolerance for its chunked scan against the stepwise
     decode); the fused one (softplus, dt's bias, the D skip, the silu(z)
     gate, z a strided half of in_proj's output) on h_last and out (the
-    same, plus one bf16 ulp in bf16).  At the falcon-mamba-7b layer two
-    launches of each give the same bits; a gradient asked of either on
-    the card raises."""
+    same, plus one bf16 ulp in bf16); the fused one with its tile states
+    the same bits as without; the fused backward on every gradient
+    (SCAN_BWD_ELEMENTWISE / SCAN_BWD_REDUCED), from h0 where the case has
+    one and from a gradient of h_last on SCAN_BWD_DH_LAST's cases.  At
+    the falcon-mamba-7b layer two launches of each give the same bits.
+    A gradient asked of the fused entry point runs the forward and the
+    backward kernel; one asked of the bare scan raises."""
     import torch
     from repro_torch.kernels import ref, selective_scan as ss
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 21)
     ss.reset_launches()
     err = {n: {"y": 0.0, "h_last": 0.0, "fused_out": 0.0,
-               "fused_h_last": 0.0} for n in ("float32", "bfloat16")}
+               "fused_h_last": 0.0, "backward": {}}
+           for n in ("float32", "bfloat16")}
     cases, calls = [], {"selective_scan_forward": 0,
-                        "selective_scan_fused": 0}
+                        "selective_scan_fused": 0,
+                        "selective_scan_fused_backward": 0}
     for note, (B, S, d_in, st, h0_zero) in SCAN_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
@@ -2756,23 +2853,69 @@ def phase_scan() -> dict:
                 calls["selective_scan_fused"] += 1
                 check(torch.equal(h2, h_k) and torch.equal(o2, o_k),
                       f"fused {note} {name}: two launches differ")
+            del h_p, o_p
+            # the backward, from the forward's tile states
+            h_s, o_s, states = ss.selective_scan_fused_forward(
+                *fargs, save_states=True)
+            calls["selective_scan_fused"] += 1
+            check(torch.equal(h_s, h_k) and torch.equal(o_s, o_k),
+                  f"fused {note} {name}: the forward with states differs")
+            del h_s, o_s, h_k, o_k
+            dout = torch.randn((B, S, d_in), generator=gen,
+                               device=DEV).to(dtype)
+            dh_last = torch.randn((B, d_in, st), generator=gen, device=DEV) \
+                if note in SCAN_BWD_DH_LAST else None
+            g_k = ss.selective_scan_fused_backward(*fargs, dout, dh_last,
+                                                   states)
+            calls["selective_scan_fused_backward"] += 1
+            g_p = ref.selective_scan_fused_backward(*fargs, dout, dh_last)
+            e = _bwd_close(g_k, g_p, f"backward {note} {name}")
+            acc = err[name]["backward"]
+            for k, v in e.items():
+                if k == "relative":
+                    rel = acc.setdefault("relative", {})
+                    for kk, vv in v.items():
+                        rel[kk] = max(rel.get(kk, 0.0), vv)
+                else:
+                    acc[k] = max(acc.get(k, 0.0), v)
+            del g_p
+            if twice:
+                g2 = ss.selective_scan_fused_backward(*fargs, dout, dh_last,
+                                                      states)
+                calls["selective_scan_fused_backward"] += 1
+                check(all((a is None and b is None) or torch.equal(a, b)
+                          for a, b in zip(g2, g_k)),
+                      f"backward {note} {name}: two launches differ")
+                del g2
             cases.append(f"{note} {name}")
-            del fargs, h_k, o_k, h_p, o_p
+            del fargs, g_k, states, dout, dh_last
+    # a gradient asked of the fused entry point: SelectiveScanFusedFn's
+    # forward (with states) and backward kernels, one launch each
+    fargs = list(_fused_inputs(1, 40, 64, 4, torch.float32, gen, True))
+    fargs[1] = fargs[1].requires_grad_(True)
+    _, out = ss.selective_scan_fused(*fargs)
+    out.sum().backward()
+    calls["selective_scan_fused"] += 1
+    calls["selective_scan_fused_backward"] += 1
+    check(bool(torch.isfinite(fargs[1].grad).all()),
+          "fused: the gradient through SelectiveScanFusedFn is not finite")
     torch.cuda.synchronize()
     check(ss.launches == calls, f"scan: launches {ss.launches}, want {calls}")
-    raised = {
-        "selective_scan": _grad_raises(ss.selective_scan, _scan_inputs(
-            1, 8, 64, 4, torch.float32, gen, True), 1),
-        "selective_scan_fused": _grad_raises(
-            ss.selective_scan_fused, _fused_inputs(
-                1, 8, 64, 4, torch.float32, gen, True), 1)}
-    check(all(raised.values()),
-          f"scan: a gradient asked on the card did not raise: {raised}")
+    raised = _grad_raises(ss.selective_scan, _scan_inputs(
+        1, 8, 64, 4, torch.float32, gen, True), 1)
+    check(raised, "scan: a gradient asked of the bare scan on the card "
+                  "did not raise")
     out = {"phase": "scan", "cases": cases, "max_abs_err": err,
            "launches": calls,
            "tolerance": f"{SCAN_TOL} + {SCAN_TOL} * |plain| (+ {BF16_ULP} "
                         f"* |plain| on bf16 out)",
-           "grad_on_card_raises": raised}
+           "backward_tolerance": {
+               "elementwise": f"{SCAN_TOL} + {SCAN_TOL} * |plain| (+ "
+                              f"{BF16_ULP} * |plain| in bf16): "
+                              f"{', '.join(SCAN_BWD_ELEMENTWISE)}",
+               "reduced": f"{SCAN_TOL} * max|plain| (+ {BF16_ULP} * |plain| "
+                          f"in bf16): {', '.join(SCAN_BWD_REDUCED)}"},
+           "bare_grad_on_card_raises": raised}
     emit(out)
     return out
 
@@ -2806,6 +2949,40 @@ def scan_bound_ms(B: int, S: int, d_in: int, st: int, in_bytes: int,
     return t[by], ("bytes" if by == "bytes" else "operations"), t
 
 
+def scan_bwd_bound_ms(B: int, S: int, d_in: int, st: int,
+                      in_bytes: int) -> tuple:
+    """Least time for one layer's fused-scan backward as training runs it
+    (h0 = 0, no gradient of h_last), counted as ``scan_bound_ms`` counts
+    the forward's.  Bytes: the entry point's inputs read once, dt, x, z,
+    dout, Bm, Cm, dt's bias (model dtype), A, D and the forward's saved
+    states (fp32, one (d_in, st) a 16-step tile a sequence, which the
+    reverse walk needs), and its outputs written once, ddt, dx, dz, dBm,
+    dCm, ddt_bias (model dtype), dA and dD (fp32).  MUFU operations: the
+    recomputed state exp per (b, t, channel, state), and per (b, t,
+    channel) softplus's exp and log, its derivative's reciprocal (sigmoid
+    from the same exp) and one sigmoid of z for silu and silu' (as one
+    tanh); fp32: 23 operations per (b, t, channel, state) (5 of the
+    recompute, 18 of the adjoint and its sums), 14 per (b, t, channel).
+    Returns (ms, bound_by, the three times); the times also hold
+    ``design_bytes``, the ms this design's workspace takes at the same
+    rate and the bound leaves out: dB | dC's per-block partials (d_in / 32
+    of (B, S, 2 st) fp32) and dA, dD, ddt_bias's per-sequence ones,
+    written and read back once."""
+    elems, chan = B * S * d_in * st, B * S * d_in
+    n_tiles, n_blk = -(-S // 16), -(-d_in // 32)
+    nbytes = (chan * 7 * in_bytes + 2 * 2 * B * S * st * in_bytes
+              + d_in * 2 * (st * 4 + 4 + in_bytes)
+              + B * n_tiles * d_in * st * 4)
+    design = (2 * n_blk * B * S * 2 * st * 4 + 2 * B * d_in * (st + 2) * 4)
+    sfu, fp32 = elems + 4 * chan, 23.0 * elems + 14.0 * chan
+    t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+         "exp": sfu / SFU_EXP_PER_S * 1e3,
+         "fp32": fp32 / FP32_FLOP_PER_S * 1e3}
+    by = max(t, key=t.get)
+    t["design_bytes"] = design / HBM_BYTES_PER_S * 1e3
+    return t[by], ("bytes" if by == "bytes" else "operations"), t
+
+
 def _unfused(h0, dt, Bm, Cm, A, xc, D, z, dt_bias):
     """The chain the fused entry point replaces, as ``_mamba_inner`` ran
     it on the card before the fusion: dt's bias and softplus, the bare
@@ -2829,8 +3006,13 @@ def scan_numbers(card: str) -> dict:
     entry point (kernel ms by CUDA events, device ms by the profiler, the
     plain version's ms, the bound) and, under ``fused``, the main path's
     fused one: the same, and ``unfused_ms`` / ``unfused_device_ms``, the
-    bare kernel with the PyTorch passes the fused one replaces.  No single
-    PyTorch call computes either, so there is no library time."""
+    bare kernel with the PyTorch passes the fused one replaces, and its
+    time with its tile states written (training's forward) and without,
+    in turns; under ``backward`` the fused entry point's backward as
+    training runs it (h0 = 0, no gradient of h_last): kernel ms, device
+    ms by kernel (the backward and the sums of its partials), the plain
+    backward's ms, its bound.  No single PyTorch call computes any of them, so there
+    is no library time."""
     import torch
     from repro_torch.kernels import ref, selective_scan as ss
     from repro_torch.models import get_config
@@ -2867,8 +3049,32 @@ def scan_numbers(card: str) -> dict:
         "unfused_device_ms": sum(_device_ms(unfused).values()),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "bound_parts_ms": parts}
+    # the forward with its tile states (as training runs it) and without
+    # (a prefill's), in turns; then the backward as training runs it
+    # (h0 = 0, no gradient of h_last)
+    fwd = lambda: ss.selective_scan_fused_forward(*fargs)
+    fwd_s = lambda: ss.selective_scan_fused_forward(*fargs,
+                                                    save_states=True)
+    turns = [_cuda_ms(f, iters=20) for f in (fwd, fwd_s, fwd_s, fwd)]
+    rec["fused"]["without_states_ms"] = [turns[0], turns[3]]
+    rec["fused"]["with_states_ms"] = [turns[1], turns[2]]
+    _, _, states = fwd_s()
+    dout = torch.randn((B, S, d_in), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    bwd = lambda: ss.selective_scan_fused_backward(*fargs, dout, None,
+                                                   states)
+    by_kernel = _device_ms(bwd)
+    b_ms, b_by, parts = scan_bwd_bound_ms(B, S, d_in, st, 2)
+    rec["backward"] = {
+        "ms": _cuda_ms(bwd, iters=20),
+        "device_ms": sum(by_kernel.values()) if by_kernel else None,
+        "device_ms_by_kernel": by_kernel,
+        "plain_ms": _cuda_ms(lambda: ref.selective_scan_fused_backward(
+            *fargs, dout), iters=2, warmup=1),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "bound_parts_ms": parts}
     emit({"scan_numbers": rec})
-    del fargs
+    del fargs, states, dout
     torch.cuda.empty_cache()
     return rec
 
@@ -2922,7 +3128,7 @@ def _generate(argv: list, swa_want: int, scan_want: int, vocab: int,
     """``launch.generate`` with ``argv``: a warm-up run (unless the caller
     warmed the same shapes up), then the measured one, whose prefill must
     launch ``swa_want`` SWA forwards and ``scan_want`` fused scans (and no
-    SWA backward, no bare scan); its ids in the vocab.  Returns (warm-up result or None,
+    SWA or scan backward, no bare scan); its ids in the vocab.  Returns (warm-up result or None,
     measured result, launches)."""
     import torch
     from repro_torch.kernels import selective_scan as ss, swa_attention as sw
@@ -2939,7 +3145,8 @@ def _generate(argv: list, swa_want: int, scan_want: int, vocab: int,
                        "swa_attention_backward_dkdv": 0,
                        "swa_attention_backward_dq": 0,
                        "selective_scan_forward": 0,
-                       "selective_scan_fused": scan_want},
+                       "selective_scan_fused": scan_want,
+                       "selective_scan_fused_backward": 0},
           f"generation launched {launches}, want {swa_want} SWA forwards "
           f"and {scan_want} scans")
     ids = np.asarray(run["ids"])
@@ -3169,11 +3376,12 @@ def zoo_numbers(card: str) -> dict:
     return out
 
 
-def _train_batch(cfg, seed: int) -> dict:
+def _train_batch(cfg, seed: int, B: int = TRAIN_BATCH,
+                 S: int = TRAIN_SEQ) -> dict:
     import torch
     rng = np.random.default_rng(seed)
     return {name: torch.from_numpy(rng.integers(
-        0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(DEV)
+        0, cfg.vocab, (B, S)).astype(np.int32)).to(DEV)
         for name in ("tokens", "labels")}
 
 
@@ -3206,6 +3414,36 @@ def _plain_swa_fn():
     return PlainSWA
 
 
+def _plain_scan_fn():
+    """A stand-in for ``SelectiveScanFusedFn`` built from the plain fused
+    forward and the plain backward (``kernels/ref.py``): the falcon-mamba
+    fp32 check's substitute, made here and never a switch of the
+    package."""
+    import torch
+    from repro_torch.kernels import ref
+
+    class PlainScan(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, h0, dt, Bm, Cm, A, xc, D, z, dt_bias, chunk):
+            ctx.save_for_backward(h0, dt, Bm, Cm, A, xc, D, z, dt_bias)
+            ctx.set_materialize_grads(False)
+            return ref.selective_scan_fused(h0, dt, Bm, Cm, A, xc, D, z,
+                                            dt_bias, chunk)
+
+        @staticmethod
+        def backward(ctx, dh_last, dout):
+            saved = ctx.saved_tensors
+            if dout is None:
+                dout = torch.zeros(saved[1].shape, dtype=saved[5].dtype,
+                                   device=saved[1].device)
+            grads = ref.selective_scan_fused_backward(*saved, dout, dh_last)
+            return (*(g if need else None
+                      for g, need in zip(grads, ctx.needs_input_grad)),
+                    None)
+
+    return PlainScan
+
+
 def _loss_and_grads(model, batch):
     import torch
     for p in model.params.parameters():
@@ -3228,87 +3466,122 @@ def _swa_step_launches(n_layers: int, steps: int) -> dict:
             "swa_attention_backward_dq": n_layers * steps}
 
 
-def phase_train(card: str) -> dict:
-    """Dense-LM training at h2o-danube-1.8b's published width.
+def _scan_step_launches(n_layers: int, steps: int) -> dict:
+    """Selective-scan launches of ``steps`` training steps under remat
+    "full": the fused forward twice a layer (the step, whose saved states
+    the checkpoint drops, and its recompute), its backward once, the bare
+    scan never."""
+    return {"selective_scan_forward": 0,
+            "selective_scan_fused": 2 * n_layers * steps,
+            "selective_scan_fused_backward": n_layers * steps}
 
-    fp32: a 2-layer h2o-danube at full width, B = 1, S = 6144: loss and
-    every gradient leaf of the kernels' step against the same step with
-    the plain SWA forward and backward substituted.  bf16, the main path:
-    ``launch.train``'s main (24 layers, remat "full"), a warm-up run then
-    the measured one: step ms, tokens/s, peak memory, the SWA launches (48
-    forwards and 24 of each backward entry point a step), every loss
-    finite; then steps on one repeated batch under torch.profiler: the
-    device-busy share, device ms by kernel group, and losses that fall."""
+
+def _train_launches() -> dict:
+    from repro_torch.kernels import selective_scan as ss, swa_attention as sw
+    return {**sw.launches, **ss.launches}
+
+
+def _reset_train_launches() -> None:
+    from repro_torch.kernels import selective_scan as ss, swa_attention as sw
+    sw.reset_launches()
+    ss.reset_launches()
+
+
+def _step_launches(arch: str, n_layers: int, steps: int) -> dict:
+    """Every SWA and scan entry point's launches of ``steps`` steps of
+    ``arch``: its own kernel's, and none of the other's."""
+    swa, scan = _swa_step_launches(n_layers, steps), \
+        _scan_step_launches(n_layers, steps)
+    if arch == MAMBA_ARCH:
+        return {**{k: 0 for k in swa}, **scan}
+    return {**swa, **{k: 0 for k in scan}}
+
+
+def _train_fp32_check(arch: str, B: int, S: int, seed: int, module,
+                      attr: str, plain_fn) -> dict:
+    """fp32, ``TRAIN_CHECK_LAYERS`` layers at full width: loss and every
+    gradient leaf of the kernels' step against the same step with
+    ``module.attr`` (the kernels' autograd Function) swapped for
+    ``plain_fn`` (the plain forward and backward) for one step."""
     import torch
-    from repro_torch.kernels import swa_attention as sw
-    from repro_torch.launch import train
     from repro_torch.models import build, get_config
-    from repro_torch.models.steps import make_train_step
-
-    # ---------- fp32: the kernels' step against the plain step ---------- #
     t0 = time.perf_counter()
-    cfg32 = get_config(LM_ARCH).with_(dtype="float32",
-                                      n_layers=TRAIN_CHECK_LAYERS)
+    cfg32 = get_config(arch).with_(dtype="float32",
+                                   n_layers=TRAIN_CHECK_LAYERS)
     model = build(cfg32).init(torch.Generator(device=DEV).manual_seed(SEED))
     model.params.requires_grad_(True)
-    batch = _train_batch(cfg32, SEED + 14)
-    sw.reset_launches()
+    batch = _train_batch(cfg32, seed, B, S)
+    _reset_train_launches()
     loss_k, grads_k = _loss_and_grads(model, batch)
-    launches32 = dict(sw.launches)
-    check(launches32 == _swa_step_launches(TRAIN_CHECK_LAYERS, 1),
-          f"fp32 step launched {launches32}")
-    kernel_fn = sw.SWAAttentionFn
-    sw.SWAAttentionFn = _plain_swa_fn()
+    launches = _train_launches()
+    check(launches == _step_launches(arch, TRAIN_CHECK_LAYERS, 1),
+          f"{arch} fp32 step launched {launches}")
+    kernel_fn = getattr(module, attr)
+    setattr(module, attr, plain_fn)
     try:
         loss_p, grads_p = _loss_and_grads(model, batch)
     finally:
-        sw.SWAAttentionFn = kernel_fn
-    check(sw.launches == launches32, "the plain step launched a kernel")
+        setattr(module, attr, kernel_fn)
+    check(_train_launches() == launches,
+          f"{arch}: the plain step launched a kernel")
     check(abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p),
-          f"fp32 loss {loss_k} against plain {loss_p}")
+          f"{arch} fp32 loss {loss_k} against plain {loss_p}")
     worst, worst_leaf = 0.0, None
     for name, g in grads_p.items():
         scale = float(g.abs().max())
         err = float((grads_k[name] - g).abs().max())
         check(bool(torch.isfinite(grads_k[name]).all())
               and err <= TRAIN_GRAD_TOL * max(scale, 1e-30),
-              f"fp32 grad {name}: off by {err} (max |g| {scale})")
+              f"{arch} fp32 grad {name}: off by {err} (max |g| {scale})")
         if err / max(scale, 1e-30) > worst:
             worst, worst_leaf = err / max(scale, 1e-30), name
-    fp32 = {"layers": TRAIN_CHECK_LAYERS, "loss_kernel": loss_k,
-            "loss_plain": loss_p, "leaves": len(grads_p),
-            "worst_grad_err_over_max": worst, "worst_leaf": worst_leaf,
-            "launches": launches32, "seconds": time.perf_counter() - t0,
-            "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
-                          "grad": f"{TRAIN_GRAD_TOL} * max|g_plain| a leaf"}}
-    emit({"train_fp32_check": fp32})
+    out = {"arch": arch, "layers": TRAIN_CHECK_LAYERS, "batch": B, "seq": S,
+           "loss_kernel": loss_k, "loss_plain": loss_p,
+           "leaves": len(grads_p), "worst_grad_err_over_max": worst,
+           "worst_leaf": worst_leaf, "launches": launches,
+           "seconds": time.perf_counter() - t0,
+           "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
+                         "grad": f"{TRAIN_GRAD_TOL} * max|g_plain| a leaf"}}
     del model, batch, grads_k, grads_p
     torch.cuda.empty_cache()
+    return out
 
-    # -------------- main path: bf16 training at full width -------------- #
-    argv = ["--arch", LM_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
-            str(TRAIN_SEQ), "--seed", str(SEED), "--device", DEV]
-    warm = train.main(argv + ["--steps", str(TRAIN_WARM_STEPS)])
+
+def _train_main_path(arch: str, B: int, S: int, warm_steps: int,
+                     steps: int, seed: int, card: str) -> dict:
+    """bf16 at full width through ``launch.train``'s main: a warm-up run,
+    then the measured one (step ms, tokens/s, peak memory, its launches:
+    ``_step_launches``, every loss finite); then steps on one repeated
+    batch under torch.profiler (the device-busy share, device ms by
+    kernel group), whose losses must fall."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import build, get_config
+    from repro_torch.models.steps import make_train_step
+
+    argv = ["--arch", arch, "--batch", str(B), "--seq", str(S), "--seed",
+            str(SEED), "--device", DEV]
+    warm = train.main(argv + ["--steps", str(warm_steps)])
     torch.cuda.empty_cache()
-    sw.reset_launches()
-    run = train.main(argv + ["--steps", str(TRAIN_STEPS)])
+    _reset_train_launches()
+    run = train.main(argv + ["--steps", str(steps)])
     torch.cuda.synchronize()
-    launches = dict(sw.launches)
-    n_layers = get_config(LM_ARCH).n_layers
-    check(launches == run["swa_launches"]
-          == _swa_step_launches(n_layers, TRAIN_STEPS),
-          f"training launched {launches}, want "
-          f"{_swa_step_launches(n_layers, TRAIN_STEPS)}")
+    launches = _train_launches()
+    n_layers = get_config(arch).n_layers
+    want = _step_launches(arch, n_layers, steps)
+    check(launches == want
+          and {**run["swa_launches"], **run["scan_launches"]} == want,
+          f"{arch} training launched {launches}, want {want}")
     check(all(np.isfinite(warm["losses"] + run["losses"])),
-          f"a loss is not finite: {warm['losses']} {run['losses']}")
+          f"{arch}: a loss is not finite: {warm['losses']} {run['losses']}")
     torch.cuda.empty_cache()
 
     # ------- one repeated batch: the loss falls; the profiler's view ----- #
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     model = build(cfg).init(torch.Generator(device=DEV).manual_seed(SEED))
     step, optimizer = make_train_step(model)
     state = optimizer.init(dict(model.params.named_parameters()))
-    batch = _train_batch(cfg, SEED + 15)
+    batch = _train_batch(cfg, seed, B, S)
     losses = []
 
     def one_step():
@@ -3318,17 +3591,54 @@ def phase_train(card: str) -> dict:
 
     busy = _busy_share(one_step, steps=TRAIN_REPEAT_STEPS)
     losses = [float(x) for x in losses]
-    check(all(np.isfinite(losses)), f"repeated batch: losses {losses}")
+    check(all(np.isfinite(losses)), f"{arch} repeated batch: {losses}")
     check(all(b < a for a, b in zip(losses[:5], losses[1:5])),
-          f"repeated batch: the loss does not fall: {losses}")
+          f"{arch} repeated batch: the loss does not fall: {losses}")
     del model, state, batch, step, optimizer
     torch.cuda.empty_cache()
+    return {"arch": arch, "card": card,
+            "run": {k: v for k, v in run.items() if k != "accs"},
+            "warmup": {k: warm[k] for k in ("step_ms", "losses")},
+            "launches": launches,
+            "launches_per_step": _step_launches(arch, n_layers, 1),
+            "repeated_batch_losses": losses, "profile": busy}
+
+
+def phase_train(card: str) -> dict:
+    """LM training at published widths: h2o-danube-1.8b (the SWA kernels)
+    and falcon-mamba-7b (the fused scan and its backward).
+
+    Each arch, fp32: 2 layers at full width, the kernels' step against the
+    same step with the plain forward and backward substituted (the SWA
+    Function for h2o at B = 1, S = 6144; the scan Function for
+    falcon-mamba at B = 1, S = 2048): loss and every gradient leaf.  bf16,
+    the main path, all layers, remat "full": ``launch.train``'s main, a
+    warm-up run then the measured one (h2o: B 1, S 6144, 48 SWA forwards
+    and 24 of each backward entry point a step; falcon-mamba: B 2, S
+    2048, 128 fused scans and 64 backwards a step): step ms, tokens/s,
+    peak memory, every loss finite; then steps on one repeated batch under
+    torch.profiler: the device-busy share, device ms by kernel group, and
+    losses that fall."""
+    from repro_torch.kernels import selective_scan as ss, swa_attention as sw
+
+    fp32 = _train_fp32_check(LM_ARCH, TRAIN_BATCH, TRAIN_SEQ, SEED + 14, sw,
+                             "SWAAttentionFn", _plain_swa_fn())
+    emit({"train_fp32_check": fp32})
+    h2o = _train_main_path(LM_ARCH, TRAIN_BATCH, TRAIN_SEQ,
+                           TRAIN_WARM_STEPS, TRAIN_STEPS, SEED + 15, card)
+    emit({"train_h2o": {k: v for k, v in h2o.items() if k != "run"}})
+    mamba32 = _train_fp32_check(MAMBA_ARCH, MAMBA_CHECK_BATCH,
+                                MAMBA_TRAIN_SEQ, SEED + 16, ss,
+                                "SelectiveScanFusedFn", _plain_scan_fn())
+    emit({"train_mamba_fp32_check": mamba32})
+    mamba = _train_main_path(MAMBA_ARCH, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ,
+                             TRAIN_WARM_STEPS, MAMBA_TRAIN_STEPS, SEED + 17,
+                             card)
     out = {"phase": "train", "card": card, "fp32_check": fp32,
-           "run": {k: v for k, v in run.items() if k != "accs"},
-           "warmup": {k: warm[k] for k in ("step_ms", "losses")},
-           "launches": launches,
-           "launches_per_step": _swa_step_launches(n_layers, 1),
-           "repeated_batch_losses": losses, "profile": busy}
+           **{k: h2o[k] for k in ("run", "warmup", "launches",
+                                  "launches_per_step",
+                                  "repeated_batch_losses", "profile")},
+           "mamba": {**mamba, "fp32_check": mamba32}}
     emit(out)
     return out
 
@@ -3455,8 +3765,8 @@ def _phase_in_child(name: str, tmp: str, card: str) -> dict:
 
 
 def _check_device_times(numbers: dict) -> None:
-    """A blind profiler fails the run: every kge and SWA row of the
-    numbers phase must carry a device ms."""
+    """A blind profiler fails the run: every kge, SWA and selective-scan
+    row of the numbers phase must carry a device ms."""
     rows = [(f"kge_score {part} {r['model']}", r[f"{part}_device_ms"])
             for r in numbers["kge"]["kge_rows"]
             for part in ("forward", "backward")]
@@ -3470,7 +3780,9 @@ def _check_device_times(numbers: dict) -> None:
     rows += [(f"swa backward {r['dtype']} B={r['B']}", r["device_ms"])
              for r in numbers["swa_backward"]["rows"]]
     rows += [("selective scan", numbers["scan"]["device_ms"]),
-             ("selective scan fused", numbers["scan"]["fused"]["device_ms"])]
+             ("selective scan fused", numbers["scan"]["fused"]["device_ms"]),
+             ("selective scan backward",
+              numbers["scan"]["backward"]["device_ms"])]
     blind = [name for name, ms in rows if not ms]
     check(not blind, f"numbers: no device time for {blind}")
 
@@ -4218,7 +4530,9 @@ def _kernel_group(name: str) -> str:
                        ("swa_bwd_dot", "swa bwd_dot"),
                        ("swa_bwd_dkdv", "swa backward_dkdv"),
                        ("swa_bwd_dq", "swa backward_dq"),
-                       ("selective_scan_kernel", "selective scan")):
+                       ("selective_scan_kernel", "selective scan"),
+                       ("selective_scan_bwd_kernel",
+                        "selective scan backward")):
         if key in n:
             return group
     if any(t in n for t in ("gemm", "xmma", "cutlass", "cublas", "nvjet",
@@ -4250,7 +4564,9 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
     ``launches_whisper`` and ``launches_llava`` those phases' measured
     prefills.  The selective scan's are the falcon-mamba-7b generation
     run's prefill: 64 fused launches and none of the bare entry point,
-    whose entry also carries the scan phase's launches."""
+    whose entry also carries the scan phase's launches; the fused one's
+    ``launches_train`` and its backward's ``launches`` are the measured
+    falcon-mamba-7b training run's (128 and 64 a step)."""
     launches = serve_out["launches"]
     by = {(r["N"], r["Q"], r["k"]): r for r in numbers["rows"]}
     out = []
@@ -4395,11 +4711,39 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
                            err["bfloat16"]["fused_h_last"]),
         "max_abs_err_fp32": max(err["float32"]["fused_out"],
                                 err["float32"]["fused_h_last"]),
+        "launches_train": train["mamba"]["launches"]["selective_scan_fused"],
         "ms": f["ms"], "device_ms": f["device_ms"],
+        "without_states_ms": f["without_states_ms"],
+        "with_states_ms": f["with_states_ms"],
         "plain_ms": f["plain_ms"], "unfused_ms": f["unfused_ms"],
         "unfused_device_ms": f["unfused_device_ms"],
         "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
         "bound_parts_ms": f["bound_parts_ms"], "library_ms": None})
+    # its backward at the same shape, as training runs it; launches: the
+    # measured falcon-mamba-7b training run's (one a layer a step)
+    b = r["backward"]
+    absolute = lambda e: max(v for k, v in e["backward"].items()
+                             if k != "relative")
+    out.append({
+        "name": f"selective_scan_fused_backward (recompute from the tile "
+                f"states, reverse scan, the gate's, D skip's and "
+                f"softplus's gradients; {shape})",
+        "route": "cuda", "source": SCAN_SOURCE,
+        "replaces": "src/repro/models/blocks.py:605, 642-659 "
+                    "(jax.value_and_grad through the jnp scan and tail; "
+                    "no Pallas kernel)",
+        "launches": train["mamba"]["launches"][
+            "selective_scan_fused_backward"],
+        "launches_per_step": train["mamba"]["launches_per_step"][
+            "selective_scan_fused_backward"],
+        "max_abs_err": absolute(err["bfloat16"]),
+        "max_abs_err_fp32": absolute(err["float32"]),
+        "max_err_over_max_reduced": err["bfloat16"]["backward"]["relative"],
+        "ms": b["ms"], "device_ms": b["device_ms"],
+        "device_ms_by_kernel": b["device_ms_by_kernel"],
+        "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"], "bound_parts_ms": b["bound_parts_ms"],
+        "library_ms": None})
     out.append({
         "name": f"selective_scan_forward (bare scan; {shape})",
         "route": "cuda", "source": SCAN_SOURCE, "replaces": SCAN_REPLACES,

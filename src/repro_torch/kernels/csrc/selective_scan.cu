@@ -54,8 +54,9 @@
 //     it starts from; pass 2 adds <C * cum, h0> to each step's local y
 //     (h_t = hl_t + cum_t h0; no exp is computed twice) and stores the
 //     lane's partial y (4 states).  The last run's end state, broadcast
-//     by a shuffle, is the next tile's: these tile-boundary states are
-//     what a backward kernel would save.
+//     by a shuffle, is the next tile's.  With a `states` buffer (the
+//     fused entry point under autograd; an instance of its own) the
+//     state each tile starts from is stored there for the backward.
 //   * Epilogue, once a (t, channel pair): the P partial y summed, the D
 //     skip and the silu(z) gate in fp32, out stored in the model's dtype
 //     as coalesced row segments.  It runs one tile late, after the next
@@ -262,8 +263,10 @@ __device__ __forceinline__ void issue(const ScanMaps& maps, unsigned char* smem,
 // d_state 16: 1,024 threads an SM (64 registers a thread), so that at
 // falcon-mamba-7b's width its 512 blocks of 256 threads are all resident
 // at once on 132 SMs.  The test-size state sizes (4, 8) take 768 (85
-// registers): at 64 their builds spill.
-template <int ST, typename In, bool FUSED>
+// registers): at 64 their builds spill.  STATES (fused only) writes each
+// tile's starting state for the backward; without it the instance is
+// the prefill's, its code untouched by the option.
+template <int ST, typename In, bool FUSED, bool STATES>
 __global__ void __launch_bounds__(Geo<ST, In, FUSED>::THREADS,
                                  (ST == 16 ? 1024 : 768) /
                                      Geo<ST, In, FUSED>::THREADS)
@@ -273,7 +276,8 @@ selective_scan_kernel(const __grid_constant__ ScanMaps maps,
                       const float* __restrict__ D,
                       const In* __restrict__ dt_bias,
                       typename Geo<ST, In, FUSED>::Out* __restrict__ out,
-                      float* __restrict__ h_last, int S, int d_in) {
+                      float* __restrict__ h_last,
+                      float* __restrict__ states, int S, int d_in) {
   using G = Geo<ST, In, FUSED>;
   using Dt = typename G::Dt;
   constexpr int P = G::P;
@@ -454,6 +458,14 @@ selective_scan_kernel(const __grid_constant__ ScanMaps maps,
       }
     }
     const float4 hv = ld4(s_h);
+    // the state tile k starts from, for the backward (fused, with grad)
+    if constexpr (STATES) {
+      if (live && run == 0)
+        *reinterpret_cast<float4*>(states +
+                                   (((size_t)b * n_tiles + k) * d_in + c) *
+                                       ST +
+                                   part * SPT) = hv;
+    }
     float hs[SPT], hn[SPT];
 #pragma unroll
     for (int j = 0; j < SPT; ++j) {
@@ -461,8 +473,7 @@ selective_scan_kernel(const __grid_constant__ ScanMaps maps,
       const float end = fmaf(cum[j], h, hl[j]);
       const float prev = __shfl_up_sync(FULL, end, 1 << RUN_SHIFT);
       hs[j] = run == 0 ? h : prev;
-      // the tile-boundary state, from the last run to every run: what a
-      // backward kernel would save
+      // the tile-boundary state, from the last run to every run
       hn[j] = __shfl_sync(FULL, end, ((R - 1) << RUN_SHIFT) | q);
     }
     const float4 hnv = make_float4(hn[0], hn[1], hn[2], hn[3]);
@@ -483,6 +494,275 @@ selective_scan_kernel(const __grid_constant__ ScanMaps maps,
   }
   __syncthreads();
   epilogue(n_tiles - 1);
+}
+
+// ---- backward of the fused entry point -------------------------------- //
+// The gradient of every input of one layer's fused tail (the contract is
+// ref.py::selective_scan_fused_backward), in fp32, from the output's
+// gradient dout (and h_last's, or 0) and the forward's `states`, the
+// state each 16-step tile starts from.  With g = dout silu(z) and a_t =
+// exp(dtf_t A), the adjoint runs from the last step to the first:
+//
+//   dh_t    = C_t g_t + a_{t+1} dh_{t+1}     (dh past the end: dh_last)
+//   dC_t    = sum over channels of g_t h_t,  dB_t = of dh_t dtf_t x_t
+//   dx_t    = g_t D + dtf_t sum over states of dh_t B_t
+//   ddtf_t  = sum over states of dh_t (A a_t h_{t-1} + B_t x_t)
+//   dA     += dh_t dtf_t a_t h_{t-1},        dD += g_t x_t
+//   dz_t    = dout_t (y_t + D x_t) silu'(z_t),  ddt = ddtf softplus'(v)
+//
+// Design (a simple one: the forward's grid, time sequential in a tile).
+// A block owns CPB = 32 channels of one sequence, a thread one (channel,
+// state), so a channel's states sit on st neighbouring lanes.  It walks
+// the tiles from the last to the first; for each:
+//   * prologue, once a (t, channel): v = dt + bias rounded as the
+//     forward rounds it, dtf = softplus(v) as the forward computes it,
+//     softplus'(v), dtf x, silu(z) and silu'(z) against dout, into shared
+//     memory; Bm | Cm to fp32;
+//   * recompute: each thread runs the tile's 16 steps from the saved
+//     state, keeping h_t and a_t in registers; y_t by a shuffle sum over
+//     the channel's lanes;
+//   * reverse: the 16 steps backwards, the adjoint dh in a register
+//     carried across tiles with dA; the sums over states by shuffles,
+//     those over channels by shuffles within a warp and then over the
+//     warps in shared memory;
+//   * epilogue: ddt, dx, dz (model dtype) as coalesced rows, and the
+//     block's partial dB | dC over its 32 channels into `dbc_part`.
+// dA, dD and ddt_bias go to per-sequence partials; the caller sums the
+// partials (over blocks, over sequences) afterwards: no float atomics,
+// so two launches give the same bits.
+//
+// What bounds it: like the forward, its MUFU work (the recomputed state
+// exps; softplus, sigmoid and silu once a (t, channel)), its fp32 work
+// and the bytes it moves (inputs, the saved states, the outputs); the
+// shuffles of the reductions, 14 a (t, channel, state) at d_state 16,
+// are what this design spends most on.
+template <int ST>
+struct BwdGeo {
+  static constexpr int THREADS = CPB * ST;        // a thread a (channel, state)
+  static constexpr int WARPS = THREADS / 32;
+  static constexpr int TC = T * CPB;               // floats a (t, channel) buffer
+  // shared memory, in floats: nine (t, channel) buffers (dtf, dtf x, x,
+  // g, gz = dout silu'(z), softplus'(v), y, dx over states, ddtf), B | C,
+  // the per-warp dB | dC, dt's bias and D, the per-thread dD and dbias
+  static constexpr int OFF_BC = 9 * TC;
+  static constexpr int OFF_RED = OFF_BC + T * 2 * ST;
+  static constexpr int OFF_BIAS = OFF_RED + T * WARPS * 2 * ST;
+  static constexpr int OFF_D = OFF_BIAS + CPB;
+  static constexpr int OFF_FIN = OFF_D + CPB;
+  static constexpr int SMEM = (OFF_FIN + 2 * THREADS) * 4;
+  static_assert(32 % ST == 0, "a channel's states within a warp");
+};
+
+struct BwdArgs {
+  const void *dt, *x, *z, *bc, *dt_bias, *dout;
+  const float *A, *D, *dh_last, *states;
+  void *ddt, *dx, *dz;
+  float *dbc_part, *red_part, *dh0;
+  long long bc_stride, z_stride;
+  int B, S, d_in;
+};
+
+template <int ST, typename In>
+__global__ void __launch_bounds__(BwdGeo<ST>::THREADS)
+selective_scan_bwd_kernel(const __grid_constant__ BwdArgs p) {
+  using G = BwdGeo<ST>;
+  constexpr int THREADS = G::THREADS, WARPS = G::WARPS, TC = G::TC;
+  extern __shared__ __align__(16) float sm[];
+  float* s_dtf = sm;
+  float* s_dtx = sm + TC;
+  float* s_x = sm + 2 * TC;
+  float* s_g = sm + 3 * TC;
+  float* s_gz = sm + 4 * TC;
+  float* s_dsp = sm + 5 * TC;
+  float* s_y = sm + 6 * TC;
+  float* s_dxs = sm + 7 * TC;
+  float* s_ddtf = sm + 8 * TC;
+  float* s_bc = sm + G::OFF_BC;
+  float* s_red = sm + G::OFF_RED;
+  float* s_bias = sm + G::OFF_BIAS;
+  float* s_d = sm + G::OFF_D;
+  float* s_fin = sm + G::OFF_FIN;
+
+  const In* dt = static_cast<const In*>(p.dt);
+  const In* xg = static_cast<const In*>(p.x);
+  const In* zg = static_cast<const In*>(p.z);
+  const In* bcg = static_cast<const In*>(p.bc);
+  const In* dog = static_cast<const In*>(p.dout);
+  const In* bias = static_cast<const In*>(p.dt_bias);
+  In* ddt = static_cast<In*>(p.ddt);
+  In* dxg = static_cast<In*>(p.dx);
+  In* dzg = static_cast<In*>(p.dz);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s = tid % ST, ch = tid / ST;         // this thread's (state, channel)
+  const int b = blockIdx.y, c0 = blockIdx.x * CPB, c = c0 + ch;
+  const int S = p.S, d_in = p.d_in;
+  const bool live = c < d_in;
+  const int n_tiles = (S + T - 1) / T;
+  const size_t hi = ((size_t)b * d_in + c) * ST + s;   // (b, c, s) of h
+
+  if (tid < CPB) {
+    const bool ok = c0 + tid < d_in;
+    s_bias[tid] = ok ? to_f(bias[c0 + tid]) : 0.f;
+    s_d[tid] = ok ? p.D[c0 + tid] : 0.f;
+  }
+  const float A = live ? p.A[(size_t)c * ST + s] : 0.f;
+  const float A2 = A * LOG2E;
+  float carry = live && p.dh_last != nullptr ? p.dh_last[hi] : 0.f;
+  float dA = 0.f;
+  // the epilogue's channel is fixed a thread (THREADS a multiple of CPB):
+  // its dD and ddt_bias over the (t, channel) items it takes
+  const int ec = tid % CPB;
+  float dD = 0.f, dbias = 0.f;
+  __syncthreads();
+
+#pragma unroll 1
+  for (int k = n_tiles - 1; k >= 0; --k) {
+    const int t0 = k * T;
+    // ---- prologue, a (t, channel) at a time
+#pragma unroll 1
+    for (int i = tid; i < TC; i += THREADS) {
+      const int t = i / CPB, col = c0 + ec;
+      float dtf = 0.f, dtx = 0.f, xv = 0.f, g = 0.f, gz = 0.f, dsp = 0.f;
+      if (t0 + t < S && col < d_in) {
+        const size_t o = (size_t)(b * S + t0 + t) * d_in + col;
+        const float v = round_as(to_f(dt[o]) + s_bias[ec], In());
+        const bool lin = v > SOFTPLUS_THRESHOLD;
+        dtf = lin ? v : LN2 * lg2(1.f + ex2(v * LOG2E));
+        dsp = lin ? 1.f : rcp(1.f + ex2(-v * LOG2E));
+        xv = to_f(xg[o]);
+        dtx = dtf * xv;
+        const float zv = to_f(zg[(size_t)(b * S + t0 + t) * p.z_stride + col]);
+        const float sg = rcp(1.f + ex2(-zv * LOG2E));
+        const float dov = to_f(dog[o]);
+        g = dov * (zv * sg);
+        gz = dov * (sg * (1.f + zv * (1.f - sg)));
+      }
+      s_dtf[i] = dtf;
+      s_dtx[i] = dtx;
+      s_x[i] = xv;
+      s_g[i] = g;
+      s_gz[i] = gz;
+      s_dsp[i] = dsp;
+    }
+#pragma unroll 1
+    for (int i = tid; i < T * 2 * ST; i += THREADS) {
+      const int t = i / (2 * ST);
+      s_bc[i] = t0 + t < S ? to_f(bcg[(size_t)(b * S + t0 + t) * p.bc_stride +
+                                     i % (2 * ST)])
+                           : 0.f;
+    }
+    __syncthreads();
+
+    // ---- recompute the tile's states from the one it starts from
+    const float h_start =
+        live ? p.states[(((size_t)b * n_tiles + k) * d_in + c) * ST + s]
+             : 0.f;
+    float hs[T], as[T];
+    {
+      float h = h_start;
+#pragma unroll
+      for (int t = 0; t < T; ++t) {
+        const float a = ex2(s_dtf[t * CPB + ch] * A2);
+        h = fmaf(a, h, s_dtx[t * CPB + ch] * s_bc[t * 2 * ST + s]);
+        hs[t] = h;
+        as[t] = a;
+        float yp = h * s_bc[t * 2 * ST + ST + s];
+#pragma unroll
+        for (int off = ST / 2; off > 0; off >>= 1)
+          yp += __shfl_xor_sync(FULL, yp, off);
+        if (s == 0) s_y[t * CPB + ch] = yp;
+      }
+    }
+
+    // ---- the tile's steps backwards
+#pragma unroll
+    for (int t = T - 1; t >= 0; --t) {
+      if (t0 + t >= S) continue;                   // the same for the block
+      const float d = s_dtf[t * CPB + ch], g = s_g[t * CPB + ch];
+      const float Bv = s_bc[t * 2 * ST + s], Cv = s_bc[t * 2 * ST + ST + s];
+      const float hp = t > 0 ? hs[t - 1] : h_start;
+      const float dh = fmaf(Cv, g, carry);
+      const float ahp = as[t] * hp;
+      float dC = g * hs[t];
+      float dB = dh * s_dtx[t * CPB + ch];
+      float dxp = dh * Bv;
+      float ddp = dh * fmaf(A, ahp, Bv * s_x[t * CPB + ch]);
+      dA = fmaf(dh * d, ahp, dA);
+      carry = as[t] * dh;
+#pragma unroll
+      for (int off = ST / 2; off > 0; off >>= 1) {     // over states
+        dxp += __shfl_xor_sync(FULL, dxp, off);
+        ddp += __shfl_xor_sync(FULL, ddp, off);
+      }
+      if (s == 0) {
+        s_dxs[t * CPB + ch] = dxp * d;
+        s_ddtf[t * CPB + ch] = ddp;
+      }
+#pragma unroll
+      for (int off = ST; off < 32; off <<= 1) {        // over the warp's channels
+        dB += __shfl_xor_sync(FULL, dB, off);
+        dC += __shfl_xor_sync(FULL, dC, off);
+      }
+      if (lane < ST) {
+        float* r = s_red + (t * WARPS + warp) * 2 * ST;
+        r[lane] = dB;
+        r[ST + lane] = dC;
+      }
+    }
+    __syncthreads();
+
+    // ---- epilogue: ddt, dx, dz rows; the block's dB | dC
+#pragma unroll 1
+    for (int i = tid; i < TC; i += THREADS) {
+      const int t = i / CPB, col = c0 + ec;
+      if (t0 + t >= S) break;                     // t grows with i
+      if (col < d_in) {
+        const size_t o = (size_t)(b * S + t0 + t) * d_in + col;
+        const float xv = s_x[i], g = s_g[i];
+        const float gv = s_ddtf[i] * s_dsp[i];
+        // y + D x as two roundings, as the forward and the plain version
+        const float yt = __fadd_rn(s_y[i], __fmul_rn(s_d[ec], xv));
+        store1(ddt + o, gv);
+        store1(dxg + o, fmaf(g, s_d[ec], s_dxs[i]));
+        store1(dzg + o, s_gz[i] * yt);
+        dD = fmaf(g, xv, dD);
+        dbias += gv;
+      }
+    }
+#pragma unroll 1
+    for (int i = tid; i < T * 2 * ST; i += THREADS) {
+      const int t = i / (2 * ST), j = i % (2 * ST);
+      if (t0 + t >= S) break;
+      float acc = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) acc += s_red[(t * WARPS + w) * 2 * ST + j];
+      p.dbc_part[(((size_t)blockIdx.x * p.B + b) * S + t0 + t) * 2 * ST + j] =
+          acc;
+    }
+    // the next tile's prologue overwrites what the epilogue reads
+    __syncthreads();
+  }
+
+  // ---- per-sequence partials: dA, dD, ddt_bias; dh0 = a_0 dh_0
+  float* red = p.red_part + (size_t)b * d_in * (ST + 2);
+  if (live) {
+    red[(size_t)c * ST + s] = dA;
+    if (p.dh0 != nullptr) p.dh0[hi] = carry;
+  }
+  s_fin[tid] = dD;
+  s_fin[THREADS + tid] = dbias;
+  __syncthreads();
+  if (tid < CPB && c0 + tid < d_in) {
+    float sd = 0.f, sb = 0.f;
+#pragma unroll 1
+    for (int r = tid; r < THREADS; r += CPB) {
+      sd += s_fin[r];
+      sb += s_fin[THREADS + r];
+    }
+    red[(size_t)d_in * ST + c0 + tid] = sd;
+    red[(size_t)d_in * (ST + 1) + c0 + tid] = sb;
+  }
 }
 
 // ---- host ------------------------------------------------------------- //
@@ -537,15 +817,15 @@ bool encode(CUtensorMap* map, const void* ptr, bool bf16, long long rows,
 
 struct Call {
   const void *dt, *x, *z, *bc, *A, *h0, *D, *dt_bias;
-  void *out, *h_last;
+  void *out, *h_last, *states;
   int B, S, d_in, st;
   long long bc_stride, z_stride;
   bool bf16;
   cudaStream_t stream;
 };
 
-template <int ST, typename In, bool FUSED>
-int launch(const Call& a) {
+template <int ST, typename In, bool FUSED, bool STATES>
+int launch_kernel(const Call& a) {
   using G = Geo<ST, In, FUSED>;
   const bool bf16 = std::is_same_v<In, __nv_bfloat16>;
   const long long rows = (long long)a.B * a.S;
@@ -558,7 +838,7 @@ int launch(const Call& a) {
   if (FUSED)
     ok = ok && encode(&maps.z, a.z, bf16, rows, a.d_in, a.z_stride, T, CPB);
   if (!ok) return (int)cudaErrorInvalidValue;
-  auto kern = selective_scan_kernel<ST, In, FUSED>;
+  auto kern = selective_scan_kernel<ST, In, FUSED, STATES>;
   // on every launch: the attributes hold per device, and setting them
   // costs less than a launch
   cudaError_t e = cudaFuncSetAttribute(
@@ -573,8 +853,16 @@ int launch(const Call& a) {
       maps, static_cast<const float*>(a.A), static_cast<const float*>(a.h0),
       static_cast<const float*>(a.D), static_cast<const In*>(a.dt_bias),
       static_cast<typename G::Out*>(a.out), static_cast<float*>(a.h_last),
-      a.S, a.d_in);
+      static_cast<float*>(a.states), a.S, a.d_in);
   return (int)cudaGetLastError();
+}
+
+template <int ST, typename In, bool FUSED>
+int launch(const Call& a) {
+  if constexpr (FUSED) {
+    if (a.states != nullptr) return launch_kernel<ST, In, true, true>(a);
+  }
+  return launch_kernel<ST, In, FUSED, false>(a);
 }
 
 template <typename In, bool FUSED>
@@ -594,6 +882,28 @@ int dispatch(const Call& a) {
     return (int)cudaErrorInvalidValue;
   return a.bf16 ? launch_st<__nv_bfloat16, FUSED>(a)
                 : launch_st<float, FUSED>(a);
+}
+
+template <int ST, typename In>
+int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  using G = BwdGeo<ST>;
+  auto kern = selective_scan_bwd_kernel<ST, In>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3((a.d_in + CPB - 1) / CPB, a.B), G::THREADS, G::SMEM,
+         stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename In>
+int launch_bwd_st(int st, const BwdArgs& a, cudaStream_t stream) {
+  switch (st) {
+    case 4: return launch_bwd<4, In>(a, stream);
+    case 8: return launch_bwd<8, In>(a, stream);
+    case 16: return launch_bwd<16, In>(a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -623,13 +933,14 @@ extern "C" int selective_scan_forward(const long long* a) {
   return dispatch<false>(c);
 }
 
-// a: dt, x, z, bc, A, h0, D, dt_bias, out, h_last (device pointers: dt
-// (B, S, d_in) before its bias and softplus, x, out (B, S, d_in) and z
-// (B, S, d_in) with rows z_stride elements apart, in the model's dtype;
-// bc as above; A (d_in, st), D (d_in,) fp32; dt_bias (d_in,) in the
-// model's dtype; h0
-// (B, d_in, st) fp32 or 0 for zeros; h_last fp32), B, S, d_in, st,
-// bc_stride, z_stride, is_bf16, stream.
+// a: dt, x, z, bc, A, h0, D, dt_bias, out, h_last, states (device
+// pointers: dt (B, S, d_in) before its bias and softplus, x, out (B, S,
+// d_in) and z (B, S, d_in) with rows z_stride elements apart, in the
+// model's dtype; bc as above; A (d_in, st), D (d_in,) fp32; dt_bias
+// (d_in,) in the model's dtype; h0 (B, d_in, st) fp32 or 0 for zeros;
+// h_last fp32; states (B, ceil(S / 16), d_in, st) fp32, each tile's
+// starting state, or 0 to write none), B, S, d_in, st, bc_stride,
+// z_stride, is_bf16, stream.
 extern "C" int selective_scan_fused(const long long* a) {
   Call c = {};
   c.dt = (const void*)a[0];
@@ -642,15 +953,60 @@ extern "C" int selective_scan_fused(const long long* a) {
   c.dt_bias = (const void*)a[7];
   c.out = (void*)a[8];
   c.h_last = (void*)a[9];
-  c.B = (int)a[10];
-  c.S = (int)a[11];
-  c.d_in = (int)a[12];
-  c.st = (int)a[13];
-  c.bc_stride = a[14];
-  c.z_stride = a[15];
-  c.bf16 = a[16] != 0;
-  c.stream = (cudaStream_t)a[17];
+  c.states = (void*)a[10];
+  c.B = (int)a[11];
+  c.S = (int)a[12];
+  c.d_in = (int)a[13];
+  c.st = (int)a[14];
+  c.bc_stride = a[15];
+  c.z_stride = a[16];
+  c.bf16 = a[17] != 0;
+  c.stream = (cudaStream_t)a[18];
   if (c.D == nullptr || c.dt_bias == nullptr)
     return (int)cudaErrorInvalidValue;
   return dispatch<true>(c);
+}
+
+// a: dt, x, z, bc, A, D, dt_bias, dout, dh_last, states, ddt, dx, dz,
+// dbc_part, red_part, dh0 (device pointers: the fused entry point's
+// inputs as it takes them, h0 aside; dout (B, S, d_in) in the model's
+// dtype; dh_last (B, d_in, st) fp32 or 0 for zeros; states the forward's
+// (B, ceil(S / 16), d_in, st) fp32; out: ddt, dx, dz (B, S, d_in) in the
+// model's dtype; dbc_part (ceil(d_in / 32), B, S, 2 st) fp32, each
+// block's dB | dC over its channels; red_part (B, d_in (st + 2)) fp32,
+// each sequence's dA (d_in, st), dD, ddt_bias; dh0 (B, d_in, st) fp32 or
+// 0 to write none), B, S, d_in, st, bc_stride, z_stride, is_bf16,
+// stream.  The caller sums the partials over their leading axis.
+extern "C" int selective_scan_fused_backward(const long long* a) {
+  BwdArgs p = {};
+  p.dt = (const void*)a[0];
+  p.x = (const void*)a[1];
+  p.z = (const void*)a[2];
+  p.bc = (const void*)a[3];
+  p.A = (const float*)a[4];
+  p.D = (const float*)a[5];
+  p.dt_bias = (const void*)a[6];
+  p.dout = (const void*)a[7];
+  p.dh_last = (const float*)a[8];
+  p.states = (const float*)a[9];
+  p.ddt = (void*)a[10];
+  p.dx = (void*)a[11];
+  p.dz = (void*)a[12];
+  p.dbc_part = (float*)a[13];
+  p.red_part = (float*)a[14];
+  p.dh0 = (float*)a[15];
+  p.B = (int)a[16];
+  p.S = (int)a[17];
+  p.d_in = (int)a[18];
+  const int st = (int)a[19];
+  p.bc_stride = a[20];
+  p.z_stride = a[21];
+  const bool bf16 = a[22] != 0;
+  const cudaStream_t stream = (cudaStream_t)a[23];
+  if (p.B < 1 || p.S < 1 || p.d_in < 1 || p.B > 65535 ||
+      (long long)p.B * p.S >= (1ll << 31) || p.states == nullptr ||
+      p.D == nullptr || p.dt_bias == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return bf16 ? launch_bwd_st<__nv_bfloat16>(st, p, stream)
+              : launch_bwd_st<float>(st, p, stream);
 }

@@ -290,6 +290,17 @@ def swa_attention_backward_ref(q: torch.Tensor, k: torch.Tensor,
 
 
 # ---------------------------- selective_scan --------------------------- #
+#: torch.nn.functional.softplus's default threshold: above it, x itself
+#: (and a gradient of 1); the kernels take the same
+SOFTPLUS_THRESHOLD = 20.0
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the scan's working dtype: fp32, or fp64 for fp64 inputs
+    (the tests' high-precision runs; the kernels take fp32 and bf16)."""
+    return t.double() if t.dtype == torch.float64 else t.float()
+
+
 def selective_scan(h0: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
                    Cm: torch.Tensor, A: torch.Tensor, xc: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -302,11 +313,11 @@ def selective_scan(h0: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
 
         h = exp(dt_t * A) * h + (dt_t * x_t) B_t,   y_t = <h, C_t>
 
-    Returns ``(h_last (B, d_in, st), y (B, c, d_in))``, both fp32.
-    Differentiable (autograd through the steps)."""
-    dtf, xf = dt.float(), xc.float()
-    Bf, Cf = Bm.float(), Cm.float()
-    h = h0.float()
+    Returns ``(h_last (B, d_in, st), y (B, c, d_in))``, both fp32 (fp64
+    for fp64 dt).  Differentiable (autograd through the steps)."""
+    dtf, xf = _wide(dt), _wide(xc)
+    Bf, Cf = _wide(Bm).to(dtf.dtype), _wide(Cm).to(dtf.dtype)
+    h = h0.to(dtf.dtype)
     ys = []
     for t in range(dtf.shape[1]):
         d = dtf[:, t, :, None]                                # (B, d_in, 1)
@@ -328,11 +339,12 @@ def selective_scan_fused(h0: Optional[torch.Tensor], dt: torch.Tensor,
     skip and the silu(z) gate in fp32, cast back to xc's dtype.
 
     Returns ``(h_last (B, d_in, st) fp32, out (B, S, d_in) in xc's
-    dtype)``.  Differentiable."""
-    dtf = F.softplus((dt + dt_bias).float())
+    dtype)``.  Differentiable; its gradient written out is
+    :func:`selective_scan_fused_backward`."""
+    dtf = F.softplus(_wide(dt + dt_bias))
     B, S, d_in = xc.shape
-    h = torch.zeros((B, d_in, A.shape[1]), dtype=torch.float32,
-                    device=xc.device) if h0 is None else h0.float()
+    h = torch.zeros((B, d_in, A.shape[1]), dtype=dtf.dtype,
+                    device=xc.device) if h0 is None else h0.to(dtf.dtype)
     c = min(chunk, S)
     ys = []
     for t0 in range(0, S, c):
@@ -340,5 +352,85 @@ def selective_scan_fused(h0: Optional[torch.Tensor], dt: torch.Tensor,
         h, y = selective_scan(h, dtf[:, cut], Bm[:, cut], Cm[:, cut], A,
                               xc[:, cut])
         ys.append(y)
-    y = torch.cat(ys, dim=1) + D * xc.float()
-    return h, (y * F.silu(z.float())).to(xc.dtype)
+    y = torch.cat(ys, dim=1) + D * _wide(xc)
+    return h, (y * F.silu(_wide(z))).to(xc.dtype)
+
+
+def selective_scan_fused_backward(
+        h0: Optional[torch.Tensor], dt: torch.Tensor, Bm: torch.Tensor,
+        Cm: torch.Tensor, A: torch.Tensor, xc: torch.Tensor,
+        D: torch.Tensor, z: torch.Tensor, dt_bias: torch.Tensor,
+        dout: torch.Tensor, dh_last: Optional[torch.Tensor] = None
+        ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The gradient of :func:`selective_scan_fused` given ``dout`` (B, S,
+    d_in), the gradient of ``out``, and ``dh_last`` (B, d_in, st), that of
+    ``h_last`` (None: zero), by an explicit reverse loop in fp32 (no
+    autograd): the contract of ``csrc/selective_scan.cu``'s backward.
+
+    With v = dt + bias (rounded in the model dtype), dtf = softplus(v),
+    a_t = exp(dtf_t A), h_t = a_t h_{t-1} + dtf_t x_t B_t, y_t = <h_t,
+    C_t>, out_t = (y_t + D x_t) silu(z_t) and g = dout silu(z)::
+
+        dz     = dout (y + D x) silu'(z),  silu'(z) = s (1 + z (1 - s))
+        dD     = sum g x,                  dx = g D + ...
+        dh_t   = C_t g_t + a_{t+1} dh_{t+1}   from dh_S = dh_last
+        dC_t   = sum over channels of g_t h_t
+        dB_t   = sum over channels of dh_t dtf_t x_t
+        dx_t  += sum over states of dh_t dtf_t B_t
+        ddtf_t = sum over states of dh_t (A a_t h_{t-1} + B_t x_t)
+        dA     = sum over (b, t) of dh_t dtf_t a_t h_{t-1}
+        dh0    = a_0 dh_0
+
+    and ddt = ddtf softplus'(v): sigmoid(v), or 1 past the threshold of
+    20 (the rounding of v passes the gradient as it is), ddt_bias the
+    sum of ddt over (b, t) in fp32.  Returns ``(dh0, ddt, dBm, dCm, dA,
+    dxc, dD, dz, ddt_bias)`` in the order of the forward's arguments:
+    ddt, dxc, dz and ddt_bias in the model dtype, dBm and dCm in theirs,
+    dA, dD and dh0 fp32 (dh0 None when h0 is None)."""
+    v = _wide(dt + dt_bias)
+    wd = v.dtype
+    dtf = F.softplus(v)
+    dsp = torch.where(v > SOFTPLUS_THRESHOLD, torch.ones_like(v),
+                      torch.sigmoid(v))
+    xf, zf, do = _wide(xc), _wide(z), _wide(dout)
+    Bf, Cf = _wide(Bm).to(wd), _wide(Cm).to(wd)
+    Af, Df = A.to(wd), D.to(wd)
+    B, S, d_in = xf.shape
+    h = torch.zeros((B, d_in, A.shape[1]), dtype=wd, device=xf.device) \
+        if h0 is None else h0.to(wd)
+    # the forward, keeping every state: hs[t] = h_{t-1}, hs[S] = h_{S-1}
+    hs = [h]
+    y = torch.empty_like(xf)
+    for t in range(S):
+        h = torch.exp(dtf[:, t, :, None] * Af) * h \
+            + (dtf[:, t, :, None] * xf[:, t, :, None]) * Bf[:, t, None, :]
+        hs.append(h)
+        y[:, t] = (h * Cf[:, t, None, :]).sum(-1)
+    s = torch.sigmoid(zf)
+    g = do * (zf * s)
+    dz = do * (y + Df * xf) * (s * (1 + zf * (1 - s)))
+    dD = (g * xf).sum((0, 1))
+    dx = g * Df
+    ddtf = torch.empty_like(xf)
+    dBm = torch.empty_like(Bf)
+    dCm = torch.empty_like(Cf)
+    dA = torch.zeros_like(Af)
+    dh = torch.zeros_like(h) if dh_last is None else dh_last.to(wd).clone()
+    for t in reversed(range(S)):
+        d = dtf[:, t, :, None]                                # (B, d_in, 1)
+        xt = xf[:, t, :, None]
+        Bt, Ct = Bf[:, t, None, :], Cf[:, t, None, :]         # (B, 1, st)
+        a = torch.exp(d * Af)
+        dh = dh + Ct * g[:, t, :, None]
+        dCm[:, t] = (g[:, t, :, None] * hs[t + 1]).sum(1)
+        dBm[:, t] = (dh * (d * xt)).sum(1)
+        dx[:, t] += (dh * Bt).sum(-1) * dtf[:, t]
+        ddtf[:, t] = (dh * (Af * a * hs[t] + Bt * xt)).sum(-1)
+        dA += (dh * d * a * hs[t]).sum(0)
+        dh = a * dh
+    ddt = ddtf * dsp
+    return (None if h0 is None else dh.to(torch.promote_types(
+                h0.dtype, torch.float32)),
+            ddt.to(dt.dtype), dBm.to(Bm.dtype), dCm.to(Cm.dtype),
+            dA.to(A.dtype), dx.to(xc.dtype), dD.to(D.dtype),
+            dz.to(z.dtype), ddt.sum((0, 1)).to(dt_bias.dtype))

@@ -8,6 +8,8 @@
         --batch 1 --seq 6144 --steps 5
     PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \
         --reduced --device cpu --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \
+        --batch 2 --seq 2048 --steps 5
 
 KGE (``--workload``): generates the synthetic GO/HP release, trains the
 workload's six KGE models (``--models`` picks a subset) on one device
@@ -25,9 +27,11 @@ each step, in the order of ``model.batch_spec``'s keys: token ids for
 tokens and labels, N(0, 1) for whisper's frames and llava's image
 embeddings).  Prints the reference's loss line every
 ``max(1, steps // 10)`` steps, then step ms, tokens/s and peak device
-memory.  On the card every sliding-window layer runs the SWA forward
-kernel (twice a step under ``remat="full"``: once more in the recompute)
-and the three backward kernels.
+memory, and the kernels' launches of the run by entry point.  On the
+card every sliding-window layer runs the SWA forward kernel (twice a step
+under ``remat="full"``: once more in the recompute) and the three
+backward kernels; every Mamba layer the fused selective scan (twice a
+step under ``remat="full"``) and its backward kernel.
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ import torch
 from ..core.registry import EmbeddingRegistry
 from ..core.updater import SyntheticReleaseChannel, UpdateReport, Updater
 from ..device import DeviceLike, resolve_device
-from ..kernels import swa_attention
+from ..kernels import selective_scan, swa_attention
 from ..models import build, get_config
 from ..models.convert import params_from_numpy
 from ..models.steps import make_train_step
@@ -125,7 +129,7 @@ def train_lm(arch: str, reduced: bool = False, steps: int = 20,
              params: Optional[Mapping] = None) -> dict:
     """``steps`` Adam steps of ``arch`` on random token ids; returns the
     losses, accuracies, step times, tokens/s, peak device memory and the
-    SWA kernels' launches.  ``params`` (the JAX package's param tree as
+    SWA and fused-scan kernels' launches by entry point.  ``params`` (the JAX package's param tree as
     numpy arrays, carried by ``models.convert.params_from_numpy``) replaces
     the params drawn from ``seed``."""
     if steps < 1 or batch < 1 or seq < 1:
@@ -164,6 +168,7 @@ def train_lm(arch: str, reduced: bool = False, steps: int = 20,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     swa_attention.reset_launches()
+    selective_scan.reset_launches()
     losses, accs, step_ms = [], [], []
     _sync(dev)
     t0 = time.perf_counter()
@@ -188,6 +193,7 @@ def train_lm(arch: str, reduced: bool = False, steps: int = 20,
         "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
                            if dev.type == "cuda" else None),
         "swa_launches": dict(swa_attention.launches),
+        "scan_launches": dict(selective_scan.launches),
     }
     print(f"[train] {steps} steps, {dt:.1f}s, {out['tokens_per_s']:.0f} "
           f"tok/s, step {out['step_ms_median']:.1f} ms (median)"

@@ -26,7 +26,11 @@ The Mamba block (mamba1) keeps the reference's projections, causal conv
 and dtype order; its softplus, selective scan, D skip and gate run in
 ``kernels/csrc/selective_scan.cu`` on the card, one launch a layer over
 the whole sequence, and their plain version chunk by chunk on the CPU, as
-the reference scans.  The RG-LRU block is not ported yet (ROADMAP,
+the reference scans.  Trained, the same call goes through
+``SelectiveScanFusedFn``: on the card the forward also saves each tile's
+starting state and the backward kernel gives every input's gradient,
+which autograd carries to in_proj's and x_proj's outputs through the
+views z, Bm and Cm are.  The RG-LRU block is not ported yet (ROADMAP,
 Queue 1 item 5(f)).
 """
 from __future__ import annotations
@@ -497,10 +501,11 @@ def _mamba_inner(p, xi: torch.Tensor, z: torch.Tensor, cfg: ArchConfig,
     dt_proj's bias, the softplus, the scan from a zero state, the D skip
     and the silu(z) gate are one call of ``kernels.selective_scan_fused``:
     one kernel launch on the card, z read in place as the second half of
-    in_proj's output; on the CPU the plain version, chunk by chunk as the
-    reference's ``lax.scan`` carries the state (its zero padding of the
-    last chunk leaves the state as it is: ``exp(0 * A) = 1`` and ``0 * x
-    = 0``, so no padding is needed)."""
+    in_proj's output (with a gradient asked, one forward launch and one
+    of the backward kernel); on the CPU the plain version, chunk by chunk
+    as the reference's ``lax.scan`` carries the state (its zero padding of
+    the last chunk leaves the state as it is: ``exp(0 * A) = 1`` and ``0 *
+    x = 0``, so no padding is needed)."""
     _, dtr, st, _ = _mamba_dims(cfg)
     xc = F.silu(_causal_conv(xi, p["conv_w"], p["conv_b"]))
     dbc = dense(p["x_proj"], xc)

@@ -5,9 +5,10 @@ Each layer: x + mamba(rmsnorm(x)).  No KV cache: the decode state is
 ``{"h": (L, B, d_inner, d_state) fp32, "conv": (L, B, cw-1, d_inner)}``,
 constant in sequence length, which is why this arch runs long_500k.  On
 the card every prefill layer's selective scan is one launch of
-``kernels/csrc/selective_scan.cu``; ``decode_step`` advances the state
-one step in plain PyTorch, as the reference does, and writes it into the
-cache in place.
+``kernels/csrc/selective_scan.cu``, and every training step's too, with
+its backward kernel (``launch.train --arch falcon-mamba-7b``);
+``decode_step`` advances the state one step in plain PyTorch, as the
+reference does, and writes it into the cache in place.
 """
 from __future__ import annotations
 

@@ -126,13 +126,19 @@ def _numbers(device_ms):
                             "causal_llava": {"device_ms": 0.76}}},
             "swa_backward": {"rows": [{"dtype": "bfloat16", "B": 1,
                                        "device_ms": device_ms}]},
-            "scan": {"device_ms": 0.6, "fused": {"device_ms": 0.4}}}
+            "scan": {"device_ms": 0.6, "fused": {"device_ms": 0.4},
+                     "backward": {"device_ms": 2.0}}}
 
 
 def test_a_blind_profiler_fails_the_numbers_phase():
     chip_smoke._check_device_times(_numbers(2.27))
     with pytest.raises(chip_smoke.SmokeFailure, match="swa backward"):
         chip_smoke._check_device_times(_numbers(None))
+    blind = _numbers(2.27)
+    blind["scan"]["backward"]["device_ms"] = None
+    with pytest.raises(chip_smoke.SmokeFailure,
+                       match="selective scan backward"):
+        chip_smoke._check_device_times(blind)
 
 
 _SCAN_PTXAS = """\
@@ -164,15 +170,18 @@ def test_scan_instances_are_told_apart_by_state_size_and_dtype():
 
 
 def test_scan_source_instantiates_every_state_size():
-    """Every state size, for both entry points (bare and fused) and both
-    dtypes: the twelve instances the build phase counts."""
+    """Every state size, for both entry points (bare and fused, the fused
+    one with and without its tile states) and both dtypes: the eighteen
+    forward instances the build phase counts."""
     from repro_torch.kernels import selective_scan as tss
     text = (_build.CSRC / "selective_scan.cu").read_text()
     for st in tss.D_STATES:
         assert f"case {st}: return launch<{st}, In, FUSED>(a);" in text
     assert "dispatch<false>(c)" in text and "dispatch<true>(c)" in text
-    assert len(tss.D_STATES) * len(tss.DTYPES) * 2 == \
-        chip_smoke.SCAN_INSTANCES == 12
+    assert "launch_kernel<ST, In, true, true>(a)" in text
+    assert "launch_kernel<ST, In, FUSED, false>(a)" in text
+    assert len(tss.D_STATES) * len(tss.DTYPES) * 3 == \
+        chip_smoke.SCAN_INSTANCES == 18
 
 
 def test_scan_instances_are_told_apart_by_entry_point():
@@ -263,7 +272,11 @@ def _line_inputs():
         "scan": dict(r, B=2, S=2048, d_in=8192, d_state=16, library_ms=None,
                      bound_parts_ms={}, fused=dict(
                          r, library_ms=None, bound_parts_ms={},
-                         unfused_ms=1.5, unfused_device_ms=1.4))}
+                         unfused_ms=1.5, unfused_device_ms=1.4,
+                         without_states_ms=[0.4, 0.4],
+                         with_states_ms=[0.41, 0.41]),
+                     backward=dict(r, library_ms=None, bound_parts_ms={},
+                                   device_ms_by_kernel={}))}
     swa_l = {"swa_attention_forward": 60, "swa_attention_bwd_dot": 0,
              "swa_attention_backward_dkdv": 0,
              "swa_attention_backward_dq": 0,
@@ -281,12 +294,21 @@ def _line_inputs():
              "max_abs_err_backward_bf16": 0.0,
              "max_abs_err_backward_fp32": 0.0},
         lm={"launches": swa_l}, moe={"launches": swa_l},
-        train={"profile": {}, "launches_per_step": {}, "launches": swa_l},
+        train={"profile": {}, "launches_per_step": {}, "launches": swa_l,
+               "mamba": {"launches": dict(
+                   swa_l, selective_scan_fused=640,
+                   selective_scan_fused_backward=320),
+                   "launches_per_step": {
+                       "selective_scan_fused_backward": 64}}},
         scan={"max_abs_err": {
             "bfloat16": {"y": 1e-5, "h_last": 1e-6, "fused_out": 0.25,
-                         "fused_h_last": 5e-5},
+                         "fused_h_last": 5e-5, "backward": {
+                             "ddt": 0.5, "dA": 1e-3,
+                             "relative": {"dA": 4e-6}}},
             "float32": {"y": 3e-5, "h_last": 1e-6, "fused_out": 8e-4,
-                        "fused_h_last": 7e-5}},
+                        "fused_h_last": 7e-5, "backward": {
+                            "ddt": 5e-4, "dA": 8e-4,
+                            "relative": {"dA": 3e-6}}}},
             "launches": {"selective_scan_forward": 12,
                          "selective_scan_fused": 12}},
         mamba={"launches": swa_l}, whisper={"launches": swa_l},
@@ -297,7 +319,8 @@ def test_every_kernels_line_entry_has_the_contracts_keys():
     """Every entry of the kernels line, the selective scan's included,
     carries the keys the contract names; the fused scan's launches are the
     falcon-mamba generation's (the bare entry point's none, with its scan
-    phase launches beside) and their library times are null."""
+    phase launches beside), its backward's the falcon-mamba training
+    run's, and their library times are null."""
     line = chip_smoke.kernels_line(**_line_inputs())
     keys = {"name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -314,11 +337,17 @@ def test_every_kernels_line_entry_has_the_contracts_keys():
     assert scan[0]["launches_scan_phase"] == 12
     assert scan[0]["max_abs_err"] == 1e-5
     fused = [e for e in line["kernels"] if e["name"].startswith(
-        "selective_scan_fused")]
+        "selective_scan_fused (")]
     assert len(fused) == 1
     assert fused[0]["launches"] == 64 and fused[0]["library_ms"] is None
     assert fused[0]["max_abs_err"] == 0.25
     assert fused[0]["unfused_ms"] == 1.5
+    assert fused[0]["launches_train"] == 640
+    bwd = [e for e in line["kernels"] if e["name"].startswith(
+        "selective_scan_fused_backward")]
+    assert len(bwd) == 1 and bwd[0]["library_ms"] is None
+    assert bwd[0]["launches"] == 320 and bwd[0]["launches_per_step"] == 64
+    assert bwd[0]["max_abs_err"] == 0.5 and bwd[0]["max_abs_err_fp32"] == 8e-4
     causal = [e for e in line["kernels"] if "causal" in e["name"]][0]
     assert causal["launches_whisper"] == causal["launches_llava"] == 60
 
@@ -343,18 +372,26 @@ def _stub_card(monkeypatch, failures):
 
 
 def test_scan_phase_rehearses_on_the_cpu(monkeypatch):
-    """The scan phase's bare and fused cases at the reduced shapes run on
-    the CPU against the plain versions; only the checks that need the
-    kernel fail (its launch counts; the gradient that must raise)."""
+    """The scan phase's bare, fused and backward cases at the reduced
+    shapes run on the CPU against the plain versions; only the checks that
+    need the kernel fail (its launch counts; the bare scan's gradient that
+    must raise)."""
     failures = []
     _stub_card(monkeypatch, failures)
     monkeypatch.setattr(chip_smoke, "SCAN_CASES", chip_smoke.SCAN_CASES[:4])
     out = chip_smoke.phase_scan()
+    # each case: the fused forward without and with its tile states, and
+    # the backward; then one gradient through SelectiveScanFusedFn
     assert out["launches"] == {"selective_scan_forward": 8,
-                               "selective_scan_fused": 8}
+                               "selective_scan_fused": 17,
+                               "selective_scan_fused_backward": 9}
     for dtype in ("float32", "bfloat16"):
         assert set(out["max_abs_err"][dtype]) == {
-            "y", "h_last", "fused_out", "fused_h_last"}
+            "y", "h_last", "fused_out", "fused_h_last", "backward"}
+        bwd = out["max_abs_err"][dtype]["backward"]
+        assert set(bwd) == {"dh0", "ddt", "dxc", "dz", "dA", "dD",
+                            "ddt_bias", "dBm", "dCm", "relative"}
+        assert set(bwd["relative"]) == set(chip_smoke.SCAN_BWD_REDUCED)
     assert len(failures) == 2
     assert failures[0].startswith("scan: launches")
     assert "did not raise" in failures[1]
@@ -362,8 +399,9 @@ def test_scan_phase_rehearses_on_the_cpu(monkeypatch):
 
 def test_scan_numbers_fields_rehearse_on_the_cpu(monkeypatch):
     """scan_numbers at reduced falcon-mamba (the config module's CONFIG
-    swapped for REDUCED, a 40-token prompt): the bare row and the fused
-    one with its unfused yardstick and bound."""
+    swapped for REDUCED, a 40-token prompt): the bare row, the fused one
+    with its unfused yardstick, its time with and without its tile states
+    and its bound, and the backward's row."""
     from repro_torch.configs import falcon_mamba_7b
     failures = []
     _stub_card(monkeypatch, failures)
@@ -377,3 +415,81 @@ def test_scan_numbers_fields_rehearse_on_the_cpu(monkeypatch):
                 "bound_parts_ms"):
         assert fused[key] is not None, key
     assert fused["library_ms"] is None and not failures
+    assert len(fused["with_states_ms"]) == len(fused["without_states_ms"]) \
+        == 2
+    bwd = rec["backward"]
+    for key in ("ms", "device_ms", "device_ms_by_kernel", "plain_ms",
+                "bound_ms", "bound_by", "bound_parts_ms"):
+        assert bwd[key] is not None, key
+    assert bwd["library_ms"] is None
+
+
+def test_scan_backward_bound_at_falcon_mambas_layer():
+    """The fused scan's backward at one falcon-mamba-7b layer (B 2, S
+    2048, d_in 8192, d_state 16, bf16), as training runs it: the entry
+    point's inputs and outputs, ~606 MB (seven (B, S, d_in) bf16 tensors
+    read or written, the saved states 134 MB), 0.181 ms at 3.35 TB/s,
+    under the 0.191 ms of fp32 operations (23 a (t, channel, state), 14 a
+    (t, channel)) and above the 0.160 ms of MUFU work (537 M state exps +
+    4 a (t, channel)): bound by operations.  The per-block and per-sequence
+    partials, ~271 MB written and read back, are the design's and stay
+    out of the bound."""
+    got, by, parts = chip_smoke.scan_bwd_bound_ms(2, 2048, 8192, 16, 2)
+    assert by == "operations" and round(got, 3) == 0.191
+    assert round(parts["bytes"], 3) == 0.181
+    assert round(parts["exp"], 3) == 0.160
+    assert round(parts["fp32"], 3) == 0.191
+    assert round(parts["design_bytes"], 3) == 0.081
+
+
+def test_training_launches_a_step_by_arch():
+    """Under remat "full" a falcon-mamba-7b step launches the fused scan
+    twice a layer and its backward once (128 and 64), no SWA kernel and
+    no bare scan; h2o-danube the SWA kernels and no scan."""
+    from repro_torch.models import get_config
+    L = get_config(chip_smoke.MAMBA_ARCH).n_layers
+    assert L == 64
+    got = chip_smoke._step_launches(chip_smoke.MAMBA_ARCH, L, 1)
+    assert got == {"swa_attention_forward": 0, "swa_attention_bwd_dot": 0,
+                   "swa_attention_backward_dkdv": 0,
+                   "swa_attention_backward_dq": 0,
+                   "selective_scan_forward": 0, "selective_scan_fused": 128,
+                   "selective_scan_fused_backward": 64}
+    h2o = chip_smoke._step_launches(chip_smoke.LM_ARCH, 24, 2)
+    assert h2o["swa_attention_forward"] == 96
+    assert h2o["selective_scan_fused"] == h2o[
+        "selective_scan_fused_backward"] == 0
+
+
+def test_mamba_training_runs_at_the_generation_shape():
+    """falcon-mamba-7b trains at its published width and depth on the
+    generation run's batch and prompt length; the fp32 check at B = 1 and
+    the same length, 2 layers."""
+    assert (chip_smoke.MAMBA_TRAIN_BATCH, chip_smoke.MAMBA_TRAIN_SEQ) == (
+        chip_smoke.MAMBA_BATCH, chip_smoke.MAMBA_PROMPT)
+    assert chip_smoke.MAMBA_CHECK_BATCH == 1
+    assert chip_smoke.TRAIN_CHECK_LAYERS == 2
+
+
+@pytest.mark.parametrize("kernel", [
+    "void (anonymous namespace)::selective_scan_bwd_kernel<16, "
+    "__nv_bfloat16>(BwdArgs)",
+    "void (anonymous namespace)::selective_scan_bwd_kernel<4, float>"
+    "(BwdArgs)"])
+def test_kernel_groups_name_the_scan_backward(kernel):
+    assert chip_smoke._kernel_group(kernel) == "selective scan backward"
+
+
+def test_scan_source_instantiates_the_backward_for_every_state_size():
+    """The backward for every state size the wrapper takes, in both
+    dtypes: the six backward instances the build phase counts."""
+    from repro_torch.kernels import selective_scan as tss
+    text = (_build.CSRC / "selective_scan.cu").read_text()
+    for st in tss.D_STATES:
+        assert f"case {st}: return launch_bwd<{st}, In>(" in text \
+            or f"case {st}:\n      return launch_bwd<{st}, In>(" in text
+    assert len(tss.D_STATES) * len(tss.DTYPES) == \
+        chip_smoke.SCAN_BWD_INSTANCES
+    assert f"constexpr int T = L * R;" in text and tss.TILE == 16
+    assert "constexpr int CPB = 32;" in text
+    assert tss.CHANNELS_PER_BLOCK == 32

@@ -114,7 +114,8 @@ def test_scan_wrapper_runs_the_plain_version_on_cpu_with_a_gradient():
     (h.sum() + y.sum()).backward()
     assert args[1].grad is not None and torch.isfinite(args[1].grad).all()
     assert tss.launches == {"selective_scan_forward": 0,
-                            "selective_scan_fused": 0}
+                            "selective_scan_fused": 0,
+                            "selective_scan_fused_backward": 0}
     h2, y2 = tref.selective_scan(*args)
     assert torch.equal(h, h2) and torch.equal(y, y2)
 
@@ -456,7 +457,8 @@ def test_scan_kernel_matches_plain_on_card():
             _close(h.cpu(), hp.cpu(), 2e-4)
             _close(y.cpu(), yp.cpu(), 2e-4)
     assert tss.launches == {"selective_scan_forward": n,
-                            "selective_scan_fused": 0}
+                            "selective_scan_fused": 0,
+                            "selective_scan_fused_backward": 0}
     args[1].requires_grad_(True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tss.selective_scan(*args)

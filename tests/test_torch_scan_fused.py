@@ -103,7 +103,8 @@ def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
     (h.sum() + out.sum()).backward()
     assert args[1].grad is not None and torch.isfinite(args[1].grad).all()
     assert tss.launches == {"selective_scan_forward": 0,
-                            "selective_scan_fused": 0}
+                            "selective_scan_fused": 0,
+                            "selective_scan_fused_backward": 0}
     h2, out2 = tref.selective_scan_fused(*args, chunk=16)
     assert torch.equal(h, h2) and torch.equal(out, out2)
 
@@ -202,7 +203,9 @@ def test_fused_kernel_matches_plain_on_card():
     8 and 16, S 24, 300, 1 and 257, fp32 and bf16, h0 zero and not;
     h_last and out within 2e-4 (1 + |plain|), plus
     one bf16 ulp on a bf16 out; two launches give the same bits; a
-    gradient asked raises.  Skips here."""
+    gradient asked runs the forward and the backward kernel (their
+    gradients against the plain backward: tests/test_torch_scan_backward.py).
+    Skips here."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     tss.reset_launches()
@@ -224,10 +227,80 @@ def test_fused_kernel_matches_plain_on_card():
             _card_close(out, outp,
                         BF16_ULP if dtype == torch.bfloat16 else 0.0)
     assert tss.launches == {"selective_scan_forward": 0,
-                            "selective_scan_fused": n}
+                            "selective_scan_fused": n,
+                            "selective_scan_fused_backward": 0}
+    # a gradient asked goes through SelectiveScanFusedFn: the forward
+    # with its tile states, then the backward kernel
     args[1] = args[1].float().requires_grad_(True)
     args[5], args[7] = args[5].float(), args[7].float()
     args[2], args[3] = args[2].float(), args[3].float()
     args[8] = args[8].float()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tss.selective_scan_fused(*args)
+    tss.reset_launches()
+    _, out = tss.selective_scan_fused(*args)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(args[1].grad).all()
+    assert tss.launches == {"selective_scan_forward": 0,
+                            "selective_scan_fused": 1,
+                            "selective_scan_fused_backward": 1}
+
+
+_BWD_NAMES = ("dh0", "ddt", "dBm", "dCm", "dA", "dxc", "dD", "dz",
+              "ddt_bias")
+#: gradients with one value per input element; the others are sums over
+#: channels, steps or sequences, held to CARD_TOL * max|plain|
+_PER_ELEMENT = ("dh0", "ddt", "dxc", "dz")
+
+
+@pytest.mark.cuda
+def test_fused_backward_kernel_matches_plain_on_card():
+    """The backward kernel against the plain backward
+    (``ref.selective_scan_fused_backward``) on the card: d_state 4, 8 and
+    16, S 24, 300, 1 and 257, fp32 and bf16, from h0 and from zeros, with
+    and without a gradient of h_last.  ddt, dxc, dz and dh0 within 2e-4
+    (1 + |plain|) (plus one bf16 ulp on a bf16 one), the reduced dA, dD,
+    ddt_bias, dBm and dCm within 2e-4 * max|plain| (plus one bf16 ulp of
+    each value on a bf16 one): chip_smoke's tolerances.  The forward with
+    its tile states gives the same bits as without; two backward launches
+    the same bits.  Skips here."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    tss.reset_launches()
+    n = 0
+    for B, S, d_in, st, h0_zero in (
+            (2, 24, 64, 4, True), (2, 300, 512, 8, False),
+            (1, 1, 32, 16, False), (2, 257, 1024, 16, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = [None if a is None else a.cuda() for a in _inputs(
+                B, S, d_in, st, seed=S + 1, dtype=dtype, h0_zero=h0_zero)]
+            rng = np.random.default_rng(S)
+            dout = torch.from_numpy(rng.standard_normal(
+                (B, S, d_in), dtype=np.float32)).to(dtype).cuda()
+            dh_last = None if h0_zero else torch.from_numpy(
+                rng.standard_normal((B, d_in, st), dtype=np.float32)).cuda()
+            h, out, _ = tss.selective_scan_fused_forward(*args)
+            h_s, out_s, states = tss.selective_scan_fused_forward(
+                *args, save_states=True)
+            got = tss.selective_scan_fused_backward(*args, dout, dh_last,
+                                                    states)
+            again = tss.selective_scan_fused_backward(*args, dout, dh_last,
+                                                      states)
+            want = tref.selective_scan_fused_backward(*args, dout, dh_last)
+            torch.cuda.synchronize()
+            n += 1
+            assert torch.equal(h, h_s) and torch.equal(out, out_s)
+            for name, g, g2, w in zip(_BWD_NAMES, got, again, want):
+                if w is None:
+                    assert g is None and g2 is None, name
+                    continue
+                assert g.dtype == w.dtype and torch.equal(g, g2), name
+                ulp = BF16_ULP if w.dtype == torch.bfloat16 else 0.0
+                if name in _PER_ELEMENT:
+                    _card_close(g, w, ulp)
+                    continue
+                g, w = g.float().cpu(), w.float().cpu()
+                assert bool(((g - w).abs() <= CARD_TOL * w.abs().max()
+                             + ulp * w.abs()).all()), name
+    assert tss.launches == {"selective_scan_forward": 0,
+                            "selective_scan_fused": 2 * n,
+                            "selective_scan_fused_backward": 2 * n}

@@ -17,14 +17,20 @@ Probes:
                   tile only
   bc_rows_once    pass 1 reads two Bm | Cm rows a tile, not eight
 
+With ``--parent FILE.cu`` (an earlier revision of the source, e.g.
+``git show REV:src/repro_torch/kernels/csrc/selective_scan.cu``, whose
+fused entry point takes no ``states`` argument) it also builds that file,
+holds the fused entry point as built to it bit for bit (out and h_last),
+and times the two in turns (parent, as built, as built, parent).
+
 Run on a machine with an NVIDIA card and the CUDA toolkit, from the
 repository root::
 
-    python3 tools/scan_probes.py [--out PATH]
+    python3 tools/scan_probes.py [--out PATH] [--parent FILE.cu]
 
 It prints one JSON object: the card (``nvidia-smi`` name and power
 limit), each build's registers, spills and SASS opcode counts, and ms a
-call per probe.
+call per probe (and under ``parent`` the comparison).
 """
 from __future__ import annotations
 
@@ -98,6 +104,9 @@ def build_all() -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the result here")
+    ap.add_argument("--parent", default=None, metavar="FILE.cu",
+                    help="an earlier revision of the source to hold the "
+                         "fused entry point to, bit for bit and in time")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -119,10 +128,11 @@ def main(argv=None) -> int:
     y = torch.empty((B, S, d_in), device="cuda")
     hl = torch.empty((B, d_in, st), device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
+    # the fused entry point as a prefill calls it: no tile states
     fused_args = struct.pack(
-        "<18q", dt.data_ptr(), xc.data_ptr(), z.data_ptr(), bc.data_ptr(),
+        "<19q", dt.data_ptr(), xc.data_ptr(), z.data_ptr(), bc.data_ptr(),
         A.data_ptr(), 0, D.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        hl.data_ptr(), B, S, d_in, st, bcs, z.stride(1), 1, stream)
+        hl.data_ptr(), 0, B, S, d_in, st, bcs, z.stride(1), 1, stream)
     bare_args = struct.pack(
         "<14q", bdt.data_ptr(), bx.data_ptr(), bbc.data_ptr(), bA.data_ptr(),
         bh0.data_ptr(), y.data_ptr(), hl.data_ptr(), B, S, d_in, st, bbcs, 1,
@@ -159,6 +169,30 @@ def main(argv=None) -> int:
                                              "dtype": "bfloat16"},
            "probes": {name: {**times[name], "kernels": regs}
                       for name, (_, regs) in builds.items()}}
+    if args.parent:
+        dll = ctypes.CDLL(cs.sass_of(args.parent)["library"])
+        parent = dll.selective_scan_fused
+        parent.argtypes = [ctypes.c_char_p]
+        parent.restype = ctypes.c_int
+        out_p, hl_p = torch.empty_like(out), torch.empty_like(hl)
+        parent_args = struct.pack(
+            "<18q", dt.data_ptr(), xc.data_ptr(), z.data_ptr(),
+            bc.data_ptr(), A.data_ptr(), 0, D.data_ptr(), bias.data_ptr(),
+            out_p.data_ptr(), hl_p.data_ptr(), B, S, d_in, st, bcs,
+            z.stride(1), 1, stream)
+        ours = fns["as_built"][0]
+        if ours(fused_args) or parent(parent_args):
+            raise SystemExit("launch refused")
+        torch.cuda.synchronize()
+        turns = [ms(f, a) for f, a in ((parent, parent_args),
+                                       (ours, fused_args),
+                                       (ours, fused_args),
+                                       (parent, parent_args))]
+        rec["parent"] = {"source": args.parent,
+                         "same_bits": bool(torch.equal(out, out_p)
+                                           and torch.equal(hl, hl_p)),
+                         "parent_fused_ms": [turns[0], turns[3]],
+                         "as_built_fused_ms": [turns[1], turns[2]]}
     print(json.dumps(rec), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
