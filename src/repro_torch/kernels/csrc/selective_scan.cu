@@ -510,259 +510,654 @@ selective_scan_kernel(const __grid_constant__ ScanMaps maps,
 //   dA     += dh_t dtf_t a_t h_{t-1},        dD += g_t x_t
 //   dz_t    = dout_t (y_t + D x_t) silu'(z_t),  ddt = ddtf softplus'(v)
 //
-// Design (a simple one: the forward's grid, time sequential in a tile).
-// A block owns CPB = 32 channels of one sequence, a thread one (channel,
-// state), so a channel's states sit on st neighbouring lanes.  It walks
-// the tiles from the last to the first; for each:
-//   * prologue, once a (t, channel): v = dt + bias rounded as the
-//     forward rounds it, dtf = softplus(v) as the forward computes it,
-//     softplus'(v), dtf x, silu(z) and silu'(z) against dout, into shared
-//     memory; Bm | Cm to fp32;
-//   * recompute: each thread runs the tile's 16 steps from the saved
-//     state, keeping h_t and a_t in registers; y_t by a shuffle sum over
-//     the channel's lanes;
-//   * reverse: the 16 steps backwards, the adjoint dh in a register
-//     carried across tiles with dA; the sums over states by shuffles,
-//     those over channels by shuffles within a warp and then over the
-//     warps in shared memory;
-//   * epilogue: ddt, dx, dz (model dtype) as coalesced rows, and the
-//     block's partial dB | dC over its 32 channels into `dbc_part`.
-// dA, dD and ddt_bias go to per-sequence partials; the caller sums the
-// partials (over blocks, over sequences) afterwards: no float atomics,
-// so two launches give the same bits.
+// What bounds it: per (b, t, channel, state) a recomputed state exp
+// (MUFU), ~23 fp32 operations (the recompute, the adjoint, the
+// gradients' terms) and the sums over states and over channels; per (b,
+// t, channel) softplus, its derivative and silu; the bytes of its inputs,
+// the saved states and its outputs.  At falcon-mamba-7b's B 2, S 2048,
+// d_in 8192, d_state 16 that is 0.19 ms of fp32 work, 0.16 of MUFU and
+// 0.18 of bytes (chip_smoke.scan_bwd_bound_ms).  The sums over channels
+// are what a layout of one thread a (channel, state) pays for most: a
+// shuffle tree a step.  Tensor cores do not apply: each sum is a batched
+// dot product whose matrix changes with t (dB_t = dtf_t x_t . dh_t over
+// channels), not a product of tiles.  Measured on an H100 (PERF.md,
+// tools/scan_probes.py), this design issues ~45 instructions a (t,
+// channel, state), two thirds in the passes, and is held by their
+// latency at 16 warps an SM (fewer warps with more registers run
+// slower); no single cost binds it: the epilogue's items take a tenth,
+// the cluster's sums and barriers under a tenth, the SFUs, the TMA waits
+// and the channel shuffles a percent or two each.
 //
-// What bounds it: like the forward, its MUFU work (the recomputed state
-// exps; softplus, sigmoid and silu once a (t, channel)), its fp32 work
-// and the bytes it moves (inputs, the saved states, the outputs); the
-// shuffles of the reductions, 14 a (t, channel, state) at d_state 16,
-// are what this design spends most on.
-template <int ST>
+// Design.  A block owns CPB = 32 channels of one sequence, four blocks
+// along the channels a thread-block cluster; it walks the tiles of T =
+// 16 steps from the last to the first:
+//
+//   * TMA.  One thread (in the last warp) keeps BWD_STAGES - 1 tiles in
+//     flight on a ring walked backwards: 2-D boxes of (T rows, 32
+//     channels) of dt, x, z (at its own row stride) and dout, and (T
+//     rows, 2 st) of Bm | Cm, each stage on one mbarrier.
+//   * Prologue, once a (t, channel): v = dt + bias rounded as the
+//     forward rounds it, dtf = softplus(v) as the forward computes it,
+//     dtf x and g = dout silu(z), into channel-major padded rows (as the
+//     forward's); Bm | Cm to fp32.  Rows past S are zeros: dt = 0
+//     carries the state and the adjoint over.
+//   * Four states a lane, a tile in R = 2 runs of L = 8 steps, the
+//     forward's lanes (lane = run << 4 | channel, part).  Pass 1: each
+//     run recomputes its 8 states from the tile's saved state (run 0) or
+//     from zero (run 1), keeping h_t and the decay products cum_t (of a
+//     up to t) in registers, and forms its local adjoint sum lc = sum
+//     cum_t C_t g_t (the carry it would hand the run before it from a
+//     zero carry in).  A shuffle gives run 1 run 0's end state, which
+//     pass 2 adds (h_t += cum_t h_start); another hands the adjoint
+//     across: run 1's carry out (lc + cum carry in) is run 0's carry in.
+//     Pass 3 walks the run's steps backwards from its carry, a_t
+//     recomputed (a second exp: a_t kept beside h_t and cum_t would
+//     spill at the 128 registers two blocks an SM allow): dh, its
+//     partial sums over the lane's 4 states (y, sum dh B, the A a h term
+//     of ddtf; 3 register adds each) into shared memory, dA in
+//     registers, and dB | dC (4 + 4 values a step) reduced over the
+//     warp's channels by a reduce-scatter that halves the values at each
+//     shuffle level (2 levels at d_state 16), then over the warps in
+//     shared memory once a tile.  Run 0's carry out is the earlier
+//     tile's carry in.
+//   * Epilogue, once a (t, channel): the P partials a sum; dtf, g,
+//     softplus' and silu' again from the tile's raw rows (so that the
+//     prologue's rows are the passes' alone, one buffer); ddt, dx, dz in
+//     the model's dtype into a staged tile, stored one tile later as
+//     16-byte row segments; dD and ddt_bias by item in shared memory.
+//   * The cluster's dB | dC: each block's tile sums wait in its shared
+//     memory, two groups of BWD_GROUP tiles; one cluster barrier a group
+//     rather than a tile, and in the group after, each block reads a
+//     quarter of the four blocks' sums of one tile an iteration through
+//     distributed shared memory (the first block also the quarters of
+//     blocks past d_in), adds them in rank order after the epilogue, and
+//     writes them to the cluster's one partial row: d_in / 128 rows of (B, S, 2 st) reach device memory, not d_in
+//     / 32.  The grid pads to whole clusters; a block past d_in computes
+//     and stores nothing.
+//
+// dA, dD and ddt_bias go to per-sequence partials; the caller sums the
+// partials (over clusters, over sequences) afterwards.  Every sum has a
+// fixed order and there are no float atomics, so two launches give the
+// same bits.
+constexpr int BWD_CLUSTER = 4;        // blocks of a cluster, along channels
+constexpr int BWD_GROUP = 4;          // tiles a cluster barrier
+constexpr int BWD_STAGES = 3;         // TMA ring depth
+constexpr int OROW = 40;              // elements a row of a staged output
+constexpr int NQ = 3;                 // prologue rows: dtf, dtf x, g
+
+template <int ST, typename In>
 struct BwdGeo {
-  static constexpr int THREADS = CPB * ST;        // a thread a (channel, state)
+  static constexpr int P = ST / SPT;                 // lanes a channel
+  static constexpr int LOG_P = P == 4 ? 2 : P == 2 ? 1 : 0;
+  static constexpr int THREADS = CPB * P * R;
   static constexpr int WARPS = THREADS / 32;
-  static constexpr int TC = T * CPB;               // floats a (t, channel) buffer
-  // shared memory, in floats: nine (t, channel) buffers (dtf, dtf x, x,
-  // g, gz = dout silu'(z), softplus'(v), y, dx over states, ddtf), B | C,
-  // the per-warp dB | dC, dt's bias and D, the per-thread dD and dbias
-  static constexpr int OFF_BC = 9 * TC;
-  static constexpr int OFF_RED = OFF_BC + T * 2 * ST;
-  static constexpr int OFF_BIAS = OFF_RED + T * WARPS * 2 * ST;
-  static constexpr int OFF_D = OFF_BIAS + CPB;
-  static constexpr int OFF_FIN = OFF_D + CPB;
-  static constexpr int SMEM = (OFF_FIN + 2 * THREADS) * 4;
-  static_assert(32 % ST == 0, "a channel's states within a warp");
+  static constexpr int CH_W = 16 / P;                // channels a half-warp
+  // reduce-scatter levels of dB | dC over a half-warp's channels (8
+  // values a lane: 4 dB, 4 dC), the values a lane keeps, and the lanes
+  // of a half-warp left holding the same ones
+  static constexpr int LEVELS = 4 - LOG_P < 3 ? 4 - LOG_P : 3;
+  static constexpr int NV = 8 >> LEVELS;
+  static constexpr int DUP = CH_W >> LEVELS;
+  static constexpr int NSLOT = WARPS * DUP;          // partials a (t, value)
+  static constexpr int BC = 2 * ST;
+  static constexpr int RAW = T * CPB * (int)sizeof(In);   // one (t, c) box
+  static constexpr int BC_BYTES = T * BC * (int)sizeof(In);
+  static constexpr int LOAD_BYTES = 4 * RAW + BC_BYTES;
+  static constexpr int STAGE_BYTES = (LOAD_BYTES + 127) / 128 * 128;
+  static constexpr int QF = CPB * ROW;               // floats a prologue row set
+  // the partial sums over a lane's states, [part][channel][step], a
+  // part's rows 8 floats apart so that neither the passes' 16-byte
+  // stores nor the epilogue's loads meet on a bank
+  static constexpr int PSTRIDE = CPB * ROW + 8;
+  static constexpr int PART = P * PSTRIDE;
+  static constexpr int OUT = T * OROW;               // elements a staged output
+  // shared memory, in bytes: the ring; the rows the prologue fills (the
+  // passes read them, the epilogue reads the ring); the partials over
+  // states (y, dh . B, the A a h term of ddtf) and over the warps'
+  // channels; two groups of BWD_GROUP tiles of the block's dB | dC for
+  // the cluster; two staged tiles of ddt, dx, dz; each thread's A and
+  // the state before its run's first step; the epilogue's dD and
+  // ddt_bias by item; dt's bias and D
+  static constexpr int OFF_Q = BWD_STAGES * STAGE_BYTES;
+  static constexpr int OFF_BC = OFF_Q + NQ * QF * 4;
+  static constexpr int OFF_PART = OFF_BC + T * BC * 4;
+  static constexpr int OFF_RED = OFF_PART + 3 * PART * 4;
+  static constexpr int OFF_TILE = OFF_RED + T * NSLOT * BC * 4;
+  static constexpr int OFF_OUT = OFF_TILE + 2 * BWD_GROUP * T * BC * 4;
+  static constexpr int OFF_A = OFF_OUT + 2 * 3 * OUT * (int)sizeof(In);
+  static constexpr int OFF_FIN = OFF_A + 2 * THREADS * SPT * 4;
+  static constexpr int OFF_BIAS = OFF_FIN + 2 * T * CPB * 4;
+  static constexpr int OFF_D = OFF_BIAS + CPB * 4;
+  static constexpr int OFF_BAR = OFF_D + CPB * 4;
+  static constexpr int SMEM = OFF_BAR + 8 * BWD_STAGES;
+  // the epilogue's (t, channel) items a thread: warp-items of 8
+  // channels x 4 steps, so that its channel-major loads meet on no bank
+  static constexpr int NITEM = T * CPB / THREADS;
+  static_assert(CPB == 32 && T == 16, "the epilogue's item map");
+  static_assert(T * BC / 4 <= THREADS, "a tile's dB | dC a float4 a thread");
+  static_assert(OFF_Q % 128 == 0 && (OUT * (int)sizeof(In)) % 16 == 0,
+                "aligned buffers");
+};
+
+struct BwdMaps {
+  CUtensorMap dt, x, z, dout, bc;
 };
 
 struct BwdArgs {
-  const void *dt, *x, *z, *bc, *dt_bias, *dout;
+  const void* dt_bias;
   const float *A, *D, *dh_last, *states;
   void *ddt, *dx, *dz;
   float *dbc_part, *red_part, *dh0;
-  long long bc_stride, z_stride;
   int B, S, d_in;
 };
 
-template <int ST, typename In>
-__global__ void __launch_bounds__(BwdGeo<ST>::THREADS)
-selective_scan_bwd_kernel(const __grid_constant__ BwdArgs p) {
-  using G = BwdGeo<ST>;
-  constexpr int THREADS = G::THREADS, WARPS = G::WARPS, TC = G::TC;
-  extern __shared__ __align__(16) float sm[];
-  float* s_dtf = sm;
-  float* s_dtx = sm + TC;
-  float* s_x = sm + 2 * TC;
-  float* s_g = sm + 3 * TC;
-  float* s_gz = sm + 4 * TC;
-  float* s_dsp = sm + 5 * TC;
-  float* s_y = sm + 6 * TC;
-  float* s_dxs = sm + 7 * TC;
-  float* s_ddtf = sm + 8 * TC;
-  float* s_bc = sm + G::OFF_BC;
-  float* s_red = sm + G::OFF_RED;
-  float* s_bias = sm + G::OFF_BIAS;
-  float* s_d = sm + G::OFF_D;
-  float* s_fin = sm + G::OFF_FIN;
+// The backward's mbarrier wait: a bounded spin that traps (a launch
+// error) where a wait never ends, rather than hanging the card.
+__device__ __forceinline__ void bwd_wait(uint32_t bar, int parity) {
+  for (uint32_t n = 0; n < (1u << 24); ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+  __trap();
+}
 
-  const In* dt = static_cast<const In*>(p.dt);
-  const In* xg = static_cast<const In*>(p.x);
-  const In* zg = static_cast<const In*>(p.z);
-  const In* bcg = static_cast<const In*>(p.bc);
-  const In* dog = static_cast<const In*>(p.dout);
-  const In* bias = static_cast<const In*>(p.dt_bias);
-  In* ddt = static_cast<In*>(p.ddt);
-  In* dxg = static_cast<In*>(p.dx);
-  In* dzg = static_cast<In*>(p.dz);
+// ---- thread-block clusters -------------------------------------------- //
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// 16 bytes of block `rank`'s shared memory at this block's address `a`
+__device__ __forceinline__ float4 ld_cluster4(uint32_t a, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(a), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(r)
+               : "memory");
+  return v;
+}
+
+// Iteration j's boxes (tile n_tiles - 1 - j) into its stage (one thread).
+template <typename G>
+__device__ __forceinline__ void issue_bwd(const BwdMaps& m, unsigned char* smem,
+                                          uint32_t bar0, int j, int n_tiles,
+                                          int c0, int row0) {
+  const int s = j % BWD_STAGES;
+  const uint32_t st = smem_u32(smem + s * G::STAGE_BYTES);
+  const uint32_t bar = bar0 + 8 * s;
+  const int row = row0 + (n_tiles - 1 - j) * T;
+  mbar_expect_tx(bar, G::LOAD_BYTES);
+  tma_load_2d(st, &m.dt, bar, c0, row);
+  tma_load_2d(st + G::RAW, &m.x, bar, c0, row);
+  tma_load_2d(st + 2 * G::RAW, &m.z, bar, c0, row);
+  tma_load_2d(st + 3 * G::RAW, &m.dout, bar, c0, row);
+  tma_load_2d(st + 4 * G::RAW, &m.bc, bar, 0, row);
+}
+
+// d_state 16: 512 threads an SM (two blocks; up to 128 registers a
+// thread, for a run's h_t and cum_t), so that at falcon-mamba-7b's width
+// its 512 blocks run in two waves on 132 SMs.
+template <int ST, typename In>
+__global__ void __cluster_dims__(BWD_CLUSTER, 1, 1)
+    __launch_bounds__(BwdGeo<ST, In>::THREADS, 2)
+selective_scan_bwd_kernel(const __grid_constant__ BwdMaps maps,
+                          const __grid_constant__ BwdArgs p) {
+  using G = BwdGeo<ST, In>;
+  constexpr int P = G::P, THREADS = G::THREADS, BC = G::BC, QF = G::QF;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* s_q = reinterpret_cast<float*>(smem + G::OFF_Q);
+  float* s_bc = reinterpret_cast<float*>(smem + G::OFF_BC);
+  float* s_part = reinterpret_cast<float*>(smem + G::OFF_PART);
+  float* s_red = reinterpret_cast<float*>(smem + G::OFF_RED);
+  float* s_tile = reinterpret_cast<float*>(smem + G::OFF_TILE);
+  In* s_out = reinterpret_cast<In*>(smem + G::OFF_OUT);
+  float* s_fin = reinterpret_cast<float*>(smem + G::OFF_FIN);
+  float* s_bias = reinterpret_cast<float*>(smem + G::OFF_BIAS);
+  float* s_d = reinterpret_cast<float*>(smem + G::OFF_D);
+  const uint32_t bar0 = smem_u32(smem + G::OFF_BAR);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int s = tid % ST, ch = tid / ST;         // this thread's (state, channel)
+  const int run = lane >> RUN_SHIFT;
+  const int q = lane & ((1 << RUN_SHIFT) - 1);
+  const int part = q % P, cw = q / P;
+  float* const s_a = reinterpret_cast<float*>(smem + G::OFF_A) + tid * SPT;
+  float* const s_h = s_a + THREADS * SPT;
+  const int ch = warp * G::CH_W + cw;
   const int b = blockIdx.y, c0 = blockIdx.x * CPB, c = c0 + ch;
   const int S = p.S, d_in = p.d_in;
   const bool live = c < d_in;
+  const bool dead = c0 >= d_in;               // a block padding the cluster
+  const uint32_t rank = cluster_rank();
+  const int row0 = b * S;
   const int n_tiles = (S + T - 1) / T;
-  const size_t hi = ((size_t)b * d_in + c) * ST + s;   // (b, c, s) of h
+  const size_t hi = ((size_t)b * d_in + c) * ST + part * SPT;
 
+  *reinterpret_cast<float4*>(s_a) =
+      live ? ld4(p.A + (size_t)c * ST + part * SPT)
+           : make_float4(0.f, 0.f, 0.f, 0.f);
   if (tid < CPB) {
     const bool ok = c0 + tid < d_in;
-    s_bias[tid] = ok ? to_f(bias[c0 + tid]) : 0.f;
+    s_bias[tid] = ok ? to_f(static_cast<const In*>(p.dt_bias)[c0 + tid]) : 0.f;
     s_d[tid] = ok ? p.D[c0 + tid] : 0.f;
   }
-  const float A = live ? p.A[(size_t)c * ST + s] : 0.f;
-  const float A2 = A * LOG2E;
-  float carry = live && p.dh_last != nullptr ? p.dh_last[hi] : 0.f;
-  float dA = 0.f;
-  // the epilogue's channel is fixed a thread (THREADS a multiple of CPB):
-  // its dD and ddt_bias over the (t, channel) items it takes
-  const int ec = tid % CPB;
-  float dD = 0.f, dbias = 0.f;
+  for (int i = tid; i < 2 * BWD_GROUP * T * BC; i += THREADS) s_tile[i] = 0.f;
+  // the epilogue's dD and ddt_bias, by item (each item a thread's own)
+  for (int i = tid; i < 2 * T * CPB; i += THREADS) s_fin[i] = 0.f;
+  // the thread that drives the ring: in the last warp, which takes no
+  // share of the stores and the dB | dC sums
+  const bool issuer = tid == THREADS - 1;
+  if (issuer && !dead) {
+    for (int s = 0; s < BWD_STAGES; ++s) mbar_init(bar0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int j = 0; j < BWD_STAGES && j < n_tiles; ++j)
+      issue_bwd<G>(maps, smem, bar0, j, n_tiles, c0, row0);
+  }
+  // the adjoint entering the tile (every lane holds its channel's), dA
+  float carry[SPT], dA[SPT];
+  {
+    const float4 v = live && p.dh_last != nullptr
+                         ? ld4(p.dh_last + hi)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    carry[0] = v.x, carry[1] = v.y, carry[2] = v.z, carry[3] = v.w;
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) dA[j] = 0.f;
+  }
+  // the prologue's channel (THREADS is a multiple of CPB)
+  const int pc = tid % CPB;
   __syncthreads();
 
+  // ---- ddt, dx, dz of iteration j's tile: 16-byte row segments
+  auto store_tile = [&](int j) {
+    constexpr int EL = 16 / (int)sizeof(In);          // elements a segment
+    constexpr int SEGS = CPB / EL;                    // segments a row
+    const int t0 = (n_tiles - 1 - j) * T;
+    const In* src = s_out + (j & 1) * 3 * G::OUT;
 #pragma unroll 1
-  for (int k = n_tiles - 1; k >= 0; --k) {
-    const int t0 = k * T;
-    // ---- prologue, a (t, channel) at a time
+    for (int i = tid; i < 3 * T * SEGS; i += THREADS) {
+      const int qn = i / (T * SEGS), r = i % (T * SEGS);
+      const int t = r / SEGS, col = c0 + (r % SEGS) * EL;
+      In* const dst = static_cast<In*>(qn == 0 ? p.ddt : qn == 1 ? p.dx
+                                                                 : p.dz);
+      if (t0 + t < S && col < d_in)
+        *reinterpret_cast<uint4*>(dst + (size_t)(row0 + t0 + t) * d_in +
+                                  col) =
+            *reinterpret_cast<const uint4*>(src + qn * G::OUT + t * OROW +
+                                            (r % SEGS) * EL);
+    }
+  };
+  // ---- the block's dB | dC of iteration j's tile, kept for the cluster:
+  // by groups of BWD_GROUP tiles, two groups
+  auto tile_sums = [&](int j) {
+    return s_tile + ((j / BWD_GROUP) & 1) * BWD_GROUP * T * BC +
+           (j % BWD_GROUP) * T * BC;
+  };
+  // ---- the cluster's dB | dC of iteration j's tile: each block reads a
+  // quarter of the four blocks' tile sums (the first block also the
+  // quarters of blocks past d_in; cluster_load says whether this thread
+  // takes a value) and, later, sums them in rank order into the
+  // cluster's partial row (cluster_sum), so that the loads' latency
+  // hides behind the work between
+  constexpr int QI = T * BC / 4 / BWD_CLUSTER;      // float4s a quarter
+  const int n_live = (d_in + CPB - 1) / CPB -
+                     (int)(blockIdx.x / BWD_CLUSTER) * BWD_CLUSTER;
+  const int quarter = tid / QI;
+  const bool mine = tid < T * BC / 4 &&
+                    (quarter < n_live ? quarter : 0) == (int)rank;
+  float4 cl4[BWD_CLUSTER];
+  auto cluster_load = [&](int j) -> bool {
+    const int t = tid / (BC / 4), col = (tid % (BC / 4)) * 4;
+    if (!mine || (n_tiles - 1 - j) * T + t >= S)
+      return false;
+    const uint32_t a = smem_u32(tile_sums(j) + t * BC + col);
+#pragma unroll
+    for (int r = 0; r < BWD_CLUSTER; ++r) cl4[r] = ld_cluster4(a, r);
+    return true;
+  };
+  auto cluster_sum = [&](int j) {
+    const int t = tid / (BC / 4), col = (tid % (BC / 4)) * 4;
+    float4 acc = cl4[0];
+#pragma unroll
+    for (int r = 1; r < BWD_CLUSTER; ++r)
+      acc.x += cl4[r].x, acc.y += cl4[r].y, acc.z += cl4[r].z,
+          acc.w += cl4[r].w;
+    const size_t cl = blockIdx.x / BWD_CLUSTER;
+    *reinterpret_cast<float4*>(
+        p.dbc_part +
+        ((cl * p.B + b) * S + (n_tiles - 1 - j) * T + t) * BC + col) = acc;
+  };
+
 #pragma unroll 1
-    for (int i = tid; i < TC; i += THREADS) {
-      const int t = i / CPB, col = c0 + ec;
-      float dtf = 0.f, dtx = 0.f, xv = 0.f, g = 0.f, gz = 0.f, dsp = 0.f;
-      if (t0 + t < S && col < d_in) {
-        const size_t o = (size_t)(b * S + t0 + t) * d_in + col;
-        const float v = round_as(to_f(dt[o]) + s_bias[ec], In());
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k = n_tiles - 1 - it, t0 = k * T;
+    float* const qb = s_q;                           // dtf, dtf x, g rows
+    float* const bcb = s_bc;
+    const unsigned char* stg = smem + (it % BWD_STAGES) * G::STAGE_BYTES;
+    const In* g_dt = reinterpret_cast<const In*>(stg);
+    const In* g_x = reinterpret_cast<const In*>(stg + G::RAW);
+    const In* g_z = reinterpret_cast<const In*>(stg + 2 * G::RAW);
+    const In* g_do = reinterpret_cast<const In*>(stg + 3 * G::RAW);
+    const In* g_bc = reinterpret_cast<const In*>(stg + 4 * G::RAW);
+    // the state the tile starts from (run 0's), read early
+    const float4 hst =
+        live && run == 0
+            ? ld4(p.states + (((size_t)b * n_tiles + k) * d_in + c) * ST +
+                  part * SPT)
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+
+    // ---- prologue: two steps of one channel a thread
+    if (!dead) {
+      bwd_wait(bar0 + 8 * (it % BWD_STAGES), (it / BWD_STAGES) & 1);
+#pragma unroll 1
+      for (int i = tid; i < CPB * T / 2; i += THREADS) {
+        const int t2 = (i / CPB) * 2;
+        float dv[2], gv[2], dxv[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int t = t2 + u;
+          const bool ok = t0 + t < S && c0 + pc < d_in;
+          const float v =
+              round_as(to_f(g_dt[t * CPB + pc]) + s_bias[pc], In());
+          const float d =
+              v > SOFTPLUS_THRESHOLD ? v : LN2 * lg2(1.f + ex2(v * LOG2E));
+          const float x = to_f(g_x[t * CPB + pc]);
+          const float z = to_f(g_z[t * CPB + pc]);
+          const float sg = rcp(1.f + ex2(-z * LOG2E));
+          dv[u] = ok ? d : 0.f;
+          dxv[u] = ok ? d * x : 0.f;
+          gv[u] = ok ? to_f(g_do[t * CPB + pc]) * (z * sg) : 0.f;
+        }
+        float* r = qb + pc * ROW + t2;
+        *reinterpret_cast<float2*>(r) = make_float2(dv[0], dv[1]);
+        *reinterpret_cast<float2*>(r + QF) = make_float2(dxv[0], dxv[1]);
+        *reinterpret_cast<float2*>(r + 2 * QF) = make_float2(gv[0], gv[1]);
+      }
+      // Bm | Cm, two values a thread (BC is even)
+#pragma unroll 1
+      for (int i = 2 * tid; i < T * BC; i += 2 * THREADS) {
+        const bool ok = t0 + i / BC < S;
+        *reinterpret_cast<float2*>(bcb + i) =
+            ok ? make_float2(to_f(g_bc[i]), to_f(g_bc[i + 1]))
+               : make_float2(0.f, 0.f);
+      }
+    }
+    // tile it's prologue written; iteration it - 1's epilogue done (its
+    // stage free, its staged outputs written)
+    __syncthreads();
+    if (!dead && it > 0) {
+      if (issuer && it - 1 + BWD_STAGES < n_tiles)
+        issue_bwd<G>(maps, smem, bar0, it - 1 + BWD_STAGES, n_tiles, c0,
+                     row0);
+      store_tile(it - 1);
+    }
+
+    if (!dead) {
+      const float* qd = qb + ch * ROW + run * L;      // this run's steps
+      const float* pb = bcb + run * L * BC + part * SPT;
+      const float4 av = ld4(s_a);
+      const float a2[SPT] = {av.x * LOG2E, av.y * LOG2E, av.z * LOG2E,
+                             av.w * LOG2E};
+      // ---- pass 1: the run's states (run 0 from the tile's saved
+      // state, run 1 from zero), its a_t, decay product cum and local
+      // adjoint sum lc = sum cum_t C_t g_t
+      const float hs0[SPT] = {hst.x, hst.y, hst.z, hst.w};
+      float cm[L][SPT], h[L][SPT], lc[SPT];
+      float2 dq2, xq2, gq2;
+#pragma unroll
+      for (int i = 0; i < L; ++i) {
+        if ((i & 1) == 0) {
+          dq2 = *reinterpret_cast<const float2*>(qd + i);
+          xq2 = *reinterpret_cast<const float2*>(qd + QF + i);
+          gq2 = *reinterpret_cast<const float2*>(qd + 2 * QF + i);
+        }
+        const float d = (i & 1) ? dq2.y : dq2.x, dx = (i & 1) ? xq2.y : xq2.x;
+        const float g = (i & 1) ? gq2.y : gq2.x;
+        const float4 bv = ld4(pb + i * BC), cv = ld4(pb + i * BC + ST);
+#pragma unroll
+        for (int j = 0; j < SPT; ++j) {
+          const float at = ex2(d * a2[j]);
+          h[i][j] = fmaf(at, i == 0 ? hs0[j] : h[i - 1][j], dx * get(bv, j));
+          cm[i][j] = i == 0 ? at : cm[i - 1][j] * at;
+          lc[j] = fmaf(cm[i][j], get(cv, j) * g, i == 0 ? 0.f : lc[j]);
+        }
+      }
+      // ---- run 1 starts where run 0 ends; pass 2 adds cum_t h_start
+      float hs1[SPT], hp0[SPT];
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) {
+        const float e = __shfl_sync(FULL, h[L - 1][j], q);
+        hs1[j] = run ? e : 0.f;
+        hp0[j] = run ? e : hs0[j];                    // h before step 0
+      }
+      // kept out of the registers pass 3 needs until its last step
+      *reinterpret_cast<float4*>(s_h) =
+          make_float4(hp0[0], hp0[1], hp0[2], hp0[3]);
+#pragma unroll
+      for (int i = 0; i < L; ++i) {
+#pragma unroll
+        for (int j = 0; j < SPT; ++j) h[i][j] = fmaf(cm[i][j], hs1[j], h[i][j]);
+      }
+      // ---- the adjoint across runs: run 1's carry out (cum, its decay
+      // product, times its carry in, plus lc) enters run 0
+      float rc[SPT];
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) {
+        const float out1 = fmaf(cm[L - 1][j], carry[j], lc[j]);
+        const float in0 = __shfl_sync(FULL, out1, q | (1 << RUN_SHIFT));
+        rc[j] = run ? carry[j] : in0;
+      }
+      // ---- pass 3: the run's steps backwards from its carry
+      const float A[SPT] = {av.x, av.y, av.z, av.w};
+      float* py = s_part + part * G::PSTRIDE + ch * ROW + run * L;
+      float2 yq, sq, tq;
+      // the lane's reduce-scatter bits (a channel's bits of the lane)
+      const int b1 = (lane >> G::LOG_P) & 1, b2 = (lane >> (G::LOG_P + 1)) & 1,
+                b3 = (lane >> (G::LOG_P + 2)) & 1;
+      const int idx0 = (G::LEVELS >= 1 ? b1 * 4 : 0) +
+                       (G::LEVELS >= 2 ? b2 * 2 : 0) +
+                       (G::LEVELS >= 3 ? b3 : 0);
+      const int gi = (idx0 >> 2) * ST + part * SPT + (idx0 & 3);
+      const int slot = warp * G::DUP + (cw >> G::LEVELS);
+#pragma unroll
+      for (int i = L - 1; i >= 0; --i) {
+        if ((i & 1) == 1) {
+          dq2 = *reinterpret_cast<const float2*>(qd + i - 1);
+          xq2 = *reinterpret_cast<const float2*>(qd + QF + i - 1);
+          gq2 = *reinterpret_cast<const float2*>(qd + 2 * QF + i - 1);
+        }
+        const float d = (i & 1) ? dq2.y : dq2.x, dx = (i & 1) ? xq2.y : xq2.x;
+        const float g = (i & 1) ? gq2.y : gq2.x;
+        const float4 bv = ld4(pb + i * BC), cv = ld4(pb + i * BC + ST);
+        if (i == 0) {
+          const float4 v = ld4(s_h);
+          hp0[0] = v.x, hp0[1] = v.y, hp0[2] = v.z, hp0[3] = v.w;
+        }
+        float yp = 0.f, sp = 0.f, tp = 0.f, v[8];
+#pragma unroll
+        for (int j = 0; j < SPT; ++j) {
+          const float dh = fmaf(get(cv, j), g, rc[j]);
+          yp = fmaf(h[i][j], get(cv, j), yp);
+          v[j] = dh * dx;                             // dB
+          v[SPT + j] = g * h[i][j];                   // dC
+          sp = fmaf(dh, get(bv, j), sp);
+          const float ar = ex2(d * a2[j]);             // recomputed
+          const float w = dh * (ar * (i == 0 ? hp0[j] : h[i - 1][j]));
+          dA[j] = fmaf(d, w, dA[j]);
+          tp = fmaf(A[j], w, tp);
+          rc[j] = ar * dh;
+        }
+        if (i & 1) {
+          yq.y = yp, sq.y = sp, tq.y = tp;
+        } else {
+          yq.x = yp, sq.x = sp, tq.x = tp;
+          *reinterpret_cast<float2*>(py + i) = yq;
+          *reinterpret_cast<float2*>(py + G::PART + i) = sq;
+          *reinterpret_cast<float2*>(py + 2 * G::PART + i) = tq;
+        }
+        // dB | dC over the half-warp's channels: each level halves the
+        // values a lane keeps (the lower half where its bit is 0)
+        if constexpr (G::LEVELS >= 1) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float send = b1 ? v[j] : v[4 + j];
+            const float keep = b1 ? v[4 + j] : v[j];
+            v[j] = keep + __shfl_xor_sync(FULL, send, 1 << G::LOG_P);
+          }
+        }
+        if constexpr (G::LEVELS >= 2) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float send = b2 ? v[j] : v[2 + j];
+            const float keep = b2 ? v[2 + j] : v[j];
+            v[j] = keep + __shfl_xor_sync(FULL, send, 2 << G::LOG_P);
+          }
+        }
+        if constexpr (G::LEVELS >= 3) {
+          const float send = b3 ? v[0] : v[1];
+          const float keep = b3 ? v[1] : v[0];
+          v[0] = keep + __shfl_xor_sync(FULL, send, 4 << G::LOG_P);
+        }
+        float* r = s_red + ((run * L + i) * G::NSLOT + slot) * BC + gi;
+        if constexpr (G::NV == 2) *reinterpret_cast<float2*>(r) =
+            make_float2(v[0], v[1]);
+        else *r = v[0];
+      }
+      // run 0's carry out leaves the tile: the earlier tile's carry in
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) carry[j] = __shfl_sync(FULL, rc[j], q);
+    }
+
+    // the cluster's dB | dC of the tile BWD_GROUP before, read now and
+    // summed after the epilogue (a group's first iteration waits for the
+    // cluster barrier's arrive that closed the group before)
+    bool cl_take = false;
+    if (it >= BWD_GROUP) {
+      if (it % BWD_GROUP == 0) cluster_wait();
+      cl_take = cluster_load(it - BWD_GROUP);
+    }
+    // tile it's partials written
+    __syncthreads();
+
+    if (!dead) {
+      // ---- the block's dB | dC: the partials over warps, in slot order
+      if (tid < T * BC / 4) {
+        const int t = tid / (BC / 4), col = (tid % (BC / 4)) * 4;
+        const float* r = s_red + t * G::NSLOT * BC + col;
+        float4 acc = ld4(r);
+#pragma unroll
+        for (int s = 1; s < G::NSLOT; ++s) {
+          const float4 v = ld4(r + s * BC);
+          acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
+        }
+        *reinterpret_cast<float4*>(tile_sums(it) + t * BC + col) = acc;
+      }
+      // ---- epilogue, a (t, channel) an item
+      In* o = s_out + (it & 1) * 3 * G::OUT;
+#pragma unroll
+      for (int n = 0; n < G::NITEM; ++n) {
+        const int i = tid + n * THREADS, w = i >> 5, l = i & 31;
+        const int ec = (w % 4) * 8 + (l >> 2), et = (w / 4) * 4 + (l & 3);
+        const int e = ec * ROW + et;
+        float y = s_part[e], s = s_part[G::PART + e],
+              tt = s_part[2 * G::PART + e];
+#pragma unroll
+        for (int pp = 1; pp < P; ++pp) {
+          const float* r = s_part + pp * G::PSTRIDE + e;
+          y += r[0];
+          s += r[G::PART];
+          tt += r[2 * G::PART];
+        }
+        // dtf and g as the prologue computes them (the same bits), from
+        // the tile's raw rows: the prologue's rows belong to the passes
+        const float v =
+            round_as(to_f(g_dt[et * CPB + ec]) + s_bias[ec], In());
         const bool lin = v > SOFTPLUS_THRESHOLD;
-        dtf = lin ? v : LN2 * lg2(1.f + ex2(v * LOG2E));
-        dsp = lin ? 1.f : rcp(1.f + ex2(-v * LOG2E));
-        xv = to_f(xg[o]);
-        dtx = dtf * xv;
-        const float zv = to_f(zg[(size_t)(b * S + t0 + t) * p.z_stride + col]);
+        const float ev = ex2(v * LOG2E);
+        const float d = lin ? v : LN2 * lg2(1.f + ev);
+        const float dsp = lin ? 1.f : ev * rcp(1.f + ev);
+        const float xv = to_f(g_x[et * CPB + ec]);
+        const float zv = to_f(g_z[et * CPB + ec]);
         const float sg = rcp(1.f + ex2(-zv * LOG2E));
-        const float dov = to_f(dog[o]);
-        g = dov * (zv * sg);
-        gz = dov * (sg * (1.f + zv * (1.f - sg)));
-      }
-      s_dtf[i] = dtf;
-      s_dtx[i] = dtx;
-      s_x[i] = xv;
-      s_g[i] = g;
-      s_gz[i] = gz;
-      s_dsp[i] = dsp;
-    }
-#pragma unroll 1
-    for (int i = tid; i < T * 2 * ST; i += THREADS) {
-      const int t = i / (2 * ST);
-      s_bc[i] = t0 + t < S ? to_f(bcg[(size_t)(b * S + t0 + t) * p.bc_stride +
-                                     i % (2 * ST)])
-                           : 0.f;
-    }
-    __syncthreads();
-
-    // ---- recompute the tile's states from the one it starts from
-    const float h_start =
-        live ? p.states[(((size_t)b * n_tiles + k) * d_in + c) * ST + s]
-             : 0.f;
-    float hs[T], as[T];
-    {
-      float h = h_start;
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        const float a = ex2(s_dtf[t * CPB + ch] * A2);
-        h = fmaf(a, h, s_dtx[t * CPB + ch] * s_bc[t * 2 * ST + s]);
-        hs[t] = h;
-        as[t] = a;
-        float yp = h * s_bc[t * 2 * ST + ST + s];
-#pragma unroll
-        for (int off = ST / 2; off > 0; off >>= 1)
-          yp += __shfl_xor_sync(FULL, yp, off);
-        if (s == 0) s_y[t * CPB + ch] = yp;
-      }
-    }
-
-    // ---- the tile's steps backwards
-#pragma unroll
-    for (int t = T - 1; t >= 0; --t) {
-      if (t0 + t >= S) continue;                   // the same for the block
-      const float d = s_dtf[t * CPB + ch], g = s_g[t * CPB + ch];
-      const float Bv = s_bc[t * 2 * ST + s], Cv = s_bc[t * 2 * ST + ST + s];
-      const float hp = t > 0 ? hs[t - 1] : h_start;
-      const float dh = fmaf(Cv, g, carry);
-      const float ahp = as[t] * hp;
-      float dC = g * hs[t];
-      float dB = dh * s_dtx[t * CPB + ch];
-      float dxp = dh * Bv;
-      float ddp = dh * fmaf(A, ahp, Bv * s_x[t * CPB + ch]);
-      dA = fmaf(dh * d, ahp, dA);
-      carry = as[t] * dh;
-#pragma unroll
-      for (int off = ST / 2; off > 0; off >>= 1) {     // over states
-        dxp += __shfl_xor_sync(FULL, dxp, off);
-        ddp += __shfl_xor_sync(FULL, ddp, off);
-      }
-      if (s == 0) {
-        s_dxs[t * CPB + ch] = dxp * d;
-        s_ddtf[t * CPB + ch] = ddp;
-      }
-#pragma unroll
-      for (int off = ST; off < 32; off <<= 1) {        // over the warp's channels
-        dB += __shfl_xor_sync(FULL, dB, off);
-        dC += __shfl_xor_sync(FULL, dC, off);
-      }
-      if (lane < ST) {
-        float* r = s_red + (t * WARPS + warp) * 2 * ST;
-        r[lane] = dB;
-        r[ST + lane] = dC;
-      }
-    }
-    __syncthreads();
-
-    // ---- epilogue: ddt, dx, dz rows; the block's dB | dC
-#pragma unroll 1
-    for (int i = tid; i < TC; i += THREADS) {
-      const int t = i / CPB, col = c0 + ec;
-      if (t0 + t >= S) break;                     // t grows with i
-      if (col < d_in) {
-        const size_t o = (size_t)(b * S + t0 + t) * d_in + col;
-        const float xv = s_x[i], g = s_g[i];
-        const float gv = s_ddtf[i] * s_dsp[i];
+        const float dov = to_f(g_do[et * CPB + ec]);
+        const float g = dov * (zv * sg);
+        const float gz = dov * (sg * (1.f + zv * (1.f - sg)));
+        const float ddtf = fmaf(xv, s, tt);
+        const float gv = ddtf * dsp;
         // y + D x as two roundings, as the forward and the plain version
-        const float yt = __fadd_rn(s_y[i], __fmul_rn(s_d[ec], xv));
-        store1(ddt + o, gv);
-        store1(dxg + o, fmaf(g, s_d[ec], s_dxs[i]));
-        store1(dzg + o, s_gz[i] * yt);
-        dD = fmaf(g, xv, dD);
-        dbias += gv;
+        const float yt = __fadd_rn(y, __fmul_rn(s_d[ec], xv));
+        if (t0 + et < S && c0 + ec < d_in) {
+          s_fin[i] = fmaf(g, xv, s_fin[i]);
+          s_fin[T * CPB + i] += gv;
+        }
+        store1(o + et * OROW + ec, gv);
+        store1(o + G::OUT + et * OROW + ec, fmaf(g, s_d[ec], s * d));
+        store1(o + 2 * G::OUT + et * OROW + ec, gz * yt);
       }
     }
-#pragma unroll 1
-    for (int i = tid; i < T * 2 * ST; i += THREADS) {
-      const int t = i / (2 * ST), j = i % (2 * ST);
-      if (t0 + t >= S) break;
-      float acc = 0.f;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w) acc += s_red[(t * WARPS + w) * 2 * ST + j];
-      p.dbc_part[(((size_t)blockIdx.x * p.B + b) * S + t0 + t) * 2 * ST + j] =
-          acc;
-    }
-    // the next tile's prologue overwrites what the epilogue reads
-    __syncthreads();
+    // the group's dB | dC ready for the cluster; the group before's read
+    // (its values are in registers: the store after the arrive, so that
+    // the arrive's release does not wait for it)
+    if (it % BWD_GROUP == BWD_GROUP - 1 || it == n_tiles - 1)
+      cluster_arrive();
+    if (cl_take) cluster_sum(it - BWD_GROUP);
   }
 
-  // ---- per-sequence partials: dA, dD, ddt_bias; dh0 = a_0 dh_0
+  // ---- the last tile's outputs and the cluster's last dB | dC
+  __syncthreads();
+  if (!dead) store_tile(n_tiles - 1);
+  cluster_wait();
+#pragma unroll 1
+  for (int j = n_tiles > BWD_GROUP ? n_tiles - BWD_GROUP : 0; j < n_tiles; ++j)
+    if (cluster_load(j)) cluster_sum(j);
+  cluster_arrive();
+
+  // ---- per-sequence partials: dA (runs summed), dh0 = the adjoint
+  // leaving the first tile; dD, ddt_bias over a channel's items
   float* red = p.red_part + (size_t)b * d_in * (ST + 2);
-  if (live) {
-    red[(size_t)c * ST + s] = dA;
-    if (p.dh0 != nullptr) p.dh0[hi] = carry;
+#pragma unroll
+  for (int j = 0; j < SPT; ++j)
+    dA[j] += __shfl_xor_sync(FULL, dA[j], 1 << RUN_SHIFT);
+  if (live && run == 0) {
+    *reinterpret_cast<float4*>(red + (size_t)c * ST + part * SPT) =
+        make_float4(dA[0], dA[1], dA[2], dA[3]);
+    if (p.dh0 != nullptr)
+      *reinterpret_cast<float4*>(p.dh0 + hi) =
+          make_float4(carry[0], carry[1], carry[2], carry[3]);
   }
-  s_fin[tid] = dD;
-  s_fin[THREADS + tid] = dbias;
   __syncthreads();
   if (tid < CPB && c0 + tid < d_in) {
+    // the items of channel tid: warp-items w = tid / 8 + 4 m, lanes
+    // (tid % 8) * 4 + u
     float sd = 0.f, sb = 0.f;
 #pragma unroll 1
-    for (int r = tid; r < THREADS; r += CPB) {
-      sd += s_fin[r];
-      sb += s_fin[THREADS + r];
-    }
+    for (int m = 0; m < T / 4; ++m)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = ((tid / 8) + 4 * m) * 32 + (tid % 8) * 4 + u;
+        sd += s_fin[i];
+        sb += s_fin[T * CPB + i];
+      }
     red[(size_t)d_in * ST + c0 + tid] = sd;
     red[(size_t)d_in * (ST + 1) + c0 + tid] = sb;
   }
+  // no block leaves while another block of the cluster reads its tiles
+  cluster_wait();
 }
 
 // ---- host ------------------------------------------------------------- //
@@ -884,20 +1279,45 @@ int dispatch(const Call& a) {
                 : launch_st<float, FUSED>(a);
 }
 
+// The backward's inputs as the entry point takes them: the rows its
+// tensor maps read, and what the kernel reads itself.
+struct BwdCall {
+  const void *dt, *x, *z, *bc, *dout;
+  long long bc_stride, z_stride;
+  BwdArgs args;
+};
+
 template <int ST, typename In>
-int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  using G = BwdGeo<ST>;
+int launch_bwd(const BwdCall& a, cudaStream_t stream) {
+  using G = BwdGeo<ST, In>;
+  const bool bf16 = std::is_same_v<In, __nv_bfloat16>;
+  const int d_in = a.args.d_in;
+  const long long rows = (long long)a.args.B * a.args.S;
+  BwdMaps maps = {};
+  if (!encode(&maps.dt, a.dt, bf16, rows, d_in, d_in, T, CPB) ||
+      !encode(&maps.x, a.x, bf16, rows, d_in, d_in, T, CPB) ||
+      !encode(&maps.z, a.z, bf16, rows, d_in, a.z_stride, T, CPB) ||
+      !encode(&maps.dout, a.dout, bf16, rows, d_in, d_in, T, CPB) ||
+      !encode(&maps.bc, a.bc, bf16, rows, 2 * ST, a.bc_stride, T, 2 * ST))
+    return (int)cudaErrorInvalidValue;
   auto kern = selective_scan_bwd_kernel<ST, In>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
-  kern<<<dim3((a.d_in + CPB - 1) / CPB, a.B), G::THREADS, G::SMEM,
-         stream>>>(a);
+  // whole clusters along the channels; the blocks past d_in pad them
+  const int n_blk = (d_in + CPB - 1) / CPB;
+  const int grid_x = (n_blk + BWD_CLUSTER - 1) / BWD_CLUSTER * BWD_CLUSTER;
+  kern<<<dim3(grid_x, a.args.B), G::THREADS, G::SMEM, stream>>>(maps,
+                                                                 a.args);
   return (int)cudaGetLastError();
 }
 
 template <typename In>
-int launch_bwd_st(int st, const BwdArgs& a, cudaStream_t stream) {
+int launch_bwd_st(int st, const BwdCall& a, cudaStream_t stream) {
   switch (st) {
     case 4: return launch_bwd<4, In>(a, stream);
     case 8: return launch_bwd<8, In>(a, stream);
@@ -972,21 +1392,22 @@ extern "C" int selective_scan_fused(const long long* a) {
 // inputs as it takes them, h0 aside; dout (B, S, d_in) in the model's
 // dtype; dh_last (B, d_in, st) fp32 or 0 for zeros; states the forward's
 // (B, ceil(S / 16), d_in, st) fp32; out: ddt, dx, dz (B, S, d_in) in the
-// model's dtype; dbc_part (ceil(d_in / 32), B, S, 2 st) fp32, each
-// block's dB | dC over its channels; red_part (B, d_in (st + 2)) fp32,
+// model's dtype; dbc_part (ceil(d_in / 128), B, S, 2 st) fp32, each
+// cluster's dB | dC over its channels; red_part (B, d_in (st + 2)) fp32,
 // each sequence's dA (d_in, st), dD, ddt_bias; dh0 (B, d_in, st) fp32 or
 // 0 to write none), B, S, d_in, st, bc_stride, z_stride, is_bf16,
 // stream.  The caller sums the partials over their leading axis.
 extern "C" int selective_scan_fused_backward(const long long* a) {
-  BwdArgs p = {};
-  p.dt = (const void*)a[0];
-  p.x = (const void*)a[1];
-  p.z = (const void*)a[2];
-  p.bc = (const void*)a[3];
+  BwdCall c = {};
+  BwdArgs& p = c.args;
+  c.dt = (const void*)a[0];
+  c.x = (const void*)a[1];
+  c.z = (const void*)a[2];
+  c.bc = (const void*)a[3];
   p.A = (const float*)a[4];
   p.D = (const float*)a[5];
   p.dt_bias = (const void*)a[6];
-  p.dout = (const void*)a[7];
+  c.dout = (const void*)a[7];
   p.dh_last = (const float*)a[8];
   p.states = (const float*)a[9];
   p.ddt = (void*)a[10];
@@ -999,14 +1420,14 @@ extern "C" int selective_scan_fused_backward(const long long* a) {
   p.S = (int)a[17];
   p.d_in = (int)a[18];
   const int st = (int)a[19];
-  p.bc_stride = a[20];
-  p.z_stride = a[21];
+  c.bc_stride = a[20];
+  c.z_stride = a[21];
   const bool bf16 = a[22] != 0;
   const cudaStream_t stream = (cudaStream_t)a[23];
   if (p.B < 1 || p.S < 1 || p.d_in < 1 || p.B > 65535 ||
       (long long)p.B * p.S >= (1ll << 31) || p.states == nullptr ||
       p.D == nullptr || p.dt_bias == nullptr)
     return (int)cudaErrorInvalidValue;
-  return bf16 ? launch_bwd_st<__nv_bfloat16>(st, p, stream)
-              : launch_bwd_st<float>(st, p, stream);
+  return bf16 ? launch_bwd_st<__nv_bfloat16>(st, c, stream)
+              : launch_bwd_st<float>(st, c, stream);
 }

@@ -51,9 +51,13 @@ D_IN_MULTIPLE = 8
 #: steps a tile of the kernels (``T`` in the source): the forward saves
 #: each tile's starting state for the backward
 TILE = 16
-#: channels a block of the kernels (``CPB``): the backward writes its
-#: partial sums over channels a block at a time
+#: channels a block of the kernels (``CPB``)
 CHANNELS_PER_BLOCK = 32
+#: blocks of the backward's thread-block cluster (``BWD_CLUSTER``), along
+#: the channels: it writes its partial sums over channels (dBm | dCm) one
+#: row a cluster, ``CHANNELS_PER_PARTIAL`` channels
+BWD_CLUSTER = 4
+CHANNELS_PER_PARTIAL = CHANNELS_PER_BLOCK * BWD_CLUSTER
 
 _LIB = _build.Library("selective_scan", {
     # dt, x, bc, A, h0, y, h_last, B, S, d_in, st, bc_stride, is_bf16,
@@ -279,10 +283,12 @@ def selective_scan_fused_backward(
     them.  On the card one launch of the backward kernel, which reads the
     forward's ``states`` (:func:`selective_scan_fused_forward` with
     ``save_states``; required there) and walks each block's tiles from
-    the last to the first; its sums over channels (dBm, dCm) and over the
-    batch (dA, dD, ddt_bias) come out as partials, which ``sum(0)`` adds
-    up (no float atomics on either side, so two launches give the same
-    bits)."""
+    the last to the first.  Its sums over channels (dBm, dCm) come out
+    as one partial row of (B, S, 2 st) fp32 a thread-block cluster of
+    ``CHANNELS_PER_PARTIAL`` channels (the blocks of a cluster add theirs
+    up in shared memory), those over the batch (dA, dD, ddt_bias) as one
+    row a sequence; ``sum(0)`` adds the partials up (no float atomics on
+    either side, so two launches give the same bits)."""
     B, S, d_in = dt.shape
     st = A.shape[-1] if A.dim() == 2 else -1
     more = {"dout": (dout, dt.shape)}
@@ -308,12 +314,12 @@ def selective_scan_fused_backward(
     if not _rows_in_place(z):
         z = _aligned(z)
     bc, bc_stride = _bc_rows(Bm, Cm)
-    n_blk = -(-d_in // CHANNELS_PER_BLOCK)
+    n_part = -(-d_in // CHANNELS_PER_PARTIAL)
     f32 = dict(dtype=torch.float32, device=dt.device)
     with _build.on_device(dt.device):
         ddt, dx, dz = (torch.empty((B, S, d_in), dtype=xc.dtype,
                                    device=dt.device) for _ in range(3))
-        dbc_part = torch.empty((n_blk, B, S, 2 * st), **f32)
+        dbc_part = torch.empty((n_part, B, S, 2 * st), **f32)
         # dA (d_in, st), dD (d_in,) and ddt_bias (d_in,) side by side
         red_part = torch.empty((B, d_in * (st + 2)), **f32)
         dh0 = None if h0 is None else torch.empty((B, d_in, st), **f32)

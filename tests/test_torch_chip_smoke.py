@@ -431,15 +431,16 @@ def test_scan_backward_bound_at_falcon_mambas_layer():
     read or written, the saved states 134 MB), 0.181 ms at 3.35 TB/s,
     under the 0.191 ms of fp32 operations (23 a (t, channel, state), 14 a
     (t, channel)) and above the 0.160 ms of MUFU work (537 M state exps +
-    4 a (t, channel)): bound by operations.  The per-block and per-sequence
-    partials, ~271 MB written and read back, are the design's and stay
-    out of the bound."""
+    4 a (t, channel)): bound by operations.  The per-cluster and
+    per-sequence partials, ~69 MB written and read back (one dB | dC row
+    a cluster of 128 channels), are the design's and stay out of the
+    bound."""
     got, by, parts = chip_smoke.scan_bwd_bound_ms(2, 2048, 8192, 16, 2)
     assert by == "operations" and round(got, 3) == 0.191
     assert round(parts["bytes"], 3) == 0.181
     assert round(parts["exp"], 3) == 0.160
     assert round(parts["fp32"], 3) == 0.191
-    assert round(parts["design_bytes"], 3) == 0.081
+    assert round(parts["design_bytes"], 3) == 0.021
 
 
 def test_training_launches_a_step_by_arch():
@@ -473,9 +474,9 @@ def test_mamba_training_runs_at_the_generation_shape():
 
 @pytest.mark.parametrize("kernel", [
     "void (anonymous namespace)::selective_scan_bwd_kernel<16, "
-    "__nv_bfloat16>(BwdArgs)",
+    "__nv_bfloat16>(BwdMaps, BwdArgs)",
     "void (anonymous namespace)::selective_scan_bwd_kernel<4, float>"
-    "(BwdArgs)"])
+    "(BwdMaps, BwdArgs)"])
 def test_kernel_groups_name_the_scan_backward(kernel):
     assert chip_smoke._kernel_group(kernel) == "selective scan backward"
 
@@ -493,3 +494,6 @@ def test_scan_source_instantiates_the_backward_for_every_state_size():
     assert f"constexpr int T = L * R;" in text and tss.TILE == 16
     assert "constexpr int CPB = 32;" in text
     assert tss.CHANNELS_PER_BLOCK == 32
+    # the backward's partial rows: one a cluster of blocks
+    assert f"constexpr int BWD_CLUSTER = {tss.BWD_CLUSTER};" in text
+    assert tss.CHANNELS_PER_PARTIAL == 32 * tss.BWD_CLUSTER

@@ -131,6 +131,63 @@ def test_plain_backward_matches_autograd(dtype, st, S, start):
             assert g.dtype == dtype, name
 
 
+@pytest.mark.parametrize("L", [4, 8, 16])
+@pytest.mark.parametrize("S", [1, 15, 17, 300])
+def test_adjoint_split_into_runs_equals_the_stepwise_adjoint(L, S):
+    """The algebra the backward kernel's runs rely on, in fp64: the
+    adjoint dh_t = C_t g_t + a_{t+1} dh_{t+1} split into runs of L steps,
+    each run from a zero adjoint (its decay product cum = prod a over the
+    run and its local carry out lc = sum_t cum_t C_t g_t, cum_t the
+    product of a up to t) and the runs combined in reverse by those
+    pairs (carry in of a run = lc + cum * carry in of the run after it),
+    gives every step's dh_t as dh_local_t + (prod of a after t in the
+    run) * carry, within 1e-12 * max|dh| of the stepwise adjoint of
+    ``ref.selective_scan_fused_backward``; the carry leaving the first
+    run is its dh0."""
+    st = 16
+    leaves, dout, dhl = _inputs(2, S, 8, st, seed=S + L, dtype=torch.float64)
+    h0, dt, Bm, Cm, A, xc, D, z, bias = _args(leaves, st)
+    dtf = torch.nn.functional.softplus(dt + bias)
+    a = torch.exp(dtf[..., None] * A)                      # (B, S, d_in, st)
+    cg = Cm[:, :, None, :] * (dout * z * torch.sigmoid(z))[..., None]
+    # the stepwise adjoint, as the reference's reverse loop runs it
+    step = torch.empty_like(a)
+    dh = dhl.clone()
+    for t in reversed(range(S)):
+        dh = dh + cg[:, t]
+        step[:, t] = dh
+        dh = a[:, t] * dh
+    # the runs, each from a zero adjoint: (cum, lc) and the local dh_t
+    runs = [(s, min(s + L, S)) for s in range(0, S, L)]
+    local, pairs = torch.empty_like(a), []
+    for s, e in runs:
+        cum = torch.ones_like(dhl)
+        lc = torch.zeros_like(dhl)
+        for t in range(s, e):
+            cum = cum * a[:, t]
+            lc = lc + cum * cg[:, t]
+        d = torch.zeros_like(dhl)
+        for t in reversed(range(s, e)):
+            d = d + cg[:, t]
+            local[:, t] = d
+            d = a[:, t] * d
+        pairs.append((cum, lc))
+    # combined in reverse; each step's dh from its run's carry in
+    got, carry = torch.empty_like(a), dhl.clone()
+    for (s, e), (cum, lc) in reversed(list(zip(runs, pairs))):
+        after = torch.ones_like(dhl)                  # prod of a after t
+        for t in reversed(range(s, e)):
+            got[:, t] = local[:, t] + after * carry
+            after = after * a[:, t]
+        carry = lc + cum * carry
+    scale = float(step.abs().max())
+    assert float((got - step).abs().max()) <= 1e-12 * scale
+    dh0 = tref.selective_scan_fused_backward(h0, dt, Bm, Cm, A, xc, D, z,
+                                             bias, dout, dhl)[0]
+    assert float((carry - dh0).abs().max()) <= 1e-12 * float(
+        dh0.abs().max())
+
+
 def test_inputs_straddle_softplus_threshold():
     """The cases above hold dt + bias on both sides of 20, where
     softplus's gradient turns from sigmoid(v) to 1."""

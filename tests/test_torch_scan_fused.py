@@ -256,9 +256,11 @@ _PER_ELEMENT = ("dh0", "ddt", "dxc", "dz")
 def test_fused_backward_kernel_matches_plain_on_card():
     """The backward kernel against the plain backward
     (``ref.selective_scan_fused_backward``) on the card: d_state 4, 8 and
-    16, S 24, 300, 1 and 257, fp32 and bf16, from h0 and from zeros, with
-    and without a gradient of h_last.  ddt, dxc, dz and dh0 within 2e-4
-    (1 + |plain|) (plus one bf16 ulp on a bf16 one), the reduced dA, dD,
+    16, S 24, 300, 1, 257, 40 and 33, fp32 and bf16, from h0 and from
+    zeros, with and without a gradient of h_last; d_in 72 and 1,032 are
+    multiples neither of a block's 32 channels nor of a cluster's 128
+    (blocks past d_in pad the last cluster).  ddt, dxc, dz and dh0 within
+    2e-4 (1 + |plain|) (plus one bf16 ulp on a bf16 one), the reduced dA, dD,
     ddt_bias, dBm and dCm within 2e-4 * max|plain| (plus one bf16 ulp of
     each value on a bf16 one): chip_smoke's tolerances.  The forward with
     its tile states gives the same bits as without; two backward launches
@@ -269,7 +271,8 @@ def test_fused_backward_kernel_matches_plain_on_card():
     n = 0
     for B, S, d_in, st, h0_zero in (
             (2, 24, 64, 4, True), (2, 300, 512, 8, False),
-            (1, 1, 32, 16, False), (2, 257, 1024, 16, True)):
+            (1, 1, 32, 16, False), (2, 257, 1024, 16, True),
+            (2, 40, 72, 16, False), (2, 33, 1032, 4, True)):
         for dtype in (torch.float32, torch.bfloat16):
             args = [None if a is None else a.cuda() for a in _inputs(
                 B, S, d_in, st, seed=S + 1, dtype=dtype, h0_zero=h0_zero)]
