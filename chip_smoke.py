@@ -46,11 +46,15 @@ Phases, in order; any failure exits non-zero:
               with q_offset > 0; whisper-base's decoder, 8 heads of 64,
               at its 64-token prompt and its 448-token cap; one
               llava-next-34b layer, 56 q heads over 8 kv heads of 128,
-              over 2,880 image + 64 text tokens); on each, the
+              over 2,880 image + 64 text tokens), and head dim 256
+              (recurrentgemma-2b's layer, 10 q heads over 1 kv head, S
+              4,096, W 2,048; ragged S, q_offset with Sq < Skv, W 77, one
+              query, W >= S); on each, the
               forward's log-sum-exp and the three backward kernels
               (bwd_dot, backward_dkdv, backward_dq) on the plain forward's
               saved tensors, and two backward launches bit for bit on a
-              few
+              few (on every d = 256 case); the build phase records every
+              d = 256 instance's registers and spills
      scan     the selective-scan kernel's three entry points against their
               plain versions, fp32 and bf16 inputs: the bare scan on y
               and h_last (rtol = atol = 2e-4), the fused one (dt's bias
@@ -108,7 +112,7 @@ Phases, in order; any failure exits non-zero:
               compare of every model at sample 1,000 ("kge" MRR against
               ``rank_based_eval``, RDF2vec by cosine, then all cached),
               64 ``AsyncGateway`` coroutines against the sync answers,
-              the serve session alone and beside a 40k join; over
+              the serve session alone and beside a 10,000-class join; over
               ``launch.serve --http 0 --max-jobs-queued 2``: pages with
               304 on their ETags, ``?stream=true``, a running 40k join
               cancelled (409) and the queue bound (429); a pool of 2:
@@ -142,6 +146,16 @@ Phases, in order; any failure exits non-zero:
               ``launch.generate`` (batch 2, prompt 2048, 16 steps):
               prefill ms, tokens/s, decode ms a token, the state's bytes,
               peak memory, 64 fused scan launches per prefill
+     hybrid   recurrentgemma-2b at its published width and depth: in fp32,
+              3 layers (two RG-LRU, then local attention at d 256), the
+              last logits of prefill(4097) against prefill(4096) +
+              decode_step (2e-3, same argmax), one SWA launch a prefill;
+              then a bf16 ``launch.generate`` (batch 2, prompt 4,096,
+              twice the window, 16 steps): prefill ms, tokens/s, decode
+              ms a token, the cache's bytes (RG-LRU states, conv tails,
+              rolling KV), peak memory, 8 SWA launches per prefill; the
+              RG-LRU scan's time at one layer and over a prefill's and a
+              training step's recurrent layers
      whisper  whisper-base at its published width and depth: in fp32,
               1,500 encoder frames, a 65-token decoder prefill against
               64 + decode_step (2e-3, same argmax), 6 causal SWA launches
@@ -160,10 +174,10 @@ Phases, in order; any failure exits non-zero:
               same step with the plain SWA forward and backward
               substituted (loss 1e-5 relative, each gradient leaf 2e-4 *
               max|g|); then bf16, 24 layers, remat "full", through
-              ``repro_torch.launch.train`` (a 2-step warm-up run, then 3
+              ``repro_torch.launch.train`` (a 1-step warm-up run, then 3
               measured steps): step ms, tokens/s, peak memory, 48 SWA
               forwards and 24 launches of each backward entry point a
-              step, finite losses; 8 steps on one repeated batch, whose
+              step, finite losses; 5 steps on one repeated batch, whose
               losses fall, 2 of them under torch.profiler (device-busy
               share, device ms by kernel group).  Then falcon-mamba-7b
               at its published width: in fp32 two layers (B = 1, S =
@@ -171,15 +185,23 @@ Phases, in order; any failure exits non-zero:
               plain fused scan and its plain backward substituted (the
               same tolerances); then bf16, all 64 layers, remat "full",
               B 2, S 2048, Adam at lr 3e-4, through ``launch.train`` (a
-              2-step warm-up run, then 3 measured steps): step ms,
+              1-step warm-up run, then 3 measured steps): step ms,
               tokens/s, peak memory, 128 fused scans and 64 backward
-              launches a step, finite losses; 8 steps on one repeated
-              batch, whose losses fall, 2 under torch.profiler.  The
+              launches a step, finite losses; 5 steps on one repeated
+              batch, whose losses fall, 2 under torch.profiler.  Then
+              recurrentgemma-2b: fp32, 3 layers (B 1, S 4,096) with the
+              SWA Function swapped for the plain one; bf16, all 26
+              layers, remat "full" per period, B 2, S 4,096 (16 SWA
+              forwards at d 256 and 8 of each backward entry point a
+              step), the same measurements, but its repeated batch's
+              first 5 losses held to the plain SWA Function's (1e-3
+              relative) and its last below its first: Adam at lr 3e-4
+              overshoots at its fourth step on both paths.  The
               generation runs' 16 decode steps (were 32) and the 3
               measured training steps (were 5) are the depth cut that
               keeps the whole script near 1,000 s
  11. numbers  top-k kernel, plain, library and host-to-device times (CUDA
-              events) at N = 40k and 100k; kge_score forward and backward
+              events) at N = 40k, Q 1 and 32; kge_score forward and backward
               times at (1024, 32, 200) (back-to-back calls, profiler device
               time, 50 calls replayed from one CUDA graph) and the
               forward wrapper's host time by part; the device-busy share
@@ -207,6 +229,10 @@ Phases, in order; any failure exits non-zero:
               the saved states included, and outputs; the partials' bytes
               beside it, not in it);
               where a falcon-mamba-7b and a whisper-base prefill and
+              decode step spend their device time; the SWA kernels at
+              d = 256 at one recurrentgemma-2b layer (forward, and
+              forward with lse + backward) against their bounds, plain
+              versions and SDPA, and where a recurrentgemma-2b prefill and
               decode step spend their device time.
               After other phases it runs in a fresh child process
               (``--phases numbers``), whose profiler sessions read the
@@ -221,13 +247,15 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
-It prints JSON lines as it goes, then the card's name and power limit,
-the kernels line, and last ``{"ok": true, "device": {...}}``.
+It prints JSON lines as it goes (a ``{"ended": ..., "seconds": ...}``
+line on stdout and stderr as each phase, and each part of the numbers
+phase, ends), then the card's name and power limit, the kernels line,
+and last ``{"ok": true, "device": {...}}``.
 ``--phases`` runs a subset (``build,kernels``, ``build,kge``,
 ``build,swa,lm``, ``build,swa,moe``, ``build,scan,mamba``,
-``build,swa,whisper``, ``build,swa,llava``, ``build,swa,train`` or
-``build,scan,train`` (h2o-danube and falcon-mamba training) is a quick
-check of one slice;
+``build,swa,whisper``, ``build,swa,llava``, ``build,swa,hybrid``,
+``build,swa,train`` or ``build,scan,train`` (the three training runs)
+is a quick check of one slice;
 ``build,serve,workers``
 the serving paths; ``--sass-of SOURCE.cu`` one source's kernels'
 registers, spills and SASS; ``build,kge,update`` the update path alone;
@@ -281,14 +309,16 @@ KGE_OFFSET_CASES = (KGE_SHAPE, (4, 8192, 200), (2, 64, 4096))
 #: the paper's six models, every one of them on the update path
 UPDATE_MODELS = ("transe", "transr", "distmult", "hole", "boxe", "rdf2vec")
 #: steps of a full run of every model (Updater.steps_override; an
-#: incremental run takes warm_frac of it): 50 epochs of the GO triples
+#: incremental run takes warm_frac of it): ~42 epochs of the GO triples
 #: (60 steps of 1024 an epoch), a cut in depth (the paper's budget is 100
 #: epochs; 6,000 steps took 280 s of the phase's 410 on an H100) that
 #: keeps the whole script well inside its 1,200 s; at 2,000 steps
 #: DistMult's warm MRR came within 0.01 of its gate, so no deeper; for
 #: RDF2vec, whose epoch of skip-gram pairs would be about 12,000 steps,
-#: a deeper cut
-UPDATE_STEPS = 3000
+#: a deeper cut.  3,000 (50 epochs) until the recurrentgemma phase and
+#: training run joined the script: a depth cut that keeps it near 820 s
+#: of phases (at 2,500 DistMult's warm MRR sat 0.035 above its gate)
+UPDATE_STEPS = 2500
 GO_TRIPLES = 61_749          # triples of generate(GO_SPEC, seed=0, n_terms=40000)
 #: bench_update.py's low-churn release evolution and MRR band
 CALM = dict(add_frac=0.02, obsolete_frac=0.005, rewire_frac=0.005)
@@ -339,6 +369,16 @@ SWA_CASES = (
      (2, 8, 8, 448, 448, 64, 448, 0)),
     ("causal: llava layer, 56 / 8 heads, W = S",
      (1, 56, 8, 2944, 2944, 128, 2944, 0)),
+    # head dim 256 (recurrentgemma-2b: 10 q heads over 1 kv head, W 2048):
+    # its layer, ragged S, q_offset with Sq < Skv, W not a multiple of 64,
+    # one query, W >= S; each also launched twice (the same bits)
+    ("d 256: recurrentgemma layer, 10 / 1 heads",
+     (1, 10, 1, 4096, 4096, 256, 2048, 0)),
+    ("d 256: ragged S", (2, 4, 1, 131, 131, 256, 50, 0)),
+    ("d 256: q_offset, Sq < Skv", (1, 4, 2, 37, 300, 256, 128, 263)),
+    ("d 256: W 77", (1, 10, 1, 300, 300, 256, 77, 0)),
+    ("d 256: q_offset, one query", (1, 10, 1, 1, 517, 256, 2048, 516)),
+    ("d 256: W >= S, ragged", (1, 6, 3, 1000, 1000, 256, 5000, 0)),
 )
 #: the LM generation run: h2o-danube-1.8b at its published width, a prompt
 #: longer than its 4096 window (the roll shift after prefill is 2048).
@@ -408,10 +448,11 @@ LLAVA_BATCH, LLAVA_PROMPT, LLAVA_STEPS = 2, 64, 16
 LLAVA_CHECK_LAYERS = 2
 #: the training run: h2o-danube-1.8b at its published width and depth,
 #: bf16, remat "full", one sequence of 6144 tokens (past the 4096 window);
-#: 3 measured steps after a 2-step warm-up run (5 before the depth cut
-#: above)
+#: 3 measured steps after a 1-step warm-up run (5 before the depth cut
+#: above; the warm-up run had 2 steps before the recurrentgemma run
+#: joined the script)
 TRAIN_BATCH, TRAIN_SEQ = 1, 6144
-TRAIN_WARM_STEPS, TRAIN_STEPS = 2, 3
+TRAIN_WARM_STEPS, TRAIN_STEPS = 1, 3
 #: profiled steps on one repeated batch (3 warm-up + 2 profiled + 1 + 2
 #: timed: 8 steps, whose losses must fall over the first 5)
 TRAIN_REPEAT_STEPS = 2
@@ -429,7 +470,33 @@ TRAIN_GRAD_TOL = 2e-4
 #: Adam's two bf16 moments take ~58 GB; the fp32 check at B = 1
 MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ, MAMBA_TRAIN_STEPS = 2, 2048, 3
 MAMBA_CHECK_BATCH = 1
+#: the hybrid run: recurrentgemma-2b at its published width and depth (26
+#: layers: 18 RG-LRU and 8 local attention at head dim 256, 10 q heads
+#: over 1 kv head, W 2048), a 4,096-token prompt (twice the window: the
+#: rolling cache wraps), 16 steps; the fp32 prefill(S + 1) / prefill(S) +
+#: decode check at 3 layers, the first with an attention layer (the
+#: pattern is recurrent, recurrent, attention)
+HYBRID_ARCH = "recurrentgemma-2b"
+HYBRID_BATCH, HYBRID_PROMPT, HYBRID_STEPS = 2, 4096, 16
+HYBRID_CHECK_LAYERS = 3
+#: its training run: bf16, remat "full" (per period of 3 layers, as the
+#: reference wraps its period body), batch 2 of 4,096 tokens, Adam at lr
+#: 3e-4: 3.04 B params, ~24.3 GB with their gradients and two bf16 Adam
+#: moments; the fp32 check at 3 layers, B 1
+HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ, HYBRID_TRAIN_STEPS = 2, 4096, 3
+HYBRID_CHECK_BATCH = 1
+#: its repeated batch: Adam at lr 3e-4 overshoots at the fourth step on
+#: this batch with the plain SWA Function as with the kernels (losses
+#: 12.96, 12.14, 10.85, 14.56, 10.29 on both), so its first 3 losses must
+#: fall where the other archs' first 5 must; the fp32 check holds its
+#: kernels' step to the plain Function's
+HYBRID_REPEAT_FALLS = 3
 BF16_FLOP_PER_S = 989e12    # H100 SXM data sheet, dense bf16 tensor cores
+#: steps under the profiler in the prefill and decode breakdowns of the
+#: numbers and llava phases (2 prefills and 16 / 8 decode steps before
+#: the recurrentgemma phase and training run joined the script: a depth
+#: cut that keeps it near 820 s)
+PREFILL_PROFILE_STEPS, DECODE_PROFILE_STEPS = 1, 4
 #: the bf16 SWA backward kernels, which must run on wgmma (HGMMA in SASS)
 BF16_BWD_KERNELS = ("swa_bwd_dkdv_bf16_kernel", "swa_bwd_dq_bf16_kernel")
 SMALL_ENTRY = ("topk_score_select", "topk_merge_lists")
@@ -663,6 +730,12 @@ def phase_build() -> dict:
     missing = [k for k in bf16 if not bwd.get(k, {}).get("hgmma")]
     check(not missing, f"no HGMMA in the SASS of {missing}")
     out["swa_backward_kernels"] = bwd
+    # every SWA instance at d = 256 (forward and backward, both dtypes)
+    out["swa_d256_kernels"] = {k: v for k, v in sorted(ptxas.items())
+                               if k.endswith("<256>")}
+    check(len(out["swa_d256_kernels"]) == 6,
+          f"swa_attention at d = 256: {sorted(out['swa_d256_kernels'])}, "
+          f"want the forward and both backward kernels in both dtypes")
     # the selective scan's instances (d_state 4 / 8 / 16 x fp32 / bf16 x
     # bare / fused / fused with states; the backward's d_state x dtype)
     scan = scan_instances(_build.build_log("selective_scan"),
@@ -1042,6 +1115,7 @@ def phase_swa() -> dict:
     gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
     err = {"float32": 0.0, "bfloat16": 0.0}
     err_lse, err_bwd, err_causal = dict(err), dict(err), dict(err)
+    err_256, err_bwd_256 = dict(err), dict(err)
     cases, same_bits = [], 0
     sw.reset_launches()
     for n, (note, (B, hq, hkv, sq, skv, hd, W, off)) in enumerate(SWA_CASES):
@@ -1055,6 +1129,8 @@ def phase_swa() -> dict:
             err[name] = max(err[name], e)
             if note.startswith("causal"):
                 err_causal[name] = max(err_causal[name], e)
+            if hd == 256:
+                err_256[name] = max(err_256[name], e)
             # the training forward: the same output and the log-sum-exp
             o, lse = sw.swa_attention_forward(q, k, v, W, off,
                                               return_lse=True)
@@ -1074,9 +1150,12 @@ def phase_swa() -> dict:
                 q[None], k[None], v[None], want[None], lse_p[None], do[None],
                 W, off)
             for g, w, what in zip(got, plain, ("dq", "dk", "dv")):
-                err_bwd[name] = max(err_bwd[name], _swa_close(
-                    g, w[0], dtype, f"swa backward {what} {note} {name}"))
-            if n % 5 == 4:
+                e = _swa_close(g, w[0], dtype,
+                               f"swa backward {what} {note} {name}")
+                err_bwd[name] = max(err_bwd[name], e)
+                if hd == 256:
+                    err_bwd_256[name] = max(err_bwd_256[name], e)
+            if n % 5 == 4 or hd == 256:
                 again = sw.swa_attention_backward(q, k, v, want, lse_p, do,
                                                   W, off)
                 check(all(torch.equal(a, b) for a, b in zip(got, again)),
@@ -1095,6 +1174,8 @@ def phase_swa() -> dict:
            err["float32"], "max_abs_err_bf16": err["bfloat16"],
            "max_abs_err_lse": err_lse,
            "max_abs_err_causal": err_causal,
+           "max_abs_err_d256": err_256,
+           "max_abs_err_backward_d256": err_bwd_256,
            "max_abs_err_backward_fp32": err_bwd["float32"],
            "max_abs_err_backward_bf16": err_bwd["bfloat16"],
            "backward_same_bits_cases": same_bits,
@@ -1247,14 +1328,18 @@ def phase_serve(registry_root: str, served: dict) -> dict:
 
 
 #: the workers phase: HTTP client sessions (keep-alive connections, one
-#: per thread) against one serving process, then pools of 2 and 4; a
+#: per thread) against one serving process, then a pool of 2; a
 #: session is ``benchmarks/bench_http.py`` ``run_mp``'s (16 clients,
 #: 2,048 requests, k = 10), run WORKER_SESSIONS times a pool on rows no
 #: other session asks for (no result-cache hits), so each pool gets a
-#: median and a spread over fresh connection-to-worker splits
-WORKER_POOLS = (2, 4)
+#: median and a spread over fresh connection-to-worker splits (2 since
+#: the recurrentgemma phase and training run joined the script, 3
+#: before); pools of 2 beside the single process (pools of 2 and 4 until
+#: then: 4 workers gave little more than 2).  Both are depth cuts that
+#: keep the whole script near 820 s of phases
+WORKER_POOLS = (2,)
 WORKER_THREADS, WORKER_REQUESTS, WORKER_K = 16, 2048, 10
-WORKER_SESSIONS = 3
+WORKER_SESSIONS = 2
 WATCH_INTERVAL_S = 0.25     # WorkerPool's default store-watch interval
 
 
@@ -1449,8 +1534,8 @@ def _gpu_pids() -> list:
 def phase_workers(registry_root: str, served: dict) -> dict:
     """Pre-forked multi-process serving on the card, through
     ``launch.serve --http 0 --workers N``: the same client session against
-    one process and pools of 2 and 4, every answer against the plain
-    top-k, the merged /stats count, a worker SIGKILLed under load and
+    one process and a pool of 2 (``WORKER_POOLS``), every answer against
+    the plain top-k, the merged /stats count, a worker SIGKILLed under load and
     restarted, a publish adopted by every worker, and every worker pid
     holding a CUDA context."""
     import torch
@@ -1501,6 +1586,7 @@ def phase_workers(registry_root: str, served: dict) -> dict:
     # compute processes on the card before any server: this one
     base_procs = len(_gpu_pids())
     runs = {}
+    lap = laps("workers")
     reg = EmbeddingRegistry(registry_root)
     v_latest = reg.store.latest_version("go")
     for n_proc in (1,) + WORKER_POOLS:
@@ -1684,6 +1770,7 @@ def phase_workers(registry_root: str, served: dict) -> dict:
             _stop_server(proc)
         runs[n_proc] = run
         emit({"phase": "workers", **run})
+        lap(f"{n_proc} processes")
     out = {"phase": "workers", "runs": runs, "latest_version": v_latest,
            "qps": {p: r["qps"] for p, r in runs.items()},
            "p50_ms": {p: r["p50_ms"] for p, r in runs.items()},
@@ -1839,18 +1926,22 @@ def phase_update(tmp: str) -> dict:
     tk.reset_launches()
     ts.reset_launches()
     # ----------------- main path: publish, update, serve -------------- #
+    lap = laps("update")
     channel.bump(v1, kg1)
     reports["v1"] = warm.run_once(channel, seed=0)
+    lap("v1")
     check(reports["v1"].mode == "full", f"v1: {reports['v1'].reason}")
     for m in UPDATE_MODELS:      # the engine serves v1 before the update
         gw.closest_concepts("go", m, kg1.entities[0], k=10)
     channel.bump(v2, kg2)
     reports["v2_warm"] = warm.run_once(channel, seed=1)
+    lap("v2_warm")
     check(reports["v2_warm"].mode == "incremental",
           f"v2: {reports['v2_warm'].mode} ({reports['v2_warm'].reason})")
     check(engine.latest_version("go") == v2, "engine not invalidated to v2")
     reports["v2_cold"] = cold.run_once(
         SyntheticReleaseChannel("go", v2, kg2), seed=1)
+    lap("v2_cold")
     check(reports["v2_cold"].mode == "full", "cold v2 not a full update")
 
     rng = np.random.default_rng(SEED + 3)
@@ -1885,7 +1976,9 @@ def phase_update(tmp: str) -> dict:
     # what each of this run's captures recorded, from its own counters:
     # one launch an entry point, as a capture of the same step alone does
     check(captures == 2 * len(reports), f"{captures} captured runs")
+    lap("answers")
     graphed = graphed_step_numbers()
+    lap("graphed_steps")
     per_capture, kge_path = {}, {}
     for e in ("kge_score_forward", "kge_score_backward"):
         recorded, rem = divmod(launches[e] - captures * GRAPH_WARMUP_STEPS,
@@ -1971,6 +2064,7 @@ def phase_update(tmp: str) -> dict:
             **{f"{k}_graph_replays": d["graph_replays"]
                for k, d in (("v1", d1), ("warm", dw), ("cold", dc))}}
         del emb_dev, nrm_dev, table, norms
+    lap("answers_and_mrr")
     out = {"phase": "update", "models": list(UPDATE_MODELS),
            "steps_override": UPDATE_STEPS,
            "entities": [kg1.num_entities, kg2.num_entities],
@@ -1993,11 +2087,23 @@ def phase_update(tmp: str) -> dict:
 JOBS_K = 10
 JOBS_SAMPLE = 512            # join rows held to serial top_k_rows
 JOBS_LARGE_K, JOBS_LARGE_CLASSES, JOBS_LARGE_SAMPLE = 100, 1024, 256
-DRIFT_CLASSES, DRIFT_SAMPLE = 4096, 256
-COMPARE_SAMPLE = 1000
+#: classes of a drift job, and of them those whose Jaccard is recomputed
+#: (4,096 classes before the recurrentgemma phase and training run joined
+#: the script: a depth cut that keeps it near 820 s of phases)
+DRIFT_CLASSES, DRIFT_SAMPLE = 2048, 256
+#: test triples a compare job ranks (1,000 before the recurrentgemma phase
+#: and training run joined the script: the same depth cut; the job's MRR
+#: is still held to rank_based_eval's on the same triples)
+COMPARE_SAMPLE = 250
 JOBS_HTTP_CLASSES, JOBS_HTTP_PAGE = 2000, 500
 JOBS_MAX_QUEUED = 2
 JOBS_PROBE_SLABS = 20        # join slabs timed outside a job, by part
+#: classes of the join the serve session runs beside (all 40,000 before
+#: the recurrentgemma phase and training run joined the script: a depth
+#: cut that keeps it near 820 s); the phase fails unless the join still
+#: runs when the session ends, and compares its ms a slab with the 40k
+#: join's alone
+JOBS_LOAD_CLASSES = 10_000
 #: with ``--phases build,jobs`` (no update phase before it) the phase
 #: trains its own two releases: TransE and DistMult at this step count
 JOBS_ALONE_MODELS = ("transe", "distmult")
@@ -2098,7 +2204,8 @@ def phase_jobs(tmp: str, card: str) -> dict:
     top-k), drift and compare on the update registry, the /jobs routes
     over ``launch.serve --http 0`` (pages, 304, stream, cancel -> 409,
     queue bound -> 429), the orphan rule in a pool of 2, 64 async
-    closest-concepts, and the serve session alone and beside a 40k join."""
+    closest-concepts, and the serve session alone and beside a 10,000-class
+    join."""
     import asyncio
     import torch
     from repro_torch.api import AsyncGateway, Gateway
@@ -2111,6 +2218,7 @@ def phase_jobs(tmp: str, card: str) -> dict:
     from repro_torch.ontology.delta import GraphDelta
 
     out: dict = {"phase": "jobs", "card": card}
+    lap = laps("jobs")
     reg = EmbeddingRegistry(tmp)
     engine = ServingEngine(reg, device=DEV)
     # no result cache: the two sessions below ask for the same rows
@@ -2153,6 +2261,7 @@ def phase_jobs(tmp: str, card: str) -> dict:
             **_check_join(idx, rows, sample, JOBS_K, pos, table, norms,
                           "40k join")}
         emit({"jobs_join": out["join"]})
+        lap("join")
 
         # where a join slab's time goes, outside a job (no yield): the
         # streamed calls alone, then with the conversion to hits
@@ -2198,6 +2307,7 @@ def phase_jobs(tmp: str, card: str) -> dict:
             **_check_join(idx, by_row, sub_sample, JOBS_LARGE_K, pos, table,
                           norms, "k=100 join")}
         emit({"jobs_join_large": out["join_large"]})
+        lap("join_large")
 
         # host gather of one join slab: each slab's call gathers the whole
         # table into pinned staging (the streaming driver's np.copyto)
@@ -2229,8 +2339,8 @@ def phase_jobs(tmp: str, card: str) -> dict:
             ["--registry", tmp, "--requests", "512", "--batch", "32",
              "--threads", "8", "--k", str(JOBS_K), "--device", DEV])
         alone = serve._session(args, gw, torch.device(DEV))
-        sub = gw.submit_job("knn-join", "go", model="transe", classes=ids,
-                            k=JOBS_K)
+        sub = gw.submit_job("knn-join", "go", model="transe",
+                            classes=ids[:JOBS_LOAD_CLASSES], k=JOBS_K)
         deadline = time.monotonic() + 60
         while gw.job_status(sub.job_id).state == "PENDING":
             check(time.monotonic() < deadline, "join never started")
@@ -2239,14 +2349,22 @@ def phase_jobs(tmp: str, card: str) -> dict:
         state_after = gw.job_status(sub.job_id).state
         st = gw.job_wait(sub.job_id, timeout=600)
         check(st.state == "DONE", f"join under load {st.state}: {st.error}")
+        check(state_after == "RUNNING",
+              f"the join was {state_after} when the session beside it "
+              f"ended: part of the session ran alone")
         out["session"] = {
             "alone": {k: alone[k] for k in ("qps", "p50_ms", "p99_ms")},
             "beside_join": {k: loaded[k] for k in ("qps", "p50_ms",
                                                    "p99_ms")},
-            "join_running_when_session_ended": state_after == "RUNNING",
-            "join_wall_s_alone": out["join"]["wall_s"],
-            "join_wall_s_under_load": st.wall_s}
+            "join_classes_under_load": JOBS_LOAD_CLASSES,
+            "join_wall_s_under_load": st.wall_s,
+            # a slab of 64 classes, the yield included: the 40k join's
+            # alone, this join's beside the session
+            "join_ms_per_slab_alone": out["join"]["ms_per_slab"],
+            "join_ms_per_slab_under_load":
+                st.wall_s * 1e3 / st.summary["slabs"]}
         emit({"jobs_session": out["session"]})
+        lap("async_and_session")
     finally:
         gw.close()
 
@@ -2286,6 +2404,7 @@ def phase_jobs(tmp: str, card: str) -> dict:
                                "mean_jaccard": st.summary["mean_jaccard"],
                                "jaccard_checked": DRIFT_SAMPLE}
         emit({"jobs_drift": out["drift"]})
+        lap("drift")
 
         store = eng_u.registry.store
         sub = gw_u.submit_job("compare", "go", version=v2, models=models,
@@ -2323,6 +2442,7 @@ def phase_jobs(tmp: str, card: str) -> dict:
               "compare again: not every model cached")
         out["compare"]["cached_wall_s"] = st2.wall_s
         emit({"jobs_compare": out["compare"]})
+        lap("compare")
     finally:
         gw_u.close()
 
@@ -2388,6 +2508,7 @@ def phase_jobs(tmp: str, card: str) -> dict:
                        "cancelled_running": True, "rejected_429": True}
     finally:
         _stop_server(proc)
+    lap("http")
 
     # ------------- pool of 2: shared state, the orphan rule ----------- #
     pool_dir = Path(tmp) / "jobs-pool"
@@ -2432,6 +2553,7 @@ def phase_jobs(tmp: str, card: str) -> dict:
                        "restarts": w["restarts"]}
     finally:
         _stop_server(proc)
+    lap("pool")
     out["launches_jobs"] = {"small": out["join"]["launches_total"],
                             "large": out["join_large"]["launches_total"]}
     emit({k: v for k, v in out.items() if k not in ("join", "join_large")})
@@ -3213,6 +3335,134 @@ def phase_mamba() -> dict:
     return out
 
 
+def _hybrid_layers(cfg, kind: str) -> tuple:
+    """(layers of ``kind`` in ``HybridLM``'s full periods, which it remats,
+    and in its remainder, which it runs plain) of hybrid config ``cfg``."""
+    from repro_torch.models import build
+    m = build(cfg)
+    return m.n_periods * m.pattern.count(kind), m.rem.count(kind)
+
+
+def _attention_layers(arch: str, n_layers: int) -> tuple:
+    """(attention layers under remat, attention layers outside it) of
+    ``arch`` cut to ``n_layers``: every arch but the hybrid remats every
+    layer."""
+    from repro_torch.models import get_config
+    cfg = get_config(arch)
+    if cfg.family != "hybrid":
+        return n_layers, 0
+    return _hybrid_layers(cfg.with_(n_layers=n_layers), "attention")
+
+
+def rglru_scan_numbers(cfg, B: int, S: int) -> dict:
+    """The RG-LRU scan (``blocks._rglru_scan``: the gates, a log-depth scan
+    within 256-step chunks, the carry across them; no kernel) at one
+    layer's shape of ``cfg``, bf16 input: CUDA events and profiler device
+    ms of the forward (a prefill's), and of the forward with its graph
+    plus the backward (a training step's); then their sums over the
+    recurrent layers of a prefill and of a remat "full" step (each
+    recurrent layer of a period runs its forward twice, the remainder's
+    once, and every one its backward)."""
+    import torch
+    from repro_torch.models import blocks
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 31)
+    p = blocks.rglru_init(gen, cfg)
+    w = cfg.hybrid.lru_width or cfg.d_model
+    xc = torch.randn((B, S, w), generator=gen, device=DEV).to(cfg.jdtype)
+    h0 = torch.zeros((B, w), dtype=torch.float32, device=DEV)
+    dy = torch.randn((B, S, w), generator=gen, device=DEV)
+
+    def fwd():
+        with torch.no_grad():
+            return blocks._rglru_scan(p, xc, h0)
+
+    xg = xc.detach().requires_grad_(True)
+
+    def fwd_bwd():
+        y, _ = blocks._rglru_scan(p, xg, h0)
+        y.backward(dy)
+
+    rec = {"B": B, "S": S, "w": w, "dtype": str(cfg.jdtype).replace(
+        "torch.", "")}
+    for name, fn, iters in (("forward", fwd, 10), ("forward_backward",
+                                                   fwd_bwd, 5)):
+        dev = _device_ms(fn, iters=iters)
+        rec[f"{name}_ms"] = _cuda_ms(fn, iters=iters, warmup=2)
+        rec[f"{name}_device_ms"] = sum(dev.values()) if dev else None
+    in_periods, in_rem = _hybrid_layers(cfg, "recurrent")
+    for unit in ("ms", "device_ms"):
+        f, fb = rec[f"forward_{unit}"], rec[f"forward_backward_{unit}"]
+        rec[f"prefill_{unit}"] = None if f is None else \
+            (in_periods + in_rem) * f
+        rec[f"train_step_{unit}"] = None if f is None or fb is None else \
+            in_periods * (f + fb) + in_rem * fb
+    rec["recurrent_layers"] = in_periods + in_rem
+    del p, xc, xg, dy
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_hybrid() -> dict:
+    """recurrentgemma-2b at its published width and depth.
+
+    fp32, 3 of its 26 layers (two RG-LRU layers, then local attention at
+    d = 256 on the SWA kernel): the last logits of prefill(S + 1) against
+    prefill(S) + decode_step, S = 4,096 > W = 2,048 (the rolling cache
+    wraps); one SWA launch a prefill.  bf16: the generation of
+    ``launch.generate`` (a warm-up run, then the measured one; B 2, prompt
+    4,096, 16 steps): prefill ms, tokens/s, decode ms a token, the cache's
+    bytes (RG-LRU states, conv tails, rolling KV), peak memory, 8 SWA
+    launches a prefill; then the RG-LRU scan's time at one layer's shape
+    and over a prefill's 18 recurrent layers."""
+    import torch
+    from repro_torch.models import build, get_config
+
+    full = get_config(HYBRID_ARCH)
+    cfg = full.with_(dtype="float32", n_layers=HYBRID_CHECK_LAYERS)
+    model = build(cfg).init(torch.Generator(device=DEV).manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 29)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        HYBRID_BATCH, HYBRID_PROMPT + 1), dtype=np.int32)).to(DEV)
+    consistency = _consistency(model, {"tokens": toks},
+                               {"tokens": toks[:, :-1]}, HYBRID_PROMPT,
+                               toks[:, -1:], _launch_counters())
+    n_attn = sum(_attention_layers(HYBRID_ARCH, cfg.n_layers))
+    check(n_attn == 1 and all(
+        c["swa"] == n_attn and c["scan"] == 0 and c["scan_bare"] == 0
+        for c in consistency["launches_per_prefill"].values()),
+          f"fp32 prefills launched {consistency['launches_per_prefill']}, "
+          f"want {n_attn} SWA forward each")
+    del model
+    torch.cuda.empty_cache()
+
+    argv = ["--arch", HYBRID_ARCH, "--batch", str(HYBRID_BATCH),
+            "--prompt-len", str(HYBRID_PROMPT), "--steps",
+            str(HYBRID_STEPS), "--seed", str(SEED), "--device", DEV]
+    # ----------------- main path: bf16 generation --------------------- #
+    n_attn = sum(_attention_layers(HYBRID_ARCH, full.n_layers))
+    warm, run, launches = _generate(
+        argv, n_attn, 0, full.padded_vocab,
+        (HYBRID_BATCH, HYBRID_STEPS + 1))
+    window = full.hybrid.window
+    want_kv = 2 * n_attn * HYBRID_BATCH * full.groups * window * full.hd * 2
+    check(run["kv_cache_bytes"] == want_kv and run["lru_state_bytes"] > 0
+          and run["conv_state_bytes"] > 0,
+          f"cache bytes {run['kv_cache_bytes']}, want {want_kv} of rolling "
+          f"KV beside the RG-LRU states")
+    scan = rglru_scan_numbers(full, HYBRID_BATCH, HYBRID_PROMPT)
+    out = {"phase": "hybrid", "layers": full.n_layers,
+           "attention_layers": n_attn, "fp32_consistency": consistency,
+           "generation": {k: v for k, v in run.items() if k != "ids"},
+           "warmup_generation": {k: warm[k] for k in (
+               "prefill_ms", "decode_ms_per_token")},
+           "rglru_scan": scan,
+           "decode_weight_read_bound_ms":
+               2.0 * full.n_params() / HBM_BYTES_PER_S * 1e3,
+           "ids_row0": run["ids"][0], "launches": launches}
+    emit(out)
+    return out
+
+
 def _frames(cfg, n: int, seed: int, dtype):
     import torch
     rng = np.random.default_rng(seed)
@@ -3283,6 +3533,7 @@ def phase_llava(card: str) -> dict:
     import torch
     from repro_torch.models import build, get_config
 
+    lap = laps("llava")
     full = get_config(LLAVA_ARCH)
     cfg = full.with_(dtype="float32", n_layers=LLAVA_CHECK_LAYERS)
     model = build(cfg).init(torch.Generator(device=DEV).manual_seed(SEED))
@@ -3304,6 +3555,7 @@ def phase_llava(card: str) -> dict:
     consistency["decode_position"] = pos
     del model, img
     torch.cuda.empty_cache()
+    lap("fp32_check")
 
     # where the device time of a prefill and of a decode step goes; this
     # also warms the bf16 shapes up for the measured generation below
@@ -3313,13 +3565,16 @@ def phase_llava(card: str) -> dict:
                  (LLAVA_BATCH, full.n_frontend_tokens, full.d_model),
                  dtype=np.float32)).to(DEV, full.jdtype)}
     prefill_profile = _busy_share(
-        lambda: model.prefill(batch, cache_len=pos + 32), steps=2)
+        lambda: model.prefill(batch, cache_len=pos + 32),
+        steps=PREFILL_PROFILE_STEPS)
     _, cache = model.prefill(batch, cache_len=pos + 32)
-    decode_profile = _decode_busy(model, cache, pos, steps=8)
+    decode_profile = _decode_busy(model, cache, pos,
+                                  steps=DECODE_PROFILE_STEPS)
     emit({"llava_profile": {"prefill": prefill_profile,
                             "decode_step": decode_profile, "card": card}})
     del model, cache, batch
     torch.cuda.empty_cache()
+    lap("profile")
 
     argv = ["--arch", LLAVA_ARCH, "--batch", str(LLAVA_BATCH),
             "--prompt-len", str(LLAVA_PROMPT), "--steps", str(LLAVA_STEPS),
@@ -3328,6 +3583,7 @@ def phase_llava(card: str) -> dict:
     _, run, launches = _generate(
         argv, full.n_layers, 0, full.padded_vocab,
         (LLAVA_BATCH, LLAVA_STEPS + 1), warm_up=False)
+    lap("generation")
     out = {"phase": "llava", "layers": full.n_layers,
            "fp32_consistency": consistency,
            "generation": {k: v for k, v in run.items() if k != "ids"},
@@ -3345,7 +3601,8 @@ def _decode_busy(model, cache, pos: int, steps: int) -> dict:
     import torch
     from repro_torch.models.steps import make_serve_step
     serve = make_serve_step(model)
-    batch = next(iter(cache.values())).shape[1]     # (L, B, ...) tensors
+    from repro_torch.models.lm import cache_leaves
+    batch = cache_leaves(cache)[0].shape[1]          # (L, B, ...) tensors
     state = {"tok": torch.zeros((batch, 1), dtype=torch.int32, device=DEV),
              "pos": pos, "cache": cache}
 
@@ -3374,9 +3631,9 @@ def zoo_numbers(card: str) -> dict:
         if cfg.family == "audio":
             b["frames"] = _frames(cfg, WHISPER_FRAMES, SEED + 28, cfg.jdtype)
         prefill = _busy_share(lambda: model.prefill(b, cache_len=pos + 16),
-                              steps=2)
+                              steps=PREFILL_PROFILE_STEPS)
         _, cache = model.prefill(b, cache_len=pos + 16)
-        decode = _decode_busy(model, cache, pos, steps=8)
+        decode = _decode_busy(model, cache, pos, steps=DECODE_PROFILE_STEPS)
         out[arch] = {"prefill": prefill, "decode_step": decode}
         emit({"zoo_profile": {"arch": arch, **out[arch], "card": card}})
         del model, cache
@@ -3497,32 +3754,36 @@ def _reset_train_launches() -> None:
 
 def _step_launches(arch: str, n_layers: int, steps: int) -> dict:
     """Every SWA and scan entry point's launches of ``steps`` steps of
-    ``arch``: its own kernel's, and none of the other's."""
-    swa, scan = _swa_step_launches(n_layers, steps), \
-        _scan_step_launches(n_layers, steps)
+    ``arch``: its own kernel's, and none of the other's.  The hybrid's
+    attention layers launch the SWA kernels (forward twice under remat,
+    once in its plain remainder); its RG-LRU layers launch none."""
     if arch == MAMBA_ARCH:
-        return {**{k: 0 for k in swa}, **scan}
-    return {**swa, **{k: 0 for k in scan}}
+        return {**_swa_step_launches(0, steps),
+                **_scan_step_launches(n_layers, steps)}
+    remat, plain = _attention_layers(arch, n_layers)
+    swa = _swa_step_launches(remat + plain, steps)
+    swa["swa_attention_forward"] -= plain * steps
+    return {**swa, **_scan_step_launches(0, steps)}
 
 
 def _train_fp32_check(arch: str, B: int, S: int, seed: int, module,
-                      attr: str, plain_fn) -> dict:
-    """fp32, ``TRAIN_CHECK_LAYERS`` layers at full width: loss and every
-    gradient leaf of the kernels' step against the same step with
-    ``module.attr`` (the kernels' autograd Function) swapped for
-    ``plain_fn`` (the plain forward and backward) for one step."""
+                      attr: str, plain_fn,
+                      n_layers: int = TRAIN_CHECK_LAYERS) -> dict:
+    """fp32, ``n_layers`` layers at full width: loss and every gradient
+    leaf of the kernels' step against the same step with ``module.attr``
+    (the kernels' autograd Function) swapped for ``plain_fn`` (the plain
+    forward and backward) for one step."""
     import torch
     from repro_torch.models import build, get_config
     t0 = time.perf_counter()
-    cfg32 = get_config(arch).with_(dtype="float32",
-                                   n_layers=TRAIN_CHECK_LAYERS)
+    cfg32 = get_config(arch).with_(dtype="float32", n_layers=n_layers)
     model = build(cfg32).init(torch.Generator(device=DEV).manual_seed(SEED))
     model.params.requires_grad_(True)
     batch = _train_batch(cfg32, seed, B, S)
     _reset_train_launches()
     loss_k, grads_k = _loss_and_grads(model, batch)
     launches = _train_launches()
-    check(launches == _step_launches(arch, TRAIN_CHECK_LAYERS, 1),
+    check(launches == _step_launches(arch, n_layers, 1),
           f"{arch} fp32 step launched {launches}")
     kernel_fn = getattr(module, attr)
     setattr(module, attr, plain_fn)
@@ -3543,7 +3804,7 @@ def _train_fp32_check(arch: str, B: int, S: int, seed: int, module,
               f"{arch} fp32 grad {name}: off by {err} (max |g| {scale})")
         if err / max(scale, 1e-30) > worst:
             worst, worst_leaf = err / max(scale, 1e-30), name
-    out = {"arch": arch, "layers": TRAIN_CHECK_LAYERS, "batch": B, "seq": S,
+    out = {"arch": arch, "layers": n_layers, "batch": B, "seq": S,
            "loss_kernel": loss_k, "loss_plain": loss_p,
            "leaves": len(grads_p), "worst_grad_err_over_max": worst,
            "worst_leaf": worst_leaf, "launches": launches,
@@ -3556,12 +3817,13 @@ def _train_fp32_check(arch: str, B: int, S: int, seed: int, module,
 
 
 def _train_main_path(arch: str, B: int, S: int, warm_steps: int,
-                     steps: int, seed: int, card: str) -> dict:
+                     steps: int, seed: int, card: str,
+                     falls: int = 5) -> dict:
     """bf16 at full width through ``launch.train``'s main: a warm-up run,
     then the measured one (step ms, tokens/s, peak memory, its launches:
     ``_step_launches``, every loss finite); then steps on one repeated
     batch under torch.profiler (the device-busy share, device ms by
-    kernel group), whose losses must fall."""
+    kernel group), whose first ``falls`` losses must each fall."""
     import torch
     from repro_torch.launch import train
     from repro_torch.models import build, get_config
@@ -3600,7 +3862,7 @@ def _train_main_path(arch: str, B: int, S: int, warm_steps: int,
     busy = _busy_share(one_step, steps=TRAIN_REPEAT_STEPS)
     losses = [float(x) for x in losses]
     check(all(np.isfinite(losses)), f"{arch} repeated batch: {losses}")
-    check(all(b < a for a, b in zip(losses[:5], losses[1:5])),
+    check(all(b < a for a, b in zip(losses[:falls], losses[1:falls])),
           f"{arch} repeated batch: the loss does not fall: {losses}")
     del model, state, batch, step, optimizer
     torch.cuda.empty_cache()
@@ -3613,8 +3875,10 @@ def _train_main_path(arch: str, B: int, S: int, warm_steps: int,
 
 
 def phase_train(card: str) -> dict:
-    """LM training at published widths: h2o-danube-1.8b (the SWA kernels)
-    and falcon-mamba-7b (the fused scan and its backward).
+    """LM training at published widths: h2o-danube-1.8b (the SWA kernels),
+    falcon-mamba-7b (the fused scan and its backward) and recurrentgemma-2b
+    (the SWA kernels at d = 256 beside the RG-LRU scan, which autograd
+    differentiates).
 
     Each arch, fp32: 2 layers at full width, the kernels' step against the
     same step with the plain forward and backward substituted (the SWA
@@ -3626,27 +3890,49 @@ def phase_train(card: str) -> dict:
     2048, 128 fused scans and 64 backwards a step): step ms, tokens/s,
     peak memory, every loss finite; then steps on one repeated batch under
     torch.profiler: the device-busy share, device ms by kernel group, and
-    losses that fall."""
+    losses that fall.  recurrentgemma-2b the same way: fp32 at 3 layers
+    (B 1, S 4,096; the SWA Function swapped), then bf16, all 26 layers, B
+    2, S 4,096: 16 SWA forwards (its 8 attention layers, each in a
+    rematerialised period) and 8 of each backward entry point a step; its
+    repeated batch's first ``HYBRID_REPEAT_FALLS`` losses fall."""
     from repro_torch.kernels import selective_scan as ss, swa_attention as sw
 
+    lap = laps("train")
     fp32 = _train_fp32_check(LM_ARCH, TRAIN_BATCH, TRAIN_SEQ, SEED + 14, sw,
                              "SWAAttentionFn", _plain_swa_fn())
     emit({"train_fp32_check": fp32})
+    lap("h2o fp32_check")
     h2o = _train_main_path(LM_ARCH, TRAIN_BATCH, TRAIN_SEQ,
                            TRAIN_WARM_STEPS, TRAIN_STEPS, SEED + 15, card)
     emit({"train_h2o": {k: v for k, v in h2o.items() if k != "run"}})
+    lap("h2o")
     mamba32 = _train_fp32_check(MAMBA_ARCH, MAMBA_CHECK_BATCH,
                                 MAMBA_TRAIN_SEQ, SEED + 16, ss,
                                 "SelectiveScanFusedFn", _plain_scan_fn())
     emit({"train_mamba_fp32_check": mamba32})
+    lap("mamba fp32_check")
     mamba = _train_main_path(MAMBA_ARCH, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ,
                              TRAIN_WARM_STEPS, MAMBA_TRAIN_STEPS, SEED + 17,
                              card)
+    emit({"train_mamba": {k: v for k, v in mamba.items() if k != "run"}})
+    lap("mamba")
+    hybrid32 = _train_fp32_check(HYBRID_ARCH, HYBRID_CHECK_BATCH,
+                                 HYBRID_TRAIN_SEQ, SEED + 32, sw,
+                                 "SWAAttentionFn", _plain_swa_fn(),
+                                 n_layers=HYBRID_CHECK_LAYERS)
+    emit({"train_hybrid_fp32_check": hybrid32})
+    lap("hybrid fp32_check")
+    hybrid = _train_main_path(HYBRID_ARCH, HYBRID_TRAIN_BATCH,
+                              HYBRID_TRAIN_SEQ, TRAIN_WARM_STEPS,
+                              HYBRID_TRAIN_STEPS, SEED + 33, card,
+                              falls=HYBRID_REPEAT_FALLS)
+    lap("hybrid")
     out = {"phase": "train", "card": card, "fp32_check": fp32,
            **{k: h2o[k] for k in ("run", "warmup", "launches",
                                   "launches_per_step",
                                   "repeated_batch_losses", "profile")},
-           "mamba": {**mamba, "fp32_check": mamba32}}
+           "mamba": {**mamba, "fp32_check": mamba32},
+           "hybrid": {**hybrid, "fp32_check": hybrid32}}
     emit(out)
     return out
 
@@ -3761,7 +4047,7 @@ def _phase_in_child(name: str, tmp: str, card: str) -> dict:
     try:
         for line in proc.stdout:
             if line.strip() != card and not line.startswith(
-                    ('{"ok"', '{"phase_seconds"', "[chip_smoke]")):
+                    ('{"ok"', "[chip_smoke]")):
                 print(line, end="", flush=True)
         rc = proc.wait(timeout=60)
     finally:
@@ -3787,6 +4073,9 @@ def _check_device_times(numbers: dict) -> None:
               fwd["causal_llava"]["device_ms"])]
     rows += [(f"swa backward {r['dtype']} B={r['B']}", r["device_ms"])
              for r in numbers["swa_backward"]["rows"]]
+    rows += [("swa forward bf16 d 256", numbers["hybrid"]["forward"][
+        "device_ms"]), ("swa backward bf16 d 256",
+                        numbers["hybrid"]["backward"]["device_ms"])]
     rows += [("selective scan", numbers["scan"]["device_ms"]),
              ("selective scan fused", numbers["scan"]["fused"]["device_ms"]),
              ("selective scan backward",
@@ -3806,6 +4095,14 @@ def bound_ms(Q: int, rows: int, k: int, k_run: int) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+#: the top-k rows the numbers phase times: the 40k table at Q = 1 and 32,
+#: k = 10 and 2000 (the kernels line reads Q 32 / k 10 and Q 1 / k 2000).
+#: The 100k table and Q = 64 were timed too before the recurrentgemma
+#: phase and training run joined the script: a depth cut that keeps it
+#: near 820 s
+NUMBERS_TOPK_ROWS, NUMBERS_TOPK_Q = GO_ROWS, (1, 32)
+
+
 def phase_numbers(store_tables, card: str) -> dict:
     import torch
     from repro_torch.kernels import ops, ref, topk_similarity as ts
@@ -3814,7 +4111,8 @@ def phase_numbers(store_tables, card: str) -> dict:
     rng = np.random.default_rng(SEED + 2)
     rows_out = []
     slab = ops.STREAM_BLOCK_ROWS
-    for n_rows, (table, norms) in store_tables.items():
+    for n_rows in (NUMBERS_TOPK_ROWS,):
+        table, norms = store_tables[n_rows]
         table_dev = torch.from_numpy(np.array(table)).to(dev)
         norms_dev = torch.from_numpy(np.array(norms)).to(dev)
         unit_dev = table_dev / norms_dev[:, None].clamp(min=1e-12)
@@ -3826,7 +4124,7 @@ def phase_numbers(store_tables, card: str) -> dict:
         gather_ms = _host_ms(lambda: np.copyto(pinned.numpy(), table))
         del landing
         pool = ops.StagingPool()
-        for Q in (1, 32, 64):
+        for Q in NUMBERS_TOPK_Q:
             rows = rng.choice(n_rows, size=Q, replace=False)
             q = unit_rows(table, norms, rows)
             excl = rows.astype(np.int32)
@@ -4279,7 +4577,7 @@ def swa_numbers(card: str) -> dict:
     model = build(cfg).init(torch.Generator(device=DEV).manual_seed(SEED))
     prompt = {"tokens": _lm_prompt(cfg, S)}
     prefill = _busy_share(lambda: model.prefill(prompt, cache_len=S + 64),
-                          steps=2)
+                          steps=PREFILL_PROFILE_STEPS)
     emit({"prefill": {**prefill, "card": card}})
     _, cache = model.prefill(prompt, cache_len=S + 64)
     serve = make_serve_step(model)
@@ -4291,7 +4589,7 @@ def swa_numbers(card: str) -> dict:
         tok, cache = serve(cache, tok, state["pos"])
         state["pos"] += 1
 
-    busy = _busy_share(step, steps=16)
+    busy = _busy_share(step, steps=DECODE_PROFILE_STEPS)
     emit({"decode_step": {**busy, "card": card}})
     del model, cache
     torch.cuda.empty_cache()
@@ -4370,7 +4668,7 @@ def moe_numbers(card: str) -> dict:
         0, cfg.vocab, (MOE_BATCH, MOE_PROMPT), dtype=np.int32)).to(DEV)}
     prefill = _busy_share(lambda: model.prefill(prompt,
                                                 cache_len=MOE_PROMPT + 64),
-                          steps=2)
+                          steps=PREFILL_PROFILE_STEPS)
     emit({"moe_prefill": {**prefill, "card": card}})
     _, cache = model.prefill(prompt, cache_len=MOE_PROMPT + 64)
     serve = make_serve_step(model)
@@ -4382,7 +4680,7 @@ def moe_numbers(card: str) -> dict:
         tok, cache = serve(cache, tok, state["pos"])
         state["pos"] += 1
 
-    busy = _busy_share(step, steps=16)
+    busy = _busy_share(step, steps=DECODE_PROFILE_STEPS)
     emit({"moe_decode_step": {**busy, "card": card}})
     del model, cache
     torch.cuda.empty_cache()
@@ -4485,6 +4783,109 @@ def swa_backward_numbers(card: str) -> dict:
     return {"rows": rows}
 
 
+def hybrid_numbers(card: str) -> dict:
+    """The SWA kernels at head dim 256, at one recurrentgemma-2b attention
+    layer's shape (B 2, 10 q heads over 1 kv head, S 4,096, W 2,048,
+    bf16; the prefill's and the training run's shape alike): the forward,
+    and the forward with its log-sum-exp plus the backward, each with
+    kernel (CUDA events), device (profiler), plain and SDPA (band mask,
+    ``enable_gqa``) times beside its bound (4 d operations a visible pair
+    forward, 10 d backward, at bf16's peak; the bf16 d = 256 backward
+    issues 14 d: S and dP in both warpgroups of each kernel, dV, dK and dQ
+    as hi + lo products); then where the device time of a bf16 prefill
+    goes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, swa_attention as sw
+    from repro_torch.models import build, get_config
+
+    cfg = get_config(HYBRID_ARCH)
+    B, S, hd, W = HYBRID_BATCH, HYBRID_PROMPT, cfg.hd, cfg.hybrid.window
+    hq, hkv = cfg.padded_heads(), cfg.groups
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 34)
+    q, k, v = _swa_inputs(B, hq, hkv, S, S, hd, torch.bfloat16, gen)
+    do = torch.randn(q.shape, generator=gen, device=DEV).to(torch.bfloat16)
+    pos = torch.arange(S, device=DEV)
+    band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < W)
+    q4, k4, v4 = (x.reshape(B, -1, S, hd).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    do4 = do.reshape(B, hq, S, hd)
+    kern = lambda: sw.swa_attention_forward(q, k, v, W)
+    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=band,
+                                                 enable_gqa=True)
+    with torch.no_grad():
+        lib_err = float((lib().reshape(B * hq, S, hd).float()
+                         - kern().float()).abs().max())
+    check(lib_err <= 2 * SWA_BF16_TOL,
+          f"d 256: the library yardstick differs from the kernel by "
+          f"{lib_err}")
+    ours = {n: t for n, t in _device_ms(kern).items() if "swa_" in n}
+    b_ms, b_by = swa_bound_ms(B, hq, hkv, S, hd, W, 2)
+    with torch.no_grad():
+        fwd = {"B": B, "Hq": hq, "Hkv": hkv, "S": S, "d": hd, "W": W,
+               "dtype": "bfloat16", "pairs": B * hq * swa_pairs(S, S, W, 0),
+               "ms": _cuda_ms(kern, iters=20),
+               "device_ms": sum(ours.values()) if ours else None,
+               "plain_ms": _cuda_ms(lambda: ref.swa_attention_ref(
+                   q[None], k[None], v[None], W), iters=3, warmup=1),
+               "library_ms": _cuda_ms(lib, iters=10, warmup=2),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_vs_kernel_max_abs": lib_err, "card": card}
+    emit({"hybrid_swa_forward": fwd})
+
+    o, lse = sw.swa_attention_forward(q, k, v, W, return_lse=True)
+    back = lambda: sw.swa_attention_backward(q, k, v, o, lse, do, W)
+
+    def fwd_bwd():
+        o2, lse2 = sw.swa_attention_forward(q, k, v, W, return_lse=True)
+        return sw.swa_attention_backward(q, k, v, o2, lse2, do, W)
+
+    def lib_fb():
+        for x in (q4, k4, v4):
+            x.grad = None
+        F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=band, enable_gqa=True).backward(do4)
+
+    lib_fb()
+    got = back()
+    lib_err = max(float(((a.grad.reshape(b.shape).float() - b.float()).abs()
+                         / (1 + b.float().abs())).max())
+                  for a, b in zip((q4, k4, v4), got))
+    check(lib_err <= 5e-2,
+          f"d 256: SDPA's gradients differ from the kernels' by {lib_err}")
+    del got
+    ours = {n: t for n, t in _device_ms(back, iters=3).items()
+            if "swa_" in n}
+    bb_ms, bb_by = swa_bwd_bound_ms(B, hq, hkv, S, hd, W, 2)
+    issued, _ = swa_bwd_bound_ms(B, hq, hkv, S, hd, W, 2, products=14)
+    bwd = {"B": B, "Hq": hq, "Hkv": hkv, "S": S, "d": hd, "W": W,
+           "dtype": "bfloat16", "ms": _cuda_ms(back, iters=5, warmup=1),
+           "device_ms_by_kernel": ours or None,
+           "device_ms": sum(ours.values()) if ours else None,
+           "plain_ms": _cuda_ms(lambda: ref.swa_attention_backward_ref(
+               q[None], k[None], v[None], o[None], lse[None], do[None], W),
+               iters=2, warmup=1),
+           "bound_ms": bb_ms, "bound_by": bb_by, "issued_bound_ms": issued,
+           "fwd_lse_bwd_ms": _cuda_ms(fwd_bwd, iters=3, warmup=1),
+           "fwd_lse_bwd_bound_ms": b_ms + bb_ms,
+           "library_fwd_bwd_ms": _cuda_ms(lib_fb, iters=3, warmup=1),
+           "library_vs_kernel_max_rel": lib_err, "card": card}
+    emit({"hybrid_swa_backward": bwd})
+    del q, k, v, do, o, lse, q4, k4, v4, do4, band
+    torch.cuda.empty_cache()
+
+    # where the device time of a bf16 prefill goes (its decode step's wall
+    # time is the hybrid phase's)
+    model = build(cfg).init(torch.Generator(device=DEV).manual_seed(SEED))
+    prompt = {"tokens": _lm_prompt(cfg, S)}
+    prefill = _busy_share(lambda: model.prefill(prompt),
+                          steps=PREFILL_PROFILE_STEPS)
+    emit({"hybrid_prefill": {**prefill, "card": card}})
+    del model
+    torch.cuda.empty_cache()
+    return {"forward": fwd, "backward": bwd, "prefill": prefill}
+
+
 def _busy_share(fn, steps: int) -> dict:
     """Wall time and device busy time per call of ``fn`` over ``steps``
     calls, from torch.profiler (kernels and copies on the device)."""
@@ -4558,7 +4959,7 @@ def _kernel_group(name: str) -> str:
 def kernels_line(kern: dict, serve_out: dict, kge: dict,
                  update_out: dict, jobs: dict, numbers: dict, swa: dict,
                  lm: dict, moe: dict, train: dict, scan: dict, mamba: dict,
-                 whisper: dict, llava: dict) -> dict:
+                 whisper: dict, llava: dict, hybrid: dict) -> dict:
     """One entry per kernel path, at the shapes the main path gives it:
     a 8192-row slab of the 40k table with its running list, Q = 32 and
     k = 10 for the small path (the serve session's batches), Q = 1 and
@@ -4574,7 +4975,10 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
     run's prefill: 64 fused launches and none of the bare entry point,
     whose entry also carries the scan phase's launches; the fused one's
     ``launches_train`` and its backward's ``launches`` are the measured
-    falcon-mamba-7b training run's (128 and 64 a step)."""
+    falcon-mamba-7b training run's (128 and 64 a step).  The SWA kernels
+    at d = 256: the recurrentgemma-2b generation run's prefill (8) and
+    its measured training run's (16 forwards, 8 of each backward entry
+    point a step)."""
     launches = serve_out["launches"]
     by = {(r["N"], r["Q"], r["k"]): r for r in numbers["rows"]}
     out = []
@@ -4701,6 +5105,41 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
         "library_ms": r["library_fwd_bwd_ms"],
         "library_is": "SDPA forward + backward, band mask, enable_gqa",
         "fwd_lse_bwd_ms": r["fwd_lse_bwd_ms"]})
+    # the d = 256 instances at one recurrentgemma-2b attention layer's
+    # shape, bf16: the forward (launches: the generation run's prefill and
+    # the training run's), then forward with lse + backward (the training
+    # run's); library: SDPA with the band mask and enable_gqa
+    f, b = numbers["hybrid"]["forward"], numbers["hybrid"]["backward"]
+    shape = (f"bf16, B={f['B']} Hq={f['Hq']} Hkv={f['Hkv']} S={f['S']} "
+             f"W={f['W']} d={f['d']}")
+    hyb = train["hybrid"]
+    out.append({
+        "name": f"swa_attention_forward (d = 256; {shape})",
+        "route": "cuda", "source": SWA_SOURCE, "replaces": SWA_REPLACES,
+        "launches": hybrid["launches"]["swa_attention_forward"],
+        "launches_train": hyb["launches"]["swa_attention_forward"],
+        "max_abs_err": swa["max_abs_err_d256"]["bfloat16"],
+        "max_abs_err_fp32": swa["max_abs_err_d256"]["float32"],
+        "ms": f["ms"], "device_ms": f["device_ms"],
+        "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+        "bound_by": f["bound_by"], "library_ms": f["library_ms"]})
+    out.append({
+        "name": f"swa_attention_backward (d = 256: bwd_dot + backward_dkdv "
+                f"+ backward_dq; {shape})",
+        "route": "cuda", "source": SWA_SOURCE,
+        "replaces": "src/repro/models/attention.py:123 (autodiff of the jnp "
+                    "scan; no Pallas backward)",
+        "launches": sum(hyb["launches"][e] for e in entries),
+        "launches_by_entry": {e: hyb["launches"][e] for e in entries},
+        "max_abs_err": swa["max_abs_err_backward_d256"]["bfloat16"],
+        "max_abs_err_fp32": swa["max_abs_err_backward_d256"]["float32"],
+        "ms": b["ms"], "device_ms": b["device_ms"],
+        "device_ms_by_kernel": b["device_ms_by_kernel"],
+        "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"], "issued_bound_ms": b["issued_bound_ms"],
+        "library_ms": b["library_fwd_bwd_ms"],
+        "library_is": "SDPA forward + backward, band mask, enable_gqa",
+        "fwd_lse_bwd_ms": b["fwd_lse_bwd_ms"]})
     # the selective scan at one falcon-mamba-7b prefill layer's shape, bf16:
     # the fused entry point (the main path's) and the bare one (the
     # contract tests'; no longer on the main path); no single PyTorch call
@@ -4768,6 +5207,28 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
     return {"kernels": out}
 
 
+def ended(kind: str, name: str, seconds: float) -> None:
+    """One line as a phase (or a part of the numbers phase) ends, its wall
+    seconds, flushed to stdout and stderr: a run stopped at its limit
+    still shows where its time went."""
+    line = json.dumps({"ended": f"{kind} {name}", "seconds": seconds})
+    print(line, flush=True)
+    print(line, file=sys.stderr, flush=True)
+
+
+def laps(phase: str):
+    """``lap(name)``: an ``ended`` line for part ``name`` of ``phase``, its
+    seconds since the previous lap (or since ``laps``): where a long
+    phase's time goes, in a run stopped at its limit too."""
+    last = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        ended("part", f"{phase} {name}", now - last[0])
+        last[0] = now
+    return lap
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4781,8 +5242,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,kge,swa,scan,serve,workers,"
-                            "update,jobs,lm,moe,mamba,whisper,llava,train,"
-                            "numbers")
+                            "update,jobs,lm,moe,mamba,hybrid,whisper,llava,"
+                            "train,numbers")
     ap.add_argument("--out", default=None, help="also write results here")
     ap.add_argument("--sass-of", default=None, metavar="SOURCE.cu",
                     help="compile one CUDA source with the port's flags "
@@ -4825,13 +5286,17 @@ def main(argv=None) -> int:
                             generated_at="2025-01-01T00:00:00+00:00")
                 reg.seal("go", version)
             served = {"ids": ids, "labels": labels, "emb": emb}
-            ids_s, labels_s, emb_s = go_table(SCALE_ROWS, SEED + 7)
-            reg.publish("go-scale", "2025-01", "transe", ids_s, labels_s,
-                        emb_s, ontology_checksum=f"seed-{SEED + 7}",
-                        hyperparameters={"dim": D, "seed": SEED + 7},
-                        generated_at="2025-01-01T00:00:00+00:00")
-            del emb_s
-            for ont, n_rows in (("go", GO_ROWS), ("go-scale", SCALE_ROWS)):
+            scale = "kernels" in phases     # the only phase that reads it
+            if scale:
+                ids_s, labels_s, emb_s = go_table(SCALE_ROWS, SEED + 7)
+                reg.publish("go-scale", "2025-01", "transe", ids_s,
+                            labels_s, emb_s,
+                            ontology_checksum=f"seed-{SEED + 7}",
+                            hyperparameters={"dim": D, "seed": SEED + 7},
+                            generated_at="2025-01-01T00:00:00+00:00")
+                del emb_s
+            for ont, n_rows in (("go", GO_ROWS), ("go-scale", SCALE_ROWS)
+                                )[:1 + scale]:
                 table, norms, _ = reg.store.open_table(
                     ont, reg.store.latest_version(ont), "transe")
                 store_tables[n_rows] = (table, norms)
@@ -4843,14 +5308,17 @@ def main(argv=None) -> int:
             out = phase_numbers(store_tables, card)
             torch.cuda.synchronize()
             seconds = {"topk": time.perf_counter() - t0}
+            ended("numbers part", "topk", seconds["topk"])
             for part, run in (("kge", kge_numbers), ("swa", swa_numbers),
                               ("swa_backward", swa_backward_numbers),
                               ("moe", moe_numbers), ("scan", scan_numbers),
-                              ("zoo", zoo_numbers)):
+                              ("zoo", zoo_numbers),
+                              ("hybrid", hybrid_numbers)):
                 t0 = time.perf_counter()
                 out[part] = run(card)
                 torch.cuda.synchronize()
                 seconds[part] = time.perf_counter() - t0
+                ended("numbers part", part, seconds[part])
             # each part's wall seconds: where the phase's time goes
             out["part_seconds"] = seconds
             _check_device_times(out)
@@ -4872,7 +5340,8 @@ def main(argv=None) -> int:
                 ("update", lambda: phase_update(tmp)),
                 ("jobs", lambda: phase_jobs(tmp, card)),
                 ("lm", phase_lm), ("moe", phase_moe),
-                ("mamba", phase_mamba), ("whisper", phase_whisper),
+                ("mamba", phase_mamba), ("hybrid", phase_hybrid),
+                ("whisper", phase_whisper),
                 ("llava", llava),
                 ("train", lambda: phase_train(card)),
                 ("numbers", numbers),
@@ -4882,6 +5351,7 @@ def main(argv=None) -> int:
                 RESULTS["phases"][name] = run()
                 torch.cuda.synchronize()
                 RESULTS["phase_seconds"][name] = time.perf_counter() - t0
+                ended("phase", name, RESULTS["phase_seconds"][name])
         emit({"phase_seconds": RESULTS["phase_seconds"]})
         store_tables.clear()
     RESULTS["seconds"] = time.perf_counter() - t_start
@@ -4891,14 +5361,15 @@ def main(argv=None) -> int:
         Path(args.out).write_text(json.dumps(RESULTS, indent=1))
     print(card)
     if {"kernels", "kge", "swa", "scan", "serve", "update", "jobs", "lm",
-            "moe", "mamba", "whisper", "llava", "train", "numbers"} <= phases:
+            "moe", "mamba", "hybrid", "whisper", "llava", "train",
+            "numbers"} <= phases:
         ph = RESULTS["phases"]
         print(json.dumps(kernels_line(ph["kernels"], ph["serve"], ph["kge"],
                                       ph["update"], ph["jobs"],
                                       ph["numbers"], ph["swa"], ph["lm"],
                                       ph["moe"], ph["train"], ph["scan"],
                                       ph["mamba"], ph["whisper"],
-                                      ph["llava"])))
+                                      ph["llava"], ph["hybrid"])))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -18,7 +18,7 @@
 //   Optionally lse (BHq, Sq) fp32: ln sum_j exp(scale q_i.k_j) over the
 //   visible keys, -inf for a row that sees none (training saves it for
 //   the backward; prefill passes no pointer).
-//   d in {16, 32, 64, 80, 128}; any Sq, Skv >= 1, window >= 1,
+//   d in {16, 32, 64, 80, 128, 256}; any Sq, Skv >= 1, window >= 1,
 //   q_offset >= 0: ragged tiles are masked here, nothing is padded.
 //
 // Arithmetic:
@@ -93,14 +93,20 @@
 //     one (147 registers, no spills); the producer is a single warp, so
 //     there is no setmaxnreg split.  Read -Xptxas=-v (chip_smoke.py's
 //     build phase prints it) for spills.
-//   * Build time: the kernel is instantiated for 5 head dims; TMA and
+//   * d = 256 (recurrentgemma-2b): O alone is 128 registers a thread and
+//     a 3-stage ring does not fit (Q 64 KB + 3 x 64 KB of K and V).  So
+//     the ring has 2 stages (193 KB in all) and the producer is a
+//     warpgroup that hands its registers to the consumers with
+//     setmaxnreg (40 / 232), as the backward's (Fwd<HD>).
+//   * Build time: the kernel is instantiated for 6 head dims; TMA and
 //     wgmma need no extra headers beyond cuda.h's types.
 //
 // fp32 design (swa_f32_kernel, unchanged in shape): one block of 4 warps
 // per (64-query tile, q head), each warp 16 query rows with q, the
 // online-softmax state and the output accumulator in registers; K and V
-// tiles staged with cp.async, double-buffered, zero-filled past Skv; the
-// same tile plan, so interior tiles skip the mask.
+// tiles staged with cp.async, double-buffered (one buffer at d = 256,
+// where two would need 325 KB), zero-filled past Skv; the same tile plan,
+// so interior tiles skip the mask.
 //
 // Each entry point launches exactly one kernel on the given stream,
 // allocates nothing, never synchronises, and returns cudaGetLastError().
@@ -498,23 +504,39 @@ __device__ __forceinline__ void consumer_regs() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
 }
 
-// d <= 80 asks for two CTAs an SM (d = 80: 90 registers, 128 B of
-// spills), d = 128 for one (147 registers, no spills).
+// The forward's CTA by head dim: up to d = 128 one producer warp beside
+// the two consumer warpgroups and a STAGES-deep ring; at d = 256 (WIDE) a
+// producer warpgroup that gives its registers to the consumers and a
+// 2-stage ring, which is what fits 227 KB beside the 64 KB Q tile.
 template <int HD>
-__global__ void __launch_bounds__(BF16_THREADS, HD <= 80 ? 2 : 1)
+struct Fwd {
+  static constexpr bool WIDE = HD > 128;
+  static constexpr int RING = WIDE ? 2 : STAGES;
+  static constexpr int THREADS = WIDE ? BWD_BF16_THREADS : BF16_THREADS;
+  static constexpr int SMEM = 1024 + Panels<HD>::bytes(BQ) +
+                              2 * RING * Panels<HD>::bytes(BK) +
+                              8 * (2 * RING + 1);
+};
+
+// d <= 80 asks for two CTAs an SM (d = 80: 90 registers, 128 B of
+// spills), d = 128 for one (147 registers, no spills), d = 256 for one
+// with the register split.
+template <int HD>
+__global__ void __launch_bounds__(Fwd<HD>::THREADS, HD <= 80 ? 2 : 1)
 swa_bf16_kernel(const __grid_constant__ SwaMaps maps,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                 int sq, int skv, int group, int window, int q_offset,
                 float scale_log2) {
   using P = Panels<HD>;
+  using F = Fwd<HD>;
   constexpr int Q_BYTES = P::bytes(BQ), KV_BYTES = P::bytes(BK);
   extern __shared__ unsigned char smem_bf16[];
   const uint32_t s_q = (smem_u32(smem_bf16) + 1023u) & ~1023u;
   const uint32_t s_k = s_q + Q_BYTES;                // stage s: + s * KV_BYTES
-  const uint32_t s_v = s_k + STAGES * KV_BYTES;
-  const uint32_t bar_full = s_v + STAGES * KV_BYTES;  // STAGES barriers
-  const uint32_t bar_empty = bar_full + 8 * STAGES;
-  const uint32_t bar_q = bar_empty + 8 * STAGES;
+  const uint32_t s_v = s_k + F::RING * KV_BYTES;
+  const uint32_t bar_full = s_v + F::RING * KV_BYTES;  // RING barriers
+  const uint32_t bar_empty = bar_full + 8 * F::RING;
+  const uint32_t bar_q = bar_empty + 8 * F::RING;
 
   const int head = blockIdx.x, kvh = head / group;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest tiles first
@@ -525,7 +547,7 @@ swa_bf16_kernel(const __grid_constant__ SwaMaps maps,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < F::RING; ++s) {
       mbar_init(bar_full + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, CONSUMER_WARPS);
     }
@@ -534,13 +556,14 @@ swa_bf16_kernel(const __grid_constant__ SwaMaps maps,
   }
   __syncthreads();
 
-  if (warp == CONSUMER_WARPS) {        // the producer: one thread issues TMA
-    if (lane == 0) {
+  if (warp >= CONSUMER_WARPS) {        // the producer: one thread issues TMA
+    if constexpr (F::WIDE) producer_regs();
+    if (warp == CONSUMER_WARPS && lane == 0) {
       mbar_expect_tx(bar_q, Q_BYTES);
       tma_tile<HD>(s_q, maps.q, bar_q, BQ, q0, head);
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % STAGES;
-        if (i >= STAGES) mbar_wait(bar_empty + 8 * s, (i / STAGES - 1) & 1);
+        const int s = i % F::RING;
+        if (i >= F::RING) mbar_wait(bar_empty + 8 * s, (i / F::RING - 1) & 1);
         const uint32_t full = bar_full + 8 * s;
         mbar_expect_tx(full, 2 * KV_BYTES);
         const int key0 = (tile0 + i) * BK;
@@ -552,6 +575,7 @@ swa_bf16_kernel(const __grid_constant__ SwaMaps maps,
   }
 
   // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+  if constexpr (F::WIDE) consumer_regs();
   const int wg = warp / 4, g = lane / 4, t = lane % 4;
   const int first = q0 + 64 * wg, last = min(first + 63, sq - 1);
   const bool live = first < sq;
@@ -564,8 +588,8 @@ swa_bf16_kernel(const __grid_constant__ SwaMaps maps,
   float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
   mbar_wait(bar_q, 0);
   for (int i = 0; i < n_tiles; ++i) {
-    const int s = i % STAGES;
-    mbar_wait(bar_full + 8 * s, (i / STAGES) & 1);
+    const int s = i % F::RING;
+    mbar_wait(bar_full + 8 * s, (i / F::RING) & 1);
     const int k0 = (tile0 + i) * BK;
     if (live && k0 <= wk_hi && k0 + BK - 1 >= wk_lo) {
       const uint32_t k_t = s_k + s * KV_BYTES, v_t = s_v + s * KV_BYTES;
@@ -622,6 +646,10 @@ constexpr int F32_BQ = 64;         // query rows per block, 16 per warp
 constexpr int F32_THREADS = 128;   // 4 warps
 constexpr int F32_LD = 4;          // row padding (floats): rows of a
                                    // fragment load fall in different banks
+
+// K/V buffers of the fp32 forward: two (double-buffered) up to d = 128;
+// one at d = 256, where two would take 325 KB with the Q tile.
+__host__ __device__ constexpr int f32_kv_buffers(int hd) { return hd > 128 ? 1 : 2; }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {
@@ -727,9 +755,10 @@ swa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                int window, int q_offset, float scale_log2) {
   constexpr int LD = HD + F32_LD;
   constexpr int TILE = BK * LD;
+  constexpr int BUFS = f32_kv_buffers(HD);
   extern __shared__ __align__(16) unsigned char smem_f32[];
   float* s_q = reinterpret_cast<float*>(smem_f32);    // F32_BQ x LD
-  float* s_kv = s_q + F32_BQ * LD;                     // 2 x (K tile, V tile)
+  float* s_kv = s_q + F32_BQ * LD;                     // BUFS x (K tile, V tile)
 
   const int head = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * F32_BQ;   // heaviest first
@@ -772,8 +801,16 @@ swa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
 
   for (int i = 0; i < n_tiles; ++i) {
-    float* sk = s_kv + (i & 1) * 2 * TILE;
-    if (i + 1 < n_tiles) {
+    float* sk = s_kv + (BUFS == 2 ? (i & 1) : 0) * 2 * TILE;
+    if (BUFS == 1) {
+      // one buffer: tile i loads once tile i - 1's readers are done (the
+      // barrier that ends each iteration)
+      if (i > 0) {
+        load_kv_tile<HD>(sk, sk + TILE, kh, vh, (tile0 + i) * BK, skv);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+    } else if (i + 1 < n_tiles) {
       float* nk = s_kv + ((i + 1) & 1) * 2 * TILE;
       load_kv_tile<HD>(nk, nk + TILE, kh, vh, (tile0 + i + 1) * BK, skv);
       cp_async_commit();
@@ -880,8 +917,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
          encode(&maps.v[j], v, bhkv, skv, HD, width, BK);
   }
   if (!ok) return (int)cudaErrorInvalidValue;
-  const int smem = 1024 + P::bytes(BQ) + 2 * STAGES * P::bytes(BK) +
-                   8 * (2 * STAGES + 1);
+  const int smem = Fwd<HD>::SMEM;
   auto kern = swa_bf16_kernel<HD>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -893,7 +929,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(bhq, (sq + BQ - 1) / BQ);
-  kern<<<grid, BF16_THREADS, smem, stream>>>(
+  kern<<<grid, Fwd<HD>::THREADS, smem, stream>>>(
       maps, static_cast<__nv_bfloat16*>(o), lse, sq, skv, bhq / bhkv,
       window, q_offset, scale * LOG2E);
   return (int)cudaGetLastError();
@@ -904,7 +940,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int bhq, int bhkv, int sq, int skv, int window,
                int q_offset, float scale, cudaStream_t stream) {
   constexpr int LD = HD + F32_LD;
-  constexpr size_t smem = (F32_BQ * LD + 4 * BK * LD) * sizeof(float);
+  constexpr size_t smem =
+      (F32_BQ * LD + 2 * f32_kv_buffers(HD) * BK * LD) * sizeof(float);
   auto kern = swa_f32_kernel<HD>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1002,6 +1039,14 @@ int launch(bool bf16, const void* q, const void* k, const void* v, void* o,
 //     runs key tiles in ascending order with the kv rows fastest, so at
 //     q_offset = 0 the full-band tiles start first; dQ's query tiles run
 //     heaviest first, as the forward's.
+//   * d = 256 (recurrentgemma-2b): dK and dV alone would be 128 + 128
+//     registers a thread, and a 64-key K and V with a 3-stage ring of
+//     64-query Q and dO tiles 256 KB.  So the CTA's two consumer
+//     warpgroups share one 64-key tile (dK/dV) or one 64-query tile (dQ)
+//     and split d's columns: warpgroup wg computes the whole S and dP
+//     (each warpgroup its own, the products taken twice) and keeps the
+//     gradients' columns [128 wg, 128 wg + 128), as FlashAttention 3 does
+//     at d = 256; the rings have 2 stages (194 KB and 193 KB).
 //   * Registers: a dK/dV warpgroup holds S^T and dP^T (32 + 32 a thread),
 //     dK and dV (d / 2 + d / 2) and the split fragments (64).  Two
 //     consumer warpgroups and a producer warpgroup (384 threads) start at
@@ -1014,13 +1059,17 @@ int launch(bool bf16, const void* q, const void* k, const void* v, void* o,
 //
 // fp32 (swa_bwd_dkdv_f32_kernel, swa_bwd_dq_f32_kernel; not on the
 // training path): fp32 FMA on the CUDA cores, no TF32, 8 warps a CTA,
-// 64 x 64 tile pairs staged synchronously; each thread holds a 4 x 4
-// block of the score tile, P and dS are staged in shared memory (dS
-// transposed for dQ) and the gradients accumulate in registers.
+// QR x 64 tile pairs (QR query rows, 64 keys) staged synchronously; each
+// thread holds a QR / 16 x 4 block of the score tile, P and dS are staged
+// in shared memory (dS transposed for dQ) and the gradients accumulate in
+// registers.  QR is 64 up to d = 128 and 32 at d = 256, where 64-row
+// tiles of Q, dO, K and V alone would take 266 KB.
 constexpr int BWD_THREADS = 256;     // fp32 kernels and bwd_dot: 8 warps
-constexpr int BWD_BQ = 64;           // query rows of a tile
+constexpr int BWD_BQ = 64;           // query rows of a tile (QR up to d = 128)
 constexpr int BWD_LDS = BK + 16;     // row stride of P, dS [query][key]
-constexpr int BWD_LDT = BWD_BQ + 4;  // row stride of dS^T [key][query]
+
+// query rows of an fp32 backward tile
+__host__ __device__ constexpr int f32_bwd_rows(int hd) { return hd > 128 ? 32 : BWD_BQ; }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -1029,13 +1078,13 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// Rows [row0, row0 + 64) of one head's (n, HD) matrix into a 64 x (HD + 4)
-// fp32 tile; rows at or past n are zero.
-template <int HD>
+// Rows [row0, row0 + ROWS) of one head's (n, HD) matrix into a ROWS x
+// (HD + 4) fp32 tile; rows at or past n are zero.
+template <int HD, int ROWS = 64>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           int row0, int n) {
   constexpr int LD = HD + F32_LD, CH = HD / 4;
-  for (int c = threadIdx.x; c < 64 * CH; c += BWD_THREADS) {
+  for (int c = threadIdx.x; c < ROWS * CH; c += BWD_THREADS) {
     const int r = c / CH, col = (c % CH) * 4;
     float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (row0 + r < n) x = ld4(src + (size_t)(row0 + r) * HD + col);
@@ -1043,48 +1092,48 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   }
 }
 
-// lse (in log2 units) and D of rows [row0, row0 + 64): rows past n get
+// lse (in log2 units) and D of rows [row0, row0 + rows): rows past n get
 // +inf and 0, so their p and dS are 0.
 __device__ __forceinline__ void load_stats(float* s_l, float* s_d,
                                            const float* lse,
                                            const float* dvec, int row0,
-                                           int n) {
-  for (int r = threadIdx.x; r < BWD_BQ; r += BWD_THREADS) {
+                                           int n, int rows) {
+  for (int r = threadIdx.x; r < rows; r += BWD_THREADS) {
     const bool ok = row0 + r < n;
     s_l[r] = ok ? lse[row0 + r] * LOG2E : INFINITY;
     s_d[r] = ok ? dvec[row0 + r] : 0.0f;
   }
 }
 
-// S = Q K^T and dP = dO V^T for the thread's 4 x 4 pairs of the tile:
+// S = Q K^T and dP = dO V^T for the thread's QI x 4 pairs of the tile:
 // rows tq + 16 i, keys tk + 16 j.
-template <int HD>
-__device__ __forceinline__ void scores_bwd(float (&s)[4][4], float (&dp)[4][4],
+template <int HD, int QI>
+__device__ __forceinline__ void scores_bwd(float (&s)[QI][4], float (&dp)[QI][4],
                                            const float* sQ, const float* sK,
                                            const float* sDO, const float* sV,
                                            int tq, int tk) {
   constexpr int LD = HD + F32_LD;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < QI; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
 #pragma unroll 2
   for (int c = 0; c < HD; c += 4) {
-    float4 a[4], b[4];
+    float4 a[QI], b[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = ld4(sQ + (tq + 16 * i) * LD + c);
+    for (int i = 0; i < QI; ++i) a[i] = ld4(sQ + (tq + 16 * i) * LD + c);
 #pragma unroll
     for (int j = 0; j < 4; ++j) b[j] = ld4(sK + (tk + 16 * j) * LD + c);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < QI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dot4(s[i][j], a[i], b[j]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = ld4(sDO + (tq + 16 * i) * LD + c);
+    for (int i = 0; i < QI; ++i) a[i] = ld4(sDO + (tq + 16 * i) * LD + c);
 #pragma unroll
     for (int j = 0; j < 4; ++j) b[j] = ld4(sV + (tk + 16 * j) * LD + c);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < QI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) dp[i][j] = dot4(dp[i][j], a[i], b[j]);
   }
@@ -1093,14 +1142,15 @@ __device__ __forceinline__ void scores_bwd(float (&s)[4][4], float (&dp)[4][4],
 // s becomes P = 2^(s scale_log2 - lse_log2) on visible pairs (0 on the
 // others) and dp becomes dS = P (dp - D).  Tile row r is query q0 + r,
 // tile key c is key k0 + c.
-__device__ __forceinline__ void probs_bwd(float (&s)[4][4], float (&dp)[4][4],
+template <int QI>
+__device__ __forceinline__ void probs_bwd(float (&s)[QI][4], float (&dp)[QI][4],
                                           const float* s_l, const float* s_d,
                                           int tq, int tk, int q0, int k0,
                                           bool interior, int sq, int skv,
                                           int window, int q_offset,
                                           float scale_log2) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < QI; ++i) {
     const int r = tq + 16 * i;
     const int qp = q_offset + q0 + r;
     const float l = s_l[r], dd = s_d[r];
@@ -1144,16 +1194,17 @@ swa_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
                         float* __restrict__ dv, int sq, int skv, int group,
                         int window, int q_offset, float scale,
                         float scale_log2) {
+  constexpr int QR = f32_bwd_rows(HD), QI = QR / 16;
   constexpr int LD = HD + F32_LD, TILE = 64 * LD, NM = HD / 16;
   extern __shared__ __align__(16) unsigned char smem_bwd[];
   float* sK = reinterpret_cast<float*>(smem_bwd);
   float* sV = sK + TILE;
-  float* sQ = sV + TILE;
-  float* sDO = sQ + TILE;
-  float* sP = sDO + TILE;                   // BWD_BQ x BWD_LDS
-  float* sS = sP + BWD_BQ * BWD_LDS;        // dS, the same layout
-  float* sL = sS + BWD_BQ * BWD_LDS;
-  float* sD = sL + BWD_BQ;
+  float* sQ = sV + TILE;                    // QR x LD
+  float* sDO = sQ + QR * LD;
+  float* sP = sDO + QR * LD;                // QR x BWD_LDS
+  float* sS = sP + QR * BWD_LDS;            // dS, the same layout
+  float* sL = sS + QR * BWD_LDS;
+  float* sD = sL + QR;
 
   const int kvh = blockIdx.x, k0 = blockIdx.y * BK;
   const int tid = threadIdx.x;
@@ -1175,25 +1226,25 @@ swa_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   const long long hi = min((long long)sq - 1,
                            (long long)k_last - q_offset + window - 1);
   if (lo <= hi) {
-    const int t0 = (int)(lo / BWD_BQ), t1 = (int)(hi / BWD_BQ);
+    const int t0 = (int)(lo / QR), t1 = (int)(hi / QR);
     for (int h = 0; h < group; ++h) {
       const size_t head = (size_t)kvh * group + h;
       const float* qh = q + head * sq * HD;
       const float* doh = dout + head * sq * HD;
       for (int t = t0; t <= t1; ++t) {
-        const int q0 = t * BWD_BQ, last = min(q0 + BWD_BQ, sq) - 1;
+        const int q0 = t * QR, last = min(q0 + QR, sq) - 1;
         __syncthreads();                    // the last tile's readers are done
-        load_rows<HD>(sQ, qh, q0, sq);
-        load_rows<HD>(sDO, doh, q0, sq);
-        load_stats(sL, sD, lse + head * sq, dvec + head * sq, q0, sq);
+        load_rows<HD, QR>(sQ, qh, q0, sq);
+        load_rows<HD, QR>(sDO, doh, q0, sq);
+        load_stats(sL, sD, lse + head * sq, dvec + head * sq, q0, sq, QR);
         __syncthreads();
-        float s[4][4], dp[4][4];
-        scores_bwd<HD>(s, dp, sQ, sK, sDO, sV, tq, tk);
-        probs_bwd(s, dp, sL, sD, tq, tk, q0, k0,
-                  tile_interior(k0, q0, last, q_offset, window, skv), sq, skv,
-                  window, q_offset, scale_log2);
+        float s[QI][4], dp[QI][4];
+        scores_bwd<HD, QI>(s, dp, sQ, sK, sDO, sV, tq, tk);
+        probs_bwd<QI>(s, dp, sL, sD, tq, tk, q0, k0,
+                      tile_interior(k0, q0, last, q_offset, window, skv), sq,
+                      skv, window, q_offset, scale_log2);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < QI; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             sP[(tq + 16 * i) * BWD_LDS + tk + 16 * j] = s[i][j];
@@ -1201,7 +1252,7 @@ swa_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
           }
         __syncthreads();
 #pragma unroll 2
-        for (int r = 0; r < BWD_BQ; ++r) {
+        for (int r = 0; r < QR; ++r) {
           const float4 p = ld4(sP + r * BWD_LDS + 4 * ka);
           const float4 d = ld4(sS + r * BWD_LDS + 4 * ka);
 #pragma unroll
@@ -1244,28 +1295,31 @@ swa_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ dvec, float* __restrict__ dq,
                       int sq, int skv, int group, int window, int q_offset,
                       float scale, float scale_log2) {
-  constexpr int LD = HD + F32_LD, TILE = 64 * LD, NM = HD / 16;
+  constexpr int QR = f32_bwd_rows(HD), QI = QR / 16;
+  // dQ: QA threads across the rows, CB column groups of NM columns
+  constexpr int QA = QR / 4, CB = BWD_THREADS / QA, NM = HD / CB;
+  constexpr int LD = HD + F32_LD, TILE = 64 * LD, LDT = QR + 4;
   extern __shared__ __align__(16) unsigned char smem_bwd[];
-  float* sQ = reinterpret_cast<float*>(smem_bwd);
-  float* sDO = sQ + TILE;
-  float* sK = sDO + TILE;
+  float* sQ = reinterpret_cast<float*>(smem_bwd);   // QR x LD
+  float* sDO = sQ + QR * LD;
+  float* sK = sDO + QR * LD;
   float* sV = sK + TILE;
-  float* sT = sV + TILE;                    // dS^T: BK x BWD_LDT
-  float* sL = sT + BK * BWD_LDT;
-  float* sD = sL + BWD_BQ;
+  float* sT = sV + TILE;                    // dS^T: BK x LDT
+  float* sL = sT + BK * LDT;
+  float* sD = sL + QR;
 
   const size_t head = blockIdx.x;
   const size_t kvh = head / group;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BWD_BQ;   // heaviest first
-  const int last = min(q0 + BWD_BQ, sq) - 1;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * QR;   // heaviest first
+  const int last = min(q0 + QR, sq) - 1;
   const int tid = threadIdx.x;
   const int tq = tid / 16, tk = tid % 16;   // score tile
-  const int qa = tid % 16, cb = tid / 16;   // dQ: rows 4 qa + r, columns cb + 16 m
+  const int qa = tid % QA, cb = tid / QA;   // dQ: rows 4 qa + r, columns cb + CB m
   const float* kh = k + kvh * skv * HD;
   const float* vh = v + kvh * skv * HD;
-  load_rows<HD>(sQ, q + head * sq * HD, q0, sq);
-  load_rows<HD>(sDO, dout + head * sq * HD, q0, sq);
-  load_stats(sL, sD, lse + head * sq, dvec + head * sq, q0, sq);
+  load_rows<HD, QR>(sQ, q + head * sq * HD, q0, sq);
+  load_rows<HD, QR>(sDO, dout + head * sq * HD, q0, sq);
+  load_stats(sL, sD, lse + head * sq, dvec + head * sq, q0, sq, QR);
 
   float acc[4][NM];
 #pragma unroll
@@ -1283,23 +1337,23 @@ swa_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     load_rows<HD>(sK, kh, k0, skv);
     load_rows<HD>(sV, vh, k0, skv);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    scores_bwd<HD>(s, dp, sQ, sK, sDO, sV, tq, tk);
-    probs_bwd(s, dp, sL, sD, tq, tk, q0, k0,
-              tile_interior(k0, q0, last, q_offset, window, skv), sq, skv,
-              window, q_offset, scale_log2);
+    float s[QI][4], dp[QI][4];
+    scores_bwd<HD, QI>(s, dp, sQ, sK, sDO, sV, tq, tk);
+    probs_bwd<QI>(s, dp, sL, sD, tq, tk, q0, k0,
+                  tile_interior(k0, q0, last, q_offset, window, skv), sq, skv,
+                  window, q_offset, scale_log2);
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < QI; ++a)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        sT[(tk + 16 * j) * BWD_LDT + tq + 16 * a] = dp[a][j];
+        sT[(tk + 16 * j) * LDT + tq + 16 * a] = dp[a][j];
     __syncthreads();
 #pragma unroll 2
     for (int key = 0; key < BK; ++key) {
-      const float4 d = ld4(sT + key * BWD_LDT + 4 * qa);
+      const float4 d = ld4(sT + key * LDT + 4 * qa);
 #pragma unroll
       for (int m = 0; m < NM; ++m) {
-        const float x = sK[key * LD + cb + 16 * m];
+        const float x = sK[key * LD + cb + CB * m];
         acc[0][m] = fmaf(d.x, x, acc[0][m]);
         acc[1][m] = fmaf(d.y, x, acc[1][m]);
         acc[2][m] = fmaf(d.z, x, acc[2][m]);
@@ -1315,7 +1369,7 @@ swa_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (row >= sq) continue;
 #pragma unroll
     for (int m = 0; m < NM; ++m)
-      dqh[(size_t)row * HD + cb + 16 * m] = scale * acc[r][m];
+      dqh[(size_t)row * HD + cb + CB * m] = scale * acc[r][m];
   }
 }
 
@@ -1325,25 +1379,61 @@ constexpr int STAT_BYTES = 2 * BT * 4;   // a stage's lse (log2 units), then D
 
 // The tensor maps of one backward call: [0] the 64-column panels, [1] the
 // tail.  dK/dV: q and dout boxes of BT rows, k and v of Dkdv::KEYS; dQ: q
-// and dout boxes of BQ rows, k and v of BK.
+// and dout boxes of Dq::ROWS rows, k and v of BK.
 struct BwdMaps {
   CUtensorMap q[2], dout[2], k[2], v[2];
 };
 
 // A dK/dV CTA: 64 keys a consumer warpgroup, two at d <= 80, one at d =
-// 128 (whose dK and dV take 64 + 64 registers a thread).
+// 128 (whose dK and dV take 64 + 64 registers a thread); at d = 256
+// (SPLIT) two warpgroups over the same 64 keys, each with COLS = 128 of
+// dK's and dV's columns, and a RING-stage ring.
 template <int HD>
 struct Dkdv {
-  static constexpr int WGS = HD <= 80 ? 2 : 1;
-  static constexpr int KEYS = 64 * WGS;
+  static constexpr bool SPLIT = HD > 128;
+  static constexpr int WGS = HD <= 80 || SPLIT ? 2 : 1;
+  static constexpr int KEYS = SPLIT ? 64 : 64 * WGS;
+  static constexpr int COLS = SPLIT ? HD / 2 : HD;
+  static constexpr int RING = SPLIT ? 2 : STAGES;
   static constexpr int CONSUMERS = 4 * WGS;             // warps
   // + the producer: a warpgroup that gives its registers away (two
   // consumer warpgroups), or one warp (one: 255 registers a thread)
   static constexpr int THREADS = 32 * CONSUMERS + (WGS > 1 ? 128 : 32);
   static constexpr int SMEM = 1024 + 2 * Panels<HD>::bytes(KEYS) +
-                              STAGES * (2 * Panels<HD>::bytes(BT) + STAT_BYTES) +
-                              8 * (2 * STAGES + 1);
+                              RING * (2 * Panels<HD>::bytes(BT) + STAT_BYTES) +
+                              8 * (2 * RING + 1);
 };
+
+// A dQ CTA: ROWS queries, two consumer warpgroups of 64 rows up to d =
+// 128; at d = 256 (SPLIT) both over the same 64 rows, each with COLS =
+// 128 of dQ's columns, and a RING-stage ring of K and V tiles.
+template <int HD>
+struct Dq {
+  static constexpr bool SPLIT = HD > 128;
+  static constexpr int ROWS = SPLIT ? 64 : BQ;
+  static constexpr int COLS = SPLIT ? HD / 2 : HD;
+  static constexpr int RING = SPLIT ? 2 : STAGES;
+  static constexpr int SMEM = 1024 + 2 * Panels<HD>::bytes(ROWS) +
+                              2 * RING * Panels<HD>::bytes(BK) +
+                              8 * (2 * RING + 1);
+};
+
+// acc (m64 x COLS, fp32) += A B, as wgmma_rs_panels: all of d (COLS =
+// HD), or the COLS / 64 full panels from panel p0 (a SPLIT warpgroup's
+// columns).
+template <int HD, int COLS>
+__device__ __forceinline__ void wgmma_rs_cols(float* acc, const uint32_t* a,
+                                              uint32_t tile, int rows, int kk,
+                                              int p0) {
+  if constexpr (COLS == HD) {
+    wgmma_rs_panels<HD>(acc, a, tile, rows, kk);
+  } else {
+#pragma unroll
+    for (int p = 0; p < COLS / 64; ++p)
+      wgmma_rs_n64(acc + 32 * p, a,
+                   smem_desc(tile + Panels<HD>::offset(p0 + p, rows) + kk * 16 * 128, 128));
+  }
+}
 
 // A stage's per-query values (lse or D) at this thread's columns of the
 // score layout: v[4 j + e] is column 8 j + 2 t + (e & 1).
@@ -1401,11 +1491,11 @@ swa_bwd_dkdv_bf16_kernel(const __grid_constant__ BwdMaps maps,
   const uint32_t s_k = (base + 1023u) & ~1023u;
   const uint32_t s_v = s_k + KV_BYTES;
   const uint32_t s_q = s_v + KV_BYTES;                 // stage s: + s * Q_BYTES
-  const uint32_t s_do = s_q + STAGES * Q_BYTES;
-  const uint32_t s_stat = s_do + STAGES * Q_BYTES;     // stage s: + s * STAT_BYTES
-  const uint32_t bar_full = s_stat + STAGES * STAT_BYTES;
-  const uint32_t bar_empty = bar_full + 8 * STAGES;
-  const uint32_t bar_kv = bar_empty + 8 * STAGES;
+  const uint32_t s_do = s_q + C::RING * Q_BYTES;
+  const uint32_t s_stat = s_do + C::RING * Q_BYTES;     // stage s: + s * STAT_BYTES
+  const uint32_t bar_full = s_stat + C::RING * STAT_BYTES;
+  const uint32_t bar_empty = bar_full + 8 * C::RING;
+  const uint32_t bar_kv = bar_empty + 8 * C::RING;
   float* stat = reinterpret_cast<float*>(smem_dkdv + (s_stat - base));
 
   const int kvh = blockIdx.x, k0 = blockIdx.y * KEYS;
@@ -1422,7 +1512,7 @@ swa_bwd_dkdv_bf16_kernel(const __grid_constant__ BwdMaps maps,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < C::RING; ++s) {
       mbar_init(bar_full + 8 * s, 32);           // the producer's lanes
       mbar_init(bar_empty + 8 * s, C::CONSUMERS);
     }
@@ -1440,7 +1530,7 @@ swa_bwd_dkdv_bf16_kernel(const __grid_constant__ BwdMaps maps,
       tma_tile<HD>(s_v, maps.v, bar_kv, KEYS, k0, kvh);
     }
     for (int i = 0; i < n_items; ++i) {
-      const int s = i % STAGES;
+      const int s = i % C::RING;
       const int head = kvh * group + i / nt, q0 = (t0 + i % nt) * BT;
       float l2[2], d[2];
 #pragma unroll
@@ -1451,7 +1541,7 @@ swa_bwd_dkdv_bf16_kernel(const __grid_constant__ BwdMaps maps,
         l2[u] = ok ? lse[at] * LOG2E : INFINITY;
         d[u] = ok ? dvec[at] : 0.0f;
       }
-      if (i >= STAGES) mbar_wait(bar_empty + 8 * s, (i / STAGES - 1) & 1);
+      if (i >= C::RING) mbar_wait(bar_empty + 8 * s, (i / C::RING - 1) & 1);
       float* st = stat + s * (2 * BT);
       st[lane] = l2[0];
       st[lane + 32] = l2[1];
@@ -1469,33 +1559,36 @@ swa_bwd_dkdv_bf16_kernel(const __grid_constant__ BwdMaps maps,
     return;
   }
 
-  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63
+  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63 (SPLIT: both
+  // own the CTA's 64 keys, wg the columns c0 .. c0 + COLS - 1)
   if constexpr (C::WGS > 1) consumer_regs();
   const int wg = warp / 4, g = lane / 4, t = lane % 4;
-  const int kw0 = k0 + 64 * wg;
+  const int kw0 = k0 + (C::SPLIT ? 0 : 64 * wg);
+  const int c0 = C::SPLIT ? C::COLS * wg : 0;
   const int kw_last = min(kw0 + 63, skv - 1);
   const long long wlo = max(0LL, (long long)kw0 - q_offset);
   const long long whi = min((long long)sq - 1,
                             (long long)kw_last - q_offset + window - 1);
   const bool live = kw0 < skv && wlo <= whi;     // some query sees its keys
   const int key0 = kw0 + 16 * (warp % 4) + g;        // keys key0, key0 + 8
-  // dK, dV: [4 j + e] is key key0 + 8 (e >> 1), column 8 j + 2 t + (e & 1)
-  float adk[HD / 2], adv[HD / 2];
+  // dK, dV: [4 j + e] is key key0 + 8 (e >> 1), column c0 + 8 j + 2 t +
+  // (e & 1)
+  float adk[C::COLS / 2], adv[C::COLS / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) adk[i] = adv[i] = 0.0f;
+  for (int i = 0; i < C::COLS / 2; ++i) adk[i] = adv[i] = 0.0f;
   if (n_items > 0) mbar_wait(bar_kv, 0);
   for (int i = 0; i < n_items; ++i) {
-    const int s = i % STAGES;
-    mbar_wait(bar_full + 8 * s, (i / STAGES) & 1);
+    const int s = i % C::RING;
+    mbar_wait(bar_full + 8 * s, (i / C::RING) & 1);
     const int q0 = (t0 + i % nt) * BT;
     if (live && q0 <= whi && q0 + BT - 1 >= wlo) {
       const uint32_t q_t = s_q + s * Q_BYTES, do_t = s_do + s * Q_BYTES;
       const float* st = stat + s * (2 * BT);
       float sc[4 * NT], dp[4 * NT];    // S^T, dP^T: rows keys, columns queries
       wgmma_fence();
-      wgmma_ss_panels<HD>(sc, s_k, KEYS, 64 * wg, q_t);
+      wgmma_ss_panels<HD>(sc, s_k, KEYS, kw0 - k0, q_t);
       wgmma_commit();
-      wgmma_ss_panels<HD>(dp, s_v, KEYS, 64 * wg, do_t);
+      wgmma_ss_panels<HD>(dp, s_v, KEYS, kw0 - k0, do_t);
       wgmma_commit();
       wgmma_wait<1>();                 // S^T is in; dP^T may still run
       fence_regs(sc);
@@ -1519,13 +1612,13 @@ swa_bwd_dkdv_bf16_kernel(const __grid_constant__ BwdMaps maps,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BT / 16; ++kk) {
-        wgmma_rs_panels<HD>(adv, ph[kk], do_t, BT, kk);
-        wgmma_rs_panels<HD>(adv, pl[kk], do_t, BT, kk);
+        wgmma_rs_cols<HD, C::COLS>(adv, ph[kk], do_t, BT, kk, c0 / 64);
+        wgmma_rs_cols<HD, C::COLS>(adv, pl[kk], do_t, BT, kk, c0 / 64);
       }
 #pragma unroll
       for (int kk = 0; kk < BT / 16; ++kk) {
-        wgmma_rs_panels<HD>(adk, dh[kk], q_t, BT, kk);
-        wgmma_rs_panels<HD>(adk, dl[kk], q_t, BT, kk);
+        wgmma_rs_cols<HD, C::COLS>(adk, dh[kk], q_t, BT, kk, c0 / 64);
+        wgmma_rs_cols<HD, C::COLS>(adk, dl[kk], q_t, BT, kk, c0 / 64);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -1541,9 +1634,9 @@ swa_bwd_dkdv_bf16_kernel(const __grid_constant__ BwdMaps maps,
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + 8 * r;
     if (key >= skv) continue;
-    const size_t at = ((size_t)kvh * skv + key) * HD + 2 * t;
+    const size_t at = ((size_t)kvh * skv + key) * HD + c0 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < C::COLS / 8; ++j) {
       *reinterpret_cast<uint32_t*>(dk + at + 8 * j) =
           pack_bf16(scale * adk[4 * j + 2 * r], scale * adk[4 * j + 2 * r + 1]);
       *reinterpret_cast<uint32_t*>(dv + at + 8 * j) =
@@ -1561,26 +1654,28 @@ swa_bwd_dq_bf16_kernel(const __grid_constant__ BwdMaps maps,
                        int group, int window, int q_offset, float scale,
                        float scale_log2) {
   using P = Panels<HD>;
-  constexpr int Q_BYTES = P::bytes(BQ), KV_BYTES = P::bytes(BK);
+  using D = Dq<HD>;
+  constexpr int ROWS = D::ROWS;
+  constexpr int Q_BYTES = P::bytes(ROWS), KV_BYTES = P::bytes(BK);
   extern __shared__ unsigned char smem_dq[];
   const uint32_t s_q = (smem_u32(smem_dq) + 1023u) & ~1023u;
   const uint32_t s_do = s_q + Q_BYTES;
   const uint32_t s_k = s_do + Q_BYTES;               // stage s: + s * KV_BYTES
-  const uint32_t s_v = s_k + STAGES * KV_BYTES;
-  const uint32_t bar_full = s_v + STAGES * KV_BYTES;
-  const uint32_t bar_empty = bar_full + 8 * STAGES;
-  const uint32_t bar_q = bar_empty + 8 * STAGES;
+  const uint32_t s_v = s_k + D::RING * KV_BYTES;
+  const uint32_t bar_full = s_v + D::RING * KV_BYTES;
+  const uint32_t bar_empty = bar_full + 8 * D::RING;
+  const uint32_t bar_q = bar_empty + 8 * D::RING;
 
   const int head = blockIdx.x, kvh = head / group;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest tiles first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;   // heaviest tiles first
   const int k_lo = band_lo(q0, q_offset, window);
-  const int k_hi = band_hi(min(q0 + BQ, sq) - 1, q_offset, skv);
+  const int k_hi = band_hi(min(q0 + ROWS, sq) - 1, q_offset, skv);
   const int tile0 = k_lo / BK;
   const int n_tiles = k_lo <= k_hi ? k_hi / BK - tile0 + 1 : 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < D::RING; ++s) {
       mbar_init(bar_full + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, CONSUMER_WARPS);
     }
@@ -1593,11 +1688,11 @@ swa_bwd_dq_bf16_kernel(const __grid_constant__ BwdMaps maps,
     producer_regs();
     if (warp == CONSUMER_WARPS && lane == 0) {
       mbar_expect_tx(bar_q, 2 * Q_BYTES);
-      tma_tile<HD>(s_q, maps.q, bar_q, BQ, q0, head);
-      tma_tile<HD>(s_do, maps.dout, bar_q, BQ, q0, head);
+      tma_tile<HD>(s_q, maps.q, bar_q, ROWS, q0, head);
+      tma_tile<HD>(s_do, maps.dout, bar_q, ROWS, q0, head);
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % STAGES;
-        if (i >= STAGES) mbar_wait(bar_empty + 8 * s, (i / STAGES - 1) & 1);
+        const int s = i % D::RING;
+        if (i >= D::RING) mbar_wait(bar_empty + 8 * s, (i / D::RING - 1) & 1);
         const uint32_t full = bar_full + 8 * s;
         mbar_expect_tx(full, 2 * KV_BYTES);
         const int key0 = (tile0 + i) * BK;
@@ -1608,10 +1703,12 @@ swa_bwd_dq_bf16_kernel(const __grid_constant__ BwdMaps maps,
     return;
   }
 
-  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 (SPLIT:
+  // both own the CTA's 64 rows, wg the columns c0 .. c0 + COLS - 1)
   consumer_regs();
   const int wg = warp / 4, g = lane / 4, t = lane % 4;
-  const int first = q0 + 64 * wg, last = min(first + 63, sq - 1);
+  const int first = q0 + (D::SPLIT ? 0 : 64 * wg), last = min(first + 63, sq - 1);
+  const int c0 = D::SPLIT ? D::COLS * wg : 0;
   const bool live = first < sq;
   const int wk_lo = band_lo(first, q_offset, window);
   const int wk_hi = band_hi(last, q_offset, skv);
@@ -1631,21 +1728,22 @@ swa_bwd_dq_bf16_kernel(const __grid_constant__ BwdMaps maps,
       row_d[4 * j + 2 * r] = row_d[4 * j + 2 * r + 1] = d;
     }
   }
-  float acc[HD / 2];                 // dQ: acc[4 j + e] is column 8 j + 2 t + (e & 1)
+  // dQ: acc[4 j + e] is column c0 + 8 j + 2 t + (e & 1)
+  float acc[D::COLS / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < D::COLS / 2; ++i) acc[i] = 0.0f;
   mbar_wait(bar_q, 0);
   for (int i = 0; i < n_tiles; ++i) {
-    const int s = i % STAGES;
-    mbar_wait(bar_full + 8 * s, (i / STAGES) & 1);
+    const int s = i % D::RING;
+    mbar_wait(bar_full + 8 * s, (i / D::RING) & 1);
     const int k0 = (tile0 + i) * BK;
     if (live && k0 <= wk_hi && k0 + BK - 1 >= wk_lo) {
       const uint32_t k_t = s_k + s * KV_BYTES, v_t = s_v + s * KV_BYTES;
       float sc[4 * NT], dp[4 * NT];
       wgmma_fence();
-      wgmma_ss_panels<HD>(sc, s_q, BQ, 64 * wg, k_t);
+      wgmma_ss_panels<HD>(sc, s_q, ROWS, first - q0, k_t);
       wgmma_commit();
-      wgmma_ss_panels<HD>(dp, s_do, BQ, 64 * wg, v_t);
+      wgmma_ss_panels<HD>(dp, s_do, ROWS, first - q0, v_t);
       wgmma_commit();
       wgmma_wait<1>();                 // S is in; dP may still run
       fence_regs(sc);
@@ -1661,8 +1759,8 @@ swa_bwd_dq_bf16_kernel(const __grid_constant__ BwdMaps maps,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        wgmma_rs_panels<HD>(acc, dh[kk], k_t, BK, kk);
-        wgmma_rs_panels<HD>(acc, dl[kk], k_t, BK, kk);
+        wgmma_rs_cols<HD, D::COLS>(acc, dh[kk], k_t, BK, kk, c0 / 64);
+        wgmma_rs_cols<HD, D::COLS>(acc, dl[kk], k_t, BK, kk, c0 / 64);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -1678,9 +1776,9 @@ swa_bwd_dq_bf16_kernel(const __grid_constant__ BwdMaps maps,
   for (int r = 0; r < 2; ++r) {
     const int qi = row0 + 8 * r;
     if (qi >= sq) continue;
-    __nv_bfloat16* row = dqh + (size_t)qi * HD + 2 * t;
+    __nv_bfloat16* row = dqh + (size_t)qi * HD + c0 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
+    for (int j = 0; j < D::COLS / 8; ++j)
       *reinterpret_cast<uint32_t*>(row + 8 * j) =
           pack_bf16(scale * acc[4 * j + 2 * r], scale * acc[4 * j + 2 * r + 1]);
   }
@@ -1698,19 +1796,16 @@ cudaError_t allow_smem(Kern kern, size_t bytes) {
 
 template <int HD>
 constexpr size_t dkdv_f32_smem() {
-  return (4 * 64 * (HD + F32_LD) + 2 * BWD_BQ * BWD_LDS + 2 * BWD_BQ) *
+  constexpr int QR = f32_bwd_rows(HD);
+  return (2 * (64 + QR) * (HD + F32_LD) + 2 * QR * BWD_LDS + 2 * QR) *
          sizeof(float);
 }
 
 template <int HD>
 constexpr size_t dq_f32_smem() {
-  return (4 * 64 * (HD + F32_LD) + BK * BWD_LDT + 2 * BWD_BQ) * sizeof(float);
-}
-
-template <int HD>
-constexpr int dq_bf16_smem() {
-  return 1024 + 2 * Panels<HD>::bytes(BQ) + 2 * STAGES * Panels<HD>::bytes(BK) +
-         8 * (2 * STAGES + 1);
+  constexpr int QR = f32_bwd_rows(HD);
+  return (2 * (64 + QR) * (HD + F32_LD) + BK * (QR + 4) + 2 * QR) *
+         sizeof(float);
 }
 
 // The tensors and shapes of one backward call.
@@ -1768,12 +1863,13 @@ int launch_dkdv_bf16(const BwdArgs& b, void* dk, void* dv) {
 template <int HD>
 int launch_dq_bf16(const BwdArgs& b, void* dq) {
   BwdMaps maps = {};
-  if (!encode_bwd<HD>(&maps, b, BQ, BK)) return (int)cudaErrorInvalidValue;
+  using D = Dq<HD>;
+  if (!encode_bwd<HD>(&maps, b, D::ROWS, BK)) return (int)cudaErrorInvalidValue;
   auto kern = swa_bwd_dq_bf16_kernel<HD>;
-  const cudaError_t e = prepare_bf16(kern, dq_bf16_smem<HD>());
+  const cudaError_t e = prepare_bf16(kern, D::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(b.bhq, (b.sq + BQ - 1) / BQ);
-  kern<<<grid, BWD_BF16_THREADS, dq_bf16_smem<HD>(), b.stream>>>(
+  const dim3 grid(b.bhq, (b.sq + D::ROWS - 1) / D::ROWS);
+  kern<<<grid, BWD_BF16_THREADS, D::SMEM, b.stream>>>(
       maps, b.lse, b.dvec, static_cast<__nv_bfloat16*>(dq), b.sq, b.skv,
       b.bhq / b.bhkv, b.window, b.q_offset, b.scale, b.scale * LOG2E);
   return (int)cudaGetLastError();
@@ -1798,7 +1894,8 @@ int launch_dq_f32(const BwdArgs& b, void* dq) {
   auto kern = swa_bwd_dq_f32_kernel<HD>;
   const cudaError_t e = allow_smem(kern, dq_f32_smem<HD>());
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(b.bhq, (b.sq + BWD_BQ - 1) / BWD_BQ);
+  constexpr int QR = f32_bwd_rows(HD);
+  const dim3 grid(b.bhq, (b.sq + QR - 1) / QR);
   kern<<<grid, BWD_THREADS, dq_f32_smem<HD>(), b.stream>>>(
       static_cast<const float*>(b.q), static_cast<const float*>(b.k),
       static_cast<const float*>(b.v), static_cast<const float*>(b.dout), b.lse,
@@ -1823,6 +1920,7 @@ int launch_bwd(bool bf16, int hd, const BwdArgs& b, void* dq, void* dk,
     case 64: return launch_bwd_hd<64>(bf16, b, dq, dk, dv);
     case 80: return launch_bwd_hd<80>(bf16, b, dq, dk, dv);
     case 128: return launch_bwd_hd<128>(bf16, b, dq, dk, dv);
+    case 256: return launch_bwd_hd<256>(bf16, b, dq, dk, dv);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1851,6 +1949,7 @@ extern "C" int swa_attention_forward(const long long* a) {
     case 64: return launch<64>(bf16, q, k, v, o, lse, bhq, bhkv, sq, skv, window, q_offset, scale, s);
     case 80: return launch<80>(bf16, q, k, v, o, lse, bhq, bhkv, sq, skv, window, q_offset, scale, s);
     case 128: return launch<128>(bf16, q, k, v, o, lse, bhq, bhkv, sq, skv, window, q_offset, scale, s);
+    case 256: return launch<256>(bf16, q, k, v, o, lse, bhq, bhkv, sq, skv, window, q_offset, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -21,8 +21,12 @@ On CPU tensors the plain PyTorch versions run.  On CUDA tensors the
 kernels run or the call raises: there is no switch and no fallback.  Both
 take fp32 or bf16 and any head dim the reference takes; the kernels also
 need contiguous tensors and ``d`` in :data:`HEAD_DIMS`
-(:func:`_check_kernel`).  Ragged Sq and Skv are masked in the kernels, not
-padded.  bf16 runs on wgmma with TMA-fed tiles (forward and backward),
+(:func:`_check_kernel`).  At d = 256 the tiles that fit shared memory
+differ (a 2-stage ring in bf16, one K/V buffer in the fp32 forward,
+32-query tiles in the fp32 backward: :func:`f32_backward_rows`, and two
+warpgroups splitting d's columns in the bf16 backward:
+:func:`dkdv_keys`); the plans below describe them.  Ragged Sq and Skv
+are masked in the kernels, not padded.  bf16 runs on wgmma with TMA-fed tiles (forward and backward),
 fp32 on the CUDA cores; the forward and dQ kernels walk the tiles
 :func:`swa_tile_plan` gives, the dK/dV kernels those of
 :func:`swa_key_tile_plan`, and all mask only the tiles the plan does not
@@ -37,8 +41,8 @@ import torch
 from . import _build, ref
 
 #: head dims the kernel is built for (reference tests 16/32/64, reduced
-#: h2o-danube 64, h2o-danube 80)
-HEAD_DIMS = (16, 32, 64, 80, 128)
+#: h2o-danube 64, h2o-danube 80, recurrentgemma-2b 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 #: 64-query tiles per head on the grid's y axis (at most 65535 of them)
 MAX_SEQ = 65535 * 64
@@ -101,8 +105,17 @@ def swa_tile_plan(sq: int, skv: int, window: int, q_offset: int,
 def dkdv_keys(d: int) -> int:
     """Keys of one CTA of the bf16 dK/dV kernel (``Dkdv`` in
     swa_attention.cu): 64 a consumer warpgroup, two of them at d <= 80,
-    one at d = 128."""
+    one at d = 128; at d = 256 two warpgroups share 64 keys, each with
+    half of d's columns of dK and dV."""
     return 2 * KEY_TILE if d <= 80 else KEY_TILE
+
+
+def f32_backward_rows(d: int) -> int:
+    """Query rows of a tile of the fp32 backward kernels (``f32_bwd_rows``
+    in swa_attention.cu): the ``bq`` of the plans they walk, 64 up to
+    d = 128 and 32 at d = 256.  The bf16 kernels and every forward walk
+    64-row plans at every head dim."""
+    return 32 if d > 128 else PLAN_ROWS
 
 
 def swa_key_tile_plan(sq: int, skv: int, window: int, q_offset: int,

@@ -8,16 +8,20 @@
         --prompt-len 2048 --steps 32
     PYTHONPATH=src python -m repro_torch.launch.generate --arch h2o-danube-1.8b \\
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.generate \\
+        --arch recurrentgemma-2b --prompt-len 4096 --steps 16
 
 Builds the arch (the published config unless ``--reduced``; with
 ``--kv-cache-dtype int8`` the int8 KV cache) with random params drawn from
 ``--seed`` on ``--device`` (default ``cuda``), prefills a seeded random
 prompt with ``cache_len = prompt + steps``, then decodes ``--steps``
 tokens greedily with ``make_serve_step``.  Prints the prefill time, the
-decode time per token, the rates, the cache's bytes, the peak device
-memory, for an MoE arch the (token, slot) pairs its capacity dropped, and
-the continuation ids (the prefill's token, then one per decode step), and
-checks that every id lies in ``[0, padded_vocab)``.  On the card every
+decode time per token, the rates, the cache's bytes (an SSM's state,
+and the hybrid's RG-LRU states, conv tails and rolling KV apart), the
+peak device memory, for an MoE arch the (token, slot) pairs its
+capacity dropped, and the continuation ids (the prefill's token, then
+one per decode step), and checks that every id lies in ``[0,
+padded_vocab)``.  On the card every
 causal attention layer of the prefill (sliding-window, or full as a
 window over every key) runs the SWA kernel once
 (``kernels.swa_attention.launches``).
@@ -35,6 +39,7 @@ import torch
 from ..device import resolve_device
 from ..kernels import selective_scan, swa_attention
 from ..models import build, get_config
+from ..models.lm import cache_nbytes
 from ..models.steps import make_prefill_step, make_serve_step
 
 
@@ -129,7 +134,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ids = torch.cat(seq, dim=1).cpu().numpy()
     if not ((ids >= 0) & (ids < cfg.padded_vocab)).all():
         raise RuntimeError(f"ids outside [0, {cfg.padded_vocab}): {ids}")
-    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    cache_bytes = cache_nbytes(cache)
     out = {
         "arch": cfg.arch_id, "device": str(dev), "dtype": cfg.dtype,
         "batch": B, "prompt_len": P, "steps": args.steps,
@@ -149,6 +154,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     }
     if cfg.family == "ssm":
         out["state_bytes"] = cache_bytes      # the cache is the SSM state
+    elif cfg.family == "hybrid":
+        # each layer's state: (h, conv) recurrent, (k, v) attention
+        states = [(kind, st) for group in cache.values()
+                  for kind, st in zip(model.pattern, group)]
+        rec = [st for kind, st in states if kind == "recurrent"]
+        out["lru_state_bytes"] = cache_nbytes([st[0] for st in rec])
+        out["conv_state_bytes"] = cache_nbytes([st[1] for st in rec])
+        out["kv_cache_bytes"] = cache_nbytes(
+            [st for kind, st in states if kind == "attention"])
     elif cfg.family == "audio":
         out["frames"] = args.frames
     elif cfg.family == "vlm":

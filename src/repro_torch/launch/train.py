@@ -10,6 +10,8 @@
         --reduced --device cpu --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \
         --batch 2 --seq 2048 --steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch recurrentgemma-2b --batch 2 --seq 4096 --steps 5
 
 KGE (``--workload``): generates the synthetic GO/HP release, trains the
 workload's six KGE models (``--models`` picks a subset) on one device
@@ -30,8 +32,10 @@ embeddings).  Prints the reference's loss line every
 memory, and the kernels' launches of the run by entry point.  On the
 card every sliding-window layer runs the SWA forward kernel (twice a step
 under ``remat="full"``: once more in the recompute) and the three
-backward kernels; every Mamba layer the fused selective scan (twice a
-step under ``remat="full"``) and its backward kernel.
+backward kernels (recurrentgemma's attention layers at head dim 256);
+every Mamba layer the fused selective scan (twice a step under
+``remat="full"``) and its backward kernel.  recurrentgemma's RG-LRU scan
+has no kernel: autograd differentiates its plain form.
 """
 from __future__ import annotations
 

@@ -30,8 +30,14 @@ the reference scans.  Trained, the same call goes through
 ``SelectiveScanFusedFn``: on the card the forward also saves each tile's
 starting state and the backward kernel gives every input's gradient,
 which autograd carries to in_proj's and x_proj's outputs through the
-views z, Bm and Cm are.  The RG-LRU block is not ported yet (ROADMAP,
-Queue 1 item 5(f)).
+views z, Bm and Cm are.
+
+The RG-LRU block (recurrentgemma) keeps the reference's dtype order: the
+gates in fp32, the conv without silu, ``y`` cast to the model's dtype
+before the gelu gate.  Its diagonal recurrence has no kernel (the
+reference scans it in jnp too): :func:`_rglru_scan` runs a log-depth
+scan within every 256-step chunk at once and carries the state across
+the chunks in a loop, and autograd differentiates it.
 """
 from __future__ import annotations
 
@@ -561,3 +567,119 @@ def mamba_decode(p, x: torch.Tensor, h: torch.Tensor,
     y = y + p["D"] * xc.float()
     y = (y * F.silu(z[:, 0].float())).to(x.dtype)
     return dense(p["out_proj"], y)[:, None, :], h, conv_state
+
+
+# ===================================================================== #
+# RG-LRU (RecurrentGemma) recurrent block
+# ===================================================================== #
+_LRU_C = 8.0
+
+
+def rglru_init(gen: Gen, cfg: ArchConfig) -> dict:
+    d = cfg.d_model
+    w = cfg.hybrid.lru_width or d
+    cw = cfg.hybrid.conv_width
+    dt = cfg.jdtype
+    dev = init_device(gen)
+    return {
+        "in_x": dense_init(gen, d, w, dt),
+        "in_gate": dense_init(gen, d, w, dt),
+        "conv_w": normal(gen, (cw, w), 1.0 / math.sqrt(cw), dt),
+        "conv_b": torch.zeros((w,), dtype=dt, device=dev),
+        "wa": dense_init(gen, w, w, dt, bias=True),          # recurrence gate
+        "wx": dense_init(gen, w, w, dt, bias=True),          # input gate
+        "lam": torch.full((w,), 4.0, dtype=torch.float32, device=dev),
+        "out": dense_init(gen, w, d, dt),
+    }
+
+
+def _rglru_gates(p, xc: torch.Tensor):
+    """(a, gated) of the recurrence h_t = a_t h_{t-1} + gated_t, fp32:
+    ``a = exp(-8 softplus(lam) r)`` and ``gated = sqrt(max(1 - a^2,
+    1e-12)) * i * xc``, r and i the sigmoid gates."""
+    r = torch.sigmoid(dense(p["wa"], xc).float())
+    i = torch.sigmoid(dense(p["wx"], xc).float())
+    log_a = -_LRU_C * F.softplus(p["lam"]) * r
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
+        * (i * xc.float())
+    return a, gated
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor):
+    """The inclusive scan of the pairs (a_t, b_t) along dim 1 under
+    ``(a1, b1) . (a2, b2) = (a1 a2, a2 b1 + b2)``: log2(S) doubling
+    steps, no loop over time.  Returns (prod a, h from a zero state)."""
+    d = 1
+    while d < a.shape[1]:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
+        d *= 2
+    return a, b
+
+
+def _rglru_scan(p, xc: torch.Tensor, h0: torch.Tensor, *, chunk: int = 256):
+    """xc (B,S,w) post-conv branch; h0 (B,w) fp32.  Returns (y (B,S,w)
+    fp32, h_last (B,w)): the reference's scan, as plain PyTorch that
+    autograd differentiates.  Every ``chunk``-step chunk is scanned from a
+    zero state at once (log2(chunk) doubling steps over all chunks), then
+    a loop over the chunks carries h into each chunk's start, as the
+    reference's ``lax.scan`` does.  ``h_last`` is the state after the last
+    real step (the reference's zero padding of a ragged last chunk past
+    one chunk gives it the state at the padding's end, 0)."""
+    a, gated = _rglru_gates(p, xc)
+    B, S, w = a.shape
+    c = min(chunk, S)
+    n = -(-S // c)
+    if n * c > S:                  # the tail is sliced off below
+        a = F.pad(a, (0, 0, 0, n * c - S))
+        gated = F.pad(gated, (0, 0, 0, n * c - S))
+    a_sc, b_sc = (t.reshape(B, n, c, w) for t in _linear_scan(
+        a.reshape(B * n, c, w), gated.reshape(B * n, c, w)))
+    h, starts = h0, []
+    for i in range(n):
+        starts.append(h)
+        h = b_sc[:, i, -1] + a_sc[:, i, -1] * h
+    hc = b_sc + a_sc * torch.stack(starts, dim=1)[:, :, None]
+    y = hc.reshape(B, n * c, w)[:, :S]
+    return y, y[:, -1]
+
+
+def rglru_apply(p, x: torch.Tensor, cfg: ArchConfig,
+                h0: Optional[torch.Tensor] = None,
+                conv_state: Optional[torch.Tensor] = None,
+                return_state: bool = False):
+    """Full recurrent block: (gate branch) * RG-LRU(conv(x branch)) -> out.
+    With ``return_state`` also (h_last (B,w) fp32, conv tail (B,cw-1,w))."""
+    B, S, _ = x.shape
+    w = cfg.hybrid.lru_width or cfg.d_model
+    cw = cfg.hybrid.conv_width
+    xb = dense(p["in_x"], x)
+    gate = F.gelu(dense(p["in_gate"], x), approximate="tanh")
+    if S >= cw - 1:
+        new_conv = xb[:, S - (cw - 1):, :].clone()
+    else:
+        new_conv = F.pad(xb, (0, 0, cw - 1 - S, 0))
+    xc = _causal_conv(xb, p["conv_w"], p["conv_b"], state=conv_state)
+    if h0 is None:
+        h0 = torch.zeros((B, w), dtype=torch.float32, device=x.device)
+    y, h_last = _rglru_scan(p, xc, h0)
+    out = dense(p["out"], y.to(x.dtype) * gate)
+    if return_state:
+        return out, h_last, new_conv
+    return out
+
+
+def rglru_decode(p, x: torch.Tensor, h: torch.Tensor,
+                 conv_state: torch.Tensor, cfg: ArchConfig):
+    """x (B,1,d); h (B,w) fp32; conv_state (B,cw-1,w).  Returns (out
+    (B,1,d), h, conv_state), plain PyTorch as the reference's."""
+    xb = dense(p["in_x"], x)                                   # (B,1,w)
+    gate = F.gelu(dense(p["in_gate"], x), approximate="tanh")
+    window = torch.cat([conv_state.to(x.dtype), xb], dim=1)
+    xc = torch.einsum("bcw,cw->bw", window, p["conv_w"]) + p["conv_b"]
+    conv_state = window[:, 1:]
+    a, gated = _rglru_gates(p, xc)
+    h = a * h + gated
+    out = dense(p["out"], h[:, None].to(x.dtype) * gate)
+    return out, h, conv_state

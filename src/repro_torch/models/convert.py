@@ -7,11 +7,15 @@ keeps the same keys and the same ``(d_in, d_out)`` weight layout, with
 ``layers`` (an encoder-decoder's ``enc_layers`` and ``dec_layers``) split
 into one entry per layer; no leaf is transposed.  An MoE
 layer's stacked ``moe.router (L, d, E)`` and ``moe.gate`` / ``moe.up``
-``(L, E, d, ff)`` / ``moe.down (L, E, ff, d)`` split the same way.
+``(L, E, d, ff)`` / ``moe.down (L, E, ff, d)`` split the same way.  The
+hybrid's ``layers`` is ``{"periods": {"l0": ..., "l1": ..., "l2": ...},
+"rem0": ..., "rem1": ...}``, each ``l{j}`` leaf stacked over the P
+periods: period i's ``l{j}`` becomes layer ``3 i + j`` and ``rem{r}``
+layer ``3 P + r``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -43,37 +47,67 @@ def _unflatten(flat: Mapping[str, Any]) -> dict:
     return tree
 
 
+def _layer_leaves(name: str, group, n_layers: int) -> List[Dict[str, Any]]:
+    """A stacked group of the reference's params as one flat dict of
+    arrays a layer: every leaf split along its leading axis, or the
+    hybrid's periods (each ``l{j}`` stacked over the periods) then its
+    unstacked remainder."""
+    if isinstance(group, Mapping) and "periods" in group:
+        periods = group["periods"]
+        period = len(periods)
+        per_kind = [_flatten(periods[f"l{j}"]) for j in range(period)]
+        n_periods = len(next(iter(per_kind[0].values())))
+        layers = [{p: a[i] for p, a in per_kind[j].items()}
+                  for i in range(n_periods) for j in range(period)]
+        rem = len(group) - 1
+        layers += [_flatten(group[f"rem{r}"]) for r in range(rem)]
+        if len(layers) != n_layers:
+            raise ValueError(f"{name}: {n_periods} periods of {period} and "
+                             f"{rem} more layers, want {n_layers} layers")
+        return layers
+    flat = _flatten(group)
+    for p, a in flat.items():
+        shape = np.shape(a)
+        if not shape or shape[0] != n_layers:
+            raise ValueError(f"{name}: param {p} has shape {shape}, want a "
+                             f"leading axis of {n_layers} layers")
+    return [{p: a[i] for p, a in flat.items()} for i in range(n_layers)]
+
+
 def params_from_numpy(model: BaseLM, tree: Mapping,
                       device: DeviceLike = None) -> BaseLM:
     """Fill ``model.params`` from the JAX package's params ``tree`` (numpy
     arrays or anything ``np.asarray`` takes), cast to the model's dtype, on
     ``device`` (default ``cuda``).  Every stacked group of layers (a list
     in the model's param tree: ``layers``, or an encoder-decoder's
-    ``enc_layers`` and ``dec_layers``) splits along its leading axis.
-    Raises ``KeyError`` on a missing or an extra leaf and ``ValueError`` on
+    ``enc_layers`` and ``dec_layers``) splits along its leading axis (the
+    hybrid's periods and remainder map as the module says).  Raises ``KeyError`` on a missing or an extra leaf and ``ValueError`` on
     a shape that differs from the model's.  Returns the model."""
     dev = resolve_device(device)
+    arch = model.cfg.arch_id
     want = model.param_tree(None)              # meta tensors: shapes, dtypes
     stacks = [k for k, v in want.items() if isinstance(v, list)]
     got = dict(tree)
     pairs = [("", _flatten({k: v for k, v in want.items()
                             if k not in stacks}),
               _flatten({k: v for k, v in got.items() if k not in stacks}))]
+    layers = {g: _layer_leaves(f"{arch} {g}", got.get(g, {}), len(want[g]))
+              for g in stacks}
     for g in stacks:
-        pairs.append((f"{g}.", _flatten(want[g][0]) if want[g] else {},
-                      _flatten(got.get(g, {}))))
+        pairs += [(f"{g}[{i}].", _flatten(w), got_i)
+                  for i, (w, got_i) in enumerate(zip(want[g], layers[g]))]
     for kind, w, g in pairs:
         missing = sorted(set(w) - set(g))
         extra = sorted(set(g) - set(w))
         if missing or extra:
-            raise KeyError(f"{model.cfg.arch_id}: param leaves differ from "
-                           f"the model's: missing {[kind + m for m in missing]},"
-                           f" extra {[kind + e for e in extra]}")
+            raise KeyError(f"{arch}: param leaves differ from the model's: "
+                           f"missing {[kind + m for m in missing]}, extra "
+                           f"{[kind + e for e in extra]}")
 
     def tensor(path: str, a, like: torch.Tensor) -> torch.Tensor:
         a = np.asarray(a, dtype=np.float32)   # bf16 leaves arrive as ml_dtypes
         if tuple(a.shape) != tuple(like.shape):
-            raise ValueError(f"{model.cfg.arch_id}: param {path} has shape "
+            raise ValueError(f"{arch}: param {path} has shape "
                              f"{tuple(a.shape)}, the model {tuple(like.shape)}")
         # a copy: the model never shares memory with the caller's arrays
         return torch.tensor(a, dtype=like.dtype, device=dev)
@@ -81,17 +115,10 @@ def params_from_numpy(model: BaseLM, tree: Mapping,
     _, want_top, got_top = pairs[0]
     params = _unflatten({p: tensor(p, got_top[p], like)
                          for p, like in want_top.items()})
-    for g, (_, want_layer, got_layer) in zip(stacks, pairs[1:]):
-        n_layers = len(want[g])
-        per_layer = [{} for _ in range(n_layers)]
-        for p, like in want_layer.items():
-            stacked = np.asarray(got_layer[p])
-            if stacked.ndim == 0 or stacked.shape[0] != n_layers:
-                raise ValueError(f"{model.cfg.arch_id}: param {g}.{p} has "
-                                 f"shape {stacked.shape}, want a leading axis "
-                                 f"of {n_layers} layers")
-            for i in range(n_layers):
-                per_layer[i][p] = tensor(f"{g}.{p}[{i}]", stacked[i], like)
-        params[g] = [_unflatten(one) for one in per_layer]
+    for g in stacks:
+        params[g] = [
+            _unflatten({p: tensor(f"{g}[{i}].{p}", got_i[p], like)
+                        for p, like in _flatten(w).items()})
+            for i, (w, got_i) in enumerate(zip(want[g], layers[g]))]
     model.params = ParamTree(params)
     return model

@@ -33,6 +33,19 @@ from .config import ArchConfig
 from .layers import Gen, ParamTree, apply_norm, norm_init, normal
 
 
+def cache_leaves(tree) -> list:
+    """The tensors of a cache: a dict of tensors, or the hybrid's nested
+    dicts and tuples of them."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [t for x in items for t in cache_leaves(x)]
+
+
+def cache_nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in cache_leaves(tree))
+
+
 def xent(logits: torch.Tensor, labels: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-entropy with label -1 = ignore, in fp32: logits (B, S, V),

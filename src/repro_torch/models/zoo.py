@@ -1,6 +1,6 @@
 """Model registry: family -> class, arch-id -> (config, model).  The port of
-``repro.models.zoo`` for the families ported so far: all but the hybrid
-(recurrentgemma)."""
+``repro.models.zoo``: every family and every arch of the reference's
+zoo."""
 from __future__ import annotations
 
 import importlib
@@ -9,6 +9,7 @@ from typing import Tuple
 from .config import ArchConfig
 from .dense import DenseLM
 from .encdec import EncDecModel
+from .hybrid import HybridLM
 from .lm import BaseLM
 from .moe import MoELM
 from .ssm import MambaLM
@@ -18,12 +19,13 @@ FAMILIES = {
     "dense": DenseLM,
     "moe": MoELM,
     "ssm": MambaLM,
+    "hybrid": HybridLM,
     "audio": EncDecModel,
     "vlm": VLM,
 }
 
-#: the zoo's archs whose configs the port carries: dense, MoE, SSM, audio
-#: and VLM
+#: the zoo's archs: the reference's ``ARCH_IDS``, in the order the port
+#: took them
 ARCH_IDS = (
     "h2o_danube_1_8b",
     "mistral_large_123b",
@@ -34,15 +36,8 @@ ARCH_IDS = (
     "falcon_mamba_7b",
     "whisper_base",
     "llava_next_34b",
+    "recurrentgemma_2b",
 )
-
-#: the reference zoo's other archs, by family: not ported yet
-UNPORTED = {
-    "recurrentgemma_2b": "hybrid",
-}
-
-_LATER = ("is not ported yet: it waits for ROADMAP Queue 2 item 4 (the SWA "
-          "kernels at head dim 256), then Queue 1 item 5(f) (recurrentgemma)")
 
 
 def normalize_arch_id(arch: str) -> str:
@@ -51,9 +46,6 @@ def normalize_arch_id(arch: str) -> str:
 
 def get_config(arch: str, reduced: bool = False) -> ArchConfig:
     name = normalize_arch_id(arch)
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"{arch} (family {UNPORTED[name]!r}) {_LATER}")
     if name not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; the port has {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
@@ -64,7 +56,8 @@ def build(cfg: ArchConfig) -> BaseLM:
     """The model for ``cfg``, without params (``init`` or
     ``convert.params_from_numpy`` gives it some)."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} {_LATER}")
+        raise NotImplementedError(f"family {cfg.family!r}: the zoo has "
+                                  f"{tuple(FAMILIES)}")
     return FAMILIES[cfg.family](cfg)
 
 

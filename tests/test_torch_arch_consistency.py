@@ -14,8 +14,8 @@ carry, whisper's decoder cache beside its cross-attention cache, and
 llava's decode position after its image tokens.  The MoE archs run at
 capacity factor 16, as the reference runs them.  Inputs are made by
 numpy from a seed (the reference draws them with ``jax.random``).  Then
-the zoo-wide contracts: constant-size decode state for falcon-mamba and
-h2o-danube, the full-attention archs skipping long_500k, the published
+the zoo-wide contracts: constant-size decode state for falcon-mamba,
+recurrentgemma and h2o-danube, the full-attention archs skipping long_500k, the published
 dims and param counts, and head padding (llava's and whisper's).
 """
 import dataclasses
@@ -29,6 +29,7 @@ from repro_torch.models import ARCH_IDS, build, get_config
 from repro_torch.models import blocks
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import ParamTree
+from repro_torch.models.lm import cache_leaves
 from repro_torch.models.steps import make_train_step
 
 TOL = dict(rtol=2e-3, atol=2e-3)
@@ -81,8 +82,10 @@ def test_prefill_decode_consistency(arch):
         cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
     model = build(cfg).init(torch.Generator().manual_seed(1))
     B = 2
-    # long enough to wrap danube's reduced SWA window (64)
-    S = 80 if cfg.attention == "sliding_window" else 48
+    # long enough to wrap danube's and recurrentgemma's reduced SWA
+    # windows (64)
+    S = 80 if cfg.attention == "sliding_window" or cfg.family == "hybrid" \
+        else 48
     if cfg.family == "audio":
         S = 256  # decoder length = S // 8 = 32 <= cap
     batch = _make_batch(model, cfg, B, S)
@@ -104,13 +107,15 @@ def test_prefill_decode_consistency(arch):
                                **TOL)
 
 
-@pytest.mark.parametrize("arch", ["h2o_danube_1_8b", "falcon_mamba_7b"])
+@pytest.mark.parametrize("arch", ["h2o_danube_1_8b", "recurrentgemma_2b",
+                                  "falcon_mamba_7b"])
 def test_long_context_decode_state_is_constant_size(arch):
     """The long_500k-capable archs must have O(1)-in-seq decode state."""
     model = build(get_config(arch, reduced=True))
     small = model.cache_spec(1, 1_000)
     big = model.cache_spec(1, 1_000_000)
-    sizes = lambda t: sorted(int(np.prod(v.shape)) for v in t.values())
+    sizes = lambda t: sorted(int(np.prod(v.shape))
+                             for v in cache_leaves(t))
     assert sizes(small) == sizes(big)
     assert model.supports_long_context()
 
@@ -134,6 +139,7 @@ def test_published_dims_match_assignment():
         "olmoe_1b_7b": (16, 2048, 16, 16, 1024, 50304),
         "grok_1_314b": (64, 6144, 48, 8, 32768, 131072),
         "qwen2_72b": (80, 8192, 64, 8, 29568, 152064),
+        "recurrentgemma_2b": (26, 2560, 10, 1, 7680, 256000),
         "internlm2_20b": (48, 6144, 48, 8, 16384, 92544),
     }
     assert set(expect) == set(ARCH_IDS)
@@ -150,6 +156,8 @@ def test_published_dims_match_assignment():
     assert get_config("qwen2_72b").qkv_bias
     assert get_config("whisper_base").dec_len_cap == 448
     assert get_config("llava_next_34b").n_frontend_tokens == 2880
+    assert get_config("recurrentgemma_2b").hybrid.pattern == (
+        "recurrent", "recurrent", "attention")
 
 
 def test_param_counts_are_plausible():
@@ -163,6 +171,7 @@ def test_param_counts_are_plausible():
         "olmoe_1b_7b": 7e9,
         "llava_next_34b": 34e9,
         "whisper_base": 74e6,
+        "recurrentgemma_2b": 2.7e9,
     }
     for arch, target in approx.items():
         n = get_config(arch).n_params()
@@ -187,6 +196,9 @@ def test_padded_heads_math():
     assert cfg.heads_per_group == 4
     # whisper: 8 q heads, 8 kv, groups 16 -> each group 1 -> 2 => 16
     cfg = get_config("whisper_base").with_(kv_groups=16)
+    assert cfg.padded_heads() == 16
+    # recurrentgemma: 10 q heads, 1 kv -> pad to 16
+    cfg = get_config("recurrentgemma_2b").with_(kv_groups=16)
     assert cfg.padded_heads() == 16
     # qwen2: 64 q heads, 8 kv divide cleanly -> no padding
     cfg = get_config("qwen2_72b").with_(kv_groups=16)

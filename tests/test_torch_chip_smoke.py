@@ -127,13 +127,19 @@ def _numbers(device_ms):
             "swa_backward": {"rows": [{"dtype": "bfloat16", "B": 1,
                                        "device_ms": device_ms}]},
             "scan": {"device_ms": 0.6, "fused": {"device_ms": 0.4},
-                     "backward": {"device_ms": 2.0}}}
+                     "backward": {"device_ms": 2.0}},
+            "hybrid": {"forward": {"device_ms": 0.4},
+                       "backward": {"device_ms": 1.5}}}
 
 
 def test_a_blind_profiler_fails_the_numbers_phase():
     chip_smoke._check_device_times(_numbers(2.27))
     with pytest.raises(chip_smoke.SmokeFailure, match="swa backward"):
         chip_smoke._check_device_times(_numbers(None))
+    blind = _numbers(2.27)
+    blind["hybrid"]["backward"]["device_ms"] = None
+    with pytest.raises(chip_smoke.SmokeFailure, match="d 256"):
+        chip_smoke._check_device_times(blind)
     blind = _numbers(2.27)
     blind["scan"]["backward"]["device_ms"] = None
     with pytest.raises(chip_smoke.SmokeFailure,
@@ -276,7 +282,11 @@ def _line_inputs():
                          without_states_ms=[0.4, 0.4],
                          with_states_ms=[0.41, 0.41]),
                      backward=dict(r, library_ms=None, bound_parts_ms={},
-                                   device_ms_by_kernel={}))}
+                                   device_ms_by_kernel={})),
+        "hybrid": {"forward": dict(r, B=2, Hq=10, Hkv=1, S=4096, W=2048,
+                                   d=256),
+                   "backward": dict(bwd, B=2, Hq=10, Hkv=1, S=4096,
+                                    W=2048, d=256)}}
     swa_l = {"swa_attention_forward": 60, "swa_attention_bwd_dot": 0,
              "swa_attention_backward_dkdv": 0,
              "swa_attention_backward_dq": 0,
@@ -292,14 +302,21 @@ def _line_inputs():
         swa={"max_abs_err_bf16": 0.0, "max_abs_err_fp32": 0.0,
              "max_abs_err_causal": {"bfloat16": 0.0, "float32": 0.0},
              "max_abs_err_backward_bf16": 0.0,
-             "max_abs_err_backward_fp32": 0.0},
+             "max_abs_err_backward_fp32": 0.0,
+             "max_abs_err_d256": {"bfloat16": 0.0, "float32": 0.0},
+             "max_abs_err_backward_d256": {"bfloat16": 0.0,
+                                           "float32": 0.0}},
         lm={"launches": swa_l}, moe={"launches": swa_l},
         train={"profile": {}, "launches_per_step": {}, "launches": swa_l,
                "mamba": {"launches": dict(
                    swa_l, selective_scan_fused=640,
                    selective_scan_fused_backward=320),
                    "launches_per_step": {
-                       "selective_scan_fused_backward": 64}}},
+                       "selective_scan_fused_backward": 64}},
+               "hybrid": {"launches": dict(swa_l, swa_attention_forward=48,
+                                           swa_attention_bwd_dot=24,
+                                           swa_attention_backward_dkdv=24,
+                                           swa_attention_backward_dq=24)}},
         scan={"max_abs_err": {
             "bfloat16": {"y": 1e-5, "h_last": 1e-6, "fused_out": 0.25,
                          "fused_h_last": 5e-5, "backward": {
@@ -312,7 +329,7 @@ def _line_inputs():
             "launches": {"selective_scan_forward": 12,
                          "selective_scan_fused": 12}},
         mamba={"launches": swa_l}, whisper={"launches": swa_l},
-        llava={"launches": swa_l})
+        llava={"launches": swa_l}, hybrid={"launches": swa_l})
 
 
 def test_every_kernels_line_entry_has_the_contracts_keys():
@@ -497,3 +514,140 @@ def test_scan_source_instantiates_the_backward_for_every_state_size():
     # the backward's partial rows: one a cluster of blocks
     assert f"constexpr int BWD_CLUSTER = {tss.BWD_CLUSTER};" in text
     assert tss.CHANNELS_PER_PARTIAL == 32 * tss.BWD_CLUSTER
+
+
+# ------------------ recurrentgemma and head dim 256 ------------------- #
+def test_swa_cases_hold_recurrentgemmas_layer_and_the_edges_at_d256():
+    """The SWA phase holds recurrentgemma-2b's attention layer (10 q heads
+    over 1 kv head, S 4,096, W 2,048, d 256) and, at d = 256, ragged S,
+    q_offset with Sq < Skv, W not a multiple of the key tile, one query
+    and W >= S."""
+    from repro_torch.models import get_config
+    cfg = get_config(chip_smoke.HYBRID_ARCH)
+    cases = [c for _, c in chip_smoke.SWA_CASES if c[5] == 256]
+    assert (1, cfg.n_heads, cfg.n_kv_heads, chip_smoke.HYBRID_PROMPT,
+            chip_smoke.HYBRID_PROMPT, cfg.hd, cfg.hybrid.window, 0) in cases
+    assert any(c[3] % 64 and c[7] == 0 for c in cases)         # ragged S
+    assert any(c[7] > 0 and c[3] < c[4] for c in cases)        # q_offset
+    assert any(c[6] % 64 for c in cases)                       # W % 64
+    assert any(c[3] == 1 for c in cases)                       # one query
+    assert any(c[6] >= c[4] for c in cases)                    # W >= S
+    assert chip_smoke.HYBRID_PROMPT == 2 * cfg.hybrid.window
+
+
+def test_hybrid_training_launches_a_step():
+    """recurrentgemma-2b under remat "full": its 8 attention layers, each
+    in a rematerialised period, launch the SWA forward twice a step and
+    each backward entry point once; the 3-layer fp32 check's one; the
+    RG-LRU layers launch no kernel."""
+    got = chip_smoke._step_launches(chip_smoke.HYBRID_ARCH, 26, 1)
+    assert got == {"swa_attention_forward": 16, "swa_attention_bwd_dot": 8,
+                   "swa_attention_backward_dkdv": 8,
+                   "swa_attention_backward_dq": 8,
+                   "selective_scan_forward": 0, "selective_scan_fused": 0,
+                   "selective_scan_fused_backward": 0}
+    three = chip_smoke._step_launches(chip_smoke.HYBRID_ARCH,
+                                      chip_smoke.HYBRID_CHECK_LAYERS, 1)
+    assert three["swa_attention_forward"] == 2
+    assert three["swa_attention_backward_dq"] == 1
+    # a remainder attention layer (5 layers: rem recurrent, recurrent)
+    assert chip_smoke._attention_layers(chip_smoke.HYBRID_ARCH, 5) == (1, 0)
+    assert chip_smoke._attention_layers(chip_smoke.LM_ARCH, 24) == (24, 0)
+
+
+def _hybrid_on_cpu(monkeypatch, failures):
+    from repro_torch.configs import recurrentgemma_2b
+    _stub_card(monkeypatch, failures)
+    monkeypatch.setattr(recurrentgemma_2b, "CONFIG", recurrentgemma_2b.REDUCED)
+    monkeypatch.setattr(chip_smoke, "HYBRID_PROMPT", 80)
+    monkeypatch.setattr(chip_smoke, "HYBRID_STEPS", 2)
+
+
+def test_hybrid_phase_rehearses_on_the_cpu(monkeypatch):
+    """The hybrid phase on reduced recurrentgemma (its CONFIG swapped for
+    REDUCED: 5 layers, W 64; an 80-token prompt): the fp32 prefill(S + 1)
+    / prefill(S) + decode check at 3 layers holds, the generation reports
+    the RG-LRU states, conv tails and rolling KV, and the scan's times
+    come back; only the launch-count checks fail (the plain versions
+    launch nothing)."""
+    failures = []
+    _hybrid_on_cpu(monkeypatch, failures)
+    out = chip_smoke.phase_hybrid()
+    assert out["fp32_consistency"]["layers"] == 3
+    assert out["fp32_consistency"]["argmax_equal"]
+    assert out["attention_layers"] == 1
+    gen = out["generation"]
+    assert gen["cache_bytes"] == (gen["lru_state_bytes"]
+                                  + gen["conv_state_bytes"]
+                                  + gen["kv_cache_bytes"])
+    scan = out["rglru_scan"]
+    assert scan["recurrent_layers"] == 4 and scan["S"] == 80
+    for key in ("forward_ms", "forward_backward_ms", "prefill_ms",
+                "train_step_ms"):
+        assert scan[key] > 0, key
+    assert len(failures) == 2
+    assert failures[0].startswith("fp32 prefills launched")
+    assert failures[1].startswith("generation launched")
+
+
+def test_hybrid_numbers_rehearse_on_the_cpu(monkeypatch):
+    """The numbers part at d = 256 on the CPU (a reduced prompt, the
+    layer's head dim): the forward and backward rows carry every field
+    the kernels line reads, and their bounds."""
+    failures = []
+    _hybrid_on_cpu(monkeypatch, failures)
+    from repro_torch.configs import recurrentgemma_2b
+    cfg = recurrentgemma_2b.CONFIG.with_(d_model=2560, n_heads=10)
+    monkeypatch.setattr(recurrentgemma_2b, "CONFIG", cfg)
+    monkeypatch.setattr(chip_smoke, "_device_ms", lambda fn, iters=1: {
+        "swa_bf16_kernel": 1.0})
+    monkeypatch.setattr(chip_smoke, "_busy_share", lambda fn, steps: {})
+    rec = chip_smoke.hybrid_numbers("cpu")
+    assert rec["forward"]["d"] == rec["backward"]["d"] == 256
+    for row in (rec["forward"], rec["backward"]):
+        for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by"):
+            assert row[key] is not None, key
+    assert rec["forward"]["library_ms"] > 0
+    assert rec["backward"]["library_fwd_bwd_ms"] > 0
+    assert not failures
+
+
+def test_d256_bounds_at_recurrentgemmas_layer():
+    """One recurrentgemma-2b attention layer (B 2, 10 q heads, S 4,096, W
+    2,048, d 256): 2 x 10 x (2048 x 2049 / 2 + 2048 x 2048) = 125.8 M
+    visible pairs; the forward at 4 d operations a pair is 128.9 GFLOP,
+    0.130 ms at 989 TFLOP/s, the backward at 10 d 0.326 ms."""
+    pairs = 2 * 10 * chip_smoke.swa_pairs(4096, 4096, 2048, 0)
+    assert pairs == 2 * 10 * (2048 * 2049 // 2 + 2048 * 2048)
+    assert round(pairs / 1e6, 1) == 125.8
+    fwd, by = chip_smoke.swa_bound_ms(2, 10, 1, 4096, 256, 2048, 2)
+    assert by == "operations" and round(fwd, 3) == 0.130
+    bwd, by = chip_smoke.swa_bwd_bound_ms(2, 10, 1, 4096, 256, 2048, 2)
+    assert by == "operations" and round(bwd, 3) == 0.326
+
+
+def test_a_phase_ending_prints_its_seconds_to_both_streams(capsys):
+    chip_smoke.ended("phase", "build", 12.5)
+    out, err = capsys.readouterr()
+    assert out == err == '{"ended": "phase build", "seconds": 12.5}\n'
+
+
+def test_a_long_phase_prints_each_part_as_it_ends(capsys, monkeypatch):
+    clock = iter([10.0, 13.5, 20.0])
+    monkeypatch.setattr(chip_smoke.time, "perf_counter", lambda: next(clock))
+    lap = chip_smoke.laps("update")
+    lap("v1")
+    lap("v2_warm")
+    out, err = capsys.readouterr()
+    assert out == err == (
+        '{"ended": "part update v1", "seconds": 3.5}\n'
+        '{"ended": "part update v2_warm", "seconds": 6.5}\n')
+
+
+def test_hybrid_layers_are_read_from_the_model():
+    """recurrentgemma-2b's 26 layers: 8 periods of (RG-LRU, RG-LRU,
+    attention), then 2 RG-LRU layers outside them."""
+    from repro_torch.models import get_config
+    cfg = get_config(chip_smoke.HYBRID_ARCH)
+    assert chip_smoke._hybrid_layers(cfg, "recurrent") == (16, 2)
+    assert chip_smoke._hybrid_layers(cfg, "attention") == (8, 0)

@@ -28,6 +28,7 @@ from repro.models import blocks as jblocks
 from repro.models import build as jbuild
 from repro.models import get_config as jget_config
 from repro.models import layers as jlayers
+from repro.models import zoo as jzoo
 from repro_torch.configs import shapes as tshapes
 from repro_torch.kernels import swa_attention as tswa
 from repro_torch.launch import generate
@@ -37,7 +38,9 @@ from repro_torch.models import blocks as tblocks
 from repro_torch.models import layers as tlayers
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.layers import ParamTree
+from repro_torch.models.lm import cache_leaves
 from repro_torch.models.steps import make_prefill_step, make_serve_step
+from repro_torch.models.zoo import FAMILIES
 
 LOGIT_TOL = 2e-4
 CACHE_TOL = 1e-5
@@ -153,17 +156,23 @@ def test_shapes_and_cache_specs_match(arch):
             jshapes.applicable(jget_config(arch), jshapes.SHAPES[name])
     jm, tm = jbuild(jget_config(arch)), build(get_config(arch))
     for seq in (1_000, 1_000_000):
+        # a dict of arrays, or the hybrid's nested dict of tuples of them
         j, t = jm.cache_spec(2, seq), tm.cache_spec(2, seq)
-        assert {k: tuple(v.shape) for k, v in j.items()} == \
-            {k: tuple(v.shape) for k, v in t.items()}
+        assert {k: [x.shape for x in jax.tree.leaves(v)]
+                for k, v in j.items()} == \
+            {k: [tuple(x.shape) for x in cache_leaves(v)]
+             for k, v in t.items()}
     assert tm.supports_long_context() == jm.supports_long_context()
 
 
 def test_unported_families_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("recurrentgemma-2b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(get_config("qwen2-72b").with_(family="hybrid"))
+    """Every arch and family of the reference's zoo is ported: the port's
+    ``ARCH_IDS`` are the reference's, and only an unknown arch or family
+    raises."""
+    assert sorted(ARCH_IDS) == sorted(jzoo.ARCH_IDS)
+    assert set(FAMILIES) == set(jzoo.FAMILIES)
+    with pytest.raises(NotImplementedError, match="family"):
+        build(get_config("qwen2-72b").with_(family="no-such-family"))
     with pytest.raises(ValueError):
         get_config("no-such-arch")
 

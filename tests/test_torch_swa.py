@@ -176,11 +176,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         tswa.swa_attention_forward(q, k, v, W, off)
 
 
-@pytest.mark.parametrize("d", [96, 256])
+@pytest.mark.parametrize("d", [96, 192])
 def test_plain_path_takes_head_dims_the_kernel_does_not(d):
-    """Head dims outside the kernel's build (96; recurrentgemma's 256) go
-    through the plain version on CPU tensors, as the reference computes
-    them."""
+    """Head dims outside the kernel's build (96, 192) go through the plain
+    version on CPU tensors, as the reference computes them."""
     assert d not in tswa.HEAD_DIMS
     B, hq, hkv, S, W = 1, 2, 1, 40, 8
     q, k, v = _qkv(B, hq, hkv, S, S, d, seed=d)
@@ -371,6 +370,24 @@ def test_tile_plan_of_a_key_cta_is_that_of_its_warpgroups(sq, skv, window,
     assert (tswa.swa_key_tile_plan(sq, skv, window, q_offset, 128)
             == tswa.swa_key_tile_plan(sq, skv, window, q_offset, 64))
     assert tswa.dkdv_keys(80) == 128 and tswa.dkdv_keys(128) == 64
+    assert tswa.dkdv_keys(256) == 64
+
+
+@pytest.mark.parametrize("d", tswa.HEAD_DIMS)
+def test_fp32_backward_plans_walk_its_query_tiles(d):
+    """The fp32 backward kernels walk ``f32_backward_rows(d)``-query tiles
+    (32 at d = 256, where 64-row tiles of Q, dO, K and V do not fit
+    shared memory; ``f32_bwd_rows`` in the source): the key plan and the
+    dQ plan at that ``bq`` cover the band on the key plan's edges."""
+    from repro_torch.kernels import _build
+    bq = tswa.f32_backward_rows(d)
+    assert bq == (32 if d == 256 else tswa.PLAN_ROWS)
+    text = (_build.CSRC / "swa_attention.cu").read_text()
+    assert "return hd > 128 ? 32 : BWD_BQ;" in text
+    for sq, skv, window, q_offset in KEY_PLAN_EDGES:
+        _assert_key_plan_holds(sq, skv, window, q_offset, tswa.KEY_TILE,
+                               tswa.KEY_TILE, bq)
+        _assert_plan_holds(sq, skv, window, q_offset, bq, tswa.KEY_TILE)
 
 
 def _saved(q, k, v, window, q_offset):
