@@ -74,6 +74,20 @@ Phases, in order; any failure exits non-zero:
               through the port's registry; ``repro_torch.launch.serve``
               in client-session mode, then HTTP over the gateway, every
               answer checked against the plain version
+     shard    the sharded serving path, its shards on the one card
+              (``ServingMesh.of((cuda:0,) * S)``): a ServingEngine over
+              the serve registry with the table row-sharded 4 ways answers
+              54 closest-concepts requests (k 10 and 2,000) through the
+              Gateway with the unsharded engine's bodies, one top-k step
+              a shard a call; the GO table (40,000 x 200; 2 pad rows at 3
+              shards) and the SCALE table (100,000 x 200) sharded 4 and 3
+              ways, Q 1 and 32, k 10 and 2,000, self-exclusions at shard
+              borders: identical to the unsharded kernel call, within
+              1e-5 of the plain version (the same function on CPU shards;
+              ids under the near-tie rule), ``device_table_bytes()`` the
+              shards' bytes; the ms of a sharded and of the streamed 40k
+              call (Q 32, k 10); the dry run (``launch.dryrun --all --mesh
+              both``) on the meta device
   6. workers  pre-forked serving on the card over the same registry:
               ``launch.serve --http 0`` as one process, then with
               ``--workers 2`` and ``--workers 4``, three HTTP client
@@ -257,8 +271,8 @@ and last ``{"ok": true, "device": {...}}``.
 ``build,swa,train`` or ``build,scan,train`` (the three training runs)
 is a quick check of one slice;
 ``build,serve,workers``
-the serving paths; ``--sass-of SOURCE.cu`` one source's kernels'
-registers, spills and SASS; ``build,kge,update`` the update path alone;
+the serving paths, ``build,shard`` the sharded one; ``--sass-of
+SOURCE.cu`` one source's kernels' registers, spills and SASS; ``build,kge,update`` the update path alone;
 ``build,jobs`` the batch jobs; ``alloc`` the backward's allocation
 choice);
 ``--out PATH`` also writes every result to one JSON file.
@@ -1323,6 +1337,142 @@ def phase_serve(registry_root: str, served: dict) -> dict:
            "stream_stats": dict(ops.stream_stats),
            "scheduler_batches": stats.scheduler["batches"],
            "launches": launches}
+    emit(out)
+    return out
+
+
+#: the shard phase: (rows, shards) of the sharded tables (40,000 rows do
+#: not divide by 3: two pad rows), then queries and k a case
+SHARD_TABLES = ((GO_ROWS, 4), (GO_ROWS, 3), (SCALE_ROWS, 4), (SCALE_ROWS, 3))
+SHARD_QK = ((1, 10), (32, 10), (1, 2000), (32, 2000))
+
+
+def phase_shard(registry_root: str, served: dict, store_tables,
+                card: str) -> dict:
+    """The sharded serving path on the card, its shards on one card
+    (``ServingMesh.of((cuda:0,) * S)``): first the main path, a sharded
+    ``ServingEngine`` over the serve phase's registry answering
+    closest-concepts through the ``Gateway`` with the unsharded engine's
+    bodies; then every (table, S, Q, k) case of ``SHARD_TABLES`` x
+    ``SHARD_QK`` held to the unsharded ``topk_cosine`` on the card
+    (identical indices, ``valid`` and scores) and to the plain version
+    (the same function on CPU shards: ``valid``, scores within 1e-5, ids
+    under the near-tie rule), with ``device_table_bytes()`` equal to the
+    shards' bytes; the ms of a sharded and of the streamed 40k call; then
+    the dry run over every arch, shape and mesh on the meta device."""
+    import torch
+    from repro_torch.api import Gateway
+    from repro_torch.core.registry import EmbeddingRegistry
+    from repro_torch.core.serving import EmbeddingIndex, ServingEngine
+    from repro_torch.kernels import ops, topk_similarity as ts
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import ServingMesh
+
+    dev = torch.device(DEV)
+    ids = served["ids"]
+    rng = np.random.default_rng(SEED + 27)
+    t_phase = time.perf_counter()
+    # ---------------- main path: the sharded engine ------------------- #
+    reg = EmbeddingRegistry(registry_root)
+    mesh4 = ServingMesh.of((dev,) * 4)
+    gws = {name: Gateway(ServingEngine(reg, device=DEV, mesh=m),
+                         max_batch=32, flush_after_ms=2.0)
+           for name, m in (("sharded", mesh4), ("single", None))}
+    asks = [(int(r), 10) for r in rng.integers(0, GO_ROWS, 48)]
+    asks += [(int(r), 2000) for r in rng.integers(0, GO_ROWS, 6)]
+    bodies = {}
+    try:
+        for name, gw in gws.items():
+            def ask(a, gw=gw):
+                return json.dumps(gw.handle("/closest-concepts/go/transe",
+                                            {"query": ids[a[0]], "k": a[1]}))
+            if name == "sharded":
+                torch.cuda.synchronize()
+                ts.reset_launches()
+            with ThreadPoolExecutor(8) as pool:
+                bodies[name] = list(pool.map(ask, asks))
+            torch.cuda.synchronize()
+            if name == "sharded":
+                launches = dict(ts.launches)
+        index = gws["sharded"].engine._index("go", "transe")
+    finally:
+        for gw in gws.values():
+            gw.close()
+    check(index.mesh is mesh4, "the engine's index is not sharded")
+    check(all(launches[e] > 0 for e in SMALL_ENTRY + LARGE_ENTRY),
+          f"the sharded engine missed a top-k entry point: {launches}")
+    check(all('"results"' in b for b in bodies["sharded"]),
+          "a sharded closest-concepts request failed")
+    same = sum(a == b for a, b in zip(bodies["sharded"], bodies["single"]))
+    check(same == len(asks), f"{len(asks) - same} of {len(asks)} sharded "
+          f"bodies differ from the unsharded engine's")
+    out = {"phase": "shard", "launches": launches,
+           "engine_requests": len(asks), "engine_bodies_equal": same}
+    # ---------------- the cases, at full width ------------------------ #
+    cases, ms = [], {}
+    for rows, s in SHARD_TABLES:
+        table, norms = store_tables[rows]
+        names = ids if rows == GO_ROWS else [f"GO:{i:07d}"
+                                             for i in range(rows)]
+        idx = EmbeddingIndex(names, names, table, norms=norms, device=DEV,
+                             mesh=ServingMesh.of((dev,) * s))
+        blocks, nblocks = idx._table_sharded, idx._norms_sharded
+        local = blocks[0].shape[0]
+        shard_bytes = sum(t.numel() * t.element_size()
+                          for t in blocks + nblocks)
+        check(idx.device_table_bytes() == shard_bytes
+              == local * s * (D + 1) * 4,
+              f"{rows} rows / {s}: device_table_bytes "
+              f"{idx.device_table_bytes()} != {shard_bytes}")
+        cpu = ServingMesh.of(("cpu",) * s)
+        pb, pn, _ = ops.shard_table_raw(table, norms, cpu)
+        whole = torch.from_numpy(np.array(table)).to(dev)
+        whole_n = torch.from_numpy(np.array(norms)).to(dev)
+        for qn, k in SHARD_QK:
+            qrows = np.concatenate([[local - 1, local, rows - 1][:qn],
+                                    rng.integers(0, rows, max(0, qn - 3))])
+            q = unit_rows(table, norms, qrows)
+            excl = qrows.astype(np.int32)
+            got = ops.topk_cosine_sharded(q, blocks, k, exclude_rows=excl,
+                                          mesh=idx.mesh, n_valid=rows,
+                                          norms=nblocks)
+            one = ops.topk_cosine(q, whole, k, exclude_rows=excl,
+                                  norms=whole_n)
+            torch.cuda.synchronize()
+            note = f"shard {rows}/{s} Q={qn} k={k}"
+            g = [t.cpu() for t in got]
+            for a, b, what in zip(g, one, ("scores", "ids", "valid")):
+                check(torch.equal(a, b.cpu()), f"{note}: {what} differ from "
+                      f"the unsharded kernel call")
+            plain = ops.topk_cosine_sharded(q, pb, k, exclude_rows=excl,
+                                            mesh=cpu, n_valid=rows, norms=pn)
+            cases.append({"rows": rows, "shards": s, "Q": qn, "k": k,
+                          "pad_rows": local * s - rows,
+                          **compare(got, plain, note)})
+        if rows == GO_ROWS:
+            q = unit_rows(table, norms, rng.integers(0, rows, 32))
+            ms[f"sharded_{s}"] = _cuda_ms(lambda: ops.topk_cosine_sharded(
+                q, blocks, 10, mesh=idx.mesh, n_valid=rows, norms=nblocks))
+            if s == 4:
+                staging = ops.StagingPool()
+                ms["streamed"] = _cuda_ms(lambda: ops.topk_cosine(
+                    q, table, 10, norms=norms, device=dev, staging=staging))
+        del idx, blocks, nblocks, whole, whole_n, pb, pn
+        torch.cuda.empty_cache()
+    out["cases"] = cases
+    out["ms_q32_k10_40k"] = ms
+    out["max_abs_err"] = max(c["max_abs_err"] for c in cases)
+    # ---------------- the dry run ------------------------------------- #
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        check(dryrun.main(["--all", "--mesh", "both", "--out", d]) == 0,
+              "the dry run failed")
+        recs = [json.loads(p.read_text()) for p in Path(d).glob("*.json")]
+    out["dryrun"] = {"tags": len(recs),
+                     "ok": sum(r["status"] == "ok" for r in recs),
+                     "seconds": time.perf_counter() - t0}
+    out["seconds"] = time.perf_counter() - t_phase
+    out["card"] = card
     emit(out)
     return out
 
@@ -4959,13 +5109,16 @@ def _kernel_group(name: str) -> str:
 def kernels_line(kern: dict, serve_out: dict, kge: dict,
                  update_out: dict, jobs: dict, numbers: dict, swa: dict,
                  lm: dict, moe: dict, train: dict, scan: dict, mamba: dict,
-                 whisper: dict, llava: dict, hybrid: dict) -> dict:
+                 whisper: dict, llava: dict, hybrid: dict,
+                 shard: dict = None) -> dict:
     """One entry per kernel path, at the shapes the main path gives it:
     a 8192-row slab of the 40k table with its running list, Q = 32 and
     k = 10 for the small path (the serve session's batches), Q = 1 and
     k = 2000 for the large one (the k = 2000 HTTP requests).  The top-k
     entries' ``launches_jobs`` are the launches of the jobs phase's 40k
-    k = 10 join (small) and its 1,024-class k = 100 join (large).  The SWA
+    k = 10 join (small) and its 1,024-class k = 100 join (large), and
+    their ``launches_sharded`` those of the shard phase's sharded engine
+    (one a shard a call).  The SWA
     forward's ``launches`` are the generation run's prefill and its
     ``launches_train`` the measured training run's; the causal forward's
     (W = S) the olmoe-1b-7b generation run's prefill; the backward's are
@@ -4996,6 +5149,8 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
             "launches": sum(launches[e] for e in entries),
             "launches_by_entry": {e: launches[e] for e in entries},
             "launches_jobs": jobs["launches_jobs"][path],
+            "launches_sharded": shard and sum(shard["launches"][e]
+                                              for e in entries),
             "max_abs_err": err, "ms": r["step_ms"],
             "device_ms": r["step_device_ms"],
             "plain_ms": r["step_plain_ms"], "bound_ms": r["step_bound_ms"],
@@ -5241,7 +5396,8 @@ def card_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,kge,swa,scan,serve,workers,"
+                    default="build,kernels,kge,swa,scan,serve,shard,"
+                            "workers,"
                             "update,jobs,lm,moe,mamba,hybrid,whisper,llava,"
                             "train,numbers")
     ap.add_argument("--out", default=None, help="also write results here")
@@ -5276,7 +5432,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="biokg-smoke-") as tmp:
         store_tables = {}
         served = None
-        if phases & {"kernels", "serve", "workers", "jobs", "numbers"}:
+        if phases & {"kernels", "serve", "shard", "workers", "jobs",
+                     "numbers"}:
             reg = EmbeddingRegistry(tmp)
             for i, version in enumerate(("2025-01", "2025-02")):
                 ids, labels, emb = go_table(GO_ROWS, SEED + i)
@@ -5286,7 +5443,8 @@ def main(argv=None) -> int:
                             generated_at="2025-01-01T00:00:00+00:00")
                 reg.seal("go", version)
             served = {"ids": ids, "labels": labels, "emb": emb}
-            scale = "kernels" in phases     # the only phase that reads it
+            # the only phases that read it
+            scale = bool(phases & {"kernels", "shard"})
             if scale:
                 ids_s, labels_s, emb_s = go_table(SCALE_ROWS, SEED + 7)
                 reg.publish("go-scale", "2025-01", "transe", ids_s,
@@ -5336,6 +5494,8 @@ def main(argv=None) -> int:
                 ("kge", phase_kge), ("swa", phase_swa),
                 ("scan", phase_scan),
                 ("serve", lambda: phase_serve(tmp, served)),
+                ("shard", lambda: phase_shard(tmp, served, store_tables,
+                                              card)),
                 ("workers", lambda: phase_workers(tmp, served)),
                 ("update", lambda: phase_update(tmp)),
                 ("jobs", lambda: phase_jobs(tmp, card)),
@@ -5360,8 +5520,8 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(RESULTS, indent=1))
     print(card)
-    if {"kernels", "kge", "swa", "scan", "serve", "update", "jobs", "lm",
-            "moe", "mamba", "hybrid", "whisper", "llava", "train",
+    if {"kernels", "kge", "swa", "scan", "serve", "shard", "update", "jobs",
+            "lm", "moe", "mamba", "hybrid", "whisper", "llava", "train",
             "numbers"} <= phases:
         ph = RESULTS["phases"]
         print(json.dumps(kernels_line(ph["kernels"], ph["serve"], ph["kge"],
@@ -5369,7 +5529,8 @@ def main(argv=None) -> int:
                                       ph["numbers"], ph["swa"], ph["lm"],
                                       ph["moe"], ph["train"], ph["scan"],
                                       ph["mamba"], ph["whisper"],
-                                      ph["llava"], ph["hybrid"])))
+                                      ph["llava"], ph["hybrid"],
+                                      ph["shard"])))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,8 +16,10 @@ Every index and engine runs on one explicit device
 (``repro_torch.device.resolve_device``: the card unless the caller asks
 for the CPU).  Top-k runs in the CUDA kernel on the card and in its plain
 PyTorch version on the CPU; pair similarity stays on the host in numpy,
-as in the reference, so ``sim`` scores are byte-identical.  Table
-sharding across devices is not ported yet.
+as in the reference, so ``sim`` scores are byte-identical.  With a
+``ServingMesh`` of more than one shard, an index's table is row-sharded
+over the mesh's devices instead
+(``repro_torch.kernels.ops.topk_cosine_sharded``).
 
 Architecture:
 
@@ -128,7 +130,10 @@ class EmbeddingIndex:
     full-table device copy and *no* (N, d) unit array on either side —
     peak device allocation is O(block_rows·d + Q·k) regardless of N.  Host
     memory stays in the shared page cache.  The index owns the pinned
-    staging its streamed calls reuse.
+    staging its streamed calls reuse.  With a ``mesh`` of more than one
+    ``"data"`` shard the raw rows and norms are laid out in row blocks over
+    its devices instead and stay resident there (the residency *is* the
+    sharding); each shard normalizes its rows in the kernel.
     """
 
     def __init__(self, entity_ids: Sequence[str], labels: Sequence[str],
@@ -136,8 +141,9 @@ class EmbeddingIndex:
                  norms: Optional[np.ndarray] = None,
                  block_rows: Optional[int] = None,
                  sorted_labels: Optional[Sequence[str]] = None,
-                 device=None):
+                 device=None, mesh=None):
         #: where top-k runs: the card unless the caller asks for the CPU
+        #: (with a sharded table, on the mesh's devices)
         self.device = resolve_device(device)
         self.entity_ids = list(entity_ids)
         self.labels = list(labels)
@@ -153,6 +159,12 @@ class EmbeddingIndex:
             norms = np.linalg.norm(emb, axis=1)
         self.norms = np.asarray(norms, dtype=np.float32)
         self._staging = kops.StagingPool()
+        # shard only when the mesh has more than one "data" device; else
+        # the streaming host path keeps no device table at all
+        self.mesh = mesh if kops.mesh_data_shards(mesh) > 1 else None
+        if self.mesh is not None:
+            (self._table_sharded, self._norms_sharded,
+             self._n_real) = kops.shard_table_raw(emb, self.norms, self.mesh)
         self._id_to_row = {i: r for r, i in enumerate(self.entity_ids)}
         self._label_to_row: Dict[str, int] = {}
         for r, lbl in enumerate(self.labels):
@@ -191,10 +203,13 @@ class EmbeddingIndex:
         return self.unit_rows(slice(None))
 
     def device_table_bytes(self) -> int:
-        """Bytes of *table* data pinned on devices by this index: always 0
-        here — the table stays on the host and only transient O(block)
-        slabs land on the device (the port has no sharded table)."""
-        return 0
+        """Bytes of *table* data pinned on devices by this index: 0 on the
+        streaming host path (only transient O(block) slabs land on the
+        device), the row blocks and norms, pad included, when sharded."""
+        if self.mesh is None:
+            return 0
+        return sum(t.numel() * t.element_size()
+                   for t in self._table_sharded + self._norms_sharded)
 
     # ------------------------------------------------------------------ #
     def autocomplete(self, prefix: str, limit: int = 10) -> List[str]:
@@ -282,12 +297,18 @@ class EmbeddingIndex:
         rows = np.asarray(list(rows), dtype=np.int32)
         qvec = self.unit_rows(rows)                             # (Q, d)
         excl = rows if exclude_self else np.full(len(rows), -1, np.int32)
-        # streaming host path: the raw table (np/memmap) is walked in
-        # O(block_rows) slabs, norms folded in-kernel — no device copy
-        scores, idx, valid = kops.topk_cosine(
-            qvec, self.embeddings, int(k), exclude_rows=excl,
-            norms=self.norms, block_rows=self.block_rows,
-            device=self.device, staging=self._staging)
+        if self.mesh is not None:
+            scores, idx, valid = kops.topk_cosine_sharded(
+                qvec, self._table_sharded, int(k), exclude_rows=excl,
+                mesh=self.mesh, n_valid=self._n_real,
+                norms=self._norms_sharded)
+        else:
+            # streaming host path: the raw table (np/memmap) is walked in
+            # O(block_rows) slabs, norms folded in-kernel — no device copy
+            scores, idx, valid = kops.topk_cosine(
+                qvec, self.embeddings, int(k), exclude_rows=excl,
+                norms=self.norms, block_rows=self.block_rows,
+                device=self.device, staging=self._staging)
         return self._hits(scores.cpu().numpy(), idx.cpu().numpy(),
                           valid.cpu().numpy())
 
@@ -320,6 +341,13 @@ class EmbeddingIndex:
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         rows = np.asarray(list(rows), dtype=np.int32)
+        if self.mesh is not None:
+            # the sharded table stays on its devices: the sharded call a
+            # slab at a time (the same merge contract, the same results)
+            for start in range(0, len(rows), slab):
+                yield start, self.top_k_rows(rows[start:start + slab], k,
+                                             exclude_self=exclude_self)
+            return
         excl = rows if exclude_self else np.full(len(rows), -1, np.int32)
         qvec = self.unit_rows(rows)
         for start, scores, idx, valid in kops.topk_cosine_join(
@@ -406,15 +434,18 @@ class ServingEngine:
     pointer, and already-built indices for the old version stay in the LRU
     until evicted — in-flight queries pinned to the old version finish
     consistently instead of racing a cache wipe.  Every index the engine
-    builds runs top-k on the engine's device.
+    builds runs top-k on the engine's device, or row-sharded over
+    ``mesh`` (a ``launch.mesh.ServingMesh``) when it has several shards.
     """
 
     def __init__(self, registry: EmbeddingRegistry, cache_capacity: int = 8,
-                 device=None):
+                 device=None, mesh=None):
         self.registry = registry
         self.cache = LRUIndexCache(cache_capacity)
         #: where every index built by this engine runs top-k
         self.device = resolve_device(device)
+        #: the mesh every index built by this engine shards its table over
+        self.mesh = mesh
         self._latest: Dict[str, str] = {}
         self._lock = threading.Lock()
         #: callbacks fired (outside the lock) after every latest-pointer
@@ -450,7 +481,7 @@ class ServingEngine:
                 ontology, model, version)
             idx = EmbeddingIndex(ids, labels, table, norms=norms,
                                  sorted_labels=meta.get("sorted_labels"),
-                                 device=self.device)
+                                 device=self.device, mesh=self.mesh)
             self.cache.put(key, idx)
         return idx
 

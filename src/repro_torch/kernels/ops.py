@@ -1,8 +1,10 @@
-"""Public kernel entry points: the top-k streaming driver, KGE scoring and
-sliding-window attention.
+"""Public kernel entry points: the top-k streaming driver, the sharded
+top-k, KGE scoring and sliding-window attention.
 
 The port of ``repro.kernels.ops`` (``topk_cosine``, ``_topk_stream``,
-``topk_cosine_join``, ``stream_stats``, ``kge_score``, ``swa_attention``).
+``topk_cosine_join``, ``stream_stats``, ``mesh_data_shards``,
+``shard_table``, ``shard_table_raw``, ``topk_cosine_sharded``,
+``kge_score``, ``swa_attention``).
 There is no backend flag: on the card the CUDA kernels run, on the CPU
 their plain PyTorch versions (the wrappers in
 :mod:`repro_torch.kernels.topk_similarity`,
@@ -266,6 +268,119 @@ def topk_cosine_join(q_unit, e_table, k: int, exclude_rows=None, norms=None,
                                  device=device, staging=staging)
         yield (start, sc.cpu().numpy()[:rows], ix.cpu().numpy()[:rows],
                va.cpu().numpy()[:rows])
+
+
+# ---------------------------- sharded top-k ---------------------------- #
+def mesh_data_shards(mesh, axis: str = "data") -> int:
+    """Number of table shards a mesh provides (1 = no sharding)."""
+    if mesh is None:
+        return 1
+    return int(mesh.shape.get(axis, 1))
+
+
+def _row_blocks(x, mesh, pad: float) -> List[torch.Tensor]:
+    """``x`` (N, ...) as one float32 row block a shard, each on its shard's
+    device, the last blocks filled with ``pad`` up to ceil(N / S) rows."""
+    local = -(-x.shape[0] // len(mesh.devices))
+    out = []
+    for s, dev in enumerate(mesh.devices):
+        part = x[s * local:(s + 1) * local]
+        if isinstance(part, torch.Tensor):
+            t = part.to(device=dev, dtype=torch.float32, copy=True)
+        else:       # a copy also detaches the block from a read-only map
+            t = torch.from_numpy(np.array(part, dtype=np.float32)).to(dev)
+        if t.shape[0] < local:
+            t = torch.cat([t, torch.full((local - t.shape[0],) + t.shape[1:],
+                                         pad, dtype=torch.float32,
+                                         device=dev)])
+        out.append(t.contiguous())
+    return out
+
+
+def shard_table(e_unit, mesh) -> Tuple[List[torch.Tensor], int]:
+    """Lay an (N, d) table out in row blocks over ``mesh``'s devices, rows
+    zero-padded to a multiple of the shard count.  Returns ``(blocks,
+    n_valid)``, ``n_valid`` the real row count: pass both to
+    :func:`topk_cosine_sharded`."""
+    return _row_blocks(e_unit, mesh, 0.0), int(e_unit.shape[0])
+
+
+def shard_table_raw(e_table, norms, mesh
+                    ) -> Tuple[List[torch.Tensor], List[torch.Tensor], int]:
+    """:func:`shard_table` for a raw table and its per-row L2 norms: rows
+    are zero-padded, norms one-padded (a pad row stays zero after the
+    in-kernel division).  Returns ``(blocks, norm blocks, n_valid)``; each
+    shard normalizes its own rows in the kernel, so no unit copy of the
+    table exists on any device."""
+    return (_row_blocks(e_table, mesh, 0.0), _row_blocks(norms, mesh, 1.0),
+            int(e_table.shape[0]))
+
+
+def topk_cosine_sharded(q_unit, e_unit, k: int, exclude_rows=None,
+                        mesh=None, n_valid: Optional[int] = None,
+                        norms=None, device=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Device-sharded :func:`topk_cosine`: the same ``(scores, indices,
+    valid)``, with the table in row blocks over ``mesh``'s ``"data"``
+    devices.
+
+    ``e_unit`` (``norms``) is the block list of :func:`shard_table`
+    (:func:`shard_table_raw`) or a whole table, split here.  Each shard
+    makes one :func:`topk_cosine_step` over its ``local_n`` rows on its own
+    device, with the exclusion moved to local rows (-1 where the excluded
+    row lives in another shard) and a fetch depth of ``min(k + n_pad,
+    local_n)``: the ``n_pad`` zero rows padding N to a multiple of the
+    shard count can take at most that many of the last shard's slots, so
+    every global top-k row survives its shard.  Pad candidates score
+    ``-1e30``.  The merge, on the first shard's device, is a stable
+    descending sort of the candidates laid out in shard order, so among
+    equal scores the lower global index wins, as in one call.  With one
+    shard (or no mesh) this is :func:`topk_cosine` on ``device``."""
+    shards = mesh_data_shards(mesh)
+    if shards <= 1:
+        if isinstance(e_unit, (list, tuple)):
+            e_unit = e_unit[0]
+            norms = None if norms is None else norms[0]
+        n_real = e_unit.shape[0] if n_valid is None else int(n_valid)
+        return topk_cosine(q_unit, e_unit[:n_real], k,
+                           exclude_rows=exclude_rows,
+                           norms=None if norms is None else norms[:n_real],
+                           device=device)
+    if not isinstance(e_unit, (list, tuple)):
+        if e_unit.shape[0] % shards:
+            raise ValueError(
+                f"table rows ({e_unit.shape[0]}) must divide the 'data' axis "
+                f"({shards}); lay the table out with shard_table()")
+        e_unit = _row_blocks(e_unit, mesh, 0.0)
+        norms = None if norms is None else _row_blocks(norms, mesh, 1.0)
+    local_n = e_unit[0].shape[0]
+    if len(e_unit) != shards or any(b.shape[0] != local_n for b in e_unit):
+        raise ValueError(f"want {shards} blocks of {local_n} rows, got "
+                         f"{[tuple(b.shape) for b in e_unit]}")
+    n_total = local_n * shards
+    n_real = n_total if n_valid is None else int(n_valid)
+    k_c = min(int(k), n_real)
+    k_fetch = min(int(k) + n_total - n_real, local_n)
+    q = torch.as_tensor(q_unit, dtype=torch.float32)
+    excl_np = _excl_np(exclude_rows, q.shape[0])
+    dev0 = e_unit[0].device
+    cand_s, cand_i = [], []
+    for s, blk in enumerate(e_unit):
+        off = s * local_n
+        loc = np.where((excl_np >= off) & (excl_np < off + local_n),
+                       excl_np - off, -1).astype(np.int32)
+        sc, ix = topk_cosine_step(
+            q.to(blk.device).contiguous(), blk,
+            None if norms is None else norms[s],
+            torch.from_numpy(loc).to(blk.device), 0, local_n, k_fetch)
+        gi = ix + off
+        cand_s.append(torch.where(gi < n_real, sc, ref.NEG_INF).to(dev0))
+        cand_i.append(gi.to(dev0))
+    s_all, pos = torch.sort(torch.cat(cand_s, 1), dim=1, descending=True,
+                            stable=True)
+    idx = torch.gather(torch.cat(cand_i, 1), 1, pos[:, :k_c])
+    valid = torch.from_numpy(_valid(excl_np, n_real, k_c)).to(dev0)
+    return s_all[:, :k_c].contiguous(), idx.contiguous(), valid
 
 
 # ------------------------------ kge_score ------------------------------ #

@@ -113,6 +113,20 @@ class KGEModel:
                 roles[name] = None
         return roles
 
+    def param_shardings(self, mesh_axis: str = "model",
+                        axis_size: Optional[int] = None
+                        ) -> Dict[str, Tuple[Optional[str], ...]]:
+        """``{name: spec}`` (``models.sharding``'s plain-tuple specs): each
+        table row-sharded over ``mesh_axis``, or replicated when its rows
+        do not divide ``axis_size`` (e.g. the 3-row GO relation table on a
+        16-way axis)."""
+        def spec_for(shape) -> Tuple[Optional[str], ...]:
+            if axis_size and shape[0] % axis_size != 0:
+                return (None,) * len(shape)
+            return (mesh_axis,) + (None,) * (len(shape) - 1)
+
+        return {k: spec_for(v) for k, v in self.param_shapes().items()}
+
 
 # ---------------------------------------------------------------------- #
 _REGISTRY: Dict[str, Callable[[KGESpec], KGEModel]] = {}

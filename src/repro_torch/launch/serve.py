@@ -6,7 +6,8 @@ session against the v1 endpoints and reports latency: ``--threads``
 client threads call the typed gateway methods, which submit future-style
 tickets that the BatchScheduler's background flush loop resolves under
 its deadline policy (``--flush-after-ms`` or a full ``--batch``, whichever
-first).  Top-k runs in the CUDA kernel on the card.
+first).  Top-k runs in the CUDA kernel on the card; with two or more
+cards each table is row-sharded over all of them (``--no-shard``: one).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --registry /tmp/biokg \\
         --requests 200 --batch 32 --threads 8 --flush-after-ms 2
@@ -46,6 +47,7 @@ from ..api.schema import ClosestConceptsRequest
 from ..core.registry import EmbeddingRegistry
 from ..core.serving import ServingEngine
 from ..device import resolve_device
+from .mesh import make_serving_mesh
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -69,10 +71,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--page", type=int, default=2000,
                     help="download page size (cursor pagination)")
     ap.add_argument("--no-shard", action="store_true",
-                    help="force the single-device path (the reference's "
-                         "flag; the port serves from one device, so the "
-                         "single-device path is its only path and this "
-                         "flag changes nothing)")
+                    help="serve every table from one device; by default "
+                         "a table is row-sharded over every visible card "
+                         "when there are two or more")
     ap.add_argument("--http", type=int, default=None, metavar="PORT",
                     help="serve the gateway over HTTP on PORT (foreground; "
                          "0 = ephemeral) instead of running the client "
@@ -146,7 +147,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[Dict[str, Any]]:
         _serve_pool(args)
         return None
 
-    engine = ServingEngine(registry, device=device)
+    mesh = None if args.no_shard else make_serving_mesh(kind=device.type)
+    engine = ServingEngine(registry, device=device, mesh=mesh)
     gw = Gateway(engine, max_batch=args.batch,
                  flush_after_ms=args.flush_after_ms,
                  max_pending=args.max_pending,
@@ -241,11 +243,15 @@ def _serve_pool(args) -> None:
 
 
 def _session(args, gw: Gateway, device) -> Dict[str, Any]:
+    mesh = gw.engine.mesh
+    where = (f"sharded over {len(mesh.devices)} devices" if mesh
+             else "single device")
     vers = gw.versions(args.ontology)
     total = gw.download(args.ontology, args.model, version=vers.latest,
                         limit=1).total
     print(f"[serve] {args.ontology}/{vers.latest}/{args.model}: "
-          f"{total} classes, versions={vers.versions}, device={device}")
+          f"{total} classes, versions={vers.versions}, device={device}, "
+          f"{where}")
 
     rng = np.random.default_rng(0)
 

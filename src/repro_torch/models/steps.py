@@ -1,6 +1,6 @@
-"""Step factories: train, prefill and greedy decode.  The port of
-``repro.models.steps`` (its dry-run specs wait for the dry run, ROADMAP
-Queue 1).  The params live in the model, so the steps take none."""
+"""Step factories: train, prefill and greedy decode, and the dry run's
+input specs.  The port of ``repro.models.steps``.  The params live in the
+model, so the steps take none."""
 from __future__ import annotations
 
 from typing import Callable, Tuple
@@ -8,6 +8,7 @@ from typing import Callable, Tuple
 import torch
 
 from ..optim import Optimizer, OptState, adam
+from .layers import ParamTree
 from .lm import BaseLM
 
 
@@ -50,3 +51,28 @@ def make_serve_step(model: BaseLM) -> Callable:
         logits, cache = model.decode_step(cache, token, pos)
         return logits.argmax(-1).to(torch.int32), cache
     return step
+
+
+# --------------------------------------------------------------------- #
+# dry-run input specs (meta tensors: shapes and dtypes, no memory)
+# --------------------------------------------------------------------- #
+def train_specs(model: BaseLM, global_batch: int, seq: int):
+    """``(params, opt_state, batch)`` on the meta device: the param tree,
+    Adam's state as ``make_train_step`` builds it (moments keyed by the
+    params' dotted names; the step count as the 0-dim int32 the reference
+    carries) and the batch."""
+    params = model.param_tree(None)
+    opt_state = adam(3e-4).init(dict(ParamTree(params).named_parameters()))
+    opt_state.step = torch.empty((), dtype=torch.int32, device="meta")
+    return params, opt_state, model.batch_spec(global_batch, seq)
+
+
+def prefill_specs(model: BaseLM, global_batch: int, seq: int):
+    return model.param_tree(None), model.batch_spec(global_batch, seq)
+
+
+def serve_specs(model: BaseLM, global_batch: int, seq: int):
+    """``(params, cache, token (B, 1) int32, pos () int32)``."""
+    return (model.param_tree(None), model.cache_spec(global_batch, seq),
+            torch.empty((global_batch, 1), dtype=torch.int32, device="meta"),
+            torch.empty((), dtype=torch.int32, device="meta"))

@@ -107,3 +107,23 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(entry, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry](None)
     calls[entry]("cpu")
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch.mesh",
+                                    "repro_torch.models.sharding",
+                                    "repro_torch.launch.dryrun"])
+def test_mesh_sharding_and_dry_run_modules_import_alone(module):
+    """The serving mesh, the sharding rules and the dry run import in a
+    fresh interpreter with neither JAX nor ``repro`` and without touching
+    the card: the dry run needs no device."""
+    code = (
+        "import importlib, json, sys, torch\n"
+        f"importlib.import_module({module!r})\n"
+        "print(json.dumps([sorted(m for m in sys.modules if m.split('.')[0]"
+        " in ('jax', 'jaxlib', 'repro')), torch.cuda.is_initialized()]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert module in _modules()
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], False]
