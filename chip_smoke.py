@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
 Drives the port's serving, update, LM-generation (dense, MoE, SSM, audio
-and VLM) and LM-training paths the way a user does and holds every kernel
-to its plain PyTorch version on the card.
+and VLM), LM-training and multi-process mesh paths the way a user does
+and holds every kernel to its plain PyTorch version on the card.
 Phases, in order; any failure exits non-zero:
 
   1. build    compile ``src/repro_torch/kernels/csrc/*.cu`` (nvcc, sm_90a,
@@ -153,6 +153,25 @@ Phases, in order; any failure exits non-zero:
               16 causal SWA launches per prefill, the dropped (token, slot)
               pairs per prefill and per decode step, beside the expert
               products' and the decode weight read's bounds
+     mesh     the multi-process mesh (``launch.mesh.run_world``): a world
+              of one rank on NCCL, then two ranks sharing cuda:0 on gloo
+              (NCCL refuses two ranks on one device), mesh (data 1, model
+              2).  In both, olmoe-1b-7b's fp32 2-layer check at capacity
+              factor 16: the expert-parallel prefill's last logits against
+              the one-process ``moe_apply``'s (2e-3, same argmax); then,
+              on two ranks, the bf16 expert-parallel prefill at published
+              width and depth (B 2, prompt 2048, 32 experts a rank): ms,
+              16 causal SWA launches, the layer's one all_reduce timed
+              alone, peak memory, a rank each; a 2-layer fp32 training
+              step (B 2, S 512) against the one-process step (loss 1e-5,
+              each leaf of the rank's share 2e-4 max|g|), its SWA forward
+              and backward launches at d 128; the sharded KGE trainer on
+              the GO workload (TransE-L1, DistMult; 20,000 entity rows a
+              rank): 3 steps against the one-process eager step on the
+              same negatives (loss 1e-5, params 2e-4 max|p|), then 200
+              steps, steps/s beside the one-process eager step's, and the
+              kge_score launches.  The shared card's times stand for no
+              multi-card deployment
      mamba    falcon-mamba-7b at its published width and depth: in fp32,
               2 layers, the last logits of prefill(2049) against
               prefill(2048) + decode_step (2e-3, same argmax), one fused
@@ -266,7 +285,8 @@ line on stdout and stderr as each phase, and each part of the numbers
 phase, ends), then the card's name and power limit, the kernels line,
 and last ``{"ok": true, "device": {...}}``.
 ``--phases`` runs a subset (``build,kernels``, ``build,kge``,
-``build,swa,lm``, ``build,swa,moe``, ``build,scan,mamba``,
+``build,swa,lm``, ``build,swa,moe``, ``build,mesh``,
+``build,scan,mamba``,
 ``build,swa,whisper``, ``build,swa,llava``, ``build,swa,hybrid``,
 ``build,swa,train`` or ``build,scan,train`` (the three training runs)
 is a quick check of one slice;
@@ -2961,6 +2981,346 @@ def moe_bounds(cfg, B: int, S: int) -> dict:
                 weight_bytes / HBM_BYTES_PER_S * 1e3}
 
 
+# ------------------- the process mesh (several ranks) ----------------- #
+#: the mesh phase: worlds of ranks (``launch.mesh.run_world``) on the one
+#: card.  NCCL refuses two ranks on one device, so: one rank on NCCL, then
+#: two ranks sharing cuda:0 on gloo, mesh (data 1, model 2); each world's
+#: time limit (its collectives' too)
+MESH_TIMEOUT_S = 420
+#: the 2-layer fp32 expert-parallel training step against the one-process
+#: step (olmoe-1b-7b at full width, capacity factor MOE_CHECK_CF; B 2, S
+#: 512, where the generation runs take 2,048: a cut in length that keeps
+#: the phase short)
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 512
+#: the sharded KGE trainer on the GO workload (40,000 x 200, batch 1,024,
+#: 32 negatives): steps held to the one-process eager step, then steps
+#: timed, each model (200 timed steps before: a depth cut that keeps the
+#: whole script near 800 s; the sharded steps/s, 17-27 on the card,
+#: settle well inside 50 steps)
+MESH_KGE_MODELS = ("transe", "distmult")
+MESH_KGE_CHECK_STEPS, MESH_KGE_STEPS = 3, 50
+#: the sharded trainer against the one-process step: the CPU tests'
+#: tolerances against the reference (tests/test_torch_kge_mesh.py)
+MESH_KGE_LOSS_RTOL, MESH_KGE_PARAM_TOL = 1e-5, 2e-4
+#: times the one all_reduce a layer of the bf16 prefill is timed
+MESH_ALL_REDUCE_ITERS = 10
+
+
+def _mesh_moe_check(mesh) -> dict:
+    """fp32, 2 of olmoe-1b-7b's layers at full width, capacity factor
+    MOE_CHECK_CF: the expert-parallel prefill's last logits against the
+    one-process ``moe_apply``'s, on the same params and prompt."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.models import build, get_config, runtime
+    from repro_torch.models.convert import shard_params
+
+    full = get_config(MOE_ARCH)
+    cfg = full.with_(dtype="float32", n_layers=MOE_CHECK_LAYERS,
+                     moe=dataclasses.replace(full.moe,
+                                             capacity_factor=MOE_CHECK_CF))
+    dev = mesh.device
+    toks = torch.from_numpy(np.random.default_rng(SEED + 14).integers(
+        0, cfg.vocab, (MOE_BATCH, MOE_PROMPT), dtype=np.int32)).to(dev)
+    t0 = time.perf_counter()
+    model = build(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    want, _ = model.prefill({"tokens": toks})
+    del model
+    ep = shard_params(build(cfg.with_(moe_impl="shard_map")).init(
+        torch.Generator(device=dev).manual_seed(SEED)), mesh)
+    sw.reset_launches()
+    with runtime.use_mesh(mesh):
+        got, _ = ep.prefill({"tokens": toks})
+    torch.cuda.synchronize(dev)
+    launches = sw.launches["swa_attention_forward"]
+    diff = (got - want).abs()
+    check(bool(torch.isfinite(got).all()), "expert-parallel logits not "
+                                           "finite")
+    check(bool((diff <= LM_TOL * (1 + want.abs())).all()),
+          f"expert-parallel vs one-process logits: off by "
+          f"{float(diff.max())}")
+    argmax_same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    check(argmax_same, "expert-parallel vs one-process: argmax differs")
+    check(launches == cfg.n_layers, f"the expert-parallel prefill launched "
+                                    f"{launches} SWA kernels")
+    return {"layers": cfg.n_layers, "capacity_factor": MOE_CHECK_CF,
+            "experts_a_rank": tuple(ep.params["layers"][0]["moe"]["gate"]
+                                    .shape)[0],
+            "max_abs_diff": float(diff.max()),
+            "max_abs_logit": float(want.abs().max()),
+            "argmax_equal": argmax_same, "swa_launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def _mesh_prefill(mesh) -> dict:
+    """bf16 olmoe-1b-7b at published width and depth, expert-parallel (32
+    experts a rank on a model axis of 2): a warm-up prefill, then the
+    measured one (ms, SWA launches, dropped pairs, peak memory); then the
+    layer's one all_reduce ((B S, d) bf16 over ``"model"``) timed alone."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.models import build, get_config, runtime
+    from repro_torch.models.convert import shard_params
+
+    cfg = get_config(MOE_ARCH).with_(moe_impl="shard_map")
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = shard_params(build(cfg).init(
+        torch.Generator(device=dev).manual_seed(SEED)), mesh)
+    torch.cuda.empty_cache()
+    toks = torch.from_numpy(np.random.default_rng(SEED + 24).integers(
+        0, cfg.vocab, (MOE_BATCH, MOE_PROMPT), dtype=np.int32)).to(dev)
+    with runtime.use_mesh(mesh):
+        model.prefill({"tokens": toks})
+        model.take_dropped()
+        sw.reset_launches()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits, _ = model.prefill({"tokens": toks})
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = sw.launches["swa_attention_forward"]
+    check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (
+        MOE_BATCH, 1, cfg.padded_vocab), "bf16 expert-parallel logits")
+    check(launches == cfg.n_layers, f"the bf16 prefill launched {launches} "
+                                    f"SWA kernels, want {cfg.n_layers}")
+    y = torch.randn((MOE_BATCH * MOE_PROMPT, cfg.d_model), device=dev,
+                    dtype=cfg.jdtype)
+    group = mesh.group("model")
+    times = []
+    for _ in range(MESH_ALL_REDUCE_ITERS + 1):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        dist.all_reduce(y, group=group)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = {"prefill_ms": ms, "swa_launches": launches,
+           "experts_a_rank": tuple(model.params["layers"][0]["moe"]["gate"]
+                                   .shape)[0],
+           "dropped_pairs": model.take_dropped(),
+           "all_reduce_ms": float(np.median(times[1:])),
+           "all_reduce_bytes": y.numel() * y.element_size(),
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del model, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_train_check(mesh) -> dict:
+    """fp32, 2 of olmoe-1b-7b's layers at full width, capacity factor
+    MOE_CHECK_CF: ``steps.loss_and_grads`` expert-parallel on the mesh
+    against the one-process step on every rank, the loss within
+    TRAIN_LOSS_RTOL and each gradient leaf of the rank's share within
+    TRAIN_GRAD_TOL * max|g| of the one-process leaf; the SWA forward and
+    backward launches of the mesh step."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.models import build, get_config, runtime
+    from repro_torch.models.convert import shard_params
+    from repro_torch.models.sharding import expert_parallel_pspec
+    from repro_torch.models.steps import loss_and_grads
+
+    full = get_config(MOE_ARCH)
+    cfg = full.with_(dtype="float32", n_layers=MOE_CHECK_LAYERS,
+                     moe_impl="shard_map",
+                     moe=dataclasses.replace(full.moe,
+                                             capacity_factor=MOE_CHECK_CF))
+    dev = mesh.device
+    rng = np.random.default_rng(SEED + 25)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (
+        MESH_TRAIN_BATCH, MESH_TRAIN_SEQ), dtype=np.int32)).to(dev)
+        for k in ("tokens", "labels")}
+    t0 = time.perf_counter()
+    ep = shard_params(build(cfg).init(
+        torch.Generator(device=dev).manual_seed(SEED)), mesh)
+    ep._p().requires_grad_(True)
+    sw.reset_launches()
+    loss, _, grads = loss_and_grads(ep, batch, mesh)
+    torch.cuda.synchronize(dev)
+    launches = dict(sw.launches)
+    del ep
+    one = build(cfg.with_(moe_impl="gspmd")).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    one._p().requires_grad_(True)
+    want_loss, _, want = loss_and_grads(one, batch)
+    del one
+    check(abs(float(loss) - float(want_loss))
+          <= TRAIN_LOSS_RTOL * abs(float(want_loss)),
+          f"expert-parallel loss {float(loss)} against {float(want_loss)}")
+    worst = {}
+    for n, w in want.items():
+        w = runtime.take_share(w, expert_parallel_pspec(
+            cfg, tuple(n.split(".")), w.dim()), mesh)
+        err = float((grads[n] - w).abs().max())
+        scale = float(w.abs().max())
+        check(scale > 0 and err <= TRAIN_GRAD_TOL * scale,
+              f"gradient {n}: off by {err} of max {scale}")
+        worst[n] = err / scale
+    check(launches["swa_attention_forward"] == 2 * cfg.n_layers
+          and launches["swa_attention_backward_dq"] == cfg.n_layers,
+          f"the expert-parallel step launched {launches} SWA kernels, want "
+          f"a forward and a recompute, and one backward, a layer")
+    name = max(worst, key=worst.get)
+    return {"batch": MESH_TRAIN_BATCH, "seq": MESH_TRAIN_SEQ,
+            "launches": launches, "loss": float(loss),
+            "want_loss": float(want_loss), "leaves": len(worst),
+            "worst_leaf": name, "worst_rel_err": worst[name],
+            "seconds": time.perf_counter() - t0}
+
+
+def _mesh_kge(mesh, kg) -> dict:
+    """The sharded KGE trainer on the GO workload (``kg``: the v1 release's
+    entity and relation counts and triples), model axis 2 (20,000 entity
+    rows a rank), TransE-L1 and DistMult: MESH_KGE_CHECK_STEPS steps held
+    to the one-process eager step fed the same negatives, then ``fit``
+    for MESH_KGE_STEPS steps (steps/s), beside the one-process eager
+    step's steps/s (rank 0); kge_score launches of the sharded runs."""
+    import torch
+    from repro_torch.configs.go_kge import CONFIG
+    from repro_torch.data.triples import TripleLoader
+    from repro_torch.kernels import kge_score as tk
+    from repro_torch.kge import make_model
+    from repro_torch.kge.negatives import corrupt
+    from repro_torch.kge.train import KGETrainer
+
+    dev, cfg = mesh.device, CONFIG.train
+    lead = mesh.index("model") == 0
+    out = {"launches": dict.fromkeys(("kge_score_forward",
+                                      "kge_score_backward"), 0)}
+
+    def count():
+        torch.cuda.synchronize(dev)
+        for k in out["launches"]:
+            out["launches"][k] += tk.launches[k]
+        tk.reset_launches()
+
+    for name in MESH_KGE_MODELS:
+        model = make_model(name, kg["entities"], kg["relations"],
+                           dim=CONFIG.dim)
+        sharded = KGETrainer(model, cfg, mesh=mesh)
+        one = KGETrainer(model, cfg, device=dev)
+        full, _ = one.init()
+        params = sharded.shard(full)
+        opt, opt1 = sharded.optimizer.init(params), one.optimizer.init(full)
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+        it = iter(TripleLoader(kg["triples"], cfg.batch_size, seed=cfg.seed))
+        res = {"rows_a_rank": params["entity"].shape[0], "losses": [],
+               "one_process_losses": []}
+        tk.reset_launches()
+        for i in range(MESH_KGE_CHECK_STEPS):
+            batch = torch.from_numpy(next(it)).to(dev, torch.int64)
+            rand, side = corrupt(gen, batch, model.spec.n_entities,
+                                 cfg.num_negs)
+            res["losses"].append(float(sharded.train_step.step_with(
+                params, opt, batch, rand, side)))
+            count()
+            res["one_process_losses"].append(float(one.train_step.step_with(
+                full, opt1, batch, rand, side)))
+            tk.reset_launches()
+            if i == 0:
+                got = sharded.gather(params)
+                err = max(float((got[k] - full[k]).abs().max()) /
+                          float(full[k].abs().max()) for k in full)
+                check(err <= MESH_KGE_PARAM_TOL, f"{name}: params after "
+                      f"step 1 off by {err} of max|p|")
+                res["params1_rel_err"] = err
+        for a, b in zip(res["losses"], res["one_process_losses"]):
+            check(abs(a - b) <= MESH_KGE_LOSS_RTOL * abs(b),
+                  f"{name}: sharded loss {a} against one process's {b}")
+        _, _, stats = sharded.fit(kg["triples"], steps=MESH_KGE_STEPS)
+        count()
+        check(np.isfinite(stats["final_loss"]), f"{name}: loss not finite")
+        res.update(steps=MESH_KGE_STEPS, final_loss=stats["final_loss"],
+                   steps_per_s=MESH_KGE_STEPS / stats["wall_s"])
+        if lead:
+            it = iter(TripleLoader(kg["triples"], cfg.batch_size,
+                                   seed=cfg.seed))
+            p, o = one.init()
+            one.train_step.step(p, o, torch.from_numpy(next(it)).to(
+                dev, torch.int64), gen)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(MESH_KGE_STEPS):
+                one.train_step.step(p, o, torch.from_numpy(next(it)).to(
+                    dev, torch.int64), gen)
+            torch.cuda.synchronize(dev)
+            res["one_process_eager_steps_per_s"] = MESH_KGE_STEPS / (
+                time.perf_counter() - t0)
+            tk.reset_launches()
+        out[name] = res
+    want = len(MESH_KGE_MODELS) * (MESH_KGE_CHECK_STEPS + MESH_KGE_STEPS)
+    check(all(v == want for v in out["launches"].values()),
+          f"the sharded trainer launched {out['launches']} kge_score "
+          f"kernels, want {want} of each")
+    return out
+
+
+def _mesh_rank(rank: int, sizes, parts, device: str, kg=None) -> dict:
+    """One rank of a mesh-phase world: the mesh over ``device`` and the
+    named parts, each with its seconds (``kg``: the GO release
+    ``_mesh_kge`` trains on)."""
+    import torch
+    from repro_torch.launch.mesh import ProcessMesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = ProcessMesh.build(("data", "model"), sizes, device)
+    out = {"coords": mesh.coords}
+    for part in parts:
+        t0 = time.perf_counter()
+        out[part] = (_mesh_kge(mesh, kg) if part == "kge" else {
+            "check": _mesh_moe_check, "prefill": _mesh_prefill,
+            "train": _mesh_train_check}[part](mesh))
+        torch.cuda.synchronize(mesh.device)
+        out[part + "_seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh() -> dict:
+    """The multi-process half of the mesh on the one card: a world of one
+    rank on NCCL (the expert-parallel fp32 check), then two ranks sharing
+    cuda:0 on gloo, mesh (data 1, model 2): the fp32 check, the bf16
+    expert-parallel prefill of olmoe-1b-7b at full width and depth, the
+    2-layer fp32 expert-parallel training step against the one-process
+    step, and the sharded KGE trainer on the GO workload.  Times from the
+    shared card stand for no multi-card deployment: gloo stages every
+    collective through host memory."""
+    import torch
+    from repro_torch.launch.mesh import run_world
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()          # the ranks need the card's memory
+    lap = laps("mesh")
+    nccl = run_world(_mesh_rank, 1, backend="nccl", devices="cuda:0",
+                     args=((1, 1), ("check",), "cuda:0"),
+                     timeout_s=MESH_TIMEOUT_S)
+    lap("nccl world of 1")
+    (_, kg1), _ = go_releases()
+    kg = {"entities": kg1.num_entities, "relations": kg1.num_relations,
+          "triples": kg1.triples}
+    gloo = run_world(_mesh_rank, 2, backend="gloo", devices="cuda:0",
+                     args=((1, 2), ("check", "prefill", "train", "kge"),
+                           "cuda:0", kg), timeout_s=MESH_TIMEOUT_S)
+    lap("gloo world of 2 on cuda:0")
+    launches = {"swa_attention_forward_prefill": sum(
+        r["prefill"]["swa_launches"] for r in gloo)}
+    for e in ("swa_attention_forward", "swa_attention_bwd_dot",
+              "swa_attention_backward_dkdv", "swa_attention_backward_dq"):
+        launches[f"{e}_train"] = sum(r["train"]["launches"][e]
+                                     for r in gloo)
+    for e in ("kge_score_forward", "kge_score_backward"):
+        launches[e] = sum(r["kge"]["launches"][e] for r in gloo)
+    out = {"phase": "mesh", "nccl_world_of_1": nccl[0],
+           "gloo_world_of_2": gloo, "launches": launches,
+           "note": "gloo on one shared card: collectives through host "
+                   "memory; no multi-card figure"}
+    emit(out)
+    return out
+
+
 # ------------------------ the selective scan ------------------------- #
 def _scan_inputs(B: int, S: int, d_in: int, st: int, dtype, gen,
                  h0_zero: bool):
@@ -5110,7 +5470,7 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
                  update_out: dict, jobs: dict, numbers: dict, swa: dict,
                  lm: dict, moe: dict, train: dict, scan: dict, mamba: dict,
                  whisper: dict, llava: dict, hybrid: dict,
-                 shard: dict = None) -> dict:
+                 shard: dict = None, mesh: dict = None) -> dict:
     """One entry per kernel path, at the shapes the main path gives it:
     a 8192-row slab of the 40k table with its running list, Q = 32 and
     k = 10 for the small path (the serve session's batches), Q = 1 and
@@ -5131,8 +5491,12 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
     falcon-mamba-7b training run's (128 and 64 a step).  The SWA kernels
     at d = 256: the recurrentgemma-2b generation run's prefill (8) and
     its measured training run's (16 forwards, 8 of each backward entry
-    point a step)."""
+    point a step).  ``launches_mesh``: the mesh phase's, over its ranks
+    (kge_score: the sharded trainer's steps; the causal SWA forward: the
+    expert-parallel bf16 prefill; the SWA backward: the expert-parallel
+    fp32 training step at d = 128, group 1)."""
     launches = serve_out["launches"]
+    ml = mesh["launches"] if mesh else {}
     by = {(r["N"], r["Q"], r["k"]): r for r in numbers["rows"]}
     out = []
     for name, entries, key, err, path in (
@@ -5178,6 +5542,7 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
                              "together (v1, warm v2, cold v2): eager "
                              "warm-up steps plus graph replays x launches "
                              "a replay",
+            "launches_mesh": ml.get(entry),
             "max_abs_err": kge[f"max_abs_err_{key}"],
             "ms": r[f"{key}_ms"], "device_ms": r[f"{key}_device_ms"],
             "graph_ms": r[f"{key}_graph_ms"],
@@ -5222,6 +5587,7 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
         "in_place_of": "src/repro/models/blocks.py:105,140 "
                        "chunked_attention(causal=True) (jnp)",
         "launches": moe["launches"]["swa_attention_forward"],
+        "launches_mesh": ml.get("swa_attention_forward_prefill"),
         "launches_whisper": whisper["launches"]["swa_attention_forward"],
         "launches_llava": llava["launches"]["swa_attention_forward"],
         "max_abs_err": swa["max_abs_err_causal"]["bfloat16"],
@@ -5245,6 +5611,7 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
                     "scan; no Pallas backward)",
         "launches": sum(train["launches"][e] for e in entries),
         "launches_by_entry": {e: train["launches"][e] for e in entries},
+        "launches_mesh": ml and sum(ml[f"{e}_train"] for e in entries),
         "max_abs_err": swa["max_abs_err_backward_bf16"],
         "max_abs_err_fp32": swa["max_abs_err_backward_fp32"],
         "ms": r["ms"], "device_ms": r["device_ms"],
@@ -5398,8 +5765,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="build,kernels,kge,swa,scan,serve,shard,"
                             "workers,"
-                            "update,jobs,lm,moe,mamba,hybrid,whisper,llava,"
-                            "train,numbers")
+                            "update,jobs,lm,moe,mesh,mamba,hybrid,whisper,"
+                            "llava,train,numbers")
     ap.add_argument("--out", default=None, help="also write results here")
     ap.add_argument("--sass-of", default=None, metavar="SOURCE.cu",
                     help="compile one CUDA source with the port's flags "
@@ -5500,6 +5867,7 @@ def main(argv=None) -> int:
                 ("update", lambda: phase_update(tmp)),
                 ("jobs", lambda: phase_jobs(tmp, card)),
                 ("lm", phase_lm), ("moe", phase_moe),
+                ("mesh", phase_mesh),
                 ("mamba", phase_mamba), ("hybrid", phase_hybrid),
                 ("whisper", phase_whisper),
                 ("llava", llava),
@@ -5521,8 +5889,8 @@ def main(argv=None) -> int:
         Path(args.out).write_text(json.dumps(RESULTS, indent=1))
     print(card)
     if {"kernels", "kge", "swa", "scan", "serve", "shard", "update", "jobs",
-            "lm", "moe", "mamba", "hybrid", "whisper", "llava", "train",
-            "numbers"} <= phases:
+            "lm", "moe", "mesh", "mamba", "hybrid", "whisper", "llava",
+            "train", "numbers"} <= phases:
         ph = RESULTS["phases"]
         print(json.dumps(kernels_line(ph["kernels"], ph["serve"], ph["kge"],
                                       ph["update"], ph["jobs"],
@@ -5530,7 +5898,7 @@ def main(argv=None) -> int:
                                       ph["moe"], ph["train"], ph["scan"],
                                       ph["mamba"], ph["whisper"],
                                       ph["llava"], ph["hybrid"],
-                                      ph["shard"])))
+                                      ph["shard"], ph["mesh"])))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-"""KGE trainer (the port of ``repro.kge.train``, without its mesh branch).
+"""KGE trainer: the port of ``repro.kge.train``.
 
 One step: draw negatives, score positives and negatives, apply the
 model's loss, backpropagate, Adam/Adagrad update, post-step constraint.
@@ -19,6 +19,26 @@ On the card, ``KGETrainer.fit`` runs the fused models' step as one
 captured CUDA graph (:class:`GraphedStep`), the port's counterpart of the
 reference's ``jax.jit(step, donate_argnums=(0, 1))``; every other model,
 and every step on the CPU, runs eagerly.
+
+``KGETrainer(mesh=)`` is the reference's mesh branch on a process mesh
+(``launch.mesh.ProcessMesh``), one rank a process.  Each table is
+row-sharded over ``"model"`` (``model.param_shardings``: rows ``[m N /
+M, (m + 1) N / M)`` on model rank m; a table whose rows do not divide,
+such as GO's 3-row relation table, is whole on every rank).  Every rank
+draws the global batch and its negatives from the same generator, so
+the negatives are the single-process run's, and scores its data block of
+``B / n_dp`` rows.  The step gathers every row it reads, in the order of
+the single-process gather (heads, tails, the negatives' entities; the
+relations), by a vocab-parallel lookup: a masked local gather and one
+``all_reduce`` over ``"model"``, whose backward sends each row's
+gradient into the local rows only (``models.runtime.psum_identity_bwd``).
+TransE and DistMult then score through ``ops.kge_score`` (the CUDA
+forward and backward kernels on the card), the others through their own
+``score`` on those gathered rows, re-indexed.  Gradients are averaged
+over the data axes (the losses are means over equal blocks); Adam and
+``constrain`` act row by row on each rank's share.  Under a mesh the
+step runs eagerly: gloo's collectives cannot be captured in a CUDA
+graph, so :class:`GraphedStep` stays the single-process path.
 """
 from __future__ import annotations
 
@@ -29,10 +49,12 @@ from typing import (Any, Callable, Dict, Iterator, List, NamedTuple, Optional,
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.triples import TripleLoader
 from ..device import resolve_device
 from ..kernels import ops
+from ..models import runtime
 from ..optim import OPTIMIZERS, Optimizer, OptState
 from .base import KGEModel, Params, remap_params
 from .losses import get_loss
@@ -98,30 +120,93 @@ def _model_scores(model: KGEModel):
     return scores
 
 
+def _lookup(table: torch.Tensor, ids: torch.Tensor, spec, mesh
+            ) -> torch.Tensor:
+    """Rows ``ids`` (global) of a table laid out by ``spec``: a whole
+    table's own rows, or a row shard's masked local gather summed over
+    ``"model"``, whose backward reaches the local rows only."""
+    if spec[0] is None:
+        return table.index_select(0, ids)
+    n = table.shape[0]
+    local = ids - mesh.index("model") * n
+    mine = (local >= 0) & (local < n)
+    rows = table.index_select(0, torch.where(mine, local, 0))
+    rows = rows * mine.view((-1,) + (1,) * (table.dim() - 1)).to(rows.dtype)
+    return runtime.psum_identity_bwd(rows, mesh.group("model"))
+
+
+def _gathered(model: KGEModel, mesh, specs):
+    """(leaves, triples, rand_ents) -> the same three over the rows the
+    batch reads: every table gathered at its ids (:func:`_lookup`), each
+    entity table at ``[heads, tails, negatives]``, each relation table at
+    the relations, and ids into those gathered tables."""
+    roles = model.param_roles()
+
+    def gather(leaves: Params, triples: torch.Tensor,
+               rand_ents: torch.Tensor):
+        b, k = rand_ents.shape
+        ids = {"entity": torch.cat([triples[:, 0], triples[:, 2],
+                                    rand_ents.reshape(-1)]),
+               "relation": triples[:, 1]}
+        rows = {n: _lookup(t, ids[roles[n]], specs[n], mesh)
+                for n, t in leaves.items()}
+        ar = torch.arange(b, device=triples.device)
+        local = torch.stack([ar, ar, b + ar], dim=1)
+        negs = 2 * b + torch.arange(b * k, device=triples.device)
+        return rows, local, negs.view(b, k)
+    return gather
+
+
 def make_train_step(model: KGEModel, optimizer: Optimizer,
-                    cfg: TrainConfig) -> TrainStep:
+                    cfg: TrainConfig, mesh=None) -> TrainStep:
+    """The step's three forms; on a process ``mesh`` the params are the
+    rank's shares, the batch and negatives global (see the module)."""
     loss_fn = get_loss(model.spec.loss)
     loss_kwargs: Dict[str, Any] = {}
     if model.spec.loss in ("margin", "nssa"):
         loss_kwargs["margin"] = model.spec.margin
     scores = (_model_scores(model) if model.kge_score_model is None
               else _fused_scores(model))
+    gather = dp = None
+    if mesh is not None:
+        gather = _gathered(model, mesh, model.param_shardings(
+            "model", axis_size=mesh.shape["model"]))
+        dp = runtime.data_group(mesh)
+        n_dp = mesh.size // mesh.shape["model"]
+        i_dp = 0 if dp is None else mesh.index(
+            [a for a in mesh.axis_names if a in ("pod", "data")])
 
     def loss_and_grads(params: Params, triples: torch.Tensor,
                        rand_ents: torch.Tensor, corrupt_head: torch.Tensor):
         names = list(params)
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        pos, negs = scores(leaves, triples, rand_ents, corrupt_head)
+        tables = leaves
+        if mesh is not None:
+            b = triples.shape[0]
+            if b % n_dp:
+                raise ValueError(f"batch {b} does not divide into {n_dp} "
+                                 f"data ranks")
+            rows = slice(i_dp * (b // n_dp), (i_dp + 1) * (b // n_dp))
+            triples, rand_ents, corrupt_head = (
+                triples[rows], rand_ents[rows], corrupt_head[rows])
+            tables, triples, rand_ents = gather(leaves, triples, rand_ents)
+        pos, negs = scores(tables, triples, rand_ents, corrupt_head)
         loss = loss_fn(pos, negs, **loss_kwargs)
         if cfg.reg_weight:
             loss = loss + cfg.reg_weight * model.regularizer(
-                leaves, triples[:, 0], triples[:, 1], triples[:, 2])
+                tables, triples[:, 0], triples[:, 1], triples[:, 2])
         grads = torch.autograd.grad(loss, [leaves[n] for n in names],
                                     allow_unused=True)
         # a table the batch's loss does not reach gets a zero gradient,
         # as jax.grad gives it
-        return loss.detach(), {n: torch.zeros_like(leaves[n]) if g is None
-                               else g for n, g in zip(names, grads)}
+        grads = {n: torch.zeros_like(leaves[n]) if g is None else g
+                 for n, g in zip(names, grads)}
+        loss = loss.detach()
+        if dp is not None:
+            for g in list(grads.values()) + [loss]:
+                dist.all_reduce(g, group=dp)
+                g.div_(n_dp)
+        return loss, grads
 
     def step_with(params: Params, opt_state: OptState, triples: torch.Tensor,
                   rand_ents: torch.Tensor, corrupt_head: torch.Tensor):
@@ -274,22 +359,54 @@ class GraphedStep:
 
 class KGETrainer:
     """Drives the step over a TripleLoader on one device (default: the
-    card; ``device="cpu"`` for the plain PyTorch path)."""
+    card; ``device="cpu"`` for the plain PyTorch path), or, with ``mesh``
+    (a ``ProcessMesh``), as one rank of a mesh on ``mesh.device``: its
+    params and optimizer state are then the rank's shares
+    (:meth:`shard` / :meth:`gather`)."""
 
-    def __init__(self, model: KGEModel, cfg: TrainConfig, device=None):
+    def __init__(self, model: KGEModel, cfg: TrainConfig, device=None,
+                 mesh=None):
         self.model = model
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
+            self.specs = model.param_shardings(
+                "model", axis_size=mesh.shape["model"])
+            bad = [n for n, r in model.param_roles().items() if r is None]
+            if bad:
+                raise ValueError(f"tables {bad} index neither entities nor "
+                                 f"relations: no row to look up")
         self.device = resolve_device(device)
         self.optimizer = OPTIMIZERS[cfg.optimizer](cfg.lr)
-        self.train_step = make_train_step(model, self.optimizer, cfg)
+        self.train_step = make_train_step(model, self.optimizer, cfg, mesh)
 
     def generator(self, seed: int) -> torch.Generator:
         """A generator on the trainer's device, seeded with ``seed``."""
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
+    def shard(self, params: Params) -> Params:
+        """This rank's shares of full ``params`` (itself without a mesh)."""
+        if self.mesh is None:
+            return params
+        return {n: runtime.take_share(t.to(self.device), self.specs[n],
+                                      self.mesh)
+                for n, t in params.items()}
+
+    def gather(self, params: Params) -> Params:
+        """Full params from every rank's shares (collective over the
+        mesh's world; itself without a mesh)."""
+        if self.mesh is None:
+            return params
+        return {n: runtime.gather_share(t, self.specs[n], self.mesh)
+                for n, t in params.items()}
+
     def init(self, seed: Optional[int] = None) -> Tuple[Params, OptState]:
-        params = self.model.init(
-            self.generator(self.cfg.seed if seed is None else seed))
+        params = self.shard(self.model.init(
+            self.generator(self.cfg.seed if seed is None else seed)))
         return params, self.optimizer.init(params)
 
     def warm_init(
@@ -309,6 +426,7 @@ class KGETrainer:
         params, stats = remap_params(
             self.model, self.generator(self.cfg.seed if seed is None else seed),
             prev_params, entity_map, relation_map)
+        params = self.shard(params)
         return params, self.optimizer.init(params), stats
 
     def fit(
@@ -326,7 +444,8 @@ class KGETrainer:
         :class:`GraphedStep` captured for this call: the first
         ``GRAPH_WARMUP_STEPS`` steps run eagerly on a side stream, the rest
         replay the graph (``stats["graph_replays"]``); every step counts in
-        ``steps``.  A failed capture raises."""
+        ``steps``.  A failed capture raises.  On a mesh every step runs
+        eagerly and the losses are the global batch's."""
         cfg = self.cfg
         if params is None:
             params, opt_state = self.init()
@@ -349,7 +468,8 @@ class KGETrainer:
 
         t0 = time.perf_counter()
         graphed = None
-        if self.device.type == "cuda" and self.model.kge_score_model:
+        if (self.device.type == "cuda" and self.model.kge_score_model
+                and self.mesh is None):
             graphed = GraphedStep(self, params, opt_state)
             warm = min(total_steps, GRAPH_WARMUP_STEPS)
             with torch.cuda.device(self.device):

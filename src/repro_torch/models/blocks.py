@@ -20,7 +20,10 @@ fp32 scales (``quantize_kv``).
 
 The MoE block is the reference's capacity-dropped top-k dispatch
 (``moe_apply``): plain PyTorch, as the reference computes it outside any
-Pallas kernel.
+Pallas kernel.  Under a process mesh (``runtime.use_mesh``) with
+``cfg.moe_impl == "shard_map"`` it is the explicit expert-parallel
+``moe_apply_shard_map``: each model rank holds its experts and one
+``all_reduce`` a layer sums their outputs.
 
 The Mamba block (mamba1) keeps the reference's projections, causal conv
 and dtype order; its softplus, selective scan, D skip and gate run in
@@ -48,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import selective_scan as scan_kernels
+from . import runtime
 from .attention import chunked_attention, decode_attention, swa_attention
 from .config import ArchConfig
 from .layers import (Gen, apply_norm, dense, dense_init, init_device, mlp,
@@ -311,11 +315,13 @@ def moe_init(gen: Gen, cfg: ArchConfig) -> dict:
     }
 
 
-def moe_route(p, x: torch.Tensor, cfg: ArchConfig):
+def moe_route(p, x: torch.Tensor, cfg: ArchConfig,
+              blocks: Optional[int] = None):
     """The router and the capacity ranking of ``moe_apply``, for x
-    (B, S, d): returns ``(probs (nb, Tb, E0) fp32, w (nb, Tb*K) fp32,
-    idx (nb, Tb, K), keep (nb, Tb*K) bool, slot (nb, Tb*K), C)`` with K
-    and the expert ids over the virtual experts when ``moe_ff_split`` > 1.
+    (B, S, d) in ``blocks`` blocks (default ``cfg.moe_dp_blocks``):
+    returns ``(probs (nb, Tb, E0) fp32, w (nb, Tb*K) fp32, idx (nb, Tb,
+    K), keep (nb, Tb*K) bool, slot (nb, Tb*K), C)`` with K and the expert
+    ids over the virtual experts when ``moe_ff_split`` > 1.
 
     Top-k sends ties to the lower expert index (``jax.lax.top_k``'s
     order): a stable descending sort keeps equal probabilities in index
@@ -327,7 +333,7 @@ def moe_route(p, x: torch.Tensor, cfg: ArchConfig):
     E, K = cfg.moe.n_experts, cfg.moe.top_k
     Ev, _, r = _moe_dims(cfg)
     T = B * S
-    nb = max(1, cfg.moe_dp_blocks or 1)
+    nb = max(1, (cfg.moe_dp_blocks if blocks is None else blocks) or 1)
     if T % nb:
         nb = 1
     Tb = T // nb
@@ -362,7 +368,7 @@ def moe_route(p, x: torch.Tensor, cfg: ArchConfig):
 
 
 def moe_apply(p, x: torch.Tensor, cfg: ArchConfig,
-              drops: Optional[torch.Tensor] = None
+              drops: Optional[torch.Tensor] = None, mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B,S,d), aux_loss fp32 scalar). Capacity-dropped top-k
     MoE, block-local dispatch (``cfg.moe_dp_blocks`` blocks, each with its
@@ -375,12 +381,26 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig,
     times ``w * keep``; the Switch aux loss per block over the original
     experts.
 
+    Under a process ``mesh`` (the reference's gspmd impl on a mesh) the
+    rank holds every expert and runs its own tokens as ``moe_dp_blocks /
+    n_dp`` blocks, the reference's block-local capacity when the batch is
+    data-sharded, and ``aux`` is averaged over the data axes.  The
+    reference's ``_moe_constraint`` (``src/repro/models/blocks.py:518-530``)
+    only pins the dispatch buffer's layout for XLA's partitioner: its
+    data part is this block-per-rank split, its expert part exists only
+    in ``moe_apply_shard_map``; nothing else of it has a counterpart.
+
     ``drops``, a 0-dim int64 tensor on x's device, gains the number of
     dropped (token, slot) pairs, in place (no host sync)."""
     B, S, d = x.shape
     E0 = cfg.moe.n_experts
     E, _, r = _moe_dims(cfg)
-    probs, w, idx, keep, slot, C = moe_route(p, x, cfg)
+    dp = blocks = None
+    if mesh is not None:
+        dp = runtime.data_group(mesh)
+        blocks = max(1, (cfg.moe_dp_blocks or 1)
+                     // (mesh.size // mesh.shape["model"]))
+    probs, w, idx, keep, slot, C = moe_route(p, x, cfg, blocks)
     nb, K = slot.shape[0], idx.shape[-1]
     if drops is not None:
         drops += (~keep).sum()
@@ -409,17 +429,90 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig,
     f = F.one_hot(top1, E0).float().mean(dim=1)
     pmean = probs.mean(dim=1)                                # (nb, E0)
     aux = E0 * (f * pmean).sum(-1).mean()
+    if dp is not None:
+        aux = runtime.pmean(aux, dp)
+    return y.reshape(B, S, d), aux
+
+
+def moe_apply_shard_map(p, x: torch.Tensor, cfg: ArchConfig, mesh,
+                        drops: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The explicit expert-parallel MoE (the reference's
+    ``moe_apply_shard_map``, ``src/repro/models/blocks.py:380-488``) on
+    a process mesh.  ``x`` is this rank's tokens: the caller shards the
+    batch over the data axes when they divide it (``B % n_dp == 0 and
+    B >= n_dp``, the reference's ``bspec``) and replicates it otherwise;
+    every model rank holds the same tokens.  ``p["gate"]`` / ``"up"`` /
+    ``"down"`` hold this rank's ``E_local = Ev / n_model`` experts
+    (``convert.shard_params``), ``p["router"]`` all of them.
+
+    Every model rank routes its tokens identically (``moe_route``, one
+    block: the capacity C comes from the local T), keeps the pairs bound
+    for its own experts (``mine``), scatters them into an ``(E_local * C
+    + 1, d)`` buffer, runs its experts and gathers back, other ranks'
+    slots reading the zero scratch row; ``y * (w * mine)`` summed over K
+    is its share of the output, and one ``all_reduce`` over ``"model"``
+    (:func:`runtime.psum_identity_bwd`) the only collective.  The tokens
+    and the router enter through :func:`runtime.pvary`, so the partial
+    cotangents each rank's experts and slots give them are summed over
+    ``"model"``: once, as the reference's transpose of its ``_pvary`` and
+    of the invariant router sums them.  ``aux`` is the rank's Switch loss
+    averaged over ``"model"`` and the data axes (``jax.lax.pmean``).
+
+    ``drops`` gains the dropped pairs bound for this rank's experts; the
+    sum over the model ranks is the drops of their tokens, and over the
+    data ranks too when the batch is data-sharded."""
+    B, S, d = x.shape
+    E0 = cfg.moe.n_experts
+    Ev, _, r = _moe_dims(cfg)
+    n_model = mesh.shape["model"]
+    assert Ev % n_model == 0, (Ev, n_model)
+    E_local = Ev // n_model
+    if p["gate"].shape[0] != E_local:
+        raise ValueError(f"the rank holds {p['gate'].shape[0]} experts, want "
+                         f"{E_local} (convert.shard_params cuts them)")
+    group = mesh.group("model")
+    xf = runtime.pvary(x, group)
+    router = runtime.pvary(p["router"], group)
+    probs, w, idx, keep, slot, C = moe_route({"router": router}, xf, cfg, 1)
+    T, K = B * S, idx.shape[-1]
+    first = mesh.index("model") * E_local            # this rank's experts
+    local_e = idx.reshape(T * K) - first
+    resident = (local_e >= 0) & (local_e < E_local)
+    mine = keep[0] & resident
+    if drops is not None:
+        drops += (resident & ~keep[0]).sum()
+    lslot = torch.where(mine, slot[0] - first * C, E_local * C)
+
+    src = xf.reshape(T, d).repeat_interleave(K, dim=0)
+    buf = x.new_zeros((E_local * C + 1, d)).index_add(0, lslot, src)
+    h = buf[:E_local * C].reshape(E_local, C, d)
+    g = F.silu(torch.einsum("ecd,edf->ecf", h, p["gate"]))
+    u = torch.einsum("ecd,edf->ecf", h, p["up"])
+    o = torch.einsum("ecf,efd->ecd", g * u, p["down"])
+
+    out_rows = torch.cat([o.reshape(E_local * C, d), o.new_zeros((1, d))])
+    y = out_rows[lslot] * (w[0] * mine)[:, None].to(x.dtype)
+    y = runtime.psum_identity_bwd(y.reshape(T, K, d).sum(dim=1), group)
+
+    top1 = idx[0, :, 0] // r if r > 1 else idx[0, :, 0]
+    f = F.one_hot(top1, E0).float().mean(dim=0)
+    aux = E0 * (f * probs[0].mean(dim=0)).sum()
+    # over "model" and the data axes: every axis of a process mesh
+    aux = runtime.pmean(aux, mesh.group(mesh.axis_names))
     return y.reshape(B, S, d), aux
 
 
 def moe_dispatch(p, x: torch.Tensor, cfg: ArchConfig,
                  drops: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``moe_apply``: the port runs on one device.  The reference's
-    explicit expert-parallel ``moe_apply_shard_map`` branch (taken under a
-    mesh with ``cfg.moe_impl == "shard_map"``) waits for the port's mesh
-    (ROADMAP Queue 1 item 6)."""
-    return moe_apply(p, x, cfg, drops)
+    """The expert-parallel ``moe_apply_shard_map`` when a process mesh is
+    active (``runtime.use_mesh``) and ``cfg.moe_impl == "shard_map"``;
+    ``moe_apply`` (on the mesh, when one is active) otherwise."""
+    mesh = runtime.get_mesh()
+    if mesh is not None and cfg.moe_impl == "shard_map":
+        return moe_apply_shard_map(p, x, cfg, mesh, drops)
+    return moe_apply(p, x, cfg, drops, mesh)
 
 
 def moe_block_init(gen: Gen, cfg: ArchConfig) -> dict:

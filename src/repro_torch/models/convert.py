@@ -12,6 +12,11 @@ hybrid's ``layers`` is ``{"periods": {"l0": ..., "l1": ..., "l2": ...},
 "rem0": ..., "rem1": ...}``, each ``l{j}`` leaf stacked over the P
 periods: period i's ``l{j}`` becomes layer ``3 i + j`` and ``rem{r}``
 layer ``3 P + r``.
+
+On a process mesh, :func:`shard_params` cuts a model's params to the
+rank's share (``sharding.expert_parallel_pspec``: the experts over
+``"model"`` for the expert-parallel MoE, every other leaf whole) and
+:func:`gather_params` puts the shares back together.
 """
 from __future__ import annotations
 
@@ -21,8 +26,10 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from . import runtime
 from .layers import ParamTree
 from .lm import BaseLM
+from .sharding import expert_parallel_pspec
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
@@ -122,3 +129,32 @@ def params_from_numpy(model: BaseLM, tree: Mapping,
             for i, (w, got_i) in enumerate(zip(want[g], layers[g]))]
     model.params = ParamTree(params)
     return model
+
+
+def _leaves(model: BaseLM):
+    """``(dotted name, owning module, leaf name, tensor)`` of every param."""
+    for name, t in list(model._p().named_parameters()):
+        parent, _, leaf = name.rpartition(".")
+        yield name, model.params.get_submodule(parent), leaf, t
+
+
+def shard_params(model: BaseLM, mesh) -> BaseLM:
+    """Cut ``model.params`` in place to this rank's share on the process
+    ``mesh``; each cut leaf is a new tensor, so the full one is freed
+    leaf by leaf.  Returns the model."""
+    for name, mod, leaf, t in _leaves(model):
+        spec = expert_parallel_pspec(model.cfg, tuple(name.split(".")),
+                                     t.dim())
+        if any(spec):
+            setattr(mod, leaf, torch.nn.Parameter(
+                runtime.take_share(t.detach(), spec, mesh),
+                requires_grad=t.requires_grad))
+    return model
+
+
+def gather_params(model: BaseLM, mesh) -> Dict[str, torch.Tensor]:
+    """``{dotted name: full tensor}`` from every rank's share (collective
+    over the world)."""
+    return {name: runtime.gather_share(t.detach(), expert_parallel_pspec(
+        model.cfg, tuple(name.split(".")), t.dim()), mesh)
+        for name, _, _, t in _leaves(model)}

@@ -3,10 +3,18 @@ port of ``repro.models.dense``.
 
 h2o-danube uses sliding-window attention (cfg.attention ==
 "sliding_window"), whose prefill and training step run the CUDA kernels
-``kernels/csrc/swa_attention.cu`` in every layer.  The reference's
-``_maybe_seq_shard`` constrains the residual's sharding only under a mesh;
-the port has none yet (ROADMAP Queue 1, sharding), so ``backbone`` leaves
-it out.
+``kernels/csrc/swa_attention.cu`` in every layer.
+
+Under a process mesh with ``cfg.seq_shard`` (the reference's
+``_maybe_seq_shard``, Megatron-style sequence parallelism) ``backbone``
+keeps the residual between blocks sequence-sharded over ``"model"``:
+each model rank holds S / n_model rows.  Each block all-gathers its input
+inside its checkpointed function and slices its output back, so what
+remat saves for a block is the rank's rows.  The blocks compute
+replicated over ``"model"``, so the all-gather's backward is a slice and
+the slice's an all-gather (``runtime.gather_seq`` / ``slice_seq``), not
+a reduce-scatter; loss and gradients equal those of ``seq_shard=False``.
+As in the reference, only ``backbone`` (training) takes it.
 
 The cache keeps the reference's stacked ``(L, B, G, Sc, hd)`` layout, so
 caches compare across the packages.  ``decode_step`` writes the new slot
@@ -22,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from . import blocks
+from . import blocks, runtime
 from .layers import Gen, apply_norm, mlp
 from .lm import BaseLM, scan_layers
 
@@ -41,9 +49,24 @@ class DenseLM(BaseLM):
                 for _ in range(self.cfg.n_layers)]
 
     def backbone(self, x: torch.Tensor):
+        mesh = runtime.get_mesh()
+        group = None
+        if self.cfg.seq_shard and mesh is not None:
+            group = mesh.group("model")
+            if x.shape[1] % mesh.shape["model"]:
+                raise ValueError(
+                    f"seq_shard: S = {x.shape[1]} does not divide into "
+                    f"{mesh.shape['model']} model ranks")
+            x = runtime.slice_seq(x, group)
+
         def body(p, h):
-            return blocks.block_apply(p, h, self.cfg, window=self.window)
+            if group is not None:
+                h = runtime.gather_seq(h, group)
+            h = blocks.block_apply(p, h, self.cfg, window=self.window)
+            return h if group is None else runtime.slice_seq(h, group)
         h = scan_layers(self._p()["layers"], x, body, self.cfg)
+        if group is not None:
+            h = runtime.gather_seq(h, group)
         return h, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def backbone_prefill(self, x: torch.Tensor, cache_len: Optional[int] = None):

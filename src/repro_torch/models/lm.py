@@ -29,6 +29,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..kernels.ref import no_tf32
+from . import runtime
 from .config import ArchConfig
 from .layers import Gen, ParamTree, apply_norm, norm_init, normal
 
@@ -46,17 +47,24 @@ def cache_nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in cache_leaves(tree))
 
 
-def xent(logits: torch.Tensor, labels: torch.Tensor
+def xent(logits: torch.Tensor, labels: torch.Tensor, group=None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-entropy with label -1 = ignore, in fp32: logits (B, S, V),
-    labels (B, S) -> (mean loss, accuracy) over the labelled positions."""
+    labels (B, S) -> (mean loss, accuracy) over the labelled positions.
+    With a process ``group`` (a mesh's data axes) the sums and the count
+    are taken over every rank's positions: the global masked mean, whose
+    backward on each rank is its own positions' share of the gradient."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
-    n = mask.sum().clamp(min=1.0)
-    loss = ((lse - ll) * mask).sum() / n
-    acc = ((lf.argmax(-1) == labels).float() * mask).sum() / n
+    sums = torch.stack([((lse - ll) * mask).sum(),
+                        ((lf.argmax(-1) == labels).float() * mask).sum()])
+    n = mask.sum()
+    if group is not None:
+        sums = runtime.psum_identity_bwd(sums, group)
+        n = runtime.psum_identity_bwd(n, group)
+    loss, acc = sums / n.clamp(min=1.0)
     return loss, acc
 
 
@@ -179,11 +187,15 @@ class BaseLM(nn.Module):
     def loss(self, batch: Dict[str, torch.Tensor]):
         """``batch["tokens"]``, ``batch["labels"]`` (B, S) -> (total loss,
         metrics ``ce``, ``aux``, ``acc``): ``total = ce + 0.01 * aux``.
-        Differentiable in the params once they want gradients."""
+        Differentiable in the params once they want gradients.  Under a
+        process mesh (``runtime.use_mesh``) the batch is this rank's and
+        ``ce`` / ``acc`` are over the data axes' positions (``xent``)."""
         x = self.embed_batch(batch)
         h, aux = self.backbone(x)
         h = apply_norm(self._p()["ln_f"], h)
-        loss, acc = xent(self.logits(h), batch["labels"])
+        mesh = runtime.get_mesh()
+        loss, acc = xent(self.logits(h), batch["labels"],
+                         None if mesh is None else runtime.data_group(mesh))
         total = loss + 0.01 * aux
         return total, {"ce": loss, "aux": aux, "acc": acc}
 

@@ -96,6 +96,21 @@ def param_pspec(cfg: ArchConfig, path: Tuple[str, ...], ndim: int,
     return tuple(spec)
 
 
+def expert_parallel_pspec(cfg: ArchConfig, path: Tuple[str, ...],
+                          ndim: int) -> Spec:
+    """A leaf's layout on a process mesh (``convert.shard_params``): with
+    ``cfg.moe_impl == "shard_map"`` an MoE layer's ``gate`` / ``up`` /
+    ``down`` split their experts over ``"model"``, as the reference's
+    ``moe_apply_shard_map`` takes them; every other leaf is replicated.
+    The reference's tensor-parallel layout of the attention and dense
+    weights (:func:`param_pspec`) is XLA's partitioning, which the port
+    does not reproduce."""
+    if cfg.moe and cfg.moe_impl == "shard_map" and len(path) >= 2 \
+            and path[-2] == "moe" and path[-1] in ("gate", "up", "down"):
+        return (MODEL_AXIS,) + (None,) * (ndim - 1)
+    return (None,) * ndim
+
+
 def _map(fn, tree, path=()):
     """``fn(path, leaf)`` over a tree of dicts, lists and tuples."""
     if isinstance(tree, dict):

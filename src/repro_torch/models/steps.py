@@ -3,35 +3,71 @@ input specs.  The port of ``repro.models.steps``.  The params live in the
 model, so the steps take none."""
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..optim import Optimizer, OptState, adam
+from . import runtime
 from .layers import ParamTree
 from .lm import BaseLM
+from .sharding import batch_sharded, data_axes
 
 
-def make_train_step(model: BaseLM, lr: float = 3e-4
+def local_batch(batch: Dict[str, torch.Tensor], mesh
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global ``batch`` on a process mesh: a block
+    of ``B / n_dp`` rows when the data axes divide B (the reference's
+    ``batch_pspec``), else every row."""
+    B = next(iter(batch.values())).shape[0]
+    if not batch_sharded(mesh, B):
+        return batch
+    n = mesh.size // mesh.shape["model"]
+    i = mesh.index(data_axes(mesh))
+    return {k: v[i * (B // n):(i + 1) * (B // n)] for k, v in batch.items()}
+
+
+def loss_and_grads(model: BaseLM, batch, mesh=None):
+    """``(loss, metrics, {name: grad})`` of ``model.loss`` on ``batch``,
+    the params' ``.grad`` cleared after.  On a process ``mesh`` the params
+    are this rank's share (``convert.shard_params``) and ``batch`` the
+    global batch: the model runs on the rank's rows (:func:`local_batch`)
+    under ``runtime.use_mesh``, so the loss is the global masked mean
+    (``lm.xent``), and after ``backward()`` each gradient is summed over
+    the data axes (a leaf replicated over ``"model"`` is already the same
+    on every model rank: ``runtime``'s collectives see to that)."""
+    params = dict(model._p().named_parameters())
+    with runtime.use_mesh(mesh):
+        loss, metrics = model.loss(batch if mesh is None
+                                   else local_batch(batch, mesh))
+        loss.backward()
+    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+             for n, p in params.items()}
+    dp = None if mesh is None else runtime.data_group(mesh)
+    if dp is not None:
+        for g in grads.values():
+            dist.all_reduce(g, group=dp)
+    for p in params.values():
+        p.grad = None
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def make_train_step(model: BaseLM, lr: float = 3e-4, mesh=None
                     ) -> Tuple[Callable, Optimizer]:
     """Returns (step, optimizer).  ``step(opt_state, batch) -> (opt_state,
-    metrics)``: the loss and its gradients (``loss.backward()``), then
-    Adam, in place, over ``dict(model.params.named_parameters())`` (the
-    dict ``optimizer.init`` takes); ``metrics`` are the loss's with
+    metrics)``: the loss and its gradients (:func:`loss_and_grads`, on a
+    process ``mesh`` too), then Adam, in place, over
+    ``dict(model.params.named_parameters())`` (the dict ``optimizer.init``
+    takes; on a mesh the rank's share); ``metrics`` are the loss's with
     ``loss``.  Turns the params' gradients on."""
     optimizer = adam(lr)
     params = dict(model._p().requires_grad_(True).named_parameters())
 
     def step(opt_state: OptState, batch):
-        loss, metrics = model.loss(batch)
-        loss.backward()
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in params.items()}
+        loss, metrics, grads = loss_and_grads(model, batch, mesh)
         optimizer.update(grads, opt_state, params)
-        for p in params.values():
-            p.grad = None
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return opt_state, dict(metrics, loss=loss.detach())
+        return opt_state, dict(metrics, loss=loss)
 
     return step, optimizer
 

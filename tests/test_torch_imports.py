@@ -111,11 +111,13 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(entry, tmp_path):
 
 @pytest.mark.parametrize("module", ["repro_torch.launch.mesh",
                                     "repro_torch.models.sharding",
-                                    "repro_torch.launch.dryrun"])
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.models.runtime"])
 def test_mesh_sharding_and_dry_run_modules_import_alone(module):
-    """The serving mesh, the sharding rules and the dry run import in a
-    fresh interpreter with neither JAX nor ``repro`` and without touching
-    the card: the dry run needs no device."""
+    """The meshes (serving and process), the sharding rules, the dry run
+    and the runtime collectives import in a fresh interpreter with
+    neither JAX nor ``repro`` and without touching the card: the dry run
+    needs no device, and a process world is joined only when asked."""
     code = (
         "import importlib, json, sys, torch\n"
         f"importlib.import_module({module!r})\n"
