@@ -202,6 +202,21 @@ Phases, in order; any failure exits non-zero:
               tokens, 16 steps), 60 causal SWA launches (56 / 8 heads,
               d 128) a prefill; where a prefill's and a decode step's
               device time goes
+     zoo      the zoo's four large archs at published width, in a fresh
+              child process, one after another (each freed before the
+              next): internlm2-20b at all 48 layers, qwen2-72b,
+              mistral-large-123b and grok-1-314b cut in depth to 4, 4 and
+              2 layers (``ZOO_ARCHS``); each in fp32 at 2 layers, the
+              last logits of prefill(2049) against prefill(2048) +
+              decode_step (2e-3, same argmax; grok at capacity factor 16,
+              B 1, prompt 512, no pair dropped), one SWA launch a layer;
+              then a bf16 ``launch.generate --layers`` (batch 2, prompt
+              2048, 16 steps): prefill ms, decode ms a token, cache bytes
+              and peak memory beside ``serve_specs``' bytes at that depth,
+              one causal SWA launch a layer (mistral's 12 q heads a kv
+              head), grok's dropped pairs.  ``zoo_deep`` (only when
+              named): the same at the deepest depths that fit 63 GB of
+              weights and cache, 32, 22 and 6 layers
  10. train    h2o-danube-1.8b training at its published width: in fp32
               two layers (B = 1, S = 6144 > W) with the kernels against the
               same step with the plain SWA forward and backward
@@ -210,9 +225,10 @@ Phases, in order; any failure exits non-zero:
               ``repro_torch.launch.train`` (a 1-step warm-up run, then 3
               measured steps): step ms, tokens/s, peak memory, 48 SWA
               forwards and 24 launches of each backward entry point a
-              step, finite losses; 5 steps on one repeated batch, whose
-              losses fall, 2 of them under torch.profiler (device-busy
-              share, device ms by kernel group).  Then falcon-mamba-7b
+              step, finite losses; 6 steps on one repeated batch, whose
+              first 5 losses fall, 1 of them under torch.profiler
+              (device-busy share, device ms by kernel group and by host
+              op, Adam's passes apart).  Then falcon-mamba-7b
               at its published width: in fp32 two layers (B = 1, S =
               2048) with the kernels against the same step with the
               plain fused scan and its plain backward substituted (the
@@ -220,16 +236,22 @@ Phases, in order; any failure exits non-zero:
               B 2, S 2048, Adam at lr 3e-4, through ``launch.train`` (a
               1-step warm-up run, then 3 measured steps): step ms,
               tokens/s, peak memory, 128 fused scans and 64 backward
-              launches a step, finite losses; 5 steps on one repeated
-              batch, whose losses fall, 2 under torch.profiler.  Then
+              launches a step, finite losses; 6 steps on one repeated
+              batch, whose first 5 losses fall, 1 under torch.profiler.  Then
               recurrentgemma-2b: fp32, 3 layers (B 1, S 4,096) with the
               SWA Function swapped for the plain one; bf16, all 26
               layers, remat "full" per period, B 2, S 4,096 (16 SWA
               forwards at d 256 and 8 of each backward entry point a
               step), the same measurements, but its repeated batch's
-              first 5 losses held to the plain SWA Function's (1e-3
-              relative) and its last below its first: Adam at lr 3e-4
-              overshoots at its fourth step on both paths.  The
+              first 3 losses fall: Adam at lr 3e-4 overshoots at its
+              fourth step on both paths.  Then olmoe-1b-7b: fp32, 2
+              layers (B 1, S 2,048, capacity factor 16) with the SWA
+              Function swapped, the (token, expert) choices its router
+              makes apart in the two steps counted; bf16, all 16 layers,
+              remat "full", B 2, S 2,048 (32 SWA forwards and 16 of each
+              backward entry point a step), the same measurements, Adam's
+              passes, the expert einsums and the MoE's scatter and gather
+              apart in the profiled step.  The
               generation runs' 16 decode steps (were 32) and the 3
               measured training steps (were 5) are the depth cut that
               keeps the whole script near 1,000 s
@@ -242,12 +264,14 @@ Phases, in order; any failure exits non-zero:
               kernel at one h2o-danube layer's shape, bf16 (B = 2, and
               B = 1, the training shape) and fp32, against its bound, its
               plain version and ``scaled_dot_product_attention``, and at
-              one olmoe-1b-7b and one llava-next-34b prefill layer's
-              causal shape against SDPA ``is_causal``; where the device time of an olmoe-1b-7b
+              one olmoe-1b-7b, one llava-next-34b and one
+              mistral-large-123b prefill layer's causal shape against
+              SDPA ``is_causal``; where the device time of an olmoe-1b-7b
               prefill and decode step goes, and their busy shares; the
               device-busy share of a full-width decode step; the SWA
-              backward at one layer's shape (B = 1 and 2, bf16 and fp32)
-              against its bounds (the function's, the two-kernel
+              backward at one layer's shape (B = 1 and 2, bf16 and fp32),
+              and at olmoe-1b-7b's training shape (causal, bf16), against
+              its bounds (the function's, the two-kernel
               design's), its plain version and SDPA forward + backward,
               and the forward with its log-sum-exp against without; the
               selective scan at one falcon-mamba-7b layer's shape, bare
@@ -288,7 +312,8 @@ and last ``{"ok": true, "device": {...}}``.
 ``build,swa,lm``, ``build,swa,moe``, ``build,mesh``,
 ``build,scan,mamba``,
 ``build,swa,whisper``, ``build,swa,llava``, ``build,swa,hybrid``,
-``build,swa,train`` or ``build,scan,train`` (the three training runs)
+``build,zoo``, ``build,zoo_deep``,
+``build,swa,train`` or ``build,scan,train`` (the four training runs)
 is a quick check of one slice;
 ``build,serve,workers``
 the serving paths, ``build,shard`` the sharded one; ``--sass-of
@@ -333,6 +358,11 @@ KGE_REPLACES = "src/repro/kernels/kge_score.py:54"
 KGE_TOL = 1e-4              # kernel vs plain, the reference's own (test_kernels.py)
 KGE_MODELS = ("transe_l1", "transe_l2", "distmult")
 KGE_SHAPE = (1024, 32, 200)  # TrainConfig batch, negatives; PAPER_DIM
+#: the numbers phase's eager GO training step of each of the six models:
+#: timed calls and profiled steps (50 and 30 before olmoe-1b-7b's
+#: training run and the zoo phase joined the script: a depth cut of
+#: figures PERF.md already records)
+KGE_STEP_TIMED, KGE_STEP_PROFILED = 20, 10
 #: phase_kge's shapes: the training shape, the reference's test shapes, and
 #: the backward's staging paths (K * d not a multiple of 4; a slab past
 #: one stage; d past 128 float4 columns)
@@ -403,6 +433,9 @@ SWA_CASES = (
      (2, 8, 8, 448, 448, 64, 448, 0)),
     ("causal: llava layer, 56 / 8 heads, W = S",
      (1, 56, 8, 2944, 2944, 128, 2944, 0)),
+    # mistral-large-123b's 12 q heads a kv head (96 / 8), two groups
+    ("causal: mistral's group of 12, W = S",
+     (1, 24, 2, 2048, 2048, 128, 2048, 0)),
     # head dim 256 (recurrentgemma-2b: 10 q heads over 1 kv head, W 2048):
     # its layer, ragged S, q_offset with Sq < Skv, W not a multiple of 64,
     # one query, W >= S; each also launched twice (the same bits)
@@ -487,9 +520,11 @@ LLAVA_CHECK_LAYERS = 2
 #: joined the script)
 TRAIN_BATCH, TRAIN_SEQ = 1, 6144
 TRAIN_WARM_STEPS, TRAIN_STEPS = 1, 3
-#: profiled steps on one repeated batch (3 warm-up + 2 profiled + 1 + 2
-#: timed: 8 steps, whose losses must fall over the first 5)
-TRAIN_REPEAT_STEPS = 2
+#: profiled steps on one repeated batch (3 warm-up + 1 profiled + 1 + 1
+#: timed: 6 steps, whose losses must fall over the first 5); 2 profiled
+#: before olmoe-1b-7b's training run and the zoo phase joined the
+#: script: a depth cut of figures PERF.md already records
+TRAIN_REPEAT_STEPS = 1
 #: the fp32 check: 2 layers at full width, the kernels' step against the
 #: plain SWA forward and backward substituted; loss within 1e-5
 #: relative, each gradient leaf within 2e-4 * max|g_plain| of the leaf
@@ -525,12 +560,44 @@ HYBRID_CHECK_BATCH = 1
 #: fall where the other archs' first 5 must; the fp32 check holds its
 #: kernels' step to the plain Function's
 HYBRID_REPEAT_FALLS = 3
+#: the MoE training run: olmoe-1b-7b at its published width and depth,
+#: bf16, remat "full", batch 2 of 2048 tokens (the generation run's
+#: shape), Adam at lr 3e-4: 6.92 B params, ~55.4 GB with their gradients
+#: and two bf16 Adam moments; the fp32 check at 2 layers, B 1, capacity
+#: factor MOE_CHECK_CF (no pair is past the capacity in either step)
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2, 2048, 3
+MOE_CHECK_BATCH = 1
+#: the zoo phase: the zoo's four large archs at published width, one after
+#: another in a fresh process, each generating through launch.generate at
+#: B 2 from a 2,048-token prompt, 16 steps.  (arch, depth of the default
+#: run, depth of the opt-in zoo_deep).  A depth is fixed by serve_specs'
+#: bytes (params + cache at B 2, 2,064 positions) against
+#: ZOO_BUDGET_BYTES, 63 GB of the card's 80, which leaves room for a
+#: leaf's fp32 draw (grok's experts: 6.4 GB) and the prefill's
+#: activations.  internlm2-20b is whole (39.7 GB) in both runs; qwen2-72b
+#: (1.76 GB a layer, 4.98 GB outside the layers), mistral-large-123b
+#: (2.77, 1.61) and grok-1-314b (9.84, 3.22) are cut: 32, 22 and 6 layers
+#: fill the budget (zoo_deep), and the default run takes 4, 4 and 2 to
+#: keep the script's time
+MISTRAL_ARCH = "mistral-large-123b"      # 12 q heads a kv head
+ZOO_ARCHS = (("internlm2-20b", 48, 48), ("qwen2-72b", 4, 32),
+             (MISTRAL_ARCH, 4, 22), ("grok-1-314b", 2, 6))
+ZOO_BUDGET_BYTES = 63e9
+ZOO_BATCH, ZOO_PROMPT, ZOO_STEPS = 2, 2048, 16
+#: the fp32 prefill(S + 1) / prefill(S) + decode check: 2 layers at full
+#: width, B 2, S 2048; grok at capacity factor MOE_CHECK_CF (no drop) and
+#: B 1, S 512: at that factor C = 4 T, and at B 2, S 2049 each fp32
+#: product of its experts, (8, C, 32768), would take 34 GB beside 46 GB
+#: of fp32 params
+ZOO_CHECK_LAYERS = 2
+ZOO_MOE_CHECK_BATCH, ZOO_MOE_CHECK_PROMPT = 1, 512
 BF16_FLOP_PER_S = 989e12    # H100 SXM data sheet, dense bf16 tensor cores
 #: steps under the profiler in the prefill and decode breakdowns of the
 #: numbers and llava phases (2 prefills and 16 / 8 decode steps before
-#: the recurrentgemma phase and training run joined the script: a depth
-#: cut that keeps it near 820 s)
-PREFILL_PROFILE_STEPS, DECODE_PROFILE_STEPS = 1, 4
+#: the recurrentgemma phase and training run joined the script, 4
+#: decode steps before olmoe-1b-7b's training run and the zoo phase did:
+#: depth cuts of figures PERF.md already records, to keep it near 820 s)
+PREFILL_PROFILE_STEPS, DECODE_PROFILE_STEPS = 1, 2
 #: the bf16 SWA backward kernels, which must run on wgmma (HGMMA in SASS)
 BF16_BWD_KERNELS = ("swa_bwd_dkdv_bf16_kernel", "swa_bwd_dq_bf16_kernel")
 SMALL_ENTRY = ("topk_score_select", "topk_merge_lists")
@@ -3768,12 +3835,14 @@ def _generate(argv: list, swa_want: int, scan_want: int, vocab: int,
     """``launch.generate`` with ``argv``: a warm-up run (unless the caller
     warmed the same shapes up), then the measured one, whose prefill must
     launch ``swa_want`` SWA forwards and ``scan_want`` fused scans (and no
-    SWA or scan backward, no bare scan); its ids in the vocab.  Returns (warm-up result or None,
-    measured result, launches)."""
+    SWA or scan backward, no bare scan); its ids in the vocab.  Returns
+    (warm-up result or None, measured result, launches)."""
+    import gc
     import torch
     from repro_torch.kernels import selective_scan as ss, swa_attention as sw
     from repro_torch.launch import generate
     warm = generate.main(argv) if warm_up else None
+    gc.collect()                        # the warm-up run's model, freed
     torch.cuda.empty_cache()
     sw.reset_launches()
     ss.reset_launches()
@@ -4106,6 +4175,107 @@ def phase_llava(card: str) -> dict:
     return out
 
 
+def serve_bytes(arch: str, n_layers: int, B: int, seq: int) -> dict:
+    """The bytes of ``models.steps.serve_specs`` on the meta device for
+    ``arch`` cut to ``n_layers``: its params, and its cache at batch ``B``
+    and ``seq`` positions."""
+    from repro_torch.models import build, get_config
+    from repro_torch.models.lm import cache_nbytes
+    from repro_torch.models.steps import serve_specs
+    params, cache, _, _ = serve_specs(
+        build(get_config(arch).with_(n_layers=n_layers)), B, seq)
+    return {"params": cache_nbytes(params), "cache": cache_nbytes(cache)}
+
+
+def phase_zoo(card: str, deep: bool = False) -> dict:
+    """The zoo's four large archs at published width (``ZOO_ARCHS``), one
+    after another, each model freed before the next is built.
+
+    Each arch, fp32, 2 layers: the last logits of prefill(S + 1) against
+    prefill(S) + decode_step (grok-1-314b at capacity factor 16, no pair
+    dropped), one SWA forward a layer a prefill.  bf16 at the run's depth
+    (the default's, or ``zoo_deep``'s when ``deep``): the generation of
+    ``launch.generate --layers`` (a warm-up run, then the measured one; B
+    2, a 2,048-token prompt, 16 steps): prefill ms, decode ms a token,
+    cache bytes, peak memory beside ``serve_specs``' bytes at that depth
+    (which must fit ``ZOO_BUDGET_BYTES``, the cache equal to the
+    generation's), one SWA launch a layer of the prefill, ids in the
+    vocab, grok's dropped (token, slot) pairs."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.models import build, get_config
+
+    name = "zoo_deep" if deep else "zoo"
+    lap = laps(name)
+    archs = {}
+    for arch, depth, deep_depth in ZOO_ARCHS:
+        n_layers = deep_depth if deep else depth
+        full = get_config(arch)
+        cfg = full.with_(dtype="float32", n_layers=ZOO_CHECK_LAYERS)
+        B, S = ZOO_BATCH, ZOO_PROMPT
+        if cfg.moe is not None:
+            cfg = cfg.with_(moe=dataclasses.replace(
+                cfg.moe, capacity_factor=MOE_CHECK_CF))
+            B, S = ZOO_MOE_CHECK_BATCH, ZOO_MOE_CHECK_PROMPT
+        model = build(cfg).init(torch.Generator(device=DEV).manual_seed(SEED))
+        rng = np.random.default_rng(SEED + 37)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S + 1),
+                                             dtype=np.int32)).to(DEV)
+        consistency = _consistency(model, {"tokens": toks},
+                                   {"tokens": toks[:, :-1]}, S, toks[:, -1:],
+                                   _launch_counters())
+        check(all(c["swa"] == cfg.n_layers and c["scan"] == 0
+                  for c in consistency["launches_per_prefill"].values()),
+              f"{arch} fp32 prefills launched "
+              f"{consistency['launches_per_prefill']}, want "
+              f"{cfg.n_layers} SWA forwards each")
+        consistency.update(batch=B, prompt=S)
+        if cfg.moe is not None:
+            consistency.update(capacity_factor=MOE_CHECK_CF,
+                               dropped=model.take_dropped())
+            check(consistency["dropped"] == 0,
+                  f"{arch} fp32 at capacity factor {MOE_CHECK_CF} dropped "
+                  f"{consistency['dropped']} (token, slot) pairs")
+        del model, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap(f"{arch} fp32_check")
+
+        specs = serve_bytes(arch, n_layers, ZOO_BATCH, ZOO_PROMPT + ZOO_STEPS)
+        check(specs["params"] + specs["cache"] <= ZOO_BUDGET_BYTES,
+              f"{arch} at {n_layers} layers: serve_specs {specs} past the "
+              f"budget of {ZOO_BUDGET_BYTES:.0f} bytes")
+        argv = ["--arch", arch, "--layers", str(n_layers), "--batch",
+                str(ZOO_BATCH), "--prompt-len", str(ZOO_PROMPT), "--steps",
+                str(ZOO_STEPS), "--seed", str(SEED), "--device", DEV]
+        warm, run, launches = _generate(
+            argv, n_layers, 0, full.padded_vocab,
+            (ZOO_BATCH, ZOO_STEPS + 1))
+        check(run["cache_bytes"] == specs["cache"],
+              f"{arch}: the generation's cache {run['cache_bytes']} B, "
+              f"serve_specs' {specs['cache']}")
+        rec = {"arch": arch, "layers": n_layers,
+               "published_layers": full.n_layers,
+               "fp32_consistency": consistency,
+               "generation": {k: v for k, v in run.items() if k != "ids"},
+               "warmup_generation": {k: warm[k] for k in (
+                   "prefill_ms", "decode_ms_per_token")},
+               "peak_memory_bytes": run["peak_memory_bytes"],
+               "serve_specs_bytes": specs,
+               "serve_specs_total_bytes": specs["params"] + specs["cache"],
+               "ids_row0": run["ids"][0], "launches": launches,
+               "card": card}
+        emit({name: rec})
+        archs[arch] = rec
+        del warm, run
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap(arch)
+    return {"phase": name, "card": card, "archs": archs,
+            "budget_bytes": ZOO_BUDGET_BYTES}
+
+
 def _decode_busy(model, cache, pos: int, steps: int) -> dict:
     """``_busy_share`` of greedy decode steps from ``pos`` on ``cache``."""
     import torch
@@ -4276,51 +4446,101 @@ def _step_launches(arch: str, n_layers: int, steps: int) -> dict:
     return {**swa, **_scan_step_launches(0, steps)}
 
 
+def _routes(n_layers: int):
+    """A context that records the expert ids ``blocks.moe_route`` chooses
+    and the pairs it drops in each of the first ``n_layers`` calls (a
+    step's forward; its recompute follows), into the list it yields."""
+    import contextlib
+    from repro_torch.models import blocks
+
+    @contextlib.contextmanager
+    def recording():
+        seen, route = [], blocks.moe_route
+
+        def recorded(*args, **kw):
+            out = route(*args, **kw)
+            if len(seen) < n_layers:
+                seen.append((out[2].detach().clone(), (~out[3]).sum()))
+            return out
+        blocks.moe_route = recorded
+        try:
+            yield seen
+        finally:
+            blocks.moe_route = route
+    return recording()
+
+
+def _routes_differ(a: list, b: list, n_experts: int) -> int:
+    """(token, expert) choices made in routes ``a`` and not in ``b``."""
+    import torch.nn.functional as F
+    return sum(int((F.one_hot(x, n_experts).sum(-2).bool()
+                    & ~F.one_hot(y, n_experts).sum(-2).bool()).sum())
+               for (x, _), (y, _) in zip(a, b))
+
+
 def _train_fp32_check(arch: str, B: int, S: int, seed: int, module,
                       attr: str, plain_fn,
-                      n_layers: int = TRAIN_CHECK_LAYERS) -> dict:
+                      n_layers: int = TRAIN_CHECK_LAYERS,
+                      capacity_factor: float = None) -> dict:
     """fp32, ``n_layers`` layers at full width: loss and every gradient
     leaf of the kernels' step against the same step with ``module.attr``
     (the kernels' autograd Function) swapped for ``plain_fn`` (the plain
-    forward and backward) for one step."""
+    forward and backward) for one step.  An MoE arch runs at
+    ``capacity_factor``, and the (token, expert) choices its router makes
+    differently in the two steps are counted."""
+    import dataclasses
     import torch
     from repro_torch.models import build, get_config
     t0 = time.perf_counter()
     cfg32 = get_config(arch).with_(dtype="float32", n_layers=n_layers)
+    if cfg32.moe is not None:
+        cfg32 = cfg32.with_(moe=dataclasses.replace(
+            cfg32.moe, capacity_factor=capacity_factor))
     model = build(cfg32).init(torch.Generator(device=DEV).manual_seed(SEED))
     model.params.requires_grad_(True)
     batch = _train_batch(cfg32, seed, B, S)
     _reset_train_launches()
-    loss_k, grads_k = _loss_and_grads(model, batch)
+    with _routes(n_layers) as routes_k:
+        loss_k, grads_k = _loss_and_grads(model, batch)
     launches = _train_launches()
     check(launches == _step_launches(arch, n_layers, 1),
           f"{arch} fp32 step launched {launches}")
     kernel_fn = getattr(module, attr)
     setattr(module, attr, plain_fn)
     try:
-        loss_p, grads_p = _loss_and_grads(model, batch)
+        with _routes(n_layers) as routes_p:
+            loss_p, grads_p = _loss_and_grads(model, batch)
     finally:
         setattr(module, attr, kernel_fn)
     check(_train_launches() == launches,
           f"{arch}: the plain step launched a kernel")
+    out = {"arch": arch, "layers": n_layers, "batch": B, "seq": S}
+    if cfg32.moe is not None:
+        out.update(capacity_factor=capacity_factor,
+                   dropped=sum(int(n) for _, n in routes_k + routes_p),
+                   routes_differ=_routes_differ(routes_k, routes_p,
+                                                cfg32.moe.n_experts))
+        check(out["dropped"] == 0, f"{arch} fp32 at capacity factor "
+                                   f"{capacity_factor} dropped pairs: {out}")
     check(abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p),
-          f"{arch} fp32 loss {loss_k} against plain {loss_p}")
+          f"{arch} fp32 loss {loss_k} against plain {loss_p} ({out})")
     worst, worst_leaf = 0.0, None
     for name, g in grads_p.items():
         scale = float(g.abs().max())
         err = float((grads_k[name] - g).abs().max())
         check(bool(torch.isfinite(grads_k[name]).all())
               and err <= TRAIN_GRAD_TOL * max(scale, 1e-30),
-              f"{arch} fp32 grad {name}: off by {err} (max |g| {scale})")
+              f"{arch} fp32 grad {name}: off by {err} (max |g| {scale}; "
+              f"{out})")
         if err / max(scale, 1e-30) > worst:
             worst, worst_leaf = err / max(scale, 1e-30), name
-    out = {"arch": arch, "layers": n_layers, "batch": B, "seq": S,
-           "loss_kernel": loss_k, "loss_plain": loss_p,
-           "leaves": len(grads_p), "worst_grad_err_over_max": worst,
-           "worst_leaf": worst_leaf, "launches": launches,
-           "seconds": time.perf_counter() - t0,
-           "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
-                         "grad": f"{TRAIN_GRAD_TOL} * max|g_plain| a leaf"}}
+    out.update({"loss_kernel": loss_k, "loss_plain": loss_p,
+                "leaves": len(grads_p), "worst_grad_err_over_max": worst,
+                "worst_leaf": worst_leaf, "launches": launches,
+                "seconds": time.perf_counter() - t0,
+                "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
+                              "grad": f"{TRAIN_GRAD_TOL} * max|g_plain| "
+                                      f"a leaf"}})
     del model, batch, grads_k, grads_p
     torch.cuda.empty_cache()
     return out
@@ -4337,7 +4557,7 @@ def _train_main_path(arch: str, B: int, S: int, warm_steps: int,
     import torch
     from repro_torch.launch import train
     from repro_torch.models import build, get_config
-    from repro_torch.models.steps import make_train_step
+    from repro_torch.models import steps as steps_mod
 
     argv = ["--arch", arch, "--batch", str(B), "--seq", str(S), "--seed",
             str(SEED), "--device", DEV]
@@ -4359,7 +4579,11 @@ def _train_main_path(arch: str, B: int, S: int, warm_steps: int,
     # ------- one repeated batch: the loss falls; the profiler's view ----- #
     cfg = get_config(arch)
     model = build(cfg).init(torch.Generator(device=DEV).manual_seed(SEED))
-    step, optimizer = make_train_step(model)
+    adam, steps_mod.adam = steps_mod.adam, _annotated_adam
+    try:
+        step, optimizer = steps_mod.make_train_step(model)
+    finally:
+        steps_mod.adam = adam
     state = optimizer.init(dict(model.params.named_parameters()))
     batch = _train_batch(cfg, seed, B, S)
     losses = []
@@ -4384,6 +4608,20 @@ def _train_main_path(arch: str, B: int, S: int, warm_steps: int,
             "repeated_batch_losses": losses, "profile": busy}
 
 
+def _annotated_adam(lr: float):
+    """``optim.adam(lr)`` whose update runs inside a profiler range named
+    "adam": Adam's passes apart in a profiled step (``_busy_share``)."""
+    import dataclasses
+    from torch.profiler import record_function
+    from repro_torch.optim import adam
+    opt = adam(lr)
+
+    def update(*args):
+        with record_function("adam"):
+            return opt.update(*args)
+    return dataclasses.replace(opt, update=update)
+
+
 def phase_train(card: str) -> dict:
     """LM training at published widths: h2o-danube-1.8b (the SWA kernels),
     falcon-mamba-7b (the fused scan and its backward) and recurrentgemma-2b
@@ -4404,7 +4642,12 @@ def phase_train(card: str) -> dict:
     (B 1, S 4,096; the SWA Function swapped), then bf16, all 26 layers, B
     2, S 4,096: 16 SWA forwards (its 8 attention layers, each in a
     rematerialised period) and 8 of each backward entry point a step; its
-    repeated batch's first ``HYBRID_REPEAT_FALLS`` losses fall."""
+    repeated batch's first ``HYBRID_REPEAT_FALLS`` losses fall.
+    olmoe-1b-7b the same way: fp32 at 2 layers (B 1, S 2,048, capacity
+    factor 16; the SWA Function swapped; the (token, expert) choices the
+    two steps route apart counted), then bf16, all 16 layers, B 2, S
+    2,048: 32 SWA forwards at d 128, group 1, and 16 of each backward
+    entry point a step."""
     from repro_torch.kernels import selective_scan as ss, swa_attention as sw
 
     lap = laps("train")
@@ -4437,12 +4680,23 @@ def phase_train(card: str) -> dict:
                               HYBRID_TRAIN_STEPS, SEED + 33, card,
                               falls=HYBRID_REPEAT_FALLS)
     lap("hybrid")
+    moe32 = _train_fp32_check(MOE_ARCH, MOE_CHECK_BATCH, MOE_TRAIN_SEQ,
+                              SEED + 35, sw, "SWAAttentionFn",
+                              _plain_swa_fn(), capacity_factor=MOE_CHECK_CF)
+    emit({"train_moe_fp32_check": moe32})
+    lap("moe fp32_check")
+    moe = _train_main_path(MOE_ARCH, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
+                           TRAIN_WARM_STEPS, MOE_TRAIN_STEPS, SEED + 36,
+                           card)
+    emit({"train_moe": {k: v for k, v in moe.items() if k != "run"}})
+    lap("moe")
     out = {"phase": "train", "card": card, "fp32_check": fp32,
            **{k: h2o[k] for k in ("run", "warmup", "launches",
                                   "launches_per_step",
                                   "repeated_batch_losses", "profile")},
            "mamba": {**mamba, "fp32_check": mamba32},
-           "hybrid": {**hybrid, "fp32_check": hybrid32}}
+           "hybrid": {**hybrid, "fp32_check": hybrid32},
+           "moe": {**moe, "fp32_check": moe32}}
     emit(out)
     return out
 
@@ -4580,7 +4834,11 @@ def _check_device_times(numbers: dict) -> None:
              ("swa forward bf16 B=1", fwd["train_batch"]["device_ms"]),
              ("swa forward causal bf16", fwd["causal"]["device_ms"]),
              ("swa forward causal bf16 llava",
-              fwd["causal_llava"]["device_ms"])]
+              fwd["causal_llava"]["device_ms"]),
+             ("swa forward causal bf16 mistral",
+              fwd["causal_mistral"]["device_ms"]),
+             ("swa backward causal bf16 olmoe",
+              numbers["swa_backward"]["causal_olmoe"]["device_ms"])]
     rows += [(f"swa backward {r['dtype']} B={r['B']}", r["device_ms"])
              for r in numbers["swa_backward"]["rows"]]
     rows += [("swa forward bf16 d 256", numbers["hybrid"]["forward"][
@@ -4964,10 +5222,13 @@ def kge_numbers(card: str) -> dict:
         torch.cuda.synchronize()
         per_step = dict(tk.launches)
         rec = {"model": name, "launches_per_step": per_step,
-               "step_host_ms": _host_ms(step, iters=50, warmup=5),
-               "step_event_ms": _cuda_ms(step, iters=50, warmup=5),
+               "step_host_ms": _host_ms(step, iters=KGE_STEP_TIMED,
+                                        warmup=5),
+               "step_event_ms": _cuda_ms(step, iters=KGE_STEP_TIMED,
+                                         warmup=5),
                **_step_breakdown(_eager_step(trainer, params, opt_state,
-                                             loader, sgen), steps=30),
+                                             loader, sgen),
+                                 steps=KGE_STEP_PROFILED),
                "card": card}
         emit({"train_step": rec})
         steps.append(rec)
@@ -5081,6 +5342,8 @@ def swa_numbers(card: str) -> dict:
     rec["causal_llava"] = swa_causal_numbers(
         gen, LLAVA_ARCH, LLAVA_BATCH,
         get_config(LLAVA_ARCH).n_frontend_tokens + LLAVA_PROMPT)
+    rec["causal_mistral"] = swa_causal_numbers(gen, MISTRAL_ARCH, ZOO_BATCH,
+                                               ZOO_PROMPT)
     emit({"numbers": rec})
 
     # where the device time of a bf16 prefill and of a decode step goes
@@ -5111,7 +5374,8 @@ def swa_causal_numbers(gen, arch: str = MOE_ARCH, B: int = MOE_BATCH,
     """The SWA kernel as full causal attention (W = S) at one prefill
     layer's shape of ``arch`` (olmoe-1b-7b: B = 2, 16 q and kv heads, S =
     2048, d = 128; llava-next-34b: B = 2, 56 q over 8 kv heads, S = 2,944,
-    d = 128), bf16: kernel, device, plain and library times beside the
+    d = 128; mistral-large-123b: B 2, 96 q over 8 kv heads, S 2048, d
+    128), bf16: kernel, device, plain and library times beside the
     bound; the library is ``scaled_dot_product_attention(is_causal=True)``,
     which computes the same function."""
     import torch
@@ -5200,97 +5464,119 @@ def moe_numbers(card: str) -> dict:
 def swa_backward_numbers(card: str) -> dict:
     """The SWA backward (bwd_dot + backward_dkdv + backward_dq) at one
     h2o-danube layer's shape (32 q / 8 kv heads, S = 6144, W = 4096, d =
-    80), B = 1 (the training run's) and 2, bf16 and fp32: kernel ms (CUDA
-    events over the three launches), device ms by kernel (profiler), the
-    plain backward's ms, the function's bound (five products), the
-    two-kernel design's (seven) and the bound of what the kernels issue,
-    and SDPA forward + backward with the band mask and ``enable_gqa``
-    beside our forward (with lse) + backward; and the forward with its
-    log-sum-exp against without."""
+    80), B = 1 (the training run's) and 2, bf16 and fp32; and at one
+    olmoe-1b-7b layer's training shape, causal (B 2, 16 / 16 heads, S =
+    W = 2048, d 128), bf16.  Each: kernel ms (CUDA events over the three
+    launches), device ms by kernel (profiler), the plain backward's ms,
+    the function's bound (five products), the two-kernel design's (seven)
+    and the bound of what the kernels issue, and SDPA forward + backward
+    (the band mask and ``enable_gqa``; ``is_causal`` at W = S) beside our
+    forward (with lse) + backward; and the forward with its log-sum-exp
+    against without."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import ref, swa_attention as sw
     from repro_torch.models import get_config
 
     cfg = get_config(LM_ARCH)
-    hq, hkv, S, hd, W = (cfg.n_heads, cfg.n_kv_heads, TRAIN_SEQ, cfg.hd,
-                         cfg.window)
-    pos = torch.arange(S, device=DEV)
-    band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < W)
     gen = torch.Generator(device=DEV).manual_seed(SEED + 16)
     rows = []
     for B in (1, 2):
         for dtype, nbytes, peak in ((torch.bfloat16, 2, BF16_FLOP_PER_S),
                                     (torch.float32, 4, FP32_FLOP_PER_S)):
-            q, k, v = _swa_inputs(B, hq, hkv, S, S, hd, dtype, gen)
-            do = torch.randn(q.shape, generator=gen, device=DEV).to(dtype)
-            o, lse = sw.swa_attention_forward(q, k, v, W, return_lse=True)
-            kern = lambda: sw.swa_attention_backward(q, k, v, o, lse, do, W)
-            plain = lambda: ref.swa_attention_backward_ref(
-                q[None], k[None], v[None], o[None], lse[None], do[None], W)
-            ours = {n: t for n, t in _device_ms(kern, iters=3).items()
-                    if "swa_" in n}
-            q4, k4, v4 = (x.reshape(B, -1, S, hd).detach().requires_grad_(True)
-                          for x in (q, k, v))
-            do4 = do.reshape(B, hq, S, hd)
+            rows.append(_swa_backward_row(
+                B, cfg.n_heads, cfg.n_kv_heads, TRAIN_SEQ, cfg.hd,
+                cfg.window, dtype, nbytes, peak, gen, card))
+    moe = get_config(MOE_ARCH)
+    causal = _swa_backward_row(
+        MOE_TRAIN_BATCH, moe.n_heads, moe.n_kv_heads, MOE_TRAIN_SEQ, moe.hd,
+        MOE_TRAIN_SEQ, torch.bfloat16, 2, BF16_FLOP_PER_S, gen, card)
+    return {"rows": rows, "causal_olmoe": causal}
 
-            def lib():
-                for x in (q4, k4, v4):
-                    x.grad = None
-                F.scaled_dot_product_attention(
-                    q4, k4, v4, attn_mask=band, enable_gqa=True).backward(do4)
 
-            def fwd_bwd():
-                o2, lse2 = sw.swa_attention_forward(q, k, v, W,
-                                                    return_lse=True)
-                return sw.swa_attention_backward(q, k, v, o2, lse2, do, W)
+def _swa_backward_row(B: int, hq: int, hkv: int, S: int, hd: int, W: int,
+                      dtype, nbytes: int, peak: float, gen,
+                      card: str) -> dict:
+    """One row of ``swa_backward_numbers`` at (B, hq, hkv, S, hd, W) in
+    ``dtype``; SDPA takes the band as a boolean mask, or ``is_causal``
+    when W >= S."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, swa_attention as sw
 
-            # the yardstick computes the same gradients (recorded, loosely
-            # held: SDPA's own kernels round bf16 differently)
-            lib()
-            got = kern()
-            lib_err = max(float(((a.grad.reshape(b.shape).float()
-                                  - b.float()).abs()
-                                 / (1 + b.float().abs())).max())
-                          for a, b in zip((q4, k4, v4), got))
-            check(lib_err <= (5e-2 if dtype == torch.bfloat16 else 1e-3),
-                  f"SDPA's gradients differ from the kernels' by {lib_err}")
-            del got
-            b_ms, b_by = swa_bwd_bound_ms(B, hq, hkv, S, hd, W, nbytes, peak)
-            design_ms, _ = swa_bwd_bound_ms(B, hq, hkv, S, hd, W, nbytes,
-                                            peak, products=7)
-            # the bf16 kernels take dV, dK and dQ as hi + lo products
-            issued_ms, _ = swa_bwd_bound_ms(
-                B, hq, hkv, S, hd, W, nbytes, peak,
-                products=10 if dtype == torch.bfloat16 else 7)
-            fwd_b_ms, fwd_b_by = swa_bound_ms(B, hq, hkv, S, hd, W, nbytes,
-                                              peak)
-            rec = {"B": B, "Hq": hq, "Hkv": hkv, "S": S, "d": hd, "W": W,
-                   "dtype": str(dtype).replace("torch.", ""),
-                   "ms": _cuda_ms(kern, iters=5, warmup=1),
-                   "device_ms_by_kernel": ours or None,
-                   "device_ms": sum(ours.values()) if ours else None,
-                   "plain_ms": _cuda_ms(plain, iters=2, warmup=1),
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "design_bound_ms": design_ms,
-                   "issued_bound_ms": issued_ms,
-                   "fwd_lse_bwd_ms": _cuda_ms(fwd_bwd, iters=3, warmup=1),
-                   "library_fwd_bwd_ms": _cuda_ms(lib, iters=3, warmup=1),
-                   "library_vs_kernel_max_rel": lib_err,
-                   "fwd_ms": _cuda_ms(
-                       lambda: sw.swa_attention_forward(q, k, v, W),
-                       iters=10, warmup=2),
-                   "fwd_lse_ms": _cuda_ms(
-                       lambda: sw.swa_attention_forward(q, k, v, W,
-                                                        return_lse=True),
-                       iters=10, warmup=2),
-                   "fwd_bound_ms": fwd_b_ms, "fwd_bound_by": fwd_b_by,
-                   "card": card}
-            emit({"swa_backward": rec})
-            rows.append(rec)
-            del q, k, v, do, o, lse, q4, k4, v4, do4
-            torch.cuda.empty_cache()
-    return {"rows": rows}
+    if W >= S:
+        band = dict(is_causal=True)
+    else:
+        pos = torch.arange(S, device=DEV)
+        band = dict(attn_mask=(pos[None, :] <= pos[:, None])
+                    & (pos[:, None] - pos[None, :] < W))
+    q, k, v = _swa_inputs(B, hq, hkv, S, S, hd, dtype, gen)
+    do = torch.randn(q.shape, generator=gen, device=DEV).to(dtype)
+    o, lse = sw.swa_attention_forward(q, k, v, W, return_lse=True)
+    kern = lambda: sw.swa_attention_backward(q, k, v, o, lse, do, W)
+    plain = lambda: ref.swa_attention_backward_ref(
+        q[None], k[None], v[None], o[None], lse[None], do[None], W)
+    ours = {n: t for n, t in _device_ms(kern, iters=3).items()
+            if "swa_" in n}
+    q4, k4, v4 = (x.reshape(B, -1, S, hd).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    do4 = do.reshape(B, hq, S, hd)
+
+    def lib():
+        for x in (q4, k4, v4):
+            x.grad = None
+        F.scaled_dot_product_attention(
+            q4, k4, v4, enable_gqa=hq != hkv, **band).backward(do4)
+
+    def fwd_bwd():
+        o2, lse2 = sw.swa_attention_forward(q, k, v, W, return_lse=True)
+        return sw.swa_attention_backward(q, k, v, o2, lse2, do, W)
+
+    # the yardstick computes the same gradients (recorded, loosely held:
+    # SDPA's own kernels round bf16 differently)
+    lib()
+    got = kern()
+    lib_err = max(float(((a.grad.reshape(b.shape).float()
+                          - b.float()).abs()
+                         / (1 + b.float().abs())).max())
+                  for a, b in zip((q4, k4, v4), got))
+    check(lib_err <= (5e-2 if dtype == torch.bfloat16 else 1e-3),
+          f"SDPA's gradients differ from the kernels' by {lib_err}")
+    del got
+    b_ms, b_by = swa_bwd_bound_ms(B, hq, hkv, S, hd, W, nbytes, peak)
+    design_ms, _ = swa_bwd_bound_ms(B, hq, hkv, S, hd, W, nbytes, peak,
+                                    products=7)
+    # the bf16 kernels take dV, dK and dQ as hi + lo products
+    issued_ms, _ = swa_bwd_bound_ms(
+        B, hq, hkv, S, hd, W, nbytes, peak,
+        products=10 if dtype == torch.bfloat16 else 7)
+    fwd_b_ms, fwd_b_by = swa_bound_ms(B, hq, hkv, S, hd, W, nbytes, peak)
+    rec = {"B": B, "Hq": hq, "Hkv": hkv, "S": S, "d": hd, "W": W,
+           "dtype": str(dtype).replace("torch.", ""),
+           "ms": _cuda_ms(kern, iters=5, warmup=1),
+           "device_ms_by_kernel": ours or None,
+           "device_ms": sum(ours.values()) if ours else None,
+           "plain_ms": _cuda_ms(plain, iters=2, warmup=1),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "design_bound_ms": design_ms,
+           "issued_bound_ms": issued_ms,
+           "fwd_lse_bwd_ms": _cuda_ms(fwd_bwd, iters=3, warmup=1),
+           "library_fwd_bwd_ms": _cuda_ms(lib, iters=3, warmup=1),
+           "library_is": "SDPA forward + backward, "
+                         + ("is_causal" if W >= S else "band mask")
+                         + (", enable_gqa" if hq != hkv else ""),
+           "library_vs_kernel_max_rel": lib_err,
+           "fwd_ms": _cuda_ms(
+               lambda: sw.swa_attention_forward(q, k, v, W),
+               iters=10, warmup=2),
+           "fwd_lse_ms": _cuda_ms(
+               lambda: sw.swa_attention_forward(q, k, v, W,
+                                                return_lse=True),
+               iters=10, warmup=2),
+           "fwd_bound_ms": fwd_b_ms, "fwd_bound_by": fwd_b_by,
+           "card": card}
+    emit({"swa_backward": rec})
+    del q, k, v, do, o, lse, q4, k4, v4, do4
+    torch.cuda.empty_cache()
+    return rec
 
 
 def hybrid_numbers(card: str) -> dict:
@@ -5414,14 +5700,31 @@ def _busy_share(fn, steps: int) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
     by_group: dict = {}
+    by_op: dict = {}
     ops = 0
     for e in prof.events():
+        if getattr(e, "is_user_annotation", False) \
+                and e.device_type == DeviceType.CUDA:
+            continue            # a range's span on the device, no kernel
         if e.device_type == DeviceType.CUDA:
             by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) \
                 + e.device_time_total
             g = _kernel_group(e.name)
             by_group[g] = by_group.get(g, 0.0) + e.device_time_total
             ops += 1
+        elif e.name in _OP_RANGES or e.kernels:
+            # the host op that launched each kernel; a range of
+            # _OP_RANGES counts every kernel inside it (its ops count
+            # under their own names too)
+            t = (e.device_time_total if e.name in _OP_RANGES
+                 else sum(k.duration for k in e.kernels))
+            by_op[e.name] = by_op.get(e.name, 0.0) + t
+    op_groups: dict = {}
+    for name, t in by_op.items():
+        g = _op_group(name)
+        if g:
+            op_groups[g] = op_groups.get(g, 0.0) + t
+    top_ops = sorted(by_op.items(), key=lambda kv: -kv[1])[:15]
     busy = sum(by_name.values())
     if busy == 0:
         return {"profiler": "no device time reported"}
@@ -5436,7 +5739,34 @@ def _busy_share(fn, steps: int) -> dict:
             "device_ms_per_step_by_group": {
                 k: v / 1e3 / steps for k, v in sorted(
                     by_group.items(), key=lambda kv: -kv[1])},
+            "device_ms_per_step_by_op": {k: v / 1e3 / steps
+                                         for k, v in top_ops},
+            "device_ms_per_step_by_op_group": {
+                k: v / 1e3 / steps for k, v in sorted(
+                    op_groups.items(), key=lambda kv: -kv[1])},
             "unprofiled_ms_per_step": _host_ms(fn, iters=steps, warmup=1)}
+
+
+#: profiler ranges whose device time ``_busy_share`` reads whole
+_OP_RANGES = ("adam",)
+
+
+def _op_group(name: str):
+    """A host op's group in a step's breakdown by the op that launched
+    each kernel: Adam's passes (the "adam" range), batched products (an
+    MoE layer's expert einsums), other products, the MoE's scatter and
+    gather (``index_add`` and its backward, the combine gather and its
+    backward); None for the rest."""
+    if name in _OP_RANGES:
+        return name
+    if name in ("aten::bmm", "aten::baddbmm"):
+        return "bmm"
+    if name in ("aten::mm", "aten::addmm"):
+        return "mm"
+    if name.startswith(("aten::index_add", "aten::index_select",
+                        "aten::gather", "aten::scatter_add")):
+        return "index_add / gather"
+    return None
 
 
 def _kernel_group(name: str) -> str:
@@ -5470,7 +5800,8 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
                  update_out: dict, jobs: dict, numbers: dict, swa: dict,
                  lm: dict, moe: dict, train: dict, scan: dict, mamba: dict,
                  whisper: dict, llava: dict, hybrid: dict,
-                 shard: dict = None, mesh: dict = None) -> dict:
+                 shard: dict = None, mesh: dict = None,
+                 zoo: dict = None) -> dict:
     """One entry per kernel path, at the shapes the main path gives it:
     a 8192-row slab of the 40k table with its running list, Q = 32 and
     k = 10 for the small path (the serve session's batches), Q = 1 and
@@ -5484,9 +5815,13 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
     (W = S) the olmoe-1b-7b generation run's prefill; the backward's are
     the training run's (its three entry points); the causal forward's
     ``launches_whisper`` and ``launches_llava`` those phases' measured
-    prefills.  The selective scan's are the falcon-mamba-7b generation
-    run's prefill: 64 fused launches and none of the bare entry point,
-    whose entry also carries the scan phase's launches; the fused one's
+    prefills; at mistral-large-123b's layer, the zoo phase's measured
+    mistral prefill (one a layer of its depth), and ``launches_zoo`` every
+    zoo arch's.  The causal backward at olmoe-1b-7b's training shape: the
+    measured olmoe training run's (16 of each entry point a step).  The
+    selective scan's are the falcon-mamba-7b generation run's prefill: 64
+    fused launches and none of the bare entry point, whose entry also
+    carries the scan phase's launches; the fused one's
     ``launches_train`` and its backward's ``launches`` are the measured
     falcon-mamba-7b training run's (128 and 64 a step).  The SWA kernels
     at d = 256: the recurrentgemma-2b generation run's prefill (8) and
@@ -5627,6 +5962,51 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
         "library_ms": r["library_fwd_bwd_ms"],
         "library_is": "SDPA forward + backward, band mask, enable_gqa",
         "fwd_lse_bwd_ms": r["fwd_lse_bwd_ms"]})
+    # the backward as full causal attention at one olmoe-1b-7b layer's
+    # training shape (W = S, d 128, group 1); library: SDPA is_causal
+    # forward + backward, beside our forward with lse + backward
+    r = numbers["swa_backward"]["causal_olmoe"]
+    moe_t = train["moe"]
+    out.append({
+        "name": f"swa_attention_backward (causal, W = S: bwd_dot + "
+                f"backward_dkdv + backward_dq; bf16, B={r['B']} "
+                f"Hq={r['Hq']} Hkv={r['Hkv']} S={r['S']} d={r['d']})",
+        "route": "cuda", "source": SWA_SOURCE,
+        "replaces": "src/repro/models/attention.py:123 (autodiff of the jnp "
+                    "scan; no Pallas backward)",
+        "in_place_of": "src/repro/models/blocks.py:105,140 "
+                       "chunked_attention(causal=True) (jnp), differentiated",
+        "launches": sum(moe_t["launches"][e] for e in entries),
+        "launches_by_entry": {e: moe_t["launches"][e] for e in entries},
+        "launches_per_step": {e: moe_t["launches_per_step"][e]
+                              for e in entries},
+        "max_abs_err": swa["max_abs_err_backward_bf16"],
+        "max_abs_err_fp32": swa["max_abs_err_backward_fp32"],
+        "ms": r["ms"], "device_ms": r["device_ms"],
+        "device_ms_by_kernel": r["device_ms_by_kernel"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "issued_bound_ms": r["issued_bound_ms"],
+        "library_ms": r["library_fwd_bwd_ms"],
+        "library_is": r["library_is"],
+        "fwd_lse_bwd_ms": r["fwd_lse_bwd_ms"]})
+    # the causal forward at one mistral-large-123b layer's shape (96 q over
+    # 8 kv heads); launches: the zoo phase's measured mistral prefill
+    c = numbers["swa"]["swa"]["causal_mistral"]
+    zoo_l = {a: x["launches"]["swa_attention_forward"]
+             for a, x in (zoo or {}).get("archs", {}).items()}
+    out.append({
+        "name": f"swa_attention_forward (causal, W = S; bf16, B={c['B']} "
+                f"Hq={c['Hq']} Hkv={c['Hkv']} S={c['S']} d={c['d']})",
+        "route": "cuda", "source": SWA_SOURCE, "replaces": SWA_REPLACES,
+        "in_place_of": "src/repro/models/blocks.py:105,140 "
+                       "chunked_attention(causal=True) (jnp)",
+        "launches": zoo_l.get(MISTRAL_ARCH), "launches_zoo": zoo_l,
+        "max_abs_err": swa["max_abs_err_causal"]["bfloat16"],
+        "max_abs_err_fp32": swa["max_abs_err_causal"]["float32"],
+        "ms": c["ms"], "device_ms": c["device_ms"],
+        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+        "library_is": c["library_is"]})
     # the d = 256 instances at one recurrentgemma-2b attention layer's
     # shape, bf16: the forward (launches: the generation run's prefill and
     # the training run's), then forward with lse + backward (the training
@@ -5766,7 +6146,10 @@ def main(argv=None) -> int:
                     default="build,kernels,kge,swa,scan,serve,shard,"
                             "workers,"
                             "update,jobs,lm,moe,mesh,mamba,hybrid,whisper,"
-                            "llava,train,numbers")
+                            "llava,zoo,train,numbers",
+                    help="phases to run, in the script's order; zoo_deep "
+                         "(the zoo's cut archs at the deepest depth that "
+                         "fits) and alloc run only when named")
     ap.add_argument("--out", default=None, help="also write results here")
     ap.add_argument("--sass-of", default=None, metavar="SOURCE.cu",
                     help="compile one CUDA source with the port's flags "
@@ -5854,6 +6237,11 @@ def main(argv=None) -> int:
                 return _phase_in_child("llava", tmp, card)
             return phase_llava(card)
 
+        def zoo(name: str):
+            if set(RESULTS["phases"]) - {"build"}:
+                return _phase_in_child(name, tmp, card)
+            return phase_zoo(card, deep=name == "zoo_deep")
+
         # in this order; each phase's wall seconds are kept beside it
         for name, run in (
                 ("build", phase_build),
@@ -5871,6 +6259,8 @@ def main(argv=None) -> int:
                 ("mamba", phase_mamba), ("hybrid", phase_hybrid),
                 ("whisper", phase_whisper),
                 ("llava", llava),
+                ("zoo", lambda: zoo("zoo")),
+                ("zoo_deep", lambda: zoo("zoo_deep")),
                 ("train", lambda: phase_train(card)),
                 ("numbers", numbers),
                 ("alloc", lambda: phase_alloc(card))):
@@ -5890,7 +6280,7 @@ def main(argv=None) -> int:
     print(card)
     if {"kernels", "kge", "swa", "scan", "serve", "shard", "update", "jobs",
             "lm", "moe", "mesh", "mamba", "hybrid", "whisper", "llava",
-            "train", "numbers"} <= phases:
+            "zoo", "train", "numbers"} <= phases:
         ph = RESULTS["phases"]
         print(json.dumps(kernels_line(ph["kernels"], ph["serve"], ph["kge"],
                                       ph["update"], ph["jobs"],
@@ -5898,7 +6288,7 @@ def main(argv=None) -> int:
                                       ph["moe"], ph["train"], ph["scan"],
                                       ph["mamba"], ph["whisper"],
                                       ph["llava"], ph["hybrid"],
-                                      ph["shard"], ph["mesh"])))
+                                      ph["shard"], ph["mesh"], ph["zoo"])))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

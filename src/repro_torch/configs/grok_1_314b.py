@@ -3,7 +3,8 @@
 [hf:xai-org/grok-1]
 
 The port's copy of ``repro.configs.grok_1_314b``: the same values.  At
-~628 GB in bf16 it does not fit one card; the port runs ``REDUCED``.
+~633 GB in bf16 it does not fit one card: on the card it runs at full
+width, cut in depth.
 """
 from ..models.config import ArchConfig, MoEConfig
 

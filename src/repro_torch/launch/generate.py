@@ -10,9 +10,12 @@
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.generate \\
         --arch recurrentgemma-2b --prompt-len 4096 --steps 16
+    PYTHONPATH=src python -m repro_torch.launch.generate \\
+        --arch qwen2-72b --layers 32 --prompt-len 2048 --steps 16
 
-Builds the arch (the published config unless ``--reduced``; with
-``--kv-cache-dtype int8`` the int8 KV cache) with random params drawn from
+Builds the arch (the published config unless ``--reduced``, cut to
+``--layers`` layers if given; with ``--kv-cache-dtype int8`` the int8 KV
+cache) with random params drawn from
 ``--seed`` on ``--device`` (default ``cuda``), prefills a seeded random
 prompt with ``cache_len = prompt + steps``, then decodes ``--steps``
 tokens greedily with ``make_serve_step``.  Prints the prefill time, the
@@ -56,6 +59,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="an audio arch's encoder frames (default 1500: "
                          "whisper's 30-s window after its conv stem, "
                          "arXiv:2212.04356)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (default: the "
+                         "config's), for an arch whose weights outgrow "
+                         "the card at full depth")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kv-cache-dtype", choices=("model", "int8"),
                     default="model",
@@ -73,11 +80,15 @@ def _sync(dev: torch.device) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = _parser().parse_args(argv)
-    if args.batch < 1 or args.prompt_len < 1 or args.steps < 1:
-        raise SystemExit("--batch, --prompt-len and --steps must be >= 1")
+    if min(args.batch, args.prompt_len, args.steps,
+           1 if args.layers is None else args.layers) < 1:
+        raise SystemExit("--batch, --prompt-len, --steps and --layers must "
+                         "be >= 1")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced).with_(
         kv_cache_dtype=args.kv_cache_dtype)
+    if args.layers is not None:
+        cfg = cfg.with_(n_layers=args.layers)
     if cfg.kv_cache_dtype == "int8" and cfg.family != "dense":
         raise SystemExit(f"--kv-cache-dtype int8: {cfg.arch_id} is a "
                          f"{cfg.family} arch; the int8 KV cache is the dense "
@@ -137,7 +148,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cache_bytes = cache_nbytes(cache)
     out = {
         "arch": cfg.arch_id, "device": str(dev), "dtype": cfg.dtype,
-        "batch": B, "prompt_len": P, "steps": args.steps,
+        "layers": cfg.n_layers, "batch": B, "prompt_len": P,
+        "steps": args.steps,
         "prefill_ms": prefill_s * 1e3,
         # the positions a prefill fills: a VLM's image tokens count; an
         # audio arch counts its decoder prompt (the frames are its input)

@@ -58,12 +58,12 @@ def init_device(gen: Gen) -> torch.device:
 
 
 def normal(gen: Gen, shape, scale: float, dtype) -> torch.Tensor:
-    """``N(0, 1) * scale`` drawn in fp32, stored in ``dtype``."""
+    """``N(0, 1) * scale`` drawn in fp32, stored in ``dtype``; scaled in
+    place, so a leaf's draw holds one fp32 transient."""
     if gen is None:
         return torch.empty(shape, dtype=dtype, device="meta")
-    x = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return (x * scale).to(dtype)
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32).mul_(scale).to(dtype)
 
 
 def dense_init(gen: Gen, d_in: int, d_out: int, dtype,

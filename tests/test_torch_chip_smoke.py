@@ -123,9 +123,11 @@ def _numbers(device_ms):
             "swa": {"swa": {"device_ms": 0.97, "fp32_device_ms": 12.7,
                             "train_batch": {"device_ms": 0.58},
                             "causal": {"device_ms": 0.09},
-                            "causal_llava": {"device_ms": 0.76}}},
+                            "causal_llava": {"device_ms": 0.76},
+                            "causal_mistral": {"device_ms": 0.5}}},
             "swa_backward": {"rows": [{"dtype": "bfloat16", "B": 1,
-                                       "device_ms": device_ms}]},
+                                       "device_ms": device_ms}],
+                             "causal_olmoe": {"device_ms": 0.4}},
             "scan": {"device_ms": 0.6, "fused": {"device_ms": 0.4},
                      "backward": {"device_ms": 2.0}},
             "hybrid": {"forward": {"device_ms": 0.4},
@@ -139,6 +141,10 @@ def test_a_blind_profiler_fails_the_numbers_phase():
     blind = _numbers(2.27)
     blind["hybrid"]["backward"]["device_ms"] = None
     with pytest.raises(chip_smoke.SmokeFailure, match="d 256"):
+        chip_smoke._check_device_times(blind)
+    blind = _numbers(2.27)
+    blind["swa_backward"]["causal_olmoe"]["device_ms"] = None
+    with pytest.raises(chip_smoke.SmokeFailure, match="causal bf16 olmoe"):
         chip_smoke._check_device_times(blind)
     blind = _numbers(2.27)
     blind["scan"]["backward"]["device_ms"] = None
@@ -260,6 +266,8 @@ def _line_inputs():
     swa_f = {"swa": dict(r, B=2, Hq=32, Hkv=8, S=6144, W=4096, d=80,
                          train_batch={}, causal=dict(
                              r, B=2, Hq=16, Hkv=16, S=2048, d=128,
+                             library_is="SDPA"), causal_mistral=dict(
+                             r, B=2, Hq=96, Hkv=8, S=2048, d=128,
                              library_is="SDPA"))}
     bwd = dict(r, B=1, dtype="bfloat16", Hq=32, Hkv=8, S=6144, W=4096, d=80,
                device_ms_by_kernel={}, design_bound_ms=0.6,
@@ -274,7 +282,9 @@ def _line_inputs():
                   "step_library_ms": 0.8} for q, k in ((32, 10), (1, 2000))],
         "kge": {"kge_rows": [dict(kge_row, model=m)
                              for m in ("transe_l1", "distmult")]},
-        "swa": swa_f, "swa_backward": {"rows": [bwd]},
+        "swa": swa_f, "swa_backward": {"rows": [bwd], "causal_olmoe": dict(
+            bwd, B=2, Hq=16, Hkv=16, S=2048, W=2048, d=128,
+            library_is="SDPA is_causal")},
         "scan": dict(r, B=2, S=2048, d_in=8192, d_state=16, library_ms=None,
                      bound_parts_ms={}, fused=dict(
                          r, library_ms=None, bound_parts_ms={},
@@ -316,7 +326,13 @@ def _line_inputs():
                "hybrid": {"launches": dict(swa_l, swa_attention_forward=48,
                                            swa_attention_bwd_dot=24,
                                            swa_attention_backward_dkdv=24,
-                                           swa_attention_backward_dq=24)}},
+                                           swa_attention_backward_dq=24)},
+               "moe": {"launches": dict(swa_l, swa_attention_forward=96,
+                                        swa_attention_bwd_dot=48,
+                                        swa_attention_backward_dkdv=48,
+                                        swa_attention_backward_dq=48),
+                       "launches_per_step": chip_smoke._step_launches(
+                           chip_smoke.MOE_ARCH, 16, 1)}},
         scan={"max_abs_err": {
             "bfloat16": {"y": 1e-5, "h_last": 1e-6, "fused_out": 0.25,
                          "fused_h_last": 5e-5, "backward": {
@@ -329,7 +345,9 @@ def _line_inputs():
             "launches": {"selective_scan_forward": 12,
                          "selective_scan_fused": 12}},
         mamba={"launches": swa_l}, whisper={"launches": swa_l},
-        llava={"launches": swa_l}, hybrid={"launches": swa_l})
+        llava={"launches": swa_l}, hybrid={"launches": swa_l},
+        zoo={"archs": {a: {"launches": dict(swa_l, swa_attention_forward=n)}
+                       for a, n, _ in chip_smoke.ZOO_ARCHS}})
 
 
 def test_every_kernels_line_entry_has_the_contracts_keys():
@@ -367,6 +385,15 @@ def test_every_kernels_line_entry_has_the_contracts_keys():
     assert bwd[0]["max_abs_err"] == 0.5 and bwd[0]["max_abs_err_fp32"] == 8e-4
     causal = [e for e in line["kernels"] if "causal" in e["name"]][0]
     assert causal["launches_whisper"] == causal["launches_llava"] == 60
+    olmoe = [e for e in line["kernels"] if e["name"].startswith(
+        "swa_attention_backward (causal")]
+    assert len(olmoe) == 1 and olmoe[0]["launches"] == 144
+    assert olmoe[0]["launches_per_step"] == {
+        "swa_attention_bwd_dot": 16, "swa_attention_backward_dkdv": 16,
+        "swa_attention_backward_dq": 16}
+    mistral = [e for e in line["kernels"] if "Hq=96" in e["name"]]
+    assert len(mistral) == 1 and mistral[0]["launches"] == 4
+    assert mistral[0]["launches_zoo"]["internlm2-20b"] == 48
 
 
 def _stub_card(monkeypatch, failures):
@@ -651,3 +678,179 @@ def test_hybrid_layers_are_read_from_the_model():
     cfg = get_config(chip_smoke.HYBRID_ARCH)
     assert chip_smoke._hybrid_layers(cfg, "recurrent") == (16, 2)
     assert chip_smoke._hybrid_layers(cfg, "attention") == (8, 0)
+
+
+# ------------------------ olmoe training, the zoo ----------------------- #
+def test_olmoe_training_launches_a_step():
+    """olmoe-1b-7b under remat "full": every layer's SWA forward twice a
+    step (the step and its recompute), each backward entry point once;
+    over the measured run's 3 steps 96 forwards and 48 of each."""
+    got = chip_smoke._step_launches(chip_smoke.MOE_ARCH, 16,
+                                    chip_smoke.MOE_TRAIN_STEPS)
+    assert got == {"swa_attention_forward": 96, "swa_attention_bwd_dot": 48,
+                   "swa_attention_backward_dkdv": 48,
+                   "swa_attention_backward_dq": 48,
+                   "selective_scan_forward": 0, "selective_scan_fused": 0,
+                   "selective_scan_fused_backward": 0}
+    assert (chip_smoke.MOE_TRAIN_BATCH, chip_smoke.MOE_TRAIN_SEQ) == (
+        chip_smoke.MOE_BATCH, chip_smoke.MOE_PROMPT)
+
+
+def test_causal_bounds_at_olmoes_training_and_mistrals_layer():
+    """The causal backward at olmoe's training shape (B 2, 16 / 16 heads,
+    S = W = 2048, d 128): 67.1 M visible pairs x 10 x 128 operations at
+    989 TFLOP/s, 0.0869 ms; the causal forward at one mistral-large-123b
+    layer (B 2, 96 / 8 heads): 402.8 M pairs x 4 x 128, 0.2086 ms; both
+    bound by operations."""
+    pairs = chip_smoke.swa_pairs(2048, 2048, 2048, 0)
+    assert round(2 * 16 * pairs / 1e6, 1) == 67.1
+    bwd, by = chip_smoke.swa_bwd_bound_ms(2, 16, 16, 2048, 128, 2048, 2)
+    assert by == "operations" and round(bwd, 4) == 0.0869
+    fwd, by = chip_smoke.swa_bound_ms(2, 96, 8, 2048, 128, 2048, 2)
+    assert by == "operations" and round(fwd, 4) == 0.2086
+
+
+@pytest.mark.parametrize("name,group", [
+    ("adam", "adam"), ("aten::bmm", "bmm"), ("aten::mm", "mm"),
+    ("aten::addmm", "mm"), ("aten::index_add_", "index_add / gather"),
+    ("aten::index_select", "index_add / gather"),
+    ("aten::gather", "index_add / gather"),
+    ("aten::scatter_add_", "index_add / gather"), ("aten::mul_", None),
+])
+def test_op_groups_split_an_moe_step(name, group):
+    assert chip_smoke._op_group(name) == group
+
+
+def test_zoo_depths_come_from_the_specs_budget():
+    """internlm2-20b whole in both runs; the three others cut, deeper in
+    zoo_deep, and one layer more than zoo_deep's would pass the budget."""
+    from repro_torch.models import get_config
+    for arch, depth, deep in chip_smoke.ZOO_ARCHS:
+        full = get_config(arch)
+        assert depth <= deep <= full.n_layers
+        seq = chip_smoke.ZOO_PROMPT + chip_smoke.ZOO_STEPS
+        b = chip_smoke.serve_bytes(arch, deep, chip_smoke.ZOO_BATCH, seq)
+        assert b["params"] + b["cache"] <= chip_smoke.ZOO_BUDGET_BYTES
+        if deep < full.n_layers:
+            more = chip_smoke.serve_bytes(arch, deep + 1,
+                                          chip_smoke.ZOO_BATCH, seq)
+            assert more["params"] + more["cache"] \
+                > chip_smoke.ZOO_BUDGET_BYTES, arch
+    assert chip_smoke.ZOO_ARCHS[0] == ("internlm2-20b", 48, 48)
+    assert get_config(chip_smoke.MISTRAL_ARCH).n_heads == 96
+
+
+def _zoo_on_cpu(monkeypatch, failures):
+    """The zoo's archs at their reduced configs (each config module's
+    CONFIG swapped for REDUCED), 3 and 4 layers, a 40-token prompt."""
+    import importlib
+    _stub_card(monkeypatch, failures)
+    for arch, _, _ in chip_smoke.ZOO_ARCHS:
+        mod = importlib.import_module(
+            f"repro_torch.configs.{arch.replace('-', '_')}")
+        monkeypatch.setattr(mod, "CONFIG", mod.REDUCED)
+    monkeypatch.setattr(chip_smoke, "ZOO_ARCHS", tuple(
+        (a, 3, 4) for a, _, _ in chip_smoke.ZOO_ARCHS))
+    monkeypatch.setattr(chip_smoke, "ZOO_PROMPT", 40)
+    monkeypatch.setattr(chip_smoke, "ZOO_STEPS", 2)
+    monkeypatch.setattr(chip_smoke, "ZOO_MOE_CHECK_PROMPT", 24)
+
+
+@pytest.mark.parametrize("deep", [False, True])
+def test_zoo_phase_rehearses_on_the_cpu(monkeypatch, deep):
+    """The zoo phase on the reduced configs: each arch's fp32 check holds
+    (grok at capacity factor 16 drops nothing), each generation runs at
+    the phase's depth with serve_specs' cache bytes, beside its params;
+    only the launch-count checks fail (the plain versions launch
+    nothing): two an arch."""
+    failures = []
+    _zoo_on_cpu(monkeypatch, failures)
+    out = chip_smoke.phase_zoo("cpu", deep=deep)
+    assert out["phase"] == ("zoo_deep" if deep else "zoo")
+    assert list(out["archs"]) == [a for a, _, _ in chip_smoke.ZOO_ARCHS]
+    for arch, rec in out["archs"].items():
+        assert rec["layers"] == (4 if deep else 3)
+        c = rec["fp32_consistency"]
+        assert c["argmax_equal"] and c["layers"] == 2
+        gen = rec["generation"]
+        assert gen["layers"] == rec["layers"] and gen["prompt_len"] == 40
+        assert gen["cache_bytes"] == rec["serve_specs_bytes"]["cache"]
+        assert rec["serve_specs_total_bytes"] == sum(
+            rec["serve_specs_bytes"].values())
+    grok = out["archs"]["grok-1-314b"]
+    assert grok["fp32_consistency"]["dropped"] == 0
+    assert grok["fp32_consistency"]["prompt"] == 24
+    assert "dropped_prefill" in grok["generation"]
+    assert len(failures) == 2 * len(chip_smoke.ZOO_ARCHS)
+    assert all(f.split(" ", 1)[1].startswith(("fp32 prefills launched",
+                                              "generation launched"))
+               or f.startswith("generation launched") for f in failures)
+
+
+def test_moe_training_rehearses_on_the_cpu(monkeypatch):
+    """olmoe's training parts on its reduced config: the fp32 check (the
+    plain Function against itself here: the same loss and gradients, no
+    choice routed apart, nothing dropped at capacity factor 16), then the
+    main path through ``launch.train`` and the repeated batch through a
+    step whose Adam runs in its profiler range; only the launch-count
+    checks fail."""
+    from repro_torch.configs import olmoe_1b_7b
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.models import steps
+    failures = []
+    _stub_card(monkeypatch, failures)
+    monkeypatch.setattr(olmoe_1b_7b, "CONFIG", olmoe_1b_7b.REDUCED)
+    calls = []
+
+    def busy(fn, steps):
+        for _ in range(3 + steps):
+            fn()
+        calls.append(steps)
+        return {"steps": steps}
+    monkeypatch.setattr(chip_smoke, "_busy_share", busy)
+    fp32 = chip_smoke._train_fp32_check(
+        chip_smoke.MOE_ARCH, 1, 48, 0, sw, "SWAAttentionFn",
+        chip_smoke._plain_swa_fn(), capacity_factor=chip_smoke.MOE_CHECK_CF)
+    assert fp32["routes_differ"] == 0 and fp32["dropped"] == 0
+    assert fp32["loss_kernel"] == fp32["loss_plain"]
+    assert fp32["worst_grad_err_over_max"] == 0
+    run = chip_smoke._train_main_path(chip_smoke.MOE_ARCH, 2, 32, 1, 2, 1,
+                                      "cpu")
+    assert len(run["repeated_batch_losses"]) == \
+        3 + chip_smoke.TRAIN_REPEAT_STEPS
+    assert calls == [chip_smoke.TRAIN_REPEAT_STEPS]
+    assert len(run["run"]["losses"]) == 2
+    assert steps.adam is not chip_smoke._annotated_adam
+    assert [f.split(" ", 3)[1:3] for f in failures] == [
+        ["fp32", "step"], ["training", "launched"]]
+
+
+def test_routes_differ_counts_choices():
+    """Two routes of 2 tokens, top-2 of 4 experts: token 1 takes expert 3
+    in place of 2 in the second, so one (token, expert) choice differs,
+    whatever the order of a token's choices."""
+    import torch
+    a = [(torch.tensor([[[0, 1], [1, 2]]]), 0)]
+    b = [(torch.tensor([[[1, 0], [3, 1]]]), 0)]
+    assert chip_smoke._routes_differ(a, b, 4) == 1
+    assert chip_smoke._routes_differ(a, a, 4) == 0
+
+
+def test_routes_records_each_layers_choices(monkeypatch):
+    """``_routes`` sees the router of each of a step's first layers: the
+    reduced olmoe at its own capacity factor (1.25) routes 1 x 48 tokens
+    to top-2 of 4 experts a layer and drops some pairs; the recompute
+    under remat "full" adds no entry."""
+    import torch
+    from repro_torch.configs import olmoe_1b_7b
+    from repro_torch.models import build
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    cfg = olmoe_1b_7b.REDUCED.with_(dtype="float32")
+    model = build(cfg).init(torch.Generator().manual_seed(0))
+    model.params.requires_grad_(True)
+    batch = chip_smoke._train_batch(cfg, 0, 1, 48)
+    with chip_smoke._routes(cfg.n_layers) as seen:
+        chip_smoke._loss_and_grads(model, batch)
+    assert [tuple(idx.shape) for idx, _ in seen] == [(1, 48, 2)] * 2
+    assert sum(int(n) for _, n in seen) > 0

@@ -14,6 +14,8 @@ host devices when imported, so it is not imported).
 """
 import json
 import math
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -32,6 +34,9 @@ from repro_torch.models import build, get_config
 from repro_torch.models import sharding as tsh
 from repro_torch.models import steps
 from test_torch_sharding import _is_info, port_leaves, ref_leaves
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 AMESH = {"single": AbstractMesh((16, 16), ("data", "model")),
          "multi": AbstractMesh((2, 16, 16), ("pod", "data", "model"))}
@@ -192,3 +197,27 @@ def test_main_writes_one_json_a_tag(tmp_path, capsys):
             assert 0 < tot["per_device"] <= tot["global"]
             assert not {"xla_cost", "memory", "roofline"} & set(r)
     assert "FAIL" not in capsys.readouterr().out
+
+
+def _nbytes(tree) -> int:
+    return sum(math.prod(x.shape) * np.dtype(x.dtype).itemsize
+               for x in jax.tree.leaves(tree))
+
+
+@pytest.mark.parametrize("run", ["zoo", "zoo_deep"])
+@pytest.mark.parametrize("arch", [a for a, _, _ in chip_smoke.ZOO_ARCHS])
+def test_zoo_depths_serve_specs_match_the_reference(arch, run):
+    """chip_smoke's zoo archs at each run's depth, full width: the port's
+    ``serve_specs`` bytes on the meta device (params; the cache at B 2
+    and the generation's 2,064 positions) equal the reference's
+    ``steps.serve_specs`` under ``jax.eval_shape`` for the same cut
+    config, and fit the phase's budget."""
+    depth = {a: (d, deep) for a, d, deep in chip_smoke.ZOO_ARCHS}[arch]
+    n_layers = depth[run == "zoo_deep"]
+    B = chip_smoke.ZOO_BATCH
+    seq = chip_smoke.ZOO_PROMPT + chip_smoke.ZOO_STEPS
+    jp, jc, _, _ = jsteps.serve_specs(
+        jbuild(jget(arch).with_(n_layers=n_layers)), B, seq)
+    want = {"params": _nbytes(jp), "cache": _nbytes(jc)}
+    assert chip_smoke.serve_bytes(arch, n_layers, B, seq) == want
+    assert want["params"] + want["cache"] <= chip_smoke.ZOO_BUDGET_BYTES

@@ -436,3 +436,27 @@ def test_reduced_h2o_runs_the_kernel_on_card():
     torch.cuda.synchronize()
     assert tswa.launches["swa_attention_forward"] == tcfg.n_layers
     _close(logits.cpu(), r["tl"], LOGIT_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_normal_draws_the_scaled_values_bit_for_bit(dtype):
+    """``layers.normal`` scales its fp32 draw in place (one fp32 transient
+    a leaf): the same bits as ``(randn * scale).to(dtype)`` from the same
+    seed."""
+    got = tlayers.normal(torch.Generator().manual_seed(7), (33, 65), 0.37,
+                         dtype)
+    want = (torch.randn((33, 65), generator=torch.Generator().manual_seed(7),
+                        dtype=torch.float32) * 0.37).to(dtype)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_launch_generate_cuts_the_depth():
+    """``launch.generate --layers`` builds the arch cut to that many
+    layers: its cache is that many layers deep."""
+    base = ["--arch", "qwen2-72b", "--reduced", "--device", "cpu",
+            "--prompt-len", "8", "--steps", "2"]
+    two, three = generate.main(base), generate.main(base + ["--layers", "3"])
+    assert (two["layers"], three["layers"]) == (2, 3)
+    assert three["cache_bytes"] * 2 == two["cache_bytes"] * 3
+    with pytest.raises(SystemExit, match="--layers"):
+        generate.main(base + ["--layers", "0"])

@@ -7,7 +7,8 @@ drawn from its key, are carried into the port by
 (some -1), made by numpy from a seed, go through both.  h2o-danube's
 sliding-window layers and qwen2's full causal attention (a window over
 every key) run the plain SWA forward and backward here (the kernels'
-contract).
+contract); one Adam step of reduced olmoe-1b-7b and grok-1-314b too
+(their loss adds 0.01 times the MoE's aux loss).
 
 Tolerances: the loss within 1e-5 relative; each gradient leaf within
 2e-4 * max|g_ref| of the leaf (fp32 sums in another order, through up to
@@ -45,6 +46,9 @@ LR = 1e-3
 #: of 64, and qwen2 (full causal attention, QKV bias)
 CASES = [("h2o_danube_1_8b", 2, 96, 1), ("h2o_danube_1_8b", 2, 48, 2),
          ("qwen2_72b", 2, 40, 3)]
+#: the MoE archs' one Adam step: reduced olmoe-1b-7b and grok-1-314b
+#: (causal attention, cross-entropy + 0.01 times the aux loss)
+MOE_CASES = [("olmoe_1b_7b", 2, 40, 5), ("grok_1_314b", 2, 40, 6)]
 
 
 def _case_id(c):
@@ -214,7 +218,8 @@ def test_grad_reaches_every_param_and_prefill_stays_frozen():
 
 
 # ------------------------------ one step ------------------------------ #
-@pytest.mark.parametrize("case", [CASES[0], CASES[2]], ids=_case_id)
+@pytest.mark.parametrize("case", [CASES[0], CASES[2], *MOE_CASES],
+                         ids=_case_id)
 def test_one_train_step_matches_jax(case):
     arch, B, S, key = case
     jcfg, tcfg, params, model = _port_model(arch, key)
