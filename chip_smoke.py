@@ -159,10 +159,26 @@ Phases, in order; any failure exits non-zero:
               2).  In both, olmoe-1b-7b's fp32 2-layer check at capacity
               factor 16: the expert-parallel prefill's last logits against
               the one-process ``moe_apply``'s (2e-3, same argmax); then,
-              on two ranks, the bf16 expert-parallel prefill at published
-              width and depth (B 2, prompt 2048, 32 experts a rank): ms,
-              16 causal SWA launches, the layer's one all_reduce timed
-              alone, peak memory, a rank each; a 2-layer fp32 training
+              on two ranks, the tensor-parallel layout (the reference's
+              ``param_pspec``: each rank's heads, ff channels and vocab
+              block): fp32, 2 layers at published width, the prefill and
+              4 decode steps against the one-process model on the same
+              params (2e-3 (1 + |want|), same argmax every step) for
+              mistral-large-123b (B 1, prompt 512; 48 q heads and 4 KV
+              slots a rank) and h2o-danube-1.8b (a 6,144-token prompt
+              past its 4,096 window: the rolling cache cut by slot);
+              bf16 mistral-large-123b at the zoo's cut (4 layers), B 2,
+              prompt 2048, 16 greedy steps through the prefill and serve
+              steps on the mesh: prefill ms, decode ms a token, 4 causal
+              SWA launches a prefill, peak memory, the rank's param and
+              cache bytes equal to the dry run's per-device bytes
+              (``device_bytes`` on the mesh's sizes), one (B S, d)
+              all_reduce timed alone (two a layer), the greedy tokens
+              that equal the one-process zoo run's (reported); the bf16
+              expert-parallel olmoe prefill at published width (B 2,
+              prompt 2048, 32 experts a rank, its attention cut too): ms,
+              16 causal SWA launches, the (B S, d) all_reduce timed
+              alone (two a layer), peak memory, a rank each; a 2-layer fp32 training
               step (B 2, S 512) against the one-process step (loss 1e-5,
               each leaf of the rank's share 2e-4 max|g|), its SWA forward
               and backward launches at d 128; the sharded KGE trainer on
@@ -3069,14 +3085,25 @@ MESH_KGE_CHECK_STEPS, MESH_KGE_STEPS = 3, 50
 #: the sharded trainer against the one-process step: the CPU tests'
 #: tolerances against the reference (tests/test_torch_kge_mesh.py)
 MESH_KGE_LOSS_RTOL, MESH_KGE_PARAM_TOL = 1e-5, 2e-4
-#: times the one all_reduce a layer of the bf16 prefill is timed
+#: the gloo world's parts, in order: the checks and the training step
+#: first, so the world of one (run beside it) has ended before the timed
+#: parts start
+MESH_GLOO_PARTS = ("check", "tp_check", "train", "tp", "prefill", "kge")
+#: times the (B S, d) all_reduce of a bf16 prefill (two a layer) is timed
 MESH_ALL_REDUCE_ITERS = 10
+#: the tensor-parallel checks, fp32 at MESH_TP_CHECK_LAYERS layers against
+#: the one-process model (arch, B, prompt), MESH_TP_CHECK_STEPS decode
+#: steps each: mistral-large-123b at a 512-token prompt (a cut in length:
+#: the generation runs take 2,048), h2o-danube-1.8b past its window
+MESH_TP_CHECK_LAYERS, MESH_TP_CHECK_STEPS = 2, 4
+MESH_TP_CHECKS = ((MISTRAL_ARCH, 1, 512), (LM_ARCH, 1, 6144))
 
 
 def _mesh_moe_check(mesh) -> dict:
     """fp32, 2 of olmoe-1b-7b's layers at full width, capacity factor
-    MOE_CHECK_CF: the expert-parallel prefill's last logits against the
-    one-process ``moe_apply``'s, on the same params and prompt."""
+    MOE_CHECK_CF: the expert-parallel prefill's last logits (on two ranks
+    the attention cut too) against the one-process ``moe_apply``'s, on the
+    same params and prompt."""
     import dataclasses
     import torch
     from repro_torch.kernels import swa_attention as sw
@@ -3122,11 +3149,11 @@ def _mesh_moe_check(mesh) -> dict:
 
 def _mesh_prefill(mesh) -> dict:
     """bf16 olmoe-1b-7b at published width and depth, expert-parallel (32
-    experts a rank on a model axis of 2): a warm-up prefill, then the
-    measured one (ms, SWA launches, dropped pairs, peak memory); then the
-    layer's one all_reduce ((B S, d) bf16 over ``"model"``) timed alone."""
+    experts a rank on a model axis of 2) and its attention cut: a warm-up
+    prefill, then the measured one (ms, SWA launches, dropped pairs, peak
+    memory); then the (B S, d) bf16 all_reduce over ``"model"`` (two a
+    layer: the attention's and the experts') timed alone."""
     import torch
-    import torch.distributed as dist
     from repro_torch.kernels import swa_attention as sw
     from repro_torch.models import build, get_config, runtime
     from repro_torch.models.convert import shard_params
@@ -3153,23 +3180,14 @@ def _mesh_prefill(mesh) -> dict:
         MOE_BATCH, 1, cfg.padded_vocab), "bf16 expert-parallel logits")
     check(launches == cfg.n_layers, f"the bf16 prefill launched {launches} "
                                     f"SWA kernels, want {cfg.n_layers}")
-    y = torch.randn((MOE_BATCH * MOE_PROMPT, cfg.d_model), device=dev,
-                    dtype=cfg.jdtype)
-    group = mesh.group("model")
-    times = []
-    for _ in range(MESH_ALL_REDUCE_ITERS + 1):
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        dist.all_reduce(y, group=group)
-        torch.cuda.synchronize(dev)
-        times.append((time.perf_counter() - t0) * 1e3)
     out = {"prefill_ms": ms, "swa_launches": launches,
            "experts_a_rank": tuple(model.params["layers"][0]["moe"]["gate"]
                                    .shape)[0],
            "dropped_pairs": model.take_dropped(),
-           "all_reduce_ms": float(np.median(times[1:])),
-           "all_reduce_bytes": y.numel() * y.element_size(),
-           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "all_reduces_a_prefill": 2 * cfg.n_layers,
+           **_all_reduce_ms(mesh, MOE_BATCH * MOE_PROMPT, cfg.d_model,
+                            cfg.jdtype)}
     del model, logits
     torch.cuda.empty_cache()
     return out
@@ -3177,8 +3195,8 @@ def _mesh_prefill(mesh) -> dict:
 
 def _mesh_train_check(mesh) -> dict:
     """fp32, 2 of olmoe-1b-7b's layers at full width, capacity factor
-    MOE_CHECK_CF: ``steps.loss_and_grads`` expert-parallel on the mesh
-    against the one-process step on every rank, the loss within
+    MOE_CHECK_CF: ``steps.loss_and_grads`` expert-parallel (the attention
+    cut too) on the mesh against the one-process step on every rank, the loss within
     TRAIN_LOSS_RTOL and each gradient leaf of the rank's share within
     TRAIN_GRAD_TOL * max|g| of the one-process leaf; the SWA forward and
     backward launches of the mesh step."""
@@ -3187,7 +3205,7 @@ def _mesh_train_check(mesh) -> dict:
     from repro_torch.kernels import swa_attention as sw
     from repro_torch.models import build, get_config, runtime
     from repro_torch.models.convert import shard_params
-    from repro_torch.models.sharding import expert_parallel_pspec
+    from repro_torch.models.sharding import mesh_pspec
     from repro_torch.models.steps import loss_and_grads
 
     full = get_config(MOE_ARCH)
@@ -3219,8 +3237,8 @@ def _mesh_train_check(mesh) -> dict:
           f"expert-parallel loss {float(loss)} against {float(want_loss)}")
     worst = {}
     for n, w in want.items():
-        w = runtime.take_share(w, expert_parallel_pspec(
-            cfg, tuple(n.split(".")), w.dim()), mesh)
+        w = runtime.take_share(w, mesh_pspec(
+            cfg, tuple(n.split(".")), w.dim(), mesh.shape["model"]), mesh)
         err = float((grads[n] - w).abs().max())
         scale = float(w.abs().max())
         check(scale > 0 and err <= TRAIN_GRAD_TOL * scale,
@@ -3325,6 +3343,198 @@ def _mesh_kge(mesh, kg) -> dict:
     return out
 
 
+def _mesh_tp_check(mesh, arch: str, B: int, S: int) -> dict:
+    """fp32, MESH_TP_CHECK_LAYERS of ``arch``'s layers at published width
+    (its KV slots raised to the model axis where fewer,
+    ``sharding.tp_config``): the one-process prefill and
+    MESH_TP_CHECK_STEPS greedy decode steps, then the same params cut by
+    ``convert.shard_params`` and the tensor-parallel prefill step and
+    decode steps fed the one-process run's tokens: every step's logits
+    within LM_TOL (1 + |want|), the same argmax; one SWA forward a layer
+    of the prefill."""
+    import torch
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.models import build, get_config, runtime
+    from repro_torch.models.convert import shard_params
+    from repro_torch.models.sharding import tp_config
+    from repro_torch.models.steps import make_prefill_step
+
+    steps = MESH_TP_CHECK_STEPS
+    cfg = tp_config(get_config(arch).with_(
+        dtype="float32", n_layers=MESH_TP_CHECK_LAYERS), mesh.shape["model"])
+    dev = mesh.device
+    toks = torch.from_numpy(np.random.default_rng(SEED + 41).integers(
+        0, cfg.vocab, (B, S), dtype=np.int32)).to(dev)
+    t0 = time.perf_counter()
+    model = build(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    lg, cache = model.prefill({"tokens": toks}, cache_len=S + steps)
+    want, feed = [lg], []
+    for i in range(steps):
+        feed.append(want[-1].argmax(-1).to(torch.int32))
+        lg, cache = model.decode_step(cache, feed[-1], S + i)
+        want.append(lg)
+    del cache
+    shard_params(model, mesh)
+    sw.reset_launches()
+    lg, cache = make_prefill_step(model, mesh)({"tokens": toks}, S + steps)
+    launches = sw.launches["swa_attention_forward"]
+    got = [lg]
+    with runtime.use_mesh(mesh):
+        for i, tok in enumerate(feed):
+            lg, cache = model.decode_step(cache, tok, S + i)
+            got.append(lg)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        diff = (g - w).abs()
+        check(bool(torch.isfinite(g).all()) and g.shape == w.shape,
+              f"{arch} tensor-parallel logits at step {i}")
+        check(bool((diff <= LM_TOL * (1 + w.abs())).all()),
+              f"{arch} tensor-parallel vs one-process logits at step {i}: "
+              f"off by {float(diff.max())}")
+        check(bool(torch.equal(g.argmax(-1), w.argmax(-1))),
+              f"{arch} tensor-parallel vs one-process: argmax differs at "
+              f"step {i}")
+        worst = max(worst, float(diff.max()))
+    check(launches == cfg.n_layers, f"{arch}: the tensor-parallel prefill "
+                                    f"launched {launches} SWA kernels")
+    return {"arch": arch, "layers": cfg.n_layers, "batch": B, "prompt": S,
+            "decode_steps": steps, "kv_slots_a_rank": cache["k"].shape[2],
+            "q_heads_a_rank": cfg.padded_heads() // mesh.shape["model"],
+            "max_abs_diff": worst,
+            "max_abs_logit": max(float(w.abs().max()) for w in want),
+            "argmax_equal": True, "swa_launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def _all_reduce_ms(mesh, rows: int, d: int, dtype) -> dict:
+    """One all_reduce of (rows, d) over ``"model"``, timed alone
+    MESH_ALL_REDUCE_ITERS times after one warm-up: the median ms."""
+    import torch
+    import torch.distributed as dist
+    dev = mesh.device
+    y = torch.randn((rows, d), device=dev, dtype=dtype)
+    group, times = mesh.group("model"), []
+    for _ in range(MESH_ALL_REDUCE_ITERS + 1):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        dist.all_reduce(y, group=group)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"all_reduce_ms": float(np.median(times[1:])),
+            "all_reduce_bytes": y.numel() * y.element_size()}
+
+
+def _mesh_tp(mesh) -> dict:
+    """bf16 mistral-large-123b at published width, cut to the zoo's
+    depth, its params cut by ``convert.shard_params``: a warm-up
+    generation, then the measured one through ``make_prefill_step`` /
+    ``make_serve_step`` on the mesh (B ZOO_BATCH, ZOO_PROMPT, ZOO_STEPS
+    greedy steps, the zoo run's params and prompt): prefill ms, decode ms
+    a token, the prefill's SWA launches (one a layer), peak memory; the
+    rank's param and cache bytes, which must equal ``device_bytes`` of
+    ``param_shardings`` / ``cache_shardings`` on a ``MeshShape`` of the
+    mesh's sizes (the dry run's per-device bytes); the (B S, d)
+    all_reduce timed alone; on the lead rank, the one-process zoo run
+    (``launch.generate`` with the zoo phase's argv) first, and the greedy
+    tokens of the two that are equal, reported, not gated (bf16 partial
+    sums round differently)."""
+    import gc
+    import torch
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.launch import generate
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import build, get_config
+    from repro_torch.models.convert import shard_params
+    from repro_torch.models.lm import cache_nbytes
+    from repro_torch.models.sharding import (cache_shardings, device_bytes,
+                                             param_shardings, tp_config)
+    from repro_torch.models.steps import make_prefill_step, make_serve_step
+
+    depth = next(d for a, d, _ in ZOO_ARCHS if a == MISTRAL_ARCH)
+    cfg = tp_config(get_config(MISTRAL_ARCH).with_(n_layers=depth),
+                    mesh.shape["model"])
+    dev, B, P, steps = mesh.device, ZOO_BATCH, ZOO_PROMPT, ZOO_STEPS
+    one = None
+    if mesh.index("model") == 0:
+        one = generate.main([
+            "--arch", MISTRAL_ARCH, "--layers", str(depth), "--batch",
+            str(B), "--prompt-len", str(P), "--steps", str(steps),
+            "--seed", str(SEED), "--device", str(dev)])
+        gc.collect()
+        torch.cuda.empty_cache()
+    model = shard_params(build(cfg).init(
+        torch.Generator(device=dev).manual_seed(SEED)), mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)       # the cut model's serving
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (B, P), dtype=np.int32)).to(dev)}
+    prefill, serve = make_prefill_step(model, mesh), make_serve_step(model,
+                                                                     mesh)
+
+    def generation() -> dict:
+        sw.reset_launches()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits, cache = prefill(batch, P + steps)
+        tok = logits.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        launches = sw.launches["swa_attention_forward"]
+        ids = [tok]
+        for i in range(steps):
+            tok, cache = serve(cache, tok, P + i)
+            ids.append(tok)
+        torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        return {"prefill_ms": (t1 - t0) * 1e3,
+                "decode_ms_per_token": (t2 - t1) * 1e3 / steps,
+                "swa_launches": launches,
+                "cache_bytes": cache_nbytes(cache),
+                "ids": torch.cat(ids, 1).cpu().numpy()}
+
+    warm = generation()
+    run = generation()
+    ids = run.pop("ids")
+    check(np.array_equal(ids, warm.pop("ids")), "the tensor-parallel "
+          "generation gave other tokens on its second run")
+    check(((ids >= 0) & (ids < cfg.padded_vocab)).all(),
+          "tensor-parallel ids outside the vocab")
+    check(run["swa_launches"] == cfg.n_layers, f"the bf16 tensor-parallel "
+          f"prefill launched {run['swa_launches']} SWA kernels, want "
+          f"{cfg.n_layers}")
+    shape = MeshShape(mesh.axis_names, mesh.sizes)
+    specs = model.param_tree(None)
+    cache = model.cache_spec(B, P + steps)
+    dry = {"params": device_bytes(specs, param_shardings(cfg, shape, specs),
+                                  shape)[1],
+           "cache": device_bytes(cache, cache_shardings(cfg, shape, B, cache),
+                                 shape)[1]}
+    mine = {"params": sum(p.numel() * p.element_size()
+                          for p in model.params.parameters()),
+            "cache": run["cache_bytes"]}
+    check(mine == dry, f"the rank's bytes {mine}, the dry run's {dry}")
+    out = {"arch": MISTRAL_ARCH, "layers": depth,
+           "published_layers": get_config(MISTRAL_ARCH).n_layers,
+           "batch": B, "prompt": P, "steps": steps,
+           "q_heads_a_rank": cfg.padded_heads() // mesh.shape["model"],
+           "kv_slots_a_rank": cfg.groups // mesh.shape["model"],
+           **run, "warmup": warm, "bytes": mine, "dry_run_bytes": dry,
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "all_reduces_a_prefill": 2 * depth,
+           **_all_reduce_ms(mesh, B * P, cfg.d_model, cfg.jdtype)}
+    if one is not None:
+        want = np.asarray(one["ids"])
+        out.update(one_process_equal_tokens=int((ids == want).sum()),
+                   tokens=int(want.size),
+                   one_process_prefill_ms=one["prefill_ms"],
+                   one_process_decode_ms_per_token=one[
+                       "decode_ms_per_token"])
+    del model, prefill, serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _mesh_rank(rank: int, sizes, parts, device: str, kg=None) -> dict:
     """One rank of a mesh-phase world: the mesh over ``device`` and the
     named parts, each with its seconds (``kg``: the GO release
@@ -3337,9 +3547,14 @@ def _mesh_rank(rank: int, sizes, parts, device: str, kg=None) -> dict:
     out = {"coords": mesh.coords}
     for part in parts:
         t0 = time.perf_counter()
-        out[part] = (_mesh_kge(mesh, kg) if part == "kge" else {
-            "check": _mesh_moe_check, "prefill": _mesh_prefill,
-            "train": _mesh_train_check}[part](mesh))
+        if part == "kge":
+            out[part] = _mesh_kge(mesh, kg)
+        elif part == "tp_check":
+            out[part] = [_mesh_tp_check(mesh, *c) for c in MESH_TP_CHECKS]
+        else:
+            out[part] = {"check": _mesh_moe_check, "prefill": _mesh_prefill,
+                         "train": _mesh_train_check, "tp": _mesh_tp}[part](
+                             mesh)
         torch.cuda.synchronize(mesh.device)
         out[part + "_seconds"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
@@ -3349,31 +3564,46 @@ def _mesh_rank(rank: int, sizes, parts, device: str, kg=None) -> dict:
 def phase_mesh() -> dict:
     """The multi-process half of the mesh on the one card: a world of one
     rank on NCCL (the expert-parallel fp32 check), then two ranks sharing
-    cuda:0 on gloo, mesh (data 1, model 2): the fp32 check, the bf16
-    expert-parallel prefill of olmoe-1b-7b at full width and depth, the
-    2-layer fp32 expert-parallel training step against the one-process
-    step, and the sharded KGE trainer on the GO workload.  Times from the
-    shared card stand for no multi-card deployment: gloo stages every
-    collective through host memory."""
+    cuda:0 on gloo, mesh (data 1, model 2): the fp32 check, the
+    tensor-parallel fp32 checks (mistral-large-123b, h2o-danube-1.8b) and
+    bf16 mistral-large-123b generation, the bf16 expert-parallel prefill
+    of olmoe-1b-7b at full width and depth, the 2-layer fp32
+    expert-parallel training step against the one-process step, and the
+    sharded KGE trainer on the GO workload; on two ranks the attention,
+    MLP, embedding and logits are cut over "model" as the reference lays
+    them.  Times from the shared card stand for no multi-card deployment:
+    gloo stages every collective through host memory."""
     import torch
     from repro_torch.launch.mesh import run_world
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()          # the ranks need the card's memory
     lap = laps("mesh")
-    nccl = run_world(_mesh_rank, 1, backend="nccl", devices="cuda:0",
-                     args=((1, 1), ("check",), "cuda:0"),
-                     timeout_s=MESH_TIMEOUT_S)
-    lap("nccl world of 1")
-    (_, kg1), _ = go_releases()
-    kg = {"entities": kg1.num_entities, "relations": kg1.num_relations,
-          "triples": kg1.triples}
-    gloo = run_world(_mesh_rank, 2, backend="gloo", devices="cuda:0",
-                     args=((1, 2), ("check", "prefill", "train", "kge"),
-                           "cuda:0", kg), timeout_s=MESH_TIMEOUT_S)
-    lap("gloo world of 2 on cuda:0")
+    seconds = {}
+
+    def world(name, *args, **kw):
+        t0 = time.perf_counter()
+        out = run_world(_mesh_rank, *args, timeout_s=MESH_TIMEOUT_S, **kw)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    # the world of one beside the world of two: its check ends while the
+    # two ranks still run their checks, before any of their timed parts
+    with ThreadPoolExecutor(1) as pool:
+        nccl = pool.submit(world, "nccl", 1, backend="nccl",
+                           devices="cuda:0",
+                           args=((1, 1), ("check",), "cuda:0"))
+        (_, kg1), _ = go_releases()
+        kg = {"entities": kg1.num_entities, "relations": kg1.num_relations,
+              "triples": kg1.triples}
+        gloo = world("gloo", 2, backend="gloo", devices="cuda:0",
+                     args=((1, 2), MESH_GLOO_PARTS, "cuda:0", kg))
+        nccl = nccl.result()
+    lap("nccl world of 1 beside the gloo world of 2 on cuda:0")
     launches = {"swa_attention_forward_prefill": sum(
-        r["prefill"]["swa_launches"] for r in gloo)}
+        r["prefill"]["swa_launches"] for r in gloo),
+        "swa_attention_forward_tp_prefill": [r["tp"]["swa_launches"]
+                                             for r in gloo]}
     for e in ("swa_attention_forward", "swa_attention_bwd_dot",
               "swa_attention_backward_dkdv", "swa_attention_backward_dq"):
         launches[f"{e}_train"] = sum(r["train"]["launches"][e]
@@ -3382,6 +3612,7 @@ def phase_mesh() -> dict:
         launches[e] = sum(r["kge"]["launches"][e] for r in gloo)
     out = {"phase": "mesh", "nccl_world_of_1": nccl[0],
            "gloo_world_of_2": gloo, "launches": launches,
+           "world_seconds": seconds,
            "note": "gloo on one shared card: collectives through host "
                    "memory; no multi-card figure"}
     emit(out)
@@ -5816,8 +6047,9 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
     the training run's (its three entry points); the causal forward's
     ``launches_whisper`` and ``launches_llava`` those phases' measured
     prefills; at mistral-large-123b's layer, the zoo phase's measured
-    mistral prefill (one a layer of its depth), and ``launches_zoo`` every
-    zoo arch's.  The causal backward at olmoe-1b-7b's training shape: the
+    mistral prefill (one a layer of its depth), ``launches_zoo`` every
+    zoo arch's, and ``launches_mesh_tp`` each rank's in the mesh phase's
+    measured tensor-parallel mistral prefill (on its 48 q heads).  The causal backward at olmoe-1b-7b's training shape: the
     measured olmoe training run's (16 of each entry point a step).  The
     selective scan's are the falcon-mamba-7b generation run's prefill: 64
     fused launches and none of the bare entry point, whose entry also
@@ -6001,6 +6233,7 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
         "in_place_of": "src/repro/models/blocks.py:105,140 "
                        "chunked_attention(causal=True) (jnp)",
         "launches": zoo_l.get(MISTRAL_ARCH), "launches_zoo": zoo_l,
+        "launches_mesh_tp": ml.get("swa_attention_forward_tp_prefill"),
         "max_abs_err": swa["max_abs_err_causal"]["bfloat16"],
         "max_abs_err_fp32": swa["max_abs_err_causal"]["float32"],
         "ms": c["ms"], "device_ms": c["device_ms"],

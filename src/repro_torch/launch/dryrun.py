@@ -16,6 +16,10 @@ per-device bytes of what the step takes, laid out by ``models.sharding``:
   * decode: the params, the cache, the token and the position;
   * ``--kge``: the KGE tables, their Adam state and the triples.
 
+For the dense, VLM and MoE families the per-device bytes are those a
+rank holds on a process mesh of the same sizes (``convert.shard_params``
+cuts by the same rules).
+
 One JSON a tag goes to ``--out`` (default ``build/dryrun``).  Not
 reproduced: the reference lowers and compiles each step for its mesh and
 records XLA's ``cost_analysis``, ``memory_analysis``'s temp sizes, the

@@ -18,6 +18,14 @@ Decode writes the new slot into the caller's cache in place (the JAX
 package re-emits the cache), optionally into an int8 cache with per-slot
 fp32 scales (``quantize_kv``).
 
+Under a model axis of n (``runtime.tp_group``: a process mesh that cuts
+the dense, VLM and MoE families) each rank runs its ``G / n`` KV slots and
+their ``padded_heads() / n`` q heads (``wq`` / ``wk`` / ``wv`` cut by
+output, ``wo`` by input: a padding head's zero rows sit with its head),
+its cache ``(B, G / n, Sc, hd)`` a layer; the normed input enters through
+``runtime.pvary`` and one ``all_reduce`` after ``wo`` sums the heads.
+RoPE, the window and the rolling cache are per slot, so unchanged.
+
 The MoE block is the reference's capacity-dropped top-k dispatch
 (``moe_apply``): plain PyTorch, as the reference computes it outside any
 Pallas kernel.  Under a process mesh (``runtime.use_mesh``) with
@@ -55,7 +63,7 @@ from . import runtime
 from .attention import chunked_attention, decode_attention, swa_attention
 from .config import ArchConfig
 from .layers import (Gen, apply_norm, dense, dense_init, init_device, mlp,
-                     mlp_init, norm_init, normal, rope_qk)
+                     mlp_init, norm_init, normal, rope_qk, row_dense)
 
 
 # ===================================================================== #
@@ -93,18 +101,30 @@ def _pad_head_mask(cfg: ArchConfig) -> torch.Tensor:
     return m.reshape(-1)
 
 
-def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig):
-    """x (B,S,d) -> q (B,S,G,H,hd), k/v (B,S,G,hd) with KV repeated to G."""
+def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig, group):
+    """x (B,S,d) -> q (B,S,G,H,hd), k/v (B,S,G,hd) with KV repeated to G;
+    with a process ``group`` of n, the rank's G/n slots.  Where
+    ``n_kv_heads % n != 0`` a rank's slots read head columns another rank
+    holds: the projected K / V are gathered
+    (``runtime.gather_last_summed``), then the rank's slots taken."""
     B, S, _ = x.shape
     hd, G = cfg.hd, cfg.groups
     hp, kv = cfg.padded_heads(), cfg.n_kv_heads
-    q = dense(p["wq"], x).reshape(B, S, G, hp // G, hd)
-    k = dense(p["wk"], x).reshape(B, S, kv, hd)
-    v = dense(p["wv"], x).reshape(B, S, kv, hd)
+    n, i = (1, 0) if group is None else runtime.group_index(group)
+    if group is not None:
+        x = runtime.pvary(x, group)
+    q = dense(p["wq"], x).reshape(B, S, G // n, hp // G, hd)
+    k, v = dense(p["wk"], x), dense(p["wv"], x)
+    if kv % n:
+        k, v = (runtime.gather_last_summed(t, group) for t in (k, v))
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if G != kv:
         r = G // kv
         k = k.repeat_interleave(r, dim=2)
         v = v.repeat_interleave(r, dim=2)
+    if kv % n:
+        k, v = (t[:, :, i * G // n:(i + 1) * G // n] for t in (k, v))
     return q, k, v
 
 
@@ -127,7 +147,8 @@ def attn_apply(p, x: torch.Tensor, cfg: ArchConfig, *, causal: bool = True,
                ) -> torch.Tensor:
     """Train/prefill attention over full sequence x (B,S,d)."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg)
+    group = runtime.tp_group(cfg)
+    q, k, v = _project_qkv(p, x, cfg, group)
     if cfg.rope_theta > 0:
         pos = _positions(q_offset, S, x.device)
         q, k = rope_qk(q, k, pos, pos, cfg.rope_theta)
@@ -137,7 +158,7 @@ def attn_apply(p, x: torch.Tensor, cfg: ArchConfig, *, causal: bool = True,
         o = _causal_attention(q, k, v, q_offset)
     else:
         o = chunked_attention(q, k, v, causal=False)
-    return dense(p["wo"], o.reshape(B, S, -1))
+    return row_dense(p["wo"], o.reshape(B, S, -1), group)
 
 
 def attn_prefill(p, x: torch.Tensor, cfg: ArchConfig, *,
@@ -149,7 +170,8 @@ def attn_prefill(p, x: torch.Tensor, cfg: ArchConfig, *,
     Sc = window for SWA (rolling layout: slot = pos % window) else S.
     """
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg)
+    group = runtime.tp_group(cfg)
+    q, k, v = _project_qkv(p, x, cfg, group)
     if cfg.rope_theta > 0:
         pos = _positions(0, S, x.device)
         q, k = rope_qk(q, k, pos, pos, cfg.rope_theta)
@@ -169,12 +191,12 @@ def attn_prefill(p, x: torch.Tensor, cfg: ArchConfig, *,
     else:
         o = _causal_attention(q, k, v, 0)
         kc, vc = k, v
-    o = dense(p["wo"], o.reshape(B, S, -1))
+    o = row_dense(p["wo"], o.reshape(B, S, -1), group)
     return o, kc.movedim(1, 2), vc.movedim(1, 2)
 
 
-def _project_one(p, x: torch.Tensor, pos: int, cfg: ArchConfig):
-    q, k, v = _project_qkv(p, x, cfg)                 # q (B,1,G,H,hd)
+def _project_one(p, x: torch.Tensor, pos: int, cfg: ArchConfig, group):
+    q, k, v = _project_qkv(p, x, cfg, group)          # q (B,1,G,H,hd)
     if cfg.rope_theta > 0:
         ppos = _positions(pos, 1, x.device)
         q, k = rope_qk(q, k, ppos, ppos, cfg.rope_theta)
@@ -192,13 +214,14 @@ def attn_decode(p, x: torch.Tensor, k_cache: torch.Tensor,
     (out (B,1,d), k_cache, v_cache).
     """
     B = x.shape[0]
-    q, k, v = _project_one(p, x, pos, cfg)
+    group = runtime.tp_group(cfg)
+    q, k, v = _project_one(p, x, pos, cfg, group)
     Sc = k_cache.shape[2]
     slot = pos % Sc if window is not None else pos
     k_cache[:, :, slot] = k.to(k_cache.dtype)
     v_cache[:, :, slot] = v.to(v_cache.dtype)
     o = decode_attention(q, k_cache, v_cache, min(pos + 1, Sc))
-    return dense(p["wo"], o.reshape(B, 1, -1)), k_cache, v_cache
+    return row_dense(p["wo"], o.reshape(B, 1, -1), group), k_cache, v_cache
 
 
 def quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -231,7 +254,8 @@ def attn_decode_inplace(p, x: torch.Tensor, k_cache: torch.Tensor,
     model's dtype for the attention dot.  Returns (out (B, 1, d), k_cache,
     v_cache), then k_scale, v_scale in int8 mode."""
     B = x.shape[0]
-    q, k, v = _project_one(p, x, pos, cfg)
+    group = runtime.tp_group(cfg)
+    q, k, v = _project_one(p, x, pos, cfg, group)
     Sc = k_cache.shape[3]
     slot = pos % Sc if window is not None else pos
     quant = k_scale is not None
@@ -245,7 +269,7 @@ def attn_decode_inplace(p, x: torch.Tensor, k_cache: torch.Tensor,
         row_k = dequantize_kv(row_k, k_scale[layer], x.dtype)
         row_v = dequantize_kv(row_v, v_scale[layer], x.dtype)
     o = decode_attention(q, row_k, row_v, min(pos + 1, Sc))
-    o = dense(p["wo"], o.reshape(B, 1, -1))
+    o = row_dense(p["wo"], o.reshape(B, 1, -1), group)
     if quant:
         return o, k_cache, v_cache, k_scale, v_scale
     return o, k_cache, v_cache
@@ -267,7 +291,8 @@ def block_apply(p, x: torch.Tensor, cfg: ArchConfig, *, causal: bool = True,
                 window: Optional[int] = None) -> torch.Tensor:
     x = x + attn_apply(p["attn"], apply_norm(p["ln1"], x), cfg,
                        causal=causal, window=window)
-    return x + mlp(p["mlp"], apply_norm(p["ln2"], x), cfg.act)
+    return x + mlp(p["mlp"], apply_norm(p["ln2"], x), cfg.act,
+                   runtime.tp_group(cfg))
 
 
 def block_prefill(p, x: torch.Tensor, cfg: ArchConfig, *,
@@ -275,7 +300,8 @@ def block_prefill(p, x: torch.Tensor, cfg: ArchConfig, *,
     a, kc, vc = attn_prefill(p["attn"], apply_norm(p["ln1"], x), cfg,
                              window=window)
     x = x + a
-    x = x + mlp(p["mlp"], apply_norm(p["ln2"], x), cfg.act)
+    x = x + mlp(p["mlp"], apply_norm(p["ln2"], x), cfg.act,
+                runtime.tp_group(cfg))
     return x, kc, vc
 
 
@@ -284,7 +310,8 @@ def block_decode(p, x: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     a, kc, vc = attn_decode(p["attn"], apply_norm(p["ln1"], x), kc, vc, pos,
                             cfg, window=window)
     x = x + a
-    x = x + mlp(p["mlp"], apply_norm(p["ln2"], x), cfg.act)
+    x = x + mlp(p["mlp"], apply_norm(p["ln2"], x), cfg.act,
+                runtime.tp_group(cfg))
     return x, kc, vc
 
 
@@ -442,7 +469,8 @@ def moe_apply_shard_map(p, x: torch.Tensor, cfg: ArchConfig, mesh,
     a process mesh.  ``x`` is this rank's tokens: the caller shards the
     batch over the data axes when they divide it (``B % n_dp == 0 and
     B >= n_dp``, the reference's ``bspec``) and replicates it otherwise;
-    every model rank holds the same tokens.  ``p["gate"]`` / ``"up"`` /
+    every model rank holds the same tokens (the residual, replicated
+    over ``"model"`` after the attention's ``all_reduce``).  ``p["gate"]`` / ``"up"`` /
     ``"down"`` hold this rank's ``E_local = Ev / n_model`` experts
     (``convert.shard_params``), ``p["router"]`` all of them.
 

@@ -14,8 +14,8 @@ periods: period i's ``l{j}`` becomes layer ``3 i + j`` and ``rem{r}``
 layer ``3 P + r``.
 
 On a process mesh, :func:`shard_params` cuts a model's params to the
-rank's share (``sharding.expert_parallel_pspec``: the experts over
-``"model"`` for the expert-parallel MoE, every other leaf whole) and
+rank's share (``sharding.mesh_pspec``: the reference's ``param_pspec``,
+the tensor-parallel layout of the dense, VLM and MoE families) and
 :func:`gather_params` puts the shares back together.
 """
 from __future__ import annotations
@@ -29,7 +29,7 @@ from ..device import DeviceLike, resolve_device
 from . import runtime
 from .layers import ParamTree
 from .lm import BaseLM
-from .sharding import expert_parallel_pspec
+from .sharding import check_tp, mesh_pspec
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
@@ -138,13 +138,21 @@ def _leaves(model: BaseLM):
         yield name, model.params.get_submodule(parent), leaf, t
 
 
+def _spec(model: BaseLM, name: str, t: torch.Tensor, mesh):
+    return mesh_pspec(model.cfg, tuple(name.split(".")), t.dim(),
+                      mesh.shape["model"])
+
+
 def shard_params(model: BaseLM, mesh) -> BaseLM:
     """Cut ``model.params`` in place to this rank's share on the process
-    ``mesh``; each cut leaf is a new tensor, so the full one is freed
-    leaf by leaf.  Returns the model."""
+    ``mesh`` (``sharding.mesh_pspec``; the SSM, hybrid and audio families
+    stay whole, ROADMAP Queue 1 item 6); each cut leaf is a new tensor, so
+    the full one is freed leaf by leaf.  Raises ``ValueError`` (from
+    ``sharding.check_tp``) on a config the model axis cannot cut.
+    Returns the model."""
+    check_tp(model.cfg, mesh.shape["model"])
     for name, mod, leaf, t in _leaves(model):
-        spec = expert_parallel_pspec(model.cfg, tuple(name.split(".")),
-                                     t.dim())
+        spec = _spec(model, name, t, mesh)
         if any(spec):
             setattr(mod, leaf, torch.nn.Parameter(
                 runtime.take_share(t.detach(), spec, mesh),
@@ -155,6 +163,6 @@ def shard_params(model: BaseLM, mesh) -> BaseLM:
 def gather_params(model: BaseLM, mesh) -> Dict[str, torch.Tensor]:
     """``{dotted name: full tensor}`` from every rank's share (collective
     over the world)."""
-    return {name: runtime.gather_share(t.detach(), expert_parallel_pspec(
-        model.cfg, tuple(name.split(".")), t.dim()), mesh)
-        for name, _, _, t in _leaves(model)}
+    return {name: runtime.gather_share(t.detach(),
+                                       _spec(model, name, t, mesh), mesh)
+            for name, _, _, t in _leaves(model)}

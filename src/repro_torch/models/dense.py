@@ -14,7 +14,10 @@ remat saves for a block is the rank's rows.  The blocks compute
 replicated over ``"model"``, so the all-gather's backward is a slice and
 the slice's an all-gather (``runtime.gather_seq`` / ``slice_seq``), not
 a reduce-scatter; loss and gradients equal those of ``seq_shard=False``.
-As in the reference, only ``backbone`` (training) takes it.
+As in the reference, only ``backbone`` (training) takes it.  With the
+weights cut over ``"model"`` (``runtime.tp_group``) a block runs its
+tensor-parallel products on the gathered sequence, the reference's
+``P(dp, "model", None)`` constraint on the same axis.
 
 The cache keeps the reference's stacked ``(L, B, G, Sc, hd)`` layout, so
 caches compare across the packages.  ``decode_step`` writes the new slot
@@ -22,7 +25,10 @@ into it in place, where the JAX package re-emits the cache.  With
 ``kv_cache_dtype="int8"`` the cache is int8 with ``(L, B, G, Sc)`` fp32
 scales beside it (``k_scale``, ``v_scale``): prefill quantizes the whole
 cache, decode quantizes each new slot on write and dequantizes a layer's
-rows for its attention.
+rows for its attention; not under a model axis past size 1 (ROADMAP
+Queue 1 item 6).  On a model axis of n a layer's cache is the rank's
+``(B, G / n, Sc, hd)`` (``BaseLM.kv_slots``), as ``cache_spec`` gives it
+under the mesh.
 """
 from __future__ import annotations
 
@@ -42,7 +48,13 @@ class DenseLM(BaseLM):
 
     @property
     def quantized_cache(self) -> bool:
-        return self.cfg.kv_cache_dtype == "int8"
+        if self.cfg.kv_cache_dtype != "int8":
+            return False
+        if runtime.tp_group(self.cfg) is not None:
+            raise NotImplementedError(
+                "the int8 KV cache under a model axis past size 1 "
+                "(ROADMAP Queue 1 item 6)")
+        return True
 
     def init_layers(self, gen: Gen) -> list:
         return [blocks.block_init(gen, self.cfg)
@@ -72,11 +84,12 @@ class DenseLM(BaseLM):
     def backbone_prefill(self, x: torch.Tensor, cache_len: Optional[int] = None):
         cfg = self.cfg
         B, S, _ = x.shape
+        quant = self.quantized_cache
         if self.window is not None:
             Sc = self.window
         else:
             Sc = max(S, cache_len or 0)
-        shape = (cfg.n_layers, B, cfg.groups, Sc, cfg.hd)
+        shape = (cfg.n_layers, B, self.kv_slots(), Sc, cfg.hd)
         kcs = torch.zeros(shape, dtype=x.dtype, device=x.device)
         vcs = torch.zeros(shape, dtype=x.dtype, device=x.device)
         h = x
@@ -84,7 +97,7 @@ class DenseLM(BaseLM):
             h, kc, vc = blocks.block_prefill(p, h, cfg, window=self.window)
             kcs[i, :, :, :kc.shape[2]] = kc
             vcs[i, :, :, :vc.shape[2]] = vc
-        if self.quantized_cache:
+        if quant:
             kq, ks = blocks.quantize_kv(kcs)
             vq, vs = blocks.quantize_kv(vcs)
             return h, {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
@@ -103,13 +116,15 @@ class DenseLM(BaseLM):
                 window=self.window, k_scale=scales[0] if scales else None,
                 v_scale=scales[1] if scales else None)
             h = h + a
-            h = h + mlp(p["mlp"], apply_norm(p["ln2"], h), cfg.act)
+            h = h + mlp(p["mlp"], apply_norm(p["ln2"], h), cfg.act,
+                        runtime.tp_group(cfg))
         return h, dict(zip(names, caches))
 
     def cache_spec(self, batch: int, seq: int):
         cfg = self.cfg
         Sc = min(seq, cfg.window) if self.window is not None else seq
-        shp = (cfg.n_layers, batch, cfg.groups, Sc, cfg.hd)
+        shp = (cfg.n_layers, self.cache_rows(batch), self.kv_slots(), Sc,
+               cfg.hd)
         if self.quantized_cache:
             return {"k": torch.empty(shp, dtype=torch.int8, device="meta"),
                     "v": torch.empty(shp, dtype=torch.int8, device="meta"),

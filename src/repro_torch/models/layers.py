@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import runtime
+
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: dicts become submodules, lists
@@ -82,6 +84,18 @@ def dense(p, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def row_dense(p, x: torch.Tensor, group=None) -> torch.Tensor:
+    """``dense`` of a weight whose rows (its input) a process ``group``
+    cuts: ``x @ w`` summed over the group (one ``all_reduce``,
+    ``runtime.psum_identity_bwd``), the bias added once after."""
+    y = x @ p["w"]
+    if group is not None:
+        y = runtime.psum_identity_bwd(y, group)
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
 def norm_init(gen: Gen, d: int, dtype, kind: str = "rmsnorm") -> dict:
     dev = init_device(gen)
     p = {"scale": torch.ones((d,), dtype=dtype, device=dev)}
@@ -115,13 +129,19 @@ def mlp_init(gen: Gen, d: int, ff: int, dtype,
     return p
 
 
-def mlp(p, x: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
+def mlp(p, x: torch.Tensor, act: str = "swiglu",
+        group=None) -> torch.Tensor:
+    """With a process ``group`` (``runtime.tp_group``) ``gate`` / ``up``
+    hold the rank's ff columns and ``down`` its ff rows: x enters through
+    ``runtime.pvary`` and ``down`` is :func:`row_dense`."""
+    if group is not None:
+        x = runtime.pvary(x, group)
     if act == "swiglu":
         h = F.silu(dense(p["gate"], x)) * dense(p["up"], x)
     else:
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(dense(p["up"], x), approximate="tanh")
-    return dense(p["down"], h)
+    return row_dense(p["down"], h, group)
 
 
 # --------------------------------------------------------------------- #

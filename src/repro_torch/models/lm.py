@@ -17,6 +17,13 @@ instead.  The reference's ``jax.lax.scan`` over stacked layers is a loop
 over ``params["layers"]``, an ``nn.ModuleList`` (:func:`scan_layers`), and
 its ``jax.checkpoint`` policies are ``torch.utils.checkpoint``
 (:func:`maybe_remat`).
+
+Under a model axis that cuts the weights (``runtime.tp_group``) ``embed``
+holds the rank's d columns and ``lm_head`` its vocab block: the embedding
+gathers its rows locally, then all-gathers the columns; the logits are
+the rank's vocab block, all-gathered, so ``prefill`` and ``decode_step``
+return every ``padded_vocab`` column on every rank and ``loss`` reads the
+full logits (the gather's backward takes the rank's block).
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from ..kernels.ref import no_tf32
 from . import runtime
 from .config import ArchConfig
 from .layers import Gen, ParamTree, apply_norm, norm_init, normal
+from .sharding import batch_sharded
 
 
 def cache_leaves(tree) -> list:
@@ -155,12 +163,41 @@ class BaseLM(nn.Module):
     # ---------------- forward pieces ---------------- #
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """(B, S) token ids -> (B, S, d)."""
-        return self._p()["embed"][tokens.long()]
+        e = self._p()["embed"][tokens.long()]
+        group = runtime.tp_group(self.cfg)
+        if group is None:
+            return e
+        n = runtime.group_index(group)[0]
+        if e.shape[-1] * n != self.cfg.d_model:
+            raise ValueError(f"embed holds {e.shape[-1]} columns, want "
+                             f"{self.cfg.d_model // n} on a model axis of "
+                             f"{n} (convert.shard_params cuts them)")
+        return runtime.gather_last(e, group)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         p = self._p()
         w = p["embed"].T if self.cfg.tie_embeddings else p["lm_head"]
-        return h @ w
+        group = runtime.tp_group(self.cfg)
+        if group is None:
+            return h @ w
+        return runtime.gather_last(runtime.pvary(h, group) @ w, group)
+
+    def kv_slots(self) -> int:
+        """The KV slots a layer's cache holds here: ``cfg.groups``, or this
+        rank's ``groups / n`` on a model axis of n (``runtime.tp_group``)."""
+        group = runtime.tp_group(self.cfg)
+        return self.cfg.groups // (1 if group is None
+                                   else runtime.group_index(group)[0])
+
+    @staticmethod
+    def cache_rows(batch: int) -> int:
+        """The rows of a global ``batch`` this process holds: ``B / n_dp``
+        where the active mesh's data axes divide it (``steps.local_batch``),
+        else B."""
+        mesh = runtime.get_mesh()
+        if mesh is None or not batch_sharded(mesh, batch):
+            return batch
+        return batch * mesh.shape["model"] // mesh.size
 
     # ---------------- family-specific hooks ---------------- #
     def backbone(self, x: torch.Tensor):
@@ -186,13 +223,15 @@ class BaseLM(nn.Module):
     # ---------------- public API ---------------- #
     def loss(self, batch: Dict[str, torch.Tensor]):
         """``batch["tokens"]``, ``batch["labels"]`` (B, S) -> (total loss,
-        metrics ``ce``, ``aux``, ``acc``): ``total = ce + 0.01 * aux``.
+        metrics ``ce``, ``aux``, ``acc``): ``total = ce + 0.01 * aux``,
+        over the last S positions of the residual stream (a VLM's text).
         Differentiable in the params once they want gradients.  Under a
         process mesh (``runtime.use_mesh``) the batch is this rank's and
         ``ce`` / ``acc`` are over the data axes' positions (``xent``)."""
         x = self.embed_batch(batch)
         h, aux = self.backbone(x)
-        h = apply_norm(self._p()["ln_f"], h)
+        h = apply_norm(self._p()["ln_f"],
+                       h[:, h.shape[1] - batch["labels"].shape[1]:])
         mesh = runtime.get_mesh()
         loss, acc = xent(self.logits(h), batch["labels"],
                          None if mesh is None else runtime.data_group(mesh))

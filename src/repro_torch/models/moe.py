@@ -3,7 +3,8 @@
 
 Each layer is causal attention (on the SWA kernel, a window over every
 key) and the capacity-dropped top-k MoE of ``blocks.moe_apply``.  The
-cache keeps the reference's stacked ``(L, B, G, S, hd)`` layout;
+cache keeps the reference's stacked ``(L, B, G, S, hd)`` layout (the
+rank's ``G / n`` slots on a model axis of n, as the dense family's);
 ``decode_step`` writes the new slot into it in place.  At decode the
 capacity is that of one token per sequence (olmoe at B = 2: C = 1), so a
 second token routed to a full expert is dropped, as in the reference.
@@ -55,7 +56,8 @@ class MoELM(BaseLM):
     def backbone_prefill(self, x: torch.Tensor, cache_len: Optional[int] = None):
         cfg = self.cfg
         B, S, _ = x.shape
-        shape = (cfg.n_layers, B, cfg.groups, max(S, cache_len or 0), cfg.hd)
+        shape = (cfg.n_layers, B, self.kv_slots(), max(S, cache_len or 0),
+                 cfg.hd)
         kcs = torch.zeros(shape, dtype=x.dtype, device=x.device)
         vcs = torch.zeros(shape, dtype=x.dtype, device=x.device)
         drops = self._drops(x.device)
@@ -82,6 +84,7 @@ class MoELM(BaseLM):
 
     def cache_spec(self, batch: int, seq: int):
         cfg = self.cfg
-        shp = (cfg.n_layers, batch, cfg.groups, seq, cfg.hd)
+        shp = (cfg.n_layers, self.cache_rows(batch), self.kv_slots(), seq,
+               cfg.hd)
         return {"k": torch.empty(shp, dtype=cfg.jdtype, device="meta"),
                 "v": torch.empty(shp, dtype=cfg.jdtype, device="meta")}

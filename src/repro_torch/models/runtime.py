@@ -8,6 +8,11 @@ single-process run.  Under a mesh ``blocks.moe_dispatch`` takes the
 expert-parallel MoE when the config asks for it, ``dense.DenseLM``
 sequence-shards its residual, and ``lm.xent`` reduces over the data axes.
 
+Under a mesh whose ``"model"`` axis is past size 1, the dense, VLM and
+MoE families run tensor-parallel on the rank's share of their weights
+(``models.sharding.mesh_pspec``, the reference's ``param_pspec``):
+:func:`tp_group` gives the model code that axis's group.
+
 The reference's ``shard_map`` types each value as invariant or varying
 over a mesh axis and transposes its collectives by those types.  Here
 every rank runs the model on its own tensors and autograd differentiates
@@ -28,7 +33,15 @@ forward and the backward that reference's transpose gives:
     sequence dim and take this rank's block of it, each the other's
     backward (the sequence-sharded residual: the blocks compute
     replicated over the group, so a gathered cotangent is the same on
-    every rank and its transpose is a slice, not a reduce-scatter).
+    every rank and its transpose is a slice, not a reduce-scatter);
+  * :func:`gather_last` — all-gather along the last dim, backward this
+    rank's block (the embedding's d columns, the vocab-sharded logits:
+    what reads them computes replicated over the group, so the cotangent
+    is the same on every rank);
+  * :func:`gather_last_summed` — all-gather along the last dim, backward
+    the sum of the ranks' cotangents, this rank's block of it (a
+    reduce-scatter: the projected K / V where ``n_kv_heads`` is not a
+    multiple of the group's size, which each rank reads for other slots).
 
 Gradients of params replicated over the data axes are summed over them
 after ``backward()`` (``steps.make_train_step``); the losses are built so
@@ -41,6 +54,8 @@ import itertools
 
 import torch
 import torch.distributed as dist
+
+from .sharding import TP_FAMILIES
 
 _MESH = None
 
@@ -61,6 +76,22 @@ def use_mesh(mesh):
         yield
     finally:
         _MESH = prev
+
+
+def tp_group(cfg):
+    """The group of the active mesh's ``"model"`` axis when it cuts
+    ``cfg``'s weights (a family of ``sharding.TP_FAMILIES``, an axis past
+    size 1), else None."""
+    if _MESH is None or _MESH.shape["model"] == 1 \
+            or cfg.family not in TP_FAMILIES:
+        return None
+    return _MESH.group("model")
+
+
+def group_index(group):
+    """``(size, this rank's index)`` of ``group``."""
+    return dist.get_world_size(group), dist.get_group_rank(
+        group, dist.get_rank())
 
 
 def data_group(mesh):
@@ -123,14 +154,13 @@ def pmean(x: torch.Tensor, group) -> torch.Tensor:
     return _Pmean.apply(x, group)
 
 
-def _block(x: torch.Tensor, group) -> torch.Tensor:
-    """This rank's block of ``group`` along the sequence dim (1)."""
-    n, i = dist.get_world_size(group), dist.get_group_rank(
-        group, dist.get_rank())
-    if x.shape[1] % n:
-        raise ValueError(f"dim 1 of {tuple(x.shape)} does not divide "
+def _block(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """This rank's block of ``group`` along ``dim`` (the sequence's: 1)."""
+    n, i = group_index(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
                          f"into {n} blocks")
-    return x.chunk(n, 1)[i].contiguous()
+    return x.chunk(n, dim)[i].contiguous()
 
 
 def _gather_parts(x: torch.Tensor, group) -> list:
@@ -139,6 +169,12 @@ def _gather_parts(x: torch.Tensor, group) -> list:
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x.contiguous(), group=group)
     return parts
+
+
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``x`` of ``group`` concatenated along dim 0, no
+    gradient (the serving steps' rows over the data axes)."""
+    return torch.cat(_gather_parts(x, group), 0)
 
 
 class _GatherSeq(torch.autograd.Function):
@@ -161,6 +197,32 @@ class _SliceSeq(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return torch.cat(_gather_parts(g, ctx.group), 1), None
+
+
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, summed):
+        ctx.group, ctx.summed = group, summed
+        return torch.cat(_gather_parts(x, group), -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            g = g.contiguous()
+            dist.all_reduce(g, group=ctx.group)
+        return _block(g, ctx.group, -1), None, None
+
+
+def gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' blocks of ``group`` concatenated along the last dim; the
+    backward takes this rank's block of the cotangent."""
+    return _GatherLast.apply(x, group, False)
+
+
+def gather_last_summed(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`gather_last` whose backward sums the cotangent over
+    ``group`` before it takes this rank's block."""
+    return _GatherLast.apply(x, group, True)
 
 
 def gather_seq(x: torch.Tensor, group) -> torch.Tensor:

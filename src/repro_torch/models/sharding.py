@@ -20,7 +20,10 @@ tensor / expert / channel parallelism:
 
 The port's params hold one entry a layer where the reference stacks
 ``(L, ...)``; every rule places its axis from the right, so a layer's
-spec is the reference's without the leading stacked entry.
+spec is the reference's without the leading stacked entry.  On a process
+mesh ``convert.shard_params`` cuts the dense, VLM and MoE families by
+these rules (:func:`mesh_pspec`), so the dry run's per-device bytes are a
+rank's.
 """
 from __future__ import annotations
 
@@ -96,19 +99,56 @@ def param_pspec(cfg: ArchConfig, path: Tuple[str, ...], ndim: int,
     return tuple(spec)
 
 
-def expert_parallel_pspec(cfg: ArchConfig, path: Tuple[str, ...],
-                          ndim: int) -> Spec:
-    """A leaf's layout on a process mesh (``convert.shard_params``): with
-    ``cfg.moe_impl == "shard_map"`` an MoE layer's ``gate`` / ``up`` /
-    ``down`` split their experts over ``"model"``, as the reference's
-    ``moe_apply_shard_map`` takes them; every other leaf is replicated.
-    The reference's tensor-parallel layout of the attention and dense
-    weights (:func:`param_pspec`) is XLA's partitioning, which the port
-    does not reproduce."""
-    if cfg.moe and cfg.moe_impl == "shard_map" and len(path) >= 2 \
-            and path[-2] == "moe" and path[-1] in ("gate", "up", "down"):
-        return (MODEL_AXIS,) + (None,) * (ndim - 1)
-    return (None,) * ndim
+#: the families a process mesh cuts by :func:`param_pspec` (their blocks
+#: share ``attn_*`` and ``mlp``); the SSM, hybrid and audio families keep
+#: every leaf whole there (ROADMAP Queue 1 item 6)
+TP_FAMILIES = ("dense", "vlm", "moe")
+
+
+def mesh_pspec(cfg: ArchConfig, path: Tuple[str, ...], ndim: int,
+               axis_size: int) -> Spec:
+    """A leaf's layout on a process mesh (``convert.shard_params``):
+    :func:`param_pspec`'s for :data:`TP_FAMILIES`.  One deviation: with
+    ``cfg.moe_impl == "gspmd"`` an MoE layer's experts stay whole, the
+    gspmd impl running the rank's block of tokens through every expert
+    (``blocks.moe_apply`` on a mesh)."""
+    if cfg.family not in TP_FAMILIES or (
+            cfg.moe_impl != "shard_map" and len(path) >= 2
+            and path[-2] == "moe"):
+        return (None,) * ndim
+    return param_pspec(cfg, path, ndim, axis_size)
+
+
+def tp_config(cfg: ArchConfig, axis_size: int) -> ArchConfig:
+    """``cfg`` with its KV slots raised to ``axis_size`` where it carries
+    fewer (as the reference's dry run raises them to 16)."""
+    return cfg.with_(kv_groups=axis_size) if cfg.groups < axis_size else cfg
+
+
+def check_tp(cfg: ArchConfig, axis_size: int) -> None:
+    """Raise ``ValueError`` naming each dim of ``cfg`` that a model axis of
+    ``axis_size`` cannot cut (:data:`TP_FAMILIES` only): nothing is
+    replicated in its place."""
+    if axis_size == 1 or cfg.family not in TP_FAMILIES:
+        return
+    dims = {"groups (KV slots)": cfg.groups,
+            "padded_heads()": cfg.padded_heads(),
+            "n_kv_heads * hd": cfg.n_kv_heads * cfg.hd,
+            "padded_vocab": cfg.padded_vocab, "d_model": cfg.d_model}
+    if cfg.moe is None:
+        dims["d_ff"] = cfg.d_ff
+    bad = [f"{k} = {v} is not a multiple of it" for k, v in dims.items()
+           if v % axis_size]
+    if cfg.tie_embeddings:
+        bad.append("tied embeddings are not cut (ROADMAP Queue 1 item 6)")
+    if cfg.moe_impl == "shard_map" and cfg.moe is not None \
+            and not _expert_parallel(cfg, axis_size):
+        bad.append(f"{cfg.moe.n_experts} experts (x moe_ff_split) do not "
+                   f"divide into it (tensor parallelism inside each "
+                   f"expert: ROADMAP Queue 1 item 6)")
+    if bad:
+        raise ValueError(f"{cfg.arch_id} on a model axis of {axis_size}: "
+                         + "; ".join(bad))
 
 
 def _map(fn, tree, path=()):

@@ -35,8 +35,9 @@ def loss_and_grads(model: BaseLM, batch, mesh=None):
     global batch: the model runs on the rank's rows (:func:`local_batch`)
     under ``runtime.use_mesh``, so the loss is the global masked mean
     (``lm.xent``), and after ``backward()`` each gradient is summed over
-    the data axes (a leaf replicated over ``"model"`` is already the same
-    on every model rank: ``runtime``'s collectives see to that)."""
+    the data axes: a leaf cut over ``"model"`` has its share's gradient, a
+    replicated one the same on every model rank (``runtime``'s
+    collectives see to that)."""
     params = dict(model._p().named_parameters())
     with runtime.use_mesh(mesh):
         loss, metrics = model.loss(batch if mesh is None
@@ -72,20 +73,51 @@ def make_train_step(model: BaseLM, lr: float = 3e-4, mesh=None
     return step, optimizer
 
 
-def make_prefill_step(model: BaseLM) -> Callable:
-    """step(batch, cache_len=None) -> (last logits (B, 1, V), cache)."""
+def _global_rows(x: torch.Tensor, mesh, B: int) -> torch.Tensor:
+    """The global batch's rows of ``x`` from each data rank's (no
+    gradient); ``x`` itself where the data axes do not cut the B rows."""
+    dp = runtime.data_group(mesh)
+    if dp is None or not batch_sharded(mesh, B):
+        return x
+    return runtime.gather_rows(x, dp)
+
+
+def make_prefill_step(model: BaseLM, mesh=None) -> Callable:
+    """step(batch, cache_len=None) -> (last logits (B, 1, V), cache).  On a
+    process ``mesh`` the params are this rank's share
+    (``convert.shard_params``) and ``batch`` the global batch: the
+    prefill runs on the rank's rows (:func:`local_batch`) under
+    ``runtime.use_mesh``; the logits are the global batch's, every
+    ``padded_vocab`` column on every rank, the cache the rank's (its rows,
+    its KV slots)."""
     def step(batch, cache_len=None):
-        return model.prefill(batch, cache_len=cache_len)
+        if mesh is None:
+            return model.prefill(batch, cache_len=cache_len)
+        with runtime.use_mesh(mesh):
+            logits, cache = model.prefill(local_batch(batch, mesh),
+                                          cache_len=cache_len)
+        return _global_rows(logits, mesh,
+                            next(iter(batch.values())).shape[0]), cache
     return step
 
 
-def make_serve_step(model: BaseLM) -> Callable:
+def make_serve_step(model: BaseLM, mesh=None) -> Callable:
     """ONE new token against an existing cache. Greedy-samples so the
     output is a token, not raw logits: step(cache, token (B, 1), pos) ->
-    (next_token (B, 1) int32, cache)."""
+    (next_token (B, 1) int32, cache): the argmax of the logits, among tied
+    logits the lower id.  On a process ``mesh`` (see
+    :func:`make_prefill_step`) ``token`` and the next token are the global
+    batch's, the same on every rank (the argmax of the gathered logits),
+    and the cache is the rank's."""
     def step(cache, token: torch.Tensor, pos: int):
-        logits, cache = model.decode_step(cache, token, pos)
-        return logits.argmax(-1).to(torch.int32), cache
+        if mesh is None:
+            logits, cache = model.decode_step(cache, token, pos)
+            return logits.argmax(-1).to(torch.int32), cache
+        with runtime.use_mesh(mesh):
+            logits, cache = model.decode_step(
+                cache, local_batch({"token": token}, mesh)["token"], pos)
+        return _global_rows(logits.argmax(-1).to(torch.int32), mesh,
+                            token.shape[0]), cache
     return step
 
 

@@ -5,9 +5,11 @@ The vision tower (SigLIP/CLIP ViT + projector) is a stub, as in the
 reference: ``batch["image_embeds"]`` carries (B, S_img, d_model) projected
 patch embeddings (anyres: base tile + 4 sub-tiles = 5 * 576 = 2880
 tokens).  The language model consumes [image ; text] and the loss runs
-over text positions only.  Prefill is ``DenseLM``'s: full causal
-attention over image and text on the SWA kernel (a window over every
-key); decode starts at position ``S_img + P``.
+over text positions only (``BaseLM.loss``: the labels' positions).
+Prefill is ``DenseLM``'s: full causal attention over image and text on
+the SWA kernel (a window over every key), tensor-parallel on a mesh like
+the dense family's, the image embeddings replicated over its model axis;
+decode starts at position ``S_img + P``.
 """
 from __future__ import annotations
 
@@ -16,8 +18,6 @@ from typing import Dict
 import torch
 
 from .dense import DenseLM
-from .layers import apply_norm
-from .lm import xent
 
 
 class VLM(DenseLM):
@@ -25,15 +25,6 @@ class VLM(DenseLM):
         txt = self.embed(batch["tokens"])
         img = batch["image_embeds"].to(txt.dtype)
         return torch.cat([img, txt], dim=1)
-
-    def loss(self, batch: Dict[str, torch.Tensor]):
-        x = self.embed_batch(batch)
-        h, aux = self.backbone(x)
-        h = apply_norm(self._p()["ln_f"], h)
-        S_img = batch["image_embeds"].shape[1]
-        logits = self.logits(h[:, S_img:])              # text positions only
-        loss, acc = xent(logits, batch["labels"])
-        return loss, {"ce": loss, "aux": aux, "acc": acc}
 
     def batch_spec(self, batch: int, seq: int) -> Dict[str, torch.Tensor]:
         cfg = self.cfg

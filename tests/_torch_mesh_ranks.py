@@ -1,6 +1,7 @@
 """The functions each rank of the port's process worlds runs in
 ``tests/test_torch_runtime.py``, ``test_torch_mesh_moe.py``,
-``test_torch_seq_shard.py`` and ``test_torch_kge_mesh.py``.
+``test_torch_seq_shard.py``, ``test_torch_kge_mesh.py`` and
+``test_torch_tensor_parallel.py``.
 
 ``launch.mesh.run_world`` starts fresh interpreters that import these by
 name, so this module imports neither JAX nor the JAX package (it loads
@@ -60,6 +61,13 @@ def runtime_rank(rank):
     (y * v).sum().backward()
     out["slice_seq"] = (y.detach().numpy(), x.grad.numpy())
 
+    for name, fn in (("gather_last", runtime.gather_last),
+                     ("gather_last_summed", runtime.gather_last_summed)):
+        x = torch.full((2, 3), v, requires_grad=True)
+        y = fn(x, model)
+        (y * torch.arange(12.0).view(2, 6) * v).sum().backward()
+        out[name] = (y.detach().numpy(), x.grad.numpy())
+
     full = torch.arange(24.0).view(4, 6)
     share = runtime.take_share(full, ("model", None), mesh)
     both = runtime.take_share(full, (("data", "model"), None), mesh)
@@ -97,10 +105,11 @@ def hanging_rank(rank):
 
 # ------------------------------- MoE ---------------------------------- #
 def _grads_full(cfg, grads, mesh):
+    """Every leaf of ``grads`` (the rank's shares) put back whole."""
     from repro_torch.models import runtime
-    from repro_torch.models.sharding import expert_parallel_pspec
+    from repro_torch.models.sharding import mesh_pspec
     return {n: runtime.gather_share(
-        g, expert_parallel_pspec(cfg, tuple(n.split(".")), g.dim()),
+        g, mesh_pspec(cfg, tuple(n.split(".")), g.dim(), mesh.shape["model"]),
         mesh).numpy() for n, g in grads.items()}
 
 
@@ -127,6 +136,8 @@ def moe_loss_rank(rank, sizes, params, batch, cfg_kw, lr):
         out[impl] = {"loss": float(loss), "aux": float(metrics["aux"]),
                      "experts": tuple(model.params["layers"][0]["moe"]
                                       ["gate"].shape),
+                     "wq": tuple(model.params["layers"][0]["attn"]["wq"]
+                                 ["w"].shape),
                      "grads": _grads_full(cfg, grads, mesh),
                      "params": {n: t.numpy() for n, t in
                                 gather_params(model, mesh).items()}}
@@ -147,13 +158,13 @@ def moe_layer_rank(rank, layer, x, cfg_kw):
     (1, 2) mesh: y, aux and the dropped pairs summed over the ranks."""
     import torch.distributed as dist
     from repro_torch.models import blocks, get_config, runtime
-    from repro_torch.models.sharding import expert_parallel_pspec
+    from repro_torch.models.sharding import mesh_pspec
     mesh = _mesh(("data", "model"), (1, 2))
     cfg = get_config("olmoe_1b_7b", reduced=True).with_(
         moe_impl="shard_map", **cfg_kw)
     p = {k: runtime.take_share(
         torch.from_numpy(v).to(cfg.jdtype),
-        expert_parallel_pspec(cfg, ("moe", k), v.ndim), mesh)
+        mesh_pspec(cfg, ("moe", k), v.ndim, 2), mesh)
         for k, v in layer.items()}
     drops = torch.zeros((), dtype=torch.int64)
     with runtime.use_mesh(mesh):
@@ -167,12 +178,13 @@ def moe_layer_rank(rank, layer, x, cfg_kw):
 # --------------------------- sequence shard ---------------------------- #
 def seq_shard_rank(rank, params, batch):
     """Reduced h2o-danube, fp32, on ``params`` (the reference's numpy
-    tree) on a (2, 2) mesh with and without ``seq_shard``: loss, every
-    gradient leaf and the residual rows each checkpointed block was given
-    (what remat keeps); and the error for a sequence the model axis does
-    not divide."""
+    tree) cut over ``"model"`` (``convert.shard_params``) on a (2, 2)
+    mesh with and without ``seq_shard``: loss, every gradient leaf
+    (gathered whole) and the residual rows each checkpointed block was
+    given (what remat keeps); and the error for a sequence the model axis
+    does not divide."""
     from repro_torch.models import build, get_config, lm
-    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.convert import params_from_numpy, shard_params
     from repro_torch.models.steps import loss_and_grads
     mesh = _mesh(("data", "model"), (2, 2))
     batch = {k: torch.from_numpy(v) for k, v in batch.items()}
@@ -189,12 +201,13 @@ def seq_shard_rank(rank, params, batch):
         for seq in (False, True):
             cfg = get_config("h2o_danube_1_8b", reduced=True).with_(
                 dtype="float32", seq_shard=seq)
-            model = params_from_numpy(build(cfg), params, "cpu")
+            model = shard_params(params_from_numpy(build(cfg), params, "cpu"),
+                                 mesh)
             model._p().requires_grad_(True)
             saved.clear()
             loss, _, grads = loss_and_grads(model, batch, mesh)
             out[seq] = {"loss": float(loss), "saved": list(saved),
-                        "grads": {n: g.numpy() for n, g in grads.items()}}
+                        "grads": _grads_full(cfg, grads, mesh)}
         odd = {k: v[:, :-1] for k, v in batch.items()}
         try:
             loss_and_grads(model, odd, mesh)
@@ -204,6 +217,145 @@ def seq_shard_rank(rank, params, batch):
     finally:
         lm.checkpoint = real
     return out if rank == 0 else None
+
+
+# -------------------------- tensor parallel ---------------------------- #
+def _serve_case(mesh, arch, kw, tree, batch, pos0, steps, lead):
+    """One arch's serving path on ``mesh``, fp32, on the reference's
+    params cut by ``convert.shard_params``: the prefill step's logits and
+    cache, ``steps`` greedy ``decode_step``s on the rank's rows under
+    ``use_mesh`` (each fed the last argmax: the logits, then the cache),
+    the serve step's tokens
+    from a copy of the prefill's cache; the rank's param and cache bytes;
+    from the ``lead`` rank the gathered params."""
+    from repro_torch.models import build, get_config, runtime
+    from repro_torch.models.convert import (gather_params, params_from_numpy,
+                                            shard_params)
+    from repro_torch.models.lm import cache_nbytes
+    from repro_torch.models.steps import (local_batch, make_prefill_step,
+                                          make_serve_step)
+    cfg = get_config(arch, reduced=True).with_(dtype="float32", **kw)
+    model = shard_params(params_from_numpy(build(cfg), tree, "cpu"), mesh)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    logits, cache = make_prefill_step(model, mesh)(batch, pos0 + steps)
+    out = {"prefill": logits.numpy(),
+           "cache_prefill": {k: v.clone().numpy() for k, v in cache.items()},
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in model.params.parameters())}
+    first = logits.argmax(-1).to(torch.int32)
+    served = {k: v.clone() for k, v in cache.items()}
+    # decode_step runs on the rank's rows (all of them on a (1, n) mesh)
+    tok, decode = local_batch({"tok": first}, mesh)["tok"], []
+    with runtime.use_mesh(mesh):
+        for i in range(steps):
+            lg, cache = model.decode_step(cache, tok, pos0 + i)
+            decode.append(lg.numpy())
+            tok = lg.argmax(-1).to(torch.int32)
+    serve, tok, tokens = make_serve_step(model, mesh), first, []
+    for i in range(steps):
+        tok, served = serve(served, tok, pos0 + i)
+        tokens.append(tok.numpy())
+    with runtime.use_mesh(mesh):
+        spec = model.cache_spec(batch["tokens"].shape[0], pos0 + steps)
+    out.update(decode=decode, serve_tokens=tokens,
+               cache={k: v.numpy() for k, v in cache.items()},
+               cache_bytes=cache_nbytes(cache),
+               cache_spec={k: tuple(v.shape) for k, v in spec.items()})
+    full = gather_params(model, mesh)
+    if lead:
+        out["gathered"] = {n: t.numpy() for n, t in full.items()}
+    return out
+
+
+def _train_case(mesh, arch, kw, tree, batch):
+    """``steps.loss_and_grads`` of one arch, fp32, its params cut over
+    ``"model"``: the loss and every gradient leaf gathered whole."""
+    from repro_torch.models import build, get_config
+    from repro_torch.models.convert import params_from_numpy, shard_params
+    from repro_torch.models.steps import loss_and_grads
+    cfg = get_config(arch, reduced=True).with_(dtype="float32", **kw)
+    model = shard_params(params_from_numpy(build(cfg), tree, "cpu"), mesh)
+    model._p().requires_grad_(True)
+    loss, _, grads = loss_and_grads(
+        model, {k: torch.from_numpy(v) for k, v in batch.items()}, mesh)
+    return {"loss": float(loss), "grads": _grads_full(cfg, grads, mesh)}
+
+
+def _refusals(mesh, arch, kw, tree, batch):
+    """What the mesh's prefill step raises for whole (uncut) params and
+    for the int8 KV cache."""
+    from repro_torch.models import build, get_config
+    from repro_torch.models.convert import params_from_numpy, shard_params
+    from repro_torch.models.steps import make_prefill_step
+    cfg = get_config(arch, reduced=True).with_(dtype="float32", **kw)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out = {}
+    for name, c, cut in (("whole", cfg, False),
+                         ("int8", cfg.with_(kv_cache_dtype="int8"), True)):
+        model = params_from_numpy(build(c), tree, "cpu")
+        if cut:
+            shard_params(model, mesh)
+        try:
+            make_prefill_step(model, mesh)(batch)
+            out[name] = None
+        except (ValueError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def tp_rank(rank, world, serving, training, data_serving=()):
+    """The tensor-parallel layout in a world of ``world`` ranks: each
+    serving case ``(arch, cfg kwargs, params, batch, pos0, steps)`` on a
+    (1, world) mesh (:func:`_serve_case`), what the first one's arch
+    refuses there (:func:`_refusals`), then each training case ``(mesh
+    sizes, arch, cfg kwargs, params, batch)`` on its own mesh
+    (:func:`_train_case`) and each ``data_serving`` case on a (2, world
+    / 2) mesh.  Every rank returns its serving results; rank 0 the
+    gathered params and the training results."""
+    mesh = _mesh(("data", "model"), (1, world))
+    out = {"serve": {arch: _serve_case(mesh, arch, kw, tree, batch, pos0,
+                                       steps, rank == 0)
+                     for arch, kw, tree, batch, pos0, steps in serving},
+           "refused": _refusals(mesh, *serving[0][:4]), "train": {},
+           "data_serve": {}}
+    for sizes, arch, kw, tree, batch in training:
+        res = _train_case(_mesh(("data", "model"), sizes), arch, kw, tree,
+                          batch)
+        out["train"][(sizes, arch)] = res if rank == 0 else None
+    if data_serving:
+        dmesh = _mesh(("data", "model"), (2, world // 2))
+        out["coords"] = dmesh.coords
+        for arch, kw, tree, batch, pos0, steps in data_serving:
+            out["data_serve"][arch] = _serve_case(
+                dmesh, arch, kw, tree, batch, pos0, steps, rank == 0)
+    return out
+
+
+def chip_tp_rank(rank):
+    """``chip_smoke``'s tensor-parallel mesh parts on a (1, 2) mesh on the
+    CPU: mistral-large-123b and h2o-danube-1.8b at their reduced configs
+    (each CONFIG swapped for REDUCED; prompts 24 and 96, past the reduced
+    window of 64), the card's calls stubbed, failed checks collected."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.configs import h2o_danube_1_8b, mistral_large_123b
+    for mod in (h2o_danube_1_8b, mistral_large_123b):
+        mod.CONFIG = mod.REDUCED
+    failures = []
+    chip_smoke.check = lambda ok, msg: ok or failures.append(msg)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        setattr(torch.cuda, name, lambda *a, **k: None)
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    chip_smoke.MESH_TP_CHECKS = ((chip_smoke.MISTRAL_ARCH, 1, 24),
+                                 (chip_smoke.LM_ARCH, 1, 96))
+    chip_smoke.ZOO_PROMPT, chip_smoke.ZOO_STEPS = 24, 3
+    mesh = _mesh(("data", "model"), (1, 2))
+    checks = [chip_smoke._mesh_tp_check(mesh, *c)
+              for c in chip_smoke.MESH_TP_CHECKS]
+    return {"checks": checks, "tp": chip_smoke._mesh_tp(mesh),
+            "failures": failures}
 
 
 # -------------------------------- KGE --------------------------------- #

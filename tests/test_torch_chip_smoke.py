@@ -3,8 +3,9 @@ reads ptxas's report (the selective scan's float and bf16 instances
 too), how the breakdowns name the SWA backward and scan kernels, the
 backward's bounds, the causal forward's, the MoE generation's and the
 selective scan's bounds, the new phases' cases and constants, that a
-blind profiler fails the numbers phase, and that every entry of the
-kernels line carries the contract's keys.  Nothing here needs a card or
+blind profiler fails the numbers phase, that every entry of the
+kernels line carries the contract's keys, and the mesh phase's
+tensor-parallel parts rehearsed in a gloo world on the CPU.  Nothing here needs a card or
 a compiler."""
 import re
 import sys
@@ -854,3 +855,36 @@ def test_routes_records_each_layers_choices(monkeypatch):
         chip_smoke._loss_and_grads(model, batch)
     assert [tuple(idx.shape) for idx, _ in seen] == [(1, 48, 2)] * 2
     assert sum(int(n) for _, n in seen) > 0
+
+
+def test_mesh_tensor_parallel_parts_rehearse_on_the_cpu():
+    """The mesh phase's tensor-parallel parts in a (1, 2) gloo world at the
+    reduced configs: the fp32 checks hold on both ranks (each rank's half
+    of the KV slots and q heads), the bf16 generation's bytes equal the
+    dry run's per-device bytes, its second run repeats the first, and the
+    lead rank reports the tokens equal to the one-process zoo run's; only
+    the SWA launch counts fail (the plain versions launch nothing)."""
+    import _torch_mesh_ranks as ranks
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.models import get_config
+    runs = run_world(ranks.chip_tp_rank, 2, backend="gloo", devices="cpu",
+                     timeout_s=180)
+    for rank, r in enumerate(runs):
+        for c, (arch, B, S) in zip(r["checks"], (
+                (chip_smoke.MISTRAL_ARCH, 1, 24), (chip_smoke.LM_ARCH, 1,
+                                                   96))):
+            cfg = get_config(arch, reduced=True)
+            assert (c["arch"], c["batch"], c["prompt"]) == (arch, B, S)
+            assert c["argmax_equal"] and c["decode_steps"] == \
+                chip_smoke.MESH_TP_CHECK_STEPS
+            assert c["max_abs_diff"] <= chip_smoke.LM_TOL * (
+                1 + c["max_abs_logit"])
+            assert c["kv_slots_a_rank"] == cfg.groups // 2
+        tp = r["tp"]
+        assert tp["bytes"] == tp["dry_run_bytes"]
+        assert tp["all_reduce_bytes"] == 24 * 2 * 256 * 2
+        assert ("one_process_equal_tokens" in tp) == (rank == 0)
+        assert len(r["failures"]) == 3 and all(
+            "launched 0 SWA kernels" in f for f in r["failures"])
+    lead = runs[0]["tp"]
+    assert 0 <= lead["one_process_equal_tokens"] <= lead["tokens"] == 2 * 4

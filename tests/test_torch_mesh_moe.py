@@ -9,9 +9,10 @@ devices, on a mesh built with the ``Mesh`` constructor (Auto axes:
 ``jax.make_mesh``'s Explicit axes break the reference, ROADMAP Queue 3
 item 6): its ``moe_impl`` "shard_map" and "gspmd" give the loss and
 every gradient leaf of ``model.loss`` on the same params and batch.  The
-port runs both impls in a gloo world of 8 ranks (the experts cut over
-``"model"`` by ``convert.shard_params`` for "shard_map", whole for
-"gspmd"), the expert gradients gathered from the model ranks, and its
+port runs both impls in a gloo world of 8 ranks (``convert.shard_params``
+cuts the attention, embedding and logits over ``"model"`` as the
+reference lays them, and the experts for "shard_map"; "gspmd" keeps its
+experts whole), the cut gradients gathered from the model ranks, and its
 single-process ``moe_apply`` in this process.
 
 Held: the loss within 1e-5 relative and every gradient leaf, element by
@@ -229,6 +230,14 @@ def test_experts_are_cut_over_the_model_axis(runs):
     cfg = get_config("olmoe_1b_7b", reduced=True)
     assert runs["port"]["shard_map"]["experts"] == (1, cfg.d_model, cfg.d_ff)
     assert runs["port"]["gspmd"]["experts"] == (4, cfg.d_model, cfg.d_ff)
+
+
+@pytest.mark.parametrize("impl", ["shard_map", "gspmd"])
+def test_attention_is_cut_over_the_model_axis(runs, impl):
+    """Each rank holds one of the 4 q heads' columns of ``wq``."""
+    cfg = get_config("olmoe_1b_7b", reduced=True).with_(**CFG_KW)
+    assert runs["port"][impl]["wq"] == (
+        cfg.d_model, cfg.padded_heads() * cfg.hd // 4)
 
 
 @pytest.mark.parametrize("impl", ["shard_map", "gspmd"])

@@ -10,7 +10,9 @@
 - Each autograd collective's forward and backward against sums computed
   by hand: ``psum_identity_bwd`` (sum, identity), ``pvary`` (identity,
   sum), ``pmean`` (mean, / n), ``gather_seq`` / ``slice_seq`` (each the
-  other's backward), ``take_share`` / ``gather_share``.
+  other's backward), ``gather_last`` (this rank's block of the
+  cotangent) and ``gather_last_summed`` (its block of the cotangents'
+  sum), ``take_share`` / ``gather_share``.
 - ``run_world``: a rank that raises fails the call with its traceback,
   at once; a rank that hangs fails it at the time limit.
 """
@@ -113,6 +115,16 @@ def test_collectives_forward_and_backward(rank):
         y, np.arange(8.0).reshape(1, 4, 2)[:, 2 * m:2 * m + 2])
     np.testing.assert_array_equal(
         g, np.repeat(np.asarray(pair), 4).reshape(1, 4, 2))
+    # the cotangent of gather_last* is arange(12).view(2, 6) * v
+    block = np.arange(12.0).reshape(2, 6)[:, 3 * m:3 * m + 3]
+    y, g = r["gather_last"]
+    np.testing.assert_array_equal(
+        y, np.repeat(np.asarray(pair), 3)[None].repeat(2, 0))
+    np.testing.assert_array_equal(g, block * v)
+    y, g = r["gather_last_summed"]
+    np.testing.assert_array_equal(
+        y, np.repeat(np.asarray(pair), 3)[None].repeat(2, 0))
+    np.testing.assert_array_equal(g, block * sum(pair))
 
 
 @pytest.mark.parametrize("rank", range(WORLD))
