@@ -712,19 +712,25 @@ _TEMPLATE_ARG = r"Li(-?\d+)E|(f)|13(__nv_bfloat16)|Lb([01])E"
 def _kernel_name(mangled: str) -> str:
     """``swa_bf16_kernel<80>`` or ``selective_scan_kernel<16, bf16, true>``
     from its mangled name (a length-prefixed ``*_kernel`` and its integer,
-    float, bf16 and bool template arguments); other names as they are."""
+    float, bf16 and bool template arguments); other names as they are.
+    Of the length prefixes that read a ``*_kernel``, the last one: an
+    anonymous namespace's hash (which follows the source's path) may hold
+    digits that read a longer span ending at the same ``_kernel``."""
+    found = None
     for d in re.finditer(r"\d+(?!\d)", mangled):
         for i in range(d.start(), d.end()):   # a hash's digits may lead
             end = d.end() + int(mangled[i:d.end()])
-            name = mangled[d.end():end]
-            if name.endswith("_kernel"):
-                m = re.match(rf"I((?:{_TEMPLATE_ARG})+)E", mangled[end:])
-                args = [n or ("float" if f else "bf16" if bf else
-                              "true" if bl == "1" else "false")
-                        for n, f, bf, bl in
-                        re.findall(_TEMPLATE_ARG, m.group(1))] if m else []
-                return name + (f"<{', '.join(args)}>" if args else "")
-    return mangled
+            if mangled[d.end():end].endswith("_kernel"):
+                found = (d.end(), end)
+    if found is None:
+        return mangled
+    start, end = found
+    m = re.match(rf"I((?:{_TEMPLATE_ARG})+)E", mangled[end:])
+    args = [n or ("float" if f else "bf16" if bf else
+                  "true" if bl == "1" else "false")
+            for n, f, bf, bl in re.findall(_TEMPLATE_ARG, m.group(1))] \
+        if m else []
+    return mangled[start:end] + (f"<{', '.join(args)}>" if args else "")
 
 
 def _ptxas_kernels(log: str) -> dict:
@@ -2342,8 +2348,10 @@ JOBS_SAMPLE = 512            # join rows held to serial top_k_rows
 JOBS_LARGE_K, JOBS_LARGE_CLASSES, JOBS_LARGE_SAMPLE = 100, 1024, 256
 #: classes of a drift job, and of them those whose Jaccard is recomputed
 #: (4,096 classes before the recurrentgemma phase and training run joined
-#: the script: a depth cut that keeps it near 820 s of phases)
-DRIFT_CLASSES, DRIFT_SAMPLE = 2048, 256
+#: the script: a depth cut that keeps it near 820 s of phases; 2,048 and
+#: 256 before the channel-parallel mesh parts joined it: a depth cut that
+#: keeps a slow host's whole run near 1,000 s)
+DRIFT_CLASSES, DRIFT_SAMPLE = 1024, 128
 #: test triples a compare job ranks (1,000 before the recurrentgemma phase
 #: and training run joined the script: the same depth cut; the job's MRR
 #: is still held to rank_based_eval's on the same triples)
@@ -3069,7 +3077,7 @@ def moe_bounds(cfg, B: int, S: int) -> dict:
 #: card.  NCCL refuses two ranks on one device, so: one rank on NCCL, then
 #: two ranks sharing cuda:0 on gloo, mesh (data 1, model 2); each world's
 #: time limit (its collectives' too)
-MESH_TIMEOUT_S = 420
+MESH_TIMEOUT_S = 600
 #: the 2-layer fp32 expert-parallel training step against the one-process
 #: step (olmoe-1b-7b at full width, capacity factor MOE_CHECK_CF; B 2, S
 #: 512, where the generation runs take 2,048: a cut in length that keeps
@@ -3088,7 +3096,8 @@ MESH_KGE_LOSS_RTOL, MESH_KGE_PARAM_TOL = 1e-5, 2e-4
 #: the gloo world's parts, in order: the checks and the training step
 #: first, so the world of one (run beside it) has ended before the timed
 #: parts start
-MESH_GLOO_PARTS = ("check", "tp_check", "train", "tp", "prefill", "kge")
+MESH_GLOO_PARTS = ("check", "tp_check", "rec_check", "train", "rec_train",
+                   "tp", "rec_gen", "prefill", "kge")
 #: times the (B S, d) all_reduce of a bf16 prefill (two a layer) is timed
 MESH_ALL_REDUCE_ITERS = 10
 #: the tensor-parallel checks, fp32 at MESH_TP_CHECK_LAYERS layers against
@@ -3097,6 +3106,33 @@ MESH_ALL_REDUCE_ITERS = 10
 #: the generation runs take 2,048), h2o-danube-1.8b past its window
 MESH_TP_CHECK_LAYERS, MESH_TP_CHECK_STEPS = 2, 4
 MESH_TP_CHECKS = ((MISTRAL_ARCH, 1, 512), (LM_ARCH, 1, 6144))
+#: the channel-parallel fp32 checks of the SSM and hybrid families (arch,
+#: B, prompt, layers), held as MESH_TP_CHECKS are: falcon-mamba-7b at 2
+#: of 64 layers and a 512-token prompt (a cut in length: its generation
+#: runs take 2,048), recurrentgemma-2b at 3 of 26 layers (recurrent,
+#: recurrent, attention) and a 2,304-token prompt, past its window of
+#: 2,048 (a cut in length from its generation's 4,096)
+MESH_REC_CHECKS = ((MAMBA_ARCH, 1, 512, 2), (HYBRID_ARCH, 1, 2304, 3))
+#: their fp32 training steps against the one-process step (arch, B, S,
+#: layers), TRAIN_LOSS_RTOL and TRAIN_GRAD_TOL: falcon-mamba-7b at 2
+#: layers, B 2, S 512; recurrentgemma-2b at 3 layers, B 1, S 2,112, past
+#: the window (a cut in length: each rank holds the full (B S, 256,000)
+#: fp32 logits and their gradient beside the one-process step's)
+MESH_REC_TRAIN = ((MAMBA_ARCH, 2, 512, 2), (HYBRID_ARCH, 1, 2112, 3))
+#: their bf16 generation on the mesh (arch, layers, prompt), B 2,
+#: MESH_REC_STEPS greedy steps: falcon-mamba-7b cut to 8 of its 64
+#: layers at a 2,048-token prompt, recurrentgemma-2b cut to 5 of its 26
+#: (recurrent, recurrent, attention, recurrent, recurrent) at 4,096:
+#: depth cuts that keep the mesh phase near a minute more, its
+#: all_reduces going through host memory on gloo
+MESH_REC_GEN = ((MAMBA_ARCH, 8, 2048), (HYBRID_ARCH, 5, 4096))
+MESH_REC_BATCH, MESH_REC_STEPS = 2, 16
+#: the kernels at a rank's shapes on a model axis of 2 (the mesh phase's
+#: last part): the fused scan and its backward on 4,096 of
+#: falcon-mamba-7b's 8,192 channels (B 2, S 2,048, d_state 16, bf16), the
+#: SWA forward and backward at d 256 on 5 q heads over 1 KV slot of
+#: recurrentgemma-2b's 10 over 1 (B 2, S 4,096, W 2,048, bf16)
+MESH_TP_AXIS = 2
 
 
 def _mesh_moe_check(mesh) -> dict:
@@ -3352,20 +3388,51 @@ def _mesh_tp_check(mesh, arch: str, B: int, S: int) -> dict:
     decode steps fed the one-process run's tokens: every step's logits
     within LM_TOL (1 + |want|), the same argmax; one SWA forward a layer
     of the prefill."""
-    import torch
-    from repro_torch.kernels import swa_attention as sw
-    from repro_torch.models import build, get_config, runtime
-    from repro_torch.models.convert import shard_params
+    from repro_torch.models import get_config
     from repro_torch.models.sharding import tp_config
-    from repro_torch.models.steps import make_prefill_step
 
-    steps = MESH_TP_CHECK_STEPS
     cfg = tp_config(get_config(arch).with_(
         dtype="float32", n_layers=MESH_TP_CHECK_LAYERS), mesh.shape["model"])
-    dev = mesh.device
+    t0 = time.perf_counter()
+    worst, top, cache, launches = _tp_against_one_process(mesh, cfg, B, S)
+    launches = launches["swa_attention_forward"]
+    check(launches == cfg.n_layers, f"{arch}: the tensor-parallel prefill "
+                                    f"launched {launches} SWA kernels")
+    return {"arch": arch, "layers": cfg.n_layers, "batch": B, "prompt": S,
+            "decode_steps": MESH_TP_CHECK_STEPS,
+            "kv_slots_a_rank": cache["k"].shape[2],
+            "q_heads_a_rank": cfg.padded_heads() // mesh.shape["model"],
+            "max_abs_diff": worst, "max_abs_logit": top,
+            "argmax_equal": True, "swa_launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def _prefill_launches():
+    """``(reset, read)``: the SWA and selective-scan kernels' launch
+    counts, all entry points, as one dict."""
+    from repro_torch.kernels import selective_scan as ss, swa_attention as sw
+
+    def reset():
+        sw.reset_launches()
+        ss.reset_launches()
+    return reset, lambda: {**sw.launches, **ss.launches}
+
+
+def _tp_against_one_process(mesh, cfg, B: int, S: int):
+    """fp32 ``cfg`` (seeded params): the one-process prefill and
+    MESH_TP_CHECK_STEPS greedy decode steps, then the same params cut by
+    ``convert.shard_params`` and the tensor-parallel prefill step and
+    decode steps fed the one-process run's tokens: every step's logits
+    within LM_TOL (1 + |want|), the same argmax.  Returns (max abs diff,
+    max |want|, the rank's cache, the prefill step's launches)."""
+    import torch
+    from repro_torch.models import build, runtime
+    from repro_torch.models.convert import shard_params
+    from repro_torch.models.steps import make_prefill_step
+
+    arch, steps, dev = cfg.arch_id, MESH_TP_CHECK_STEPS, mesh.device
     toks = torch.from_numpy(np.random.default_rng(SEED + 41).integers(
         0, cfg.vocab, (B, S), dtype=np.int32)).to(dev)
-    t0 = time.perf_counter()
     model = build(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
     lg, cache = model.prefill({"tokens": toks}, cache_len=S + steps)
     want, feed = [lg], []
@@ -3375,9 +3442,11 @@ def _mesh_tp_check(mesh, arch: str, B: int, S: int) -> dict:
         want.append(lg)
     del cache
     shard_params(model, mesh)
-    sw.reset_launches()
+    reset, read = _prefill_launches()
+    reset()
     lg, cache = make_prefill_step(model, mesh)({"tokens": toks}, S + steps)
-    launches = sw.launches["swa_attention_forward"]
+    torch.cuda.synchronize(dev)
+    launches = read()
     got = [lg]
     with runtime.use_mesh(mesh):
         for i, tok in enumerate(feed):
@@ -3395,14 +3464,117 @@ def _mesh_tp_check(mesh, arch: str, B: int, S: int) -> dict:
               f"{arch} tensor-parallel vs one-process: argmax differs at "
               f"step {i}")
         worst = max(worst, float(diff.max()))
-    check(launches == cfg.n_layers, f"{arch}: the tensor-parallel prefill "
-                                    f"launched {launches} SWA kernels")
-    return {"arch": arch, "layers": cfg.n_layers, "batch": B, "prompt": S,
-            "decode_steps": steps, "kv_slots_a_rank": cache["k"].shape[2],
-            "q_heads_a_rank": cfg.padded_heads() // mesh.shape["model"],
-            "max_abs_diff": worst,
-            "max_abs_logit": max(float(w.abs().max()) for w in want),
-            "argmax_equal": True, "swa_launches": launches,
+    return worst, max(float(w.abs().max()) for w in want), cache, launches
+
+
+def _prefill_want(cfg) -> dict:
+    """The SWA forwards and fused scans one prefill of ``cfg`` launches:
+    one scan a Mamba layer, one SWA forward an attention layer."""
+    ssm = cfg.family == "ssm"
+    attn = sum(_hybrid_layers(cfg, "attention")) \
+        if cfg.family == "hybrid" else cfg.n_layers
+    return {"swa_attention_forward": 0 if ssm else attn,
+            "selective_scan_fused": cfg.n_layers if ssm else 0}
+
+
+def _cache_shapes(tree, prefix: str = "") -> dict:
+    """``{dotted path: shape}`` of a cache: a dict of tensors, or the
+    hybrid's dicts of tuples."""
+    if not isinstance(tree, (dict, list, tuple)):
+        return {prefix: tuple(tree.shape)}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        out.update(_cache_shapes(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def _mesh_rec_check(mesh, arch: str, B: int, S: int, layers: int) -> dict:
+    """fp32, ``layers`` of an SSM or hybrid ``arch``'s layers at published
+    width (the hybrid's KV slots raised to the model axis,
+    ``sharding.tp_config``), channel-parallel against the one-process
+    model as :func:`_mesh_tp_check` holds the attention families: the
+    logits of the prefill and MESH_TP_CHECK_STEPS decode steps; one fused
+    scan a Mamba layer and one SWA forward an attention layer in the
+    prefill; the rank's cache shapes (d_in / n or w / n channels, its KV
+    slots)."""
+    from repro_torch.models import get_config
+    from repro_torch.models.sharding import tp_config
+
+    cfg = tp_config(get_config(arch).with_(dtype="float32", n_layers=layers),
+                    mesh.shape["model"])
+    t0 = time.perf_counter()
+    worst, top, cache, launches = _tp_against_one_process(mesh, cfg, B, S)
+    want = _prefill_want(cfg)
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{arch}: the channel-parallel prefill launched "
+                       f"{got}, want {want}")
+    return {"arch": arch, "layers": layers, "batch": B, "prompt": S,
+            "decode_steps": MESH_TP_CHECK_STEPS,
+            "cache_shapes": _cache_shapes(cache), "max_abs_diff": worst,
+            "max_abs_logit": top, "argmax_equal": True, "launches": got,
+            "seconds": time.perf_counter() - t0}
+
+
+def _mesh_rec_train(mesh, arch: str, B: int, S: int, layers: int) -> dict:
+    """fp32, ``layers`` of an SSM or hybrid ``arch``'s layers at published
+    width: ``steps.loss_and_grads`` channel-parallel on the mesh against
+    the one-process step on every rank, the loss within TRAIN_LOSS_RTOL
+    and each gradient leaf of the rank's share (``convert.share_of``:
+    mamba's ``in_proj`` a block of each half) within TRAIN_GRAD_TOL *
+    max|g| of the one-process leaf's share; the mesh step's kernel
+    launches (a Mamba layer's scan backward once, an attention layer's
+    SWA backward once)."""
+    import torch
+    from repro_torch.models import build, get_config
+    from repro_torch.models.convert import share_of, shard_params
+    from repro_torch.models.sharding import tp_config
+    from repro_torch.models.steps import loss_and_grads
+
+    cfg = tp_config(get_config(arch).with_(dtype="float32", n_layers=layers),
+                    mesh.shape["model"])
+    dev = mesh.device
+    rng = np.random.default_rng(SEED + 43)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S),
+                                              dtype=np.int32)).to(dev)
+             for k in ("tokens", "labels")}
+    t0 = time.perf_counter()
+    model = shard_params(build(cfg).init(
+        torch.Generator(device=dev).manual_seed(SEED)), mesh)
+    model._p().requires_grad_(True)
+    reset, read = _prefill_launches()
+    reset()
+    loss, _, grads = loss_and_grads(model, batch, mesh)
+    torch.cuda.synchronize(dev)
+    launches = read()
+    del model
+    one = build(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    one._p().requires_grad_(True)
+    want_loss, _, want = loss_and_grads(one, batch)
+    del one
+    check(abs(float(loss) - float(want_loss))
+          <= TRAIN_LOSS_RTOL * abs(float(want_loss)),
+          f"{arch} channel-parallel loss {float(loss)} against "
+          f"{float(want_loss)}")
+    worst = {}
+    for n, w in want.items():
+        w = share_of(cfg, n, w, mesh)
+        err = float((grads[n] - w).abs().max())
+        scale = float(w.abs().max())
+        check(scale > 0 and err <= TRAIN_GRAD_TOL * scale,
+              f"{arch} gradient {n}: off by {err} of max {scale}")
+        worst[n] = err / scale
+    want = _prefill_want(cfg)
+    back = {"selective_scan_fused_backward": want["selective_scan_fused"],
+            "swa_attention_backward_dq": want["swa_attention_forward"]}
+    check({k: launches[k] for k in back} == back,
+          f"{arch}: the channel-parallel step launched {launches}, want "
+          f"{back} backward kernels")
+    name = max(worst, key=worst.get)
+    return {"arch": arch, "layers": layers, "batch": B, "seq": S,
+            "launches": launches, "loss": float(loss),
+            "want_loss": float(want_loss), "leaves": len(worst),
+            "worst_leaf": name, "worst_rel_err": worst[name],
             "seconds": time.perf_counter() - t0}
 
 
@@ -3426,21 +3598,48 @@ def _all_reduce_ms(mesh, rows: int, d: int, dtype) -> dict:
 
 def _mesh_tp(mesh) -> dict:
     """bf16 mistral-large-123b at published width, cut to the zoo's
-    depth, its params cut by ``convert.shard_params``: a warm-up
-    generation, then the measured one through ``make_prefill_step`` /
-    ``make_serve_step`` on the mesh (B ZOO_BATCH, ZOO_PROMPT, ZOO_STEPS
-    greedy steps, the zoo run's params and prompt): prefill ms, decode ms
-    a token, the prefill's SWA launches (one a layer), peak memory; the
-    rank's param and cache bytes, which must equal ``device_bytes`` of
+    depth (:func:`_tp_generation`, B ZOO_BATCH, ZOO_PROMPT, ZOO_STEPS
+    greedy steps, the zoo run's params and prompt)."""
+    depth = next(d for a, d, _ in ZOO_ARCHS if a == MISTRAL_ARCH)
+    return _tp_generation(mesh, MISTRAL_ARCH, depth, ZOO_BATCH, ZOO_PROMPT,
+                          ZOO_STEPS)
+
+
+def _mesh_rec_gen(mesh) -> list:
+    """bf16 falcon-mamba-7b and recurrentgemma-2b at published width, cut
+    to MESH_REC_GEN's depths (:func:`_tp_generation`, B MESH_REC_BATCH,
+    MESH_REC_STEPS greedy steps)."""
+    return [_tp_generation(mesh, arch, depth, MESH_REC_BATCH, P,
+                           MESH_REC_STEPS)
+            for arch, depth, P in MESH_REC_GEN]
+
+
+#: how a launch-count failure names each counted kernel
+_LAUNCH_NAMES = {"swa_attention_forward": "SWA kernels",
+                 "selective_scan_fused": "fused scans"}
+
+
+def _tp_generation(mesh, arch: str, depth: int, B: int, P: int,
+                   steps: int) -> dict:
+    """bf16 ``arch`` at published width, cut to ``depth`` layers, its
+    params cut by ``convert.shard_params``: a warm-up generation, then
+    the measured one through ``make_prefill_step`` / ``make_serve_step``
+    on the mesh (B, prompt P, ``steps`` greedy steps, the params and
+    prompt of ``launch.generate`` at the same seed): prefill ms, decode
+    ms a token, the prefill's launches (one SWA forward an attention
+    layer, one fused scan a Mamba layer), peak memory; the rank's param
+    and cache bytes, which must equal ``device_bytes`` of
     ``param_shardings`` / ``cache_shardings`` on a ``MeshShape`` of the
     mesh's sizes (the dry run's per-device bytes); the (B S, d)
-    all_reduce timed alone; on the lead rank, the one-process zoo run
-    (``launch.generate`` with the zoo phase's argv) first, and the greedy
-    tokens of the two that are equal, reported, not gated (bf16 partial
-    sums round differently)."""
+    all_reduce timed alone; on the lead rank, the one-process run
+    (``launch.generate --layers depth``) first, and the greedy tokens of
+    the two that are equal, reported, not gated (bf16 partial sums round
+    differently); on every rank the bf16 prefill logits against the
+    uncut model's (its max abs difference beside each row's top-2 gap),
+    and on the lead rank both against the same params' fp32 logits."""
+    import copy
     import gc
     import torch
-    from repro_torch.kernels import swa_attention as sw
     from repro_torch.launch import generate
     from repro_torch.launch.mesh import MeshShape
     from repro_torch.models import build, get_config
@@ -3450,58 +3649,93 @@ def _mesh_tp(mesh) -> dict:
                                              param_shardings, tp_config)
     from repro_torch.models.steps import make_prefill_step, make_serve_step
 
-    depth = next(d for a, d, _ in ZOO_ARCHS if a == MISTRAL_ARCH)
-    cfg = tp_config(get_config(MISTRAL_ARCH).with_(n_layers=depth),
+    cfg = tp_config(get_config(arch).with_(n_layers=depth),
                     mesh.shape["model"])
-    dev, B, P, steps = mesh.device, ZOO_BATCH, ZOO_PROMPT, ZOO_STEPS
+    dev = mesh.device
     one = None
     if mesh.index("model") == 0:
         one = generate.main([
-            "--arch", MISTRAL_ARCH, "--layers", str(depth), "--batch",
+            "--arch", arch, "--layers", str(depth), "--batch",
             str(B), "--prompt-len", str(P), "--steps", str(steps),
             "--seed", str(SEED), "--device", str(dev)])
         gc.collect()
         torch.cuda.empty_cache()
-    model = shard_params(build(cfg).init(
-        torch.Generator(device=dev).manual_seed(SEED)), mesh)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)       # the cut model's serving
     batch = {"tokens": torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab, (B, P), dtype=np.int32)).to(dev)}
+    model = build(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    whole, _ = model.prefill(batch)                 # one process, uncut
+    exact = None
+    if one is not None:
+        # the lead rank: the same params in fp32, the yardstick of bf16's
+        # own rounding
+        fp32 = build(cfg.with_(dtype="float32"))
+        fp32.params = copy.deepcopy(model.params)
+        for t in fp32.params.parameters():
+            t.data = t.data.float()
+        exact, _ = fp32.prefill(batch)
+        del fp32
+        torch.cuda.empty_cache()
+    shard_params(model, mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)       # the cut model's serving
     prefill, serve = make_prefill_step(model, mesh), make_serve_step(model,
                                                                      mesh)
+    reset, read = _prefill_launches()
+    want = _prefill_want(cfg)
 
     def generation() -> dict:
-        sw.reset_launches()
+        reset()
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         logits, cache = prefill(batch, P + steps)
         tok = logits.argmax(-1).to(torch.int32)
         torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
-        launches = sw.launches["swa_attention_forward"]
+        launches = read()
         ids = [tok]
         for i in range(steps):
             tok, cache = serve(cache, tok, P + i)
             ids.append(tok)
         torch.cuda.synchronize(dev)
         t2 = time.perf_counter()
-        return {"prefill_ms": (t1 - t0) * 1e3,
+        return {"logits": logits, "prefill_ms": (t1 - t0) * 1e3,
                 "decode_ms_per_token": (t2 - t1) * 1e3 / steps,
-                "swa_launches": launches,
+                "swa_launches": launches["swa_attention_forward"],
+                "scan_launches": launches["selective_scan_fused"],
                 "cache_bytes": cache_nbytes(cache),
                 "ids": torch.cat(ids, 1).cpu().numpy()}
 
     warm = generation()
+    warm.pop("logits")
     run = generation()
     ids = run.pop("ids")
-    check(np.array_equal(ids, warm.pop("ids")), "the tensor-parallel "
-          "generation gave other tokens on its second run")
+    # the prefill's bf16 logits against the uncut model's on the same
+    # prompt: where the two argmaxes part, the one-process top-2 gap lies
+    # under the difference (partial sums rounded to bf16 before the
+    # all_reduce), reported, not gated
+    got, whole = run.pop("logits").float(), whole.float()
+    top2 = whole.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).flatten()
+    same = (got.argmax(-1) == whole.argmax(-1)).flatten()
+    vs_one = {"max_abs_diff": float((got - whole).abs().max()),
+              "max_abs_logit": float(whole.abs().max()),
+              "argmax_equal_rows": int(same.sum()), "rows": int(same.numel()),
+              "top2_gap_by_row": gap.tolist()}
+    if exact is not None:
+        exact = exact.float()
+        vs_one["fp32_max_abs_diff"] = {
+            "tensor_parallel": float((got - exact).abs().max()),
+            "one_process": float((whole - exact).abs().max())}
+    del whole, got, exact
+    check(np.array_equal(ids, warm.pop("ids")), f"the {arch} "
+          f"tensor-parallel generation gave other tokens on its second run")
     check(((ids >= 0) & (ids < cfg.padded_vocab)).all(),
-          "tensor-parallel ids outside the vocab")
-    check(run["swa_launches"] == cfg.n_layers, f"the bf16 tensor-parallel "
-          f"prefill launched {run['swa_launches']} SWA kernels, want "
-          f"{cfg.n_layers}")
+          f"{arch} tensor-parallel ids outside the vocab")
+    for k, key in (("swa_attention_forward", "swa_launches"),
+                   ("selective_scan_fused", "scan_launches")):
+        check(run[key] == want[k], f"the bf16 tensor-parallel {arch} "
+              f"prefill launched {run[key]} {_LAUNCH_NAMES[k]}, want "
+              f"{want[k]}")
     shape = MeshShape(mesh.axis_names, mesh.sizes)
     specs = model.param_tree(None)
     cache = model.cache_spec(B, P + steps)
@@ -3513,12 +3747,14 @@ def _mesh_tp(mesh) -> dict:
                           for p in model.params.parameters()),
             "cache": run["cache_bytes"]}
     check(mine == dry, f"the rank's bytes {mine}, the dry run's {dry}")
-    out = {"arch": MISTRAL_ARCH, "layers": depth,
-           "published_layers": get_config(MISTRAL_ARCH).n_layers,
+    out = {"arch": arch, "layers": depth,
+           "published_layers": get_config(arch).n_layers,
            "batch": B, "prompt": P, "steps": steps,
            "q_heads_a_rank": cfg.padded_heads() // mesh.shape["model"],
-           "kv_slots_a_rank": cfg.groups // mesh.shape["model"],
+           "kv_slots_a_rank": cfg.groups // mesh.shape["model"]
+           if cfg.n_heads else 0,
            **run, "warmup": warm, "bytes": mine, "dry_run_bytes": dry,
+           "prefill_vs_one_process": vs_one,
            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "all_reduces_a_prefill": 2 * depth,
            **_all_reduce_ms(mesh, B * P, cfg.d_model, cfg.jdtype)}
@@ -3551,28 +3787,36 @@ def _mesh_rank(rank: int, sizes, parts, device: str, kg=None) -> dict:
             out[part] = _mesh_kge(mesh, kg)
         elif part == "tp_check":
             out[part] = [_mesh_tp_check(mesh, *c) for c in MESH_TP_CHECKS]
+        elif part == "rec_check":
+            out[part] = [_mesh_rec_check(mesh, *c) for c in MESH_REC_CHECKS]
+        elif part == "rec_train":
+            out[part] = [_mesh_rec_train(mesh, *c) for c in MESH_REC_TRAIN]
         else:
             out[part] = {"check": _mesh_moe_check, "prefill": _mesh_prefill,
-                         "train": _mesh_train_check, "tp": _mesh_tp}[part](
-                             mesh)
+                         "train": _mesh_train_check, "tp": _mesh_tp,
+                         "rec_gen": _mesh_rec_gen}[part](mesh)
         torch.cuda.synchronize(mesh.device)
         out[part + "_seconds"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
     return out
 
 
-def phase_mesh() -> dict:
+def phase_mesh(card: str) -> dict:
     """The multi-process half of the mesh on the one card: a world of one
     rank on NCCL (the expert-parallel fp32 check), then two ranks sharing
     cuda:0 on gloo, mesh (data 1, model 2): the fp32 check, the
-    tensor-parallel fp32 checks (mistral-large-123b, h2o-danube-1.8b) and
-    bf16 mistral-large-123b generation, the bf16 expert-parallel prefill
-    of olmoe-1b-7b at full width and depth, the 2-layer fp32
+    tensor-parallel fp32 checks (mistral-large-123b, h2o-danube-1.8b), the
+    channel-parallel fp32 checks and training steps (falcon-mamba-7b,
+    recurrentgemma-2b), bf16 mistral-large-123b, falcon-mamba-7b and
+    recurrentgemma-2b generation, the bf16 expert-parallel prefill of
+    olmoe-1b-7b at full width and depth, the 2-layer fp32
     expert-parallel training step against the one-process step, and the
     sharded KGE trainer on the GO workload; on two ranks the attention,
-    MLP, embedding and logits are cut over "model" as the reference lays
-    them.  Times from the shared card stand for no multi-card deployment:
-    gloo stages every collective through host memory."""
+    MLP, recurrences, embedding and logits are cut over "model" as the
+    reference lays them.  Then the kernels at a rank's shapes against
+    their plain versions (:func:`_mesh_kernels`).  Times
+    from the shared card stand for no multi-card deployment: gloo stages
+    every collective through host memory."""
     import torch
     from repro_torch.launch.mesh import run_world
 
@@ -3610,13 +3854,144 @@ def phase_mesh() -> dict:
                                      for r in gloo)
     for e in ("kge_score_forward", "kge_score_backward"):
         launches[e] = sum(r["kge"]["launches"][e] for r in gloo)
+    # the channel-parallel runs', over the ranks: the bf16 generations'
+    # prefills and the fp32 training steps
+    gen = {g["arch"]: g for r in gloo for g in r["rec_gen"]}
+    for arch, key, e in ((MAMBA_ARCH, "scan_launches",
+                          "selective_scan_fused"),
+                         (HYBRID_ARCH, "swa_launches",
+                          "swa_attention_forward")):
+        launches[f"{e}_tp_prefill_{arch}"] = sum(
+            g[key] for r in gloo for g in r["rec_gen"] if g["arch"] == arch)
+    for e in ("selective_scan_fused", "selective_scan_fused_backward",
+              "swa_attention_forward", "swa_attention_bwd_dot",
+              "swa_attention_backward_dkdv", "swa_attention_backward_dq"):
+        launches[f"{e}_tp_train"] = sum(t["launches"][e] for r in gloo
+                                        for t in r["rec_train"])
+    kernels = _mesh_kernels(card)
+    lap("the kernels at a rank's shapes")
     out = {"phase": "mesh", "nccl_world_of_1": nccl[0],
            "gloo_world_of_2": gloo, "launches": launches,
+           "rank_shape_kernels": kernels,
+           "tp_generation_by_arch": sorted(gen),
            "world_seconds": seconds,
            "note": "gloo on one shared card: collectives through host "
                    "memory; no multi-card figure"}
     emit(out)
     return out
+
+
+def _mesh_kernels(card: str) -> dict:
+    """The kernels of the channel-parallel paths at a rank's shapes on a
+    model axis of MESH_TP_AXIS, each against its plain version by the
+    scan and SWA phases' rules (PERF.md §2), then kernel ms (CUDA events)
+    and the plain version's (timed once, warm from the check) beside the
+    bound of the rank's half of the work, and SDPA's time for the SWA:
+    the fused scan forward and its backward on falcon-mamba-7b's d_in / 2
+    channels, the SWA forward and backward at d 256 on recurrentgemma-2b's
+    q heads / 2 over one KV slot (B 2 each, bf16)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, selective_scan as ss, \
+        swa_attention as sw
+    from repro_torch.models import get_config
+    from repro_torch.models.sharding import tp_config
+
+    n = MESH_TP_AXIS
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 47)
+    mcfg = get_config(MAMBA_ARCH)
+    B, S, st = MAMBA_BATCH, MAMBA_PROMPT, mcfg.ssm.d_state
+    d_in = mcfg.ssm.expand * mcfg.d_model // n
+    fargs = _fused_inputs(B, S, d_in, st, torch.bfloat16, gen, True)
+    h_k, o_k = ss.selective_scan_fused(*fargs)
+    h_p, o_p = ref.selective_scan_fused(*fargs)
+    err = max(_scan_close(o_k, o_p, "rank's fused scan out", BF16_ULP),
+              _scan_close(h_k, h_p, "rank's fused scan h_last"))
+    kern = lambda: ss.selective_scan_fused(*fargs)
+    b_ms, b_by, parts = scan_bound_ms(B, S, d_in, st, 2, fused=True)
+    scan = {"B": B, "S": S, "d_in": d_in, "d_state": st,
+            "dtype": "bfloat16", "max_abs_err": err,
+            "ms": _cuda_ms(kern, iters=20),
+            "plain_ms": _cuda_ms(lambda: ref.selective_scan_fused(*fargs),
+                                 iters=1, warmup=0),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_parts_ms": parts}
+    _, _, states = ss.selective_scan_fused_forward(*fargs, save_states=True)
+    dout = torch.randn((B, S, d_in), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    bwd = lambda: ss.selective_scan_fused_backward(*fargs, dout, None,
+                                                   states)
+    e = _bwd_close(bwd(), ref.selective_scan_fused_backward(*fargs, dout),
+                   "rank's fused scan backward")
+    b_ms, b_by, parts = scan_bwd_bound_ms(B, S, d_in, st, 2)
+    scan_bwd = {"B": B, "S": S, "d_in": d_in, "d_state": st,
+                "dtype": "bfloat16",
+                "max_abs_err": max(v for k, v in e.items()
+                                   if k != "relative"),
+                "max_err_over_max_reduced": e["relative"],
+                "ms": _cuda_ms(bwd, iters=20),
+                "plain_ms": _cuda_ms(lambda: ref.selective_scan_fused_backward(
+                    *fargs, dout), iters=1, warmup=0),
+                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                "bound_parts_ms": parts}
+    del fargs, states, dout, h_k, o_k, h_p, o_p
+    torch.cuda.empty_cache()
+
+    hcfg = tp_config(get_config(HYBRID_ARCH), n)
+    B, S, hd, W = HYBRID_BATCH, HYBRID_PROMPT, hcfg.hd, hcfg.hybrid.window
+    hq, hkv = hcfg.padded_heads() // n, hcfg.groups // n
+    q, k, v = _swa_inputs(B, hq, hkv, S, S, hd, torch.bfloat16, gen)
+    want = ref.swa_attention_ref(q[None], k[None], v[None], W)[0]
+    err = _swa_close(sw.swa_attention_forward(q, k, v, W), want,
+                     torch.bfloat16, "rank's SWA d 256")
+    pos = torch.arange(S, device=DEV)
+    band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < W)
+    q4, k4, v4 = (x.reshape(B, -1, S, hd).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    kern = lambda: sw.swa_attention_forward(q, k, v, W)
+    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=band,
+                                                 enable_gqa=True)
+    b_ms, b_by = swa_bound_ms(B, hq, hkv, S, hd, W, 2)
+    with torch.no_grad():
+        fwd = {"B": B, "Hq": hq, "Hkv": hkv, "S": S, "d": hd, "W": W,
+               "dtype": "bfloat16", "max_abs_err": err,
+               "ms": _cuda_ms(kern, iters=20),
+               "plain_ms": _cuda_ms(lambda: ref.swa_attention_ref(
+                   q[None], k[None], v[None], W), iters=3, warmup=1),
+               "library_ms": _cuda_ms(lib, iters=10, warmup=2),
+               "bound_ms": b_ms, "bound_by": b_by}
+    lse = ref.swa_attention_lse_ref(q[None], k[None], W)[0]
+    do = torch.randn(q.shape, generator=gen, device=DEV).to(torch.bfloat16)
+    back = lambda: sw.swa_attention_backward(q, k, v, want, lse, do, W)
+    plain = ref.swa_attention_backward_ref(
+        q[None], k[None], v[None], want[None], lse[None], do[None], W)
+    err = max(_swa_close(g, w[0], torch.bfloat16,
+                         f"rank's SWA d 256 backward {what}")
+              for g, w, what in zip(back(), plain, ("dq", "dk", "dv")))
+    del plain
+    do4 = do.reshape(B, hq, S, hd)
+
+    def lib_fb():
+        for x in (q4, k4, v4):
+            x.grad = None
+        F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=band, enable_gqa=True).backward(do4)
+
+    bb_ms, bb_by = swa_bwd_bound_ms(B, hq, hkv, S, hd, W, 2)
+    bwd = {"B": B, "Hq": hq, "Hkv": hkv, "S": S, "d": hd, "W": W,
+           "dtype": "bfloat16", "max_abs_err": err,
+           "ms": _cuda_ms(back, iters=5, warmup=1),
+           "plain_ms": _cuda_ms(lambda: ref.swa_attention_backward_ref(
+               q[None], k[None], v[None], want[None], lse[None], do[None],
+               W), iters=2, warmup=1),
+           "library_ms": _cuda_ms(lib_fb, iters=3, warmup=1),
+           "library_is": "SDPA forward + backward, band mask, enable_gqa",
+           "bound_ms": bb_ms, "bound_by": bb_by}
+    del q, k, v, want, lse, do, q4, k4, v4, do4
+    torch.cuda.empty_cache()
+    return {"model_axis": n, "card": card, "scan_fused": scan,
+            "scan_fused_backward": scan_bwd, "swa_forward_d256": fwd,
+            "swa_backward_d256": bwd}
 
 
 # ------------------------ the selective scan ------------------------- #
@@ -4995,26 +5370,37 @@ def _device_ms(fn, iters: int = 10) -> dict:
     duration times its runs a call (its activities over ``iters``,
     rounded).  The mean, not the sum over ``iters``: on some cards a
     session drops an activity of a name (the SWA backward's kernels read
-    2/3 of their time over 3 calls, the forward 9/10 over 10).  Empty
-    when the profiler reports none (in a process that ran the other
-    phases first: see ``_phase_in_child``)."""
+    2/3 of their time over 3 calls, the forward 9/10 over 10).  A session
+    that records no device activity at all is run again, up to
+    DEVICE_MS_SESSIONS sessions (a fresh process's session has once come
+    back empty for one SWA forward).  Empty when every session reports
+    none (in a process that ran the other phases first: see
+    ``_phase_in_child``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     runs: dict = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA and evt.device_time_total:
-            m = re.search(r"(\w+_kernel)\b", evt.name)
-            name = m.group(1) if m else evt.name[:48]
-            runs.setdefault(name, []).append(evt.device_time_total)
+    for _ in range(DEVICE_MS_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for evt in prof.events():
+            if evt.device_type == DeviceType.CUDA and evt.device_time_total:
+                m = re.search(r"(\w+_kernel)\b", evt.name)
+                name = m.group(1) if m else evt.name[:48]
+                runs.setdefault(name, []).append(evt.device_time_total)
+        if runs:
+            break
     return _per_call_ms(runs, iters)
+
+
+#: profiler sessions ``_device_ms`` runs at most while each records no
+#: device activity
+DEVICE_MS_SESSIONS = 3
 
 
 def _per_call_ms(runs: dict, iters: int) -> dict:
@@ -6061,7 +6447,12 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
     point a step).  ``launches_mesh``: the mesh phase's, over its ranks
     (kge_score: the sharded trainer's steps; the causal SWA forward: the
     expert-parallel bf16 prefill; the SWA backward: the expert-parallel
-    fp32 training step at d = 128, group 1)."""
+    fp32 training step at d = 128, group 1).  The "a rank's" entries:
+    the fused scan, its backward and the d = 256 SWA forward and backward
+    at a rank's shapes on a model axis of 2 (the mesh phase's last
+    part), their launches the mesh phase's
+    channel-parallel runs over both ranks (the bf16 falcon-mamba-7b and
+    recurrentgemma-2b prefills, the fp32 training steps)."""
     launches = serve_out["launches"]
     ml = mesh["launches"] if mesh else {}
     by = {(r["N"], r["Q"], r["k"]): r for r in numbers["rows"]}
@@ -6326,6 +6717,47 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
         "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
         "bound_by": b["bound_by"], "bound_parts_ms": b["bound_parts_ms"],
         "library_ms": None})
+    # the channel-parallel paths' kernels at a rank's shapes on a model
+    # axis of 2 (the mesh phase's child): their launches are the mesh
+    # phase's, over both ranks (the bf16 generations' prefills, the fp32
+    # training steps)
+    rk = (mesh or {}).get("rank_shape_kernels")
+    if rk:
+        for key, name, replaces, launch_keys in (
+                ("scan_fused", "selective_scan_fused (a rank's channels",
+                 SCAN_REPLACES,
+                 (f"selective_scan_fused_tp_prefill_{MAMBA_ARCH}",)),
+                ("scan_fused_backward", "selective_scan_fused_backward (a "
+                 "rank's channels", "src/repro/models/blocks.py:605, "
+                 "642-659 (jax.value_and_grad through the jnp scan and "
+                 "tail; no Pallas kernel)",
+                 ("selective_scan_fused_backward_tp_train",)),
+                ("swa_forward_d256", "swa_attention_forward (d = 256, a "
+                 "rank's heads", SWA_REPLACES,
+                 (f"swa_attention_forward_tp_prefill_{HYBRID_ARCH}",)),
+                ("swa_backward_d256", "swa_attention_backward (d = 256, "
+                 "bwd_dot + backward_dkdv + backward_dq, a rank's heads",
+                 "src/repro/models/attention.py:123 (autodiff of the jnp "
+                 "scan; no Pallas backward)",
+                 tuple(f"{e}_tp_train" for e in entries))):
+            x = rk[key]
+            dims = (f"d_in={x['d_in']} d_state={x['d_state']}"
+                    if "d_in" in x else
+                    f"Hq={x['Hq']} Hkv={x['Hkv']} W={x['W']} d={x['d']}")
+            out.append({
+                "name": f"{name} on a model axis of "
+                        f"{rk['model_axis']}; bf16, B={x['B']} S={x['S']} "
+                        f"{dims})",
+                "route": "cuda",
+                "source": SCAN_SOURCE if "d_in" in x else SWA_SOURCE,
+                "replaces": replaces,
+                "launches": sum(ml[k] for k in launch_keys),
+                "launches_over": "the mesh phase, both ranks: "
+                                 + ", ".join(launch_keys),
+                "max_abs_err": x["max_abs_err"], "ms": x["ms"],
+                "plain_ms": x["plain_ms"],
+                "bound_ms": x["bound_ms"], "bound_by": x["bound_by"],
+                "library_ms": x["library_ms"]})
     out.append({
         "name": f"selective_scan_forward (bare scan; {shape})",
         "route": "cuda", "source": SCAN_SOURCE, "replaces": SCAN_REPLACES,
@@ -6488,7 +6920,7 @@ def main(argv=None) -> int:
                 ("update", lambda: phase_update(tmp)),
                 ("jobs", lambda: phase_jobs(tmp, card)),
                 ("lm", phase_lm), ("moe", phase_moe),
-                ("mesh", phase_mesh),
+                ("mesh", lambda: phase_mesh(card)),
                 ("mamba", phase_mamba), ("hybrid", phase_hybrid),
                 ("whisper", phase_whisper),
                 ("llava", llava),

@@ -4,6 +4,7 @@ the production mesh, on the meta device (no memory, no card).
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-72b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
     PYTHONPATH=src python -m repro_torch.launch.dryrun --kge go
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --kge go --optimizer sgd
 
 The port of ``repro.launch.dryrun``, with its config overrides (16 KV
 slots, 16 or 32 MoE dispatch blocks, expert-parallel MoE, grok's ff
@@ -14,11 +15,13 @@ per-device bytes of what the step takes, laid out by ``models.sharding``:
   * train: the params, Adam's count / mu / nu and the batch;
   * prefill: the params, the batch and the cache the prefill returns;
   * decode: the params, the cache, the token and the position;
-  * ``--kge``: the KGE tables, their Adam state and the triples.
+  * ``--kge``: the KGE tables, their optimizer's state (Adam unless
+    ``--optimizer`` names another) and the triples.
 
-For the dense, VLM and MoE families the per-device bytes are those a
-rank holds on a process mesh of the same sizes (``convert.shard_params``
-cuts by the same rules).
+For the dense, VLM, MoE, SSM and hybrid families the per-device bytes
+are those a rank holds on a process mesh of the same sizes
+(``convert.shard_params`` cuts by the same rules; mamba's fused
+``in_proj`` holds its two halves' blocks, the same bytes).
 
 One JSON a tag goes to ``--out`` (default ``build/dryrun``).  Not
 reproduced: the reference lowers and compiles each step for its mesh and
@@ -125,16 +128,19 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def dryrun_kge(workload: str, multi_pod: bool) -> dict:
+def dryrun_kge(workload: str, multi_pod: bool,
+               optimizer: str = "adam") -> dict:
     """The paper's own workload: the sharded TransE training step's inputs
-    over the full-size synthetic GO / HP (dim 200), batch 8,192."""
+    over the full-size synthetic GO / HP (dim 200), batch 8,192, under
+    ``optimizer`` (``optim.OPTIMIZERS``: its state's mu and nu counted as
+    its ``init`` makes them, as the reference counts them)."""
     from ..kge import make_model
     from ..kge.train import TrainConfig
     from ..optim import OPTIMIZERS
     mesh_name = "multi" if multi_pod else "single"
     wl = importlib.import_module(f"repro_torch.configs.{workload}_kge").CONFIG
     model = make_model("transe", wl.n_terms, 3, dim=wl.dim)
-    tc = TrainConfig(batch_size=8192, num_negs=32)
+    tc = TrainConfig(batch_size=8192, num_negs=32, optimizer=optimizer)
     mesh = make_production_mesh(multi_pod=multi_pod)
     params = {k: torch.empty(v, dtype=model.spec.dtype, device="meta")
               for k, v in model.param_shapes().items()}
@@ -148,7 +154,10 @@ def dryrun_kge(workload: str, multi_pod: bool) -> dict:
                                        device="meta"), ()),
              "opt_mu": (opt.mu, p_sh), "opt_nu": (opt.nu, p_sh),
              "triples": (triples, (dp, None))}
-    return {"tag": f"kge-{workload}__train__{mesh_name}", "status": "ok",
+    tag = f"kge-{workload}__train__{mesh_name}"
+    if optimizer != "adam":
+        tag += f"__{optimizer}"
+    return {"tag": tag, "status": "ok", "optimizer": optimizer,
             "workload": workload, "n_entities": wl.n_terms, "dim": wl.dim,
             "n_devices": mesh.size, "bytes": _bytes(parts, mesh)}
 
@@ -161,6 +170,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     choices=["single", "multi", "both"])
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--kge", default=None, choices=["go", "hp"])
+    ap.add_argument("--optimizer", default="adam",
+                    choices=["adam", "adagrad", "sgd"],
+                    help="--kge's optimizer (default adam, TrainConfig's)")
     ap.add_argument("--out", default=str(OUT),
                     help="directory for one JSON a tag (default build/dryrun)")
     args = ap.parse_args(argv)
@@ -181,7 +193,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for kind, a, s, mp in jobs:
         t0 = time.perf_counter()
         try:
-            rec = dryrun_kge(a, mp) if kind == "kge" else dryrun_one(a, s, mp)
+            rec = dryrun_kge(a, mp, args.optimizer) if kind == "kge" \
+                else dryrun_one(a, s, mp)
         except Exception as e:        # one tag's fault must not hide the rest
             failures += 1
             print(f"[{time.perf_counter() - t0:7.2f}s] {a} {s} FAIL {e!r}",

@@ -1,5 +1,5 @@
-"""Layer blocks for the dense and MoE families: the port of the attention,
-transformer-block and MoE parts of ``repro.models.blocks``.
+"""Layer blocks: the port of ``repro.models.blocks`` (attention, the
+transformer block, MoE, Mamba and the RG-LRU).
 
 Every block is a pair ``*_init(gen, cfg) -> params dict`` and
 ``*_apply(p, x, cfg, ...) -> y`` on the residual stream (B, S, d), where
@@ -19,11 +19,12 @@ package re-emits the cache), optionally into an int8 cache with per-slot
 fp32 scales (``quantize_kv``).
 
 Under a model axis of n (``runtime.tp_group``: a process mesh that cuts
-the dense, VLM and MoE families) each rank runs its ``G / n`` KV slots and
-their ``padded_heads() / n`` q heads (``wq`` / ``wk`` / ``wv`` cut by
-output, ``wo`` by input: a padding head's zero rows sit with its head),
-its cache ``(B, G / n, Sc, hd)`` a layer; the normed input enters through
-``runtime.pvary`` and one ``all_reduce`` after ``wo`` sums the heads.
+the weights, ``sharding.TP_FAMILIES``) each rank runs its ``G / n`` KV
+slots and their ``padded_heads() / n`` q heads (``wq`` / ``wk`` / ``wv``
+cut by output, ``wo`` by input: a padding head's zero rows sit with its
+head), its cache ``(B, G / n, Sc, hd)`` a layer; the normed input enters
+through ``runtime.pvary`` and one ``all_reduce`` after ``wo`` sums the
+heads.
 RoPE, the window and the rolling cache are per slot, so unchanged.
 
 The MoE block is the reference's capacity-dropped top-k dispatch
@@ -42,6 +43,15 @@ the reference scans.  Trained, the same call goes through
 starting state and the backward kernel gives every input's gradient,
 which autograd carries to in_proj's and x_proj's outputs through the
 views z, Bm and Cm are.
+
+Under a model axis of n both recurrences are channel-parallel (the
+reference's ``param_pspec``): the input projections are cut by output,
+the conv and the recurrence's own params by channel, the output
+projection by input and followed by one ``all_reduce``; the scan runs on
+the rank's ``d_in / n`` (Mamba) or ``w / n`` (RG-LRU) channels with no
+collective inside it.  Mamba's ``x_proj`` contracts the rank's channels
+too (one more ``all_reduce``); the RG-LRU's gate matmuls read every
+channel of xc, all-gathered once a layer.
 
 The RG-LRU block (recurrentgemma) keeps the reference's dtype order: the
 gates in fp32, the conv without silu, ``y`` cast to the model's dtype
@@ -620,10 +630,34 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y + b
 
 
+def _mamba_in(p, x: torch.Tensor, group):
+    """in_proj's xi, z (B,S,d_in), each the rank's d_in / n channels under
+    a process ``group`` (x entering through ``runtime.pvary``: the rank's
+    in_proj block gives partial cotangents)."""
+    if group is not None:
+        x = runtime.pvary(x, group)
+    return dense(p["in_proj"], x).chunk(2, dim=-1)
+
+
+def _mamba_dbc(p, xc: torch.Tensor, dtr: int, st: int, group):
+    """x_proj's dt_r, Bm, Cm from xc (B,S,d_in): under a process ``group``
+    the rank's rows of x_proj summed over it (one ``all_reduce`` of (B S,
+    dtr + 2 st), ``row_dense``), then through ``runtime.pvary`` into the
+    rank's scan, whose cotangents are the rank's channels' share."""
+    dbc = row_dense(p["x_proj"], xc, group)
+    if group is not None:
+        dbc = runtime.pvary(dbc, group)
+    return torch.split(dbc, [dtr, st, st], dim=-1)
+
+
 def _mamba_inner(p, xi: torch.Tensor, z: torch.Tensor, cfg: ArchConfig,
-                 chunk: int):
+                 chunk: int, group=None):
     """conv, projections, scan, D skip and gate of ``mamba_apply`` and
-    ``mamba_prefill``: xi, z (B,S,d_in) -> (y (B,S,d) , h_last).
+    ``mamba_prefill``: xi, z (B,S,d_in) -> (y (B,S,d) , h_last).  Under a
+    process ``group`` xi and z are the rank's channels, as are the conv,
+    ``dt_proj``, ``A_log``, ``D`` and the scan (no collective inside
+    it); ``x_proj`` and ``out_proj`` contract them, each summed with one
+    ``all_reduce``.
 
     dt_proj's bias, the softplus, the scan from a zero state, the D skip
     and the silu(z) gate are one call of ``kernels.selective_scan_fused``:
@@ -635,50 +669,54 @@ def _mamba_inner(p, xi: torch.Tensor, z: torch.Tensor, cfg: ArchConfig,
     x = 0``, so no padding is needed)."""
     _, dtr, st, _ = _mamba_dims(cfg)
     xc = F.silu(_causal_conv(xi, p["conv_w"], p["conv_b"]))
-    dbc = dense(p["x_proj"], xc)
-    dt_r, Bm, Cm = torch.split(dbc, [dtr, st, st], dim=-1)
+    dt_r, Bm, Cm = _mamba_dbc(p, xc, dtr, st, group)
     dt_proj = p["dt_proj"]
     A = -torch.exp(p["A_log"])                                # (d_in, st)
     h_last, y = scan_kernels.selective_scan_fused(
         None, dt_r @ dt_proj["w"], Bm, Cm, A, xc, p["D"], z, dt_proj["b"],
         chunk)
-    return dense(p["out_proj"], y), h_last
+    return row_dense(p["out_proj"], y, group), h_last
 
 
 def mamba_apply(p, x: torch.Tensor, cfg: ArchConfig, *,
                 chunk: int = 256) -> torch.Tensor:
     """Train/prefill. x (B,S,d) -> (B,S,d)."""
-    xi, z = dense(p["in_proj"], x).chunk(2, dim=-1)           # (B,S,d_in)
-    return _mamba_inner(p, xi, z, cfg, chunk)[0]
+    group = runtime.tp_group(cfg)
+    xi, z = _mamba_in(p, x, group)                            # (B,S,d_in)
+    return _mamba_inner(p, xi, z, cfg, chunk, group)[0]
 
 
 def mamba_prefill(p, x: torch.Tensor, cfg: ArchConfig):
-    """Returns (y, h_state (B,d_in,st) f32, conv_state (B,cw-1,d_in))."""
+    """Returns (y, h_state (B,d_in,st) f32, conv_state (B,cw-1,d_in)),
+    the rank's d_in / n channels of the states under a process group."""
     S = x.shape[1]
     _, _, _, cw = _mamba_dims(cfg)
-    xi, z = dense(p["in_proj"], x).chunk(2, dim=-1)
+    group = runtime.tp_group(cfg)
+    xi, z = _mamba_in(p, x, group)
     if S >= cw - 1:
         # a copy: a view would keep the layer's whole (B, S, 2 d_in)
         # in_proj output alive in the cache
         conv_state = xi[:, S - (cw - 1):, :].clone()
     else:
         conv_state = F.pad(xi, (0, 0, cw - 1 - S, 0))
-    y, h_last = _mamba_inner(p, xi, z, cfg, 256)
+    y, h_last = _mamba_inner(p, xi, z, cfg, 256, group)
     return y, h_last, conv_state
 
 
 def mamba_decode(p, x: torch.Tensor, h: torch.Tensor,
                  conv_state: torch.Tensor, cfg: ArchConfig):
-    """Single step. x (B,1,d); h (B,d_in,st) f32; conv_state (B,cw-1,d_in).
-    Returns (y (B,1,d), h, conv_state), plain PyTorch as the reference's."""
+    """Single step. x (B,1,d); h (B,d_in,st) f32; conv_state (B,cw-1,d_in)
+    (the rank's d_in / n channels under a process group, as in
+    :func:`_mamba_inner`).  Returns (y (B,1,d), h, conv_state), plain
+    PyTorch as the reference's."""
     _, dtr, st, _ = _mamba_dims(cfg)
-    xi, z = dense(p["in_proj"], x).chunk(2, dim=-1)           # (B,1,d_in)
+    group = runtime.tp_group(cfg)
+    xi, z = _mamba_in(p, x, group)                            # (B,1,d_in)
     window = torch.cat([conv_state.to(x.dtype), xi], dim=1)   # (B,cw,d_in)
     xc = F.silu(torch.einsum("bcd,cd->bd", window, p["conv_w"])
                 + p["conv_b"])
     conv_state = window[:, 1:]
-    dbc = dense(p["x_proj"], xc)
-    dt_r, Bm, Cm = torch.split(dbc, [dtr, st, st], dim=-1)
+    dt_r, Bm, Cm = _mamba_dbc(p, xc, dtr, st, group)
     dt = F.softplus(dense(p["dt_proj"], dt_r).float())        # (B,d_in)
     A = -torch.exp(p["A_log"])
     Abar = torch.exp(dt[..., None] * A)                       # (B,d_in,st)
@@ -687,7 +725,7 @@ def mamba_decode(p, x: torch.Tensor, h: torch.Tensor,
     y = torch.einsum("bds,bs->bd", h, Cm.float())
     y = y + p["D"] * xc.float()
     y = (y * F.silu(z[:, 0].float())).to(x.dtype)
-    return dense(p["out_proj"], y)[:, None, :], h, conv_state
+    return row_dense(p["out_proj"], y, group)[:, None, :], h, conv_state
 
 
 # ===================================================================== #
@@ -714,12 +752,18 @@ def rglru_init(gen: Gen, cfg: ArchConfig) -> dict:
     }
 
 
-def _rglru_gates(p, xc: torch.Tensor):
+def _rglru_gates(p, xc: torch.Tensor, group=None):
     """(a, gated) of the recurrence h_t = a_t h_{t-1} + gated_t, fp32:
     ``a = exp(-8 softplus(lam) r)`` and ``gated = sqrt(max(1 - a^2,
-    1e-12)) * i * xc``, r and i the sigmoid gates."""
-    r = torch.sigmoid(dense(p["wa"], xc).float())
-    i = torch.sigmoid(dense(p["wx"], xc).float())
+    1e-12)) * i * xc``, r and i the sigmoid gates.  Under a process
+    ``group`` xc is the rank's w / n channels: the gate matmuls (``wa``,
+    ``wx`` cut by output) read every channel, all-gathered once
+    (``runtime.gather_last_summed``: each rank's gates give a partial
+    cotangent of the whole xc), and give the rank's channels of r and i;
+    the gated term multiplies the rank's own xc."""
+    xa = xc if group is None else runtime.gather_last_summed(xc, group)
+    r = torch.sigmoid(dense(p["wa"], xa).float())
+    i = torch.sigmoid(dense(p["wx"], xa).float())
     log_a = -_LRU_C * F.softplus(p["lam"]) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
@@ -739,8 +783,11 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor):
     return a, b
 
 
-def _rglru_scan(p, xc: torch.Tensor, h0: torch.Tensor, *, chunk: int = 256):
-    """xc (B,S,w) post-conv branch; h0 (B,w) fp32.  Returns (y (B,S,w)
+def _rglru_scan(p, xc: torch.Tensor, h0: torch.Tensor, *, chunk: int = 256,
+                group=None):
+    """xc (B,S,w) post-conv branch; h0 (B,w) fp32 (the rank's w / n
+    channels of both under a process ``group``: only the gates read
+    across ranks, :func:`_rglru_gates`).  Returns (y (B,S,w)
     fp32, h_last (B,w)): the reference's scan, as plain PyTorch that
     autograd differentiates.  Every ``chunk``-step chunk is scanned from a
     zero state at once (log2(chunk) doubling steps over all chunks), then
@@ -748,7 +795,7 @@ def _rglru_scan(p, xc: torch.Tensor, h0: torch.Tensor, *, chunk: int = 256):
     reference's ``lax.scan`` does.  ``h_last`` is the state after the last
     real step (the reference's zero padding of a ragged last chunk past
     one chunk gives it the state at the padding's end, 0)."""
-    a, gated = _rglru_gates(p, xc)
+    a, gated = _rglru_gates(p, xc, group)
     B, S, w = a.shape
     c = min(chunk, S)
     n = -(-S // c)
@@ -771,10 +818,16 @@ def rglru_apply(p, x: torch.Tensor, cfg: ArchConfig,
                 conv_state: Optional[torch.Tensor] = None,
                 return_state: bool = False):
     """Full recurrent block: (gate branch) * RG-LRU(conv(x branch)) -> out.
-    With ``return_state`` also (h_last (B,w) fp32, conv tail (B,cw-1,w))."""
+    With ``return_state`` also (h_last (B,w) fp32, conv tail (B,cw-1,w)).
+    Under a process group (``runtime.tp_group``) ``in_x`` / ``in_gate``
+    give the rank's w / n channels (x entering through ``runtime.pvary``),
+    the conv, the recurrence and its states are the rank's, and ``out``
+    contracts them with one ``all_reduce`` (``row_dense``)."""
     B, S, _ = x.shape
-    w = cfg.hybrid.lru_width or cfg.d_model
     cw = cfg.hybrid.conv_width
+    group = runtime.tp_group(cfg)
+    if group is not None:
+        x = runtime.pvary(x, group)
     xb = dense(p["in_x"], x)
     gate = F.gelu(dense(p["in_gate"], x), approximate="tanh")
     if S >= cw - 1:
@@ -783,9 +836,10 @@ def rglru_apply(p, x: torch.Tensor, cfg: ArchConfig,
         new_conv = F.pad(xb, (0, 0, cw - 1 - S, 0))
     xc = _causal_conv(xb, p["conv_w"], p["conv_b"], state=conv_state)
     if h0 is None:
-        h0 = torch.zeros((B, w), dtype=torch.float32, device=x.device)
-    y, h_last = _rglru_scan(p, xc, h0)
-    out = dense(p["out"], y.to(x.dtype) * gate)
+        h0 = torch.zeros((B, xb.shape[-1]), dtype=torch.float32,
+                         device=x.device)
+    y, h_last = _rglru_scan(p, xc, h0, group=group)
+    out = row_dense(p["out"], y.to(x.dtype) * gate, group)
     if return_state:
         return out, h_last, new_conv
     return out
@@ -793,14 +847,18 @@ def rglru_apply(p, x: torch.Tensor, cfg: ArchConfig,
 
 def rglru_decode(p, x: torch.Tensor, h: torch.Tensor,
                  conv_state: torch.Tensor, cfg: ArchConfig):
-    """x (B,1,d); h (B,w) fp32; conv_state (B,cw-1,w).  Returns (out
-    (B,1,d), h, conv_state), plain PyTorch as the reference's."""
+    """x (B,1,d); h (B,w) fp32; conv_state (B,cw-1,w) (the rank's w / n
+    channels under a process group, as in :func:`rglru_apply`).  Returns
+    (out (B,1,d), h, conv_state), plain PyTorch as the reference's."""
+    group = runtime.tp_group(cfg)
+    if group is not None:
+        x = runtime.pvary(x, group)
     xb = dense(p["in_x"], x)                                   # (B,1,w)
     gate = F.gelu(dense(p["in_gate"], x), approximate="tanh")
     window = torch.cat([conv_state.to(x.dtype), xb], dim=1)
     xc = torch.einsum("bcw,cw->bw", window, p["conv_w"]) + p["conv_b"]
     conv_state = window[:, 1:]
-    a, gated = _rglru_gates(p, xc)
+    a, gated = _rglru_gates(p, xc, group)
     h = a * h + gated
-    out = dense(p["out"], h[:, None].to(x.dtype) * gate)
+    out = row_dense(p["out"], h[:, None].to(x.dtype) * gate, group)
     return out, h, conv_state

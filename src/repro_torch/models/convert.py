@@ -15,8 +15,10 @@ layer ``3 P + r``.
 
 On a process mesh, :func:`shard_params` cuts a model's params to the
 rank's share (``sharding.mesh_pspec``: the reference's ``param_pspec``,
-the tensor-parallel layout of the dense, VLM and MoE families) and
-:func:`gather_params` puts the shares back together.
+the tensor-parallel layout of the dense, VLM, MoE, SSM and hybrid
+families) and :func:`gather_params` puts the shares back together;
+:func:`share_of` and :func:`whole_of` do it for one leaf (a gradient
+too).
 """
 from __future__ import annotations
 
@@ -138,24 +140,49 @@ def _leaves(model: BaseLM):
         yield name, model.params.get_submodule(parent), leaf, t
 
 
-def _spec(model: BaseLM, name: str, t: torch.Tensor, mesh):
-    return mesh_pspec(model.cfg, tuple(name.split(".")), t.dim(),
-                      mesh.shape["model"])
+def _layout(cfg, name: str, ndim: int, mesh):
+    """``(spec, halves)`` of the leaf ``name``: its ``sharding.mesh_pspec``,
+    and whether its last dim is two halves each cut by the spec (mamba's
+    fused ``in_proj``, ``xi | z``: a rank holds its block of each)."""
+    path = tuple(name.split("."))
+    spec = mesh_pspec(cfg, path, ndim, mesh.shape["model"])
+    return spec, cfg.family == "ssm" and path[-2:] == ("in_proj", "w")
+
+
+def share_of(cfg, name: str, t: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's share of the full leaf ``t`` named ``name`` (a param or
+    its gradient), as a new tensor."""
+    spec, halves = _layout(cfg, name, t.dim(), mesh)
+    if halves:
+        return runtime.take_share(t.unflatten(-1, (2, -1)),
+                                  spec[:-1] + (None,) + spec[-1:],
+                                  mesh).flatten(-2)
+    return runtime.take_share(t, spec, mesh)
+
+
+def whole_of(cfg, name: str, t: torch.Tensor, mesh) -> torch.Tensor:
+    """The full leaf ``name`` from every rank's share ``t`` (collective
+    over the world): :func:`share_of` undone."""
+    spec, halves = _layout(cfg, name, t.dim(), mesh)
+    if halves:
+        return runtime.gather_share(t.unflatten(-1, (2, -1)),
+                                    spec[:-1] + (None,) + spec[-1:],
+                                    mesh).flatten(-2)
+    return runtime.gather_share(t, spec, mesh)
 
 
 def shard_params(model: BaseLM, mesh) -> BaseLM:
     """Cut ``model.params`` in place to this rank's share on the process
-    ``mesh`` (``sharding.mesh_pspec``; the SSM, hybrid and audio families
-    stay whole, ROADMAP Queue 1 item 6); each cut leaf is a new tensor, so
-    the full one is freed leaf by leaf.  Raises ``ValueError`` (from
+    ``mesh`` (``sharding.mesh_pspec``, :func:`share_of`; the audio family
+    stays whole, ROADMAP Queue 1 item 6); each cut leaf is a new tensor,
+    so the full one is freed leaf by leaf.  Raises ``ValueError`` (from
     ``sharding.check_tp``) on a config the model axis cannot cut.
     Returns the model."""
     check_tp(model.cfg, mesh.shape["model"])
     for name, mod, leaf, t in _leaves(model):
-        spec = _spec(model, name, t, mesh)
-        if any(spec):
+        if any(_layout(model.cfg, name, t.dim(), mesh)[0]):
             setattr(mod, leaf, torch.nn.Parameter(
-                runtime.take_share(t.detach(), spec, mesh),
+                share_of(model.cfg, name, t.detach(), mesh),
                 requires_grad=t.requires_grad))
     return model
 
@@ -163,6 +190,5 @@ def shard_params(model: BaseLM, mesh) -> BaseLM:
 def gather_params(model: BaseLM, mesh) -> Dict[str, torch.Tensor]:
     """``{dotted name: full tensor}`` from every rank's share (collective
     over the world)."""
-    return {name: runtime.gather_share(t.detach(),
-                                       _spec(model, name, t, mesh), mesh)
+    return {name: whole_of(model.cfg, name, t.detach(), mesh)
             for name, _, _, t in _leaves(model)}

@@ -22,6 +22,11 @@ the sequence's length:
      "rem": ((h (B,w), conv (B,cw-1,w)), (h, conv))}
 
 ``decode_step`` writes it in place.
+
+Under a model axis of n (``runtime.tp_group``) the RG-LRU layers run on
+the rank's ``w / n`` channels (``blocks.rglru_*``), the attention layers
+on its heads and KV slots and the MLPs on its ff columns, as the dense
+family's; every state above is the rank's share (``cache_spec``).
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from . import blocks
+from . import blocks, runtime
 from .layers import Gen, apply_norm, mlp, mlp_init, norm_init
 from .lm import BaseLM, maybe_remat
 
@@ -72,7 +77,8 @@ class HybridLM(BaseLM):
         cfg = self.cfg
         if kind == "recurrent":
             h = h + blocks.rglru_apply(p["rec"], apply_norm(p["ln1"], h), cfg)
-            return h + mlp(p["mlp"], apply_norm(p["ln2"], h), cfg.act)
+            return h + mlp(p["mlp"], apply_norm(p["ln2"], h), cfg.act,
+                           runtime.tp_group(cfg))
         return blocks.block_apply(p, h, cfg, window=cfg.hybrid.window)
 
     def _period(self, layers, h: torch.Tensor) -> torch.Tensor:
@@ -102,7 +108,8 @@ class HybridLM(BaseLM):
                 y, hs, cs = blocks.rglru_apply(
                     p["rec"], apply_norm(p["ln1"], h), cfg, return_state=True)
                 h = h + y
-                h = h + mlp(p["mlp"], apply_norm(p["ln2"], h), cfg.act)
+                h = h + mlp(p["mlp"], apply_norm(p["ln2"], h), cfg.act,
+                            runtime.tp_group(cfg))
                 states.append((hs, cs))
             else:
                 h, kc, vc = blocks.block_prefill(p, h, cfg,
@@ -130,7 +137,8 @@ class HybridLM(BaseLM):
                 a.copy_(hs)
                 b.copy_(cs)
                 h = h + y
-                h = h + mlp(p["mlp"], apply_norm(p["ln2"], h), cfg.act)
+                h = h + mlp(p["mlp"], apply_norm(p["ln2"], h), cfg.act,
+                            runtime.tp_group(cfg))
             else:
                 h, _, _ = blocks.block_decode(p, h, a, b, pos, cfg,
                                               window=cfg.hybrid.window)
@@ -138,10 +146,14 @@ class HybridLM(BaseLM):
 
     # ---------------- specs ---------------- #
     def cache_spec(self, batch: int, seq: int):
+        """Under a process mesh (``runtime.use_mesh``) the rank's: its rows
+        of ``batch`` (``cache_rows``), its ``w / n`` recurrent channels and
+        its KV slots (``local``, ``kv_slots``)."""
         cfg = self.cfg
-        w = cfg.hybrid.lru_width or cfg.d_model
+        w = self.local(cfg.hybrid.lru_width or cfg.d_model)
         cw = cfg.hybrid.conv_width
         Sc = min(seq, cfg.hybrid.window)
+        batch = self.cache_rows(batch)
 
         def meta(shape, dtype):
             return torch.empty(shape, dtype=dtype, device="meta")
@@ -150,7 +162,7 @@ class HybridLM(BaseLM):
             if kind == "recurrent":
                 return (meta(lead + (batch, w), torch.float32),
                         meta(lead + (batch, cw - 1, w), cfg.jdtype))
-            shp = lead + (batch, cfg.groups, Sc, cfg.hd)
+            shp = lead + (batch, self.kv_slots(), Sc, cfg.hd)
             return meta(shp, cfg.jdtype), meta(shp, cfg.jdtype)
 
         return {"periods": tuple(state(k, (self.n_periods,))

@@ -182,12 +182,18 @@ class BaseLM(nn.Module):
             return h @ w
         return runtime.gather_last(runtime.pvary(h, group) @ w, group)
 
+    def local(self, width: int) -> int:
+        """``width`` channels (KV slots) of a model axis: this rank's
+        ``width / n`` on a model axis of n (``runtime.tp_group``), else
+        all of them."""
+        group = runtime.tp_group(self.cfg)
+        return width // (1 if group is None
+                         else runtime.group_index(group)[0])
+
     def kv_slots(self) -> int:
         """The KV slots a layer's cache holds here: ``cfg.groups``, or this
         rank's ``groups / n`` on a model axis of n (``runtime.tp_group``)."""
-        group = runtime.tp_group(self.cfg)
-        return self.cfg.groups // (1 if group is None
-                                   else runtime.group_index(group)[0])
+        return self.local(self.cfg.groups)
 
     @staticmethod
     def cache_rows(batch: int) -> int:

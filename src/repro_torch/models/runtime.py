@@ -8,8 +8,9 @@ single-process run.  Under a mesh ``blocks.moe_dispatch`` takes the
 expert-parallel MoE when the config asks for it, ``dense.DenseLM``
 sequence-shards its residual, and ``lm.xent`` reduces over the data axes.
 
-Under a mesh whose ``"model"`` axis is past size 1, the dense, VLM and
-MoE families run tensor-parallel on the rank's share of their weights
+Under a mesh whose ``"model"`` axis is past size 1, the families of
+``sharding.TP_FAMILIES`` (dense, VLM, MoE, SSM, hybrid) run
+tensor-parallel on the rank's share of their weights
 (``models.sharding.mesh_pspec``, the reference's ``param_pspec``):
 :func:`tp_group` gives the model code that axis's group.
 

@@ -21,9 +21,9 @@ tensor / expert / channel parallelism:
 The port's params hold one entry a layer where the reference stacks
 ``(L, ...)``; every rule places its axis from the right, so a layer's
 spec is the reference's without the leading stacked entry.  On a process
-mesh ``convert.shard_params`` cuts the dense, VLM and MoE families by
-these rules (:func:`mesh_pspec`), so the dry run's per-device bytes are a
-rank's.
+mesh ``convert.shard_params`` cuts the dense, VLM, MoE, SSM and hybrid
+families by these rules (:func:`mesh_pspec`), so the dry run's
+per-device bytes are a rank's; the audio family stays whole there.
 """
 from __future__ import annotations
 
@@ -99,19 +99,30 @@ def param_pspec(cfg: ArchConfig, path: Tuple[str, ...], ndim: int,
     return tuple(spec)
 
 
-#: the families a process mesh cuts by :func:`param_pspec` (their blocks
-#: share ``attn_*`` and ``mlp``); the SSM, hybrid and audio families keep
-#: every leaf whole there (ROADMAP Queue 1 item 6)
-TP_FAMILIES = ("dense", "vlm", "moe")
+#: the families a process mesh cuts by :func:`param_pspec`: the
+#: attention families (their blocks share ``attn_*`` and ``mlp``) and the
+#: channel-parallel recurrences (Mamba, and the hybrid's RG-LRU beside its
+#: attention and MLP); the audio family keeps every leaf whole there
+#: (ROADMAP Queue 1 item 6)
+TP_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def mesh_pspec(cfg: ArchConfig, path: Tuple[str, ...], ndim: int,
                axis_size: int) -> Spec:
     """A leaf's layout on a process mesh (``convert.shard_params``):
-    :func:`param_pspec`'s for :data:`TP_FAMILIES`.  One deviation: with
-    ``cfg.moe_impl == "gspmd"`` an MoE layer's experts stay whole, the
-    gspmd impl running the rank's block of tokens through every expert
-    (``blocks.moe_apply`` on a mesh)."""
+    :func:`param_pspec`'s for :data:`TP_FAMILIES`.  Two deviations:
+
+      * with ``cfg.moe_impl == "gspmd"`` an MoE layer's experts stay
+        whole, the gspmd impl running the rank's block of tokens through
+        every expert (``blocks.moe_apply`` on a mesh);
+      * mamba's fused ``in_proj`` (d, 2 d_in), whose output the block
+        splits into ``xi | z``, has this spec (dim -1 over the axis) but
+        a rank holds ``[xi's channel block | z's channel block]``, (d, 2
+        d_in / n), not the n-th contiguous block of its columns (which
+        on two ranks would be all of xi, or all of z): under GSPMD the
+        reference's contiguous cut is a storage layout, here it is the
+        rank's compute (``convert.share_of`` / ``convert.whole_of``).
+        The bytes are the same."""
     if cfg.family not in TP_FAMILIES or (
             cfg.moe_impl != "shard_map" and len(path) >= 2
             and path[-2] == "moe"):
@@ -121,24 +132,46 @@ def mesh_pspec(cfg: ArchConfig, path: Tuple[str, ...], ndim: int,
 
 def tp_config(cfg: ArchConfig, axis_size: int) -> ArchConfig:
     """``cfg`` with its KV slots raised to ``axis_size`` where it carries
-    fewer (as the reference's dry run raises them to 16)."""
-    return cfg.with_(kv_groups=axis_size) if cfg.groups < axis_size else cfg
+    fewer (as the reference's dry run raises them to 16); an
+    attention-free config (``n_heads == 0``) as it is."""
+    return cfg.with_(kv_groups=axis_size) \
+        if cfg.n_heads and cfg.groups < axis_size else cfg
+
+
+def _tp_dims(cfg: ArchConfig) -> dict:
+    """The dims of ``cfg`` a model axis cuts, by name."""
+    dims = {"padded_vocab": cfg.padded_vocab, "d_model": cfg.d_model}
+    if cfg.family == "ssm":
+        dims["d_inner"] = cfg.ssm.expand * cfg.d_model
+        return dims
+    dims.update({"groups (KV slots)": cfg.groups,
+                 "padded_heads()": cfg.padded_heads(),
+                 "n_kv_heads * hd": cfg.n_kv_heads * cfg.hd})
+    if cfg.moe is None:
+        dims["d_ff"] = cfg.d_ff
+    if cfg.family == "hybrid":
+        dims["lru_width"] = cfg.hybrid.lru_width or cfg.d_model
+    return dims
 
 
 def check_tp(cfg: ArchConfig, axis_size: int) -> None:
     """Raise ``ValueError`` naming each dim of ``cfg`` that a model axis of
     ``axis_size`` cannot cut (:data:`TP_FAMILIES` only): nothing is
-    replicated in its place."""
+    replicated in its place.  For the SSM family the rank's ``d_inner /
+    n`` must also be a multiple of ``kernels.selective_scan.D_IN_MULTIPLE``
+    (z's rows start that many elements into the rank's in_proj output,
+    on the scan kernel's 16-byte rows)."""
     if axis_size == 1 or cfg.family not in TP_FAMILIES:
         return
-    dims = {"groups (KV slots)": cfg.groups,
-            "padded_heads()": cfg.padded_heads(),
-            "n_kv_heads * hd": cfg.n_kv_heads * cfg.hd,
-            "padded_vocab": cfg.padded_vocab, "d_model": cfg.d_model}
-    if cfg.moe is None:
-        dims["d_ff"] = cfg.d_ff
+    dims = _tp_dims(cfg)
     bad = [f"{k} = {v} is not a multiple of it" for k, v in dims.items()
            if v % axis_size]
+    if cfg.family == "ssm" and not dims["d_inner"] % axis_size:
+        from ..kernels.selective_scan import D_IN_MULTIPLE
+        share = dims["d_inner"] // axis_size
+        if share % D_IN_MULTIPLE:
+            bad.append(f"d_inner / n = {share} is not a multiple of "
+                       f"{D_IN_MULTIPLE} (the scan kernel's rows)")
     if cfg.tie_embeddings:
         bad.append("tied embeddings are not cut (ROADMAP Queue 1 item 6)")
     if cfg.moe_impl == "shard_map" and cfg.moe is not None \

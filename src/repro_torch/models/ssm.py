@@ -3,7 +3,10 @@ of ``repro.models.ssm``.
 
 Each layer: x + mamba(rmsnorm(x)).  No KV cache: the decode state is
 ``{"h": (L, B, d_inner, d_state) fp32, "conv": (L, B, cw-1, d_inner)}``,
-constant in sequence length, which is why this arch runs long_500k.  On
+constant in sequence length, which is why this arch runs long_500k.
+Under a model axis of n (``runtime.tp_group``) a rank holds its
+``d_inner / n`` channels of every layer and of its state
+(``blocks.mamba_*``).  On
 the card every prefill layer's selective scan is one launch of
 ``kernels/csrc/selective_scan.cu``, and every training step's too, with
 its backward kernel (``launch.train --arch falcon-mamba-7b``);
@@ -57,12 +60,16 @@ class MambaLM(BaseLM):
         return h, cache
 
     def cache_spec(self, batch: int, seq: int):
+        """Under a process mesh (``runtime.use_mesh``) the rank's: its rows
+        of ``batch`` (``cache_rows``) and its ``d_in / n`` channels
+        (``local``)."""
         cfg = self.cfg
-        d_in = cfg.ssm.expand * cfg.d_model
+        d_in = self.local(cfg.ssm.expand * cfg.d_model)
+        rows = self.cache_rows(batch)
         return {
-            "h": torch.empty((cfg.n_layers, batch, d_in, cfg.ssm.d_state),
+            "h": torch.empty((cfg.n_layers, rows, d_in, cfg.ssm.d_state),
                              dtype=torch.float32, device="meta"),
-            "conv": torch.empty((cfg.n_layers, batch, cfg.ssm.d_conv - 1,
+            "conv": torch.empty((cfg.n_layers, rows, cfg.ssm.d_conv - 1,
                                  d_in), dtype=cfg.jdtype, device="meta"),
         }
 

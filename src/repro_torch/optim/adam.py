@@ -1,4 +1,4 @@
-"""Adam and Adagrad over dicts of tensors, with the formulas of
+"""Adam, Adagrad and SGD over dicts of tensors, with the formulas of
 ``repro.optim.adam``.
 
 The update is dense over whole tables, as the reference's is: a row the
@@ -130,4 +130,37 @@ def adagrad(lr: float = 0.5, eps: float = 1e-10) -> Optimizer:
     return Optimizer(init, update, corrections, update_corrected)
 
 
-OPTIMIZERS = {"adam": adam, "adagrad": adagrad}
+def sgd(lr: float = 0.01, momentum: float = 0.0) -> Optimizer:
+    """SGD, with heavy-ball momentum when ``momentum`` is not 0: ``mu =
+    momentum * mu + g`` and ``p -= lr * mu``; without it ``p -= lr * g``
+    and ``state.mu`` holds a copy of the last gradients (the reference's
+    ``mu = grads``).  ``state.nu`` stays the zeros ``init`` made, as the
+    reference carries them."""
+
+    def init(params: Params) -> OptState:
+        return OptState(0, _zeros(params), _zeros(params))
+
+    def corrections(step: int) -> Tuple[float, ...]:
+        return ()
+
+    @torch.no_grad()
+    def update_corrected(grads: Params, state: OptState, params: Params,
+                         bc=None) -> None:
+        # SGD's update does not depend on the step
+        for name, p in params.items():
+            mu = state.mu[name]
+            if momentum:
+                mu.mul_(momentum).add_(grads[name])
+            else:
+                mu.copy_(grads[name])
+            p.sub_(mu * lr)
+
+    def update(grads: Params, state: OptState, params: Params):
+        update_corrected(grads, state, params)
+        state.step += 1
+        return params, state
+
+    return Optimizer(init, update, corrections, update_corrected)
+
+
+OPTIMIZERS = {"adam": adam, "adagrad": adagrad, "sgd": sgd}

@@ -106,11 +106,8 @@ def hanging_rank(rank):
 # ------------------------------- MoE ---------------------------------- #
 def _grads_full(cfg, grads, mesh):
     """Every leaf of ``grads`` (the rank's shares) put back whole."""
-    from repro_torch.models import runtime
-    from repro_torch.models.sharding import mesh_pspec
-    return {n: runtime.gather_share(
-        g, mesh_pspec(cfg, tuple(n.split(".")), g.dim(), mesh.shape["model"]),
-        mesh).numpy() for n, g in grads.items()}
+    from repro_torch.models.convert import whole_of
+    return {n: whole_of(cfg, n, g, mesh).numpy() for n, g in grads.items()}
 
 
 def moe_loss_rank(rank, sizes, params, batch, cfg_kw, lr):
@@ -220,6 +217,30 @@ def seq_shard_rank(rank, params, batch):
 
 
 # -------------------------- tensor parallel ---------------------------- #
+def flat_cache(tree, prefix=""):
+    """``{dotted path: leaf}`` of a cache: a dict of tensors, or the
+    hybrid's dicts of tuples (``"periods.2.0"``, ``"rem.1.1"``)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(flat_cache(v, f"{prefix}{k}." if isinstance(
+            v, (dict, list, tuple)) else f"{prefix}{k}"))
+    return out
+
+
+def _clone_cache(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_cache(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_cache(v) for v in tree)
+    return tree.clone()
+
+
 def _serve_case(mesh, arch, kw, tree, batch, pos0, steps, lead):
     """One arch's serving path on ``mesh``, fp32, on the reference's
     params cut by ``convert.shard_params``: the prefill step's logits and
@@ -239,11 +260,12 @@ def _serve_case(mesh, arch, kw, tree, batch, pos0, steps, lead):
     batch = {k: torch.from_numpy(v) for k, v in batch.items()}
     logits, cache = make_prefill_step(model, mesh)(batch, pos0 + steps)
     out = {"prefill": logits.numpy(),
-           "cache_prefill": {k: v.clone().numpy() for k, v in cache.items()},
+           "cache_prefill": {k: v.clone().numpy() for k, v in
+                             flat_cache(cache).items()},
            "param_bytes": sum(p.numel() * p.element_size()
                               for p in model.params.parameters())}
     first = logits.argmax(-1).to(torch.int32)
-    served = {k: v.clone() for k, v in cache.items()}
+    served = _clone_cache(cache)
     # decode_step runs on the rank's rows (all of them on a (1, n) mesh)
     tok, decode = local_batch({"tok": first}, mesh)["tok"], []
     with runtime.use_mesh(mesh):
@@ -258,9 +280,10 @@ def _serve_case(mesh, arch, kw, tree, batch, pos0, steps, lead):
     with runtime.use_mesh(mesh):
         spec = model.cache_spec(batch["tokens"].shape[0], pos0 + steps)
     out.update(decode=decode, serve_tokens=tokens,
-               cache={k: v.numpy() for k, v in cache.items()},
+               cache={k: v.numpy() for k, v in flat_cache(cache).items()},
                cache_bytes=cache_nbytes(cache),
-               cache_spec={k: tuple(v.shape) for k, v in spec.items()})
+               cache_spec={k: tuple(v.shape) for k, v in
+                           flat_cache(spec).items()})
     full = gather_params(model, mesh)
     if lead:
         out["gathered"] = {n: t.numpy() for n, t in full.items()}
@@ -331,6 +354,24 @@ def tp_rank(rank, world, serving, training, data_serving=()):
     return out
 
 
+def tp_recurrent_rank(rank, world, serving, training):
+    """The channel-parallel layout of the SSM and hybrid families in a
+    world of ``world`` ranks: each serving case on a (1, world) mesh
+    (:func:`_serve_case`), then each training case on its own mesh
+    (:func:`_train_case`).  Every rank returns its serving results; rank
+    0 the gathered params and the training results."""
+    mesh = _mesh(("data", "model"), (1, world))
+    out = {"serve": {arch: _serve_case(mesh, arch, kw, tree, batch, pos0,
+                                       steps, rank == 0)
+                     for arch, kw, tree, batch, pos0, steps in serving},
+           "train": {}}
+    for sizes, arch, kw, tree, batch in training:
+        res = _train_case(_mesh(("data", "model"), sizes), arch, kw, tree,
+                          batch)
+        out["train"][(sizes, arch)] = res if rank == 0 else None
+    return out
+
+
 def chip_tp_rank(rank):
     """``chip_smoke``'s tensor-parallel mesh parts on a (1, 2) mesh on the
     CPU: mistral-large-123b and h2o-danube-1.8b at their reduced configs
@@ -356,6 +397,37 @@ def chip_tp_rank(rank):
               for c in chip_smoke.MESH_TP_CHECKS]
     return {"checks": checks, "tp": chip_smoke._mesh_tp(mesh),
             "failures": failures}
+
+
+def chip_rec_rank(rank):
+    """``chip_smoke``'s channel-parallel mesh parts on a (1, 2) mesh on the
+    CPU: falcon-mamba-7b and recurrentgemma-2b at their reduced configs
+    (each CONFIG swapped for REDUCED; the hybrid's prompts 80 and 72 past
+    its reduced window of 64), the card's calls stubbed, failed checks
+    collected."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.configs import falcon_mamba_7b, recurrentgemma_2b
+    for mod in (falcon_mamba_7b, recurrentgemma_2b):
+        mod.CONFIG = mod.REDUCED
+    failures = []
+    chip_smoke.check = lambda ok, msg: ok or failures.append(msg)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        setattr(torch.cuda, name, lambda *a, **k: None)
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    m, h = chip_smoke.MAMBA_ARCH, chip_smoke.HYBRID_ARCH
+    chip_smoke.MESH_REC_CHECKS = ((m, 1, 24, 2), (h, 1, 80, 3))
+    chip_smoke.MESH_REC_TRAIN = ((m, 2, 32, 2), (h, 1, 72, 3))
+    chip_smoke.MESH_REC_GEN = ((m, 2, 24), (h, 5, 80))
+    chip_smoke.MESH_REC_STEPS = 3
+    mesh = _mesh(("data", "model"), (1, 2))
+    return {"checks": [chip_smoke._mesh_rec_check(mesh, *c)
+                       for c in chip_smoke.MESH_REC_CHECKS],
+            "train": [chip_smoke._mesh_rec_train(mesh, *c)
+                      for c in chip_smoke.MESH_REC_TRAIN],
+            "gen": chip_smoke._mesh_rec_gen(mesh), "failures": failures}
 
 
 # -------------------------------- KGE --------------------------------- #

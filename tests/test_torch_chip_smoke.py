@@ -207,6 +207,15 @@ def test_scan_instances_are_told_apart_by_entry_point():
         "selective_scan_kernel<16, bf16, false>"
 
 
+def test_kernel_names_read_past_a_namespace_hash():
+    """An anonymous namespace's hash follows the source's path; where its
+    digits read a longer span that also ends at ``_kernel``, the name is
+    still the innermost one (a checkout path gave this hash's ``59``)."""
+    name = ("_ZN47_GLOBAL__N__b2c59dd16_16_swa_attention_cu_2352bfab24"
+            "swa_bwd_dkdv_bf16_kernelILi128EEEvPKv")
+    assert chip_smoke._kernel_name(name) == "swa_bwd_dkdv_bf16_kernel<128>"
+
+
 def test_sass_opcodes_are_counted_by_opcode():
     sass = """
         /*0090*/                   MUFU.EX2 R45, R45 ;   /* 0x00 */
@@ -855,6 +864,39 @@ def test_routes_records_each_layers_choices(monkeypatch):
         chip_smoke._loss_and_grads(model, batch)
     assert [tuple(idx.shape) for idx, _ in seen] == [(1, 48, 2)] * 2
     assert sum(int(n) for _, n in seen) > 0
+
+
+def test_mesh_channel_parallel_parts_rehearse_on_the_cpu():
+    """The mesh phase's channel-parallel parts (falcon-mamba-7b,
+    recurrentgemma-2b) in a (1, 2) gloo world at the reduced configs: the
+    fp32 checks hold on both ranks (each rank's half of the channels),
+    the fp32 training steps match the one-process step, the bf16
+    generations' bytes equal the dry run's per-device bytes and their
+    second runs repeat the first, the lead rank reports the tokens equal
+    to the one-process run's; only the launch counts fail (the plain
+    versions launch nothing)."""
+    import _torch_mesh_ranks as ranks
+    from repro_torch.launch.mesh import run_world
+    runs = run_world(ranks.chip_rec_rank, 2, backend="gloo", devices="cpu",
+                     timeout_s=180)
+    for rank, r in enumerate(runs):
+        c_m, c_h = r["checks"]
+        assert c_m["cache_shapes"] == {"h": (2, 1, 256, 8),
+                                       "conv": (2, 1, 3, 256)}
+        assert c_h["cache_shapes"]["periods.0.0"] == (1, 1, 128)
+        assert c_h["cache_shapes"]["periods.2.0"] == (1, 1, 1, 64, 128)
+        for c in (c_m, c_h):
+            assert c["argmax_equal"] and c["max_abs_diff"] <= \
+                chip_smoke.LM_TOL * (1 + c["max_abs_logit"])
+        for t in r["train"]:
+            assert t["loss"] == pytest.approx(t["want_loss"],
+                                              rel=chip_smoke.TRAIN_LOSS_RTOL)
+            assert t["worst_rel_err"] <= chip_smoke.TRAIN_GRAD_TOL
+        for g in r["gen"]:
+            assert g["bytes"] == g["dry_run_bytes"]
+            assert ("one_process_equal_tokens" in g) == (rank == 0)
+        assert len(r["failures"]) == 6 and all(
+            "launched" in f for f in r["failures"])
 
 
 def test_mesh_tensor_parallel_parts_rehearse_on_the_cpu():
