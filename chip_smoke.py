@@ -341,6 +341,7 @@ choice);
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -3096,8 +3097,9 @@ MESH_KGE_LOSS_RTOL, MESH_KGE_PARAM_TOL = 1e-5, 2e-4
 #: the gloo world's parts, in order: the checks and the training step
 #: first, so the world of one (run beside it) has ended before the timed
 #: parts start
-MESH_GLOO_PARTS = ("check", "tp_check", "rec_check", "train", "rec_train",
-                   "tp", "rec_gen", "prefill", "kge")
+MESH_GLOO_PARTS = ("check", "tp_check", "rec_check", "audio_check",
+                   "train", "rec_train", "tp", "rec_gen", "audio_gen",
+                   "int8_tp", "prefill", "kge")
 #: times the (B S, d) all_reduce of a bf16 prefill (two a layer) is timed
 MESH_ALL_REDUCE_ITERS = 10
 #: the tensor-parallel checks, fp32 at MESH_TP_CHECK_LAYERS layers against
@@ -3127,6 +3129,22 @@ MESH_REC_TRAIN = ((MAMBA_ARCH, 2, 512, 2), (HYBRID_ARCH, 1, 2112, 3))
 #: all_reduces going through host memory on gloo
 MESH_REC_GEN = ((MAMBA_ARCH, 8, 2048), (HYBRID_ARCH, 5, 4096))
 MESH_REC_BATCH, MESH_REC_STEPS = 2, 16
+#: the audio family on the mesh, whisper-base at published width: the
+#: fp32 check at MESH_AUDIO_LAYERS of its 6 + 6 layers (B 1,
+#: WHISPER_FRAMES frames, a WHISPER_PROMPT-token prompt,
+#: MESH_TP_CHECK_STEPS decode steps) against the one-process model, and
+#: its fp32 training step at the same depth and shape against the
+#: one-process step; the bf16 generation at its published depth (74 M
+#: parameters: nothing cut), WHISPER_BATCH, WHISPER_FRAMES,
+#: WHISPER_PROMPT, WHISPER_STEPS
+MESH_AUDIO_LAYERS = 2
+#: the int8 KV cache under the model axis: h2o-danube-1.8b bf16 cut to
+#: MESH_INT8_DEPTH of its 24 layers (a depth cut: a prefill's 8
+#: all_reduces of 63 MB go through host memory on gloo), LM_BATCH, a
+#: LM_PROMPT-token prompt past W 4,096, MESH_REC_STEPS greedy steps; its
+#: teacher-forced logits against the one-process int8 run within the int8
+#: contract (INT8_RTOL, INT8_ATOL)
+MESH_INT8_DEPTH = 4
 #: the kernels at a rank's shapes on a model axis of 2 (the mesh phase's
 #: last part): the fused scan and its backward on 4,096 of
 #: falcon-mamba-7b's 8,192 channels (B 2, S 2,048, d_state 16, bf16), the
@@ -3394,7 +3412,8 @@ def _mesh_tp_check(mesh, arch: str, B: int, S: int) -> dict:
     cfg = tp_config(get_config(arch).with_(
         dtype="float32", n_layers=MESH_TP_CHECK_LAYERS), mesh.shape["model"])
     t0 = time.perf_counter()
-    worst, top, cache, launches = _tp_against_one_process(mesh, cfg, B, S)
+    worst, top, cache, launches, _, _ = _tp_against_one_process(mesh, cfg,
+                                                                B, S)
     launches = launches["swa_attention_forward"]
     check(launches == cfg.n_layers, f"{arch}: the tensor-parallel prefill "
                                     f"launched {launches} SWA kernels")
@@ -3418,23 +3437,31 @@ def _prefill_launches():
     return reset, lambda: {**sw.launches, **ss.launches}
 
 
-def _tp_against_one_process(mesh, cfg, B: int, S: int):
-    """fp32 ``cfg`` (seeded params): the one-process prefill and
-    MESH_TP_CHECK_STEPS greedy decode steps, then the same params cut by
-    ``convert.shard_params`` and the tensor-parallel prefill step and
-    decode steps fed the one-process run's tokens: every step's logits
-    within LM_TOL (1 + |want|), the same argmax.  Returns (max abs diff,
-    max |want|, the rank's cache, the prefill step's launches)."""
+def _tp_against_one_process(mesh, cfg, B: int, S: int, batch=None,
+                            int8: bool = False):
+    """``cfg`` (seeded params): the one-process prefill of ``batch``
+    (default: B random prompts of S tokens; an encoder-decoder's holds its
+    frames too) and MESH_TP_CHECK_STEPS greedy decode steps from position
+    S, then the same params cut by ``convert.shard_params`` and the
+    tensor-parallel prefill step and decode steps fed the one-process
+    run's tokens: every step's logits within LM_TOL (1 + |want|), the same
+    argmax; with ``int8`` (a bf16 int8 KV cache) within the int8 contract,
+    INT8_ATOL + INT8_RTOL |want|, the argmax counted, not gated (bf16
+    partial sums round differently).  Returns (max abs diff, max |want|,
+    the rank's cache, the prefill step's launches, argmax-equal rows,
+    rows)."""
     import torch
     from repro_torch.models import build, runtime
     from repro_torch.models.convert import shard_params
     from repro_torch.models.steps import make_prefill_step
 
     arch, steps, dev = cfg.arch_id, MESH_TP_CHECK_STEPS, mesh.device
-    toks = torch.from_numpy(np.random.default_rng(SEED + 41).integers(
-        0, cfg.vocab, (B, S), dtype=np.int32)).to(dev)
+    if batch is None:
+        batch = {"tokens": torch.from_numpy(np.random.default_rng(
+            SEED + 41).integers(0, cfg.vocab, (B, S), dtype=np.int32)
+            ).to(dev)}
     model = build(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
-    lg, cache = model.prefill({"tokens": toks}, cache_len=S + steps)
+    lg, cache = model.prefill(batch, cache_len=S + steps)
     want, feed = [lg], []
     for i in range(steps):
         feed.append(want[-1].argmax(-1).to(torch.int32))
@@ -3444,7 +3471,7 @@ def _tp_against_one_process(mesh, cfg, B: int, S: int):
     shard_params(model, mesh)
     reset, read = _prefill_launches()
     reset()
-    lg, cache = make_prefill_step(model, mesh)({"tokens": toks}, S + steps)
+    lg, cache = make_prefill_step(model, mesh)(batch, S + steps)
     torch.cuda.synchronize(dev)
     launches = read()
     got = [lg]
@@ -3452,19 +3479,25 @@ def _tp_against_one_process(mesh, cfg, B: int, S: int):
         for i, tok in enumerate(feed):
             lg, cache = model.decode_step(cache, tok, S + i)
             got.append(lg)
-    worst = 0.0
+    worst, same, rows = 0.0, 0, 0
     for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.float(), w.float()
         diff = (g - w).abs()
+        tol = INT8_ATOL + INT8_RTOL * w.abs() if int8 \
+            else LM_TOL * (1 + w.abs())
         check(bool(torch.isfinite(g).all()) and g.shape == w.shape,
               f"{arch} tensor-parallel logits at step {i}")
-        check(bool((diff <= LM_TOL * (1 + w.abs())).all()),
+        check(bool((diff <= tol).all()),
               f"{arch} tensor-parallel vs one-process logits at step {i}: "
               f"off by {float(diff.max())}")
-        check(bool(torch.equal(g.argmax(-1), w.argmax(-1))),
+        equal = g.argmax(-1) == w.argmax(-1)
+        check(int8 or bool(equal.all()),
               f"{arch} tensor-parallel vs one-process: argmax differs at "
               f"step {i}")
         worst = max(worst, float(diff.max()))
-    return worst, max(float(w.abs().max()) for w in want), cache, launches
+        same, rows = same + int(equal.sum()), rows + equal.numel()
+    return (worst, max(float(w.float().abs().max()) for w in want), cache,
+            launches, same, rows)
 
 
 def _prefill_want(cfg) -> dict:
@@ -3504,7 +3537,8 @@ def _mesh_rec_check(mesh, arch: str, B: int, S: int, layers: int) -> dict:
     cfg = tp_config(get_config(arch).with_(dtype="float32", n_layers=layers),
                     mesh.shape["model"])
     t0 = time.perf_counter()
-    worst, top, cache, launches = _tp_against_one_process(mesh, cfg, B, S)
+    worst, top, cache, launches, _, _ = _tp_against_one_process(mesh, cfg,
+                                                                B, S)
     want = _prefill_want(cfg)
     got = {k: launches[k] for k in want}
     check(got == want, f"{arch}: the channel-parallel prefill launched "
@@ -3518,26 +3552,37 @@ def _mesh_rec_check(mesh, arch: str, B: int, S: int, layers: int) -> dict:
 
 def _mesh_rec_train(mesh, arch: str, B: int, S: int, layers: int) -> dict:
     """fp32, ``layers`` of an SSM or hybrid ``arch``'s layers at published
-    width: ``steps.loss_and_grads`` channel-parallel on the mesh against
-    the one-process step on every rank, the loss within TRAIN_LOSS_RTOL
-    and each gradient leaf of the rank's share (``convert.share_of``:
-    mamba's ``in_proj`` a block of each half) within TRAIN_GRAD_TOL *
-    max|g| of the one-process leaf's share; the mesh step's kernel
-    launches (a Mamba layer's scan backward once, an attention layer's
-    SWA backward once)."""
+    width: the channel-parallel training step against the one-process step
+    (:func:`_tp_train_against_one_process`) on B random sequences of S
+    tokens."""
     import torch
-    from repro_torch.models import build, get_config
-    from repro_torch.models.convert import share_of, shard_params
+    from repro_torch.models import get_config
     from repro_torch.models.sharding import tp_config
-    from repro_torch.models.steps import loss_and_grads
 
     cfg = tp_config(get_config(arch).with_(dtype="float32", n_layers=layers),
                     mesh.shape["model"])
-    dev = mesh.device
     rng = np.random.default_rng(SEED + 43)
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S),
-                                              dtype=np.int32)).to(dev)
+                                              dtype=np.int32)).to(mesh.device)
              for k in ("tokens", "labels")}
+    return {"arch": arch, "layers": layers, "batch": B, "seq": S,
+            **_tp_train_against_one_process(mesh, cfg, batch)}
+
+
+def _tp_train_against_one_process(mesh, cfg, batch) -> dict:
+    """fp32 ``cfg`` (seeded params): ``steps.loss_and_grads`` on the
+    params cut by ``convert.shard_params`` against the one-process step
+    on every rank, the loss within TRAIN_LOSS_RTOL and each gradient leaf
+    of the rank's share (``convert.share_of``: mamba's ``in_proj`` a block
+    of each half) within TRAIN_GRAD_TOL * max|g| of the one-process leaf's
+    share; the mesh step's kernel launches (a Mamba layer's scan backward
+    once, an attention layer's SWA backward once)."""
+    import torch
+    from repro_torch.models import build
+    from repro_torch.models.convert import share_of, shard_params
+    from repro_torch.models.steps import loss_and_grads
+
+    arch, dev = cfg.arch_id, mesh.device
     t0 = time.perf_counter()
     model = shard_params(build(cfg).init(
         torch.Generator(device=dev).manual_seed(SEED)), mesh)
@@ -3554,7 +3599,7 @@ def _mesh_rec_train(mesh, arch: str, B: int, S: int, layers: int) -> dict:
     del one
     check(abs(float(loss) - float(want_loss))
           <= TRAIN_LOSS_RTOL * abs(float(want_loss)),
-          f"{arch} channel-parallel loss {float(loss)} against "
+          f"{arch} tensor-parallel loss {float(loss)} against "
           f"{float(want_loss)}")
     worst = {}
     for n, w in want.items():
@@ -3568,14 +3613,115 @@ def _mesh_rec_train(mesh, arch: str, B: int, S: int, layers: int) -> dict:
     back = {"selective_scan_fused_backward": want["selective_scan_fused"],
             "swa_attention_backward_dq": want["swa_attention_forward"]}
     check({k: launches[k] for k in back} == back,
-          f"{arch}: the channel-parallel step launched {launches}, want "
+          f"{arch}: the tensor-parallel step launched {launches}, want "
           f"{back} backward kernels")
     name = max(worst, key=worst.get)
-    return {"arch": arch, "layers": layers, "batch": B, "seq": S,
-            "launches": launches, "loss": float(loss),
+    return {"launches": launches, "loss": float(loss),
             "want_loss": float(want_loss), "leaves": len(worst),
             "worst_leaf": name, "worst_rel_err": worst[name],
             "seconds": time.perf_counter() - t0}
+
+
+def _audio_batch(cfg, B: int, S: int, dev, labels: bool = False) -> dict:
+    """B rows of WHISPER_FRAMES random frames and S random decoder tokens
+    (and labels) for ``cfg``, from a numpy seed."""
+    import torch
+    rng = np.random.default_rng(SEED + 45)
+    batch = {"frames": torch.from_numpy(rng.standard_normal(
+        (B, WHISPER_FRAMES, cfg.d_model), dtype=np.float32)).to(
+            dev, cfg.jdtype)}
+    for k in ("tokens", "labels") if labels else ("tokens",):
+        batch[k] = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (B, S), dtype=np.int32)).to(dev)
+    return batch
+
+
+def _mesh_audio_check(mesh) -> dict:
+    """fp32, MESH_AUDIO_LAYERS of whisper-base's encoder and decoder
+    layers at published width, B 1, WHISPER_FRAMES frames and a
+    WHISPER_PROMPT-token prompt: the tensor-parallel prefill step and
+    MESH_TP_CHECK_STEPS decode steps against the one-process model
+    (:func:`_tp_against_one_process`: the tied embed cut by vocab rows,
+    each rank's 4 of 8 heads in the encoder, the decoder and the
+    cross-attention), one SWA forward a decoder layer in the prefill, the
+    rank's cache shapes; then the training step against the one-process
+    step (:func:`_tp_train_against_one_process`, the tied embed's
+    gradient of the lookup and the head included)."""
+    from repro_torch.models import get_config
+    from repro_torch.models.sharding import tp_config
+
+    cfg = tp_config(get_config(WHISPER_ARCH).with_(
+        dtype="float32", n_layers=MESH_AUDIO_LAYERS), mesh.shape["model"])
+    t0 = time.perf_counter()
+    batch = _audio_batch(cfg, 1, WHISPER_PROMPT, mesh.device)
+    worst, top, cache, launches, _, _ = _tp_against_one_process(
+        mesh, cfg, 1, WHISPER_PROMPT, batch)
+    launches = launches["swa_attention_forward"]
+    check(launches == cfg.n_layers, f"{WHISPER_ARCH}: the tensor-parallel "
+                                    f"prefill launched {launches} SWA "
+                                    f"kernels")
+    check_s = time.perf_counter() - t0
+    train = _tp_train_against_one_process(
+        mesh, cfg, _audio_batch(cfg, 1, WHISPER_PROMPT, mesh.device, True))
+    return {"arch": WHISPER_ARCH, "layers": cfg.n_layers, "batch": 1,
+            "frames": WHISPER_FRAMES, "prompt": WHISPER_PROMPT,
+            "decode_steps": MESH_TP_CHECK_STEPS,
+            "cache_shapes": _cache_shapes(cache), "max_abs_diff": worst,
+            "max_abs_logit": top, "argmax_equal": True,
+            "swa_launches": launches, "seconds": check_s,
+            "train": train}
+
+
+def _mesh_audio_gen(mesh) -> dict:
+    """bf16 whisper-base at its published width and depth
+    (:func:`_tp_generation`: WHISPER_BATCH, WHISPER_FRAMES frames, a
+    WHISPER_PROMPT-token prompt, WHISPER_STEPS greedy steps)."""
+    from repro_torch.models import get_config
+    return _tp_generation(mesh, WHISPER_ARCH,
+                          get_config(WHISPER_ARCH).n_layers, WHISPER_BATCH,
+                          WHISPER_PROMPT, WHISPER_STEPS)
+
+
+def _mesh_int8(mesh) -> dict:
+    """bf16 h2o-danube-1.8b with the int8 KV cache at published width, cut
+    to MESH_INT8_DEPTH layers, B LM_BATCH, a LM_PROMPT-token prompt past
+    its window: the tensor-parallel prefill step and MESH_TP_CHECK_STEPS
+    decode steps fed the one-process int8 run's tokens, every step's
+    logits within the int8 contract (INT8_ATOL + INT8_RTOL |want|; the
+    argmax counted); each rank's cache int8 on its KV slots with its
+    scales beside them; then the generation (:func:`_tp_generation`,
+    MESH_REC_STEPS steps: the rank's cache bytes the dry run's, prefill
+    and decode ms, the tokens against ``launch.generate
+    --kv-cache-dtype int8``'s)."""
+    import torch
+    from repro_torch.models import get_config
+    from repro_torch.models.sharding import tp_config
+
+    cfg = tp_config(get_config(LM_ARCH).with_(
+        n_layers=MESH_INT8_DEPTH, kv_cache_dtype="int8"),
+        mesh.shape["model"])
+    t0 = time.perf_counter()
+    worst, top, cache, launches, same, rows = _tp_against_one_process(
+        mesh, cfg, LM_BATCH, LM_PROMPT, int8=True)
+    slots = cfg.groups // mesh.shape["model"]
+    check(cache["k"].dtype == torch.int8 and cache["k"].shape[2] == slots
+          and cache["k_scale"].shape == cache["k"].shape[:-1],
+          f"the int8 cache on a rank: {_cache_shapes(cache)}")
+    check(launches["swa_attention_forward"] == cfg.n_layers,
+          f"the int8 tensor-parallel prefill launched {launches}")
+    against = {"layers": cfg.n_layers, "batch": LM_BATCH,
+               "prompt": LM_PROMPT, "decode_steps": MESH_TP_CHECK_STEPS,
+               "cache_shapes": _cache_shapes(cache), "max_abs_diff": worst,
+               "max_abs_logit": top, "argmax_equal_rows": same,
+               "rows": rows,
+               "tolerance": {"rtol": INT8_RTOL, "atol": INT8_ATOL},
+               "seconds": time.perf_counter() - t0}
+    del cache
+    torch.cuda.empty_cache()
+    return {"against_one_process": against,
+            "generation": _tp_generation(mesh, LM_ARCH, MESH_INT8_DEPTH,
+                                         LM_BATCH, LM_PROMPT,
+                                         MESH_REC_STEPS, "int8")}
 
 
 def _all_reduce_ms(mesh, rows: int, d: int, dtype) -> dict:
@@ -3614,24 +3760,55 @@ def _mesh_rec_gen(mesh) -> list:
             for arch, depth, P in MESH_REC_GEN]
 
 
+@contextlib.contextmanager
+def _collectives(into):
+    """Count the all_reduces and all_gathers issued inside into the dict
+    ``into`` (None: count nothing): the calls, and the bytes of the tensor
+    each rank hands in."""
+    import torch.distributed as dist
+    if into is None:
+        yield
+        return
+    real = {"all_reduce": dist.all_reduce, "all_gather": dist.all_gather}
+
+    def counted(name: str, arg: int):
+        def call(*args, **kw):
+            t = args[arg]
+            into[name] = into.get(name, 0) + 1
+            into[f"{name}_bytes"] = into.get(f"{name}_bytes", 0) \
+                + t.numel() * t.element_size()
+            return real[name](*args, **kw)
+        return call
+    dist.all_reduce = counted("all_reduce", 0)
+    dist.all_gather = counted("all_gather", 1)
+    try:
+        yield
+    finally:
+        dist.all_reduce, dist.all_gather = real["all_reduce"], \
+            real["all_gather"]
+
+
 #: how a launch-count failure names each counted kernel
 _LAUNCH_NAMES = {"swa_attention_forward": "SWA kernels",
                  "selective_scan_fused": "fused scans"}
 
 
 def _tp_generation(mesh, arch: str, depth: int, B: int, P: int,
-                   steps: int) -> dict:
-    """bf16 ``arch`` at published width, cut to ``depth`` layers, its
-    params cut by ``convert.shard_params``: a warm-up generation, then
-    the measured one through ``make_prefill_step`` / ``make_serve_step``
-    on the mesh (B, prompt P, ``steps`` greedy steps, the params and
-    prompt of ``launch.generate`` at the same seed): prefill ms, decode
-    ms a token, the prefill's launches (one SWA forward an attention
-    layer, one fused scan a Mamba layer), peak memory; the rank's param
-    and cache bytes, which must equal ``device_bytes`` of
+                   steps: int, kv_cache_dtype: str = "model") -> dict:
+    """bf16 ``arch`` at published width, cut to ``depth`` layers (with
+    ``kv_cache_dtype``), its params cut by ``convert.shard_params``: a
+    warm-up generation, its all_reduces and all_gathers counted
+    (:func:`_collectives`), then the measured one through
+    ``make_prefill_step`` / ``make_serve_step`` on the mesh (B, prompt P,
+    an encoder-decoder's WHISPER_FRAMES frames, ``steps`` greedy steps,
+    the params and inputs of ``launch.generate`` at the same seed):
+    prefill ms, decode ms a token, the prefill's launches (one SWA forward
+    an attention layer, one fused scan a Mamba layer), peak memory; the
+    rank's param and cache bytes, which must equal ``device_bytes`` of
     ``param_shardings`` / ``cache_shardings`` on a ``MeshShape`` of the
     mesh's sizes (the dry run's per-device bytes); the (B S, d)
-    all_reduce timed alone; on the lead rank, the one-process run
+    all_reduce timed alone (S: the encoder's frames, or the prompt); on
+    the lead rank, the one-process run
     (``launch.generate --layers depth``) first, and the greedy tokens of
     the two that are equal, reported, not gated (bf16 partial sums round
     differently); on every rank the bf16 prefill logits against the
@@ -3649,19 +3826,29 @@ def _tp_generation(mesh, arch: str, depth: int, B: int, P: int,
                                              param_shardings, tp_config)
     from repro_torch.models.steps import make_prefill_step, make_serve_step
 
-    cfg = tp_config(get_config(arch).with_(n_layers=depth),
+    cfg = tp_config(get_config(arch).with_(n_layers=depth,
+                                           kv_cache_dtype=kv_cache_dtype),
                     mesh.shape["model"])
     dev = mesh.device
+    audio = cfg.family == "audio"
     one = None
     if mesh.index("model") == 0:
         one = generate.main([
             "--arch", arch, "--layers", str(depth), "--batch",
             str(B), "--prompt-len", str(P), "--steps", str(steps),
-            "--seed", str(SEED), "--device", str(dev)])
+            "--seed", str(SEED), "--device", str(dev), "--kv-cache-dtype",
+            kv_cache_dtype, "--frames", str(WHISPER_FRAMES)])
         gc.collect()
         torch.cuda.empty_cache()
-    batch = {"tokens": torch.from_numpy(np.random.default_rng(SEED).integers(
+    # launch.generate's inputs: the prompt, then an encoder-decoder's
+    # frames, from one generator
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(
         0, cfg.vocab, (B, P), dtype=np.int32)).to(dev)}
+    if audio:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, WHISPER_FRAMES, cfg.d_model), dtype=np.float32)).to(
+                dev, cfg.jdtype)
     model = build(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
     whole, _ = model.prefill(batch)                 # one process, uncut
     exact = None
@@ -3672,7 +3859,8 @@ def _tp_generation(mesh, arch: str, depth: int, B: int, P: int,
         fp32.params = copy.deepcopy(model.params)
         for t in fp32.params.parameters():
             t.data = t.data.float()
-        exact, _ = fp32.prefill(batch)
+        exact, _ = fp32.prefill({k: v.float() if v.is_floating_point()
+                                 else v for k, v in batch.items()})
         del fp32
         torch.cuda.empty_cache()
     shard_params(model, mesh)
@@ -3683,29 +3871,38 @@ def _tp_generation(mesh, arch: str, depth: int, B: int, P: int,
     reset, read = _prefill_launches()
     want = _prefill_want(cfg)
 
-    def generation() -> dict:
+    def generation(count: bool = False) -> dict:
+        counts = {"prefill": {}, "decode_steps": {}}
         reset()
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        logits, cache = prefill(batch, P + steps)
-        tok = logits.argmax(-1).to(torch.int32)
+        with _collectives(counts["prefill"] if count else None):
+            logits, cache = prefill(batch, P + steps)
+            tok = logits.argmax(-1).to(torch.int32)
         torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
         launches = read()
         ids = [tok]
-        for i in range(steps):
-            tok, cache = serve(cache, tok, P + i)
-            ids.append(tok)
+        with _collectives(counts["decode_steps"] if count else None):
+            for i in range(steps):
+                tok, cache = serve(cache, tok, P + i)
+                ids.append(tok)
         torch.cuda.synchronize(dev)
         t2 = time.perf_counter()
-        return {"logits": logits, "prefill_ms": (t1 - t0) * 1e3,
-                "decode_ms_per_token": (t2 - t1) * 1e3 / steps,
-                "swa_launches": launches["swa_attention_forward"],
-                "scan_launches": launches["selective_scan_fused"],
-                "cache_bytes": cache_nbytes(cache),
-                "ids": torch.cat(ids, 1).cpu().numpy()}
+        out = {"logits": logits, "prefill_ms": (t1 - t0) * 1e3,
+               "decode_ms_per_token": (t2 - t1) * 1e3 / steps,
+               "swa_launches": launches["swa_attention_forward"],
+               "scan_launches": launches["selective_scan_fused"],
+               "cache_bytes": cache_nbytes(cache),
+               "ids": torch.cat(ids, 1).cpu().numpy()}
+        if count:
+            out["collectives"] = {
+                "prefill": counts["prefill"],
+                "a_decode_step": {k: v / steps for k, v in
+                                  counts["decode_steps"].items()}}
+        return out
 
-    warm = generation()
+    warm = generation(count=True)
     warm.pop("logits")
     run = generation()
     ids = run.pop("ids")
@@ -3738,7 +3935,8 @@ def _tp_generation(mesh, arch: str, depth: int, B: int, P: int,
               f"{want[k]}")
     shape = MeshShape(mesh.axis_names, mesh.sizes)
     specs = model.param_tree(None)
-    cache = model.cache_spec(B, P + steps)
+    seq = WHISPER_FRAMES if audio else P + steps
+    cache = model.cache_spec(B, seq)
     dry = {"params": device_bytes(specs, param_shardings(cfg, shape, specs),
                                   shape)[1],
            "cache": device_bytes(cache, cache_shardings(cfg, shape, B, cache),
@@ -3756,8 +3954,12 @@ def _tp_generation(mesh, arch: str, depth: int, B: int, P: int,
            **run, "warmup": warm, "bytes": mine, "dry_run_bytes": dry,
            "prefill_vs_one_process": vs_one,
            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-           "all_reduces_a_prefill": 2 * depth,
-           **_all_reduce_ms(mesh, B * P, cfg.d_model, cfg.jdtype)}
+           "kv_cache_dtype": kv_cache_dtype,
+           "collectives": warm.pop("collectives"),
+           **_all_reduce_ms(mesh, B * (WHISPER_FRAMES if audio else P),
+                            cfg.d_model, cfg.jdtype)}
+    out["all_reduces_a_prefill"] = out["collectives"]["prefill"].get(
+        "all_reduce", 0)
     if one is not None:
         want = np.asarray(one["ids"])
         out.update(one_process_equal_tokens=int((ids == want).sum()),
@@ -3794,7 +3996,10 @@ def _mesh_rank(rank: int, sizes, parts, device: str, kg=None) -> dict:
         else:
             out[part] = {"check": _mesh_moe_check, "prefill": _mesh_prefill,
                          "train": _mesh_train_check, "tp": _mesh_tp,
-                         "rec_gen": _mesh_rec_gen}[part](mesh)
+                         "rec_gen": _mesh_rec_gen,
+                         "audio_check": _mesh_audio_check,
+                         "audio_gen": _mesh_audio_gen,
+                         "int8_tp": _mesh_int8}[part](mesh)
         torch.cuda.synchronize(mesh.device)
         out[part + "_seconds"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
@@ -3807,8 +4012,10 @@ def phase_mesh(card: str) -> dict:
     cuda:0 on gloo, mesh (data 1, model 2): the fp32 check, the
     tensor-parallel fp32 checks (mistral-large-123b, h2o-danube-1.8b), the
     channel-parallel fp32 checks and training steps (falcon-mamba-7b,
-    recurrentgemma-2b), bf16 mistral-large-123b, falcon-mamba-7b and
-    recurrentgemma-2b generation, the bf16 expert-parallel prefill of
+    recurrentgemma-2b), whisper-base's fp32 check and training step, bf16
+    mistral-large-123b, falcon-mamba-7b, recurrentgemma-2b and
+    whisper-base generation, bf16 h2o-danube-1.8b with the int8 KV cache
+    against the one-process int8 run, the bf16 expert-parallel prefill of
     olmoe-1b-7b at full width and depth, the 2-layer fp32
     expert-parallel training step against the one-process step, and the
     sharded KGE trainer on the GO workload; on two ranks the attention,
@@ -3868,6 +4075,13 @@ def phase_mesh(card: str) -> dict:
               "swa_attention_backward_dkdv", "swa_attention_backward_dq"):
         launches[f"{e}_tp_train"] = sum(t["launches"][e] for r in gloo
                                         for t in r["rec_train"])
+        launches[f"{e}_audio_train"] = sum(
+            r["audio_check"]["train"]["launches"][e] for r in gloo)
+    # the audio and int8 parts', over the ranks: the bf16 prefills
+    launches[f"swa_attention_forward_tp_prefill_{WHISPER_ARCH}"] = sum(
+        r["audio_gen"]["swa_launches"] for r in gloo)
+    launches["swa_attention_forward_tp_prefill_int8"] = sum(
+        r["int8_tp"]["generation"]["swa_launches"] for r in gloo)
     kernels = _mesh_kernels(card)
     lap("the kernels at a rank's shapes")
     out = {"phase": "mesh", "nccl_world_of_1": nccl[0],
@@ -3889,7 +4103,11 @@ def _mesh_kernels(card: str) -> dict:
     bound of the rank's half of the work, and SDPA's time for the SWA:
     the fused scan forward and its backward on falcon-mamba-7b's d_in / 2
     channels, the SWA forward and backward at d 256 on recurrentgemma-2b's
-    q heads / 2 over one KV slot (B 2 each, bf16)."""
+    q heads / 2 over one KV slot (B 2 each, bf16); the SWA forward at
+    whisper-base's decoder layer (causal, W = S = WHISPER_PROMPT, d 64)
+    on all 8 heads (the one-process shape) and on a rank's 4, and at a
+    rank's 16 q / 4 kv heads of h2o-danube-1.8b's prefill layer (S
+    LM_PROMPT, W 4,096, d 80), B 2 each (:func:`_swa_forward_row`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref, selective_scan as ss, \
@@ -3898,6 +4116,7 @@ def _mesh_kernels(card: str) -> dict:
     from repro_torch.models.sharding import tp_config
 
     n = MESH_TP_AXIS
+    lcfg = get_config(LM_ARCH)
     gen = torch.Generator(device=DEV).manual_seed(SEED + 47)
     mcfg = get_config(MAMBA_ARCH)
     B, S, st = MAMBA_BATCH, MAMBA_PROMPT, mcfg.ssm.d_state
@@ -3940,26 +4159,10 @@ def _mesh_kernels(card: str) -> dict:
     hcfg = tp_config(get_config(HYBRID_ARCH), n)
     B, S, hd, W = HYBRID_BATCH, HYBRID_PROMPT, hcfg.hd, hcfg.hybrid.window
     hq, hkv = hcfg.padded_heads() // n, hcfg.groups // n
-    q, k, v = _swa_inputs(B, hq, hkv, S, S, hd, torch.bfloat16, gen)
-    want = ref.swa_attention_ref(q[None], k[None], v[None], W)[0]
-    err = _swa_close(sw.swa_attention_forward(q, k, v, W), want,
-                     torch.bfloat16, "rank's SWA d 256")
-    pos = torch.arange(S, device=DEV)
-    band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < W)
+    fwd, (q, k, v, want, band) = _swa_forward_row(
+        B, hq, hkv, S, hd, W, gen, "rank's SWA d 256")
     q4, k4, v4 = (x.reshape(B, -1, S, hd).detach().requires_grad_(True)
                   for x in (q, k, v))
-    kern = lambda: sw.swa_attention_forward(q, k, v, W)
-    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=band,
-                                                 enable_gqa=True)
-    b_ms, b_by = swa_bound_ms(B, hq, hkv, S, hd, W, 2)
-    with torch.no_grad():
-        fwd = {"B": B, "Hq": hq, "Hkv": hkv, "S": S, "d": hd, "W": W,
-               "dtype": "bfloat16", "max_abs_err": err,
-               "ms": _cuda_ms(kern, iters=20),
-               "plain_ms": _cuda_ms(lambda: ref.swa_attention_ref(
-                   q[None], k[None], v[None], W), iters=3, warmup=1),
-               "library_ms": _cuda_ms(lib, iters=10, warmup=2),
-               "bound_ms": b_ms, "bound_by": b_by}
     lse = ref.swa_attention_lse_ref(q[None], k[None], W)[0]
     do = torch.randn(q.shape, generator=gen, device=DEV).to(torch.bfloat16)
     back = lambda: sw.swa_attention_backward(q, k, v, want, lse, do, W)
@@ -3987,11 +4190,65 @@ def _mesh_kernels(card: str) -> dict:
            "library_ms": _cuda_ms(lib_fb, iters=3, warmup=1),
            "library_is": "SDPA forward + backward, band mask, enable_gqa",
            "bound_ms": bb_ms, "bound_by": bb_by}
-    del q, k, v, want, lse, do, q4, k4, v4, do4
+    del q, k, v, want, lse, do, q4, k4, v4, do4, band
     torch.cuda.empty_cache()
+
+    # the audio and int8 parts' SWA forwards: whisper-base's decoder layer
+    # (causal, W = S) in one process and on a rank's heads, and a rank's
+    # h2o-danube-1.8b prefill layer
+    wcfg = get_config(WHISPER_ARCH)
+    rows = {}
+    for key, heads, kv_heads, (B, S, hd, W), note in (
+            ("swa_forward_whisper", wcfg.padded_heads(), wcfg.groups,
+             (WHISPER_BATCH, WHISPER_PROMPT, wcfg.hd, WHISPER_PROMPT),
+             "whisper-base's decoder SWA, one process"),
+            ("swa_forward_whisper_rank", wcfg.padded_heads() // n,
+             wcfg.groups // n,
+             (WHISPER_BATCH, WHISPER_PROMPT, wcfg.hd, WHISPER_PROMPT),
+             "whisper-base's decoder SWA, a rank's heads"),
+            ("swa_forward_h2o_rank", lcfg.padded_heads() // n,
+             lcfg.groups // n, (LM_BATCH, LM_PROMPT, lcfg.hd, lcfg.window),
+             "h2o-danube's SWA, a rank's heads")):
+        rows[key], tensors = _swa_forward_row(B, heads, kv_heads, S, hd, W,
+                                              gen, note)
+        del tensors
+        torch.cuda.empty_cache()
     return {"model_axis": n, "card": card, "scan_fused": scan,
             "scan_fused_backward": scan_bwd, "swa_forward_d256": fwd,
-            "swa_backward_d256": bwd}
+            "swa_backward_d256": bwd, **rows}
+
+
+def _swa_forward_row(B: int, hq: int, hkv: int, S: int, hd: int, W: int,
+                     gen, note: str) -> tuple:
+    """The bf16 SWA forward at (B, hq / hkv heads, S, d, W) against its
+    plain version (the SWA phase's rule), then its ms by CUDA events, the
+    plain version's, SDPA's (band mask, ``enable_gqa``) and the bound.
+    Returns (the row, (q, k, v, the plain output, the band))."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, swa_attention as sw
+
+    q, k, v = _swa_inputs(B, hq, hkv, S, S, hd, torch.bfloat16, gen)
+    want = ref.swa_attention_ref(q[None], k[None], v[None], W)[0]
+    err = _swa_close(sw.swa_attention_forward(q, k, v, W), want,
+                     torch.bfloat16, note)
+    pos = torch.arange(S, device=DEV)
+    band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < W)
+    q4, k4, v4 = (x.reshape(B, -1, S, hd) for x in (q, k, v))
+    b_ms, b_by = swa_bound_ms(B, hq, hkv, S, hd, W, 2)
+    with torch.no_grad():
+        row = {"B": B, "Hq": hq, "Hkv": hkv, "S": S, "d": hd, "W": W,
+               "dtype": "bfloat16", "max_abs_err": err,
+               "ms": _cuda_ms(lambda: sw.swa_attention_forward(q, k, v, W),
+                              iters=20),
+               "plain_ms": _cuda_ms(lambda: ref.swa_attention_ref(
+                   q[None], k[None], v[None], W), iters=3, warmup=1),
+               "library_ms": _cuda_ms(
+                   lambda: F.scaled_dot_product_attention(
+                       q4, k4, v4, attn_mask=band, enable_gqa=True),
+                   iters=10, warmup=2),
+               "bound_ms": b_ms, "bound_by": b_by}
+    return row, (q, k, v, want, band)
 
 
 # ------------------------ the selective scan ------------------------- #
@@ -6452,7 +6709,12 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
     at a rank's shapes on a model axis of 2 (the mesh phase's last
     part), their launches the mesh phase's
     channel-parallel runs over both ranks (the bf16 falcon-mamba-7b and
-    recurrentgemma-2b prefills, the fp32 training steps)."""
+    recurrentgemma-2b prefills, the fp32 training steps); the SWA forward
+    at whisper-base's decoder layer on a rank's heads and at h2o-danube's
+    with the int8 cache on a rank's, their launches the mesh phase's bf16
+    whisper-base and int8 h2o-danube prefills over both ranks; at
+    whisper-base's decoder layer in one process, the whisper phase's
+    measured prefill."""
     launches = serve_out["launches"]
     ml = mesh["launches"] if mesh else {}
     by = {(r["N"], r["Q"], r["k"]): r for r in numbers["rows"]}
@@ -6739,7 +7001,14 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
                  "bwd_dot + backward_dkdv + backward_dq, a rank's heads",
                  "src/repro/models/attention.py:123 (autodiff of the jnp "
                  "scan; no Pallas backward)",
-                 tuple(f"{e}_tp_train" for e in entries))):
+                 tuple(f"{e}_tp_train" for e in entries)),
+                ("swa_forward_whisper_rank", "swa_attention_forward "
+                 "(causal, whisper-base's decoder, a rank's heads",
+                 SWA_REPLACES,
+                 (f"swa_attention_forward_tp_prefill_{WHISPER_ARCH}",)),
+                ("swa_forward_h2o_rank", "swa_attention_forward "
+                 "(h2o-danube-1.8b with the int8 cache, a rank's heads",
+                 SWA_REPLACES, ("swa_attention_forward_tp_prefill_int8",))):
             x = rk[key]
             dims = (f"d_in={x['d_in']} d_state={x['d_state']}"
                     if "d_in" in x else
@@ -6758,6 +7027,19 @@ def kernels_line(kern: dict, serve_out: dict, kge: dict,
                 "plain_ms": x["plain_ms"],
                 "bound_ms": x["bound_ms"], "bound_by": x["bound_by"],
                 "library_ms": x["library_ms"]})
+        # whisper-base's decoder layer in one process: the whisper phase's
+        # measured prefill
+        x = rk["swa_forward_whisper"]
+        out.append({
+            "name": f"swa_attention_forward (causal, whisper-base's decoder "
+                    f"in one process; bf16, B={x['B']} S={x['S']} "
+                    f"Hq={x['Hq']} Hkv={x['Hkv']} W={x['W']} d={x['d']})",
+            "route": "cuda", "source": SWA_SOURCE, "replaces": SWA_REPLACES,
+            "launches": whisper["launches"]["swa_attention_forward"],
+            "launches_over": "the whisper phase's measured prefill",
+            "max_abs_err": x["max_abs_err"], "ms": x["ms"],
+            "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
+            "bound_by": x["bound_by"], "library_ms": x["library_ms"]})
     out.append({
         "name": f"selective_scan_forward (bare scan; {shape})",
         "route": "cuda", "source": SCAN_SOURCE, "replaces": SCAN_REPLACES,

@@ -127,12 +127,7 @@ def _lookup(table: torch.Tensor, ids: torch.Tensor, spec, mesh
     ``"model"``, whose backward reaches the local rows only."""
     if spec[0] is None:
         return table.index_select(0, ids)
-    n = table.shape[0]
-    local = ids - mesh.index("model") * n
-    mine = (local >= 0) & (local < n)
-    rows = table.index_select(0, torch.where(mine, local, 0))
-    rows = rows * mine.view((-1,) + (1,) * (table.dim() - 1)).to(rows.dtype)
-    return runtime.psum_identity_bwd(rows, mesh.group("model"))
+    return runtime.row_lookup(table, ids, mesh.group("model"))
 
 
 def _gathered(model: KGEModel, mesh, specs):

@@ -18,10 +18,10 @@ per-device bytes of what the step takes, laid out by ``models.sharding``:
   * ``--kge``: the KGE tables, their optimizer's state (Adam unless
     ``--optimizer`` names another) and the triples.
 
-For the dense, VLM, MoE, SSM and hybrid families the per-device bytes
-are those a rank holds on a process mesh of the same sizes
-(``convert.shard_params`` cuts by the same rules; mamba's fused
-``in_proj`` holds its two halves' blocks, the same bytes).
+For every family the per-device bytes are those a rank holds on a
+process mesh of the same sizes (``convert.shard_params`` cuts by the
+same rules; mamba's fused ``in_proj`` holds its two halves' blocks, the
+same bytes).
 
 One JSON a tag goes to ``--out`` (default ``build/dryrun``).  Not
 reproduced: the reference lowers and compiles each step for its mesh and

@@ -111,19 +111,17 @@ def _pad_head_mask(cfg: ArchConfig) -> torch.Tensor:
     return m.reshape(-1)
 
 
-def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig, group):
-    """x (B,S,d) -> q (B,S,G,H,hd), k/v (B,S,G,hd) with KV repeated to G;
-    with a process ``group`` of n, the rank's G/n slots.  Where
+def project_kv(p, x: torch.Tensor, cfg: ArchConfig, group
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,S,d) -> k/v (B,S,G,hd), KV repeated to G; with a process
+    ``group`` of n, the rank's G/n slots, x having entered through
+    ``runtime.pvary`` (the caller's: q reads it too).  Where
     ``n_kv_heads % n != 0`` a rank's slots read head columns another rank
     holds: the projected K / V are gathered
     (``runtime.gather_last_summed``), then the rank's slots taken."""
     B, S, _ = x.shape
-    hd, G = cfg.hd, cfg.groups
-    hp, kv = cfg.padded_heads(), cfg.n_kv_heads
+    hd, G, kv = cfg.hd, cfg.groups, cfg.n_kv_heads
     n, i = (1, 0) if group is None else runtime.group_index(group)
-    if group is not None:
-        x = runtime.pvary(x, group)
-    q = dense(p["wq"], x).reshape(B, S, G // n, hp // G, hd)
     k, v = dense(p["wk"], x), dense(p["wv"], x)
     if kv % n:
         k, v = (runtime.gather_last_summed(t, group) for t in (k, v))
@@ -135,6 +133,19 @@ def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig, group):
         v = v.repeat_interleave(r, dim=2)
     if kv % n:
         k, v = (t[:, :, i * G // n:(i + 1) * G // n] for t in (k, v))
+    return k, v
+
+
+def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig, group):
+    """x (B,S,d) -> q (B,S,G,H,hd), k/v (B,S,G,hd) (:func:`project_kv`);
+    with a process ``group`` of n, the rank's G/n slots."""
+    B, S, _ = x.shape
+    n = 1 if group is None else runtime.group_index(group)[0]
+    if group is not None:
+        x = runtime.pvary(x, group)
+    q = dense(p["wq"], x).reshape(B, S, cfg.groups // n,
+                                  cfg.heads_per_group, cfg.hd)
+    k, v = project_kv(p, x, cfg, group)
     return q, k, v
 
 

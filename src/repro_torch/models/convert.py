@@ -15,10 +15,9 @@ layer ``3 P + r``.
 
 On a process mesh, :func:`shard_params` cuts a model's params to the
 rank's share (``sharding.mesh_pspec``: the reference's ``param_pspec``,
-the tensor-parallel layout of the dense, VLM, MoE, SSM and hybrid
-families) and :func:`gather_params` puts the shares back together;
-:func:`share_of` and :func:`whole_of` do it for one leaf (a gradient
-too).
+the tensor-parallel layout of every family) and :func:`gather_params`
+puts the shares back together; :func:`share_of` and :func:`whole_of` do
+it for one leaf (a gradient too).
 """
 from __future__ import annotations
 
@@ -173,8 +172,8 @@ def whole_of(cfg, name: str, t: torch.Tensor, mesh) -> torch.Tensor:
 
 def shard_params(model: BaseLM, mesh) -> BaseLM:
     """Cut ``model.params`` in place to this rank's share on the process
-    ``mesh`` (``sharding.mesh_pspec``, :func:`share_of`; the audio family
-    stays whole, ROADMAP Queue 1 item 6); each cut leaf is a new tensor,
+    ``mesh`` (``sharding.mesh_pspec``, :func:`share_of`: an audio
+    model's tied ``embed`` by vocab rows); each cut leaf is a new tensor,
     so the full one is freed leaf by leaf.  Raises ``ValueError`` (from
     ``sharding.check_tp``) on a config the model axis cannot cut.
     Returns the model."""

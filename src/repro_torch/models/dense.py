@@ -25,10 +25,12 @@ into it in place, where the JAX package re-emits the cache.  With
 ``kv_cache_dtype="int8"`` the cache is int8 with ``(L, B, G, Sc)`` fp32
 scales beside it (``k_scale``, ``v_scale``): prefill quantizes the whole
 cache, decode quantizes each new slot on write and dequantizes a layer's
-rows for its attention; not under a model axis past size 1 (ROADMAP
-Queue 1 item 6).  On a model axis of n a layer's cache is the rank's
-``(B, G / n, Sc, hd)`` (``BaseLM.kv_slots``), as ``cache_spec`` gives it
-under the mesh.
+rows for its attention.  On a model axis of n a layer's cache is the
+rank's ``(B, G / n, Sc, hd)`` (``BaseLM.kv_slots``), as ``cache_spec``
+gives it under the mesh; the int8 cache's scales ``(L, B, G / n, Sc)``
+too: a scale is per (row, slot, position) over hd, so a rank quantizes
+and dequantizes its own slots and no step crosses ranks beyond the
+``wo`` all_reduce the layer already issues.
 """
 from __future__ import annotations
 
@@ -48,13 +50,7 @@ class DenseLM(BaseLM):
 
     @property
     def quantized_cache(self) -> bool:
-        if self.cfg.kv_cache_dtype != "int8":
-            return False
-        if runtime.tp_group(self.cfg) is not None:
-            raise NotImplementedError(
-                "the int8 KV cache under a model axis past size 1 "
-                "(ROADMAP Queue 1 item 6)")
-        return True
+        return self.cfg.kv_cache_dtype == "int8"
 
     def init_layers(self, gen: Gen) -> list:
         return [blocks.block_init(gen, self.cfg)

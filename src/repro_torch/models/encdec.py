@@ -17,6 +17,17 @@ that long.  The caches keep the reference's stacked layout: ``k``, ``v``
 (L, B, G, cap, hd) and the encoder memory's ``xk``, ``xv`` (L, B, G,
 S_enc, hd); ``decode_step`` writes the new slot into ``k`` / ``v`` in
 place.
+
+Under a model axis of n (``runtime.tp_group``; ``sharding.param_pspec``'s
+layout) the tied ``embed`` holds the rank's ``padded_vocab / n`` rows and
+``dec_pos`` stays whole.  The decoder's embedding is a masked gather of
+the rank's rows summed over the axis (``runtime.row_lookup``: one
+``all_reduce``, each rank's backward reaching its own rows); the logits are the rank's vocab block,
+all-gathered (``BaseLM.logits``).  The encoder and decoder blocks run the
+rank's ``G / n`` KV slots and their q heads, the cross-attention too
+(``wq`` / ``wk`` / ``wv`` cut by output, ``wo`` by input and summed by one
+``all_reduce``), the MLPs the rank's ff columns; every cache holds the
+rank's ``G / n`` slots.
 """
 from __future__ import annotations
 
@@ -24,9 +35,10 @@ from typing import Dict, Optional
 
 import torch
 
-from . import blocks
+from . import blocks, runtime
 from .config import ArchConfig
-from .layers import Gen, apply_norm, dense, mlp, mlp_init, norm_init, normal
+from .layers import (Gen, apply_norm, dense, mlp, mlp_init, norm_init, normal,
+                     row_dense)
 from .attention import plain_attention
 from .lm import BaseLM, scan_layers, xent
 
@@ -44,25 +56,28 @@ def _dec_len(seq: int, cap: int) -> int:
 
 
 def _cross_kv(p, mem: torch.Tensor, cfg: ArchConfig):
-    """k, v (B, G, Sk, hd) of the encoder memory (B, Sk, d)."""
-    B, Sk, _ = mem.shape
-    hd, kv, G = cfg.hd, cfg.n_kv_heads, cfg.groups
-    k = dense(p["wk"], mem).reshape(B, Sk, kv, hd)
-    v = dense(p["wv"], mem).reshape(B, Sk, kv, hd)
-    if G != kv:
-        k = k.repeat_interleave(G // kv, dim=2)
-        v = v.repeat_interleave(G // kv, dim=2)
+    """k, v (B, G, Sk, hd) of the encoder memory (B, Sk, d); on a model
+    axis of n the rank's G / n slots (``blocks.project_kv``)."""
+    group = runtime.tp_group(cfg)
+    if group is not None:
+        mem = runtime.pvary(mem, group)
+    k, v = blocks.project_kv(p, mem, cfg, group)
     return k.movedim(1, 2), v.movedim(1, 2)
 
 
 def _cross_attend(p, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   cfg: ArchConfig) -> torch.Tensor:
+    """x (B, Sq, d) against the slots ``k``, ``v`` (B, G, Sk, hd): the
+    rank's G / n of them and their q heads on a model axis of n, ``wo``
+    summed over it."""
     B, Sq, _ = x.shape
-    hd, G = cfg.hd, cfg.groups
-    hp = cfg.padded_heads()
-    q = dense(p["wq"], x).reshape(B, Sq, G, hp // G, hd)
+    group = runtime.tp_group(cfg)
+    if group is not None:
+        x = runtime.pvary(x, group)
+    q = dense(p["wq"], x).reshape(B, Sq, k.shape[1], cfg.heads_per_group,
+                                  cfg.hd)
     o = plain_attention(q, k.movedim(2, 1), v.movedim(2, 1), causal=False)
-    return dense(p["wo"], o.reshape(B, Sq, -1))
+    return row_dense(p["wo"], o.reshape(B, Sq, -1), group)
 
 
 def cross_attn_apply(p, x: torch.Tensor, mem: torch.Tensor,
@@ -113,24 +128,40 @@ class EncDecModel(BaseLM):
 
     # ---------------- decoder ---------------- #
     def _dec_embed(self, tokens: torch.Tensor, pos0: int = 0) -> torch.Tensor:
+        """(B, S) token ids at positions ``pos0``.. -> (B, S, d).  On a
+        model axis of n ``embed`` holds the rank's ``padded_vocab / n``
+        rows: a masked gather of them, summed over the axis."""
         p = self._p()
         S = tokens.shape[1]
-        return p["embed"][tokens.long()] + p["dec_pos"][pos0:pos0 + S]
+        pos = p["dec_pos"][pos0:pos0 + S]
+        group = runtime.tp_group(self.cfg)
+        if group is None:
+            return p["embed"][tokens.long()] + pos
+        n = runtime.group_index(group)[0]
+        rows = p["embed"].shape[0]
+        if rows * n != self.cfg.padded_vocab:
+            raise ValueError(f"embed holds {rows} rows, want "
+                             f"{self.cfg.padded_vocab // n} on a model axis "
+                             f"of {n} (convert.shard_params cuts them)")
+        return runtime.row_lookup(p["embed"], tokens.long(), group) + pos
 
     def loss(self, batch: Dict[str, torch.Tensor]):
         cfg = self.cfg
-        mem = self.encode(batch["frames"])
         x = self._dec_embed(batch["tokens"])
+        mem = self.encode(batch["frames"])
 
         def body(p, h):
             h = h + blocks.attn_apply(p["attn"], apply_norm(p["ln1"], h),
                                       cfg, causal=True)
             h = h + cross_attn_apply(p["xattn"], apply_norm(p["lnx"], h),
                                      mem, cfg)
-            return h + mlp(p["mlp"], apply_norm(p["ln2"], h), cfg.act)
+            return h + mlp(p["mlp"], apply_norm(p["ln2"], h), cfg.act,
+                           runtime.tp_group(cfg))
         h = scan_layers(self._p()["dec_layers"], x, body, cfg)
         h = apply_norm(self._p()["ln_f"], h)
-        loss, acc = xent(self.logits(h), batch["labels"])
+        mesh = runtime.get_mesh()
+        loss, acc = xent(self.logits(h), batch["labels"],
+                         None if mesh is None else runtime.data_group(mesh))
         return loss, {"ce": loss,
                       "aux": torch.zeros((), dtype=torch.float32,
                                          device=h.device),
@@ -145,13 +176,13 @@ class EncDecModel(BaseLM):
         is ignored)."""
         cfg = self.cfg
         p = self._p()
-        L, G, hd, cap = cfg.n_layers, cfg.groups, cfg.hd, cfg.dec_len_cap
+        L, G, hd, cap = cfg.n_layers, self.kv_slots(), cfg.hd, cfg.dec_len_cap
         if batch["tokens"].shape[1] > cap:
             raise ValueError(f"{cfg.arch_id}: a decoder prompt of "
                              f"{batch['tokens'].shape[1]} tokens is past "
                              f"dec_len_cap {cap}")
-        mem = self.encode(batch["frames"])
         x = self._dec_embed(batch["tokens"])
+        mem = self.encode(batch["frames"])
         B, S, _ = x.shape
         Sk = mem.shape[1]
         kcs = x.new_zeros((L, B, G, cap, hd))
@@ -166,7 +197,8 @@ class EncDecModel(BaseLM):
             xks[i], xvs[i] = _cross_kv(lp["xattn"], mem, cfg)
             h = h + _cross_attend(lp["xattn"], apply_norm(lp["lnx"], h),
                                   xks[i], xvs[i], cfg)
-            h = h + mlp(lp["mlp"], apply_norm(lp["ln2"], h), cfg.act)
+            h = h + mlp(lp["mlp"], apply_norm(lp["ln2"], h), cfg.act,
+                        runtime.tp_group(cfg))
             kcs[i, :, :, :S] = kc
             vcs[i, :, :, :S] = vc
         h = apply_norm(p["ln_f"], h[:, -1:])
@@ -193,7 +225,8 @@ class EncDecModel(BaseLM):
             h = h + a
             h = h + _cross_attend(lp["xattn"], apply_norm(lp["lnx"], h),
                                   xks[i], xvs[i], cfg)
-            h = h + mlp(lp["mlp"], apply_norm(lp["ln2"], h), cfg.act)
+            h = h + mlp(lp["mlp"], apply_norm(lp["ln2"], h), cfg.act,
+                        runtime.tp_group(cfg))
         h = apply_norm(p["ln_f"], h)
         return self.logits(h), {"k": kc, "v": vc, "xk": xks,
                                       "xv": xvs}
@@ -212,16 +245,12 @@ class EncDecModel(BaseLM):
         }
 
     def cache_spec(self, batch: int, seq: int):
+        """The caches of ``batch`` rows against ``seq`` encoder frames; under
+        a process mesh the rank's rows and KV slots."""
         cfg = self.cfg
-        L, G, hd = cfg.n_layers, cfg.groups, cfg.hd
-        dt = cfg.jdtype
-        return {
-            "k": torch.empty((L, batch, G, cfg.dec_len_cap, hd), dtype=dt,
-                             device="meta"),
-            "v": torch.empty((L, batch, G, cfg.dec_len_cap, hd), dtype=dt,
-                             device="meta"),
-            "xk": torch.empty((L, batch, G, seq, hd), dtype=dt,
-                              device="meta"),
-            "xv": torch.empty((L, batch, G, seq, hd), dtype=dt,
-                              device="meta"),
-        }
+        shape = (cfg.n_layers, self.cache_rows(batch), self.kv_slots())
+        return {name: torch.empty(shape + (length, cfg.hd), dtype=cfg.jdtype,
+                                  device="meta")
+                for name, length in (("k", cfg.dec_len_cap),
+                                     ("v", cfg.dec_len_cap),
+                                     ("xk", seq), ("xv", seq))}

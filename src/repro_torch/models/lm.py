@@ -21,7 +21,8 @@ its ``jax.checkpoint`` policies are ``torch.utils.checkpoint``
 Under a model axis that cuts the weights (``runtime.tp_group``) ``embed``
 holds the rank's d columns and ``lm_head`` its vocab block: the embedding
 gathers its rows locally, then all-gathers the columns; the logits are
-the rank's vocab block, all-gathered, so ``prefill`` and ``decode_step``
+the rank's vocab block (an encoder-decoder's tied ``embed``: its vocab
+rows, ``encdec``), all-gathered, so ``prefill`` and ``decode_step``
 return every ``padded_vocab`` column on every rank and ``loss`` reads the
 full logits (the gather's backward takes the rank's block).
 """

@@ -9,7 +9,7 @@ expert-parallel MoE when the config asks for it, ``dense.DenseLM``
 sequence-shards its residual, and ``lm.xent`` reduces over the data axes.
 
 Under a mesh whose ``"model"`` axis is past size 1, the families of
-``sharding.TP_FAMILIES`` (dense, VLM, MoE, SSM, hybrid) run
+``sharding.TP_FAMILIES`` (dense, VLM, MoE, SSM, hybrid, audio) run
 tensor-parallel on the rank's share of their weights
 (``models.sharding.mesh_pspec``, the reference's ``param_pspec``):
 :func:`tp_group` gives the model code that axis's group.
@@ -153,6 +153,22 @@ def pvary(x: torch.Tensor, group) -> torch.Tensor:
 def pmean(x: torch.Tensor, group) -> torch.Tensor:
     """Mean of ``x`` over ``group``; the backward divides by its size."""
     return _Pmean.apply(x, group)
+
+
+def row_lookup(table: torch.Tensor, ids: torch.Tensor, group
+               ) -> torch.Tensor:
+    """Rows ``ids`` (global, any shape) of a table cut by rows over
+    ``group``, ``table`` this rank's block: a masked gather of the rank's
+    rows summed over the group (one ``all_reduce``), whose backward
+    reaches the rank's own rows only (the reference's vocab-parallel
+    lookup: the KGE trainer's tables, an encoder-decoder's tied embed)."""
+    n = table.shape[0]
+    local = ids - group_index(group)[1] * n
+    mine = (local >= 0) & (local < n)
+    rows = table.index_select(0, torch.where(mine, local, 0).reshape(-1))
+    rows = rows.reshape(ids.shape + table.shape[1:]) * mine.view(
+        mine.shape + (1,) * (table.dim() - 1)).to(rows.dtype)
+    return psum_identity_bwd(rows, group)
 
 
 def _block(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:

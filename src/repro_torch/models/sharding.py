@@ -21,9 +21,8 @@ tensor / expert / channel parallelism:
 The port's params hold one entry a layer where the reference stacks
 ``(L, ...)``; every rule places its axis from the right, so a layer's
 spec is the reference's without the leading stacked entry.  On a process
-mesh ``convert.shard_params`` cuts the dense, VLM, MoE, SSM and hybrid
-families by these rules (:func:`mesh_pspec`), so the dry run's
-per-device bytes are a rank's; the audio family stays whole there.
+mesh ``convert.shard_params`` cuts every family by these rules
+(:func:`mesh_pspec`), so the dry run's per-device bytes are a rank's.
 """
 from __future__ import annotations
 
@@ -100,11 +99,12 @@ def param_pspec(cfg: ArchConfig, path: Tuple[str, ...], ndim: int,
 
 
 #: the families a process mesh cuts by :func:`param_pspec`: the
-#: attention families (their blocks share ``attn_*`` and ``mlp``) and the
+#: attention families (their blocks share ``attn_*`` and ``mlp``), the
 #: channel-parallel recurrences (Mamba, and the hybrid's RG-LRU beside its
-#: attention and MLP); the audio family keeps every leaf whole there
-#: (ROADMAP Queue 1 item 6)
-TP_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+#: attention and MLP) and the encoder-decoder (its tied ``embed`` by
+#: vocab rows, ``dec_pos`` whole, the cross-attention as the
+#: self-attention)
+TP_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 def mesh_pspec(cfg: ArchConfig, path: Tuple[str, ...], ndim: int,
@@ -172,8 +172,10 @@ def check_tp(cfg: ArchConfig, axis_size: int) -> None:
         if share % D_IN_MULTIPLE:
             bad.append(f"d_inner / n = {share} is not a multiple of "
                        f"{D_IN_MULTIPLE} (the scan kernel's rows)")
-    if cfg.tie_embeddings:
-        bad.append("tied embeddings are not cut (ROADMAP Queue 1 item 6)")
+    if cfg.tie_embeddings and cfg.family != "audio":
+        bad.append(f"a tied embedding in the {cfg.family} family is not "
+                   f"cut (only the audio family's head reads its vocab "
+                   f"rows)")
     if cfg.moe_impl == "shard_map" and cfg.moe is not None \
             and not _expert_parallel(cfg, axis_size):
         bad.append(f"{cfg.moe.n_experts} experts (x moe_ff_split) do not "

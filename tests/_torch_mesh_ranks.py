@@ -1,7 +1,7 @@
 """The functions each rank of the port's process worlds runs in
 ``tests/test_torch_runtime.py``, ``test_torch_mesh_moe.py``,
-``test_torch_seq_shard.py``, ``test_torch_kge_mesh.py`` and
-``test_torch_tensor_parallel.py``.
+``test_torch_seq_shard.py``, ``test_torch_kge_mesh.py``,
+``test_torch_tensor_parallel*.py`` and ``test_torch_int8_kv_mesh.py``.
 
 ``launch.mesh.run_world`` starts fresh interpreters that import these by
 name, so this module imports neither JAX nor the JAX package (it loads
@@ -277,8 +277,10 @@ def _serve_case(mesh, arch, kw, tree, batch, pos0, steps, lead):
     for i in range(steps):
         tok, served = serve(served, tok, pos0 + i)
         tokens.append(tok.numpy())
+    # an encoder-decoder's caches are laid out by its encoder frames
+    seq = batch["frames"].shape[1] if "frames" in batch else pos0 + steps
     with runtime.use_mesh(mesh):
-        spec = model.cache_spec(batch["tokens"].shape[0], pos0 + steps)
+        spec = model.cache_spec(batch["tokens"].shape[0], seq)
     out.update(decode=decode, serve_tokens=tokens,
                cache={k: v.numpy() for k, v in flat_cache(cache).items()},
                cache_bytes=cache_nbytes(cache),
@@ -305,8 +307,8 @@ def _train_case(mesh, arch, kw, tree, batch):
 
 
 def _refusals(mesh, arch, kw, tree, batch):
-    """What the mesh's prefill step raises for whole (uncut) params and
-    for the int8 KV cache."""
+    """What the mesh's prefill step raises for whole (uncut) params, and
+    for the int8 KV cache on cut ones (None: it ran)."""
     from repro_torch.models import build, get_config
     from repro_torch.models.convert import params_from_numpy, shard_params
     from repro_torch.models.steps import make_prefill_step
@@ -352,6 +354,64 @@ def tp_rank(rank, world, serving, training, data_serving=()):
             out["data_serve"][arch] = _serve_case(
                 dmesh, arch, kw, tree, batch, pos0, steps, rank == 0)
     return out
+
+
+def _int8_case(mesh, arch, kw, tree, batch, pos0, fed):
+    """One dense arch with ``kv_cache_dtype="int8"`` on ``mesh``, fp32, on
+    the reference's params cut by ``convert.shard_params``: the prefill
+    step's logits and the rank's int8 cache; then each decode step of
+    ``fed`` (``(token, the reference's whole int8 cache before it)``) on
+    the rank's slot block of that cache, its logits, the rank's cache
+    after it and the new slot's unquantized k and v (as ``decode_step``
+    hands them to ``blocks.quantize_kv``, layer by layer); the rank's
+    param and cache bytes and ``cache_spec`` under the mesh."""
+    from repro_torch.models import blocks, build, get_config, runtime
+    from repro_torch.models.convert import params_from_numpy, shard_params
+    from repro_torch.models.lm import cache_nbytes
+    from repro_torch.models.steps import make_prefill_step
+    cfg = get_config(arch, reduced=True).with_(dtype="float32",
+                                               kv_cache_dtype="int8", **kw)
+    model = shard_params(params_from_numpy(build(cfg), tree, "cpu"), mesh)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    steps = len(fed)
+    logits, cache = make_prefill_step(model, mesh)(batch, pos0 + steps)
+    out = {"prefill": logits.numpy(),
+           "cache_prefill": {k: v.clone().numpy() for k, v in cache.items()},
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in model.params.parameters()),
+           "cache_bytes": cache_nbytes(cache), "decode": []}
+    n, i = mesh.shape["model"], mesh.index("model")
+    quantize = blocks.quantize_kv
+    for step, (tok, before) in enumerate(fed):
+        G = before["k"].shape[2]
+        mine = {k: torch.from_numpy(v[:, :, i * G // n:(i + 1) * G // n]
+                                    .copy()) for k, v in before.items()}
+        seen = []
+        blocks.quantize_kv = lambda t: (seen.append(t.numpy().copy()),
+                                        quantize(t))[1]
+        try:
+            with runtime.use_mesh(mesh):
+                lg, mine = model.decode_step(mine, torch.from_numpy(tok),
+                                             pos0 + step)
+        finally:
+            blocks.quantize_kv = quantize
+        out["decode"].append({
+            "logits": lg.numpy(),
+            "cache": {k: v.numpy() for k, v in mine.items()},
+            "fp": {"k": np.stack(seen[0::2]), "v": np.stack(seen[1::2])}})
+    with runtime.use_mesh(mesh):
+        spec = model.cache_spec(batch["tokens"].shape[0], pos0 + steps)
+    out["cache_spec"] = {k: tuple(v.shape) for k, v in spec.items()}
+    return out
+
+
+def int8_rank(rank, world, cases):
+    """The int8 KV cache under a model axis: each case ``(arch, cfg
+    kwargs, params, batch, pos0, fed)`` on a (1, world) mesh
+    (:func:`_int8_case`).  Every rank returns its results."""
+    mesh = _mesh(("data", "model"), (1, world))
+    return {arch: _int8_case(mesh, arch, kw, tree, batch, pos0, fed)
+            for arch, kw, tree, batch, pos0, fed in cases}
 
 
 def tp_recurrent_rank(rank, world, serving, training):
@@ -428,6 +488,33 @@ def chip_rec_rank(rank):
             "train": [chip_smoke._mesh_rec_train(mesh, *c)
                       for c in chip_smoke.MESH_REC_TRAIN],
             "gen": chip_smoke._mesh_rec_gen(mesh), "failures": failures}
+
+
+def chip_audio_rank(rank):
+    """``chip_smoke``'s audio and int8 mesh parts on a (1, 2) mesh on the
+    CPU: whisper-base and h2o-danube-1.8b at their reduced configs (each
+    CONFIG swapped for REDUCED; 40 frames, a 16-token decoder prompt; a
+    96-token prompt past h2o's reduced window of 64, 2 layers), the
+    card's calls stubbed, failed checks collected."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.configs import h2o_danube_1_8b, whisper_base
+    for mod in (h2o_danube_1_8b, whisper_base):
+        mod.CONFIG = mod.REDUCED
+    failures = []
+    chip_smoke.check = lambda ok, msg: ok or failures.append(msg)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        setattr(torch.cuda, name, lambda *a, **k: None)
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    chip_smoke.WHISPER_FRAMES, chip_smoke.WHISPER_PROMPT = 40, 16
+    chip_smoke.WHISPER_STEPS = chip_smoke.MESH_REC_STEPS = 3
+    chip_smoke.LM_PROMPT, chip_smoke.MESH_INT8_DEPTH = 96, 2
+    mesh = _mesh(("data", "model"), (1, 2))
+    return {"check": chip_smoke._mesh_audio_check(mesh),
+            "gen": chip_smoke._mesh_audio_gen(mesh),
+            "int8": chip_smoke._mesh_int8(mesh), "failures": failures}
 
 
 # -------------------------------- KGE --------------------------------- #

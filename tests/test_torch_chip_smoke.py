@@ -406,6 +406,55 @@ def test_every_kernels_line_entry_has_the_contracts_keys():
     assert mistral[0]["launches_zoo"]["internlm2-20b"] == 48
 
 
+def test_kernels_line_holds_the_mesh_phases_rank_shape_rows():
+    """With the mesh phase's results, the line carries a row for each
+    kernel at a rank's shapes, the contract's keys on each: the SWA
+    forward at whisper-base's decoder layer on a rank's 4 of 8 heads and
+    at h2o-danube's int8 prefill layer on a rank's 16 / 4, their launches
+    the mesh phase's bf16 prefills over both ranks; whisper-base's layer
+    in one process, its launches the whisper phase's prefill."""
+    r = dict(ms=1.0, plain_ms=9.0, bound_ms=0.1, bound_by="operations",
+             library_ms=0.8, max_abs_err=0.01, B=2, dtype="bfloat16")
+    scan = dict(r, S=2048, d_in=4096, d_state=16, library_ms=None)
+    rk = {"model_axis": 2, "scan_fused": scan, "scan_fused_backward": scan,
+          "swa_forward_d256": dict(r, S=4096, Hq=5, Hkv=1, W=2048, d=256),
+          "swa_backward_d256": dict(r, S=4096, Hq=5, Hkv=1, W=2048, d=256),
+          "swa_forward_whisper": dict(r, S=64, Hq=8, Hkv=8, W=64, d=64),
+          "swa_forward_whisper_rank": dict(r, S=64, Hq=4, Hkv=4, W=64,
+                                           d=64),
+          "swa_forward_h2o_rank": dict(r, S=6144, Hq=16, Hkv=4, W=4096,
+                                       d=80)}
+    ml = {k: 2 for k in (
+        f"selective_scan_fused_tp_prefill_{chip_smoke.MAMBA_ARCH}",
+        "selective_scan_fused_backward_tp_train",
+        f"swa_attention_forward_tp_prefill_{chip_smoke.HYBRID_ARCH}",
+        "swa_attention_bwd_dot_tp_train",
+        "swa_attention_backward_dkdv_tp_train",
+        "swa_attention_backward_dq_tp_train",
+        "swa_attention_bwd_dot_train", "swa_attention_backward_dkdv_train",
+        "swa_attention_backward_dq_train")}
+    ml[f"swa_attention_forward_tp_prefill_{chip_smoke.WHISPER_ARCH}"] = 12
+    ml["swa_attention_forward_tp_prefill_int8"] = 8
+    line = chip_smoke.kernels_line(**_line_inputs(), mesh={
+        "launches": ml, "rank_shape_kernels": rk})
+    keys = {"name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms"}
+    for entry in line["kernels"]:
+        assert keys <= set(entry), entry["name"]
+    by = {e["name"]: e for e in line["kernels"]}
+    rank = [n for n in by if "whisper-base's decoder, a rank's" in n]
+    assert len(rank) == 1 and "Hq=4 Hkv=4" in rank[0]
+    assert by[rank[0]]["launches"] == 12
+    h2o = [n for n in by if "int8 cache, a rank's" in n]
+    assert len(h2o) == 1 and "Hq=16 Hkv=4 W=4096 d=80" in h2o[0]
+    assert by[h2o[0]]["launches"] == 8
+    one = [n for n in by if "decoder in one process" in n]
+    assert len(one) == 1 and "Hq=8 Hkv=8" in one[0]
+    assert by[one[0]]["launches"] == 60          # _line_inputs' whisper
+    assert by[one[0]]["source"] == chip_smoke.SWA_SOURCE
+
+
 def _stub_card(monkeypatch, failures):
     """chip_smoke on the CPU: DEV = "cpu", the card's timers stubbed by
     host ones, failed checks collected instead of raised."""
@@ -930,3 +979,50 @@ def test_mesh_tensor_parallel_parts_rehearse_on_the_cpu():
             "launched 0 SWA kernels" in f for f in r["failures"])
     lead = runs[0]["tp"]
     assert 0 <= lead["one_process_equal_tokens"] <= lead["tokens"] == 2 * 4
+
+
+def test_mesh_audio_and_int8_parts_rehearse_on_the_cpu():
+    """The mesh phase's audio and int8 parts in a (1, 2) gloo world at the
+    reduced configs: whisper-base's fp32 check holds on both ranks (each
+    rank's half of the KV slots in every cache) and its training step
+    matches the one-process step; the bf16 generations' bytes equal the
+    dry run's per-device bytes, their collectives are counted (whisper's
+    prefill: two all_reduces an encoder layer, three a decoder layer and
+    the embedding's one), and the lead rank reports the tokens against
+    the one-process run's; the int8 cache's teacher-forced logits hold
+    the int8 contract on the rank's int8 slots; only the launch counts
+    fail (the plain versions launch nothing)."""
+    import torch
+    import _torch_mesh_ranks as ranks
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.models import build, get_config
+    runs = run_world(ranks.chip_audio_rank, 2, backend="gloo",
+                     devices="cpu", timeout_s=180)
+    wcfg = get_config("whisper-base", reduced=True)
+    for rank, r in enumerate(runs):
+        c = r["check"]
+        assert c["argmax_equal"] and c["max_abs_diff"] <= \
+            chip_smoke.LM_TOL * (1 + c["max_abs_logit"])
+        assert c["cache_shapes"] == {
+            "k": (2, 1, 2, wcfg.dec_len_cap, wcfg.hd),
+            "v": (2, 1, 2, wcfg.dec_len_cap, wcfg.hd),
+            "xk": (2, 1, 2, 40, wcfg.hd), "xv": (2, 1, 2, 40, wcfg.hd)}
+        t = c["train"]
+        assert t["loss"] == pytest.approx(t["want_loss"],
+                                          rel=chip_smoke.TRAIN_LOSS_RTOL)
+        assert t["worst_rel_err"] <= chip_smoke.TRAIN_GRAD_TOL
+        assert t["leaves"] == len(dict(build(wcfg).init(
+            torch.Generator().manual_seed(0)).params.named_parameters()))
+        g = r["gen"]
+        assert g["bytes"] == g["dry_run_bytes"]
+        assert g["all_reduces_a_prefill"] == 2 * 2 + 3 * 2 + 1
+        assert g["collectives"]["prefill"]["all_reduce_bytes"] > 0
+        assert g["all_reduce_bytes"] == 2 * 40 * wcfg.d_model * 2
+        assert ("one_process_equal_tokens" in g) == (rank == 0)
+        q8 = r["int8"]
+        a = q8["against_one_process"]
+        assert a["cache_shapes"]["k"] == (2, 2, 1, 64, 64)
+        assert a["cache_shapes"]["k_scale"] == (2, 2, 1, 64)
+        assert q8["generation"]["bytes"] == q8["generation"]["dry_run_bytes"]
+        assert q8["generation"]["kv_cache_dtype"] == "int8"
+        assert r["failures"] and all("launched" in f for f in r["failures"])

@@ -53,8 +53,8 @@ from repro_torch.launch.mesh import MeshShape, run_world
 from repro_torch.models import build, get_config
 from repro_torch.models.convert import share_of, shard_params
 from repro_torch.models.sharding import (TP_FAMILIES, cache_shardings,
-                                         check_tp, device_bytes,
-                                         param_shardings, tp_config)
+                                         device_bytes, param_shardings,
+                                         tp_config)
 
 import _torch_mesh_ranks as ranks
 
@@ -429,9 +429,8 @@ def test_in_proj_share_is_a_block_of_each_half(n):
         assert torch.equal(got, w.T[r * 2 * k:(r + 1) * 2 * k])
 
 
-def test_the_recurrent_families_are_cut_and_audio_is_not():
-    assert {"ssm", "hybrid"} <= set(TP_FAMILIES)
-    assert "audio" not in TP_FAMILIES
+def test_the_recurrent_families_and_audio_are_cut():
+    assert {"ssm", "hybrid", "audio"} <= set(TP_FAMILIES)
     cfg = get_config("falcon_mamba_7b", reduced=True)
     assert tp_config(cfg, 4) is cfg            # no KV slots to raise
 
@@ -440,21 +439,18 @@ def test_the_recurrent_families_are_cut_and_audio_is_not():
     ("falcon_mamba_7b", {"d_model": 264}, 16, "d_model = 264"),
     ("falcon_mamba_7b", {}, 128, "d_inner / n = 4"),
     ("recurrentgemma_2b", {"lru_width": 260}, 8, "lru_width = 260"),
-    ("whisper_base", {}, 2, None),
+    ("whisper_base", {"d_ff": 250}, 4, "d_ff = 250"),
 ])
 def test_a_recurrent_config_the_model_axis_cannot_cut_raises(arch, change,
                                                              n, dim):
-    """The dim is named and nothing is replicated in its place; the audio
-    family stays whole and does not raise."""
+    """The dim is named and nothing is replicated in its place (the audio
+    family is cut too)."""
     cfg = get_config(arch, reduced=True)
     if "lru_width" in change:
         cfg = tp_config(cfg.with_(hybrid=dataclasses.replace(
             cfg.hybrid, **change)), n)
     else:
         cfg = cfg.with_(**change)
-    if dim is None:
-        check_tp(cfg, n)
-        return
     with pytest.raises(ValueError, match=dim.replace("(", r"\(")
                        .replace(")", r"\)")):
         shard_params(build(cfg).init(torch.Generator().manual_seed(0)),
